@@ -1,0 +1,150 @@
+"""Bucketed bag loader with background prefetch, the port of
+``acmil_tpu/data/loader.py`` for one device.
+
+- batches are grouped by bucketed pad length (see :func:`bags.bucket_plan`);
+- a background thread reads and collates on the host while the device works,
+  into pinned memory when the device is CUDA, and each batch is copied with
+  ``non_blocking=True`` to the loader's ``device``;
+- ``cache_device=True`` keeps every batch resident on the device after the
+  first pass, for eval loaders that are scored again and again.
+
+The JAX loader's mesh placement and stacked scan groups are not ported.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from acmil_tpu_torch.data.bags import Bag, bucket_plan, collate_bags
+
+
+class BagLoader:
+    def __init__(
+        self,
+        source,
+        batch_size: int = 1,
+        shuffle: bool = False,
+        drop_last: bool = False,
+        min_bucket: int = 256,
+        max_patches: int = 65536,
+        seed: int = 0,
+        prefetch: int = 2,
+        dtype=np.float32,
+        cache_device: bool = False,
+        device="cpu",
+    ):
+        self.source = source
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.min_bucket = min_bucket
+        self.max_patches = max_patches
+        self.rng = np.random.default_rng(seed)
+        self.prefetch = prefetch
+        self.dtype = dtype
+        # cache_device + shuffle: batches are built (and placed on device)
+        # once; epochs replay them in a fresh random ORDER
+        self.cache_device = cache_device
+        self.device = torch.device(device)
+        self._device_batches: Optional[List[Bag]] = None
+
+    # -- batch plan ---------------------------------------------------------
+    def _plan(self, shuffle: Optional[bool] = None) -> List[List[int]]:
+        lengths = self.source.lengths() if hasattr(self.source, "lengths") else [
+            len(self.source[i]["input"]) for i in range(len(self.source))
+        ]
+        groups = bucket_plan(lengths, self.batch_size, self.min_bucket, self.max_patches)
+        if self.drop_last:
+            groups = [g for g in groups if len(g) == self.batch_size]
+        shuffle = self.shuffle if shuffle is None else shuffle
+        if shuffle:
+            for g in groups:
+                self.rng.shuffle(g)
+            order = self.rng.permutation(len(groups))
+            groups = [groups[i] for i in order]
+        return groups
+
+    def __len__(self) -> int:
+        # shuffle=False: len() must not consume self.rng
+        return len(self._plan(shuffle=False))
+
+    # -- collation ----------------------------------------------------------
+    def _collate(self, idxs: List[int]) -> Bag:
+        """Host side: read and collate, pinned when bound for a GPU."""
+        items = [self.source[i] for i in idxs]
+        bag = collate_bags([it["input"] for it in items],
+                           [it.get("coords") for it in items],
+                           [it["label"] for it in items],
+                           self.min_bucket, self.max_patches, dtype=self.dtype)
+        return bag.pin_memory() if self.device.type == "cuda" else bag
+
+    def _to_device(self, bag: Bag) -> Bag:
+        return bag.to(self.device, non_blocking=True)
+
+    # -- iteration ----------------------------------------------------------
+    def __iter__(self) -> Iterator[Bag]:
+        if self.cache_device:
+            if self._device_batches is None:
+                self._device_batches = [self._to_device(self._collate(g))
+                                        for g in self._plan()]
+            order = (self.rng.permutation(len(self._device_batches))
+                     if self.shuffle else range(len(self._device_batches)))
+            for i in order:
+                yield self._device_batches[i]
+            return
+        groups = self._plan()
+        if self.prefetch <= 0:
+            for g in groups:
+                yield self._to_device(self._collate(g))
+            return
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        err: List[BaseException] = []
+        stop = threading.Event()
+
+        def _put(item) -> bool:
+            # bounded put that gives up when the consumer abandoned the
+            # iterator — a plain q.put would block this thread forever
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for g in groups:
+                    if not _put(self._collate(g)):
+                        return
+            except BaseException as e:  # surfaced on the consumer side
+                err.append(e)
+            finally:
+                _put(None)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                yield self._to_device(item)
+        finally:
+            # runs on exhaustion AND on abandonment (GeneratorExit) or an
+            # exception escaping the consuming loop
+            stop.set()
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+            t.join(timeout=5)
+        if err:
+            raise err[0]

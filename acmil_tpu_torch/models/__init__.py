@@ -1,0 +1,51 @@
+"""MIL model dispatch, the port of ``acmil_tpu/models/__init__.py``.
+
+A registry from arch name to ``(factory(conf) -> nn.Module, family)``,
+where ``family`` keys into :mod:`acmil_tpu_torch.engine.families`. This
+slice registers ``ga`` (ACMIL_GA) and ``abmil``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+from acmil_tpu_torch.models.acmil import ABMIL, ACMIL_GA
+
+_REGISTRY: Dict[str, Tuple[Callable, str]] = {}
+
+
+def register_model(name: str, family: str = "default"):
+    def deco(factory):
+        _REGISTRY[name] = (factory, family)
+        return factory
+
+    return deco
+
+
+@register_model("abmil")
+def _abmil(conf):
+    return ABMIL(n_class=conf.n_class, d_feat=conf.D_feat,
+                 d_inner=conf.D_inner)
+
+
+@register_model("ga", family="acmil")
+def _acmil_ga(conf):
+    return ACMIL_GA(
+        n_class=conf.n_class,
+        d_feat=conf.D_feat,
+        d_inner=conf.D_inner,
+        n_token=conf.n_token,
+        n_masked_patch=conf.n_masked_patch,
+        mask_drop=conf.mask_drop,
+    )
+
+
+def build_mil_model(conf):
+    """Returns (model, family) for ``conf.arch``."""
+    if conf.arch not in _REGISTRY:
+        raise ValueError(f"unknown arch {conf.arch!r}; have {sorted(_REGISTRY)}")
+    factory, family = _REGISTRY[conf.arch]
+    return factory(conf), family
+
+
+__all__ = ["ABMIL", "ACMIL_GA", "build_mil_model", "register_model"]

@@ -1,0 +1,65 @@
+"""Builds the port's CUDA sources into shared libraries at first use.
+
+Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into ``csrc/build/lib<name>-<digest>.so``, where the
+digest covers the source and the flags, so an edited source never loads a
+stale library. The library is then loaded with :mod:`ctypes`. Nothing is
+built at import time, and a missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+# what the last build of each library printed (ptxas registers, spills) and
+# how long it took; empty for a library found already built
+build_info: Dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: install the CUDA toolkit or set "
+                           "CUDA_HOME to build the port's kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu``, building it first
+    if this source and these flags have not been built yet."""
+    with _lock:
+        if name in _libs:
+            return _libs[name]
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(
+            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        out = BUILD_DIR / f"lib{name}-{digest}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            t0 = time.perf_counter()
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                   str(src)], capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {src}:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+            build_info[name] = {"seconds": time.perf_counter() - t0,
+                                "log": proc.stdout + proc.stderr}
+        _libs[name] = ctypes.CDLL(str(out))
+        return _libs[name]
