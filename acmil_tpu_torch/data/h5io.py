@@ -16,6 +16,10 @@ mirrors `datasets/datasets.py`:
 Unlike the reference (which loads every split fully into RAM,
 `datasets.py:38-41`), bags are read lazily per slide by default; pass
 ``preload=True`` to match the reference behaviour when RAM allows.
+
+The split helpers and :func:`build_hdf5_feat_dataset` also take a torch
+feature file (``data/ptio.py``, picked by suffix as
+``ptio.open_feature_source`` picks it), which needs no ``h5py``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from acmil_tpu_torch.data.ptio import PT_SUFFIXES, PtBagSource
 
 
 def _h5py():
@@ -53,7 +59,9 @@ def write_feature_h5(path: str, slides: Dict[str, dict]) -> None:
 
 
 def feature_names(path: str) -> List[str]:
-    """Slide names in a feature H5, in file order."""
+    """Slide names in a feature H5 or torch feature file, in file order."""
+    if path.endswith(PT_SUFFIXES):
+        return PtBagSource(path).names
     with _h5py().File(path, "r") as f:
         return list(f.keys())
 
@@ -195,7 +203,16 @@ def _lct_names(file_path: str, conf) -> Tuple[List[str], List[str], List[str]]:
     return slide_names[n_test + n_val:], slide_names[n_test:n_test + n_val], slide_names[:n_test]
 
 
-def _fewshot(source: FeatureBagSource, n_shot: int, seed: int) -> FeatureBagSource:
+def _source(file_path: str, names: Sequence[str],
+            label_map: Optional[Dict[int, int]], preload: bool):
+    """The bag source of a feature file, picked by suffix; a torch file is
+    memory-mapped, so ``preload`` does not apply to it."""
+    if file_path.endswith(PT_SUFFIXES):
+        return PtBagSource(file_path, names, label_map)
+    return FeatureBagSource(file_path, names, label_map, preload=preload)
+
+
+def _fewshot(source, n_shot: int, seed: int):
     """Cap the train split at n_shot slides per class (datasets.py:179)."""
     if n_shot is None or n_shot < 0:
         return source
@@ -209,13 +226,14 @@ def _fewshot(source: FeatureBagSource, n_shot: int, seed: int) -> FeatureBagSour
     for lab, names in sorted(by_class.items()):
         rng.shuffle(names)
         keep.extend(names[:n_shot])
-    return FeatureBagSource(source.file_path, keep, source.label_map,
-                            preload=source._cache is not None)
+    return _source(source.file_path, keep, source.label_map,
+                   getattr(source, "_cache", None) is not None)
 
 
 def build_hdf5_feat_dataset(file_path: str, conf):
-    """Return (train, val, test) FeatureBagSources — mirrors
-    `build_HDF5_feat_dataset` (`datasets/datasets.py:196`)."""
+    """Return (train, val, test) bag sources — mirrors
+    `build_HDF5_feat_dataset` (`datasets/datasets.py:196`). ``file_path``
+    is the reference's H5 dump or a torch feature file."""
     ds = conf.dataset
     label_map = None
     if ds == "bracs":
@@ -244,8 +262,8 @@ def build_hdf5_feat_dataset(file_path: str, conf):
             "use a seed without a frozen split file.")
 
     preload = bool(getattr(conf, "preload", False))
-    train = FeatureBagSource(file_path, tr, label_map, preload=preload)
-    train = _fewshot(train, getattr(conf, "n_shot", -1), conf.seed)
-    val = FeatureBagSource(file_path, va, label_map, preload=preload)
-    test = FeatureBagSource(file_path, te, label_map, preload=preload)
+    train = _fewshot(_source(file_path, tr, label_map, preload),
+                     getattr(conf, "n_shot", -1), conf.seed)
+    val = _source(file_path, va, label_map, preload)
+    test = _source(file_path, te, label_map, preload)
     return train, val, test

@@ -2,7 +2,11 @@ from acmil_tpu_torch.engine.families import (ACMILFamily, FAMILIES, Family,
                                              get_family)
 from acmil_tpu_torch.engine.metrics import (accuracy, auroc,
                                             classification_metrics, f1_macro)
-from acmil_tpu_torch.engine.train import evaluate, is_better, make_eval_step
+from acmil_tpu_torch.engine.schedules import half_cosine_schedule
+from acmil_tpu_torch.engine.train import (TrainState, create_train_state,
+                                          evaluate, is_better,
+                                          make_eval_step, make_train_step,
+                                          train_one_epoch)
 
 __all__ = [
     "ACMILFamily",
@@ -13,7 +17,12 @@ __all__ = [
     "auroc",
     "classification_metrics",
     "f1_macro",
+    "half_cosine_schedule",
+    "TrainState",
+    "create_train_state",
     "evaluate",
     "is_better",
     "make_eval_step",
+    "make_train_step",
+    "train_one_epoch",
 ]

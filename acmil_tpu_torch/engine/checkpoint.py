@@ -3,7 +3,8 @@
 The reference saves ``checkpoint-{best,last}.pth`` as ``{'model':
 state_dict, 'optimizer': ..., 'epoch': ..., 'config': Struct}``
 (`utils/utils.py:415-422`). The port writes the same dict with the config
-as a plain dict, and reads both its own files and the reference's with
+as a plain dict, plus the step count and the val metrics the checkpoint was
+chosen by, and reads both its own files and the reference's with
 ``torch.load(weights_only=True)``: the reference's pickled
 ``utils.utils.Struct`` config is admitted as a known class and read back as
 a dict. Parameter names are the reference's, so a reference-trained
@@ -13,7 +14,7 @@ checkpoint loads with no conversion.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -41,16 +42,23 @@ def checkpoint_path(ckpt: str, tag: str = "best") -> str:
         ckpt, f"checkpoint-{tag}.pth")
 
 
-def save(path: str, model, epoch: int = -1, conf=None) -> None:
-    """Write ``model``'s weights in the reference's format (the optimizer
-    state stays empty until the training slice)."""
+def save(path: str, model, epoch: int = -1, conf=None, optimizer=None,
+         metrics: Optional[Dict[str, float]] = None, step: int = 0) -> None:
+    """Write ``model``'s weights, ``optimizer``'s state (empty when None),
+    the epoch, the config, ``metrics`` and the optimizer ``step`` in the
+    reference's format. The file is written whole and then renamed, so a
+    crash leaves the previous checkpoint in place."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
     torch.save({
         "model": model.state_dict(),
-        "optimizer": {},
+        "optimizer": optimizer.state_dict() if optimizer is not None else {},
         "epoch": int(epoch),
         "config": conf.to_dict() if conf is not None else {},
-    }, path)
+        "metrics": {k: float(v) for k, v in (metrics or {}).items()},
+        "step": int(step),
+    }, tmp)
+    os.replace(tmp, path)
 
 
 def load(path: str) -> Dict[str, Any]:
@@ -71,3 +79,34 @@ def adopt_checkpoint_config(conf, saved: Dict[str, Any]) -> None:
     for k in MODEL_CONFIG_KEYS:
         if k in saved:
             setattr(conf, k, saved[k])
+
+
+def restore(path: str, state) -> Dict[str, Any]:
+    """Load a checkpoint into a ``TrainState``: the model's weights, the
+    optimizer's state when the file has one, and the step. Returns the
+    checkpoint dict (epoch, metrics, config)."""
+    ckpt = load(path)
+    state.model.load_state_dict(ckpt["model"])
+    if ckpt.get("optimizer"):
+        state.opt.load_state_dict(ckpt["optimizer"])
+    state.step = int(ckpt.get("step", 0))
+    return ckpt
+
+
+def save_best_and_last(ckpt_dir: str, state, epoch: int, conf,
+                       val_metrics: Dict[str, float],
+                       best: Dict[str, float]) -> Dict[str, float]:
+    """Apply the reference's selection rule (`Step3_ACMIL:156-170`): write
+    ``checkpoint-best.pth`` when ``val_metrics`` beat ``best``, and
+    ``checkpoint-last.pth`` always. Returns the updated best record."""
+    from acmil_tpu_torch.engine.train import is_better
+
+    kw = dict(epoch=epoch, conf=conf, optimizer=state.opt,
+              metrics=val_metrics, step=state.step)
+    if is_better(val_metrics, best,
+                 str(getattr(conf, "selection_f1", "macro"))):
+        best = dict(val_metrics)
+        best["epoch"] = epoch
+        save(checkpoint_path(ckpt_dir, "best"), state.model, **kw)
+    save(checkpoint_path(ckpt_dir, "last"), state.model, **kw)
+    return best

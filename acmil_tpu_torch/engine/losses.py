@@ -1,0 +1,66 @@
+"""Loss functions of the training slice, the port of
+``acmil_tpu/engine/losses.py`` (ACMIL losses at
+`Step3_WSI_classification_ACMIL.py:199-216`).
+
+Padded batch rows are excluded through a ``valid`` vector (rows whose bag
+mask is all False).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from acmil_tpu_torch.ops.masked import masked_softmax
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean softmax cross-entropy. ``logits [B, C]``, ``labels [B]``."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[:, None].long())[:, 0]
+    if valid is None:
+        return nll.mean()
+    w = valid.to(nll.dtype)
+    return (nll * w).sum() / w.sum().clamp_min(1.0)
+
+
+def attention_diversity_loss(attn_logits: torch.Tensor,
+                             mask: torch.Tensor | None, n_token: int,
+                             valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean pairwise cosine similarity between branch attention maps
+    (`Step3_WSI_classification_ACMIL.py:205-213`). ``attn_logits [B, K, N]``;
+    masked positions get 0 probability."""
+    if n_token <= 1:
+        return torch.zeros((), dtype=attn_logits.dtype,
+                           device=attn_logits.device)
+    p = masked_softmax(attn_logits,
+                       None if mask is None else mask[:, None, :])   # [B, K, N]
+    pn = p / torch.linalg.vector_norm(p, dim=-1, keepdim=True).clamp_min(1e-12)
+    sim = pn @ pn.transpose(1, 2)                                    # [B, K, K]
+    iu = torch.triu(torch.ones(n_token, n_token, dtype=torch.bool,
+                               device=sim.device), diagonal=1)
+    per_bag = torch.where(iu, sim, 0.0).sum(dim=(-1, -2)) / (
+        n_token * (n_token - 1) / 2)                                 # [B]
+    if valid is None:
+        return per_bag.mean()
+    w = valid.to(per_bag.dtype)
+    return (per_bag * w).sum() / w.sum().clamp_min(1.0)
+
+
+def acmil_loss(sub_preds, slide_preds, attn_logits, labels, mask, n_token,
+               valid=None):
+    """loss = branch CE + slide CE + diversity (`Step3_ACMIL:199-216`).
+    Returns (total, {"sub_loss", "slide_loss", "diff_loss"})."""
+    if n_token > 1:
+        b, k, c = sub_preds.shape
+        loss0 = cross_entropy(sub_preds.reshape(b * k, c),
+                              labels.repeat_interleave(k),
+                              None if valid is None
+                              else valid.repeat_interleave(k))
+    else:
+        loss0 = torch.zeros((), dtype=slide_preds.dtype,
+                            device=slide_preds.device)
+    loss1 = cross_entropy(slide_preds, labels, valid)
+    div = attention_diversity_loss(attn_logits, mask, n_token, valid)
+    return loss0 + loss1 + div, {"sub_loss": loss0, "slide_loss": loss1,
+                                 "diff_loss": div}

@@ -5,9 +5,9 @@ Batched over ``[B, N_pad, D]`` bags with validity masks (the reference
 unbatches with ``x[0]``). Call convention:
 ``model(feats [B,N,D], mask [B,N] | None, deterministic=True)``.
 
-This is the deterministic (serving) forward. A training forward that asks
-for STKIM raises until the training slice brings ``stkim_drop``; ACMIL_MHA
-and MHA are not ported yet.
+ACMIL_GA's training forward applies STKIM (``ops/masked.py::stkim_mask``)
+with uniforms passed in (``stkim_u``) or drawn from ``stkim_generator``.
+ACMIL_MHA and MHA are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from torch import nn
 
 from acmil_tpu_torch.models.common import (AttentionGated, Classifier1fc,
                                            DimReduction)
-from acmil_tpu_torch.ops.masked import masked_softmax
+from acmil_tpu_torch.ops.masked import masked_softmax, stkim_mask
 
 
 def _as_weight_dtype(feats: torch.Tensor, module: nn.Module) -> torch.Tensor:
@@ -54,7 +54,8 @@ class ACMIL_GA(nn.Module):
     """Multi-branch gated attention (`transformer.py:291-354`).
 
     Returns ``(sub_preds [B,K,C], slide_preds [B,C], attn_logits [B,K,N])``
-    where ``attn_logits`` are the raw logits (the reference's ``A_out``).
+    where ``attn_logits`` are the raw logits, after STKIM in training (the
+    reference's ``A_out``).
     """
 
     def __init__(self, n_class: int, d_feat: int = 384, d_inner: int = 128,
@@ -70,14 +71,18 @@ class ACMIL_GA(nn.Module):
         self.Slide_classifier = Classifier1fc(d_inner, n_class, droprate)
 
     def forward(self, feats, mask=None, deterministic: bool = True,
-                use_attention_mask: Optional[bool] = None):
-        apply_stkim = (not deterministic) if use_attention_mask is None else use_attention_mask
-        if self.n_masked_patch > 0 and apply_stkim:
-            raise NotImplementedError(
-                "STKIM (training with n_masked_patch > 0) comes with the "
-                "training slice; serve with deterministic=True")
+                use_attention_mask: Optional[bool] = None,
+                stkim_u: Optional[torch.Tensor] = None,
+                stkim_generator: Optional[torch.Generator] = None):
+        """``stkim_u [B, K, N]`` are STKIM's uniforms; without them STKIM
+        draws from ``stkim_generator`` (torch's default one when None)."""
         x = self.dimreduction(_as_weight_dtype(feats, self))     # [B, N, L]
         a = self.attention(x)                                     # [B, K, N]
+        apply_stkim = (not deterministic) if use_attention_mask is None else use_attention_mask
+        if self.n_masked_patch > 0 and apply_stkim:
+            a = stkim_mask(a, self.n_masked_patch, self.mask_drop,
+                           None if mask is None else mask[:, None, :],
+                           stkim_u, stkim_generator)
         attn = masked_softmax(a, None if mask is None else mask[:, None, :])
         branch_feat = attn @ x                                    # [B, K, L]
         sub_preds = torch.stack(

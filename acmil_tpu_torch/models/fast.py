@@ -1,22 +1,32 @@
-"""Serving paths through kernel B1, the port of ``acmil_tpu/models/fast.py``.
+"""Fused paths through kernels B1 and B2, the port of
+``acmil_tpu/models/fast.py``.
 
 They take the same modules as the plain forwards (``models/acmil.py``), so a
-trained checkpoint serves through the kernel with no conversion. The pooling
-runs :func:`acmil_tpu_torch.ops.attn_pool.fused_gated_attn_pool_batched`;
-the branch and slide classifiers after it stay plain PyTorch, as the JAX
-package leaves them to XLA. The DimReduction is bias-free, so the kernel's
-``b1`` is zero.
+trained checkpoint serves through the kernels with no conversion. The pooling
+runs :func:`acmil_tpu_torch.ops.attn_pool.gated_attn_pool_grad` (B1 forward,
+B2 backward); the branch and slide classifiers after it stay plain PyTorch,
+as the JAX package leaves them to XLA. The DimReduction is bias-free, so the
+kernels' ``b1`` is zero.
 
-Eval forms only: a STKIM generator (training) raises until the training
-slice brings kernel B2 and ``stkim_drop``.
+In training, STKIM applies to the pooled output as an O(K·k) correction
+(:func:`_stkim_correct`), so the recipe with STKIM keeps the fused kernels.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from acmil_tpu_torch.ops.attn_pool import (fused_gated_attn_pool,
-                                           fused_gated_attn_pool_batched)
+                                           gated_attn_pool_grad)
+from acmil_tpu_torch.ops.masked import NEG_INF, stkim_drop
+
+# Smallest kept softmax mass (1 − Σ dropped probabilities) the O(K·k)
+# STKIM subtract-renormalise identity stays accurate for in f32:
+# relative error ≈ ε / kept_mass ≈ 6e-8 / 1e-5 ≈ 6e-3. Below it the
+# correction switches to an exact kept-softmax recompute.
+_STKIM_KEPT_MIN = 1e-5
 
 
 def _ga_weights(model):
@@ -56,20 +66,81 @@ def abmil_infer(model, feats, mask):
     return model.classifier.fc(bag[0]), logits
 
 
-def acmil_ga_apply_batched(model, feats, mask, stkim_generator=None):
-    """ACMIL_GA eval forward, batched: feats ``[B, N, D_feat]`` (fp16 or
-    f32), mask ``[B, N]`` → (sub [B, K, C], slide [B, C], logits [B, K, N]).
+def _stkim_correct(bag, logits, feats, mask, w1, n_masked_patch: int,
+                   mask_drop: float, u: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None):
+    """Apply STKIM to an already-pooled bag as an O(K·k) correction.
 
-    Matches ``ACMIL_GA.forward(deterministic=True)`` on the same module; the
-    pooling runs kernel B1 on CUDA tensors. Logits hold ``NEG`` (-1e30) at
+    The kernel pools with the full softmax and emits the raw logits
+    ``[B, K, N]``. STKIM drops a random subset of each branch's top-k
+    logits, so the post-drop pooled feature is the full one minus the
+    dropped terms, renormalised:
+
+        bag' = (bag − Σ_dropped p_t h_t) / (1 − Σ_dropped p_t)
+
+    with ``p_t`` the full-softmax probabilities of the dropped entries:
+    one logsumexp over the logits, then a gather of ≤k rows per branch and
+    their recomputed ``h``.
+
+    The subtraction cancels in f32 when the dropped entries carry almost
+    all the mass, so below ``_STKIM_KEPT_MIN`` kept mass the whole batch
+    takes an exact kept-softmax recompute instead. The JAX package decides
+    this on the device (``lax.cond``); here the branch reads one element
+    back to the host, one sync per step.
+
+    Returns (bag' [B, K, L], post-drop logits [B, K, N] with NEG_INF at
+    dropped positions).
+    """
+    drop, topk_idx = stkim_drop(logits, n_masked_patch, mask_drop,
+                                mask[:, None, :], u, generator)
+    if drop is None:
+        return bag, logits
+    a_drop = torch.where(drop, NEG_INF, logits)
+    lse_full = torch.logsumexp(torch.where(mask[:, None, :], logits, NEG_INF),
+                               dim=-1, keepdim=True)
+    dflag = torch.gather(drop, -1, topk_idx)                  # [B, K, k]
+    a_top = torch.gather(logits, -1, topk_idx)
+    p_top = torch.exp(a_top - lse_full) * dflag.to(logits.dtype)
+    kept_mass = 1.0 - p_top.sum(dim=-1)                       # [B, K]
+
+    if float(kept_mass.detach().min()) >= _STKIM_KEPT_MIN:
+        # subtract the dropped terms: gather ≤k rows per branch, recompute h
+        rows = torch.arange(feats.shape[0], device=feats.device)[:, None, None]
+        x_top = feats[rows, topk_idx]                         # [B, K, k, Df]
+        h_top = torch.relu(x_top.to(w1.dtype) @ w1)           # [B, K, k, L]
+        num = bag - torch.einsum("bkt,bktl->bkl", p_top, h_top)
+        return num / kept_mass[..., None].clamp_min(_STKIM_KEPT_MIN / 4), a_drop
+    # kept-softmax pooling from scratch: exact, at the cost of the
+    # dim-reduction GEMM over every patch
+    h = torch.relu(feats.to(w1.dtype) @ w1)                   # [B, N, L]
+    keep = mask[:, None, :] & ~drop
+    attn = torch.softmax(torch.where(keep, a_drop, NEG_INF), dim=-1)
+    return torch.einsum("bkn,bnl->bkl", attn, h), a_drop
+
+
+def acmil_ga_apply_batched(model, feats, mask,
+                           stkim_u: Optional[torch.Tensor] = None,
+                           stkim_generator: Optional[torch.Generator] = None,
+                           n_masked_patch: int = 0, mask_drop: float = 0.0):
+    """Differentiable fused ACMIL_GA forward, batched: feats
+    ``[B, N, D_feat]`` (fp16 or f32), mask ``[B, N]`` → (sub [B, K, C],
+    slide [B, C], logits [B, K, N]).
+
+    Matches ``ACMIL_GA.forward`` on the same module. The pooling runs kernel
+    B1 on CUDA tensors and its backward kernel B2; the features get no
+    gradient unless they require one. With ``n_masked_patch`` and
+    ``mask_drop`` > 0 and STKIM's uniforms given (``stkim_u [B, K, N]``) or
+    a generator to draw them, STKIM applies as :func:`_stkim_correct`;
+    without either it is off, as in eval. Logits hold ``NEG`` (-1e30) at
     pad slots, where the plain forward keeps raw values.
     """
-    if stkim_generator is not None:
-        raise NotImplementedError(
-            "STKIM in the fused route comes with the training slice "
-            "(kernel B2 and stkim_drop)")
-    bag, logits = fused_gated_attn_pool_batched(feats, mask,
-                                                *_ga_weights(model))
+    w1, *rest = _ga_weights(model)
+    bag, logits = gated_attn_pool_grad(feats, mask, w1, *rest)
+    stkim = stkim_u is not None or stkim_generator is not None
+    if stkim and n_masked_patch > 0 and mask_drop > 0:
+        bag, logits = _stkim_correct(bag, logits, feats, mask, w1,
+                                     n_masked_patch, mask_drop, stkim_u,
+                                     stkim_generator)
     sub = _branch_heads(model, bag)
     slide = model.Slide_classifier.fc(bag.mean(dim=1))
     return sub, slide, logits

@@ -5,6 +5,7 @@ Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 digest covers the source and the flags, so an edited source never loads a
 stale library. The library is then loaded with :mod:`ctypes`. Nothing is
 built at import time, and a missing ``nvcc`` or a failed build raises.
+:func:`build` compiles several sources at once, one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_lock = threading.RLock()
 # what the last build of each library printed (ptxas registers, spills) and
 # how long it took; empty for a library found already built
 build_info: Dict[str, dict] = {}
@@ -39,27 +40,46 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _library(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(*names: str) -> None:
+    """Compile each of ``csrc/<name>.cu`` not built yet: one ``nvcc`` per
+    source, all started together. Raises if any build fails."""
+    with _lock:
+        running = {}
+        for name in names:
+            out = _library(name)
+            if out.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            running[name] = (proc, tmp, out, time.perf_counter())
+        failed = []
+        for name, (proc, tmp, out, t0) in running.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed to build {name}.cu:\n{log}")
+                continue
+            os.replace(tmp, out)
+            build_info[name] = {"seconds": time.perf_counter() - t0,
+                                "log": log}
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu``, building it first
     if this source and these flags have not been built yet."""
     with _lock:
-        if name in _libs:
-            return _libs[name]
-        src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{name}-{digest}.so"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                   str(src)], capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {src}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, out)
-            build_info[name] = {"seconds": time.perf_counter() - t0,
-                                "log": proc.stdout + proc.stderr}
-        _libs[name] = ctypes.CDLL(str(out))
+        if name not in _libs:
+            build(name)
+            _libs[name] = ctypes.CDLL(str(_library(name)))
         return _libs[name]

@@ -1,7 +1,8 @@
-"""Fused gated-attention pooling: kernel B1 and its plain PyTorch version.
+"""Fused gated-attention pooling: kernels B1 (forward) and B2 (backward) and
+their plain PyTorch versions.
 
-The port of ``acmil_tpu/ops/attn_pool.py``'s forward. For a padded bag of N
-patch features it computes
+The port of ``acmil_tpu/ops/attn_pool.py``. For a padded bag of N patch
+features the forward computes
 
     h  = relu(feats @ W1 + b1)                       (DimReduction)
     a  = (tanh(h V + bv) * sigmoid(h U + bu)) w + bw (gated attention, K branches)
@@ -10,13 +11,14 @@ patch features it computes
 
 :func:`fused_gated_attn_pool_batched` keeps the JAX function's contract and
 layout: ``bag [B, K, L]``, raw logits ``[B, K, N]`` with ``NEG`` at pad
-slots, and on request the softmax's max ``m`` and sum ``s`` ``[B, K]``. Its
-route is chosen by the device of ``feats`` and nothing else: a CPU tensor
-takes the plain version, a CUDA tensor launches the hand-written kernel in
-``csrc/attn_pool.cu`` or raises.
+slots, and on request the softmax's max ``m`` and sum ``s`` ``[B, K]``.
+:func:`fused_gated_attn_pool_bwd` is the one-pass backward given the
+softmax couplings ``lse`` and ``c``, and :func:`gated_attn_pool_grad` joins
+the two in a ``torch.autograd.Function``.
 
-The kernel has no backward yet (kernel B2 comes with the training slice), so
-the CUDA route refuses to run where autograd would need one.
+Every wrapper picks its route by the device of ``feats`` and nothing else: a
+CPU tensor takes the plain version, a CUDA tensor launches the hand-written
+kernel (``csrc/attn_pool.cu``, ``csrc/attn_pool_bwd.cu``) or raises.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 
 NEG = -1e30
 
-# the widths csrc/attn_pool.cu is compiled for
+# the widths csrc/attn_pool.cu and csrc/attn_pool_bwd.cu are compiled for
 KERNEL_L = 128
 KERNEL_A = 128
 KERNEL_DF_MULTIPLE = 32
@@ -66,7 +68,7 @@ def _softmax_stats(logits, mask):
 
 
 def _check_kernel_args(feats, mask, w1, b1, v, bv, u, bu, w, bw) -> None:
-    """Raise ValueError for any input kernel B1 does not take."""
+    """Raise ValueError for any input kernels B1 and B2 do not take."""
     if feats.dim() != 3:
         raise ValueError(f"feats must be [B, N, Df], got {tuple(feats.shape)}")
     b, n, df = feats.shape
@@ -96,6 +98,18 @@ def _check_kernel_args(feats, mask, w1, b1, v, bv, u, bu, w, bw) -> None:
                              f"{tuple(t.shape)}")
 
 
+def _device_inputs(dev, tensors, kernel):
+    """``tensors`` made contiguous, each checked to lie on ``dev`` and to
+    start 16-byte aligned."""
+    out = [t.contiguous() for t in tensors]
+    for t in out:
+        if t.device != dev:
+            raise ValueError(f"all inputs must be on {dev}, got {t.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"kernel {kernel} needs 16-byte-aligned inputs")
+    return out
+
+
 @functools.cache
 def _kernel_entry():
     """(the C entry point with its ctypes signature, rows per tile), from
@@ -113,18 +127,9 @@ def _kernel_entry():
 
 def _launch_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw):
     _check_kernel_args(feats, mask, w1, b1, v, bv, u, bu, w, bw)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (feats, w1, b1, v, bv, u, bu, w, bw)):
-        raise NotImplementedError(
-            "kernel B1 has no backward yet (kernel B2 comes with the training "
-            "slice): call it under torch.no_grad()")
     dev = feats.device
-    ins = [t.contiguous() for t in (feats, mask, w1, b1, v, bv, u, bu, w, bw)]
-    for t in ins:
-        if t.device != dev:
-            raise ValueError(f"all inputs must be on {dev}, got {t.device}")
-        if t.data_ptr() % 16:
-            raise ValueError("kernel B1 needs 16-byte-aligned inputs")
+    x, mk, *weights = _device_inputs(
+        dev, (feats, mask, w1, b1, v, bv, u, bu, w, bw), "B1")
     fn, tile_rows = _kernel_entry()
     b, n, df = feats.shape
     l, k = w1.shape[1], w.shape[1]
@@ -138,7 +143,6 @@ def _launch_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw):
     part_s = torch.empty(b, tiles, k, **f32)
     part_acc = torch.empty(b, tiles, k, l, **f32)
     outs = (logits, bag, m, s, part_m, part_s, part_acc)
-    x, mk, *weights = ins
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), int(x.dtype == torch.float16), mk.data_ptr(),
@@ -148,6 +152,18 @@ def _launch_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw):
         raise RuntimeError(f"kernel B1 launch failed: cudaError_t {err}")
     fused_gated_attn_pool_batched.launches += 1
     return bag, logits, m, s
+
+
+def _pool_forward(feats, mask, w1, b1, v, bv, u, bu, w, bw):
+    """(bag, logits, m, s) by the route of ``feats``'s device. The plain
+    route computes in the weights' dtype."""
+    if feats.device.type == "cuda":
+        return _launch_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw)
+    if feats.device.type == "cpu":
+        bag, logits = _reference_batched(feats.to(w1.dtype), mask, w1, b1, v,
+                                         bv, u, bu, w, bw)
+        return (bag, logits, *_softmax_stats(logits, mask))
+    raise ValueError(f"no kernel B1 route for device {feats.device}")
 
 
 def fused_gated_attn_pool_batched(
@@ -169,17 +185,17 @@ def fused_gated_attn_pool_batched(
 
     CPU tensors take the plain version; CUDA tensors launch kernel B1 (and
     add one to ``fused_gated_attn_pool_batched.launches``) or raise. N needs
-    no padding to any multiple: rows past N are masked in the kernel.
+    no padding to any multiple: rows past N are masked in the kernel. This
+    bare forward has no backward: differentiate :func:`gated_attn_pool_grad`.
     """
-    if feats.device.type == "cuda":
-        bag, logits, m, s = _launch_kernel(feats, mask, w1, b1, v, bv, u, bu,
-                                           w, bw)
-    elif feats.device.type == "cpu":
-        bag, logits = _reference_batched(feats.float(), mask, w1, b1, v, bv,
-                                         u, bu, w, bw)
-        m, s = _softmax_stats(logits, mask)
-    else:
-        raise ValueError(f"no kernel B1 route for device {feats.device}")
+    if (feats.device.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (feats, w1, b1, v, bv, u, bu,
+                                              w, bw))):
+        raise NotImplementedError(
+            "fused_gated_attn_pool_batched has no backward: use "
+            "gated_attn_pool_grad, whose backward is kernel B2")
+    bag, logits, m, s = _pool_forward(feats, mask, w1, b1, v, bv, u, bu, w,
+                                      bw)
     if return_stats:
         return bag, logits, m, s
     return bag, logits
@@ -194,3 +210,193 @@ def fused_gated_attn_pool(feats, mask, w1, b1, v, bv, u, bu, w, bw):
     bag, logits = fused_gated_attn_pool_batched(
         feats[None], mask[None], w1, b1, v, bv, u, bu, w, bw)
     return bag[0], logits[0]
+
+
+# ---------------------------------------------------------------------------
+# Backward: kernel B2 and its plain closed form
+# ---------------------------------------------------------------------------
+
+def _fused_pool_bwd_stats(feats, mask, w1, b1, v, bv, u, bu, w, bw,
+                          lse, c, d_bag, d_logits, need_dx: bool = True):
+    """Kernel B2's plain version: the pooling's backward in closed form, as
+    the Pallas ``_bwd_kernel`` computes it, written out (not autograd).
+
+    ``lse`` and ``c`` are per-(bag, branch) scalars ``[B, K]``: the
+    softmax's log-normaliser and ``sum_l d_bag * bag``; with them one pass
+    over the rows suffices. ``d_bag [B, K, L]``, ``d_logits [B, K, N]``.
+    Rows that are masked get p = 0 and ignore their ``d_logits``. Computes
+    in the weights' dtype. Returns (d_feats [B, N, Df] or None, dW1, db1,
+    dV, dbv, dU, dbu, dw, dbw).
+    """
+    x = feats.to(w1.dtype)
+    h = torch.relu(x @ w1 + b1)                              # [B, N, L]
+    gv = torch.tanh(h @ v + bv)
+    gu = torch.sigmoid(h @ u + bu)
+    g = gv * gu                                              # [B, N, A]
+    logits = g @ w + bw                                      # [B, N, K]
+    valid = mask[..., None]                                  # [B, N, 1]
+    p = torch.where(valid, torch.exp(logits - lse[:, None, :]), 0.0)
+    d_p = h @ d_bag.transpose(1, 2)                          # [B, N, K]
+    d_log = torch.where(valid, p * (d_p - c[:, None, :])
+                        + d_logits.transpose(1, 2), 0.0)
+    d_g = d_log @ w.T                                        # [B, N, A]
+    d_av = d_g * gu * (1.0 - gv * gv)
+    d_au = d_g * gv * gu * (1.0 - gu)
+    d_h = p @ d_bag + d_av @ v.T + d_au @ u.T                # [B, N, L]
+    r = torch.where(h > 0, d_h, 0.0)
+    d_feats = (r @ w1.T).to(feats.dtype) if need_dx else None
+
+    def ct(a, b):                                            # sum_b a_b^T b_b
+        return torch.einsum("bni,bnj->ij", a, b)
+
+    return (d_feats, ct(x, r), r.sum(dim=(0, 1)), ct(h, d_av),
+            d_av.sum(dim=(0, 1)), ct(h, d_au), d_au.sum(dim=(0, 1)),
+            ct(g, d_log), d_log.sum(dim=(0, 1)))
+
+
+def _check_bwd_args(feats, k, lse, c, d_bag, d_logits) -> None:
+    b, n, _ = feats.shape
+    shapes = {"lse": (lse, (b, k)), "c": (c, (b, k)),
+              "d_bag": (d_bag, (b, k, KERNEL_L)),
+              "d_logits": (d_logits, (b, k, n))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+@functools.cache
+def _bwd_kernel_entry():
+    """(the launch entry with its ctypes signature, the blocks-per-grid
+    query, rows per tile), from the library built at first use."""
+    from acmil_tpu_torch.ops import _build
+
+    lib = _build.load("attn_pool_bwd")
+    fn = lib.b2_attn_pool_backward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 16
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    blocks = lib.b2_max_blocks
+    blocks.restype = ctypes.c_int
+    blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.b2_tile_rows.restype = ctypes.c_int
+    return fn, blocks, lib.b2_tile_rows()
+
+
+def _grad_slice_sizes(df, k):
+    """Lengths of (dW1, db1, dV, dbv, dU, dbu, dw, dbw) in B2's flat
+    gradient buffer, in order."""
+    l, a = KERNEL_L, KERNEL_A
+    return (df * l, l, l * a, a, l * a, a, a * k, k)
+
+
+def _launch_bwd_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, c,
+                       d_bag, d_logits, need_dx):
+    _check_kernel_args(feats, mask, w1, b1, v, bv, u, bu, w, bw)
+    b, n, df = feats.shape
+    k = w.shape[1]
+    _check_bwd_args(feats, k, lse, c, d_bag, d_logits)
+    dev = feats.device
+    x, mk, *rest = _device_inputs(
+        dev, (feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, c, d_bag,
+              d_logits), "B2")
+    fn, max_blocks, tile_rows = _bwd_kernel_entry()
+    sizes = _grad_slice_sizes(df, k)
+    slice_len = sum(sizes)
+    half = int(x.dtype == torch.float16)
+    with torch.cuda.device(dev):
+        resident = max_blocks(k, half)
+        if resident <= 0:
+            raise RuntimeError(f"kernel B2 occupancy query failed: "
+                               f"cudaError_t {-resident}")
+        groups = min(resident, b * -(-n // tile_rows))
+        f32 = dict(device=dev, dtype=torch.float32)
+        work = torch.empty(groups, slice_len, **f32)
+        grads = torch.empty(slice_len, **f32)
+        dx = torch.empty_like(x) if need_dx else None
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), half, mk.data_ptr(),
+                 *(t.data_ptr() for t in rest),
+                 dx.data_ptr() if need_dx else None, work.data_ptr(),
+                 grads.data_ptr(), b, n, df, k, groups, stream)
+    if err != 0:
+        raise RuntimeError(f"kernel B2 launch failed: cudaError_t {err}")
+    fused_gated_attn_pool_bwd.launches += 1
+    shapes = ((df, KERNEL_L), (KERNEL_L,), (KERNEL_L, KERNEL_A), (KERNEL_A,),
+              (KERNEL_L, KERNEL_A), (KERNEL_A,), (KERNEL_A, k), (k,))
+    parts = torch.split(grads, sizes)
+    return (dx, *(p.view(s) for p, s in zip(parts, shapes)))
+
+
+def fused_gated_attn_pool_bwd(feats, mask, w1, b1, v, bv, u, bu, w, bw,
+                              lse, c, d_bag, d_logits, need_dx: bool = True):
+    """The pooling's backward given the softmax couplings ``lse`` and ``c``
+    ``[B, K]`` (see :func:`_fused_pool_bwd_stats`). Returns (d_feats in
+    feats' dtype or None, dW1, db1, dV, dbv, dU, dbu, dw, dbw); the weight
+    gradients are float32.
+
+    CPU tensors take the plain closed form; CUDA tensors launch kernel B2
+    (and add one to ``fused_gated_attn_pool_bwd.launches``) or raise.
+    """
+    if feats.device.type == "cuda":
+        return _launch_bwd_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw,
+                                  lse, c, d_bag, d_logits, need_dx)
+    if feats.device.type == "cpu":
+        return _fused_pool_bwd_stats(feats, mask, w1, b1, v, bv, u, bu, w, bw,
+                                     lse, c, d_bag, d_logits, need_dx)
+    raise ValueError(f"no kernel B2 route for device {feats.device}")
+
+
+fused_gated_attn_pool_bwd.launches = 0
+
+
+def _fused_pool_bwd(feats, mask, w1, b1, v, bv, u, bu, w, bw, bag, logits,
+                    d_bag, d_logits, need_dx: bool = True):
+    """The backward from the forward's outputs: forms ``lse`` (one
+    logsumexp over ``[B, K, N]``) and ``c = sum_l d_bag * bag``, then runs
+    :func:`fused_gated_attn_pool_bwd`."""
+    lse = torch.logsumexp(torch.where(mask[:, None, :], logits, NEG), dim=2)
+    c = (d_bag * bag).sum(dim=2)
+    return fused_gated_attn_pool_bwd(feats, mask, w1, b1, v, bv, u, bu, w, bw,
+                                     lse, c, d_bag, d_logits, need_dx)
+
+
+class _GatedAttnPoolGrad(torch.autograd.Function):
+    """Forward through B1 (the plain forward on the CPU), backward through
+    B2 (the plain closed form on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, feats, mask, w1, b1, v, bv, u, bu, w, bw):
+        bag, logits, m, s = _pool_forward(feats, mask, w1, b1, v, bv, u, bu,
+                                          w, bw)
+        # the log-normaliser from the online softmax's own (m, s), as the
+        # JAX sharded path forms it; an all-masked bag has s = 0, and the
+        # clamp keeps its lse finite (its rows take p = 0 by a select)
+        lse = m + torch.log(torch.clamp_min(s, 1e-30))
+        ctx.save_for_backward(feats, mask, w1, b1, v, bv, u, bu, w, bw, lse,
+                              bag)
+        return bag, logits
+
+    @staticmethod
+    def backward(ctx, d_bag, d_logits):
+        feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, bag = ctx.saved_tensors
+        d_bag = d_bag.to(lse.dtype)
+        c = (d_bag * bag).sum(dim=2)
+        grads = fused_gated_attn_pool_bwd(
+            feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, c, d_bag,
+            d_logits.to(lse.dtype), need_dx=ctx.needs_input_grad[0])
+        d_feats, *d_weights = grads
+        d_weights = [g.to(t.dtype) for g, t in
+                     zip(d_weights, (w1, b1, v, bv, u, bu, w, bw))]
+        return (None if d_feats is None else d_feats.to(feats.dtype), None,
+                *d_weights)
+
+
+def gated_attn_pool_grad(feats, mask, w1, b1, v, bv, u, bu, w, bw
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable fused pooling: (bag [B, K, L], logits [B, K, N]) as
+    :func:`fused_gated_attn_pool_batched` gives them, with a backward that
+    makes one pass over ``feats`` (kernel B2 on CUDA tensors). Gradients
+    reach the weights always and ``feats`` only when it requires one."""
+    return _GatedAttnPoolGrad.apply(feats, mask, w1, b1, v, bv, u, bu, w, bw)
+

@@ -17,6 +17,7 @@ from acmil_tpu.models.acmil import ACMIL_GA as JaxACMIL_GA
 from acmil_tpu.models.fast import abmil_infer as jax_abmil_infer
 from acmil_tpu.models.fast import acmil_ga_apply_batched as jax_apply_batched
 from acmil_tpu.models.fast import acmil_ga_infer as jax_ga_infer
+from acmil_tpu.models.fast import derive_stkim_rng as jax_derive_stkim_rng
 from acmil_tpu.ops import masked as jax_masked
 from acmil_tpu_torch.models import ABMIL, ACMIL_GA
 from acmil_tpu_torch.models.common import torch_linear_init_
@@ -195,17 +196,44 @@ def test_seeded_init_is_torch_default_and_reproducible():
 
 
 def test_stkim_training_forward_is_not_ported_yet():
-    tm = ACMIL_GA(2, d_feat=D_FEAT, d_inner=D_INNER, n_token=5,
+    """The name predates the STKIM training forward; the test now holds
+    that forward against flax on the same uniforms, on both routes, and
+    checks that a generator draws the uniforms when none are given."""
+    jm = JaxACMIL_GA(n_class=N_CLASS, d_inner=D_INNER, n_token=5,
+                     n_masked_patch=10, mask_drop=0.6)
+    tm = ACMIL_GA(N_CLASS, d_feat=D_FEAT, d_inner=D_INNER, n_token=5,
                   n_masked_patch=10, mask_drop=0.6)
+    params = jax.tree_util.tree_map(np.asarray, jm.init(
+        jax.random.PRNGKey(8), jnp.zeros((1, 8, D_FEAT)),
+        jnp.ones((1, 8), bool))["params"])
+    tm.load_state_dict(from_jax_params(params, "ga"))
     feats, mask = _bag(8)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tm(torch.from_numpy(feats), torch.from_numpy(mask),
-           deterministic=False)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        acmil_ga_apply_batched(tm, torch.from_numpy(feats),
-                               torch.from_numpy(mask),
-                               stkim_generator=torch.Generator())
-    tm(torch.from_numpy(feats), torch.from_numpy(mask))  # eval still runs
+    key = jax.random.PRNGKey(9)
+    sub_j, slide_j, a_j = jm.apply({"params": params}, jnp.asarray(feats),
+                                   jnp.asarray(mask), deterministic=False,
+                                   rngs={"stkim": key})
+    u = torch.from_numpy(np.array(jax.random.uniform(
+        jax_derive_stkim_rng(key), a_j.shape, dtype=jnp.float32)))
+    x, m = torch.from_numpy(feats), torch.from_numpy(mask)
+    with torch.no_grad():
+        plain = tm(x, m, deterministic=False, stkim_u=u)
+        fused = acmil_ga_apply_batched(tm, x, m, stkim_u=u, n_masked_patch=10,
+                                       mask_drop=0.6)
+        eval_ = tm(x, m)
+        drawn = tm(x, m, deterministic=False,
+                   stkim_generator=torch.Generator().manual_seed(0))
+    for got in (plain, fused):
+        _close(got[0].numpy(), sub_j)
+        _close(got[1].numpy(), slide_j)
+    v = _valid(mask, plain[2].numpy())
+    for got in (plain, fused):
+        _close(got[2].numpy()[v], np.asarray(a_j)[v])
+        np.testing.assert_array_equal(got[2].numpy()[v] == masked.NEG_INF,
+                                      np.asarray(a_j)[v] == masked.NEG_INF)
+    # STKIM filled some top logits: training and eval forwards differ
+    assert (plain[2] == masked.NEG_INF).any() and not torch.equal(plain[1],
+                                                                  eval_[1])
+    assert (drawn[2] == masked.NEG_INF).sum() == (plain[2] == masked.NEG_INF).sum()
 
 
 @pytest.mark.parametrize("op", ["masked_softmax", "softmax_one",

@@ -1,0 +1,255 @@
+"""Kernel B2's port, the backward of acmil_tpu_torch/ops/attn_pool.py,
+against the JAX package's Pallas backward run in interpret mode on the CPU.
+
+On CPU tensors the port's wrappers take their plain versions, and
+``gated_attn_pool_grad``'s autograd wiring (saved tensors, lse from the
+forward's (m, s), c, pad slots, dtype casts) runs as it does on the card.
+The CUDA kernel itself is held against its plain version by the test
+marked ``gpu``, which runs only on a card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from acmil_tpu.ops import attn_pool as jax_pool
+from acmil_tpu_torch.ops import attn_pool as port
+
+# float32 on both sides; sums over up to 600 rows are taken in other orders
+# (interpret-mode chunks of 128 vs torch's matmuls)
+ATOL, RTOL = 2e-5, 1e-4
+# the JAX package's own gradient tolerance for the fused pooling
+# (tests/test_attn_pool.py: gated_attn_pool_grad against the reference)
+GRAD_TOL = 2e-4
+GRAD_NAMES = ("d_feats", "dW1", "db1", "dV", "dbv", "dU", "dbu", "dw", "dbw")
+
+
+def _inputs(seed, b=2, n=300, df=32, l=16, a=16, k=5, all_masked=False):
+    """A bag batch whose last bag has a dead tail (or is all masked)."""
+    rs = np.random.RandomState(seed)
+    feats = rs.randn(b, n, df).astype(np.float16).astype(np.float32)
+    mask = rs.rand(b, n) < 0.8
+    mask[-1, 200:] = False
+    if all_masked:
+        mask[-1] = False
+    weights = [(rs.randn(*s) * sc).astype(np.float32) for s, sc in [
+        ((df, l), 0.2), ((l,), 0.1), ((l, a), 0.3), ((a,), 0.1),
+        ((l, a), 0.3), ((a,), 0.1), ((a, k), 0.5), ((k,), 0.1)]]
+    d_bag = rs.randn(b, k, l).astype(np.float32)
+    # nonzero at pad slots too: the backward must ignore them
+    d_logits = rs.randn(b, k, n).astype(np.float32)
+    return feats, mask, weights, d_bag, d_logits
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def _close(got, want, atol=ATOL, rtol=RTOL, name=""):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=atol,
+                               rtol=rtol, err_msg=name)
+
+
+def _loss_torch(bag, logits):
+    return (bag ** 2).sum() + 1e-3 * torch.tanh(logits).sum()
+
+
+def _loss_jax(bag, logits):
+    return (bag ** 2).sum() + 1e-3 * jnp.tanh(logits).sum()
+
+
+@pytest.mark.parametrize("k, all_masked", [(1, False), (5, False), (5, True)])
+def test_bwd_stats_matches_pallas(k, all_masked):
+    feats, mask, ws, d_bag, d_logits = _inputs(0, k=k, all_masked=all_masked)
+    jws = [jnp.asarray(w) for w in ws]
+    bag, _, m, s = jax_pool.fused_gated_attn_pool_batched(
+        jnp.asarray(feats), jnp.asarray(mask), *jws, chunk=128,
+        interpret=True, return_stats=True)
+    lse = np.asarray(m + jnp.log(jnp.maximum(s, 1e-30)))
+    c = np.sum(d_bag * np.asarray(bag), axis=2)
+    want = jax_pool._fused_pool_bwd_stats(
+        jnp.asarray(feats), jnp.asarray(mask), *jws, jnp.asarray(lse),
+        jnp.asarray(c), jnp.asarray(d_bag), jnp.asarray(d_logits), chunk=128,
+        interpret=True)
+    x, mk, l_, c_, db, dl = _t(feats, mask, lse, c, d_bag, d_logits)
+    got = port._fused_pool_bwd_stats(x, mk, *_t(*ws), l_, c_, db, dl)
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        _close(g.numpy(), w, name=name)
+    assert np.all(got[0].numpy()[~mask] == 0.0)      # masked rows get no dx
+    for g in got:
+        assert np.isfinite(g.numpy()).all()
+
+
+def test_fused_pool_bwd_forms_lse_and_c_like_jax():
+    feats, mask, ws, d_bag, d_logits = _inputs(1)
+    jws = [jnp.asarray(w) for w in ws]
+    bag, logits = jax_pool.fused_gated_attn_pool_batched(
+        jnp.asarray(feats), jnp.asarray(mask), *jws, chunk=128,
+        interpret=True)
+    want = jax_pool._fused_pool_bwd(
+        jnp.asarray(feats), jnp.asarray(mask), *jws, bag, logits,
+        jnp.asarray(d_bag), jnp.asarray(d_logits), chunk=128, interpret=True)
+    x, mk, b_, lg, db, dl = _t(feats, mask, bag, logits, d_bag, d_logits)
+    got = port._fused_pool_bwd(x, mk, *_t(*ws), b_, lg, db, dl)
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        _close(g.numpy(), w, name=name)
+
+
+@pytest.mark.parametrize("k", [1, 5])
+def test_grad_matches_jax_value_and_grad(k):
+    feats, mask, ws, _, _ = _inputs(2, k=k)
+    jmask = jnp.asarray(mask)
+
+    def loss_fused(feats, *ws):
+        return _loss_jax(*jax_pool.gated_attn_pool_grad(feats, jmask, *ws,
+                                                        128))
+
+    v_j, g_j = jax.value_and_grad(loss_fused, argnums=tuple(range(9)))(
+        jnp.asarray(feats), *map(jnp.asarray, ws))
+    leaves = [t.requires_grad_() for t in _t(feats, *ws)]
+    loss = _loss_torch(*port.gated_attn_pool_grad(leaves[0],
+                                                  torch.from_numpy(mask),
+                                                  *leaves[1:]))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(v_j), rtol=1e-5)
+    for name, t, w in zip(GRAD_NAMES, leaves, g_j):
+        _close(t.grad.numpy(), w, atol=GRAD_TOL, rtol=GRAD_TOL, name=name)
+
+
+@pytest.mark.parametrize("feats_dtype", [torch.float32, torch.float16])
+def test_grad_matches_autograd_through_reference(feats_dtype):
+    feats, mask, ws, _, _ = _inputs(3)
+    m = torch.from_numpy(mask)
+    x = torch.from_numpy(feats).to(feats_dtype).requires_grad_()
+    w_port = [t.requires_grad_() for t in _t(*ws)]
+    w_ref = [t.detach().clone().requires_grad_() for t in w_port]
+    x_ref = x.detach().float().requires_grad_()
+    _loss_torch(*port.gated_attn_pool_grad(x, m, *w_port)).backward()
+    _loss_torch(*port._reference_batched(x_ref, m, *w_ref)).backward()
+    assert x.grad.dtype == feats_dtype
+    _close(x.grad.float().numpy(), x_ref.grad.to(feats_dtype).float().numpy(),
+           atol=GRAD_TOL, rtol=GRAD_TOL, name="d_feats")
+    for name, a, b in zip(GRAD_NAMES[1:], w_port, w_ref):
+        _close(a.grad.numpy(), b.grad.numpy(), atol=GRAD_TOL, rtol=GRAD_TOL,
+               name=name)
+
+
+def test_gradcheck_float64():
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy(rs.randn(2, 7, 4)).requires_grad_()
+    m = torch.tensor([[1, 1, 0, 1, 1, 1, 0], [0] * 7], dtype=torch.bool)
+    ws = [torch.from_numpy(rs.randn(*s) * 0.5).requires_grad_()
+          for s in [(4, 3), (3,), (3, 2), (2,), (3, 2), (2,), (2, 2), (2,)]]
+    assert torch.autograd.gradcheck(
+        lambda x, *ws: port.gated_attn_pool_grad(x, m, *ws), (x, *ws))
+
+
+def test_dx_is_skipped_when_feats_need_no_grad(monkeypatch):
+    feats, mask, ws, _, _ = _inputs(5)
+    asked = []
+    real = port.fused_gated_attn_pool_bwd
+
+    def spy(*args, need_dx=True):
+        asked.append(need_dx)
+        return real(*args, need_dx=need_dx)
+
+    monkeypatch.setattr(port, "fused_gated_attn_pool_bwd", spy)
+    x = torch.from_numpy(feats)
+    w_t = [t.requires_grad_() for t in _t(*ws)]
+    _loss_torch(*port.gated_attn_pool_grad(x, torch.from_numpy(mask),
+                                           *w_t)).backward()
+    assert asked == [False] and x.grad is None
+    assert all(t.grad is not None for t in w_t)
+    x.requires_grad_()
+    _loss_torch(*port.gated_attn_pool_grad(x, torch.from_numpy(mask),
+                                           *w_t)).backward()
+    assert asked == [False, True] and x.grad is not None
+
+
+def test_cpu_route_launches_no_kernel():
+    feats, mask, ws, _, _ = _inputs(6)
+    before = (port.fused_gated_attn_pool_batched.launches,
+              port.fused_gated_attn_pool_bwd.launches)
+    w_t = [t.requires_grad_() for t in _t(*ws)]
+    _loss_torch(*port.gated_attn_pool_grad(torch.from_numpy(feats),
+                                           torch.from_numpy(mask),
+                                           *w_t)).backward()
+    assert (port.fused_gated_attn_pool_batched.launches,
+            port.fused_gated_attn_pool_bwd.launches) == before
+
+
+@pytest.mark.parametrize("arg, shape, match", [
+    ("lse", (1, 5), "lse must be"),
+    ("c", (2, 4), "c must be"),
+    ("d_bag", (2, 5, 64), "d_bag must be"),
+    ("d_logits", (2, 5, 99), "d_logits must be"),
+])
+def test_bwd_arg_check_rejects_wrong_shapes(arg, shape, match):
+    b, n, k = 2, 100, 5
+    args = {"lse": torch.zeros(b, k), "c": torch.zeros(b, k),
+            "d_bag": torch.zeros(b, k, 128), "d_logits": torch.zeros(b, k, n)}
+    port._check_bwd_args(torch.zeros(b, n, 384), k, **args)
+    args[arg] = torch.zeros(*shape)
+    with pytest.raises(ValueError, match=match):
+        port._check_bwd_args(torch.zeros(b, n, 384), k, **args)
+
+
+def test_bare_forward_cpu_route_is_differentiable():
+    # the bare forward's CPU route differentiates through its plain
+    # version; its CUDA route refuses, as B1 alone has no backward
+    feats, mask, ws, _, _ = _inputs(7)
+    w_t = [t.requires_grad_() for t in _t(*ws)]
+    bag, _ = port.fused_gated_attn_pool_batched(torch.from_numpy(feats),
+                                                torch.from_numpy(mask), *w_t)
+    assert bag.requires_grad
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("kernel B2 is CUDA C++ for sm_90a: needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feats_dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("k", [1, 5])
+def test_b2_matches_plain_on_card(cuda_device, feats_dtype, k):
+    # serving width, a ragged N, B=3 with one all-masked bag; f32 on both
+    # sides with TF32 off, so only the summation order differs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.RandomState(8)
+    b, n, df = 3, 5000, 384
+    x = torch.from_numpy(rs.randn(b, n, df).astype(np.float32)).to(
+        cuda_device, feats_dtype)
+    m = torch.from_numpy(rs.rand(b, n) < 0.9).to(cuda_device)
+    m[1] = False
+    ws = [torch.from_numpy(((rs.rand(*s) * 2 - 1) * 0.09).astype(np.float32))
+          .to(cuda_device) for s in [(df, 128), (128,), (128, 128), (128,),
+                                     (128, 128), (128,), (128, k), (k,)]]
+    d_bag = torch.from_numpy(rs.randn(b, k, 128).astype(np.float32)).to(
+        cuda_device)
+    d_logits = torch.from_numpy(rs.randn(b, k, n).astype(np.float32)).to(
+        cuda_device)
+    with torch.no_grad():
+        bag, _, mx, s = port.fused_gated_attn_pool_batched(
+            x, m, *ws, return_stats=True)
+        lse = mx + torch.log(s.clamp_min(1e-30))
+        c = (d_bag * bag).sum(-1)
+        before = port.fused_gated_attn_pool_bwd.launches
+        got = port.fused_gated_attn_pool_bwd(x, m, *ws, lse, c, d_bag,
+                                             d_logits)
+        again = port.fused_gated_attn_pool_bwd(x, m, *ws, lse, c, d_bag,
+                                               d_logits)
+        torch.cuda.synchronize()
+        assert port.fused_gated_attn_pool_bwd.launches == before + 2
+        want = port._fused_pool_bwd_stats(x, m, *ws, lse, c, d_bag, d_logits)
+    for name, g, w, g2 in zip(GRAD_NAMES, got, want, again):
+        assert torch.equal(g, g2), f"{name} differs between two launches"
+        # fp16 dx rounds to one fp16 ulp (2**-11 of the value)
+        tol = 1e-3 if g.dtype == torch.float16 else 1e-4
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.abs().max()), (name, err)
+    assert bool((got[0][~m] == 0).all())
