@@ -20,7 +20,6 @@ import csv
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 from acmil_tpu_torch.config import Config
 from acmil_tpu_torch.data.bags import pad_bag
@@ -29,6 +28,7 @@ from acmil_tpu_torch.engine import checkpoint
 from acmil_tpu_torch.engine.metrics import classification_metrics
 from acmil_tpu_torch.engine.train import make_eval_step
 from acmil_tpu_torch.models import build_mil_model
+from acmil_tpu_torch.utils.device import entry_device
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -41,8 +41,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--arch", default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--tag", default="best", choices=["best", "last"])
-    p.add_argument("--device", default="cuda" if torch.cuda.is_available()
-                   else "cpu")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; without a card, raises "
+                        "unless this is cpu)")
     return p.parse_args(argv)
 
 
@@ -50,11 +51,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
     """Scores every slide; returns ``{"rows": [(name, label, *probs,
     pred)], "metrics": dict | None}``."""
     args = parse_args(argv)
+    device = entry_device(args.device)
     conf = Config.from_yaml(args.config, {"arch": args.arch,
                                           "seed": args.seed})
     ckpt = checkpoint.load(checkpoint.checkpoint_path(args.ckpt, args.tag))
     checkpoint.adopt_checkpoint_config(conf, ckpt["config"])
-    device = torch.device(args.device)
 
     model, family = build_mil_model(conf)
     model.load_state_dict(ckpt["model"])

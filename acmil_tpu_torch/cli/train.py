@@ -20,7 +20,6 @@ import os
 from pprint import pprint
 
 import numpy as np
-import torch
 
 from acmil_tpu_torch.config import Config
 from acmil_tpu_torch.data import BagLoader, build_hdf5_feat_dataset
@@ -31,6 +30,7 @@ from acmil_tpu_torch.engine import (create_train_state, evaluate, get_family,
 from acmil_tpu_torch.engine import checkpoint
 from acmil_tpu_torch.models import build_mil_model
 from acmil_tpu_torch.utils import MetricLogger, MetricsWriter, set_seed
+from acmil_tpu_torch.utils.device import entry_device
 
 # options of the JAX trainer this port does not have
 NOT_PORTED = ("mesh_data", "mesh_shape", "pod", "scan_epoch", "teacher_init")
@@ -67,7 +67,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--eval_only", "--eval-only", action="store_true",
                    help="skip training; evaluate checkpoint-best on val+test")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: cuda when available)")
+                   help="torch device (default cuda; without a card, "
+                        "raises unless this is cpu)")
     return p
 
 
@@ -95,16 +96,10 @@ def _refuse_unported(conf) -> None:
                              f"ported; unset it")
 
 
-def _device(conf) -> torch.device:
-    name = conf.extra.get("device") or ("cuda" if torch.cuda.is_available()
-                                        else "cpu")
-    return torch.device(name)
-
-
 def run_training(conf: Config, extra_config: dict | None = None) -> dict:
     _refuse_unported(conf)
+    device = entry_device(conf.extra.get("device"))
     set_seed(conf.seed)
-    device = _device(conf)
     writer = MetricsWriter(mode=conf.wandb_mode, log_dir=conf.log_dir,
                            config={**conf.to_dict(), **(extra_config or {})})
     print("Used config:")

@@ -9,8 +9,10 @@ imports nothing of JAX. Phases, in order; any failure raises and the exit
 code is non-zero:
 
 1. card: name and power limit (``nvidia-smi``); no CUDA device is an error.
-2. build: kernels B1 (``acmil_tpu_torch/csrc/attn_pool.cu``) and B2
-   (``acmil_tpu_torch/csrc/attn_pool_bwd.cu``), one ``nvcc`` each, together.
+2. build: kernels B1 (``acmil_tpu_torch/csrc/attn_pool.cu``), B2
+   (``acmil_tpu_torch/csrc/attn_pool_bwd.cu``), and the ViT GEMM
+   (``csrc/vit_gemm.cu``) and packed MHA B5' (``csrc/vit_attn.cu``) from which
+   the B3 and B4 chains are built: one ``nvcc`` each, all together.
 3. kernel B1 against its plain PyTorch version on the card at the serving
    width (Df=384, L=A=128), K in {5, 1}, N in {300, 16384, 65536}, B=1 and
    B=3 with one all-masked bag, fp16 and f32 features; then both timed with
@@ -36,10 +38,32 @@ code is non-zero:
    of the fused route (B1 + B2) match the plain route (forward and
    autograd), and five AdamW steps give matching losses; then the
    per-step wall time of both routes.
+8. ViT kernels against their plain versions, bf16: B5' at the widths of
+   ViT-S/16, ViT-S/8, CLIP-L/336 and GigaPath with B in {1, 64}; the B3
+   chain at ViT-S/16 with B in {1, 7, 256} and at ViT-S/8's 785 tokens
+   (outside the TPU's VMEM model, where the wrapper still launches); the B4
+   chain at ViT-B/16, UNI (with layerscale, B=4 and the path's B=32) and
+   ViT-S/8. Then each timed with CUDA events at its main path's shape, with
+   the matrices in bf16 as the path holds them (B3 at B=256, B4 at UNI and
+   B5' at CLIP-L/336, B=32),
+   beside its plain version and, for B5', ``F.scaled_dot_product_attention``
+   on the same qkv (a yardstick the port never calls).
+9. Step2, slice 3's main path: ``cli/step2_extract.py``'s ``main`` extracts
+   ViT-S/16 medical_ssl features (full width, depth 12, batch 256, seeded
+   random weights) from three synthetic slides of 1135 patches on ``cuda``;
+   the B3 chain must launch 12 times per batch; the features must be fp16,
+   finite, ``[N, 384]`` and within cosine 0.999 per patch of the plain route
+   (``fused=False``); ``cli/predict.py`` then scores the feature file with an
+   ACMIL_GA head (B1 once per slide), pixels to probabilities.
+10. ``vit_encode`` at UNI ViT-L/16 (B4) and CLIP-L/336 (B5') full width, depth
+   2, B=32, against ``fused=False``.
 
-The line before the last is ``{"kernels": [...]}`` with each kernel's
-launches on the training path, its worst error against the plain version and
-both times; the last line is ``{"ok": true, "device": {...}}``.
+The line before the last but one is ``{"kernels": [...]}`` with each
+kernel's launches on its path, its worst error against the plain version,
+its time, the plain version's, a library call's where one exists, and the
+bound (the larger of FLOPs / 989 TFLOP/s and bytes / 3.35 TB/s); then the
+card's name and power limit; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -82,6 +106,25 @@ STEP_LOSS_RTOL, STEP_GRAD_REL, STEP_GRAD_ATOL = 1e-5, 1e-3, 1e-7
 ADAM_LOSS_RTOL = 1e-3
 F32_PEAK_TFLOPS = 67.0     # H100 SXM, CUDA cores, published
 TRAIN_EPOCHS, N_TRAIN, N_VAL, N_TEST = 2, 16, 4, 4
+# bounds: H100 SXM dense bf16/fp16 tensor-core peak and HBM rate, published
+PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
+# ViT kernels vs their plain versions, bf16 both: the same rounding points
+# (f32 LN, products, softmax and residuals; bf16 y, qkv, p, o, gelu output),
+# so only the order of f32 sums differs, and it can flip a bf16 rounding by
+# one step (2**-8 relative). A flipped p moves an output by up to
+# 2**-8 * p * |v|, which is small against the largest output, not against an
+# output that cancels to near 0: so each check allows TOL * |want| + TOL *
+# max|want|, with B5' at one step either side and a chain at two (a flipped
+# qkv, p or o element goes on through proj and the residual)
+B5_TOL, CHAIN_TOL = 2.0 ** -7, 2.0 ** -6
+COS_MIN = 0.999            # features of the fused and plain routes, per patch
+# (name, dim, heads) of the trunks whose widths the ViT kernels are checked at
+VIT_S16, VIT_S8 = (197, 384, 6), (785, 384, 6)
+VIT_B16, UNI, CLIP_L, GIGA = (197, 768, 12), (197, 1024, 16), (577, 1024, 16), \
+    (197, 1536, 24)
+STEP2_BATCH, STEP2_DEPTH, PATCH_PX = 256, 12, 224
+STEP2_SLIDES = ((5600, 3360), (4480, 4480), (6720, 2688))   # 375+400+360 patches
+BIG_BATCH, BIG_DEPTH = 32, 2
 
 
 def card() -> str:
@@ -99,7 +142,7 @@ def card() -> str:
 def build() -> None:
     from acmil_tpu_torch.ops import _build
 
-    names = ("attn_pool", "attn_pool_bwd")
+    names = ("attn_pool", "attn_pool_bwd", "vit_gemm", "vit_attn")
     t0 = time.perf_counter()
     _build.build(*names)
     for name in names:
@@ -153,6 +196,49 @@ def _wall_ms(fn, reps):
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(out)
+
+
+def _host_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the bf16 tensor-core peak and the bytes over the HBM rate."""
+    t_ops = flops / PEAK_FLOPS * 1e3
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_mem),
+            "bound_by": "operations" if t_ops >= t_mem else "bytes"}
+
+
+def _pool_weight_count(k: int) -> int:
+    return (D_FEAT * D_INNER + D_INNER + 2 * (D_INNER * D_ATTN + D_ATTN)
+            + D_ATTN * k + k)
+
+
+def _b1_bound(n: int, k: int) -> dict:
+    """B1 on one fp16 bag of n rows: x·W1, both gates, the logits and the
+    pooling; reads the features, the mask and the f32 weights once, writes
+    the logits, the bag and (m, s)."""
+    flops = 2 * n * (D_FEAT * D_INNER + 2 * D_INNER * D_ATTN + D_ATTN * k
+                     + k * D_INNER)
+    nbytes = (n * D_FEAT * 2 + n + 4 * _pool_weight_count(k)
+              + 4 * (k * n + k * D_INNER + 2 * k))
+    return _bound(flops, nbytes)
+
+
+def _b2_bound(n: int, k: int) -> dict:
+    """B2 on one fp16 bag, weight gradients only: the forward's recompute
+    (x·W1, gates, logits) and the backward's products (d_p, d_g, d_h, dW1,
+    dV, dU, dw); reads features, mask, weights, lse, c, d_bag, d_logits,
+    writes the weight gradients."""
+    flops = 2 * n * (2 * D_FEAT * D_INNER + 6 * D_INNER * D_ATTN
+                     + 3 * D_ATTN * k + 2 * D_INNER * k)
+    nbytes = (n * D_FEAT * 2 + n + 8 * _pool_weight_count(k)
+              + 4 * (2 * k + k * D_INNER + k * n))
+    return _bound(flops, nbytes)
 
 
 def _rel_to_max(got, want) -> float:
@@ -216,7 +302,8 @@ def kernel_vs_plain(smi: str) -> dict:
               f"[{smi}]")
         times[n] = (t_k, t_p)
     return {"max_abs_err": worst, "ms": times[65536][0],
-            "plain_ms": times[65536][1]}
+            "plain_ms": times[65536][1], **_b1_bound(65536, N_TOKEN),
+            "library_ms": None}
 
 
 GRAD_NAMES = ("dx", "dW1", "db1", "dV", "dbv", "dU", "dbu", "dw", "dbw")
@@ -315,7 +402,8 @@ def bwd_kernel_vs_plain(smi: str) -> dict:
               f"{t_p:.4f} ms [{smi}]")
         times[n] = (t_k, t_p)
     return {"max_abs_err": worst_abs, "max_rel_to_max_err": worst_rel,
-            "ms": times[65536][0], "plain_ms": times[65536][1]}
+            "ms": times[65536][0], "plain_ms": times[65536][1],
+            **_b2_bound(65536, N_TOKEN), "library_ms": None}
 
 
 def _synthetic_slides(rs, lengths):
@@ -556,6 +644,400 @@ def train_routes(smi: str) -> None:
           + f" [{smi}]")
 
 
+def _layer_flops(n: int, d: int, hidden: int, mlp: bool) -> int:
+    """One image through a ViT layer (mlp) or its attention half: the qkv,
+    proj (and fc1, fc2) products and QK^T and PV over all heads."""
+    flops = 2 * n * d * 3 * d + 2 * n * d * d + 4 * n * n * d
+    return flops + (4 * n * d * hidden if mlp else 0)
+
+
+def _layer_bytes(b: int, n: int, d: int, hidden: int, mlp: bool,
+                 ls: bool) -> int:
+    """bf16 x read and out written once; the bf16 matrices (cast once, as
+    ``cast_kernel_weights`` gives them to the chain) and the f32 biases and
+    LN parameters read once."""
+    matrices = d * 3 * d + d * d + (2 * d * hidden if mlp else 0)
+    vectors = 3 * d + d + 2 * d + (d if ls else 0)
+    if mlp:
+        vectors += hidden + d + 2 * d
+    return 2 * 2 * b * n * d + 2 * matrices + 4 * vectors
+
+
+def _vit_weights(gen, d, hidden, ls=False):
+    """A layer's weights in the port's layout, seeded: LN near identity,
+    Linear U(±scale/sqrt(fan_in)), qkv three times wider so the softmax is
+    not flat; layerscale U(0.25, 0.75)."""
+    def lin(out, inp, scale=1.0):
+        w = (torch.rand(out, inp, generator=gen, device="cuda") * 2 - 1)
+        return w * scale / math.sqrt(inp), 0.1 * torch.randn(
+            out, generator=gen, device="cuda")
+
+    def vec(base):
+        return base + 0.1 * torch.randn(d, generator=gen, device="cuda")
+
+    w = {"norm1.weight": vec(1.0), "norm1.bias": vec(0.0),
+         "norm2.weight": vec(1.0), "norm2.bias": vec(0.0)}
+    w["attn.qkv.weight"], w["attn.qkv.bias"] = lin(3 * d, d, 3.0)
+    w["attn.proj.weight"], w["attn.proj.bias"] = lin(d, d)
+    w["mlp.fc1.weight"], w["mlp.fc1.bias"] = lin(hidden, d)
+    w["mlp.fc2.weight"], w["mlp.fc2.bias"] = lin(d, hidden)
+    if ls:
+        w["ls1.gamma"] = 0.25 + 0.5 * torch.rand(d, generator=gen,
+                                                 device="cuda")
+    return w
+
+
+def _cast_matrices(w: dict) -> dict:
+    """A layer's weights with its four matrices in bf16, the form the main
+    path's ``cast_kernel_weights`` hands the chains."""
+    return {k: v.bfloat16() if v.dim() == 2 else v for k, v in w.items()}
+
+
+def _err(got, want, tol) -> float:
+    """Worst |got - want|, after checking it is within tol·|want| +
+    tol·max|want|."""
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, rtol=tol,
+                               atol=tol * float(want.abs().max()))
+    return float((got - want).abs().max())
+
+
+@torch.no_grad()
+def vit_kernels_vs_plain(smi: str) -> dict:
+    """B5', B3 and B4 against their plain versions, bf16, then timed."""
+    from acmil_tpu_torch.ops import vit_attn_packed as pk
+    from acmil_tpu_torch.ops import vit_layer as vl
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    worst = {"B3": 0.0, "B4": 0.0, "B5": 0.0}
+    for name, (n, d, heads) in (("ViT-S/16", VIT_S16), ("ViT-S/8", VIT_S8),
+                                ("CLIP-L/336", CLIP_L), ("GigaPath", GIGA)):
+        for b in (1, 64):
+            qkv = (2 * torch.randn(b, n, 3 * d, generator=gen,
+                                   device="cuda")).bfloat16()
+            got = pk.fused_mha_packed(qkv, heads)
+            torch.cuda.synchronize()
+            err = _err(got, pk._reference_packed(qkv, heads), B5_TOL)
+            worst["B5"] = max(worst["B5"], err)
+            print(f"kernel B5' vs plain: {name} N={n} D={d} H={heads} B={b} "
+                  f"bf16: max_abs_err {err:.3e}")
+    # B3 also at ViT-S/8's 785 tokens, outside the TPU's fits_vmem: on the
+    # card the wrapper launches there too; B4 also at UNI's path shape
+    cases = [("B3", vl.fused_vit_layer, vl._reference_layer, name, shape, b,
+              False) for name, shape, b in (("ViT-S/16", VIT_S16, 1),
+                                            ("ViT-S/16", VIT_S16, 7),
+                                            ("ViT-S/16", VIT_S16, 256),
+                                            ("ViT-S/8", VIT_S8, 2))]
+    cases += [("B4", vl.fused_vit_attn_half, vl._reference_attn_half, name,
+               shape, b, ls) for name, shape, b, ls in
+              (("ViT-B/16", VIT_B16, 4, False), ("UNI ViT-L/16", UNI, 4, True),
+               ("UNI ViT-L/16", UNI, BIG_BATCH, True),
+               ("ViT-S/8", VIT_S8, 4, False))]
+    for kern, fused, plain, name, (n, d, heads), b, ls in cases:
+        w = _vit_weights(gen, d, 4 * d, ls)
+        x = torch.randn(b, n, d, generator=gen, device="cuda").bfloat16()
+        got = fused(x, w, heads)
+        torch.cuda.synchronize()
+        err = _err(got, plain(x, w, heads), CHAIN_TOL)
+        worst[kern] = max(worst[kern], err)
+        print(f"kernel {kern} chain vs plain: {name} N={n} D={d} H={heads} "
+              f"B={b}{' ls1' if ls else ''} bf16: max_abs_err {err:.3e}")
+
+    out = {}
+    n, d, heads = VIT_S16
+    w = _cast_matrices(_vit_weights(gen, d, 4 * d))
+    x = torch.randn(STEP2_BATCH, n, d, generator=gen, device="cuda").bfloat16()
+    out["B3"] = {"ms": _time_ms(lambda: vl.fused_vit_layer(x, w, heads), 20),
+                 "plain_ms": _time_ms(lambda: vl._reference_layer(x, w, heads),
+                                      10),
+                 "library_ms": None,
+                 **_bound(STEP2_BATCH * _layer_flops(n, d, 4 * d, True),
+                          _layer_bytes(STEP2_BATCH, n, d, 4 * d, True, False))}
+    n, d, heads = UNI
+    w = _cast_matrices(_vit_weights(gen, d, 4 * d, ls=True))
+    x = torch.randn(BIG_BATCH, n, d, generator=gen, device="cuda").bfloat16()
+    out["B4"] = {"ms": _time_ms(lambda: vl.fused_vit_attn_half(x, w, heads),
+                                20),
+                 "plain_ms": _time_ms(
+                     lambda: vl._reference_attn_half(x, w, heads), 10),
+                 "library_ms": None,
+                 **_bound(BIG_BATCH * _layer_flops(n, d, 0, False),
+                          _layer_bytes(BIG_BATCH, n, d, 0, False, True))}
+    n, d, heads = CLIP_L
+    qkv = torch.randn(BIG_BATCH, n, 3 * d, generator=gen,
+                      device="cuda").bfloat16()
+    q, k, v = qkv.view(BIG_BATCH, n, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+    out["B5"] = {"ms": _time_ms(lambda: pk.fused_mha_packed(qkv, heads), 20),
+                 "plain_ms": _time_ms(lambda: pk._reference_packed(qkv, heads),
+                                      10),
+                 "library_ms": _time_ms(
+                     lambda: torch.nn.functional.scaled_dot_product_attention(
+                         q, k, v), 20),
+                 **_bound(BIG_BATCH * 4 * n * n * d,
+                          BIG_BATCH * 2 * (n * 3 * d + n * d))}
+    for kern, shape in (("B3", f"ViT-S/16 B={STEP2_BATCH} N=197"),
+                        ("B4", f"UNI B={BIG_BATCH} N=197 ls1"),
+                        ("B5", f"CLIP-L/336 B={BIG_BATCH} N=577")):
+        r = out[kern]
+        lib = ("" if r["library_ms"] is None
+               else f", scaled_dot_product_attention {r['library_ms']:.4f} ms")
+        print(f"kernel {kern} time: {shape} bf16: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} "
+              f"ms ({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% of "
+              f"bound [{smi}]")
+        r["max_abs_err"] = worst[kern]
+    return out
+
+
+def _write_step2_inputs(tmp: str):
+    """Three synthetic PNG slides with every 224-px grid patch as Step1
+    coords, in the torch coords file (the card's machine has no h5py)."""
+    import cv2
+
+    from acmil_tpu_torch.wsi.synthetic import make_synthetic_slide_image
+    from acmil_tpu_torch.wsi.tiling import save_coords_pt
+
+    slide_dir, coords_dir = (os.path.join(tmp, d) for d in ("slides", "coords"))
+    os.makedirs(slide_dir)
+    labels = os.path.join(tmp, "labels.csv")
+    with open(labels, "w") as f:
+        f.write("slide_id,label\n")
+        for i, (w, h) in enumerate(STEP2_SLIDES):
+            name = f"slide_{i}"
+            img, _ = make_synthetic_slide_image(w, h, seed=SEED + i,
+                                                tumor=bool(i % 2))
+            cv2.imwrite(os.path.join(slide_dir, f"{name}.png"),
+                        cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+            xs, ys = np.meshgrid(np.arange(0, w - PATCH_PX + 1, PATCH_PX),
+                                 np.arange(0, h - PATCH_PX + 1, PATCH_PX),
+                                 indexing="ij")
+            save_coords_pt(os.path.join(coords_dir, f"{name}.pt"),
+                           np.stack([xs.ravel(), ys.ravel()], 1),
+                           {"patch_size": PATCH_PX, "patch_level": 0,
+                            "downsample": 1.0})
+            f.write(f"{name},{i % 2}\n")
+    return slide_dir, coords_dir, labels
+
+
+def _row_cosine(a, b):
+    a, b = a.float(), b.float()
+    return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)).clamp_min(1e-12)
+
+
+def step2_run(smi: str) -> dict:
+    """Slice 3's main path: Step2 extraction through the port's CLI, then
+    scoring of the features it wrote."""
+    import warnings
+
+    from acmil_tpu_torch.cli import predict, step2_extract
+    from acmil_tpu_torch.config import Config
+    from acmil_tpu_torch.data.patch_dataset import SlidePatchBatches
+    from acmil_tpu_torch.engine import checkpoint
+    from acmil_tpu_torch.models import build_mil_model
+    from acmil_tpu_torch.models.common import torch_linear_init_
+    from acmil_tpu_torch.models.encoders.build import (build_encoder,
+                                                       encoder_feature_fn,
+                                                       preprocess)
+    from acmil_tpu_torch.models.encoders.fast import (cast_kernel_weights,
+                                                      vit_encode)
+    from acmil_tpu_torch.ops import attn_pool, vit_attn_packed, vit_layer
+    from acmil_tpu_torch.wsi.slide import open_slide
+    from acmil_tpu_torch.wsi.tiling import load_coords_pt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        slide_dir, coords_dir, labels = _write_step2_inputs(tmp)
+        print(f"step2 inputs: {len(STEP2_SLIDES)} synthetic PNG slides "
+              f"written in {time.perf_counter() - t0:.2f} s")
+        out_dir = os.path.join(tmp, "feats")
+        argv = ["--slide_dir", slide_dir, "--coords_dir", coords_dir,
+                "--output_dir", out_dir, "--pretrain", "medical_ssl",
+                "--backbone", "ViT-S/16", "--batch_size", str(STEP2_BATCH),
+                "--label_csv", labels, "--coords_format", "pt",
+                "--out_format", "pt", "--device", "cuda"]
+        counters = (vit_layer.fused_vit_layer, vit_layer.fused_vit_attn_half,
+                    vit_attn_packed.fused_mha_packed)
+        for c in counters:
+            c.launches = 0
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")        # no pretrain_weights: seeded
+            t0 = time.perf_counter()
+            res = step2_extract.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        b3, b4, b5 = (c.launches for c in counters)
+        batches = sum(-(-n // STEP2_BATCH) for n in res["slides"].values())
+        if b3 != STEP2_DEPTH * batches or b4 or b5:
+            raise AssertionError(f"B3/B4/B5 launched {b3}/{b4}/{b5} times: want "
+                                 f"B3 {STEP2_DEPTH} x {batches} batches only")
+        feats = torch.load(res["out_path"], weights_only=True)
+        if res["patches"] < 1100 or len(feats) != len(STEP2_SLIDES):
+            raise AssertionError(f"Step2 wrote {res['slides']}")
+
+        # the same encoder (Step2 seeds its random init with 0) on the plain
+        # route, over the same patch batches
+        conf = Config.from_dict({"pretrain": "medical_ssl",
+                                 "backbone": "ViT-S/16"})
+        with warnings.catch_warnings(), torch.random.fork_rng(devices=[]):
+            warnings.simplefilter("ignore")
+            torch.manual_seed(0)
+            model, spec, _ = build_encoder(conf)
+        dev = torch.device("cuda")
+        embed = encoder_feature_fn(model, spec, dev)
+        plain = encoder_feature_fn(model, spec, dev, fused=False)
+        worst_cos, worst_abs = 1.0, 0.0
+        first_batch = None
+        for name, item in sorted(feats.items()):
+            coords, _, attrs = load_coords_pt(os.path.join(coords_dir,
+                                                           f"{name}.pt"))
+            f = item["feat"]
+            if f.dtype != torch.float16 or tuple(f.shape) != (len(coords), 384) \
+                    or not bool(torch.isfinite(f).all()):
+                raise AssertionError(f"{name}: features {f.dtype} "
+                                     f"{tuple(f.shape)}")
+            slide = open_slide(os.path.join(slide_dir, f"{name}.png"))
+            src = SlidePatchBatches(slide, coords, PATCH_PX, 0,
+                                    target_size=spec.img_size,
+                                    batch_size=STEP2_BATCH)
+            ref = []
+            for imgs, _, n in src:
+                first_batch = imgs if first_batch is None else first_batch
+                ref.append(plain(imgs)[:n])
+            ref = torch.cat(ref)
+            got = f.to(dev)
+            worst_cos = min(worst_cos, float(_row_cosine(got, ref).min()))
+            worst_abs = max(worst_abs, float((got.float() - ref.float())
+                                             .abs().max()))
+        if not worst_cos >= COS_MIN:
+            raise AssertionError(f"fused vs plain features: cosine {worst_cos}")
+
+        # encoder device time per batch of 256, pixels already on the card,
+        # parameters as encoder_feature_fn holds them
+        enc = model.encoder
+        params = cast_kernel_weights(
+            {k: v.to(dev) for k, v in enc.state_dict().items()},
+            n_tok=(enc.img_size // enc.patch) ** 2 + 1, heads=enc.heads,
+            dtype=enc.dtype)
+        x = preprocess(torch.from_numpy(first_batch).to(dev), spec)
+        kw = dict(patch=enc.patch, depth=enc.depth, heads=enc.heads,
+                  dtype=enc.dtype)
+        enc_ms = _time_ms(lambda: vit_encode(params, x, **kw), 5)
+        plain_ms = _time_ms(lambda: vit_encode(params, x, **kw, fused=False),
+                            3)
+        embed_ms = _wall_ms(lambda: embed(first_batch), 5)
+        # the host side of one batch: opening a slide (decode and pyramid),
+        # then reading 256 patches, as SlidePatchBatches' thread does
+        name0 = sorted(feats)[0]
+        coords0, _, _ = load_coords_pt(os.path.join(coords_dir, f"{name0}.pt"))
+        t0 = time.perf_counter()
+        slide0 = open_slide(os.path.join(slide_dir, f"{name0}.png"))
+        open_ms = (time.perf_counter() - t0) * 1e3
+        src0 = SlidePatchBatches(slide0, coords0, PATCH_PX, 0,
+                                 target_size=spec.img_size,
+                                 batch_size=STEP2_BATCH)
+        read_ms = statistics.median(
+            _host_ms(lambda: src0._make(np.arange(STEP2_BATCH)))
+            for _ in range(3))
+
+        # pixels to probabilities: an ACMIL_GA head scores the feature file
+        yml_conf = Config.from_yaml(YML, {"arch": "ga", "n_token": N_TOKEN})
+        head, _ = build_mil_model(yml_conf)
+        torch_linear_init_(head, torch.Generator().manual_seed(SEED))
+        ckpt = os.path.join(tmp, "checkpoint-best.pth")
+        checkpoint.save(ckpt, head, epoch=0, conf=yml_conf)
+        attn_pool.fused_gated_attn_pool_batched.launches = 0
+        scored = predict.main(["--config", YML, "--ckpt", ckpt, "--features",
+                               res["out_path"], "--out_csv",
+                               os.path.join(tmp, "preds.csv"),
+                               "--device", "cuda"])
+        b1 = attn_pool.fused_gated_attn_pool_batched.launches
+        if b1 != len(feats):
+            raise AssertionError(f"B1 launched {b1} times for {len(feats)} "
+                                 f"slides")
+        _check_predictions(scored, len(feats), yml_conf.n_class)
+    print(f"step2: cli/step2_extract.py, ViT-S/16 medical_ssl full width, "
+          f"depth {STEP2_DEPTH}, batch {STEP2_BATCH}: {res['patches']} patches "
+          f"of {len(feats)} slides in {batches} batches; B3 launches {b3} "
+          f"(= {STEP2_DEPTH} x {batches}); fp16 [N, 384] finite; fused vs "
+          f"plain route worst cosine {worst_cos:.6f}, max_abs_err "
+          f"{worst_abs:.3e}")
+    print(f"step2 throughput: {res['patches'] / res['seconds']:.1f} patches/s "
+          f"(wall of extraction, slide decode and patch reads included; "
+          f"{wall:.2f} s for the whole main()); encoder device time per "
+          f"batch of {STEP2_BATCH}: fused {enc_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; feature closure wall per batch from host "
+          f"pixels {embed_ms:.4f} ms [{smi}]")
+    print(f"step2 host side: opening a {STEP2_SLIDES[0][0]}x"
+          f"{STEP2_SLIDES[0][1]} PNG slide (decode and pyramid) "
+          f"{open_ms:.1f} ms; reading {STEP2_BATCH} patches of {PATCH_PX} px "
+          f"{read_ms:.2f} ms (median of 3), against {enc_ms:.2f} ms of "
+          f"encoder device time per batch")
+    print(f"step2 -> cli/predict.py: {len(feats)} slides scored, B1 launches "
+          f"{b1}, probabilities finite and rows sum to 1")
+    return {"B3": b3, "B1": b1, "cosine": worst_cos}
+
+
+@torch.no_grad()
+def big_trunk_run(smi: str) -> dict:
+    """vit_encode's attention-half route (UNI, B4) and packed route
+    (CLIP-L/336, B5') at full width, depth 2, against the plain route."""
+    from acmil_tpu_torch.models.encoders.build import (CLIP_MEAN, CLIP_STD,
+                                                       IMAGENET_MEAN,
+                                                       IMAGENET_STD,
+                                                       EncoderSpec,
+                                                       preprocess)
+    from acmil_tpu_torch.models.encoders.fast import (cast_kernel_weights,
+                                                      vit_encode)
+    from acmil_tpu_torch.models.encoders.vit import ViT
+    from acmil_tpu_torch.ops import vit_attn_packed, vit_layer
+
+    trunks = (("UNI ViT-L/16", "B4", vit_layer.fused_vit_attn_half,
+               dict(patch=16, dim=1024, heads=16, layerscale=True),
+               IMAGENET_MEAN, IMAGENET_STD),
+              ("CLIP-L/336", "B5", vit_attn_packed.fused_mha_packed,
+               dict(patch=14, dim=1024, heads=16, img_size=336, proj_dim=768,
+                    pre_norm=True, act="quick_gelu"), CLIP_MEAN, CLIP_STD))
+    launches = {}
+    for name, kern, counter, kw, mean, std in trunks:
+        torch.manual_seed(SEED)
+        m = ViT(depth=BIG_DEPTH, **kw)
+        gen = torch.Generator().manual_seed(SEED)
+        for blk in m.blocks:
+            for ls in (blk.ls1, blk.ls2):
+                if hasattr(ls, "gamma"):
+                    ls.gamma.data = 0.25 + 0.5 * torch.rand(ls.gamma.shape,
+                                                            generator=gen)
+        params = cast_kernel_weights(
+            {k: v.cuda() for k, v in m.state_dict().items()},
+            n_tok=(m.img_size // m.patch) ** 2 + 1, heads=m.heads,
+            dtype=torch.bfloat16, act=m.act)
+        spec = EncoderSpec(None, m.embed_dim, m.img_size, mean, std, "vit")
+        u8 = torch.randint(0, 256, (BIG_BATCH, m.img_size, m.img_size, 3),
+                           generator=gen, dtype=torch.uint8).cuda()
+        x = preprocess(u8, spec)
+        enc_kw = dict(patch=m.patch, depth=BIG_DEPTH, heads=m.heads,
+                      act=m.act, pre_norm=m.pre_norm, proj_dim=m.proj_dim)
+        counter.launches = 0
+        got = vit_encode(params, x, **enc_kw)
+        torch.cuda.synchronize()
+        launches[kern] = counter.launches
+        if launches[kern] != BIG_DEPTH:
+            raise AssertionError(f"{name}: {kern} launched {launches[kern]} "
+                                 f"times for {BIG_DEPTH} layers")
+        want = vit_encode(params, x, **enc_kw, fused=False)
+        cos = float(_row_cosine(got, want).min())
+        if tuple(got.shape) != (BIG_BATCH, m.embed_dim) or cos < COS_MIN \
+                or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: {tuple(got.shape)}, cosine {cos}")
+        t_f = _time_ms(lambda: vit_encode(params, x, **enc_kw), 5)
+        t_p = _time_ms(lambda: vit_encode(params, x, **enc_kw, fused=False), 3)
+        print(f"vit_encode {name}: full width, depth {BIG_DEPTH}, B={BIG_BATCH} "
+              f"bf16: {kern} launches {launches[kern]}; fused vs plain route "
+              f"worst cosine {cos:.6f}; device time fused {t_f:.4f} ms, plain "
+              f"{t_p:.4f} ms [{smi}]")
+    return launches
+
+
 def main() -> None:
     smi = card()
     build()
@@ -564,6 +1046,10 @@ def main() -> None:
     serve_launches = slice_run(smi)
     train_launches = train_run(smi)
     train_routes(smi)
+    vit = vit_kernels_vs_plain(smi)
+    step2 = step2_run(smi)
+    big = big_trunk_run(smi)
+    vit_src = "acmil_tpu_torch/csrc/vit_gemm.cu + acmil_tpu_torch/csrc/vit_attn.cu"
     print(json.dumps({"kernels": [{
         "name": "B1 fused gated-attention pooling (forward)",
         "route": "cuda",
@@ -571,13 +1057,32 @@ def main() -> None:
         "replaces": "acmil_tpu/ops/attn_pool.py:54",
         "launches": train_launches["B1"],
         "launches_serving": serve_launches,
+        "launches_step2_scoring": step2["B1"],
         **b1}, {
         "name": "B2 fused gated-attention pooling (backward)",
         "route": "cuda",
         "source": "acmil_tpu_torch/csrc/attn_pool_bwd.cu",
         "replaces": "acmil_tpu/ops/attn_pool.py:240",
         "launches": train_launches["B2"],
-        **b2}]}))
+        **b2}, {
+        "name": "B3 fused ViT layer (chain: 4 GEMM launches + B5')",
+        "route": "cuda",
+        "source": vit_src,
+        "replaces": "acmil_tpu/ops/vit_layer.py:45",
+        "launches": step2["B3"],
+        **vit["B3"]}, {
+        "name": "B4 fused ViT attention half (chain: 2 GEMM launches + B5')",
+        "route": "cuda",
+        "source": vit_src,
+        "replaces": "acmil_tpu/ops/vit_layer.py:239",
+        "launches": big["B4"],
+        **vit["B4"]}, {
+        "name": "B5 packed multi-head attention (B5')",
+        "route": "cuda",
+        "source": "acmil_tpu_torch/csrc/vit_attn.cu",
+        "replaces": "acmil_tpu/ops/vit_attn_packed.py:37",
+        "launches": big["B5"],
+        **vit["B5"]}]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
