@@ -10,7 +10,9 @@ The port of ``scripts/predict.py``::
 ``--ckpt`` is a ``.pth`` file, or a directory holding
 ``checkpoint-{--tag}.pth``. ``--features`` is the reference's H5 dump or a
 torch feature file (``data/ptio.py``). On a CUDA device an ACMIL_GA head
-pools each slide through kernel B1.
+pools each slide through kernel B1, and a DSMIL head (``--arch dsmil``, or
+a checkpoint of one) through kernel B6 when the slide's padded bag reaches
+``models/fast.py::FUSE_MIN_N`` patches, through its plain forward below.
 """
 
 from __future__ import annotations

@@ -1,0 +1,36 @@
+"""Step3 — the generic MIL trainer, the port of
+``Step3_WSI_classification.py``.
+
+The same flags, YAMLs and arch names; the per-arch loss wiring lives in the
+family registry. Of the JAX trainer's zoo the port registers ``abmil``,
+``ga`` and ``dsmil``; any other arch raises, naming those::
+
+    python -m acmil_tpu_torch.cli.step3_generic \\
+        --config config/camelyon_medical_ssl_config.yml --arch dsmil \\
+        --device cuda
+
+DSMIL trains through its plain forward with autograd; every val/test bag
+whose padded length reaches ``models/fast.py::FUSE_MIN_N`` is scored
+through kernel B6.
+"""
+
+from __future__ import annotations
+
+from acmil_tpu_torch.cli.train import base_parser, load_conf, run_training
+
+
+def main(argv=None) -> dict:
+    p = base_parser("Generic WSI MIL classification (PyTorch)")
+    p.add_argument("--w_loss", type=float, default=None,
+                   help="bag/instance loss mix for CLAM (engine.py:103); "
+                        "the attention-diversity weight for DSMIL")
+    args = p.parse_args(argv)
+    conf = load_conf(args)
+    # the reference script's alias, so its command lines resolve as there
+    if conf.arch == "mha":
+        conf.arch = "mha_single"
+    return run_training(conf)
+
+
+if __name__ == "__main__":
+    main()

@@ -63,7 +63,7 @@ class Config:
     D_inner: int = 128
 
     # --- MIL head ---
-    arch: str = "ga"                # ga | abmil in this port so far
+    arch: str = "ga"                # ga | abmil | dsmil in this port so far
     n_token: int = 1                # ACMIL attention branches
     n_masked_patch: int = 0         # STKIM top-k per branch
     mask_drop: float = 0.0          # STKIM random-drop fraction

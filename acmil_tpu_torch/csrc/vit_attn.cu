@@ -1,6 +1,6 @@
-// Kernel B5': packed multi-head attention for Hopper (sm_90a).
+// Kernels B5' and B7: multi-head attention for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel acmil_tpu/ops/vit_attn_packed.py::
+// B5' replaces the Pallas TPU kernel acmil_tpu/ops/vit_attn_packed.py::
 // _packed_kernel, which fused_mha_packed launches, and serves as the
 // attention step of kernels B3 and B4 (acmil_tpu/ops/vit_layer.py::
 // _layer_kernel and _attn_half_kernel). From the token-major output of a
@@ -14,17 +14,26 @@
 // so heads are split inside the kernel and no [B, H, N, dh] copy of q, k, v
 // or o ever reaches device memory.
 //
+// B7 replaces acmil_tpu/ops/vit_attn.py::_mha_kernel (fused_vit_attention):
+// the same function with q, k and v given as separate [B, H, N, dh] tensors
+// and a caller's scale. Both entries run one kernel body, which reads each
+// operand through strides: element (b, h, t, d) of an operand lies at
+// base + b*sb + h*sh + t*st + d. The packed entry passes the strides of the
+// qkv layout, the B7 entry those of its tensors, so any layout whose rows
+// are contiguous and 16-byte aligned works without a copy.
+//
 // Design. One block per (64-query tile, head, image), four warps, each warp
 // owning 16 query rows. The block streams the image's keys and values in
-// tiles of 64 rows through shared memory, so any N works (197, 577, 785).
+// tiles of 64 rows through shared memory, so any N works (197, 577, 785);
+// the TPU kernel's VMEM limit on N does not apply.
 // Pass 1 runs the online softmax over the key tiles and keeps each row's
 // running max m and sum l in registers. Pass 2 recomputes the scores of each
 // key tile, forms p = exp(s - m) / l, rounds p to bf16 exactly where the TPU
-// kernel does (vit_attn_packed.py:66, after the normalisation and before the
-// product with v), and accumulates p v. Both products run on the tensor cores
-// through nvcuda::wmma bf16 fragments (16x16x16, f32 accumulation). Keys past
-// N get -inf and value rows past N are loaded as zeros (0 * NaN = NaN
-// otherwise); query rows past N are never written.
+// kernels do (vit_attn_packed.py:66, vit_attn.py:62: after the normalisation
+// and before the product with v), and accumulates p v. Both products run on
+// the tensor cores through nvcuda::wmma bf16 fragments (16x16x16, f32
+// accumulation). Keys past N get -inf and value rows past N are loaded as
+// zeros (0 * NaN = NaN otherwise); query rows past N are never written.
 //
 // Bounds. At CLIP-L/336 (N=577, D=1024, 16 heads) one image is 1.36 GFLOP of
 // QK^T and PV against 4.73 MB of qkv read and o written: about 1.38 us of
@@ -35,9 +44,10 @@
 // rate rather than by either roof; a single-pass flash form with wgmma is
 // later work.
 //
-// Widths the kernel takes: bf16 qkv [B, N, 3D] and o [B, N, D], contiguous
-// and 16-byte aligned; dh = D / heads in {16, 32, 64, 128}. The Python
-// wrapper (acmil_tpu_torch/ops/vit_attn_packed.py) checks them and raises.
+// Widths the kernel takes: bf16 operands with dh in {16, 32, 64, 128}, each
+// row of dh elements contiguous and 16-byte aligned. The Python wrappers
+// (acmil_tpu_torch/ops/vit_attn_packed.py, ops/vit_attn.py) check them and
+// raise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,6 +68,17 @@ constexpr int kSPad = 4;         // f32 padding of each shared row
 
 constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
 
+// One operand of the attention, read through its strides in elements:
+// element (b, h, t, d) at base + b*sb + h*sh + t*st + d.
+template <typename P>
+struct Strided {
+  P* base;
+  long long sb, sh, st;
+  __device__ __forceinline__ P* head(int b, int h) const {
+    return base + b * sb + h * sh;
+  }
+};
+
 template <int DH>
 struct Layout {
   static constexpr int kLd = DH + kPad;                         // Q, K, V rows
@@ -71,14 +92,12 @@ struct Layout {
   static constexpr size_t kBytes = kP + align128(sizeof(__nv_bfloat16) * kQTile * kPLd);
 };
 
-// Copies rows [row0, row0 + 64) of one head's slice (columns col0 ..
-// col0 + DH) of the image's [N, 3D] qkv into shared memory; rows past N
-// become zeros.
+// Copies rows [row0, row0 + 64) of one head of one image (rows st apart
+// from src) into shared memory; rows past N become zeros.
 template <int DH>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* img,
-                                          int row0, int n, int three_d,
-                                          int col0) {
+                                          const __nv_bfloat16* src,
+                                          int row0, int n, long long st) {
   constexpr int kChunks = DH / 8;               // 16-byte chunks per row
   constexpr int kLd = Layout<DH>::kLd;
   for (int q = threadIdx.x; q < kKTile * kChunks; q += kThreads) {
@@ -87,8 +106,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
     uint4 val = make_uint4(0, 0, 0, 0);
     const int row = row0 + r;
     if (row < n)
-      val = *reinterpret_cast<const uint4*>(
-          img + static_cast<size_t>(row) * three_d + col0 + c);
+      val = *reinterpret_cast<const uint4*>(src + row * st + c);
     *reinterpret_cast<uint4*>(dst + r * kLd + c) = val;
   }
 }
@@ -124,9 +142,9 @@ __device__ __forceinline__ void warp_scores(const __nv_bfloat16* qs,
 
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
-mha_packed_kernel(const __nv_bfloat16* __restrict__ qkv,   // [B, N, 3D]
-                  __nv_bfloat16* __restrict__ out,         // [B, N, D]
-                  int n, int dim, float scale) {
+mha_kernel(Strided<const __nv_bfloat16> q, Strided<const __nv_bfloat16> k,
+           Strided<const __nv_bfloat16> v, Strided<__nv_bfloat16> o, int n,
+           float scale) {
   using L = Layout<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::kQ);
@@ -138,26 +156,24 @@ mha_packed_kernel(const __nv_bfloat16* __restrict__ qkv,   // [B, N, 3D]
   const int q0 = blockIdx.x * kQTile;
   const int head = blockIdx.y;
   const int b = blockIdx.z;
-  const int three_d = 3 * dim;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const __nv_bfloat16* img = qkv + static_cast<size_t>(b) * n * three_d;
-  const int q_col = head * DH;
-  const int k_col = dim + head * DH;
-  const int v_col = 2 * dim + head * DH;
+  const __nv_bfloat16* qh = q.head(b, head);
+  const __nv_bfloat16* kh = k.head(b, head);
+  const __nv_bfloat16* vh = v.head(b, head);
 
   // two lanes per query row, each over half of a key tile's 64 columns
   const int row = 16 * warp + lane / 2;
   const int c0 = (lane % 2) * (kKTile / 2);
   float* srow = ss + row * L::kSLd + c0;
 
-  load_tile<DH>(qs, img, q0, n, three_d, q_col);
+  load_tile<DH>(qs, qh, q0, n, q.st);
 
   // pass 1: each row's max m and sum l of exp(s - m) over all keys
   float m = -INFINITY, l = 0.0f;
   for (int kt = 0; kt < n; kt += kKTile) {
     __syncthreads();                    // the previous key tile is consumed
-    load_tile<DH>(ks, img, kt, n, three_d, k_col);
+    load_tile<DH>(ks, kh, kt, n, k.st);
     __syncthreads();
     warp_scores<DH>(qs, ks, ss, warp);
     __syncwarp();
@@ -182,8 +198,8 @@ mha_packed_kernel(const __nv_bfloat16* __restrict__ qkv,   // [B, N, 3D]
   __nv_bfloat16* prow = ps + row * L::kPLd + c0;
   for (int kt = 0; kt < n; kt += kKTile) {
     __syncthreads();
-    load_tile<DH>(ks, img, kt, n, three_d, k_col);
-    load_tile<DH>(vs, img, kt, n, three_d, v_col);
+    load_tile<DH>(ks, kh, kt, n, k.st);
+    load_tile<DH>(vs, vh, kt, n, v.st);
     __syncthreads();
     warp_scores<DH>(qs, ks, ss, warp);
     __syncwarp();
@@ -213,34 +229,47 @@ mha_packed_kernel(const __nv_bfloat16* __restrict__ qkv,   // [B, N, 3D]
                             L::kSLd, wmma::mem_row_major);
   __syncwarp();
   constexpr int kChunks = DH / 8;
-  for (int q = lane; q < 16 * kChunks; q += 32) {
-    const int r = 16 * warp + q / kChunks;
-    const int c = (q % kChunks) * 8;
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = 16 * warp + i / kChunks;
+    const int c = (i % kChunks) * 8;
     const int tok = q0 + r;
     if (tok >= n) continue;
     const float* src = ss + r * L::kSLd + c;
     __align__(16) __nv_bfloat16 v8[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) v8[j] = __float2bfloat16_rn(src[j]);
-    *reinterpret_cast<uint4*>(out + (static_cast<size_t>(b) * n + tok) * dim +
-                              head * DH + c) =
+    *reinterpret_cast<uint4*>(o.head(b, head) + tok * o.st + c) =
         *reinterpret_cast<const uint4*>(v8);
   }
 }
 
 template <int DH>
-cudaError_t launch(const __nv_bfloat16* qkv, __nv_bfloat16* out, int batch,
-                   int n, int dim, int heads, cudaStream_t stream) {
+cudaError_t launch(Strided<const __nv_bfloat16> q, Strided<const __nv_bfloat16> k,
+                   Strided<const __nv_bfloat16> v, Strided<__nv_bfloat16> o,
+                   int batch, int heads, int n, float scale,
+                   cudaStream_t stream) {
   const size_t smem = Layout<DH>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      mha_packed_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mha_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(DH)));
   const dim3 grid((n + kQTile - 1) / kQTile, heads, batch);
-  mha_packed_kernel<DH><<<grid, kThreads, smem, stream>>>(qkv, out, n, dim,
-                                                          scale);
+  mha_kernel<DH><<<grid, kThreads, smem, stream>>>(q, k, v, o, n, scale);
   return cudaGetLastError();
+}
+
+cudaError_t launch_dh(int dh, Strided<const __nv_bfloat16> q,
+                      Strided<const __nv_bfloat16> k,
+                      Strided<const __nv_bfloat16> v, Strided<__nv_bfloat16> o,
+                      int batch, int heads, int n, float scale,
+                      cudaStream_t stream) {
+  switch (dh) {
+    case 16: return launch<16>(q, k, v, o, batch, heads, n, scale, stream);
+    case 32: return launch<32>(q, k, v, o, batch, heads, n, scale, stream);
+    case 64: return launch<64>(q, k, v, o, batch, heads, n, scale, stream);
+    case 128: return launch<128>(q, k, v, o, batch, heads, n, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -253,17 +282,38 @@ extern "C" {
 // a head width it is not compiled for).
 int b5_mha_packed(const void* qkv, void* out, int batch, int n, int dim,
                   int heads, void* stream) {
-  const __nv_bfloat16* in = static_cast<const __nv_bfloat16*>(qkv);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (heads <= 0 || dim % heads) return static_cast<int>(cudaErrorInvalidValue);
-  switch (dim / heads) {
-    case 16: return static_cast<int>(launch<16>(in, o, batch, n, dim, heads, st));
-    case 32: return static_cast<int>(launch<32>(in, o, batch, n, dim, heads, st));
-    case 64: return static_cast<int>(launch<64>(in, o, batch, n, dim, heads, st));
-    case 128: return static_cast<int>(launch<128>(in, o, batch, n, dim, heads, st));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int dh = dim / heads;
+  const __nv_bfloat16* in = static_cast<const __nv_bfloat16*>(qkv);
+  const long long sb = static_cast<long long>(n) * 3 * dim;
+  const Strided<const __nv_bfloat16> q{in, sb, dh, 3LL * dim};
+  const Strided<const __nv_bfloat16> k{in + dim, sb, dh, 3LL * dim};
+  const Strided<const __nv_bfloat16> v{in + 2 * dim, sb, dh, 3LL * dim};
+  const Strided<__nv_bfloat16> o{static_cast<__nv_bfloat16*>(out),
+                                 static_cast<long long>(n) * dim, dh, dim};
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(dh)));
+  return static_cast<int>(launch_dh(dh, q, k, v, o, batch, heads, n, scale,
+                                    static_cast<cudaStream_t>(stream)));
+}
+
+// Launches kernel B7 on `stream`: q, k, v [batch, heads, n, dh] bf16 ->
+// out [batch, heads, n, dh] bf16, each given by its device pointer and its
+// (batch, head, token) strides in elements; every row of dh elements must
+// be contiguous and 16-byte aligned. Returns the cudaError_t of the launch.
+int b7_mha_strided(const void* q, long long q_sb, long long q_sh,
+                   long long q_st, const void* k, long long k_sb,
+                   long long k_sh, long long k_st, const void* v,
+                   long long v_sb, long long v_sh, long long v_st, void* out,
+                   long long o_sb, long long o_sh, long long o_st, int batch,
+                   int heads, int n, int dh, float scale, void* stream) {
+  using In = Strided<const __nv_bfloat16>;
+  const In qs{static_cast<const __nv_bfloat16*>(q), q_sb, q_sh, q_st};
+  const In ks{static_cast<const __nv_bfloat16*>(k), k_sb, k_sh, k_st};
+  const In vs{static_cast<const __nv_bfloat16*>(v), v_sb, v_sh, v_st};
+  const Strided<__nv_bfloat16> os{static_cast<__nv_bfloat16*>(out), o_sb, o_sh,
+                                  o_st};
+  return static_cast<int>(launch_dh(dh, qs, ks, vs, os, batch, heads, n, scale,
+                                    static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

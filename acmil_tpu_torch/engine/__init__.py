@@ -1,5 +1,5 @@
-from acmil_tpu_torch.engine.families import (ACMILFamily, FAMILIES, Family,
-                                             get_family)
+from acmil_tpu_torch.engine.families import (ACMILFamily, DSMILFamily,
+                                             FAMILIES, Family, get_family)
 from acmil_tpu_torch.engine.metrics import (accuracy, auroc,
                                             classification_metrics, f1_macro)
 from acmil_tpu_torch.engine.schedules import half_cosine_schedule
@@ -10,6 +10,7 @@ from acmil_tpu_torch.engine.train import (TrainState, create_train_state,
 
 __all__ = [
     "ACMILFamily",
+    "DSMILFamily",
     "FAMILIES",
     "Family",
     "get_family",

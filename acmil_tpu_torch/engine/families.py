@@ -13,8 +13,10 @@ import torch
 
 from acmil_tpu_torch.data.bags import Bag
 from acmil_tpu_torch.engine import losses as L
+from acmil_tpu_torch.models import fast
 from acmil_tpu_torch.models.acmil import ACMIL_GA
 from acmil_tpu_torch.models.fast import acmil_ga_apply_batched
+from acmil_tpu_torch.ops.masked import masked_max
 
 
 class Family:
@@ -101,7 +103,48 @@ class ACMILFamily(Family):
         return torch.softmax(outputs[1], dim=-1)
 
 
-FAMILIES: Dict[str, Family] = {"default": Family(), "acmil": ACMILFamily()}
+class DSMILFamily(Family):
+    """(inst_logits, bag_logits, attn): 0.5 CE(masked-max inst) + 0.5 CE(bag)
+    (`engine.py:41-56`); eval probs = mean of the two softmaxes
+    (`engine.py:176-182`). Training runs the plain forward with autograd, as
+    in the JAX package. Eval of the generic trainer's build pools through
+    kernel B6 (``fast.dsmil_eval_fused``) when the bag's padded length is at
+    least ``fast.FUSE_MIN_N``, the JAX package's route; below it, or with
+    ``fused=False``, the plain forward runs."""
+
+    name = "dsmil"
+
+    def _max_inst(self, outputs, bag):
+        inst, bag_logits, _ = outputs
+        return masked_max(inst, bag.mask, dim=1), bag_logits
+
+    def loss(self, outputs, bag, valid, conf_d):
+        max_preds, bag_logits = self._max_inst(outputs, bag)
+        ce = 0.5 * L.cross_entropy(max_preds, bag.label, valid) \
+            + 0.5 * L.cross_entropy(bag_logits, bag.label, valid)
+        # the reference adds w_loss * pairwise attention diversity when
+        # n_token > 1 (`engine.py:50-58`)
+        n_tok = min(conf_d["n_token"], outputs[2].shape[1])
+        div = L.attention_diversity_loss(outputs[2][:, :n_tok], bag.mask,
+                                         n_tok, valid)
+        loss = ce + conf_d["w_loss"] * div
+        return loss, {"ce_loss": ce, "diff_loss": div}
+
+    def eval_outputs(self, model, bag: Bag, fused: bool = True):
+        if (fused and fast.dsmil_is_fusable(model)
+                and bag.feats.shape[1] >= fast.FUSE_MIN_N):
+            return fast.dsmil_eval_fused(model, bag.feats, bag.mask)
+        return self._max_inst(model(bag.feats, bag.mask, deterministic=True),
+                              bag)
+
+    def probs(self, outputs):
+        max_preds, bag_logits = outputs
+        return 0.5 * torch.softmax(max_preds, dim=-1) \
+            + 0.5 * torch.softmax(bag_logits, dim=-1)
+
+
+FAMILIES: Dict[str, Family] = {"default": Family(), "acmil": ACMILFamily(),
+                               "dsmil": DSMILFamily()}
 
 
 def get_family(name: str) -> Family:

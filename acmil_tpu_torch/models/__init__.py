@@ -1,8 +1,8 @@
 """MIL model dispatch, the port of ``acmil_tpu/models/__init__.py``.
 
 A registry from arch name to ``(factory(conf) -> nn.Module, family)``,
-where ``family`` keys into :mod:`acmil_tpu_torch.engine.families`. This
-slice registers ``ga`` (ACMIL_GA) and ``abmil``.
+where ``family`` keys into :mod:`acmil_tpu_torch.engine.families`. The
+port registers ``ga`` (ACMIL_GA), ``abmil`` and ``dsmil``.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Tuple
 
 from acmil_tpu_torch.models.acmil import ABMIL, ACMIL_GA
+from acmil_tpu_torch.models.dsmil import DSMIL
 
 _REGISTRY: Dict[str, Tuple[Callable, str]] = {}
 
@@ -40,6 +41,14 @@ def _acmil_ga(conf):
     )
 
 
+@register_model("dsmil", family="dsmil")
+def _dsmil(conf):
+    # the generic trainer builds BClassifier(nonlinear=False)
+    # (Step3_WSI_classification.py:129-131)
+    return DSMIL(n_class=conf.n_class, d_feat=conf.D_feat,
+                 d_inner=conf.D_inner, nonlinear=False)
+
+
 def build_mil_model(conf):
     """Returns (model, family) for ``conf.arch``."""
     if conf.arch not in _REGISTRY:
@@ -48,4 +57,4 @@ def build_mil_model(conf):
     return factory(conf), family
 
 
-__all__ = ["ABMIL", "ACMIL_GA", "build_mil_model", "register_model"]
+__all__ = ["ABMIL", "ACMIL_GA", "DSMIL", "build_mil_model", "register_model"]

@@ -4,8 +4,10 @@ the port's ``state_dict``.
 
 flax kernels are ``[in, out]``, torch weights ``[out, in]``; ACMIL_GA's
 stacked branch classifiers ``branch_w [K, L, C]`` / ``branch_b [K, C]``
-become ``classifier.{k}.fc.*``. The inverse is
-``scripts/import_torch_checkpoint.py::convert_acmil_ga``.
+become ``classifier.{k}.fc.*``; DSMIL's dense ``fcc_w [C, C·D]`` becomes the
+Conv1d weight ``b_classifier.fcc.weight [C, C, D]``. The inverses are
+``scripts/import_torch_checkpoint.py::convert_acmil_ga`` and
+``convert_dsmil``.
 """
 
 from __future__ import annotations
@@ -63,14 +65,31 @@ def _vit(params) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _dsmil(params) -> Dict[str, torch.Tensor]:
+    """The registered DSMIL build (``nonlinear=False``, ``passing_v=False``):
+    ``Dense_0`` is the instance classifier, ``Dense_1`` the query map."""
+    if set(params) != {"Dense_0", "Dense_1", "fcc_w", "fcc_b"}:
+        raise ValueError("only the nonlinear=False, passing_v=False DSMIL "
+                         f"tree converts; got keys {sorted(params)}")
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "i_classifier.fc.0", params["Dense_0"])
+    _linear(sd, "b_classifier.q", params["Dense_1"])
+    w = np.asarray(params["fcc_w"])
+    sd["b_classifier.fcc.weight"] = _t(w.reshape(w.shape[0], w.shape[0], -1))
+    sd["b_classifier.fcc.bias"] = _t(params["fcc_b"])
+    return sd
+
+
 def from_jax_params(params, arch: str) -> Dict[str, torch.Tensor]:
-    """``arch`` is ``"ga"`` (ACMIL_GA), ``"abmil"`` or ``"vit"`` (a patch
-    encoder of ``acmil_tpu.models.encoders.vit``)."""
+    """``arch`` is ``"ga"`` (ACMIL_GA), ``"abmil"``, ``"dsmil"`` or ``"vit"``
+    (a patch encoder of ``acmil_tpu.models.encoders.vit``)."""
     if arch == "vit":
         return _vit(params)
+    if arch == "dsmil":
+        return _dsmil(params)
     if arch not in ("ga", "abmil"):
         raise ValueError(f"no converter for arch {arch!r} (have 'ga', "
-                         f"'abmil', 'vit')")
+                         f"'abmil', 'dsmil', 'vit')")
     sd: Dict[str, torch.Tensor] = {}
     _linear(sd, "dimreduction.fc1", params["DimReduction_0"]["Dense_0"])
     ag = params["AttentionGated_0"]

@@ -1,12 +1,14 @@
-"""Fused paths through kernels B1 and B2, the port of
+"""Fused paths through kernels B1, B2 and B6, the port of
 ``acmil_tpu/models/fast.py``.
 
-They take the same modules as the plain forwards (``models/acmil.py``), so a
-trained checkpoint serves through the kernels with no conversion. The pooling
-runs :func:`acmil_tpu_torch.ops.attn_pool.gated_attn_pool_grad` (B1 forward,
-B2 backward); the branch and slide classifiers after it stay plain PyTorch,
-as the JAX package leaves them to XLA. The DimReduction is bias-free, so the
-kernels' ``b1`` is zero.
+They take the same modules as the plain forwards (``models/acmil.py``,
+``models/dsmil.py``), so a trained checkpoint serves through the kernels with
+no conversion. The ACMIL pooling runs
+:func:`acmil_tpu_torch.ops.attn_pool.gated_attn_pool_grad` (B1 forward, B2
+backward); the branch and slide classifiers after it stay plain PyTorch, as
+the JAX package leaves them to XLA. The DimReduction is bias-free, so the
+kernels' ``b1`` is zero. DSMIL's eval forward pools through B6
+(:func:`dsmil_eval_fused`).
 
 In training, STKIM applies to the pooled output as an O(K·k) correction
 (:func:`_stkim_correct`), so the recipe with STKIM keeps the fused kernels.
@@ -17,10 +19,21 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+from acmil_tpu_torch.models.dsmil import DSMIL
 from acmil_tpu_torch.ops.attn_pool import (fused_gated_attn_pool,
                                            gated_attn_pool_grad)
-from acmil_tpu_torch.ops.masked import NEG_INF, stkim_drop
+from acmil_tpu_torch.ops.dsmil_pool import fused_dsmil_pool
+from acmil_tpu_torch.ops.masked import (NEG_INF, masked_fill, masked_max,
+                                        stkim_drop)
+
+# The DSMIL families route eval through B6 only at N ≥ this threshold,
+# copied verbatim from the JAX package (acmil_tpu/models/fast.py), so the
+# port sends the same bags to the kernel. It is that package's fused-vs-plain
+# crossover on its TPU, not a measurement of the H100's (chip_smoke.py times
+# both routes there). Tests pin it to 0 to force the kernel at small N.
+FUSE_MIN_N = 49152
 
 # Smallest kept softmax mass (1 − Σ dropped probabilities) the O(K·k)
 # STKIM subtract-renormalise identity stays accurate for in f32:
@@ -144,3 +157,34 @@ def acmil_ga_apply_batched(model, feats, mask,
     sub = _branch_heads(model, bag)
     slide = model.Slide_classifier.fc(bag.mean(dim=1))
     return sub, slide, logits
+
+
+def dsmil_is_fusable(model) -> bool:
+    """True for the generic trainer's DSMIL build (``nonlinear=False``,
+    ``passing_v=False``, `Step3_WSI_classification.py:129-131`); the
+    nonlinear and passing_v variants keep the plain forward."""
+    return (isinstance(model, DSMIL) and not model.nonlinear
+            and not model.passing_v)
+
+
+def dsmil_eval_fused(model, feats, mask):
+    """DSMIL's deterministic forward through kernel B6 → the family's eval
+    pair (masked-max instance logits [B, C], bag logits [B, C]), matching
+    ``DSMIL.forward``.
+
+    The instance GEMM, the critical-instance argmax and ``q_max`` run as
+    plain PyTorch on an f32 copy of the features, as the JAX function runs
+    them in XLA; B6 then pools the features as they came (fp16 or f32)."""
+    inst_fc = model.i_classifier.fc[0]
+    q_fc = model.b_classifier.q
+    x = feats.to(inst_fc.weight.dtype)
+    inst = F.linear(x, inst_fc.weight, inst_fc.bias)            # [B, N, C]
+    crit = masked_fill(inst, mask[:, :, None]).argmax(dim=1)    # [B, C]
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    q_max = F.linear(x[rows, crit], q_fc.weight, q_fc.bias)     # [B, C, Q]
+    bag_feat, _ = fused_dsmil_pool(feats, mask, q_fc.weight.t(), q_fc.bias,
+                                   q_max)
+    fcc = model.b_classifier.fcc
+    bag_logits = F.linear(bag_feat.reshape(x.shape[0], -1),
+                          fcc.weight.reshape(fcc.out_channels, -1), fcc.bias)
+    return masked_max(inst, mask, dim=1), bag_logits

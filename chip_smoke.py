@@ -10,9 +10,10 @@ code is non-zero:
 
 1. card: name and power limit (``nvidia-smi``); no CUDA device is an error.
 2. build: kernels B1 (``acmil_tpu_torch/csrc/attn_pool.cu``), B2
-   (``acmil_tpu_torch/csrc/attn_pool_bwd.cu``), and the ViT GEMM
-   (``csrc/vit_gemm.cu``) and packed MHA B5' (``csrc/vit_attn.cu``) from which
-   the B3 and B4 chains are built: one ``nvcc`` each, all together.
+   (``acmil_tpu_torch/csrc/attn_pool_bwd.cu``), the ViT GEMM
+   (``csrc/vit_gemm.cu``) and MHA B5'/B7 (``csrc/vit_attn.cu``) from which
+   the B3 and B4 chains are built, and B6 (``csrc/dsmil_pool.cu``): one
+   ``nvcc`` each, all together.
 3. kernel B1 against its plain PyTorch version on the card at the serving
    width (Df=384, L=A=128), K in {5, 1}, N in {300, 16384, 65536}, B=1 and
    B=3 with one all-masked bag, fp16 and f32 features; then both timed with
@@ -57,11 +58,38 @@ code is non-zero:
    ACMIL_GA head (B1 once per slide), pixels to probabilities.
 10. ``vit_encode`` at UNI ViT-L/16 (B4) and CLIP-L/336 (B5') full width, depth
    2, B=32, against ``fused=False``.
+11. kernel B6 (``csrc/dsmil_pool.cu``) against its plain version at (D, Q) of
+   camelyon_medical_ssl (384, 128) and UNI (1024, 512), C in {2, 4}, N in
+   {300, 16384, 65536}, B=1 and B=3 with one all-masked bag, fp16 and f32
+   features; then B6, the plain pooling and the whole fused and plain DSMIL
+   eval forwards timed with CUDA events, and the N from which the fused
+   forward wins on this card printed beside ``FUSE_MIN_N``.
+12. DSMIL scoring, slice 4's main path: a DSMIL head at the
+   camelyon_medical_ssl widths (seeded weights, saved through
+   ``engine/checkpoint.save``) scores 16 synthetic slides of 1k-65k patches
+   through ``cli/predict.py``'s ``main`` on ``cuda``; B6 must launch once per
+   slide whose bucket reaches ``FUSE_MIN_N``; the probabilities must be
+   finite, sum to 1 and match the plain route. Then where one 50000-patch
+   slide's time goes, from host features to probabilities.
+13. DSMIL training: ``cli/step3_generic.py``'s ``main --arch dsmil`` trains 2
+   epochs on 24 synthetic slides of 1k-65k patches on ``cuda``; B6 must
+   launch once per val/test bag whose bucket reaches ``FUSE_MIN_N``, per
+   epoch; losses finite; the best checkpoint scores slides through
+   ``cli/predict.py``.
+14. kernel B7 (the strided entry of ``csrc/vit_attn.cu``) against its plain
+   version, bf16, at ViT-S/16, ViT-S/8 and CLIP-L/336 with B in {1, 64} and
+   on q, k, v that are strided views of a packed qkv; its backward on the
+   card against autograd through the plain version; then B7, the plain
+   version and ``F.scaled_dot_product_attention`` timed at ViT-S/16, B=256.
 
 The line before the last but one is ``{"kernels": [...]}`` with each
-kernel's launches on its path, its worst error against the plain version,
-its time, the plain version's, a library call's where one exists, and the
-bound (the larger of FLOPs / 989 TFLOP/s and bytes / 3.35 TB/s); then the
+kernel's launches on its path (B7's are counted over phases 3-13, where no
+production path calls it, and its entry also gives the count of its
+checks), its worst error against the plain version, its time (``ms``: CUDA
+events around one call of the wrapper; ``device_ms``: the kernels' own
+device time from ``torch.profiler``), the plain version's, a library call's
+where one exists, and the bound (the larger of FLOPs / 989 TFLOP/s and
+bytes / 3.35 TB/s); then the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -125,6 +153,16 @@ VIT_B16, UNI, CLIP_L, GIGA = (197, 768, 12), (197, 1024, 16), (577, 1024, 16), \
 STEP2_BATCH, STEP2_DEPTH, PATCH_PX = 256, 12, 224
 STEP2_SLIDES = ((5600, 3360), (4480, 4480), (6720, 2688))   # 375+400+360 patches
 BIG_BATCH, BIG_DEPTH = 32, 2
+# DSMIL: (D, Q) of camelyon_medical_ssl and UNI; B6 against its plain version
+# at the JAX test's tolerance (tests/test_attn_pool.py), both f32 with TF32
+# off: only the order of the sums differs (B6 folds the critical queries
+# into the features' space, D·C instead of D·Q products per row); fused
+# against plain scoring at tests/test_attn_pool.py's eval tolerance
+DSMIL_WIDTHS = ((384, 128), (1024, 512))
+DSMIL_ATOL, DSMIL_RTOL = 1e-4, 1e-4
+DSMIL_PROB_ATOL, DSMIL_PROB_RTOL = 2e-5, 2e-4
+DSMIL_SERVE_SLIDES, DSMIL_BIG_SLIDES = 16, 5
+B6_KERNELS = ("fold_queries_kernel", "pool_partial_kernel", "pool_merge_kernel")
 
 
 def card() -> str:
@@ -142,7 +180,7 @@ def card() -> str:
 def build() -> None:
     from acmil_tpu_torch.ops import _build
 
-    names = ("attn_pool", "attn_pool_bwd", "vit_gemm", "vit_attn")
+    names = ("attn_pool", "attn_pool_bwd", "vit_gemm", "vit_attn", "dsmil_pool")
     t0 = time.perf_counter()
     _build.build(*names)
     for name in names:
@@ -184,6 +222,76 @@ def _time_ms(fn, iters=30):
         torch.cuda.synchronize()
         total += e0.elapsed_time(e1)
     return total / iters
+
+
+def _device_events(prof):
+    """(name, us) of each event the profiler saw on the card: kernels,
+    copies and sets. Only these are summed: a CPU op's self device time
+    repeats the time of the kernels it launched. The schedule's step
+    annotation, which spans a step on the card too, is left out."""
+    from torch.autograd import DeviceType
+
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("ProfilerStep")]
+
+
+def _profiled(fn, reps, before=None):
+    """(profile of ``reps`` calls of ``fn``, host ms per call under it).
+    Tracing starts one call early (the schedule's warm-up), and each call is
+    waited on, so that the window holds every launch of its calls."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps,
+                                   repeat=1)) as prof:
+        for i in range(reps + 1):
+            if i == 1:
+                t0 = time.perf_counter()
+            if before is not None:
+                before()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof, (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _device_ms(fn, kernels, reps=20):
+    """(device ms per call of ``fn`` in the kernels whose names contain one
+    of ``kernels``, their launches per call), from ``torch.profiler`` with
+    the L2 flushed before each call as in ``_time_ms``: the kernels' own
+    time, without the wrapper's host work that a CUDA-event span around a
+    short call also holds. Each kernel's mean over the launches seen times
+    its launches per call, so an event the trace lost does not count as 0
+    ms. (None, 0) when the profiler sees none."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    prof, _ = _profiled(fn, reps, before=flush.zero_)
+    by_name = {}
+    for name, us in _device_events(prof):
+        if any(k in name for k in kernels):
+            by_name.setdefault(name, []).append(us)
+    if not by_name:
+        return None, 0
+    per_call = {name: max(1, round(len(v) / reps))
+                for name, v in by_name.items()}
+    ms = sum(statistics.fmean(v) * per_call[name]
+             for name, v in by_name.items()) / 1e3
+    return ms, sum(per_call.values())
+
+
+def _fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def _bound_share(r: dict) -> str:
+    """The bound as a share of the kernels' device time, or of the call's
+    CUDA-event time where the profiler saw no device time."""
+    t, what = ((r["device_ms"], "device") if r.get("device_ms")
+               else (r["ms"], "call"))
+    return f"{100 * r['bound_ms'] / t:.1f}% of bound ({what} time)"
 
 
 def _wall_ms(fn, reps):
@@ -301,7 +409,12 @@ def kernel_vs_plain(smi: str) -> dict:
               f"({100 * tflops / F32_PEAK_TFLOPS:.0f}% of f32 CUDA-core peak) "
               f"[{smi}]")
         times[n] = (t_k, t_p)
-    return {"max_abs_err": worst, "ms": times[65536][0],
+    dev, per_call = _device_ms(
+        lambda: ap.fused_gated_attn_pool_batched(x, m, *ws),
+        ("pool_partial_kernel", "pool_merge_kernel"))
+    print(f"kernel B1 device time: N=65536 B=1 K={N_TOKEN} fp16: "
+          f"{_fmt_ms(dev)} in {per_call:g} launches per call [{smi}]")
+    return {"max_abs_err": worst, "ms": times[65536][0], "device_ms": dev,
             "plain_ms": times[65536][1], **_b1_bound(65536, N_TOKEN),
             "library_ms": None}
 
@@ -401,9 +514,17 @@ def bwd_kernel_vs_plain(smi: str) -> dict:
               f"only: kernel {t_k:.4f} ms, plain autograd backward "
               f"{t_p:.4f} ms [{smi}]")
         times[n] = (t_k, t_p)
+    dev, per_call = _device_ms(
+        lambda: ap.fused_gated_attn_pool_bwd(x, m, *ws, lse, c, d_bag,
+                                             d_logits, need_dx=False),
+        ("pool_bwd_partial_kernel", "grad_reduce_kernel"))
+    print(f"kernel B2 device time: N=65536 B=1 K={N_TOKEN} fp16, weight "
+          f"gradients only: {_fmt_ms(dev)} in {per_call:g} launches per call "
+          f"[{smi}]")
     return {"max_abs_err": worst_abs, "max_rel_to_max_err": worst_rel,
-            "ms": times[65536][0], "plain_ms": times[65536][1],
-            **_b2_bound(65536, N_TOKEN), "library_ms": None}
+            "ms": times[65536][0], "device_ms": dev,
+            "plain_ms": times[65536][1], **_b2_bound(65536, N_TOKEN),
+            "library_ms": None}
 
 
 def _synthetic_slides(rs, lengths):
@@ -747,7 +868,10 @@ def vit_kernels_vs_plain(smi: str) -> dict:
     n, d, heads = VIT_S16
     w = _cast_matrices(_vit_weights(gen, d, 4 * d))
     x = torch.randn(STEP2_BATCH, n, d, generator=gen, device="cuda").bfloat16()
+    chain = ("gemm_kernel", "mha_kernel")
     out["B3"] = {"ms": _time_ms(lambda: vl.fused_vit_layer(x, w, heads), 20),
+                 "device": _device_ms(lambda: vl.fused_vit_layer(x, w, heads),
+                                      chain, 10),
                  "plain_ms": _time_ms(lambda: vl._reference_layer(x, w, heads),
                                       10),
                  "library_ms": None,
@@ -758,6 +882,8 @@ def vit_kernels_vs_plain(smi: str) -> dict:
     x = torch.randn(BIG_BATCH, n, d, generator=gen, device="cuda").bfloat16()
     out["B4"] = {"ms": _time_ms(lambda: vl.fused_vit_attn_half(x, w, heads),
                                 20),
+                 "device": _device_ms(
+                     lambda: vl.fused_vit_attn_half(x, w, heads), chain, 10),
                  "plain_ms": _time_ms(
                      lambda: vl._reference_attn_half(x, w, heads), 10),
                  "library_ms": None,
@@ -768,6 +894,8 @@ def vit_kernels_vs_plain(smi: str) -> dict:
                       device="cuda").bfloat16()
     q, k, v = qkv.view(BIG_BATCH, n, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
     out["B5"] = {"ms": _time_ms(lambda: pk.fused_mha_packed(qkv, heads), 20),
+                 "device": _device_ms(lambda: pk.fused_mha_packed(qkv, heads),
+                                      ("mha_kernel",)),
                  "plain_ms": _time_ms(lambda: pk._reference_packed(qkv, heads),
                                       10),
                  "library_ms": _time_ms(
@@ -779,12 +907,13 @@ def vit_kernels_vs_plain(smi: str) -> dict:
                         ("B4", f"UNI B={BIG_BATCH} N=197 ls1"),
                         ("B5", f"CLIP-L/336 B={BIG_BATCH} N=577")):
         r = out[kern]
+        r["device_ms"], per_call = r.pop("device")
         lib = ("" if r["library_ms"] is None
                else f", scaled_dot_product_attention {r['library_ms']:.4f} ms")
-        print(f"kernel {kern} time: {shape} bf16: kernel {r['ms']:.4f} ms, "
+        print(f"kernel {kern} time: {shape} bf16: kernel {r['ms']:.4f} ms "
+              f"(device {_fmt_ms(r['device_ms'])} in {per_call:g} launches), "
               f"plain {r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} "
-              f"ms ({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% of "
-              f"bound [{smi}]")
+              f"ms ({r['bound_by']}), {_bound_share(r)} [{smi}]")
         r["max_abs_err"] = worst[kern]
     return out
 
@@ -1038,9 +1167,428 @@ def big_trunk_run(smi: str) -> dict:
     return launches
 
 
+def _dsmil_model(conf):
+    """The registered DSMIL head with every Linear and the fcc Conv1d drawn
+    from torch's default U(±1/sqrt(fan_in)) by a seeded generator."""
+    from torch import nn
+
+    from acmil_tpu_torch.models import build_mil_model
+
+    model, family = build_mil_model(conf)
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Linear, nn.Conv1d)):
+                bound = m.weight[0].numel() ** -0.5
+                m.weight.uniform_(-bound, bound, generator=gen)
+                m.bias.uniform_(-bound, bound, generator=gen)
+    return model, family
+
+
+def _b6_bound(n: int, d: int, q: int, c: int, feat_bytes: int) -> dict:
+    """B6 on one bag of n rows, counting the TPU kernel's work (q = x·Wq +
+    bq, the logits and the pooling); reads x, the mask, Wq, bq and q_max
+    once, writes the logits and the bag."""
+    flops = 2 * n * d * q + 2 * n * c * (q + d)
+    nbytes = (n * d * feat_bytes + n + 4 * (d * q + q + c * q)
+              + 4 * (c * n + c * d))
+    return _bound(flops, nbytes)
+
+
+def _b6_inputs(gen, b, n, d, q, c, dtype):
+    """Features, a 90% mask (bag 1 of 3 all masked), Wq and bq at torch's
+    Linear scale, and q_max from one random row per class, as the critical
+    instances give it."""
+    x = torch.randn(b, n, d, generator=gen, device="cuda").to(dtype)
+    m = torch.rand(b, n, generator=gen, device="cuda") < 0.9
+    if b == 3:
+        m[1] = False
+    bound = d ** -0.5
+    wq = (torch.rand(d, q, generator=gen, device="cuda") * 2 - 1) * bound
+    bq = (torch.rand(q, generator=gen, device="cuda") * 2 - 1) * bound
+    idx = torch.randint(0, n, (b, c), generator=gen, device="cuda")
+    rows = torch.arange(b, device="cuda")[:, None]
+    q_max = x.float()[rows, idx] @ wq + bq
+    return x, m, wq, bq, q_max
+
+
+@torch.no_grad()
+def dsmil_kernel_vs_plain(smi: str) -> dict:
+    """B6 against its plain version, then timed; the DSMIL eval crossover."""
+    from acmil_tpu_torch.config import Config
+    from acmil_tpu_torch.data.bags import pad_bag
+    from acmil_tpu_torch.engine import get_family
+    from acmil_tpu_torch.models import fast
+    from acmil_tpu_torch.ops import dsmil_pool as dp
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst, checks = 0.0, 0
+    for d, q in DSMIL_WIDTHS:
+        for c in (2, 4):
+            for n in (300, 16384, 65536):
+                for b in (1, 3):
+                    for dtype in (torch.float16, torch.float32):
+                        x, m, wq, bq, q_max = _b6_inputs(gen, b, n, d, q, c,
+                                                         dtype)
+                        bag, lg = dp.fused_dsmil_pool(x, m, wq, bq, q_max)
+                        torch.cuda.synchronize()
+                        checks += 1
+                        rbag, rlg = dp.dsmil_pool_reference(x.float(), m, wq,
+                                                            bq, q_max)
+                        valid = m[:, None, :].expand_as(lg)
+                        torch.testing.assert_close(bag, rbag, atol=DSMIL_ATOL,
+                                                   rtol=DSMIL_RTOL)
+                        torch.testing.assert_close(lg[valid], rlg[valid],
+                                                   atol=DSMIL_ATOL,
+                                                   rtol=DSMIL_RTOL)
+                        if not bool((lg[~valid] == dp.NEG).all()):
+                            raise AssertionError("B6 pad logits are not NEG")
+                        if bool(bag.isnan().any()) or (b == 3
+                                                       and bool(bag[1].any())):
+                            raise AssertionError("B6 all-masked bag is not 0")
+                        err = max(float((bag - rbag).abs().max()),
+                                  float((lg[valid] - rlg[valid]).abs().max()))
+                        worst = max(worst, err)
+                        print(f"kernel B6 vs plain: D={d} Q={q} C={c} N={n} "
+                              f"B={b} {str(dtype)[6:]}: max_abs_err {err:.3e} "
+                              f"(bag, logits)")
+
+    d, q, c = D_FEAT, D_INNER, 2
+    times = {}
+    for n in (16384, 32768, 65536):
+        x, m, wq, bq, q_max = _b6_inputs(gen, 1, n, d, q, c, torch.float16)
+        m[:] = True
+        t_k = _time_ms(lambda: dp.fused_dsmil_pool(x, m, wq, bq, q_max))
+        t_p = _time_ms(lambda: dp.dsmil_pool_reference(x.float(), m, wq, bq,
+                                                       q_max))
+        dev, per_call = _device_ms(
+            lambda: dp.fused_dsmil_pool(x, m, wq, bq, q_max), B6_KERNELS)
+        times[n] = (t_k, t_p, dev)
+        r = {"ms": t_k, "device_ms": dev, **_b6_bound(n, d, q, c, 2)}
+        print(f"kernel B6 time: N={n} B=1 D={d} Q={q} C={c} fp16: call "
+              f"{t_k:.4f} ms, device {_fmt_ms(dev)} in {per_call:g} launches, "
+              f"plain {t_p:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {_bound_share(r)} [{smi}]")
+
+    # the whole eval forward, fused (B6) against plain, per padded length
+    conf = Config.from_yaml(YML, {"arch": "dsmil"})
+    model, family = _dsmil_model(conf)
+    model.cuda().eval()
+    fam = get_family(family)
+    rs = np.random.default_rng(SEED + 4)
+    route_ms = {}
+    for n_pad in [2 ** e for e in range(10, 17)]:
+        feat = rs.standard_normal((n_pad - n_pad // 8, D_FEAT),
+                                  dtype=np.float32)
+        bag = pad_bag(feat, None, 0, n_pad=n_pad, dtype=np.float16).to("cuda")
+        route_ms[n_pad] = (
+            _time_ms(lambda: fast.dsmil_eval_fused(model, bag.feats, bag.mask),
+                     20),
+            _time_ms(lambda: fam.eval_outputs(model, bag, fused=False), 20))
+    wins = [n for n, (f, p) in route_ms.items() if f < p]
+    cross = next((n for n in sorted(route_ms)
+                  if all(m in wins for m in route_ms if m >= n)), None)
+    print("DSMIL eval forward, fused (B6) vs plain, device ms per bag with "
+          "7/8 of its padded length valid: " + ", ".join(
+              f"N={n} {f:.4f} vs {p:.4f}" for n, (f, p) in route_ms.items())
+          + f" [{smi}]")
+    print(f"DSMIL eval crossover on this card: the fused route wins from "
+          f"N={cross} up (None: at no tested N); FUSE_MIN_N = "
+          f"{fast.FUSE_MIN_N} (the JAX package's value, kept) [{smi}]")
+    return {"max_abs_err": worst, "checks": checks,
+            "ms": times[65536][0], "device_ms": times[65536][2],
+            "plain_ms": times[65536][1],
+            **_b6_bound(65536, d, q, c, 2), "library_ms": None,
+            "library": "none (q must be formed first: two calls)",
+            "crossover_n": cross}
+
+
+def dsmil_serve_run(smi: str) -> dict:
+    """Slice 4's main path: DSMIL scoring through the port's CLI."""
+    from acmil_tpu_torch.cli import predict
+    from acmil_tpu_torch.config import Config
+    from acmil_tpu_torch.data.bags import bucket_length, pad_bag
+    from acmil_tpu_torch.data.ptio import write_feature_pt
+    from acmil_tpu_torch.engine import checkpoint, make_eval_step
+    from acmil_tpu_torch.models import fast
+    from acmil_tpu_torch.ops.dsmil_pool import (dsmil_pool_reference,
+                                                fused_dsmil_pool)
+
+    conf = Config.from_yaml(YML, {"arch": "dsmil"})
+    if (conf.D_feat, conf.D_inner, conf.n_class) != (D_FEAT, D_INNER, 2):
+        raise AssertionError(f"unexpected widths {conf.D_feat}/{conf.D_inner}")
+    model, family = _dsmil_model(conf)
+    rs = np.random.default_rng(SEED + 5)
+    lengths = [1000, 50000, 65536, 40000, 33000, 60000] + rs.integers(
+        1000, 65537, DSMIL_SERVE_SLIDES - 6).tolist()
+    slides = _synthetic_slides(rs, lengths)
+    big = sum(n > 32768 for n in lengths)
+    fused_bags = sum(bucket_length(n, conf.min_bucket, conf.max_patches)
+                     >= fast.FUSE_MIN_N for n in lengths)
+    if big < DSMIL_BIG_SLIDES or fused_bags != big:
+        raise AssertionError(f"{big} slides over 32768 patches")
+    with tempfile.TemporaryDirectory() as tmp:
+        feats = os.path.join(tmp, "feats.pt")
+        ckpt = os.path.join(tmp, "checkpoint-best.pth")
+        write_feature_pt(feats, slides)
+        checkpoint.save(ckpt, model, epoch=0, conf=conf)
+        argv = ["--config", YML, "--ckpt", ckpt, "--features", feats,
+                "--out_csv", os.path.join(tmp, "preds.csv"), "--device", "cuda"]
+
+        fused_dsmil_pool.launches = 0
+        t0 = time.perf_counter()
+        res = predict.main(argv)
+        wall = time.perf_counter() - t0
+        launches = fused_dsmil_pool.launches
+    if launches != fused_bags:
+        raise AssertionError(f"B6 launched {launches} times for {fused_bags} "
+                             f"slides with a bucket of at least "
+                             f"{fast.FUSE_MIN_N}")
+    _check_predictions(res, len(slides), conf.n_class)
+
+    model.cuda().eval()
+    plain = make_eval_step(model, family, fused=False)
+    fused = make_eval_step(model, family)
+    worst = 0.0
+    for row in res["rows"]:
+        item = slides[row[0]]
+        bag = pad_bag(item["feat"], item["coords"], item["label"],
+                      min_bucket=conf.min_bucket,
+                      max_patches=conf.max_patches, dtype=np.float16).to("cuda")
+        want = plain(bag)[0].cpu().numpy()
+        got = np.asarray(row[2:2 + conf.n_class])
+        np.testing.assert_allclose(got, want, rtol=DSMIL_PROB_RTOL,
+                                   atol=DSMIL_PROB_ATOL)
+        worst = max(worst, float(np.abs(got - want).max()))
+    print(f"dsmil serving: {len(slides)} slides ({min(lengths)}-{max(lengths)} "
+          f"patches, {big} over 32768) scored by cli/predict.py in {wall:.2f} s; "
+          f"B6 launches {launches} (= slides with a bucket >= FUSE_MIN_N); "
+          f"probabilities finite, rows sum to 1, max |fused - plain| "
+          f"{worst:.3e}")
+    if res["metrics"] is not None:
+        print("dsmil serving metrics (random weights): "
+              + json.dumps(res["metrics"]))
+
+    # where one 50000-patch slide's time goes, from host features
+    item = slides["slide_01"]
+    t_pad = statistics.median(_host_ms(lambda: pad_bag(
+        item["feat"], item["coords"], item["label"], min_bucket=conf.min_bucket,
+        max_patches=conf.max_patches, dtype=np.float16)) for _ in range(3))
+    host = pad_bag(item["feat"], item["coords"], item["label"],
+                   min_bucket=conf.min_bucket, max_patches=conf.max_patches,
+                   dtype=np.float16)
+    t_pin = statistics.median(_host_ms(host.pin_memory) for _ in range(3))
+    pinned = host.pin_memory()
+    t_h2d = _wall_ms(lambda: pinned.to("cuda", non_blocking=True), 5)
+    bag = pinned.to("cuda")
+    fused(bag)
+    step_fused = _wall_ms(lambda: fused(bag), 10)
+    step_plain = _wall_ms(lambda: plain(bag), 10)
+    t_fused_dev = _time_ms(lambda: fused(bag), 10)
+    x32 = bag.feats.float()
+    rows = torch.arange(1, device="cuda")[:, None]
+    inst_fc, q_fc = model.i_classifier.fc[0], model.b_classifier.q
+    with torch.no_grad():
+        inst = torch.nn.functional.linear(x32, inst_fc.weight, inst_fc.bias)
+        crit = inst.argmax(dim=1)
+        q_max = torch.nn.functional.linear(x32[rows, crit], q_fc.weight,
+                                           q_fc.bias)
+        wq, bq = q_fc.weight.t(), q_fc.bias
+        t_b6 = _time_ms(lambda: fused_dsmil_pool(bag.feats, bag.mask, wq, bq,
+                                                 q_max), 20)
+        b6_dev, _ = _device_ms(lambda: fused_dsmil_pool(
+            bag.feats, bag.mask, wq, bq, q_max), B6_KERNELS)
+        t_pool_plain = _time_ms(lambda: dsmil_pool_reference(
+            x32, bag.mask, wq, bq, q_max), 10)
+    busy = _profile_device_ms(lambda: fused(bag), 5, step_fused)
+    print(f"dsmil scoring, one {len(item['feat'])}-patch slide (bucket "
+          f"{bag.feats.shape[1]}), from host features: pad_bag {t_pad:.3f} ms, "
+          f"pin_memory {t_pin:.3f} ms, host->device {t_h2d:.3f} ms, eval step "
+          f"wall {step_fused:.4f} ms fused ({t_fused_dev:.4f} ms CUDA events; "
+          f"B6 alone {t_b6:.4f} ms a call, {_fmt_ms(b6_dev)} of device "
+          f"time), plain {step_plain:.4f} ms (its pooling "
+          f"alone {t_pool_plain:.4f} ms) [{smi}]")
+    print(f"dsmil scoring, fused eval step under torch.profiler: {busy} "
+          f"[{smi}]")
+    return {"launches": launches, "slides": len(slides)}
+
+
+def _profile_device_ms(fn, reps: int, wall_ms: float) -> str:
+    """Device busy ms per call of ``fn`` and the top kernels by device time,
+    from ``torch.profiler``, with the idle share against ``wall_ms`` (the
+    call's wall without the profiler, which slows the host); "not measured"
+    when the profiler sees no device time."""
+    prof, prof_wall = _profiled(fn, reps)
+    events = _device_events(prof)
+    by_name = {}
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us
+    total = sum(by_name.values()) / 1e3 / reps
+    if total <= 0:
+        return "device time not measured (the profiler saw none)"
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:5]
+    return (f"{total:.4f} ms of device time per step in {len(events) / reps:g} "
+            f"device events, against {wall_ms:.4f} ms of wall unprofiled "
+            f"(device idle {100 * (1 - total / wall_ms):.1f}%) and "
+            f"{prof_wall:.4f} ms profiled; top: " + "; ".join(
+                f"{name[:64]} {us / 1e3 / reps:.4f} ms" for name, us in top))
+
+
+def dsmil_train_run(smi: str) -> int:
+    """DSMIL training through the port's generic Step3 CLI; B6 scores every
+    val/test bag whose bucket reaches FUSE_MIN_N."""
+    from acmil_tpu_torch.cli import predict, step3_generic
+    from acmil_tpu_torch.data.bags import bucket_length
+    from acmil_tpu_torch.data.ptio import write_feature_pt
+    from acmil_tpu_torch.models import fast
+    from acmil_tpu_torch.ops.dsmil_pool import fused_dsmil_pool
+
+    rs = np.random.default_rng(SEED + 6)
+    n_slides = N_TRAIN + N_VAL + N_TEST
+    lengths = rs.integers(1000, 65537, n_slides).tolist()
+    # big bags among val (slides 16-19) and test (20-23) too
+    lengths[N_TRAIN], lengths[N_TRAIN + N_VAL] = 50000, 65536
+    lengths[0], lengths[1] = 1000, 60000
+    slides = _synthetic_slides(rs, lengths)
+    names = sorted(slides)
+    evals = sum(bucket_length(n) >= fast.FUSE_MIN_N
+                for n in lengths[N_TRAIN:])
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "data")
+        feats = os.path.join(data_dir, "patch_feats_pretrain_medical_ssl.pt")
+        write_feature_pt(feats, slides)
+        split_dir = os.path.join(tmp, "splits")
+        os.makedirs(os.path.join(split_dir, "camelyon"))
+        with open(os.path.join(split_dir, "camelyon", "split_4.json"), "w") as f:
+            json.dump({"train_names": names[:N_TRAIN],
+                       "val_names": names[N_TRAIN:N_TRAIN + N_VAL],
+                       "test_names": names[N_TRAIN + N_VAL:]}, f)
+        yml = os.path.join(tmp, "config.yml")
+        with open(YML) as src, open(yml, "w") as dst:
+            dst.write(src.read() + f"\nsplit_dir: {split_dir}\n")
+        ckpt_dir, log_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "log")
+        argv = ["--config", yml, "--arch", "dsmil", "--seed", "4",
+                "--data_dir", data_dir, "--ckpt_dir", ckpt_dir,
+                "--log_dir", log_dir, "--train_epoch", str(TRAIN_EPOCHS),
+                "--device", "cuda"]
+
+        torch.manual_seed(SEED)
+        fused_dsmil_pool.launches = 0
+        t0 = time.perf_counter()
+        best = step3_generic.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_dsmil_pool.launches
+
+        if launches != TRAIN_EPOCHS * evals:
+            raise AssertionError(f"B6 launched {launches} times: want once per "
+                                 f"val/test bag with a bucket >= FUSE_MIN_N "
+                                 f"per epoch ({TRAIN_EPOCHS} x {evals})")
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            epochs = [r for r in map(json.loads, f) if "_config" not in r]
+        losses = [r["train/loss"] for r in epochs]
+        if len(losses) != TRAIN_EPOCHS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"epoch losses {losses}")
+        for tag in ("best", "last"):
+            if not os.path.isfile(os.path.join(ckpt_dir, f"checkpoint-{tag}.pth")):
+                raise AssertionError(f"no checkpoint-{tag}.pth")
+        res = predict.main(["--config", yml, "--ckpt", ckpt_dir, "--features",
+                            feats, "--out_csv", os.path.join(tmp, "preds.csv"),
+                            "--device", "cuda"])
+        _check_predictions(res, n_slides, 2)
+    print(f"dsmil training: cli/step3_generic.py --arch dsmil, {TRAIN_EPOCHS} "
+          f"epochs x {N_TRAIN} steps on {n_slides} slides "
+          f"({min(lengths)}-{max(lengths)} patches), {wall:.2f} s wall; B6 "
+          f"launches {launches} (= {TRAIN_EPOCHS} epochs x {evals} val/test "
+          f"bags with a bucket >= FUSE_MIN_N); epoch losses "
+          f"{', '.join(f'{v:.6f}' for v in losses)}; best epoch "
+          f"{best.get('epoch')}; checkpoint-best rescored {n_slides} slides "
+          f"through cli/predict.py [{smi}]")
+    return launches
+
+
+VIT_ATTN_SHAPES = (("ViT-S/16", 6, 197, 64), ("ViT-S/8", 6, 785, 64),
+                   ("CLIP-L/336", 16, 577, 64))
+
+
+def vit_attn_b7_vs_plain(smi: str) -> dict:
+    """B7 against its plain version (forward and backward), then timed."""
+    from acmil_tpu_torch.ops import vit_attn as va
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    worst, checks = 0.0, 0
+
+    def randn(*shape):
+        return (2 * torch.randn(*shape, generator=gen,
+                                device="cuda")).bfloat16()
+
+    with torch.no_grad():
+        for name, heads, n, dh in VIT_ATTN_SHAPES:
+            for b in (1, 64):
+                q, k, v = (randn(b, heads, n, dh) for _ in range(3))
+                got = va.fused_vit_attention(q, k, v)
+                torch.cuda.synchronize()
+                checks += 1
+                err = _err(got, va._reference_attention(q, k, v), B5_TOL)
+                worst = max(worst, err)
+                print(f"kernel B7 vs plain: {name} H={heads} N={n} dh={dh} "
+                      f"B={b} bf16: max_abs_err {err:.3e}")
+        # q, k, v as strided views of one packed qkv [B, N, 3, H, dh]
+        name, heads, n, dh = VIT_ATTN_SHAPES[0]
+        qkv = randn(4, n, 3, heads, dh)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        got = va.fused_vit_attention(q, k, v, scale=0.1)
+        torch.cuda.synchronize()
+        checks += 1
+        err = _err(got, va._reference_attention(q, k, v, 0.1), B5_TOL)
+        worst = max(worst, err)
+        print(f"kernel B7 vs plain: {name} B=4 on strided views of a packed "
+              f"qkv, scale 0.1: max_abs_err {err:.3e}")
+
+    # the backward recomputes through the plain version
+    name, heads, n, dh = VIT_ATTN_SHAPES[0]
+    ins = [randn(2, heads, n, dh).requires_grad_() for _ in range(3)]
+    g = randn(2, heads, n, dh)
+    out = va.fused_vit_attention(*ins)
+    grads = torch.autograd.grad(out, ins, g)
+    refs = [t.detach().clone().requires_grad_() for t in ins]
+    want = torch.autograd.grad(va._reference_attention(*refs), refs, g)
+    checks += 1
+    for gname, a, w in zip("qkv", grads, want):
+        err = _err(a, w, B5_TOL)
+        print(f"kernel B7 backward vs autograd through the plain version: "
+              f"d{gname} max_abs_err {err:.3e}")
+
+    b = STEP2_BATCH
+    q, k, v = (randn(b, heads, n, dh) for _ in range(3))
+    d = heads * dh
+    with torch.no_grad():
+        r = {"ms": _time_ms(lambda: va.fused_vit_attention(q, k, v), 20),
+             "device": _device_ms(lambda: va.fused_vit_attention(q, k, v),
+                                  ("mha_kernel",)),
+             "plain_ms": _time_ms(lambda: va._reference_attention(q, k, v), 10),
+             "library_ms": _time_ms(
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     q, k, v), 20),
+             **_bound(b * 4 * n * n * d, b * 2 * 4 * n * d)}
+    r["device_ms"], per_call = r.pop("device")
+    print(f"kernel B7 time: {name} B={b} H={heads} N={n} dh={dh} bf16: kernel "
+          f"{r['ms']:.4f} ms (device {_fmt_ms(r['device_ms'])} in "
+          f"{per_call:g} launches), plain {r['plain_ms']:.4f} ms, "
+          f"scaled_dot_product_attention {r['library_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {_bound_share(r)} "
+          f"[{smi}]")
+    return {"max_abs_err": worst, "checks": checks, **r}
+
+
 def main() -> None:
+    from acmil_tpu_torch.ops.vit_attn import fused_vit_attention
+
     smi = card()
     build()
+    # B7 has no production caller: its count over every path below (phases
+    # 3-13) is read before phase 14, whose checks launch it
+    fused_vit_attention.launches = 0
     b1 = kernel_vs_plain(smi)
     b2 = bwd_kernel_vs_plain(smi)
     serve_launches = slice_run(smi)
@@ -1049,6 +1597,11 @@ def main() -> None:
     vit = vit_kernels_vs_plain(smi)
     step2 = step2_run(smi)
     big = big_trunk_run(smi)
+    b6 = dsmil_kernel_vs_plain(smi)
+    dsmil_serve = dsmil_serve_run(smi)
+    dsmil_train = dsmil_train_run(smi)
+    b7_launches = fused_vit_attention.launches
+    b7 = vit_attn_b7_vs_plain(smi)
     vit_src = "acmil_tpu_torch/csrc/vit_gemm.cu + acmil_tpu_torch/csrc/vit_attn.cu"
     print(json.dumps({"kernels": [{
         "name": "B1 fused gated-attention pooling (forward)",
@@ -1082,7 +1635,23 @@ def main() -> None:
         "source": "acmil_tpu_torch/csrc/vit_attn.cu",
         "replaces": "acmil_tpu/ops/vit_attn_packed.py:37",
         "launches": big["B5"],
-        **vit["B5"]}]}))
+        **vit["B5"]}, {
+        "name": "B6 fused DSMIL bag-stream pooling",
+        "route": "cuda",
+        "source": "acmil_tpu_torch/csrc/dsmil_pool.cu",
+        "replaces": "acmil_tpu/ops/dsmil_pool.py:37",
+        "launches": dsmil_serve["launches"] + dsmil_train,
+        "launches_serving": dsmil_serve["launches"],
+        "launches_training_eval": dsmil_train,
+        **b6}, {
+        "name": "B7 multi-head attention over separate q, k, v (strided "
+                "entry of B5')",
+        "route": "cuda",
+        "source": "acmil_tpu_torch/csrc/vit_attn.cu",
+        "replaces": "acmil_tpu/ops/vit_attn.py:39",
+        "launches": b7_launches,
+        "path": "none (no production caller)",
+        **b7}]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

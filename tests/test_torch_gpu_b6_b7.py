@@ -1,0 +1,143 @@
+"""Kernels B6 (acmil_tpu_torch/ops/dsmil_pool.py) and B7
+(acmil_tpu_torch/ops/vit_attn.py) against their plain versions on the card,
+and their wrappers' checks of what the kernels take. The file imports no JAX
+or flax, so it runs on a machine that has neither; here, without a card,
+the ``gpu`` tests skip. tests/test_torch_dsmil_pool.py and
+tests/test_torch_vit_attn_b7.py hold the plain versions against the JAX
+package's Pallas kernels."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from acmil_tpu_torch.ops import dsmil_pool, vit_attn
+
+# B6 vs plain, f32 both with TF32 off: only the order of the sums differs
+# (B6 folds the critical queries into the features' space)
+B6_TOL = 1e-4
+# B7 vs plain, bf16 both: a flipped bf16 rounding of p can land on an
+# output that cancels to near 0, so the bound is one bf16 step of each
+# output and of the largest output
+BF16_TOL = 2.0 ** -7
+
+
+def _b6_inputs(dev, b, n, d, q, c, dtype, seed=0):
+    rs = np.random.RandomState(seed)
+    f = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))
+    feats = f(b, n, d).to(dev, dtype)
+    mask = torch.from_numpy(rs.rand(b, n) < 0.85).to(dev)
+    if b > 1:
+        mask[1] = False                        # an all-masked bag
+    wq, bq = (f(d, q) / math.sqrt(d)).to(dev), (0.1 * f(q)).to(dev)
+    q_max = f(b, c, q).to(dev)
+    return feats, mask, wq, bq, q_max
+
+
+def _b7_inputs(dev, shape, dtype=torch.bfloat16, seed=0):
+    rs = np.random.RandomState(seed)
+    return [torch.from_numpy(2 * rs.randn(*shape).astype(np.float32)).to(
+        dev, dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("shape, dtype, match", [
+    ((2, 3, 50, 32), torch.float32, "bfloat16"),
+    ((2, 3, 50, 48), torch.bfloat16, "head widths"),
+    ((2, 3, 50), torch.bfloat16, r"\[B, H, N, dh\]"),
+    ((2, 3, 0, 32), torch.bfloat16, "empty"),
+])
+def test_b7_arg_check_rejects(shape, dtype, match):
+    q, k, v = (torch.zeros(shape, dtype=dtype) for _ in range(3))
+    with pytest.raises(ValueError, match=match):
+        vit_attn._check_kernel_args(q, k, v)
+
+
+def test_b7_arg_check_takes_strided_rows_not_strided_elements():
+    qkv = torch.zeros(2, 50, 3, 6, 64, dtype=torch.bfloat16)
+    vit_attn._check_kernel_args(*qkv.permute(2, 0, 3, 1, 4))
+    q = torch.zeros(2, 6, 64, 50, dtype=torch.bfloat16).transpose(-1, -2)
+    with pytest.raises(ValueError, match="contiguous"):
+        vit_attn._check_kernel_args(q, q, q)
+
+
+def test_b7_arg_check_accepts_every_trunk_width():
+    for heads, n, dh in ((6, 197, 64), (12, 197, 64), (16, 577, 64),
+                         (24, 197, 64), (6, 785, 64), (2, 50, 16),
+                         (2, 50, 128)):
+        q = torch.zeros(1, heads, n, dh, dtype=torch.bfloat16)
+        vit_attn._check_kernel_args(q, q, q)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("kernels B6 and B7 are CUDA C++ for sm_90a: need an "
+                    "NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, d, q, c, dtype", [
+    (1, 300, 384, 128, 2, torch.float16),
+    (3, 5000, 384, 128, 4, torch.float32),
+    (2, 1000, 1024, 512, 8, torch.float16),
+    (1, 70, 1536, 768, 1, torch.float32),
+])
+def test_b6_matches_plain_on_card(cuda_device, b, n, d, q, c, dtype):
+    feats, mask, wq, bq, q_max = _b6_inputs(cuda_device, b, n, d, q, c, dtype)
+    before = dsmil_pool.fused_dsmil_pool.launches
+    with torch.no_grad():
+        bag, logits = dsmil_pool.fused_dsmil_pool(feats, mask, wq, bq, q_max)
+        torch.cuda.synchronize()
+        rbag, rlogits = dsmil_pool.dsmil_pool_reference(feats.float(), mask,
+                                                        wq, bq, q_max)
+    assert dsmil_pool.fused_dsmil_pool.launches == before + 1
+    torch.testing.assert_close(bag, rbag, atol=B6_TOL, rtol=B6_TOL)
+    valid = mask[:, None, :].expand_as(logits)
+    torch.testing.assert_close(logits[valid], rlogits[valid], atol=B6_TOL,
+                               rtol=B6_TOL)
+    assert bool((logits[~valid] == dsmil_pool.NEG).all())
+    if b > 1:
+        assert not bool(bag[1].any())
+
+
+@pytest.mark.gpu
+def test_b6_raises_on_what_it_does_not_take(cuda_device):
+    feats, mask, wq, bq, q_max = _b6_inputs(cuda_device, 1, 64, 384, 128, 9,
+                                            torch.float16)
+    with pytest.raises(ValueError, match="C <= 8"):
+        dsmil_pool.fused_dsmil_pool(feats, mask, wq, bq, q_max)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        dsmil_pool.fused_dsmil_pool(feats, mask, wq.requires_grad_(), bq,
+                                    q_max[:, :2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 6, 197, 64), (1, 16, 577, 64),
+                                   (3, 2, 50, 32)])
+def test_b7_matches_plain_on_card(cuda_device, shape):
+    q, k, v = _b7_inputs(cuda_device, shape)
+    before = vit_attn.fused_vit_attention.launches
+    with torch.no_grad():
+        got = vit_attn.fused_vit_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = vit_attn._reference_attention(q, k, v)
+    assert vit_attn.fused_vit_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL * float(want.float().abs().max()))
+
+
+@pytest.mark.gpu
+def test_b7_backward_and_float32_on_card(cuda_device):
+    ins = [t.requires_grad_() for t in _b7_inputs(cuda_device, (2, 3, 50, 32))]
+    out = vit_attn.fused_vit_attention(*ins)
+    grads = torch.autograd.grad(out.float().sum(), ins)
+    refs = [t.detach().clone().requires_grad_() for t in ins]
+    want = torch.autograd.grad(
+        vit_attn._reference_attention(*refs).float().sum(), refs)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        vit_attn.fused_vit_attention(*(t.detach().float() for t in ins))

@@ -224,8 +224,15 @@ def test_port_imports_no_jax_with_jax_blocked():
             "m = ViT(16, 64, 1, 2, img_size=32)\n"
             "f = vit_encode(m.state_dict(), torch.zeros(1, 32, 32, 3),\n"
             "               patch=16, depth=1, heads=2)\n"
-            "print(len(names), tuple(f.shape))\n")
+            "from acmil_tpu_torch.models import DSMIL\n"
+            "from acmil_tpu_torch.models.fast import dsmil_eval_fused\n"
+            "d = DSMIL(2, 32, 16, nonlinear=False)\n"
+            "x, mk = torch.randn(1, 40, 32), torch.ones(1, 40, dtype=torch.bool)\n"
+            "inst, bag, a = d(x, mk)\n"
+            "mi, bl = dsmil_eval_fused(d, x, mk)\n"
+            "torch.testing.assert_close(bl, bag)\n"
+            "print(len(names), tuple(f.shape), tuple(bl.shape))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split()[-2:] == ["(1,", "64)"]
+    assert proc.stdout.split()[-4:] == ["(1,", "64)", "(1,", "2)"]
