@@ -10,7 +10,9 @@ The wrapper picks its route by the device of ``qkv`` and nothing else: a CPU
 tensor takes the plain version :func:`_reference_packed`, a CUDA tensor
 launches kernel B5' (``csrc/vit_attn.cu``, which replaces the Pallas
 ``_packed_kernel``) or raises. Kernels B3 and B4 (``ops/vit_layer.py``)
-launch B5' as their attention step through :func:`_launch_packed`.
+launch B5' as their attention step through :func:`_launch_packed`, which
+counts every launch of the kernel (``_launch_packed.launches``), whoever
+calls it; ``fused_mha_packed.launches`` counts the public entry's alone.
 """
 
 from __future__ import annotations
@@ -86,8 +88,9 @@ def _kernel_entry():
 
 
 def _launch_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    """One launch of kernel B5' on a CUDA tensor; raises on what it does
-    not take or a failed launch."""
+    """One launch of kernel B5' on a CUDA tensor (adds one to
+    ``_launch_packed.launches``); raises on what it does not take or a
+    failed launch."""
     _check_kernel_args(qkv, heads)
     b, n, three_d = qkv.shape
     d = three_d // 3
@@ -98,7 +101,11 @@ def _launch_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
                               stream)
     if err != 0:
         raise RuntimeError(f"kernel B5' launch failed: cudaError_t {err}")
+    _launch_packed.launches += 1
     return out
+
+
+_launch_packed.launches = 0
 
 
 def fused_mha_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:

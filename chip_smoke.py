@@ -13,7 +13,9 @@ code is non-zero:
    (``acmil_tpu_torch/csrc/attn_pool_bwd.cu``), the ViT GEMM
    (``csrc/vit_gemm.cu``) and MHA B5'/B7 (``csrc/vit_attn.cu``) from which
    the B3 and B4 chains are built, and B6 (``csrc/dsmil_pool.cu``): one
-   ``nvcc`` each, all together.
+   ``nvcc`` each, all together; ptxas's registers and spills of every
+   kernel, and how B5'/B7 launches at the trunks' shapes (wgmma or
+   mma.sync, passes over the keys, warps, shared memory).
 3. kernel B1 against its plain PyTorch version on the card at the serving
    width (Df=384, L=A=128), K in {5, 1}, N in {300, 16384, 65536}, B=1 and
    B=3 with one all-masked bag, fp16 and f32 features; then both timed with
@@ -45,14 +47,16 @@ code is non-zero:
    (outside the TPU's VMEM model, where the wrapper still launches); the B4
    chain at ViT-B/16, UNI (with layerscale, B=4 and the path's B=32) and
    ViT-S/8. Then each timed with CUDA events at its main path's shape, with
-   the matrices in bf16 as the path holds them (B3 at B=256, B4 at UNI and
-   B5' at CLIP-L/336, B=32),
-   beside its plain version and, for B5', ``F.scaled_dot_product_attention``
-   on the same qkv (a yardstick the port never calls).
+   the matrices in bf16 as the path holds them (B3 at B=256, B4 at UNI,
+   B5' at ViT-S/16, B=256, where Step2 launches it, and at CLIP-L/336,
+   B=32), beside its plain version and, for B5',
+   ``F.scaled_dot_product_attention`` on the same qkv (a yardstick the port
+   never calls); for B3 and B4 also the device time of their B5' step.
 9. Step2, slice 3's main path: ``cli/step2_extract.py``'s ``main`` extracts
    ViT-S/16 medical_ssl features (full width, depth 12, batch 256, seeded
    random weights) from three synthetic slides of 1135 patches on ``cuda``;
-   the B3 chain must launch 12 times per batch; the features must be fp16,
+   the B3 chain must launch 12 times per batch, and B5' once per B3; the
+   features must be fp16,
    finite, ``[N, 384]`` and within cosine 0.999 per patch of the plain route
    (``fused=False``); ``cli/predict.py`` then scores the feature file with an
    ACMIL_GA head (B1 once per slide), pixels to probabilities.
@@ -78,14 +82,17 @@ code is non-zero:
    ``cli/predict.py``.
 14. kernel B7 (the strided entry of ``csrc/vit_attn.cu``) against its plain
    version, bf16, at ViT-S/16, ViT-S/8 and CLIP-L/336 with B in {1, 64} and
-   on q, k, v that are strided views of a packed qkv; its backward on the
+   on q, k, v that are strided views of a packed qkv; B5' and B7 at the
+   kernel's edges (``EDGE_N`` x every head width); its backward on the
    card against autograd through the plain version; then B7, the plain
    version and ``F.scaled_dot_product_attention`` timed at ViT-S/16, B=256.
 
 The line before the last but one is ``{"kernels": [...]}`` with each
 kernel's launches on its path (B7's are counted over phases 3-13, where no
 production path calls it, and its entry also gives the count of its
-checks), its worst error against the plain version, its time (``ms``: CUDA
+checks; B5''s are its launches as B3's attention step on the Step2 path,
+with its launches in ``vit_encode`` beside them), its worst error against
+the plain version, its time (``ms``: CUDA
 events around one call of the wrapper; ``device_ms``: the kernels' own
 device time from ``torch.profiler``), the plain version's, a library call's
 where one exists, and the bound (the larger of FLOPs / 989 TFLOP/s and
@@ -190,8 +197,25 @@ def build() -> None:
         info = _build.build_info.get(name, {})
         print(f"  {name}: nvcc {info.get('seconds', 0.0):.2f} s")
         for line in info.get("log", "").splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line \
+                    or "spill" in line:
                 print(f"    ptxas: {line.strip()}")
+    # how B5'/B7 launches at the trunks' shapes (csrc/vit_attn.cu's route)
+    import ctypes
+
+    shape = _build.load("vit_attn").b5_launch_shape
+    for label, n, dh in (("ViT-S/16, UNI, GigaPath", 197, 64),
+                         ("CLIP-L/336", 577, 64), ("ViT-S/8", 785, 64),
+                         ("dh=128", 577, 128)):
+        out = [ctypes.c_int() for _ in range(5)]
+        if shape(n, dh, *map(ctypes.byref, out)):
+            raise RuntimeError(f"b5_launch_shape({n}, {dh}) failed")
+        warpgroup, passes, warps, smem, resident = (x.value for x in out)
+        print(f"  B5'/B7 at {label} (N={n}, dh={dh}): "
+              f"{'wgmma' if warpgroup else 'mma.sync'}, {passes} "
+              f"pass{'es' if passes > 1 else ''} over the keys, {warps} warps "
+              f"a block, {smem} bytes of shared memory, keys and values "
+              f"{'resident' if resident else 'streamed'}")
 
 
 def _weights(gen, k):
@@ -872,6 +896,9 @@ def vit_kernels_vs_plain(smi: str) -> dict:
     out["B3"] = {"ms": _time_ms(lambda: vl.fused_vit_layer(x, w, heads), 20),
                  "device": _device_ms(lambda: vl.fused_vit_layer(x, w, heads),
                                       chain, 10),
+                 "attention_step": _device_ms(
+                     lambda: vl.fused_vit_layer(x, w, heads), ("mha_kernel",),
+                     10),
                  "plain_ms": _time_ms(lambda: vl._reference_layer(x, w, heads),
                                       10),
                  "library_ms": None,
@@ -884,37 +911,47 @@ def vit_kernels_vs_plain(smi: str) -> dict:
                                 20),
                  "device": _device_ms(
                      lambda: vl.fused_vit_attn_half(x, w, heads), chain, 10),
+                 "attention_step": _device_ms(
+                     lambda: vl.fused_vit_attn_half(x, w, heads),
+                     ("mha_kernel",), 10),
                  "plain_ms": _time_ms(
                      lambda: vl._reference_attn_half(x, w, heads), 10),
                  "library_ms": None,
                  **_bound(BIG_BATCH * _layer_flops(n, d, 0, False),
                           _layer_bytes(BIG_BATCH, n, d, 0, False, True))}
-    n, d, heads = CLIP_L
-    qkv = torch.randn(BIG_BATCH, n, 3 * d, generator=gen,
-                      device="cuda").bfloat16()
-    q, k, v = qkv.view(BIG_BATCH, n, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
-    out["B5"] = {"ms": _time_ms(lambda: pk.fused_mha_packed(qkv, heads), 20),
-                 "device": _device_ms(lambda: pk.fused_mha_packed(qkv, heads),
-                                      ("mha_kernel",)),
-                 "plain_ms": _time_ms(lambda: pk._reference_packed(qkv, heads),
-                                      10),
-                 "library_ms": _time_ms(
-                     lambda: torch.nn.functional.scaled_dot_product_attention(
-                         q, k, v), 20),
-                 **_bound(BIG_BATCH * 4 * n * n * d,
-                          BIG_BATCH * 2 * (n * 3 * d + n * d))}
+    # B5' at Step2's shape (the attention step of B3 there) and at CLIP-L's,
+    # beside scaled_dot_product_attention on q, k, v viewed in the same qkv
+    for kern, (n, d, heads), b in (("B5", VIT_S16, STEP2_BATCH),
+                                   ("B5 CLIP-L", CLIP_L, BIG_BATCH)):
+        qkv = torch.randn(b, n, 3 * d, generator=gen, device="cuda").bfloat16()
+        q, k, v = qkv.view(b, n, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+        out[kern] = {
+            "ms": _time_ms(lambda: pk.fused_mha_packed(qkv, heads), 20),
+            "device": _device_ms(lambda: pk.fused_mha_packed(qkv, heads),
+                                 ("mha_kernel",)),
+            "plain_ms": _time_ms(lambda: pk._reference_packed(qkv, heads), 10),
+            "library_ms": _time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v), 20),
+            **_bound(b * 4 * n * n * d, b * 2 * (n * 3 * d + n * d))}
     for kern, shape in (("B3", f"ViT-S/16 B={STEP2_BATCH} N=197"),
                         ("B4", f"UNI B={BIG_BATCH} N=197 ls1"),
-                        ("B5", f"CLIP-L/336 B={BIG_BATCH} N=577")):
+                        ("B5", f"ViT-S/16 B={STEP2_BATCH} N=197"),
+                        ("B5 CLIP-L", f"CLIP-L/336 B={BIG_BATCH} N=577")):
         r = out[kern]
         r["device_ms"], per_call = r.pop("device")
         lib = ("" if r["library_ms"] is None
                else f", scaled_dot_product_attention {r['library_ms']:.4f} ms")
+        step = ""
+        if "attention_step" in r:
+            r["attention_step_device_ms"], _ = r.pop("attention_step")
+            step = (f"; its B5' attention step "
+                    f"{_fmt_ms(r['attention_step_device_ms'])} of device time")
         print(f"kernel {kern} time: {shape} bf16: kernel {r['ms']:.4f} ms "
               f"(device {_fmt_ms(r['device_ms'])} in {per_call:g} launches), "
               f"plain {r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} "
-              f"ms ({r['bound_by']}), {_bound_share(r)} [{smi}]")
-        r["max_abs_err"] = worst[kern]
+              f"ms ({r['bound_by']}), {_bound_share(r)}{step} [{smi}]")
+        r["max_abs_err"] = worst[kern.split()[0]]
     return out
 
 
@@ -985,7 +1022,8 @@ def step2_run(smi: str) -> dict:
                 "--label_csv", labels, "--coords_format", "pt",
                 "--out_format", "pt", "--device", "cuda"]
         counters = (vit_layer.fused_vit_layer, vit_layer.fused_vit_attn_half,
-                    vit_attn_packed.fused_mha_packed)
+                    vit_attn_packed.fused_mha_packed,
+                    vit_attn_packed._launch_packed)
         for c in counters:
             c.launches = 0
         with warnings.catch_warnings():
@@ -994,11 +1032,13 @@ def step2_run(smi: str) -> dict:
             res = step2_extract.main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        b3, b4, b5 = (c.launches for c in counters)
+        b3, b4, b5, b5_steps = (c.launches for c in counters)
         batches = sum(-(-n // STEP2_BATCH) for n in res["slides"].values())
-        if b3 != STEP2_DEPTH * batches or b4 or b5:
-            raise AssertionError(f"B3/B4/B5 launched {b3}/{b4}/{b5} times: want "
-                                 f"B3 {STEP2_DEPTH} x {batches} batches only")
+        if b3 != STEP2_DEPTH * batches or b4 or b5 or b5_steps != b3:
+            raise AssertionError(
+                f"B3/B4/B5 (public entry)/B5' launched {b3}/{b4}/{b5}/"
+                f"{b5_steps} times: want B3 {STEP2_DEPTH} x {batches} batches, "
+                f"each launching B5' once as its attention step")
         feats = torch.load(res["out_path"], weights_only=True)
         if res["patches"] < 1100 or len(feats) != len(STEP2_SLIDES):
             raise AssertionError(f"Step2 wrote {res['slides']}")
@@ -1087,7 +1127,8 @@ def step2_run(smi: str) -> dict:
     print(f"step2: cli/step2_extract.py, ViT-S/16 medical_ssl full width, "
           f"depth {STEP2_DEPTH}, batch {STEP2_BATCH}: {res['patches']} patches "
           f"of {len(feats)} slides in {batches} batches; B3 launches {b3} "
-          f"(= {STEP2_DEPTH} x {batches}); fp16 [N, 384] finite; fused vs "
+          f"(= {STEP2_DEPTH} x {batches}), B5' launches {b5_steps} (one "
+          f"attention step each); fp16 [N, 384] finite; fused vs "
           f"plain route worst cosine {worst_cos:.6f}, max_abs_err "
           f"{worst_abs:.3e}")
     print(f"step2 throughput: {res['patches'] / res['seconds']:.1f} patches/s "
@@ -1103,7 +1144,7 @@ def step2_run(smi: str) -> dict:
           f"encoder device time per batch")
     print(f"step2 -> cli/predict.py: {len(feats)} slides scored, B1 launches "
           f"{b1}, probabilities finite and rows sum to 1")
-    return {"B3": b3, "B1": b1, "cosine": worst_cos}
+    return {"B3": b3, "B5": b5_steps, "B1": b1, "cosine": worst_cos}
 
 
 @torch.no_grad()
@@ -1126,7 +1167,7 @@ def big_trunk_run(smi: str) -> dict:
               ("CLIP-L/336", "B5", vit_attn_packed.fused_mha_packed,
                dict(patch=14, dim=1024, heads=16, img_size=336, proj_dim=768,
                     pre_norm=True, act="quick_gelu"), CLIP_MEAN, CLIP_STD))
-    launches = {}
+    launches, b5_launches = {}, {}
     for name, kern, counter, kw, mean, std in trunks:
         torch.manual_seed(SEED)
         m = ViT(depth=BIG_DEPTH, **kw)
@@ -1146,10 +1187,11 @@ def big_trunk_run(smi: str) -> dict:
         x = preprocess(u8, spec)
         enc_kw = dict(patch=m.patch, depth=BIG_DEPTH, heads=m.heads,
                       act=m.act, pre_norm=m.pre_norm, proj_dim=m.proj_dim)
-        counter.launches = 0
+        counter.launches = vit_attn_packed._launch_packed.launches = 0
         got = vit_encode(params, x, **enc_kw)
         torch.cuda.synchronize()
         launches[kern] = counter.launches
+        b5_launches[name] = vit_attn_packed._launch_packed.launches
         if launches[kern] != BIG_DEPTH:
             raise AssertionError(f"{name}: {kern} launched {launches[kern]} "
                                  f"times for {BIG_DEPTH} layers")
@@ -1161,10 +1203,11 @@ def big_trunk_run(smi: str) -> dict:
         t_f = _time_ms(lambda: vit_encode(params, x, **enc_kw), 5)
         t_p = _time_ms(lambda: vit_encode(params, x, **enc_kw, fused=False), 3)
         print(f"vit_encode {name}: full width, depth {BIG_DEPTH}, B={BIG_BATCH} "
-              f"bf16: {kern} launches {launches[kern]}; fused vs plain route "
+              f"bf16: {kern} launches {launches[kern]}, B5' launches "
+              f"{b5_launches[name]}; fused vs plain route "
               f"worst cosine {cos:.6f}; device time fused {t_f:.4f} ms, plain "
               f"{t_p:.4f} ms [{smi}]")
-    return launches
+    return {**launches, "B5'": b5_launches}
 
 
 def _dsmil_model(conf):
@@ -1509,11 +1552,18 @@ def dsmil_train_run(smi: str) -> int:
 
 VIT_ATTN_SHAPES = (("ViT-S/16", 6, 197, 64), ("ViT-S/8", 6, 785, 64),
                    ("CLIP-L/336", 16, 577, 64))
+# N at csrc/vit_attn.cu's edges: the ragged 16-key chunk; at dh=64 the
+# warpgroup routes' 208-key steps (one for N in [145, 208], two up to 416,
+# three up to 624, mma.sync above); keys resident against streamed (N > 896
+# at dh=64, > 448 at dh=128)
+EDGE_N = (1, 15, 16, 17, 63, 64, 65, 144, 145, 197, 208, 209, 416, 417, 448,
+          449, 577, 624, 625, 785, 896, 897)
 
 
 def vit_attn_b7_vs_plain(smi: str) -> dict:
     """B7 against its plain version (forward and backward), then timed."""
     from acmil_tpu_torch.ops import vit_attn as va
+    from acmil_tpu_torch.ops.vit_attn_packed import KERNEL_HEAD_DIMS
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     worst, checks = 0.0, 0
@@ -1544,6 +1594,30 @@ def vit_attn_b7_vs_plain(smi: str) -> dict:
         worst = max(worst, err)
         print(f"kernel B7 vs plain: {name} B=4 on strided views of a packed "
               f"qkv, scale 0.1: max_abs_err {err:.3e}")
+
+        # B5' on a packed qkv and B7 on strided views of it at the edges
+        from acmil_tpu_torch.ops import vit_attn_packed as pk
+
+        b5_worst, b5_checks, b7_edge = 0.0, 0, 0.0
+        for dh in KERNEL_HEAD_DIMS:
+            for n in EDGE_N:
+                qkv = randn(2, n, 3 * 2 * dh)
+                got = pk.fused_mha_packed(qkv, 2)
+                torch.cuda.synchronize()
+                b5_worst = max(b5_worst, _err(got, pk._reference_packed(qkv, 2),
+                                              B5_TOL))
+                b5_checks += 1
+                q, k, v = qkv.view(2, n, 3, 2, dh).permute(2, 0, 3, 1, 4)
+                got = va.fused_vit_attention(q, k, v, scale=-0.2)
+                torch.cuda.synchronize()
+                b7_edge = max(b7_edge, _err(
+                    got, va._reference_attention(q, k, v, -0.2), B5_TOL))
+                checks += 1
+        worst = max(worst, b7_edge)
+        print(f"kernels B5' and B7 vs plain at the edges: N in {EDGE_N}, dh in "
+              f"{KERNEL_HEAD_DIMS}, B=2 H=2 (B7 on strided views, scale "
+              f"-0.2): {b5_checks} shapes each, max_abs_err B5' "
+              f"{b5_worst:.3e}, B7 {b7_edge:.3e}")
 
     # the backward recomputes through the plain version
     name, heads, n, dh = VIT_ATTN_SHAPES[0]
@@ -1578,7 +1652,8 @@ def vit_attn_b7_vs_plain(smi: str) -> dict:
           f"scaled_dot_product_attention {r['library_ms']:.4f} ms, bound "
           f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {_bound_share(r)} "
           f"[{smi}]")
-    return {"max_abs_err": worst, "checks": checks, **r}
+    return {"max_abs_err": worst, "checks": checks, **r,
+            "b5_edges": {"max_abs_err": b5_worst, "checks": b5_checks}}
 
 
 def main() -> None:
@@ -1602,6 +1677,9 @@ def main() -> None:
     dsmil_train = dsmil_train_run(smi)
     b7_launches = fused_vit_attention.launches
     b7 = vit_attn_b7_vs_plain(smi)
+    b5_edges = b7.pop("b5_edges")
+    vit["B5"]["max_abs_err"] = max(vit["B5"]["max_abs_err"],
+                                   b5_edges["max_abs_err"])
     vit_src = "acmil_tpu_torch/csrc/vit_gemm.cu + acmil_tpu_torch/csrc/vit_attn.cu"
     print(json.dumps({"kernels": [{
         "name": "B1 fused gated-attention pooling (forward)",
@@ -1634,7 +1712,12 @@ def main() -> None:
         "route": "cuda",
         "source": "acmil_tpu_torch/csrc/vit_attn.cu",
         "replaces": "acmil_tpu/ops/vit_attn_packed.py:37",
-        "launches": big["B5"],
+        "launches": step2["B5"],
+        "path": "Step2 ViT-S/16, the attention step of B3; times at its "
+                "shape, B=256 N=197",
+        "launches_vit_encode": big["B5'"],
+        "edge_checks": b5_edges["checks"],
+        "clip_l_b32": vit["B5 CLIP-L"],
         **vit["B5"]}, {
         "name": "B6 fused DSMIL bag-stream pooling",
         "route": "cuda",

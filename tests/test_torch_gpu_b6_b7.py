@@ -21,6 +21,12 @@ B6_TOL = 1e-4
 # output that cancels to near 0, so the bound is one bf16 step of each
 # output and of the largest output
 BF16_TOL = 2.0 ** -7
+# token counts at the edges of csrc/vit_attn.cu: the ragged 16-key chunk,
+# the trunks' 197, 577 and 785, at dh = 64 the warpgroup routes' 208-key
+# steps (N in [145, 208], up to 416, up to 624), keys resident in shared
+# memory up to 896 (dh = 64) and 448 (dh = 128)
+EDGE_N = (1, 15, 16, 17, 63, 64, 65, 144, 145, 197, 208, 209, 416, 417, 448,
+          449, 577, 624, 625, 785, 896, 897)
 
 
 def _b6_inputs(dev, b, n, d, q, c, dtype, seed=0):
@@ -127,6 +133,36 @@ def test_b7_matches_plain_on_card(cuda_device, shape):
     assert vit_attn.fused_vit_attention.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL,
                                atol=BF16_TOL * float(want.float().abs().max()))
+
+
+def _b7_check(q, k, v, scale=None):
+    before = vit_attn.fused_vit_attention.launches
+    with torch.no_grad():
+        got = vit_attn.fused_vit_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        want = vit_attn._reference_attention(q, k, v, scale)
+    assert vit_attn.fused_vit_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL * float(want.float().abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("n", EDGE_N)
+def test_b7_on_strided_views_at_its_edges(cuda_device, n, dh):
+    # q, k, v cut from one packed qkv [B, N, 3, H, dh], as B5' reads them;
+    # a negative scale flips which score is the row's largest
+    rs = np.random.RandomState(n + dh)
+    qkv = torch.from_numpy(2 * rs.randn(2, n, 3, 2, dh).astype(np.float32))
+    _b7_check(*qkv.to(cuda_device, torch.bfloat16).permute(2, 0, 3, 1, 4),
+              scale=-0.2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 6, 197, 64), (300, 6, 197, 64),
+                                   (40, 16, 577, 64), (1, 2, 785, 128)])
+def test_b7_from_one_image_to_many_waves(cuda_device, shape):
+    _b7_check(*_b7_inputs(cuda_device, shape, seed=shape[0]))
 
 
 @pytest.mark.gpu

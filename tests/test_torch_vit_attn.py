@@ -22,6 +22,14 @@ F32_TOL = 3e-5
 # f32 PV sums rounded once), so a different summation order can flip one
 # bf16 rounding of p or of the output: one bf16 step, 2**-8 relative
 BF16_TOL = 2.0 ** -7
+# token counts at the edges of csrc/vit_attn.cu: the ragged 16-key chunk,
+# the 64-row tiles of the TPU kernels, the trunks' 197, 577 and 785
+RAGGED_N = (1, 15, 16, 17, 63, 64, 65, 197, 577, 785)
+# and of the CUDA kernel's routes: at dh = 64 warpgroup products over
+# 208-key steps for N in [145, 624] (one step up to 208, two up to 416),
+# mma.sync elsewhere; keys and values resident in shared memory up to
+# N = 896 at dh = 64 and 448 at dh = 128, streamed above
+ROUTE_N = (144, 145, 208, 209, 416, 417, 448, 449, 624, 625, 896, 897)
 
 
 def _qkv(seed, b, n, d):
@@ -49,6 +57,16 @@ def test_plain_matches_pallas_kernel_in_bf16():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_TOL,
                                rtol=BF16_TOL)
+
+
+@pytest.mark.parametrize("n", RAGGED_N)
+def test_plain_matches_pallas_kernel_at_ragged_n(n):
+    # the oracle the card's kernel is held against, checked where the
+    # kernel masks: the ragged last key chunk of every N
+    qkv = _qkv(10 + n, 1, n, 32)
+    want = np.asarray(jax_packed.fused_mha_packed(jnp.asarray(qkv), 2))
+    got = port.fused_mha_packed(torch.from_numpy(qkv), 2)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
 
 
 def test_plain_matches_jax_reference():
@@ -89,18 +107,41 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b, n, d, heads", [(2, 197, 384, 6), (1, 577, 1024, 16),
-                                            (3, 50, 64, 2)])
-def test_kernel_matches_plain_on_card(cuda_device, b, n, d, heads):
+def _check_on_card(dev, b, n, d, heads, seed=4):
     torch.backends.cuda.matmul.allow_tf32 = False
-    qkv = torch.from_numpy(_qkv(4, b, n, d) * 2).to(cuda_device, torch.bfloat16)
-    before = port.fused_mha_packed.launches
+    qkv = torch.from_numpy(_qkv(seed, b, n, d) * 2).to(dev, torch.bfloat16)
+    before = port.fused_mha_packed.launches, port._launch_packed.launches
     got = port.fused_mha_packed(qkv, heads)
     torch.cuda.synchronize()
-    assert port.fused_mha_packed.launches == before + 1
+    assert (port.fused_mha_packed.launches,
+            port._launch_packed.launches) == (before[0] + 1, before[1] + 1)
     want = port._reference_packed(qkv, heads)
     # on the card a flipped p can land on an output that cancels to near 0:
     # the bound there is one bf16 step of the largest output
     torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL,
                                atol=BF16_TOL * float(want.float().abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, d, heads", [(2, 197, 384, 6), (1, 577, 1024, 16),
+                                            (3, 50, 64, 2)])
+def test_kernel_matches_plain_on_card(cuda_device, b, n, d, heads):
+    _check_on_card(cuda_device, b, n, d, heads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("n", RAGGED_N + ROUTE_N)
+def test_kernel_matches_plain_at_its_edges(cuda_device, n, dh):
+    _check_on_card(cuda_device, 2, n, 2 * dh, 2, seed=n + dh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, d, heads", [
+    (1, 197, 384, 6),          # one block a head: 6 blocks
+    (300, 197, 384, 6),        # 1800 blocks: several waves of the card
+    (40, 577, 1024, 16),       # two-pass route, 640 blocks
+])
+def test_kernel_matches_plain_from_one_image_to_many_waves(cuda_device, b, n,
+                                                           d, heads):
+    _check_on_card(cuda_device, b, n, d, heads, seed=b)

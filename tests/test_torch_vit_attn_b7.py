@@ -23,6 +23,8 @@ F32_TOL = 3e-5
 # bf16 rounding of p or of the output: one bf16 step, 2**-8 relative
 BF16_TOL = 2.0 ** -7
 SHAPES = [(1, 2, 128, 32), (2, 3, 50, 32)]
+# token counts at the edges of csrc/vit_attn.cu (tests/test_torch_vit_attn.py)
+RAGGED_N = (1, 15, 16, 17, 63, 64, 65, 197, 577, 785)
 
 
 def _qkv(seed, shape):
@@ -43,6 +45,17 @@ def test_plain_matches_pallas_kernel_f32(shape, scale):
     ref = np.asarray(jax_va._reference_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale))
     np.testing.assert_allclose(got.numpy(), ref, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("n", RAGGED_N)
+def test_plain_matches_pallas_kernel_at_ragged_n(n):
+    # the oracle of the card's kernel, checked where the kernel masks: the
+    # ragged last key chunk of every N (the Pallas kernel pads N to 128)
+    q, k, v = _qkv(20 + n, (1, 2, n, 16))
+    want = np.asarray(jax_va.fused_vit_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.3))
+    got = port.fused_vit_attention(*map(torch.from_numpy, (q, k, v)), 0.3)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
