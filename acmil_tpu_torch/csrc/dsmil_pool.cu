@@ -23,7 +23,10 @@
 //
 // Design. The TPU walks a bag's N chunks in sequence on one core. With one
 // bag per request that would leave all but one SM idle, so N is split as in
-// kernel B1 (csrc/attn_pool.cu): one block per 64-row tile of one bag. The
+// kernel B1 (csrc/attn_pool.cu): one block per 64-row tile of one bag and
+// one group of up to 8 classes (a third grid dimension: C = 128 is 16
+// groups, each with its own logits, partials and merge, and each reading
+// the tile's rows again, from L2 after the first group). The
 // block stages its rows 16 at a time in shared memory, widened to f32 (fp16
 // features are read as they come: the conversion is exact and no f32 copy of
 // the bag exists), forms their logits, and runs the online softmax over its
@@ -45,8 +48,8 @@
 // reading x once. The partials add C*D*4 bytes per 64-row tile (6% of the
 // fp16 bytes at D = 384). Tensor cores, TMA and larger tiles are later work.
 //
-// Widths the kernel takes: D a multiple of 8 up to 1536, 1 <= C <= 8, any Q
-// and N. The Python wrapper (acmil_tpu_torch/ops/dsmil_pool.py) checks them
+// Widths the kernel takes: D a multiple of 8 up to 1536, 1 <= C <= 128 (the
+// TPU kernel's limit), any Q and N. The Python wrapper (acmil_tpu_torch/ops/dsmil_pool.py) checks them
 // and raises on anything else.
 
 #include <cuda_fp16.h>
@@ -59,7 +62,8 @@ constexpr int kTile = 64;                  // rows of x per block
 constexpr int kChunk = 16;                 // rows staged in shared memory per step
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxC = 8;                   // classes
+constexpr int kMaxC = 8;                   // classes per group (block)
+constexpr int kMaxClasses = 128;           // classes per bag
 constexpr int kMaxCols = 6;                // columns of D per thread
 constexpr int kMaxD = kThreads * kMaxCols; // 1536
 constexpr int kFoldThreads = 128;
@@ -91,18 +95,20 @@ __device__ __forceinline__ void load8(const __half* p, float* out) {
   }
 }
 
-// One thread per column d of one bag (d == D is beta's column, from bq):
-// u[b, c, d] = inv_sqrt_q * sum_q wq_t[q, d] q_max[b, c, q].
+// One thread per column d of one bag and class group (d == D is beta's
+// column, from bq): u[b, c, d] = inv_sqrt_q * sum_q wq_t[q, d] q_max[b, c, q].
 __global__ void __launch_bounds__(kFoldThreads)
 fold_queries_kernel(const float* __restrict__ wq_t,    // [Q, D]
                     const float* __restrict__ bq,      // [Q]
                     const float* __restrict__ q_max,   // [B, C, Q]
                     float* __restrict__ u,             // [B, C, D + 1]
                     int d_feat, int q_dim, int n_cls, float inv_sqrt_q) {
-  extern __shared__ float qs[];                        // [C][Q]
+  extern __shared__ float qs[];                        // [group's C][Q]
   const int b = blockIdx.y;
-  const float* qm = q_max + static_cast<size_t>(b) * n_cls * q_dim;
-  for (int i = threadIdx.x; i < n_cls * q_dim; i += kFoldThreads) qs[i] = qm[i];
+  const int c0 = blockIdx.z * kMaxC;                   // the class group
+  const int ncl = min(kMaxC, n_cls - c0);
+  const float* qm = q_max + (static_cast<size_t>(b) * n_cls + c0) * q_dim;
+  for (int i = threadIdx.x; i < ncl * q_dim; i += kFoldThreads) qs[i] = qm[i];
   __syncthreads();
   const int d = blockIdx.x * kFoldThreads + threadIdx.x;
   if (d > d_feat) return;
@@ -115,17 +121,18 @@ fold_queries_kernel(const float* __restrict__ wq_t,    // [Q, D]
     const float w = col[q * stride];
 #pragma unroll
     for (int c = 0; c < kMaxC; ++c)
-      if (c < n_cls) acc[c] = fmaf(w, qs[c * q_dim + q], acc[c]);
+      if (c < ncl) acc[c] = fmaf(w, qs[c * q_dim + q], acc[c]);
   }
 #pragma unroll
   for (int c = 0; c < kMaxC; ++c)
-    if (c < n_cls)
-      u[(static_cast<size_t>(b) * n_cls + c) * (d_feat + 1) + d] =
+    if (c < ncl)
+      u[(static_cast<size_t>(b) * n_cls + c0 + c) * (d_feat + 1) + d] =
           acc[c] * inv_sqrt_q;
 }
 
-// One block per (64-row tile, bag): the logits of its rows and its partial
-// online-softmax state (m, s, acc[C, D]).
+// One block per (64-row tile, bag, group of up to 8 classes): the logits of
+// its rows for the group's classes and its partial online-softmax state
+// (m, s, acc[group's C, D]).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 pool_partial_kernel(const T* __restrict__ feats,       // [B, N, D]
@@ -143,11 +150,13 @@ pool_partial_kernel(const T* __restrict__ feats,       // [B, N, D]
   float* m_run = betas + kMaxC;              // [kMaxC] max before this chunk
   float* m_new = m_run + kMaxC;              // [kMaxC] max after it
   int* valid = reinterpret_cast<int*>(m_new + kMaxC);   // [kChunk]
-  float* us = smem + kSmall;                 // [C][D]
-  float* xs = us + n_cls * d_feat;           // [kChunk][D]
 
   const int tile = blockIdx.x;
   const int b = blockIdx.y;
+  const int c0 = blockIdx.z * kMaxC;         // the group's first class
+  const int ncl = min(kMaxC, n_cls - c0);    // and its number of classes
+  float* us = smem + kSmall;                 // [ncl][D]
+  float* xs = us + ncl * d_feat;             // [kChunk][D]
   const int tiles = gridDim.x;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -155,11 +164,11 @@ pool_partial_kernel(const T* __restrict__ feats,       // [B, N, D]
   const int n0 = tile * kTile;
   const T* xb = feats + static_cast<size_t>(b) * n * d_feat;
   const uint8_t* mask_b = mask + static_cast<size_t>(b) * n;
-  const float* ub = u + static_cast<size_t>(b) * n_cls * (d_feat + 1);
+  const float* ub = u + (static_cast<size_t>(b) * n_cls + c0) * (d_feat + 1);
 
-  for (int i = tid; i < n_cls * d_feat; i += kThreads)
+  for (int i = tid; i < ncl * d_feat; i += kThreads)
     us[i] = ub[(i / d_feat) * (d_feat + 1) + i % d_feat];
-  if (tid < n_cls) {
+  if (tid < ncl) {
     betas[tid] = ub[tid * (d_feat + 1) + d_feat];
     m_new[tid] = kNeg;
   }
@@ -175,7 +184,7 @@ pool_partial_kernel(const T* __restrict__ feats,       // [B, N, D]
   const int row_end = min(n0 + kTile, n);
   for (int r0 = n0; r0 < row_end; r0 += kChunk) {
     __syncthreads();  // the previous chunk is consumed; its new max is final
-    if (tid < n_cls) m_run[tid] = m_new[tid];
+    if (tid < ncl) m_run[tid] = m_new[tid];
     // stage rows [r0, r0 + kChunk) as f32; rows past N become zeros
     {
       const T* src = xb + static_cast<size_t>(r0) * d_feat;
@@ -200,7 +209,7 @@ pool_partial_kernel(const T* __restrict__ feats,       // [B, N, D]
     __syncthreads();
 
     // logits: one warp per (row, class), lanes over D
-    for (int pr = warp; pr < kChunk * n_cls; pr += kWarps) {
+    for (int pr = warp; pr < kChunk * ncl; pr += kWarps) {
       const int r = pr % kChunk;
       const int c = pr / kChunk;
       const float* xr = xs + r * d_feat;
@@ -214,13 +223,14 @@ pool_partial_kernel(const T* __restrict__ feats,       // [B, N, D]
         const int row = r0 + r;
         const float val = valid[r] ? dot + betas[c] : kNeg;
         ls[c * kChunk + r] = val;
-        if (row < n) logits[(static_cast<size_t>(b) * n_cls + c) * n + row] = val;
+        if (row < n)
+          logits[(static_cast<size_t>(b) * n_cls + c0 + c) * n + row] = val;
       }
     }
     __syncthreads();
 
     // p of each (class, row) against the class's new running max
-    if (tid < n_cls * kChunk) {
+    if (tid < ncl * kChunk) {
       const int c = tid / kChunk;
       const int r = tid % kChunk;
       float mx = m_run[c];
@@ -234,7 +244,7 @@ pool_partial_kernel(const T* __restrict__ feats,       // [B, N, D]
     // rescale the running sum and accumulator, then add this chunk
 #pragma unroll
     for (int c = 0; c < kMaxC; ++c) {
-      if (c >= n_cls) break;
+      if (c >= ncl) break;
       const float scale = expf(m_run[c] - m_new[c]);
       const float* pc = ps + c * kChunk;
       float psum = 0.f;
@@ -258,19 +268,19 @@ pool_partial_kernel(const T* __restrict__ feats,       // [B, N, D]
   if (tid == 0) {
 #pragma unroll
     for (int c = 0; c < kMaxC; ++c) {
-      if (c >= n_cls) break;
-      part_m[part * n_cls + c] = m_new[c];
-      part_s[part * n_cls + c] = s[c];
+      if (c >= ncl) break;
+      part_m[part * n_cls + c0 + c] = m_new[c];
+      part_s[part * n_cls + c0 + c] = s[c];
     }
   }
 #pragma unroll
   for (int c = 0; c < kMaxC; ++c) {
-    if (c >= n_cls) break;
+    if (c >= ncl) break;
 #pragma unroll
     for (int j = 0; j < kMaxCols; ++j) {
       const int col = tid + kThreads * j;
       if (col >= d_feat) break;
-      part_acc[(part * n_cls + c) * d_feat + col] = acc[c][j];
+      part_acc[(part * n_cls + c0 + c) * d_feat + col] = acc[c][j];
     }
   }
 }
@@ -334,12 +344,15 @@ cudaError_t launch(const void* feats, const uint8_t* mask, const float* wq_t,
                    float* logits, float* bag, float* part_m, float* part_s,
                    float* part_acc, int batch, int n, int d_feat, int q_dim,
                    int n_cls, float inv_sqrt_q, cudaStream_t stream) {
-  const size_t fold_smem = sizeof(float) * n_cls * q_dim;
+  const int groups = (n_cls + kMaxC - 1) / kMaxC;
+  const int group_cls = n_cls < kMaxC ? n_cls : kMaxC;
+  const size_t fold_smem = sizeof(float) * group_cls * q_dim;
   cudaError_t err = cudaFuncSetAttribute(
       fold_queries_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(fold_smem));
   if (err != cudaSuccess) return err;
-  fold_queries_kernel<<<dim3((d_feat + kFoldThreads) / kFoldThreads, batch),
+  fold_queries_kernel<<<dim3((d_feat + kFoldThreads) / kFoldThreads, batch,
+                             groups),
                         kFoldThreads, fold_smem, stream>>>(
       wq_t, bq, q_max, u, d_feat, q_dim, n_cls, inv_sqrt_q);
   err = cudaGetLastError();
@@ -347,12 +360,13 @@ cudaError_t launch(const void* feats, const uint8_t* mask, const float* wq_t,
 
   const int tiles = (n + kTile - 1) / kTile;
   const size_t smem =
-      sizeof(float) * (kSmall + static_cast<size_t>(n_cls + kChunk) * d_feat);
+      sizeof(float) * (kSmall + static_cast<size_t>(group_cls + kChunk) * d_feat);
   err = cudaFuncSetAttribute(pool_partial_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  pool_partial_kernel<T><<<dim3(tiles, batch), kThreads, smem, stream>>>(
+  pool_partial_kernel<T><<<dim3(tiles, batch, groups), kThreads, smem,
+                           stream>>>(
       static_cast<const T*>(feats), mask, u, logits, part_m, part_s, part_acc,
       n, d_feat, n_cls);
   err = cudaGetLastError();
@@ -387,7 +401,7 @@ int b6_dsmil_pool(const void* feats, int feats_half, const void* mask,
                   void* stream) {
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_cls < 1 || n_cls > kMaxC || d_feat % 8 || d_feat > kMaxD)
+  if (n_cls < 1 || n_cls > kMaxClasses || d_feat % 8 || d_feat > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
   if (feats_half)
     return static_cast<int>(launch<__half>(

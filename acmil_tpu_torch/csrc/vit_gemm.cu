@@ -11,15 +11,20 @@
 // GEMM for every product, with the layernorm in its prologue and the bias,
 // gelu, layerscale and residual in its epilogue, and kernel B5'
 // (csrc/vit_attn.cu) for the attention. No activation other than the
-// chain's hand-offs (qkv, o, h, m: bf16, or f32 for the residual h) goes to
-// device memory.
+// chain's hand-offs (qkv, o, h, m: bf16, or f32 for the residual h, and the
+// bf16 rows of the prologue) goes to device memory.
 //
-// Prologue: optional LayerNorm of the A rows. Each block first takes the
-// f32 mean and variance of its 128 rows over the full K (as _ln_f32 does:
-// mean, then the mean of the squared deviations), then normalises every A
-// element as it is staged, ((a - mu) * rsqrt(var + 1e-6)) * scale + bias,
-// and rounds it to bf16, which is _ln_f32(...).astype(x.dtype). A is bf16
-// (the layer input x) or f32 (the residual h of B3).
+// Prologue: optional LayerNorm of the A rows, in its own small kernel
+// (ln_rows_kernel) that writes bf16 rows to a workspace the caller
+// allocates: the f32 mean and variance of each row over the full K (as
+// _ln_f32 does: mean, then the mean of the squared deviations), then every
+// element ((a - mu) * rsqrt(var + 1e-6)) * scale + bias rounded to bf16,
+// which is _ln_f32(...).astype(x.dtype). The product then reads those rows
+// by TMA. Since the prologue rounds to bf16 before the product either way,
+// this gives the same numbers as normalising each staged tile in place; it
+// costs one extra write and read of [M, K] bf16 (39 MB at ViT-S/16, B =
+// 256). An f32 A without LayerNorm passes through the same kernel, rounded
+// to bf16. A is bf16 (the layer input x) or f32 (the residual h of B3).
 //
 // Epilogues (f32, then stored as bf16 or f32):
 //   0  acc + bias                    qkv
@@ -28,278 +33,627 @@
 //   3  res + (acc + bias) * ls       proj of B4, ls = layerscale (or none)
 // The residual is read as bf16 or f32.
 //
-// Design. 128x128 output tile per block, 8 warps of 64x32, depth 32 per
-// step; bf16 operands on the tensor cores through nvcuda::wmma 16x16x16
-// fragments with f32 accumulation. The next A and W slices are loaded into
-// registers while the current ones are multiplied, and shared memory holds
-// two stages. The ragged edges in M and N are masked in the kernel.
+// Design (gemm_kernel). A persistent grid of one block per SM walks the
+// 128 x 128 output tiles, N fastest, so that the blocks in flight share
+// their A rows in L2 and W (at most a few MB) stays there. Each block runs
+// three warpgroups. One producer thread (warpgroup 2) keeps a ring of four
+// stages full, each stage one 128 x 64 tile of A and one 128 x 64 tile of W
+// (a depth step of 64 bf16 is one 128-byte row), brought by TMA
+// (cp.async.bulk.tensor, a CUtensorMap per operand built on the host) with
+// the 128-byte swizzle and completed on a "full" mbarrier per stage. Two
+// consumer warpgroups take 64 rows each of the same tile and issue wgmma
+// m64n128k16 (bf16, f32 accumulators in 64 registers a thread) straight
+// from the swizzled tiles, four per stage; each keeps one stage's products
+// in flight while it releases the one before through an "empty" mbarrier
+// (one arrival a warp). setmaxnreg moves registers from the producer to
+// the consumers. The producer runs ahead into the next tile's stages while
+// the consumers apply the epilogue: each warpgroup stages its 64 x 128 f32
+// accumulators in shared memory (padded rows, so the pair writes meet no
+// bank conflict), then every warp takes whole rows, four columns a lane,
+// applies bias, gelu, residual and layerscale, and stores 16 (f32) or 8
+// (bf16) contiguous bytes a lane: whole rows per instruction. A lane asks
+// for its residuals before the tile's products, so that they arrive while
+// the products run, and the stores are not waited on, so they drain
+// during the next tile's products. Ragged M, N and K are zero-filled by
+// TMA and masked at the store.
+//
+// Measured in development on the H100 (PERF.md): with the accumulators
+// stored straight from their registers (two columns a lane, eight row
+// segments a warp instruction) the epilogue took longer than the products
+// at K = 384; a ping-pong schedule (each warpgroup a whole tile, mainloops
+// in turn) ran its mainloop at half the rate; and a TMA-store epilogue from
+// a swizzled tile was slower than these plain row stores.
 //
 // Bounds. ViT-S/16 at B=256 (M = 50432 tokens): qkv is 44.6 GFLOP against
-// 43 MB moved, fc1 59.5 GFLOP: at 989 TFLOP/s bf16 every product of the chain
-// is compute-bound (about 300 operations per byte for the large ones). wmma
-// reaches a fraction of the wgmma rate; TMA, wgmma and a persistent
-// warp-specialised schedule are the later work that this kernel's time in
-// PERF.md measures against.
+// 43 MB moved, fc1 59.5 GFLOP: at 989 TFLOP/s bf16 every product of the
+// chain is compute-bound (about 300 operations per byte for the large ones),
+// so the design keeps the tensor cores fed from shared memory and moves each
+// operand through device memory once; the prologue and the epilogue's
+// stores are bound by bytes.
 //
 // Widths the kernel takes: K a multiple of 32, N a multiple of 8, contiguous
 // 16-byte-aligned buffers, W bf16 [N, K] (torch's Linear layout). The
 // Python wrapper (acmil_tpu_torch/ops/vit_layer.py) checks them and raises.
 
+#include <cuda.h>            // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 32;
-constexpr int kThreads = 256;     // 8 warps: 2 along M x 4 along N
-constexpr int kLd = kBK + 8;      // bf16 row stride of the staged slices
-constexpr int kChunks = kBM * kBK / 8 / kThreads;   // 16-byte chunks a thread
+using bf16 = __nv_bfloat16;
+
+constexpr int kBM = 128;          // rows of a tile: two consumer warpgroups of 64
+constexpr int kBN = 128;          // columns of a tile
+constexpr int kBK = 64;           // depth of a stage: one 128-byte row of bf16
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;     // warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr uint32_t kTileBytes = kBM * kBK * 2;          // one operand tile
+constexpr uint32_t kStageBytes = 2 * kTileBytes;
+// a consumer warpgroup's 64 x 128 f32 accumulators, staged for the
+// epilogue; 8 words of padding keep the pair writes free of bank conflicts
+constexpr int kOutStride = kBN + 8;
+constexpr uint32_t kOutBytes = 64 * kOutStride * 4;
+constexpr int kSmemBytes = kStages * kStageBytes + kConsumers * kOutBytes +
+                           1024 + 2 * kStages * 8;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kLnThreads = 256;   // the prologue: one warp per row
+constexpr int kLnChunks = 12;     // 4-element chunks a lane holds: K <= 1536
 constexpr float kLnEps = 1e-6f;
 
 enum Epilogue { kBias = 0, kBiasGelu = 1, kResBias = 2, kBiasLsRes = 3 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+// ---------------------------------------------------------------------------
+// The prologue: LayerNorm (or a plain rounding) of A's rows to bf16
+// ---------------------------------------------------------------------------
 
-// 8 consecutive elements of A as f32
-__device__ __forceinline__ void load8(const float* p, float* v) {
+// 4 consecutive elements of A as f32, and 4 f32 as bf16
+__device__ __forceinline__ void load4(const float* p, float* v) {
   const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+__device__ __forceinline__ void load4(const bf16* p, float* v) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+
+__device__ __forceinline__ uint2 pack4(const float* v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                    *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// One warp per row of A: out = bf16(LN(a)) with kLn, else bf16(a). The row
+// is read once into registers, 4 elements a lane at a time (up to
+// kLnChunks chunks a lane: K <= 32 * 4 * kLnChunks); wider rows are read
+// again from L2 chunk by chunk.
+template <typename TA, bool kLn>
+__global__ void __launch_bounds__(kLnThreads)
+ln_rows_kernel(const TA* __restrict__ a, const float* __restrict__ scale,
+               const float* __restrict__ shift, bf16* __restrict__ out,
+               int m_rows, int k_depth) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (kLnThreads / 32) + threadIdx.x / 32;
+  if (row >= m_rows) return;
+  const TA* src = a + static_cast<size_t>(row) * k_depth;
+  bf16* dst = out + static_cast<size_t>(row) * k_depth;
+  const bool held = k_depth <= 128 * kLnChunks;   // the row fits the registers
+  float v[kLnChunks][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
+  for (int i = 0; i < kLnChunks; ++i) {
+    const int c = 4 * lane + 128 * i;
+    if (held && c < k_depth) load4(src + c, v[i]);
+  }
+  float mean = 0.f, rstd = 1.f;
+  if (kLn) {
+    float s = 0.f;
+    if (held) {
+#pragma unroll
+      for (int i = 0; i < kLnChunks; ++i)
+        if (4 * lane + 128 * i < k_depth)
+          s += (v[i][0] + v[i][1]) + (v[i][2] + v[i][3]);
+    } else {
+      for (int c = 4 * lane; c < k_depth; c += 128) {
+        float t[4];
+        load4(src + c, t);
+        s += (t[0] + t[1]) + (t[2] + t[3]);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
+    mean = s / k_depth;
+    float d2 = 0.f;
+    if (held) {
+#pragma unroll
+      for (int i = 0; i < kLnChunks; ++i)
+        if (4 * lane + 128 * i < k_depth)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float d = v[i][j] - mean;
+            d2 += d * d;
+          }
+    } else {
+      for (int c = 4 * lane; c < k_depth; c += 128) {
+        float t[4];
+        load4(src + c, t);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float d = t[j] - mean;
+          d2 += d * d;
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) d2 += __shfl_xor_sync(0xffffffffu, d2, o);
+    rstd = rsqrtf(d2 / k_depth + kLnEps);
+  }
+  auto emit = [&](int c, float* t) {
+    if (kLn) {
+      const float4 g = *reinterpret_cast<const float4*>(scale + c);
+      const float4 b = *reinterpret_cast<const float4*>(shift + c);
+      t[0] = ((t[0] - mean) * rstd) * g.x + b.x;
+      t[1] = ((t[1] - mean) * rstd) * g.y + b.y;
+      t[2] = ((t[2] - mean) * rstd) * g.z + b.z;
+      t[3] = ((t[3] - mean) * rstd) * g.w + b.w;
+    }
+    *reinterpret_cast<uint2*>(dst + c) = pack4(t);
+  };
+  if (held) {
+#pragma unroll
+    for (int i = 0; i < kLnChunks; ++i) {
+      const int c = 4 * lane + 128 * i;
+      if (c < k_depth) emit(c, v[i]);
+    }
+  } else {
+    for (int c = 4 * lane; c < k_depth; c += 128) {
+      float t[4];
+      load4(src + c, t);
+      emit(c, t);
+    }
   }
 }
 
-__device__ __forceinline__ uint4 pack8(const float* v) {
-  uint4 out;
-  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    h2[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  return out;
+// ---------------------------------------------------------------------------
+// TMA, mbarriers and warpgroup products
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// jax.nn.gelu(x, approximate=True)
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+// the producer's arrival, announcing the bytes TMA will complete
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One 2-D tile from global memory into shared memory by TMA: columns
+// c0.., rows c1.. of the map's tensor; out-of-bounds elements read as 0.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Hopper's warpgroup products (wgmma), as in csrc/vit_attn.cu: a
+// warpgroup's four warps issue together; the sums land in registers
+// asynchronously, so the registers are fenced before the products and read
+// only after the wait.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of x across a wgmma fence
+// or wait.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+// The descriptor of a 128-byte-swizzled bf16 operand in shared memory whose
+// rows are 128 bytes (64 elements of depth) and whose 8-row atoms lie 1024
+// bytes apart, as TMA's 128-byte swizzle writes it from a 1024-byte-aligned
+// base (sw128_desc of csrc/vit_attn.cu). A k16 step within the row adds 32
+// bytes to the start address.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (+)= a b^T for one k16 step of a 64 x 128 tile: A (64 rows of the
+// activations) and B (128 rows of W, K-major) by descriptor, f32 sums in
+// 64 registers a thread (the m64n128 accumulator layout).
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// jax.nn.gelu(x, approximate=True), in f32, with tanh(u) = 1 - 2 / (e^2u +
+// 1) on the special-function unit: within a few f32 ulps of tanhf where
+// |tanh| is large and within 1e-7 where it is small (a few instructions
+// against tanhf's range reductions: fc1's epilogue applies it to 77 M
+// elements at ViT-S/16, B = 256)
 __device__ __forceinline__ float gelu_tanh(float x) {
-  const float t = tanhf(0.7978845608028654f * (x + 0.044715f * (x * x * x)));
+  const float u = 0.7978845608028654f * (x + 0.044715f * (x * x * x));
+  const float t = 1.0f - __fdividef(2.0f, __expf(2.0f * u) + 1.0f);
   return x * (0.5f * (1.0f + t));
 }
 
-template <typename TA, bool kLn>
-__global__ void __launch_bounds__(kThreads)
-gemm_kernel(const TA* __restrict__ a,                // [M, K]
-            const float* __restrict__ ln_scale,      // [K] (kLn)
-            const float* __restrict__ ln_bias,       // [K] (kLn)
-            const __nv_bfloat16* __restrict__ w,     // [N, K]
-            const float* __restrict__ bias,          // [N]
-            const float* __restrict__ ls,            // [N] or null
-            const void* __restrict__ res,            // [M, N] or null
-            int res_f32, void* __restrict__ out, int out_f32, int epilogue,
-            int m_rows, int n_cols, int k_depth) {
-  __shared__ __align__(128) __nv_bfloat16 as[2][kBM * kLd];
-  __shared__ __align__(128) __nv_bfloat16 ws[2][kBN * kLd];
-  __shared__ float mu[kBM];
-  __shared__ float rstd[kBM];
+struct EpilogueArgs {
+  const float* bias;   // [N]
+  const float* ls;     // [N] or null
+  const void* res;     // [M, N] or null
+  void* out;           // [M, N]
+  int res_f32, out_f32;
+};
 
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  if (kLn) {
-    // row statistics over the full K: warp w takes rows 16w .. 16w+15
-    for (int r = 16 * warp; r < 16 * warp + 16; ++r) {
-      const int gm = m0 + r;
-      float mean = 0.0f, var = 1.0f;
-      if (gm < m_rows) {
-        const TA* row = a + static_cast<size_t>(gm) * k_depth;
-        float s = 0.0f;
-        for (int k = lane; k < k_depth; k += 32) s += to_f32(row[k]);
+// Four adjacent columns (col .. col + 3) of one row through epilogue
+// kEpi: a are the accumulators, b and g the bias and layerscale of those
+// columns, r the residual (epilogues 2 and 3).
+template <int kEpi>
+__device__ __forceinline__ void epilogue_quad(const EpilogueArgs& e, int row,
+                                              int col, int n_cols, float4 a,
+                                              float4 b, float4 g, float4 r) {
+  const size_t off = static_cast<size_t>(row) * n_cols + col;
+  float y[4] = {a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w};
+  if (kEpi == kBiasGelu) {
 #pragma unroll
-        for (int o = 16; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
-        mean = s / k_depth;
-        float d2 = 0.0f;
-        for (int k = lane; k < k_depth; k += 32) {
-          const float d = to_f32(row[k]) - mean;
-          d2 += d * d;
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o /= 2)
-          d2 += __shfl_xor_sync(0xffffffffu, d2, o);
-        var = d2 / k_depth;
-      }
-      if (lane == 0) {
-        mu[r] = mean;
-        rstd[r] = rsqrtf(var + kLnEps);
-      }
-    }
-    __syncthreads();
+    for (int i = 0; i < 4; ++i) y[i] = gelu_tanh(y[i]);
+  } else if (kEpi == kResBias) {
+    y[0] = (r.x + a.x) + b.x;
+    y[1] = (r.y + a.y) + b.y;
+    y[2] = (r.z + a.z) + b.z;
+    y[3] = (r.w + a.w) + b.w;
+  } else if (kEpi == kBiasLsRes) {
+    y[0] = r.x + y[0] * g.x;
+    y[1] = r.y + y[1] * g.y;
+    y[2] = r.z + y[2] * g.z;
+    y[3] = r.w + y[3] * g.w;
   }
+  if (e.out_f32)
+    *reinterpret_cast<float4*>(static_cast<float*>(e.out) + off) =
+        make_float4(y[0], y[1], y[2], y[3]);
+  else
+    *reinterpret_cast<uint2*>(static_cast<bf16*>(e.out) + off) = pack4(y);
+}
 
-  uint4 a_reg[kChunks], w_reg[kChunks];
-  // global -> registers: the A slice (normalised and rounded to bf16 when
-  // kLn) and the W slice at depth k0; rows past the edge become zeros
-  auto load_slice = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kChunks; ++i) {
-      const int q = tid + i * kThreads;
-      const int r = q / (kBK / 8);
-      const int c = (q % (kBK / 8)) * 8;
-      const int gm = m0 + r;
-      a_reg[i] = make_uint4(0, 0, 0, 0);
-      if (gm < m_rows) {
-        const TA* src = a + static_cast<size_t>(gm) * k_depth + k0 + c;
-        if (!kLn && sizeof(TA) == 2) {
-          a_reg[i] = *reinterpret_cast<const uint4*>(src);
-        } else {
-          float v[8];
-          load8(src, v);
-          if (kLn) {
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              float t = (v[j] - mu[r]) * rstd[r];
-              t = t * ln_scale[k0 + c + j];
-              v[j] = t + ln_bias[k0 + c + j];
-            }
-          }
-          a_reg[i] = pack8(v);
-        }
-      }
-      const int gn = n0 + r;
-      w_reg[i] = make_uint4(0, 0, 0, 0);
-      if (gn < n_cols)
-        w_reg[i] = *reinterpret_cast<const uint4*>(
-            w + static_cast<size_t>(gn) * k_depth + k0 + c);
+// The residual of four adjacent columns of one row as it lies in memory
+// (f32: all of it; bf16: x and y), loaded without waiting for it.
+__device__ __forceinline__ uint4 load_residual(const EpilogueArgs& e,
+                                               size_t off) {
+  if (e.res_f32)
+    return __ldg(reinterpret_cast<const uint4*>(
+        static_cast<const float*>(e.res) + off));
+  const uint2 v =
+      __ldg(reinterpret_cast<const uint2*>(static_cast<const bf16*>(e.res) + off));
+  return make_uint4(v.x, v.y, 0u, 0u);
+}
+
+// ... and as four f32 values.
+__device__ __forceinline__ float4 residual_f32(const EpilogueArgs& e,
+                                               uint4 raw) {
+  if (e.res_f32)
+    return make_float4(__uint_as_float(raw.x), __uint_as_float(raw.y),
+                       __uint_as_float(raw.z), __uint_as_float(raw.w));
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Persistent, warp-specialised: see the header. kEpi is the epilogue (a
+// template argument, so that the bias and gelu epilogues hold no residual
+// registers). Shared memory: the stages'
+// A tiles, then their W tiles, then each consumer warpgroup's staged
+// accumulators (all 1024-byte aligned), then the full and empty mbarriers.
+template <int kEpi>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap map_a,   // A bf16 [M, K]
+            const __grid_constant__ CUtensorMap map_w,   // W bf16 [N, K]
+            EpilogueArgs e, int m_rows, int n_cols, int k_depth) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t tiles_a = base;
+  const uint32_t tiles_w = base + kStages * kTileBytes;
+  const uint32_t staged = tiles_w + kStages * kTileBytes;
+  const uint32_t full = staged + kConsumers * kOutBytes;
+  const uint32_t empty = full + kStages * 8;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kConsumers);   // one arrival per warp
     }
-  };
-  auto store_slice = [&](int stage) {
-#pragma unroll
-    for (int i = 0; i < kChunks; ++i) {
-      const int q = tid + i * kThreads;
-      const int r = q / (kBK / 8);
-      const int c = (q % (kBK / 8)) * 8;
-      *reinterpret_cast<uint4*>(&as[stage][r * kLd + c]) = a_reg[i];
-      *reinterpret_cast<uint4*>(&ws[stage][r * kLd + c]) = w_reg[i];
-    }
-  };
-
-  const int wm = warp / 4;          // rows 64 wm .. 64 wm + 63 of the tile
-  const int wn = warp % 4;          // columns 32 wn .. 32 wn + 31
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int steps = k_depth / kBK;
-  load_slice(0);
-  store_slice(0);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  for (int s = 0; s < steps; ++s) {
-    const int stage = s % 2;
-    if (s + 1 < steps) load_slice((s + 1) * kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], &as[stage][(64 * wm + 16 * i) * kLd + 16 * kk], kLd);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &ws[stage][(32 * wn + 16 * j) * kLd + 16 * kk], kLd);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    if (s + 1 < steps) store_slice(1 - stage);
-    __syncthreads();
-  }
 
-  // epilogue: each 16x16 fragment through a per-warp f32 scratch (the first
-  // A stage, free now), two lanes per row, eight columns each
-  float* scratch = reinterpret_cast<float*>(as[0]) + warp * 256;
-  const int r = lane / 2;
-  const int c = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gm = m0 + 64 * wm + 16 * i + r;
-      const int gn = n0 + 32 * wn + 16 * j + c;
-      if (gm < m_rows && gn < n_cols) {
-        const size_t off = static_cast<size_t>(gm) * n_cols + gn;
-        float v[8], rv[8];
-        if (epilogue >= kResBias) {
-          if (res_f32) load8(static_cast<const float*>(res) + off, rv);
-          else load8(static_cast<const __nv_bfloat16*>(res) + off, rv);
-        }
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float acc_v = scratch[r * 16 + c + e];
-          const float b = bias[gn + e];
-          float y;
-          if (epilogue == kBias) {
-            y = acc_v + b;
-          } else if (epilogue == kBiasGelu) {
-            y = gelu_tanh(acc_v + b);
-          } else if (epilogue == kResBias) {
-            y = (rv[e] + acc_v) + b;
-          } else {
-            float t = acc_v + b;
-            if (ls != nullptr) t = t * ls[gn + e];
-            y = rv[e] + t;
+  const int tiles_n = (n_cols + kBN - 1) / kBN;
+  const int tiles = ((m_rows + kBM - 1) / kBM) * tiles_n;
+  const int k_steps = (k_depth + kBK - 1) / kBK;
+
+  if (wg == kConsumers) {
+    // ---- producer: one thread keeps the ring full -------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == 4 * kConsumers && lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&map_a))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&map_w))
+                   : "memory");
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / tiles_n) * kBM;
+        const int n0 = (t % tiles_n) * kBN;
+        for (int ks = 0; ks < k_steps; ++ks) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);   // the consumers freed it
+          mbar_expect_tx(full + 8 * stage, kStageBytes);
+          tma_load(tiles_a + stage * kTileBytes, &map_a, full + 8 * stage,
+                   ks * kBK, m0);
+          tma_load(tiles_w + stage * kTileBytes, &map_w, full + 8 * stage,
+                   ks * kBK, n0);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
           }
-          v[e] = y;
-        }
-        if (out_f32) {
-          float* dst = static_cast<float*>(out) + off;
-          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-          *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
-        } else {
-          *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + off) =
-              pack8(v);
         }
       }
-      __syncwarp();
+    }
+  } else {
+    // ---- consumers: warpgroup wg takes rows 64 wg .. 64 wg + 63 ------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wrow = 16 * (warp % 4) + lane / 4;   // this lane's first row
+    const int wcol = 2 * (lane % 4);               // and first column
+    float* out_tile = reinterpret_cast<float*>(
+        smem_raw + (staged - smem_addr(smem_raw)) + wg * kOutBytes);
+    constexpr int kRowsPerWarp = 64 / 4;           // of the epilogue
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[64];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t / tiles_n) * kBM;
+      const int n0 = (t % tiles_n) * kBN;
+      // the epilogue's lane: rows row0 + 4 i of the tile, four columns from
+      // col; its residuals are requested now and arrive during the products
+      const int col = n0 + 4 * lane;
+      const int row0 = m0 + 64 * wg + warp % 4;
+      uint4 res[kRowsPerWarp];
+      if constexpr (kEpi >= kResBias) {
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          res[i] = make_uint4(0u, 0u, 0u, 0u);
+          if (col < n_cols && row0 + 4 * i < m_rows)
+            res[i] = load_residual(
+                e, static_cast<size_t>(row0 + 4 * i) * n_cols + col);
+        }
+      }
+      int held = -1;                                // stage still being read
+      for (int ks = 0; ks < k_steps; ++ks) {
+        mbar_wait(full + 8 * stage, phase);
+        const uint64_t da =
+            sw128_desc(tiles_a + stage * kTileBytes + wg * (kTileBytes / 2));
+        const uint64_t dw = sw128_desc(tiles_w + stage * kTileBytes);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)    // +2: a k16 step, 32 bytes
+          wgmma_m64n128k16(acc, da + 2 * kk, dw + 2 * kk, ks > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();   // the previous stage's products are done
+        if (held >= 0 && lane == 0) mbar_arrive(empty + 8 * held);
+        held = stage;
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_operands(acc);
+      if (lane == 0) mbar_arrive(empty + 8 * held);
+
+      // the epilogue: stage the accumulators (acc[4j + 2h + c] is row
+      // wrow + 8h, column 8j + wcol + c of this warpgroup's 64 x 128 tile)
+      // in shared memory, then each warp takes whole rows, four columns a
+      // lane, so that every store is 16 or 8 contiguous bytes of a row
+      named_barrier(1 + wg, 128);                   // the last tile is read
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(out_tile + (wrow + 8 * h) * kOutStride +
+                                     8 * j + wcol) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      named_barrier(1 + wg, 128);
+      if (col < n_cols) {                           // N % 8 == 0: all four
+        const float4 b = *reinterpret_cast<const float4*>(e.bias + col);
+        const float4 g = e.ls != nullptr
+                             ? *reinterpret_cast<const float4*>(e.ls + col)
+                             : make_float4(1.f, 1.f, 1.f, 1.f);
+        float4 a[kRowsPerWarp];
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i)
+          a[i] = *reinterpret_cast<const float4*>(
+              out_tile + (warp % 4 + 4 * i) * kOutStride + 4 * lane);
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+          if constexpr (kEpi >= kResBias) r = residual_f32(e, res[i]);
+          if (row0 + 4 * i < m_rows)
+            epilogue_quad<kEpi>(e, row0 + 4 * i, col, n_cols, a[i], b, g, r);
+        }
+      }
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry-point
+// query (so the library needs no link against libcuda); null if missing.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of a row-major bf16 [rows, k] matrix, read in 128-row x 64-column
+// boxes with the 128-byte swizzle; elements past the edges read as 0.
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int k) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k) * 2};
+  const cuuint32_t box[2] = {kBK, kBM};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename TA, bool kLn>
-cudaError_t launch(const void* a, const float* ln_scale, const float* ln_bias,
-                   const __nv_bfloat16* w, const float* bias, const float* ls,
-                   const void* res, int res_f32, void* out, int out_f32,
-                   int epilogue, int m, int n, int k, cudaStream_t stream) {
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  gemm_kernel<TA, kLn><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TA*>(a), ln_scale, ln_bias, w, bias, ls, res, res_f32,
-      out, out_f32, epilogue, m, n, k);
+cudaError_t launch_prologue(const void* a, const float* scale,
+                            const float* shift, bf16* out, int m, int k,
+                            cudaStream_t stream) {
+  const int rows = kLnThreads / 32;
+  ln_rows_kernel<TA, kLn><<<(m + rows - 1) / rows, kLnThreads, 0, stream>>>(
+      static_cast<const TA*>(a), scale, shift, out, m, k);
   return cudaGetLastError();
+}
+
+template <int kEpi>
+cudaError_t launch_gemm(const CUtensorMap& map_a, const CUtensorMap& map_w,
+                        const EpilogueArgs& e, int m, int n, int k, int grid,
+                        cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_kernel<kEpi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return err;
+  gemm_kernel<kEpi><<<grid, kThreads, kSmemBytes, stream>>>(map_a, map_w, e, m,
+                                                            n, k);
+  return cudaGetLastError();
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 0;
+  }
+  return sms;
 }
 
 }  // namespace
@@ -308,34 +662,57 @@ extern "C" {
 
 // Launches the GEMM on `stream`. A is [m, k] bf16 (a_f32 = 0) or f32;
 // ln_scale/ln_bias [k] turn the LayerNorm prologue on (both null: off);
-// w [n, k] bf16; bias [n] f32; ls [n] f32 or null; res [m, n] bf16 or f32
+// a_rows is a bf16 [m, k] workspace for the prologue's rows, needed when the
+// prologue is on or A is f32 (else null: the product reads A itself); w
+// [n, k] bf16; bias [n] f32; ls [n] f32 or null; res [m, n] bf16 or f32
 // (epilogues 2 and 3); out [m, n] bf16 (out_f32 = 0) or f32. All device
 // pointers, contiguous and 16-byte aligned. Returns the cudaError_t of the
-// launch (cudaErrorInvalidValue for widths it does not take).
+// launches (cudaErrorInvalidValue for widths it does not take).
 int vit_gemm(const void* a, int a_f32, const float* ln_scale,
-             const float* ln_bias, const void* w, const float* bias,
-             const float* ls, const void* res, int res_f32, void* out,
-             int out_f32, int epilogue, int m, int n, int k, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || k % kBK || n % 8 || epilogue < kBias ||
-      epilogue > kBiasLsRes || (epilogue >= kResBias && res == nullptr) ||
-      (m + kBM - 1) / kBM > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+             const float* ln_bias, void* a_rows, const void* w,
+             const float* bias, const float* ls, const void* res, int res_f32,
+             void* out, int out_f32, int epilogue, int m, int n, int k,
+             void* stream) {
   const bool ln = ln_scale != nullptr;
-  cudaError_t err;
-  if (a_f32)
-    err = ln ? launch<float, true>(a, ln_scale, ln_bias, wb, bias, ls, res,
-                                   res_f32, out, out_f32, epilogue, m, n, k, st)
-             : launch<float, false>(a, ln_scale, ln_bias, wb, bias, ls, res,
-                                    res_f32, out, out_f32, epilogue, m, n, k, st);
-  else
-    err = ln ? launch<__nv_bfloat16, true>(a, ln_scale, ln_bias, wb, bias, ls,
-                                           res, res_f32, out, out_f32,
-                                           epilogue, m, n, k, st)
-             : launch<__nv_bfloat16, false>(a, ln_scale, ln_bias, wb, bias, ls,
-                                            res, res_f32, out, out_f32,
-                                            epilogue, m, n, k, st);
+  if (m <= 0 || n <= 0 || k <= 0 || k % 32 || n % 8 || epilogue < kBias ||
+      epilogue > kBiasLsRes || (epilogue >= kResBias && res == nullptr) ||
+      ((ln || a_f32) && a_rows == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  const void* a_bf16 = a;
+  if (ln || a_f32) {
+    bf16* rows = static_cast<bf16*>(a_rows);
+    if (a_f32)
+      err = ln ? launch_prologue<float, true>(a, ln_scale, ln_bias, rows, m, k, st)
+               : launch_prologue<float, false>(a, nullptr, nullptr, rows, m, k, st);
+    else
+      err = launch_prologue<bf16, true>(a, ln_scale, ln_bias, rows, m, k, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    a_bf16 = rows;
+  }
+  CUtensorMap map_a, map_w;
+  if (!make_map(&map_a, a_bf16, m, k) || !make_map(&map_w, w, n, k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const long long tiles = static_cast<long long>((m + kBM - 1) / kBM) *
+                          ((n + kBN - 1) / kBN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  const EpilogueArgs e{bias, ls, res, out, res_f32, out_f32};
+  switch (epilogue) {
+    case kBias:
+      err = launch_gemm<kBias>(map_a, map_w, e, m, n, k, grid, st);
+      break;
+    case kBiasGelu:
+      err = launch_gemm<kBiasGelu>(map_a, map_w, e, m, n, k, grid, st);
+      break;
+    case kResBias:
+      err = launch_gemm<kResBias>(map_a, map_w, e, m, n, k, grid, st);
+      break;
+    default:
+      err = launch_gemm<kBiasLsRes>(map_a, map_w, e, m, n, k, grid, st);
+  }
   return static_cast<int>(err);
 }
 

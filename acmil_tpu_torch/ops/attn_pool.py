@@ -31,8 +31,9 @@ import torch
 
 NEG = -1e30
 
-# the widths csrc/attn_pool.cu and csrc/attn_pool_bwd.cu are compiled for
-KERNEL_L = 128
+# the widths csrc/attn_pool.cu and csrc/attn_pool_bwd.cu are compiled for:
+# one instantiation per L, every D_inner of config.PRETRAIN_DIMS
+KERNEL_LS = (128, 256, 384, 512, 768)
 KERNEL_A = 128
 KERNEL_DF_MULTIPLE = 32
 KERNEL_MAX_K = 128
@@ -85,8 +86,11 @@ def _check_kernel_args(feats, mask, w1, b1, v, bv, u, bu, w, bw) -> None:
         raise ValueError(f"Df={df} is not a multiple of {KERNEL_DF_MULTIPLE}")
     l, a = w1.shape[1], v.shape[1]
     k = w.shape[1]
-    if l != KERNEL_L or a != KERNEL_A:
-        raise ValueError(f"the kernel takes L = A = 128, got L={l}, A={a}")
+    if l not in KERNEL_LS:
+        raise ValueError(f"the kernel takes L a multiple of 128 up to 768, "
+                         f"got L={l}")
+    if a != KERNEL_A:
+        raise ValueError(f"the kernel takes A = {KERNEL_A}, got A={a}")
     if not 1 <= k <= KERNEL_MAX_K:
         raise ValueError(f"the kernel takes 1 <= K <= {KERNEL_MAX_K}, got {k}")
     shapes = {"w1": (w1, (df, l)), "b1": (b1, (l,)), "v": (v, (l, a)),
@@ -112,17 +116,18 @@ def _device_inputs(dev, tensors, kernel):
 
 @functools.cache
 def _kernel_entry():
-    """(the C entry point with its ctypes signature, rows per tile), from
-    the library built at first use."""
+    """(the C entry point with its ctypes signature, the rows-per-tile
+    query of an L), from the library built at first use."""
     from acmil_tpu_torch.ops import _build
 
     lib = _build.load("attn_pool")
     fn = lib.b1_attn_pool_forward
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 16
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.b1_tile_rows.restype = ctypes.c_int
-    return fn, lib.b1_tile_rows()
+    lib.b1_tile_rows.argtypes = [ctypes.c_int]
+    return fn, lib.b1_tile_rows
 
 
 def _launch_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw):
@@ -133,7 +138,7 @@ def _launch_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw):
     fn, tile_rows = _kernel_entry()
     b, n, df = feats.shape
     l, k = w1.shape[1], w.shape[1]
-    tiles = -(-n // tile_rows)
+    tiles = -(-n // tile_rows(l))
     f32 = dict(device=dev, dtype=torch.float32)
     logits = torch.empty(b, k, n, **f32)
     bag = torch.empty(b, k, l, **f32)
@@ -147,7 +152,7 @@ def _launch_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), int(x.dtype == torch.float16), mk.data_ptr(),
                  *(t.data_ptr() for t in weights),
-                 *(t.data_ptr() for t in outs), b, n, df, k, stream)
+                 *(t.data_ptr() for t in outs), b, n, df, k, l, stream)
     if err != 0:
         raise RuntimeError(f"kernel B1 launch failed: cudaError_t {err}")
     fused_gated_attn_pool_batched.launches += 1
@@ -254,10 +259,10 @@ def _fused_pool_bwd_stats(feats, mask, w1, b1, v, bv, u, bu, w, bw,
             ct(g, d_log), d_log.sum(dim=(0, 1)))
 
 
-def _check_bwd_args(feats, k, lse, c, d_bag, d_logits) -> None:
+def _check_bwd_args(feats, k, l, lse, c, d_bag, d_logits) -> None:
     b, n, _ = feats.shape
     shapes = {"lse": (lse, (b, k)), "c": (c, (b, k)),
-              "d_bag": (d_bag, (b, k, KERNEL_L)),
+              "d_bag": (d_bag, (b, k, l)),
               "d_logits": (d_logits, (b, k, n))}
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape or t.dtype != torch.float32:
@@ -268,25 +273,27 @@ def _check_bwd_args(feats, k, lse, c, d_bag, d_logits) -> None:
 @functools.cache
 def _bwd_kernel_entry():
     """(the launch entry with its ctypes signature, the blocks-per-grid
-    query, rows per tile), from the library built at first use."""
+    query, the rows-per-tile query of an L), from the library built at
+    first use."""
     from acmil_tpu_torch.ops import _build
 
     lib = _build.load("attn_pool_bwd")
     fn = lib.b2_attn_pool_backward
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 16
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     blocks = lib.b2_max_blocks
     blocks.restype = ctypes.c_int
-    blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+    blocks.argtypes = [ctypes.c_int] * 3
     lib.b2_tile_rows.restype = ctypes.c_int
-    return fn, blocks, lib.b2_tile_rows()
+    lib.b2_tile_rows.argtypes = [ctypes.c_int]
+    return fn, blocks, lib.b2_tile_rows
 
 
-def _grad_slice_sizes(df, k):
+def _grad_slice_sizes(df, l, k):
     """Lengths of (dW1, db1, dV, dbv, dU, dbu, dw, dbw) in B2's flat
     gradient buffer, in order."""
-    l, a = KERNEL_L, KERNEL_A
+    a = KERNEL_A
     return (df * l, l, l * a, a, l * a, a, a * k, k)
 
 
@@ -294,22 +301,22 @@ def _launch_bwd_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, c,
                        d_bag, d_logits, need_dx):
     _check_kernel_args(feats, mask, w1, b1, v, bv, u, bu, w, bw)
     b, n, df = feats.shape
-    k = w.shape[1]
-    _check_bwd_args(feats, k, lse, c, d_bag, d_logits)
+    l, k = w1.shape[1], w.shape[1]
+    _check_bwd_args(feats, k, l, lse, c, d_bag, d_logits)
     dev = feats.device
     x, mk, *rest = _device_inputs(
         dev, (feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, c, d_bag,
               d_logits), "B2")
     fn, max_blocks, tile_rows = _bwd_kernel_entry()
-    sizes = _grad_slice_sizes(df, k)
+    sizes = _grad_slice_sizes(df, l, k)
     slice_len = sum(sizes)
     half = int(x.dtype == torch.float16)
     with torch.cuda.device(dev):
-        resident = max_blocks(k, half)
+        resident = max_blocks(k, half, l)
         if resident <= 0:
             raise RuntimeError(f"kernel B2 occupancy query failed: "
                                f"cudaError_t {-resident}")
-        groups = min(resident, b * -(-n // tile_rows))
+        groups = min(resident, b * -(-n // tile_rows(l)))
         f32 = dict(device=dev, dtype=torch.float32)
         work = torch.empty(groups, slice_len, **f32)
         grads = torch.empty(slice_len, **f32)
@@ -318,12 +325,12 @@ def _launch_bwd_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, c,
         err = fn(x.data_ptr(), half, mk.data_ptr(),
                  *(t.data_ptr() for t in rest),
                  dx.data_ptr() if need_dx else None, work.data_ptr(),
-                 grads.data_ptr(), b, n, df, k, groups, stream)
+                 grads.data_ptr(), b, n, df, k, l, groups, stream)
     if err != 0:
         raise RuntimeError(f"kernel B2 launch failed: cudaError_t {err}")
     fused_gated_attn_pool_bwd.launches += 1
-    shapes = ((df, KERNEL_L), (KERNEL_L,), (KERNEL_L, KERNEL_A), (KERNEL_A,),
-              (KERNEL_L, KERNEL_A), (KERNEL_A,), (KERNEL_A, k), (k,))
+    a = KERNEL_A
+    shapes = ((df, l), (l,), (l, a), (a,), (l, a), (a,), (a, k), (k,))
     parts = torch.split(grads, sizes)
     return (dx, *(p.view(s) for p, s in zip(parts, shapes)))
 

@@ -34,9 +34,9 @@ import torch
 
 NEG = -1e30
 
-# kMaxC and kMaxD of csrc/dsmil_pool.cu, whose entry refuses other widths
-# too; the JAX kernel allows C <= 128
-KERNEL_MAX_C = 8
+# kMaxClasses and kMaxD of csrc/dsmil_pool.cu, whose entry refuses other
+# widths too; C <= 128 is the JAX kernel's limit as well
+KERNEL_MAX_C = 128
 KERNEL_MAX_D = 1536
 KERNEL_D_MULTIPLE = 8
 
@@ -79,7 +79,7 @@ def _check_kernel_args(feats, mask, wq, bq, q_max) -> None:
     q, c = wq.shape[1], q_max.shape[1]
     if not 1 <= c <= KERNEL_MAX_C:
         raise ValueError(f"kernel B6 takes 1 <= C <= {KERNEL_MAX_C} classes, "
-                         f"got C={c} (the TPU kernel's limit is 128)")
+                         f"got C={c}")
     shapes = {"wq": (wq, (d, q)), "bq": (bq, (q,)), "q_max": (q_max, (b, c, q))}
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape or t.dtype != torch.float32:

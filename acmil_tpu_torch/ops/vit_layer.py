@@ -10,10 +10,11 @@ are ``[out, in]``.
 
 - :func:`fused_vit_layer`: LN1 → qkv → MHA → proj → +x (f32 residual h) →
   LN2 → fc1 → tanh-approximate gelu → fc2 → +h. On a CUDA tensor it is a
-  chain of five launches (``csrc/vit_gemm.cu`` four times and kernel B5'
-  once) that replaces the Pallas ``_layer_kernel``; on a CPU tensor it is
-  the plain :func:`_reference_layer`.
-- :func:`fused_vit_attn_half`: LN1 → qkv → MHA → proj → (+b)·ls1 → +x, three
+  chain of seven launches that replaces the Pallas ``_layer_kernel``: the
+  GEMM of ``csrc/vit_gemm.cu`` four times (TMA and wgmma), two of them
+  after its LayerNorm prologue kernel, and kernel B5' once; on a CPU
+  tensor it is the plain :func:`_reference_layer`.
+- :func:`fused_vit_attn_half`: LN1 → qkv → MHA → proj → (+b)·ls1 → +x, four
   launches on CUDA (replacing ``_attn_half_kernel``), plain
   :func:`_reference_attn_half` on the CPU.
 
@@ -191,7 +192,7 @@ def _gemm_entry():
     fn = _build.load("vit_gemm").vit_gemm
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, p, p, p, p, p, i, p, i, i, i, i, i, p]
+    fn.argtypes = [p, i, p, p, p, p, p, p, p, i, p, i, i, i, i, i, p]
     return fn
 
 
@@ -200,9 +201,11 @@ def _ptr(t):
 
 
 def _gemm(a, w, bias, epilogue, *, out_dtype, ln=None, ls=None, res=None):
-    """One launch of the GEMM (``csrc/vit_gemm.cu``): ``epilogue(
+    """One call of the GEMM (``csrc/vit_gemm.cu``): ``epilogue(
     prologue(a) · wᵀ)`` with a ``[M, K]`` bf16 or f32, w bf16 ``[N, K]``,
-    f32 vectors; raises on what the kernel does not take."""
+    f32 vectors; raises on what the kernel does not take. With a LayerNorm
+    or an f32 ``a``, the prologue kernel first writes ``a``'s rows as bf16
+    to a workspace that the product reads."""
     m, k = a.shape
     n = w.shape[0]
     if a.dtype not in (torch.bfloat16, torch.float32):
@@ -233,11 +236,14 @@ def _gemm(a, w, bias, epilogue, *, out_dtype, ln=None, ls=None, res=None):
                              "inputs")
     out = torch.empty(m, n, dtype=out_dtype, device=a.device)
     scale, shift = ln if ln is not None else (None, None)
+    rows = (torch.empty(m, k, dtype=torch.bfloat16, device=a.device)
+            if ln is not None or a.dtype == torch.float32 else None)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = _gemm_entry()(
             a.data_ptr(), int(a.dtype == torch.float32), _ptr(scale),
-            _ptr(shift), w.data_ptr(), bias.data_ptr(), _ptr(ls), _ptr(res),
+            _ptr(shift), _ptr(rows), w.data_ptr(), bias.data_ptr(), _ptr(ls),
+            _ptr(res),
             int(res is not None and res.dtype == torch.float32),
             out.data_ptr(), int(out_dtype == torch.float32), epilogue, m, n,
             k, stream)
@@ -273,7 +279,8 @@ def _bf16(t):
 
 
 def _launch_layer(x, w, heads):
-    """Kernel B3 on CUDA: the chain of five launches."""
+    """Kernel B3 on CUDA: the chain of seven launches (LN1, qkv, B5', proj,
+    LN2, fc1, fc2)."""
     _check_chain_args(x, w, heads, mlp=True)
     b, n, d = x.shape
     x2 = x.contiguous().view(b * n, d)
@@ -293,7 +300,8 @@ def _launch_layer(x, w, heads):
 
 
 def _launch_attn_half(x, w, heads):
-    """Kernel B4 on CUDA: the chain of three launches."""
+    """Kernel B4 on CUDA: the chain of four launches (LN1, qkv, B5',
+    proj)."""
     _check_chain_args(x, w, heads, mlp=False)
     b, n, d = x.shape
     x2 = x.contiguous().view(b * n, d)

@@ -11,31 +11,40 @@ code is non-zero:
 1. card: name and power limit (``nvidia-smi``); no CUDA device is an error.
 2. build: kernels B1 (``acmil_tpu_torch/csrc/attn_pool.cu``), B2
    (``acmil_tpu_torch/csrc/attn_pool_bwd.cu``), the ViT GEMM
-   (``csrc/vit_gemm.cu``) and MHA B5'/B7 (``csrc/vit_attn.cu``) from which
-   the B3 and B4 chains are built, and B6 (``csrc/dsmil_pool.cu``): one
-   ``nvcc`` each, all together; ptxas's registers and spills of every
-   kernel, and how B5'/B7 launches at the trunks' shapes (wgmma or
-   mma.sync, passes over the keys, warps, shared memory).
+   (``csrc/vit_gemm.cu``: TMA, wgmma, LayerNorm prologue) and MHA B5'/B7
+   (``csrc/vit_attn.cu``) from which the B3 and B4 chains are built, and B6
+   (``csrc/dsmil_pool.cu``): one ``nvcc`` each, all together; ptxas's
+   registers and spills of every kernel, and how B5'/B7 launches at the
+   trunks' shapes (wgmma or mma.sync, passes over the keys, warps, shared
+   memory).
 3. kernel B1 against its plain PyTorch version on the card at the serving
    width (Df=384, L=A=128), K in {5, 1}, N in {300, 16384, 65536}, B=1 and
-   B=3 with one all-masked bag, fp16 and f32 features; then both timed with
-   CUDA events at N=16384 and 65536.
+   B=3 with one all-masked bag, fp16 and f32 features, and at every other
+   pretrain width (Df, L) in ``WIDE_DIMS`` (L = 256 to 768) with K in {5,
+   128}; then timed with CUDA events at N=16384 and 65536 (and its device
+   time at N=65536 at every L).
 4. kernel B2 against its plain closed form and against torch autograd
-   through the plain forward, at the same shapes, with dx off and on and
-   cotangents that are nonzero at pad slots too; two launches must agree
-   bit for bit. Then B2 and the plain backward timed at N=16384 and 65536.
+   through the plain forward, at the same shapes (at the wider L: K=5 at
+   N=300 and 65536, K=128 at N=4099), with dx off and on and cotangents
+   that are nonzero at pad slots too; two launches must agree bit for bit.
+   Then B2 and the plain backward timed at N=16384 and 65536 (and at
+   N=65536 at every L).
 5. serving: an ACMIL_GA head at the camelyon_medical_ssl widths
    (n_token=5, weights from a seeded ``torch.Generator``) scores 16
    synthetic slides of 1k-50k patches through ``cli/predict.py``'s ``main``
    on ``cuda``. B1 must launch once per slide; the probabilities must be
    finite, sum to 1 and match the plain model route (``fused=False``).
+   Then the same at the natural_supervised widths (Df 512, L 256: B1's
+   32-row tiles) on 6 slides.
 6. training, the slice's main path: ``cli/step3_acmil.py``'s ``main`` trains
    the ACMIL recipe (n_token 5, n_masked_patch 10, mask_drop 0.6) at the
    camelyon_medical_ssl widths for 2 epochs on 24 synthetic slides of
    1k-50k patches, on ``cuda``. B2 must launch once per train step and B1
    once per train step and once per eval bag; every epoch's loss must be
    finite; ``checkpoint-best.pth`` and ``checkpoint-last.pth`` must exist,
-   and the best one must score slides through ``cli/predict.py``.
+   and the best one must score slides through ``cli/predict.py``. Then one
+   epoch at the natural_supervised widths (8 train, 2 val, 2 test slides)
+   through B1 and B2 at L = 256, with the same launch rule.
 7. fused against plain training on one 50000-patch bag: from the same
    weights with the same STKIM uniforms, one step's loss and every gradient
    of the fused route (B1 + B2) match the plain route (forward and
@@ -50,8 +59,10 @@ code is non-zero:
    the matrices in bf16 as the path holds them (B3 at B=256, B4 at UNI,
    B5' at ViT-S/16, B=256, where Step2 launches it, and at CLIP-L/336,
    B=32), beside its plain version and, for B5',
-   ``F.scaled_dot_product_attention`` on the same qkv (a yardstick the port
-   never calls); for B3 and B4 also the device time of their B5' step.
+   ``F.scaled_dot_product_attention`` on the same qkv, for B3 and B4 the
+   sum of one bf16 ``torch.matmul`` per GEMM shape of the chain (yardsticks
+   the port never calls); for B3 and B4 also the device time of their B5'
+   step, of their GEMMs (with TFLOP/s) and of their LayerNorm prologues.
 9. Step2, slice 3's main path: ``cli/step2_extract.py``'s ``main`` extracts
    ViT-S/16 medical_ssl features (full width, depth 12, batch 256, seeded
    random weights) from three synthetic slides of 1135 patches on ``cuda``;
@@ -65,9 +76,11 @@ code is non-zero:
 11. kernel B6 (``csrc/dsmil_pool.cu``) against its plain version at (D, Q) of
    camelyon_medical_ssl (384, 128) and UNI (1024, 512), C in {2, 4}, N in
    {300, 16384, 65536}, B=1 and B=3 with one all-masked bag, fp16 and f32
-   features; then B6, the plain pooling and the whole fused and plain DSMIL
-   eval forwards timed with CUDA events, and the N from which the fused
-   forward wins on this card printed beside ``FUSE_MIN_N``.
+   features, and C in {9, 128} (class groups of 8 a block) at N=300 (B=3)
+   and 65536; then B6 (C=2 and C=128), the plain pooling and the whole
+   fused and plain DSMIL eval forwards timed with CUDA events, and the N
+   from which the fused forward wins on this card printed beside
+   ``FUSE_MIN_N``.
 12. DSMIL scoring, slice 4's main path: a DSMIL head at the
    camelyon_medical_ssl widths (seeded weights, saved through
    ``engine/checkpoint.save``) scores 16 synthetic slides of 1k-65k patches
@@ -96,7 +109,8 @@ the plain version, its time (``ms``: CUDA
 events around one call of the wrapper; ``device_ms``: the kernels' own
 device time from ``torch.profiler``), the plain version's, a library call's
 where one exists, and the bound (the larger of FLOPs / 989 TFLOP/s and
-bytes / 3.35 TB/s); then the
+bytes / 3.35 TB/s); B1 and B2 also at the wider L (``wider_l``), B6 also at
+C=128 (``c128``), B3 and B4 also their GEMMs' device time and rate; then the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -117,7 +131,13 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 YML = os.path.join(REPO, "config", "camelyon_medical_ssl_config.yml")
+# the natural_supervised configs (camelyon, bracs, lct): D_feat 512,
+# D_inner 256
+WIDE_YML = os.path.join(REPO, "config", "camelyon_natural_supervised_config.yml")
 D_FEAT, D_INNER, D_ATTN, N_TOKEN = 384, 128, 128, 5   # camelyon_medical_ssl, ACMIL
+# (D_feat, D_inner) of the other pretrain tags (config.PRETRAIN_DIMS), where
+# kernels B1 and B2 run 32-row tiles
+WIDE_DIMS = ((512, 256), (768, 384), (1024, 512), (1536, 768))
 N_MASKED_PATCH, MASK_DROP = 10, 0.6                   # the README's ACMIL recipe
 SEED = 0
 # kernel vs plain: both f32 with TF32 off; only the order of the sums
@@ -141,6 +161,9 @@ STEP_LOSS_RTOL, STEP_GRAD_REL, STEP_GRAD_ATOL = 1e-5, 1e-3, 1e-7
 ADAM_LOSS_RTOL = 1e-3
 F32_PEAK_TFLOPS = 67.0     # H100 SXM, CUDA cores, published
 TRAIN_EPOCHS, N_TRAIN, N_VAL, N_TEST = 2, 16, 4, 4
+# the natural_supervised phases: slides scored; (train, val, test) slides of
+# one training epoch
+WIDE_SLIDES, WIDE_TRAIN = 6, (8, 2, 2)
 # bounds: H100 SXM dense bf16/fp16 tensor-core peak and HBM rate, published
 PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
 # ViT kernels vs their plain versions, bf16 both: the same rounding points
@@ -218,14 +241,14 @@ def build() -> None:
               f"{'resident' if resident else 'streamed'}")
 
 
-def _weights(gen, k):
+def _weights(gen, k, df=D_FEAT, l=D_INNER):
     def uni(*shape, fan_in):
         b = fan_in ** -0.5
         return (torch.rand(*shape, generator=gen, device="cuda") * 2 - 1) * b
 
-    return [uni(D_FEAT, D_INNER, fan_in=D_FEAT), torch.zeros(D_INNER, device="cuda"),
-            uni(D_INNER, D_ATTN, fan_in=D_INNER), uni(D_ATTN, fan_in=D_INNER),
-            uni(D_INNER, D_ATTN, fan_in=D_INNER), uni(D_ATTN, fan_in=D_INNER),
+    return [uni(df, l, fan_in=df), torch.zeros(l, device="cuda"),
+            uni(l, D_ATTN, fan_in=l), uni(D_ATTN, fan_in=l),
+            uni(l, D_ATTN, fan_in=l), uni(D_ATTN, fan_in=l),
             uni(D_ATTN, k, fan_in=D_ATTN), uni(k, fan_in=D_ATTN)]
 
 
@@ -345,31 +368,28 @@ def _bound(flops: float, nbytes: float) -> dict:
             "bound_by": "operations" if t_ops >= t_mem else "bytes"}
 
 
-def _pool_weight_count(k: int) -> int:
-    return (D_FEAT * D_INNER + D_INNER + 2 * (D_INNER * D_ATTN + D_ATTN)
-            + D_ATTN * k + k)
+def _pool_weight_count(k: int, df: int = D_FEAT, l: int = D_INNER) -> int:
+    return df * l + l + 2 * (l * D_ATTN + D_ATTN) + D_ATTN * k + k
 
 
-def _b1_bound(n: int, k: int) -> dict:
+def _b1_bound(n: int, k: int, df: int = D_FEAT, l: int = D_INNER) -> dict:
     """B1 on one fp16 bag of n rows: x·W1, both gates, the logits and the
     pooling; reads the features, the mask and the f32 weights once, writes
     the logits, the bag and (m, s)."""
-    flops = 2 * n * (D_FEAT * D_INNER + 2 * D_INNER * D_ATTN + D_ATTN * k
-                     + k * D_INNER)
-    nbytes = (n * D_FEAT * 2 + n + 4 * _pool_weight_count(k)
-              + 4 * (k * n + k * D_INNER + 2 * k))
+    flops = 2 * n * (df * l + 2 * l * D_ATTN + D_ATTN * k + k * l)
+    nbytes = (n * df * 2 + n + 4 * _pool_weight_count(k, df, l)
+              + 4 * (k * n + k * l + 2 * k))
     return _bound(flops, nbytes)
 
 
-def _b2_bound(n: int, k: int) -> dict:
+def _b2_bound(n: int, k: int, df: int = D_FEAT, l: int = D_INNER) -> dict:
     """B2 on one fp16 bag, weight gradients only: the forward's recompute
     (x·W1, gates, logits) and the backward's products (d_p, d_g, d_h, dW1,
     dV, dU, dw); reads features, mask, weights, lse, c, d_bag, d_logits,
     writes the weight gradients."""
-    flops = 2 * n * (2 * D_FEAT * D_INNER + 6 * D_INNER * D_ATTN
-                     + 3 * D_ATTN * k + 2 * D_INNER * k)
-    nbytes = (n * D_FEAT * 2 + n + 8 * _pool_weight_count(k)
-              + 4 * (2 * k + k * D_INNER + k * n))
+    flops = 2 * n * (2 * df * l + 6 * l * D_ATTN + 3 * D_ATTN * k + 2 * l * k)
+    nbytes = (n * df * 2 + n + 8 * _pool_weight_count(k, df, l)
+              + 4 * (2 * k + k * l + k * n))
     return _bound(flops, nbytes)
 
 
@@ -377,6 +397,36 @@ def _rel_to_max(got, want) -> float:
     """Largest |got - want| relative to want's largest magnitude."""
     diff = float((got.float() - want.float()).abs().max())
     return diff / max(float(want.float().abs().max()), 1e-30)
+
+
+def _b1_check(ap, gen, ws, k, n, b, dtype, df=D_FEAT, l=D_INNER) -> float:
+    """B1 on one random batch against its plain version; the worst abs
+    error of (bag, logits, m)."""
+    x = torch.randn(b, n, df, generator=gen, device="cuda").to(dtype)
+    m = torch.rand(b, n, generator=gen, device="cuda") < 0.9
+    if b == 3:
+        m[1] = False                  # an all-masked bag
+    bag, lg, mx, s = ap.fused_gated_attn_pool_batched(x, m, *ws,
+                                                      return_stats=True)
+    torch.cuda.synchronize()
+    rbag, rlg = ap._reference_batched(x.float(), m, *ws)
+    rmx, rs = ap._softmax_stats(rlg, m)
+    valid = m[:, None, :].expand_as(lg)
+    for got, want in ((bag, rbag), (lg[valid], rlg[valid]), (mx, rmx)):
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(s, rs, atol=0, rtol=RTOL)
+    if not bool((lg[~valid] == ap.NEG).all()):
+        raise AssertionError("pad logits are not NEG")
+    if bool(bag.isnan().any()) or (b == 3 and bool(bag[1].any())):
+        raise AssertionError("all-masked bag is not 0")
+    err = max(float((bag - rbag).abs().max()),
+              float((lg[valid] - rlg[valid]).abs().max()),
+              float((mx - rmx).abs().max()))
+    s_rel = float(((s - rs).abs() / rs.abs().clamp_min(1e-30)).max())
+    print(f"kernel B1 vs plain: Df={df} L={l} K={k} N={n} B={b} "
+          f"{str(dtype)[6:]}: max_abs_err {err:.3e} (bag, logits, m), s rel "
+          f"err {s_rel:.3e}")
+    return err
 
 
 @torch.no_grad()
@@ -390,34 +440,15 @@ def kernel_vs_plain(smi: str) -> dict:
         for n in (300, 16384, 65536):
             for b in (1, 3):
                 for dtype in (torch.float16, torch.float32):
-                    x = torch.randn(b, n, D_FEAT, generator=gen,
-                                    device="cuda").to(dtype)
-                    m = torch.rand(b, n, generator=gen, device="cuda") < 0.9
-                    if b == 3:
-                        m[1] = False                  # an all-masked bag
-                    bag, lg, mx, s = ap.fused_gated_attn_pool_batched(
-                        x, m, *ws, return_stats=True)
-                    torch.cuda.synchronize()
-                    rbag, rlg = ap._reference_batched(x.float(), m, *ws)
-                    rmx, rs = ap._softmax_stats(rlg, m)
-                    valid = m[:, None, :].expand_as(lg)
-                    for got, want in ((bag, rbag), (lg[valid], rlg[valid]),
-                                      (mx, rmx)):
-                        torch.testing.assert_close(got, want, atol=ATOL,
-                                                   rtol=RTOL)
-                    torch.testing.assert_close(s, rs, atol=0, rtol=RTOL)
-                    if not bool((lg[~valid] == ap.NEG).all()):
-                        raise AssertionError("pad logits are not NEG")
-                    if bool(bag.isnan().any()) or (b == 3 and bool(bag[1].any())):
-                        raise AssertionError("all-masked bag is not 0")
-                    err = max(float((bag - rbag).abs().max()),
-                              float((lg[valid] - rlg[valid]).abs().max()),
-                              float((mx - rmx).abs().max()))
-                    s_rel = float(((s - rs).abs() / rs.abs().clamp_min(1e-30)).max())
-                    worst = max(worst, err)
-                    print(f"kernel B1 vs plain: K={k} N={n} B={b} "
-                          f"{str(dtype)[6:]}: max_abs_err {err:.3e} "
-                          f"(bag, logits, m), s rel err {s_rel:.3e}")
+                    worst = max(worst, _b1_check(ap, gen, ws, k, n, b, dtype))
+    # every other pretrain width (32-row tiles), K up to the kernel's 128
+    for df, l in WIDE_DIMS:
+        for k in (N_TOKEN, 128):
+            ws = _weights(gen, k, df, l)
+            for n, b in ((300, 3), (65536, 1)):
+                for dtype in (torch.float16, torch.float32):
+                    worst = max(worst, _b1_check(ap, gen, ws, k, n, b, dtype,
+                                                 df, l))
     times = {}
     ws = _weights(gen, N_TOKEN)
     for n in (16384, 65536):
@@ -433,14 +464,29 @@ def kernel_vs_plain(smi: str) -> dict:
               f"({100 * tflops / F32_PEAK_TFLOPS:.0f}% of f32 CUDA-core peak) "
               f"[{smi}]")
         times[n] = (t_k, t_p)
+    kernels = ("pool_partial_kernel", "pool_merge_kernel")
     dev, per_call = _device_ms(
-        lambda: ap.fused_gated_attn_pool_batched(x, m, *ws),
-        ("pool_partial_kernel", "pool_merge_kernel"))
+        lambda: ap.fused_gated_attn_pool_batched(x, m, *ws), kernels)
     print(f"kernel B1 device time: N=65536 B=1 K={N_TOKEN} fp16: "
           f"{_fmt_ms(dev)} in {per_call:g} launches per call [{smi}]")
+    wide = {}
+    for df, l in WIDE_DIMS:
+        ws = _weights(gen, N_TOKEN, df, l)
+        x = torch.randn(1, 65536, df, generator=gen, device="cuda").half()
+        r = {"device_ms": _device_ms(
+                 lambda: ap.fused_gated_attn_pool_batched(x, m, *ws),
+                 kernels)[0],
+             "plain_ms": _time_ms(
+                 lambda: ap._reference_batched(x.float(), m, *ws), 10),
+             **_b1_bound(65536, N_TOKEN, df, l)}
+        print(f"kernel B1 device time: Df={df} L={l} N=65536 B=1 "
+              f"K={N_TOKEN} fp16: {_fmt_ms(r['device_ms'])}, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {_bound_share(r)} [{smi}]")
+        wide[f"L={l}"] = r
     return {"max_abs_err": worst, "ms": times[65536][0], "device_ms": dev,
             "plain_ms": times[65536][1], **_b1_bound(65536, N_TOKEN),
-            "library_ms": None}
+            "library_ms": None, "wider_l": wide}
 
 
 GRAD_NAMES = ("dx", "dW1", "db1", "dV", "dbv", "dU", "dbu", "dw", "dbw")
@@ -450,10 +496,11 @@ def _bwd_inputs(ap, gen, ws, x, m, k):
     """B1's forward on (x, m) and what the backward takes from it: lse, c,
     and random cotangents, d_logits nonzero at pad slots too."""
     b, n, _ = x.shape
+    l = ws[0].shape[1]
     bag, _, mx, s = ap.fused_gated_attn_pool_batched(x, m, *ws,
                                                       return_stats=True)
     lse = mx + torch.log(s.clamp_min(1e-30))
-    d_bag = torch.randn(b, k, D_INNER, generator=gen, device="cuda")
+    d_bag = torch.randn(b, k, l, generator=gen, device="cuda")
     d_logits = torch.randn(b, k, n, generator=gen, device="cuda")
     return lse, (d_bag * bag).sum(dim=2), d_bag, d_logits
 
@@ -469,58 +516,69 @@ def _reference_vjp(ap, x, m, ws, d_bag, d_logits, need_dx):
     return ((grads[0] if need_dx else None),) + tuple(grads[-8:])
 
 
+def _b2_check(ap, gen, ws, k, n, b, dtype, df=D_FEAT, l=D_INNER):
+    """B2 on one random batch, dx off and on, against its plain closed form
+    and autograd through the plain forward; two launches must agree bit
+    for bit. (worst abs error, worst error relative to each output's
+    largest magnitude)."""
+    worst_abs = worst_rel = 0.0
+    x = torch.randn(b, n, df, generator=gen, device="cuda").to(dtype)
+    m = torch.rand(b, n, generator=gen, device="cuda") < 0.9
+    if b == 3:
+        m[1] = False                  # an all-masked bag
+    lse, c, d_bag, d_logits = _bwd_inputs(ap, gen, ws, x, m, k)
+    for need_dx in (False, True):
+        args = (x, m, *ws, lse, c, d_bag, d_logits)
+        got = ap.fused_gated_attn_pool_bwd(*args, need_dx=need_dx)
+        again = ap.fused_gated_attn_pool_bwd(*args, need_dx=need_dx)
+        torch.cuda.synchronize()
+        for name, g, g2 in zip(GRAD_NAMES, got, again):
+            if g is not None and not torch.equal(g, g2):
+                raise AssertionError(f"B2 {name} differs between two launches")
+        plain = ap._fused_pool_bwd_stats(*args, need_dx=need_dx)
+        auto = _reference_vjp(ap, x, m, ws, d_bag, d_logits, need_dx)
+        errs = []
+        for name, g, p, a in zip(GRAD_NAMES, got, plain, auto):
+            if g is None:
+                if p is not None or need_dx:
+                    raise AssertionError(f"B2 gave no {name}")
+                continue
+            tol = BWD_REL_FP16 if g.dtype == torch.float16 else BWD_REL
+            rel = max(_rel_to_max(g, p), _rel_to_max(g, a))
+            if not rel <= tol:
+                raise AssertionError(
+                    f"B2 {name} off by {rel:.3e} of its max (Df={df} L={l} "
+                    f"K={k} N={n} B={b} {dtype} dx={need_dx})")
+            errs.append(rel)
+            worst_abs = max(worst_abs, float((g.float() - p.float()).abs().max()))
+        worst_rel = max(worst_rel, max(errs))
+        if need_dx and bool(got[0][~m].any()):
+            raise AssertionError("B2 dx is nonzero at pad rows")
+        print(f"kernel B2 vs plain: Df={df} L={l} K={k} N={n} B={b} "
+              f"{str(dtype)[6:]} dx={'on' if need_dx else 'off'}: worst "
+              f"error {max(errs):.3e} of max (vs closed form and vs "
+              f"autograd), two launches identical")
+    return worst_abs, worst_rel
+
+
 @torch.no_grad()
 def bwd_kernel_vs_plain(smi: str) -> dict:
     from acmil_tpu_torch.ops import attn_pool as ap
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     worst_abs = worst_rel = 0.0
-    for k in (N_TOKEN, 1):
-        ws = _weights(gen, k)
-        for n in (300, 16384, 65536):
-            for b in (1, 3):
-                for dtype in (torch.float16, torch.float32):
-                    x = torch.randn(b, n, D_FEAT, generator=gen,
-                                    device="cuda").to(dtype)
-                    m = torch.rand(b, n, generator=gen, device="cuda") < 0.9
-                    if b == 3:
-                        m[1] = False                  # an all-masked bag
-                    lse, c, d_bag, d_logits = _bwd_inputs(ap, gen, ws, x, m, k)
-                    for need_dx in (False, True):
-                        args = (x, m, *ws, lse, c, d_bag, d_logits)
-                        got = ap.fused_gated_attn_pool_bwd(*args, need_dx=need_dx)
-                        again = ap.fused_gated_attn_pool_bwd(*args,
-                                                             need_dx=need_dx)
-                        torch.cuda.synchronize()
-                        for name, g, g2 in zip(GRAD_NAMES, got, again):
-                            if g is not None and not torch.equal(g, g2):
-                                raise AssertionError(
-                                    f"B2 {name} differs between two launches")
-                        plain = ap._fused_pool_bwd_stats(*args, need_dx=need_dx)
-                        auto = _reference_vjp(ap, x, m, ws, d_bag, d_logits,
-                                              need_dx)
-                        errs = []
-                        for name, g, p, a in zip(GRAD_NAMES, got, plain, auto):
-                            if g is None:
-                                if p is not None or need_dx:
-                                    raise AssertionError(f"B2 gave no {name}")
-                                continue
-                            tol = BWD_REL_FP16 if g.dtype == torch.float16 else BWD_REL
-                            rel = max(_rel_to_max(g, p), _rel_to_max(g, a))
-                            if not rel <= tol:
-                                raise AssertionError(
-                                    f"B2 {name} off by {rel:.3e} of its max "
-                                    f"(K={k} N={n} B={b} {dtype} dx={need_dx})")
-                            errs.append(rel)
-                            worst_abs = max(worst_abs, float(
-                                (g.float() - p.float()).abs().max()))
-                        worst_rel = max(worst_rel, max(errs))
-                        if need_dx and bool(got[0][~m].any()):
-                            raise AssertionError("B2 dx is nonzero at pad rows")
-                        print(f"kernel B2 vs plain: K={k} N={n} B={b} "
-                              f"{str(dtype)[6:]} dx={'on' if need_dx else 'off'}: "
-                              f"worst error {max(errs):.3e} of max (vs closed "
-                              f"form and vs autograd), two launches identical")
+    cases = [(k, D_FEAT, D_INNER, n, b, dtype) for k in (N_TOKEN, 1)
+             for n in (300, 16384, 65536) for b in (1, 3)
+             for dtype in (torch.float16, torch.float32)]
+    # every other pretrain width (32-row tiles, larger private slices)
+    cases += [(k, df, l, n, b, dtype) for df, l in WIDE_DIMS
+              for k, n, b in ((N_TOKEN, 300, 3), (128, 4099, 1),
+                              (N_TOKEN, 65536, 1))
+              for dtype in (torch.float16, torch.float32)]
+    for k, df, l, n, b, dtype in cases:
+        ws = _weights(gen, k, df, l)
+        a, r = _b2_check(ap, gen, ws, k, n, b, dtype, df, l)
+        worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
     times = {}
     ws = _weights(gen, N_TOKEN)
     for n in (16384, 65536):
@@ -538,25 +596,47 @@ def bwd_kernel_vs_plain(smi: str) -> dict:
               f"only: kernel {t_k:.4f} ms, plain autograd backward "
               f"{t_p:.4f} ms [{smi}]")
         times[n] = (t_k, t_p)
+    kernels = ("pool_bwd_partial_kernel", "grad_reduce_kernel")
     dev, per_call = _device_ms(
         lambda: ap.fused_gated_attn_pool_bwd(x, m, *ws, lse, c, d_bag,
                                              d_logits, need_dx=False),
-        ("pool_bwd_partial_kernel", "grad_reduce_kernel"))
+        kernels)
     print(f"kernel B2 device time: N=65536 B=1 K={N_TOKEN} fp16, weight "
           f"gradients only: {_fmt_ms(dev)} in {per_call:g} launches per call "
           f"[{smi}]")
+    wide = {}
+    for df, l in WIDE_DIMS:
+        ws = _weights(gen, N_TOKEN, df, l)
+        x = torch.randn(1, 65536, df, generator=gen, device="cuda").half()
+        lse, c, d_bag, d_logits = _bwd_inputs(ap, gen, ws, x, m, N_TOKEN)
+        with torch.enable_grad():
+            wr = [w.detach().clone().requires_grad_() for w in ws]
+            outs = ap._reference_batched(x.float(), m, *wr)
+            t_p = _time_ms(lambda: torch.autograd.grad(
+                outs, wr, (d_bag, d_logits), retain_graph=True), 10)
+        r = {"device_ms": _device_ms(
+                 lambda: ap.fused_gated_attn_pool_bwd(
+                     x, m, *ws, lse, c, d_bag, d_logits, need_dx=False),
+                 kernels)[0],
+             "plain_ms": t_p, **_b2_bound(65536, N_TOKEN, df, l)}
+        print(f"kernel B2 device time: Df={df} L={l} N=65536 B=1 "
+              f"K={N_TOKEN} fp16, weight gradients only: "
+              f"{_fmt_ms(r['device_ms'])}, plain autograd {t_p:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{_bound_share(r)} [{smi}]")
+        wide[f"L={l}"] = r
     return {"max_abs_err": worst_abs, "max_rel_to_max_err": worst_rel,
             "ms": times[65536][0], "device_ms": dev,
             "plain_ms": times[65536][1], **_b2_bound(65536, N_TOKEN),
-            "library_ms": None}
+            "library_ms": None, "wider_l": wide}
 
 
-def _synthetic_slides(rs, lengths):
+def _synthetic_slides(rs, lengths, d_feat=D_FEAT):
     """fp16 bags of the given lengths; odd slides carry a shifted 5% of
     their patches, the class signal."""
     slides = {}
     for i, n in enumerate(lengths):
-        feat = rs.standard_normal((n, D_FEAT), dtype=np.float32)
+        feat = rs.standard_normal((n, d_feat), dtype=np.float32)
         label = i % 2
         if label:
             feat[rs.choice(n, n // 20, replace=False)] += 1.5
@@ -642,31 +722,147 @@ def slice_run(smi: str) -> int:
     return launches
 
 
+@torch.no_grad()
+def wide_serve_run(smi: str) -> int:
+    """An ACMIL_GA head at the natural_supervised widths (Df 512, L 256)
+    scores slides through ``cli/predict.py`` on ``cuda``: B1 at L = 256."""
+    from acmil_tpu_torch.cli import predict
+    from acmil_tpu_torch.config import Config
+    from acmil_tpu_torch.data.bags import pad_bag
+    from acmil_tpu_torch.data.ptio import write_feature_pt
+    from acmil_tpu_torch.engine import checkpoint, make_eval_step
+    from acmil_tpu_torch.models import build_mil_model
+    from acmil_tpu_torch.models.common import torch_linear_init_
+    from acmil_tpu_torch.ops.attn_pool import fused_gated_attn_pool_batched
+
+    conf = Config.from_yaml(WIDE_YML, {"arch": "ga", "n_token": N_TOKEN})
+    if (conf.D_feat, conf.D_inner) != WIDE_DIMS[0]:
+        raise AssertionError(f"unexpected widths {conf.D_feat}/{conf.D_inner}")
+    model, family = build_mil_model(conf)
+    torch_linear_init_(model, torch.Generator().manual_seed(SEED))
+    rs = np.random.default_rng(SEED + 8)
+    lengths = [1000, 50000] + rs.integers(1000, 50001, WIDE_SLIDES - 2).tolist()
+    slides = _synthetic_slides(rs, lengths, conf.D_feat)
+    with tempfile.TemporaryDirectory() as tmp:
+        feats = os.path.join(tmp, "feats.pt")
+        ckpt = os.path.join(tmp, "checkpoint-best.pth")
+        write_feature_pt(feats, slides)
+        checkpoint.save(ckpt, model, epoch=0, conf=conf)
+        fused_gated_attn_pool_batched.launches = 0
+        t0 = time.perf_counter()
+        res = predict.main(["--config", WIDE_YML, "--ckpt", ckpt, "--features",
+                            feats, "--out_csv", os.path.join(tmp, "preds.csv"),
+                            "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        launches = fused_gated_attn_pool_batched.launches
+    if launches != len(slides):
+        raise AssertionError(f"B1 launched {launches} times for "
+                             f"{len(slides)} slides at L={conf.D_inner}")
+    _check_predictions(res, len(slides), conf.n_class)
+    model.cuda().eval()
+    plain = make_eval_step(model, family, fused=False)
+    worst = 0.0
+    for row in res["rows"]:
+        item = slides[row[0]]
+        bag = pad_bag(item["feat"], item["coords"], item["label"],
+                      min_bucket=conf.min_bucket,
+                      max_patches=conf.max_patches, dtype=np.float16).to("cuda")
+        want = plain(bag)[0].cpu().numpy()
+        worst = max(worst, float(np.abs(want - row[2:2 + conf.n_class]).max()))
+    if worst > PROB_ATOL:
+        raise AssertionError(f"fused and plain probabilities differ by {worst}")
+    print(f"serving at the natural_supervised widths (Df={conf.D_feat}, "
+          f"L={conf.D_inner}): {len(slides)} slides ({min(lengths)}-"
+          f"{max(lengths)} patches) scored by cli/predict.py in {wall:.2f} s; "
+          f"B1 launches {launches}; probabilities finite, rows sum to 1, max "
+          f"|fused - plain| {worst:.3e} [{smi}]")
+    return launches
+
+
+def _write_split_corpus(tmp, slides, yml, pretrain, n_train, n_val):
+    """The feature file, Step3's frozen split for its default seed 4 (the
+    first n_train sorted slides train, the next n_val validate, the rest
+    test) and a copy of ``yml`` pointing at it; (data_dir, feature file,
+    config)."""
+    from acmil_tpu_torch.data.ptio import write_feature_pt
+
+    names = sorted(slides)
+    data_dir = os.path.join(tmp, "data")
+    feats = os.path.join(data_dir, f"patch_feats_pretrain_{pretrain}.pt")
+    write_feature_pt(feats, slides)
+    split_dir = os.path.join(tmp, "splits")
+    os.makedirs(os.path.join(split_dir, "camelyon"))
+    with open(os.path.join(split_dir, "camelyon", "split_4.json"), "w") as f:
+        json.dump({"train_names": names[:n_train],
+                   "val_names": names[n_train:n_train + n_val],
+                   "test_names": names[n_train + n_val:]}, f)
+    conf = os.path.join(tmp, "config.yml")
+    with open(yml) as src, open(conf, "w") as dst:
+        dst.write(src.read() + f"\nsplit_dir: {split_dir}\n")
+    return data_dir, feats, conf
+
+
+def wide_train_run(smi: str) -> dict:
+    """One epoch of the ACMIL recipe at the natural_supervised widths (Df
+    512, L 256) through ``cli/step3_acmil.py`` on ``cuda``: B1 and B2 at
+    L = 256."""
+    from acmil_tpu_torch.cli import step3_acmil
+    from acmil_tpu_torch.ops import attn_pool as ap
+
+    rs = np.random.default_rng(SEED + 9)
+    n_train, n_val, n_test = WIDE_TRAIN
+    lengths = [1000, 50000] + rs.integers(
+        1000, 50001, n_train + n_val + n_test - 2).tolist()
+    slides = _synthetic_slides(rs, lengths, WIDE_DIMS[0][0])
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir, _, yml = _write_split_corpus(tmp, slides, WIDE_YML,
+                                               "natural_supervised", n_train,
+                                               n_val)
+        log_dir = os.path.join(tmp, "log")
+        argv = ["--config", yml, "--data_dir", data_dir, "--ckpt_dir",
+                os.path.join(tmp, "ckpt"), "--log_dir", log_dir,
+                "--train_epoch", "1", "--n_token", str(N_TOKEN),
+                "--n_masked_patch", str(N_MASKED_PATCH), "--mask_drop",
+                str(MASK_DROP), "--device", "cuda"]
+        ap.fused_gated_attn_pool_batched.launches = 0
+        ap.fused_gated_attn_pool_bwd.launches = 0
+        t0 = time.perf_counter()
+        step3_acmil.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"B1": ap.fused_gated_attn_pool_batched.launches,
+                    "B2": ap.fused_gated_attn_pool_bwd.launches}
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            losses = [r["train/loss"] for r in map(json.loads, f)
+                      if "_config" not in r]
+    evals = n_val + n_test
+    if launches["B2"] != n_train or launches["B1"] != n_train + evals:
+        raise AssertionError(f"launches {launches}: want B2 once per train "
+                             f"step ({n_train}), B1 once per step and eval "
+                             f"bag ({n_train + evals})")
+    if len(losses) != 1 or not math.isfinite(losses[0]):
+        raise AssertionError(f"epoch losses {losses}")
+    print(f"training at the natural_supervised widths (Df={WIDE_DIMS[0][0]}, "
+          f"L={WIDE_DIMS[0][1]}): cli/step3_acmil.py, 1 epoch x {n_train} "
+          f"steps on {len(slides)} slides, {wall:.2f} s wall; launches B1 "
+          f"{launches['B1']}, B2 {launches['B2']}; epoch loss "
+          f"{losses[0]:.6f} [{smi}]")
+    return launches
+
+
 def train_run(smi: str) -> dict:
     """The slice's main path: Step3 ACMIL training through the port's CLI."""
     from acmil_tpu_torch.cli import predict, step3_acmil
-    from acmil_tpu_torch.data.ptio import write_feature_pt
     from acmil_tpu_torch.ops import attn_pool as ap
 
     rs = np.random.default_rng(SEED + 1)
     n_slides = N_TRAIN + N_VAL + N_TEST
     lengths = [1000, 50000] + rs.integers(1000, 50001, n_slides - 2).tolist()
     slides = _synthetic_slides(rs, lengths)
-    names = sorted(slides)
     with tempfile.TemporaryDirectory() as tmp:
-        data_dir = os.path.join(tmp, "data")
-        feats = os.path.join(data_dir, "patch_feats_pretrain_medical_ssl.pt")
-        write_feature_pt(feats, slides)
-        # Step3's default seed is 4: its frozen split, over these slides
-        split_dir = os.path.join(tmp, "splits")
-        os.makedirs(os.path.join(split_dir, "camelyon"))
-        with open(os.path.join(split_dir, "camelyon", "split_4.json"), "w") as f:
-            json.dump({"train_names": names[:N_TRAIN],
-                       "val_names": names[N_TRAIN:N_TRAIN + N_VAL],
-                       "test_names": names[N_TRAIN + N_VAL:]}, f)
-        yml = os.path.join(tmp, "config.yml")
-        with open(YML) as src, open(yml, "w") as dst:
-            dst.write(src.read() + f"\nsplit_dir: {split_dir}\n")
+        data_dir, feats, yml = _write_split_corpus(tmp, slides, YML,
+                                                   "medical_ssl", N_TRAIN,
+                                                   N_VAL)
         ckpt_dir, log_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "log")
         argv = ["--config", yml, "--data_dir", data_dir, "--ckpt_dir", ckpt_dir,
                 "--log_dir", log_dir, "--train_epoch", str(TRAIN_EPOCHS),
@@ -808,6 +1004,28 @@ def _layer_bytes(b: int, n: int, d: int, hidden: int, mlp: bool,
     return 2 * 2 * b * n * d + 2 * matrices + 4 * vectors
 
 
+def _gemm_shapes(m: int, d: int, hidden: int, mlp: bool) -> list:
+    """(M, K, N) of a chain's GEMMs: qkv and proj (and fc1, fc2)."""
+    shapes = [(m, d, 3 * d), (m, d, d)]
+    return shapes + ([(m, d, hidden), (m, hidden, d)] if mlp else [])
+
+
+def _library_gemms(gen, shapes, kern: str, smi: str) -> float:
+    """The sum over a chain's GEMM shapes of one bf16 ``torch.matmul``
+    call's time (CUDA events, L2 flushed): the library yardstick of the
+    chain's GEMMs. The port never calls it."""
+    total = 0.0
+    for m, k, n in shapes:
+        a = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+        w = torch.randn(n, k, generator=gen, device="cuda").bfloat16()
+        t = _time_ms(lambda: torch.matmul(a, w.t()), 20)
+        print(f"library yardstick for {kern}: bf16 torch.matmul M={m} K={k} "
+              f"N={n}: {t:.4f} ms ({2 * m * k * n / (t * 1e-3) / 1e12:.1f} "
+              f"TFLOP/s) [{smi}]")
+        total += t
+    return total
+
+
 def _vit_weights(gen, d, hidden, ls=False):
     """A layer's weights in the port's layout, seeded: LN near identity,
     Linear U(±scale/sqrt(fan_in)), qkv three times wider so the softmax is
@@ -889,36 +1107,40 @@ def vit_kernels_vs_plain(smi: str) -> dict:
               f"B={b}{' ls1' if ls else ''} bf16: max_abs_err {err:.3e}")
 
     out = {}
-    n, d, heads = VIT_S16
-    w = _cast_matrices(_vit_weights(gen, d, 4 * d))
-    x = torch.randn(STEP2_BATCH, n, d, generator=gen, device="cuda").bfloat16()
-    chain = ("gemm_kernel", "mha_kernel")
-    out["B3"] = {"ms": _time_ms(lambda: vl.fused_vit_layer(x, w, heads), 20),
-                 "device": _device_ms(lambda: vl.fused_vit_layer(x, w, heads),
-                                      chain, 10),
-                 "attention_step": _device_ms(
-                     lambda: vl.fused_vit_layer(x, w, heads), ("mha_kernel",),
-                     10),
-                 "plain_ms": _time_ms(lambda: vl._reference_layer(x, w, heads),
-                                      10),
-                 "library_ms": None,
-                 **_bound(STEP2_BATCH * _layer_flops(n, d, 4 * d, True),
-                          _layer_bytes(STEP2_BATCH, n, d, 4 * d, True, False))}
-    n, d, heads = UNI
-    w = _cast_matrices(_vit_weights(gen, d, 4 * d, ls=True))
-    x = torch.randn(BIG_BATCH, n, d, generator=gen, device="cuda").bfloat16()
-    out["B4"] = {"ms": _time_ms(lambda: vl.fused_vit_attn_half(x, w, heads),
-                                20),
-                 "device": _device_ms(
-                     lambda: vl.fused_vit_attn_half(x, w, heads), chain, 10),
-                 "attention_step": _device_ms(
-                     lambda: vl.fused_vit_attn_half(x, w, heads),
-                     ("mha_kernel",), 10),
-                 "plain_ms": _time_ms(
-                     lambda: vl._reference_attn_half(x, w, heads), 10),
-                 "library_ms": None,
-                 **_bound(BIG_BATCH * _layer_flops(n, d, 0, False),
-                          _layer_bytes(BIG_BATCH, n, d, 0, False, True))}
+    # the chains' kernels: the GEMM, its LayerNorm prologue and B5'
+    chain = ("gemm_kernel", "ln_rows_kernel", "mha_kernel")
+    for kern, (n, d, heads), b, mlp, ls, fused, plain in (
+            ("B3", VIT_S16, STEP2_BATCH, True, False, vl.fused_vit_layer,
+             vl._reference_layer),
+            ("B4", UNI, BIG_BATCH, False, True, vl.fused_vit_attn_half,
+             vl._reference_attn_half)):
+        w = _cast_matrices(_vit_weights(gen, d, 4 * d, ls))
+        x = torch.randn(b, n, d, generator=gen, device="cuda").bfloat16()
+        shapes = _gemm_shapes(b * n, d, 4 * d, mlp)
+        gemm_ms = _device_ms(lambda: fused(x, w, heads), ("gemm_kernel",),
+                             10)[0]
+        flops = sum(2 * m * k * nn for m, k, nn in shapes)
+        out[kern] = {
+            "ms": _time_ms(lambda: fused(x, w, heads), 20),
+            "device": _device_ms(lambda: fused(x, w, heads), chain, 10),
+            "attention_step": _device_ms(lambda: fused(x, w, heads),
+                                         ("mha_kernel",), 10),
+            "gemm_device_ms": gemm_ms,
+            "gemm_tflops": flops / (gemm_ms * 1e-3) / 1e12,
+            "ln_device_ms": _device_ms(lambda: fused(x, w, heads),
+                                       ("ln_rows_kernel",), 10)[0],
+            "plain_ms": _time_ms(lambda: plain(x, w, heads), 10),
+            "library_ms": _library_gemms(gen, shapes, kern, smi),
+            **_bound(b * _layer_flops(n, d, 4 * d, mlp),
+                     _layer_bytes(b, n, d, 4 * d, mlp, ls))}
+        r = out[kern]
+        print(f"kernel {kern}'s GEMMs: {len(shapes)} launches, "
+              f"{_fmt_ms(gemm_ms)} of device time for {flops / 1e9:.1f} "
+              f"GFLOP, {r['gemm_tflops']:.1f} TFLOP/s "
+              f"({100 * r['gemm_tflops'] * 1e12 / PEAK_FLOPS:.1f}% of the bf16 "
+              f"peak), against bf16 torch.matmul at the same shapes "
+              f"{r['library_ms']:.4f} ms; LayerNorm prologues "
+              f"{_fmt_ms(r['ln_device_ms'])} [{smi}]")
     # B5' at Step2's shape (the attention step of B3 there) and at CLIP-L's,
     # beside scaled_dot_product_attention on q, k, v viewed in the same qkv
     for kern, (n, d, heads), b in (("B5", VIT_S16, STEP2_BATCH),
@@ -940,8 +1162,10 @@ def vit_kernels_vs_plain(smi: str) -> dict:
                         ("B5 CLIP-L", f"CLIP-L/336 B={BIG_BATCH} N=577")):
         r = out[kern]
         r["device_ms"], per_call = r.pop("device")
-        lib = ("" if r["library_ms"] is None
-               else f", scaled_dot_product_attention {r['library_ms']:.4f} ms")
+        lib = (f", scaled_dot_product_attention {r['library_ms']:.4f} ms"
+               if kern.startswith("B5") else
+               f", bf16 torch.matmul at its GEMM shapes {r['library_ms']:.4f} "
+               f"ms")
         step = ""
         if "attention_step" in r:
             r["attention_step_device_ms"], _ = r.pop("attention_step")
@@ -1266,35 +1490,32 @@ def dsmil_kernel_vs_plain(smi: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     worst, checks = 0.0, 0
-    for d, q in DSMIL_WIDTHS:
-        for c in (2, 4):
-            for n in (300, 16384, 65536):
-                for b in (1, 3):
-                    for dtype in (torch.float16, torch.float32):
-                        x, m, wq, bq, q_max = _b6_inputs(gen, b, n, d, q, c,
-                                                         dtype)
-                        bag, lg = dp.fused_dsmil_pool(x, m, wq, bq, q_max)
-                        torch.cuda.synchronize()
-                        checks += 1
-                        rbag, rlg = dp.dsmil_pool_reference(x.float(), m, wq,
-                                                            bq, q_max)
-                        valid = m[:, None, :].expand_as(lg)
-                        torch.testing.assert_close(bag, rbag, atol=DSMIL_ATOL,
-                                                   rtol=DSMIL_RTOL)
-                        torch.testing.assert_close(lg[valid], rlg[valid],
-                                                   atol=DSMIL_ATOL,
-                                                   rtol=DSMIL_RTOL)
-                        if not bool((lg[~valid] == dp.NEG).all()):
-                            raise AssertionError("B6 pad logits are not NEG")
-                        if bool(bag.isnan().any()) or (b == 3
-                                                       and bool(bag[1].any())):
-                            raise AssertionError("B6 all-masked bag is not 0")
-                        err = max(float((bag - rbag).abs().max()),
-                                  float((lg[valid] - rlg[valid]).abs().max()))
-                        worst = max(worst, err)
-                        print(f"kernel B6 vs plain: D={d} Q={q} C={c} N={n} "
-                              f"B={b} {str(dtype)[6:]}: max_abs_err {err:.3e} "
-                              f"(bag, logits)")
+    cases = [(d, q, c, n, b, dtype) for d, q in DSMIL_WIDTHS for c in (2, 4)
+             for n in (300, 16384, 65536) for b in (1, 3)
+             for dtype in (torch.float16, torch.float32)]
+    # 9 to 128 classes: groups of 8 classes a block
+    cases += [(d, q, c, n, b, dtype) for d, q in DSMIL_WIDTHS for c in (9, 128)
+              for n, b in ((300, 3), (65536, 1))
+              for dtype in (torch.float16, torch.float32)]
+    for d, q, c, n, b, dtype in cases:
+        x, m, wq, bq, q_max = _b6_inputs(gen, b, n, d, q, c, dtype)
+        bag, lg = dp.fused_dsmil_pool(x, m, wq, bq, q_max)
+        torch.cuda.synchronize()
+        checks += 1
+        rbag, rlg = dp.dsmil_pool_reference(x.float(), m, wq, bq, q_max)
+        valid = m[:, None, :].expand_as(lg)
+        torch.testing.assert_close(bag, rbag, atol=DSMIL_ATOL, rtol=DSMIL_RTOL)
+        torch.testing.assert_close(lg[valid], rlg[valid], atol=DSMIL_ATOL,
+                                   rtol=DSMIL_RTOL)
+        if not bool((lg[~valid] == dp.NEG).all()):
+            raise AssertionError("B6 pad logits are not NEG")
+        if bool(bag.isnan().any()) or (b == 3 and bool(bag[1].any())):
+            raise AssertionError("B6 all-masked bag is not 0")
+        err = max(float((bag - rbag).abs().max()),
+                  float((lg[valid] - rlg[valid]).abs().max()))
+        worst = max(worst, err)
+        print(f"kernel B6 vs plain: D={d} Q={q} C={c} N={n} B={b} "
+              f"{str(dtype)[6:]}: max_abs_err {err:.3e} (bag, logits)")
 
     d, q, c = D_FEAT, D_INNER, 2
     times = {}
@@ -1312,6 +1533,19 @@ def dsmil_kernel_vs_plain(smi: str) -> dict:
               f"{t_k:.4f} ms, device {_fmt_ms(dev)} in {per_call:g} launches, "
               f"plain {t_p:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), {_bound_share(r)} [{smi}]")
+    # at the kernel's most classes: 16 groups of 8
+    x, m, wq, bq, q_max = _b6_inputs(gen, 1, 65536, d, q, 128, torch.float16)
+    m[:] = True
+    c128 = {"device_ms": _device_ms(
+                lambda: dp.fused_dsmil_pool(x, m, wq, bq, q_max),
+                B6_KERNELS)[0],
+            "plain_ms": _time_ms(lambda: dp.dsmil_pool_reference(
+                x.float(), m, wq, bq, q_max), 10),
+            **_b6_bound(65536, d, q, 128, 2)}
+    print(f"kernel B6 time: N=65536 B=1 D={d} Q={q} C=128 fp16: device "
+          f"{_fmt_ms(c128['device_ms'])}, plain {c128['plain_ms']:.4f} ms, "
+          f"bound {c128['bound_ms']:.4f} ms ({c128['bound_by']}), "
+          f"{_bound_share(c128)} [{smi}]")
 
     # the whole eval forward, fused (B6) against plain, per padded length
     conf = Config.from_yaml(YML, {"arch": "dsmil"})
@@ -1343,7 +1577,7 @@ def dsmil_kernel_vs_plain(smi: str) -> dict:
             "plain_ms": times[65536][1],
             **_b6_bound(65536, d, q, c, 2), "library_ms": None,
             "library": "none (q must be formed first: two calls)",
-            "crossover_n": cross}
+            "crossover_n": cross, "c128": c128}
 
 
 def dsmil_serve_run(smi: str) -> dict:
@@ -1482,7 +1716,6 @@ def dsmil_train_run(smi: str) -> int:
     val/test bag whose bucket reaches FUSE_MIN_N."""
     from acmil_tpu_torch.cli import predict, step3_generic
     from acmil_tpu_torch.data.bags import bucket_length
-    from acmil_tpu_torch.data.ptio import write_feature_pt
     from acmil_tpu_torch.models import fast
     from acmil_tpu_torch.ops.dsmil_pool import fused_dsmil_pool
 
@@ -1493,22 +1726,12 @@ def dsmil_train_run(smi: str) -> int:
     lengths[N_TRAIN], lengths[N_TRAIN + N_VAL] = 50000, 65536
     lengths[0], lengths[1] = 1000, 60000
     slides = _synthetic_slides(rs, lengths)
-    names = sorted(slides)
     evals = sum(bucket_length(n) >= fast.FUSE_MIN_N
                 for n in lengths[N_TRAIN:])
     with tempfile.TemporaryDirectory() as tmp:
-        data_dir = os.path.join(tmp, "data")
-        feats = os.path.join(data_dir, "patch_feats_pretrain_medical_ssl.pt")
-        write_feature_pt(feats, slides)
-        split_dir = os.path.join(tmp, "splits")
-        os.makedirs(os.path.join(split_dir, "camelyon"))
-        with open(os.path.join(split_dir, "camelyon", "split_4.json"), "w") as f:
-            json.dump({"train_names": names[:N_TRAIN],
-                       "val_names": names[N_TRAIN:N_TRAIN + N_VAL],
-                       "test_names": names[N_TRAIN + N_VAL:]}, f)
-        yml = os.path.join(tmp, "config.yml")
-        with open(YML) as src, open(yml, "w") as dst:
-            dst.write(src.read() + f"\nsplit_dir: {split_dir}\n")
+        data_dir, feats, yml = _write_split_corpus(tmp, slides, YML,
+                                                   "medical_ssl", N_TRAIN,
+                                                   N_VAL)
         ckpt_dir, log_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "log")
         argv = ["--config", yml, "--arch", "dsmil", "--seed", "4",
                 "--data_dir", data_dir, "--ckpt_dir", ckpt_dir,
@@ -1667,7 +1890,9 @@ def main() -> None:
     b1 = kernel_vs_plain(smi)
     b2 = bwd_kernel_vs_plain(smi)
     serve_launches = slice_run(smi)
+    wide_serve = wide_serve_run(smi)
     train_launches = train_run(smi)
+    wide_train = wide_train_run(smi)
     train_routes(smi)
     vit = vit_kernels_vs_plain(smi)
     step2 = step2_run(smi)
@@ -1689,20 +1914,25 @@ def main() -> None:
         "launches": train_launches["B1"],
         "launches_serving": serve_launches,
         "launches_step2_scoring": step2["B1"],
+        "launches_natural_supervised_serving": wide_serve,
+        "launches_natural_supervised_training": wide_train["B1"],
         **b1}, {
         "name": "B2 fused gated-attention pooling (backward)",
         "route": "cuda",
         "source": "acmil_tpu_torch/csrc/attn_pool_bwd.cu",
         "replaces": "acmil_tpu/ops/attn_pool.py:240",
         "launches": train_launches["B2"],
+        "launches_natural_supervised_training": wide_train["B2"],
         **b2}, {
-        "name": "B3 fused ViT layer (chain: 4 GEMM launches + B5')",
+        "name": "B3 fused ViT layer (chain: 4 GEMM launches, 2 of them "
+                "after a LayerNorm prologue, + B5')",
         "route": "cuda",
         "source": vit_src,
         "replaces": "acmil_tpu/ops/vit_layer.py:45",
         "launches": step2["B3"],
         **vit["B3"]}, {
-        "name": "B4 fused ViT attention half (chain: 2 GEMM launches + B5')",
+        "name": "B4 fused ViT attention half (chain: 2 GEMM launches, one "
+                "after a LayerNorm prologue, + B5')",
         "route": "cuda",
         "source": vit_src,
         "replaces": "acmil_tpu/ops/vit_layer.py:239",

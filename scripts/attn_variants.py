@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
-"""Times variants of kernel B5' (``acmil_tpu_torch/csrc/vit_attn.cu``) on a
-card, to show what each design choice of the kernel is worth:
+"""Times variants of kernel B5' (``acmil_tpu_torch/csrc/vit_attn.cu``), or
+of the GEMM of B3 and B4 (``csrc/vit_gemm.cu``), on a card, to show what
+each design choice of the kernel is worth:
 
-    python3 scripts/attn_variants.py
+    python3 scripts/attn_variants.py [--kernel attn|gemm]
 
 Each variant is the source with a few lines replaced, built by ``nvcc``
-with the port's flags into ``csrc/build/variants/`` and called through its
-C entry ``b5_mha_packed`` on one packed qkv at Step2's shape (ViT-S/16,
-B=256) and at CLIP-L/336 (B=32). Each line gives the CUDA-event time of
-one call and the kernel's device time (``chip_smoke._time_ms`` and
-``_device_ms``, L2 flushed before each call), beside one call of
-``F.scaled_dot_product_attention`` on the same q, k, v. Variants run in
-turns, then in reverse order, so that a drift of the card shows. Needs one
-card; imports nothing of JAX.
+with the port's flags into ``csrc/build/variants/``. B5' variants are
+called through the C entry ``b5_mha_packed`` on one packed qkv at Step2's
+shape (ViT-S/16, B=256) and at CLIP-L/336 (B=32), beside one call of
+``F.scaled_dot_product_attention`` on the same q, k, v; GEMM variants
+through ``vit_gemm`` at the four GEMMs of B3 at Step2's shape (M = 50432
+tokens), each with its epilogue and dtypes as the chain runs it, beside one
+bf16 ``torch.matmul`` at the same shape. Each line gives the CUDA-event
+time of one call and the kernel's device time (``chip_smoke._time_ms`` and
+``_device_ms``, L2 flushed before each call). Variants run in turns, then
+in reverse order, so that a drift of the card shows. Needs one card;
+imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -49,18 +54,42 @@ VARIANTS = {
 }
 
 
-def build_variants() -> dict:
-    src = (_build.CSRC / "vit_attn.cu").read_text()
+# the epilogue's stores, and the same guard made false at run time
+GEMM_STORE = "          if (row0 + 4 * i < m_rows)\n            epilogue_quad<kEpi>"
+GEMM_NO_STORE = [(GEMM_STORE, GEMM_STORE.replace("m_rows)", "m_rows && n < 0)")),
+                 ("EpilogueArgs e, int m_rows, int n_cols, int k_depth) {",
+                  "EpilogueArgs e, int m_rows, int n_cols, int k_depth) {\n"
+                  "  const int n = n_cols;")]
+GEMM_VARIANTS = {
+    "as built": ("the kernel in the repository", []),
+    "stores off": ("the epilogue's arithmetic and stores off (the "
+                   "accumulators still staged, the residuals still read): "
+                   "what they cost", GEMM_NO_STORE),
+    "products off": ("the TMA ring and the residual reads alone, no wgmma "
+                     "and no stores: the floor the loads set",
+                     GEMM_NO_STORE + [
+                         ("          wgmma_m64n128k16(acc, da + 2 * kk, "
+                          "dw + 2 * kk, ks > 0 || kk > 0);", "")]),
+    "three stages": ("a ring of three stages instead of four",
+                     [("kStages = 4;", "kStages = 3;")]),
+}
+
+
+def build_variants(source: str = "vit_attn.cu", variants=None,
+                   entry: str = "b5_mha_packed", argtypes=None) -> dict:
+    src = (_build.CSRC / source).read_text()
     out = _build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
+    variants = VARIANTS if variants is None else variants
+    stem = source.split(".")[0]
     procs = {}
-    for i, (name, (_, subs)) in enumerate(VARIANTS.items()):
+    for i, (name, (_, subs)) in enumerate(variants.items()):
         text = src
         for old, new in subs:
             if old not in text:
-                raise RuntimeError(f"{name}: {old!r} is not in vit_attn.cu")
+                raise RuntimeError(f"{name}: {old!r} is not in {source}")
             text = text.replace(old, new)
-        cu, lib = out / f"variant{i}.cu", out / f"libvariant{i}.so"
+        cu, lib = out / f"{stem}{i}.cu", out / f"lib{stem}{i}.so"
         cu.write_text(text)
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
@@ -70,17 +99,79 @@ def build_variants() -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
-        fn = ctypes.CDLL(str(lib)).b5_mha_packed
+        fn = getattr(ctypes.CDLL(str(lib)), entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
+        fn.argtypes = argtypes or ([ctypes.c_void_p, ctypes.c_void_p]
+                                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         entries[name] = fn
     return entries
 
 
 @torch.no_grad()
+def gemm_main(smi: str) -> None:
+    from acmil_tpu_torch.ops import vit_layer as vl
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    entries = build_variants("vit_gemm.cu", GEMM_VARIANTS, "vit_gemm",
+                             [p, i, p, p, p, p, p, p, p, i, p, i, i, i, i, i,
+                              p])
+    for name, (what, _) in GEMM_VARIANTS.items():
+        print(f"variant {name!r}: {what}")
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    m = cs.STEP2_BATCH * cs.VIT_S16[0]
+    d, hidden = cs.VIT_S16[1], 4 * cs.VIT_S16[1]
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (name, K, N, epilogue, A's dtype and LayerNorm, residual, output) as
+    # the B3 chain calls it
+    gemms = (("qkv", d, 3 * d, vl.EPI_BIAS, True, None, bf16),
+             ("proj", d, d, vl.EPI_RES_BIAS, False, bf16, f32),
+             ("fc1", d, hidden, vl.EPI_BIAS_GELU, True, None, bf16),
+             ("fc2", hidden, d, vl.EPI_RES_BIAS, False, f32, bf16))
+    for label, k, n, epi, ln, res_dtype, out_dtype in gemms:
+        a = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(n, k, generator=gen, device="cuda")
+             / k ** 0.5).bfloat16()
+        bias = torch.randn(n, generator=gen, device="cuda")
+        res = (None if res_dtype is None else torch.randn(
+            m, n, generator=gen, device="cuda").to(res_dtype))
+        out = torch.empty(m, n, dtype=out_dtype, device="cuda")
+        lib = cs._time_ms(lambda: torch.matmul(a, w.t()), 20)
+        bound = cs._bound(2 * m * k * n, 2 * (m * k + n * k) + m * n * (
+            out.element_size() + (0 if res is None else res.element_size())))
+        print(f"{label} M={m} K={k} N={n} (A {'after' if ln else 'without'} "
+              f"the prologue): bf16 torch.matmul {lib:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) [{smi}]")
+        for name in [*entries, *reversed(entries)]:
+            fn = entries[name]
+
+            def call():
+                err = fn(a.data_ptr(), 0, None, None, None, w.data_ptr(),
+                         bias.data_ptr(), None,
+                         None if res is None else res.data_ptr(),
+                         int(res_dtype == f32), out.data_ptr(),
+                         int(out_dtype == f32), epi, m, n, k,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name}: cudaError_t {err}")
+
+            ms = cs._time_ms(call, 20)
+            dev, _ = cs._device_ms(call, ("gemm_kernel",))
+            rate = ("" if dev is None
+                    else f" ({2 * m * k * n / (dev * 1e-3) / 1e12:.1f} TFLOP/s)")
+            print(f"  {name:14s} call {ms:.4f} ms, device "
+                  f"{cs._fmt_ms(dev)}{rate}")
+    print(f"card: {smi}")
+
+
+@torch.no_grad()
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernel", choices=("attn", "gemm"), default="attn")
+    kernel = parser.parse_args().kernel
     smi = cs.card()
+    if kernel == "gemm":
+        gemm_main(smi)
+        return
     entries = build_variants()
     for name, (what, _) in VARIANTS.items():
         print(f"variant {name!r}: {what}")

@@ -120,6 +120,33 @@ def test_fused_route_matches_jax_fused_route(n_token):
     assert np.all(got[2].numpy()[~v] == -1e30)
 
 
+def test_fused_route_at_natural_supervised_widths_matches_jax():
+    # the natural_supervised configs (camelyon, bracs, lct): D_feat 512,
+    # D_inner 256, the width whose B1 launch raised on the card before
+    from acmil_tpu_torch.config import PRETRAIN_DIMS
+
+    df, l = PRETRAIN_DIMS["natural_supervised"]
+    jm = JaxACMIL_GA(n_class=N_CLASS, d_inner=l, n_token=5)
+    tm = ACMIL_GA(N_CLASS, d_feat=df, d_inner=l, n_token=5)
+    params = jax.tree_util.tree_map(np.asarray, jm.init(
+        jax.random.PRNGKey(6), jnp.zeros((1, 8, df)),
+        jnp.ones((1, 8), bool))["params"])
+    tm.load_state_dict(from_jax_params(params, "ga"))
+    rs = np.random.RandomState(6)
+    feats = rs.randn(2, 300, df).astype(np.float16).astype(np.float32)
+    mask = rs.rand(2, 300) < 0.8
+    mask[-1, 200:] = False
+    want = jax_apply_batched(jax.tree_util.tree_map(jnp.asarray, params),
+                             jnp.asarray(feats), jnp.asarray(mask), chunk=128)
+    with torch.no_grad():
+        got = acmil_ga_apply_batched(tm.eval(), torch.from_numpy(feats).half(),
+                                     torch.from_numpy(mask))
+    _close(got[0].numpy(), want[0])
+    _close(got[1].numpy(), want[1])
+    v = _valid(mask, got[2].numpy())
+    _close(got[2].numpy()[v], np.asarray(want[2])[v])
+
+
 def test_fused_route_matches_plain_forward():
     _, _, tm = _pair("ga", seed=4)
     feats, mask = _bag(4)

@@ -12,7 +12,12 @@ import pytest
 import torch
 
 from acmil_tpu.ops import attn_pool as jax_pool
+from acmil_tpu_torch.config import PRETRAIN_DIMS
 from acmil_tpu_torch.ops import attn_pool as port
+
+# every (D_feat, D_inner) pair of the pretrain tags: kernels B1 and B2 take
+# each L, with A = 128 (the heads' d_attn)
+PRETRAIN_WIDTHS = sorted(set(PRETRAIN_DIMS.values()))
 
 # Both sides compute in float32; only the summation order differs (XLA's
 # dots and the interpret-mode chunked online softmax vs torch's matmuls and
@@ -85,6 +90,44 @@ def test_reference_batched_matches_jax(k):
     _close(got[1].numpy()[valid], np.asarray(want[1])[valid])
 
 
+def _inputs_at(seed, df, l, k=5, b=2, n=300):
+    """A bag batch at a pretrain tag's widths, the weights at torch
+    Linear's scale (U(±1/sqrt(fan_in))) so that the gates do not saturate;
+    the last bag all masked."""
+    rs = np.random.RandomState(seed)
+    feats = rs.randn(b, n, df).astype(np.float16).astype(np.float32)
+    mask = rs.rand(b, n) < 0.8
+    mask[-1] = False
+    a = port.KERNEL_A
+    weights = [((rs.rand(*s) * 2 - 1) / np.sqrt(fan_in)).astype(np.float32)
+               for s, fan_in in [((df, l), df), ((l,), df), ((l, a), l),
+                                 ((a,), l), ((l, a), l), ((a,), l),
+                                 ((a, k), a), ((k,), a)]]
+    return feats, mask, weights
+
+
+@pytest.mark.parametrize("df, l", PRETRAIN_WIDTHS)
+def test_port_matches_pallas_kernel_at_every_pretrain_width(df, l):
+    # N = 300 in chunks of 128: the Pallas kernel's online softmax over
+    # three chunks, at the widths every config of the repo feeds it
+    feats, mask, weights = _inputs_at(5, df, l)
+    want = jax_pool.fused_gated_attn_pool_batched(
+        jnp.asarray(feats), jnp.asarray(mask), *map(jnp.asarray, weights),
+        chunk=128, interpret=True, return_stats=True)
+    x, m, ws = _torch(feats, mask, weights, torch.float16)
+    port._check_kernel_args(x, m, *ws)
+    bag, logits, mx, s = (t.numpy() for t in port.fused_gated_attn_pool_batched(
+        x, m, *ws, return_stats=True))
+    assert bag.shape == (2, 5, l) and logits.shape == (2, 5, 300)
+    _close(bag, want[0])
+    valid = np.broadcast_to(mask[:, None, :], logits.shape)
+    _close(logits[valid], np.asarray(want[1])[valid])
+    assert np.all(logits[~valid] == port.NEG)
+    _close(mx, want[2])
+    _close(s, want[3])
+    assert np.all(bag[-1] == 0.0)
+
+
 def test_single_bag_wrappers_match_jax():
     feats, mask, weights = _inputs(2, b=1, dead_row=False)
     x, m, ws = _torch(feats, mask, weights)
@@ -121,10 +164,17 @@ def test_kernel_arg_check_accepts_serving_width():
     port._check_kernel_args(*_serving_args(k=1, b=3, n=65536 + 7))
 
 
+def test_kernel_arg_check_accepts_every_pretrain_width():
+    for df, l in PRETRAIN_WIDTHS:
+        for k in (1, 5, 128):
+            port._check_kernel_args(*_serving_args(df=df, l=l, k=k))
+
+
 @pytest.mark.parametrize("bad, match", [
     (dict(k=129), "K <= 128"),
-    (dict(l=64), "L = A = 128"),
-    (dict(a=64), "L = A = 128"),
+    (dict(l=64), "L a multiple of 128 up to 768"),
+    (dict(l=896), "L a multiple of 128 up to 768"),
+    (dict(a=64), "A = 128"),
     (dict(df=40), "multiple of 32"),
     (dict(n=0), "empty"),
 ])
@@ -182,3 +232,32 @@ def test_kernel_matches_plain_on_card(cuda_device, feats_dtype, k):
     torch.testing.assert_close(mx, rm, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(s, rs_, atol=1e-4, rtol=1e-4)
     assert not bool(bag.isnan().any()) and bool((bag[1] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feats_dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("df, l, k", [(512, 256, 5), (768, 384, 1),
+                                      (1024, 512, 5), (1536, 768, 5),
+                                      (1536, 768, 128)])
+def test_kernel_matches_plain_on_card_at_wider_l(cuda_device, feats_dtype, df,
+                                                 l, k):
+    # the pretrain tags' widths (32-row tiles), a ragged N, B=3 with one
+    # all-masked bag; f32 on both sides with TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, mask, weights = _inputs_at(9, df, l, k=k, b=3, n=3001)
+    x, m, ws = (t.to(cuda_device) if isinstance(t, torch.Tensor) else
+                [w.to(cuda_device) for w in t]
+                for t in _torch(feats, mask, weights, feats_dtype))
+    with torch.no_grad():
+        bag, logits, mx, s = port.fused_gated_attn_pool_batched(
+            x, m, *ws, return_stats=True)
+        torch.cuda.synchronize()
+        rb, rl = port._reference_batched(x.float(), m, *ws)
+        rm, rs_ = port._softmax_stats(rl, m)
+    valid = m[:, None, :].expand_as(logits)
+    torch.testing.assert_close(bag, rb, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(logits[valid], rl[valid], atol=1e-4, rtol=1e-4)
+    assert bool((logits[~valid] == port.NEG).all())
+    torch.testing.assert_close(mx, rm, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, rs_, atol=1e-4, rtol=1e-4)
+    assert bool((bag[2] == 0).all())

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from acmil_tpu.ops import attn_pool as jax_pool
+from acmil_tpu_torch.config import PRETRAIN_DIMS
 from acmil_tpu_torch.ops import attn_pool as port
 
 # float32 on both sides; sums over up to 600 rows are taken in other orders
@@ -80,6 +81,49 @@ def test_bwd_stats_matches_pallas(k, all_masked):
     assert np.all(got[0].numpy()[~mask] == 0.0)      # masked rows get no dx
     for g in got:
         assert np.isfinite(g.numpy()).all()
+
+
+def _inputs_at(seed, df, l, k=5, b=2, n=300):
+    """A bag batch at a pretrain tag's widths (A = 128), the weights at
+    torch Linear's scale; the last bag has a dead tail."""
+    rs = np.random.RandomState(seed)
+    feats = rs.randn(b, n, df).astype(np.float16).astype(np.float32)
+    mask = rs.rand(b, n) < 0.8
+    mask[-1, 200:] = False
+    a = port.KERNEL_A
+    weights = [((rs.rand(*s) * 2 - 1) / np.sqrt(fan_in)).astype(np.float32)
+               for s, fan_in in [((df, l), df), ((l,), df), ((l, a), l),
+                                 ((a,), l), ((l, a), l), ((a,), l),
+                                 ((a, k), a), ((k,), a)]]
+    d_bag = rs.randn(b, k, l).astype(np.float32)
+    d_logits = rs.randn(b, k, n).astype(np.float32)
+    return feats, mask, weights, d_bag, d_logits
+
+
+@pytest.mark.parametrize("df, l", sorted(set(PRETRAIN_DIMS.values())))
+def test_bwd_stats_matches_pallas_at_every_pretrain_width(df, l):
+    feats, mask, ws, d_bag, d_logits = _inputs_at(10, df, l)
+    jws = [jnp.asarray(w) for w in ws]
+    bag, _, m, s = jax_pool.fused_gated_attn_pool_batched(
+        jnp.asarray(feats), jnp.asarray(mask), *jws, chunk=128,
+        interpret=True, return_stats=True)
+    lse = np.asarray(m + jnp.log(jnp.maximum(s, 1e-30)))
+    c = np.sum(d_bag * np.asarray(bag), axis=2)
+    want = jax_pool._fused_pool_bwd_stats(
+        jnp.asarray(feats), jnp.asarray(mask), *jws, jnp.asarray(lse),
+        jnp.asarray(c), jnp.asarray(d_bag), jnp.asarray(d_logits), chunk=128,
+        interpret=True)
+    x, mk, l_, c_, db, dl = _t(feats, mask, lse, c, d_bag, d_logits)
+    got = port.fused_gated_attn_pool_bwd(x, mk, *_t(*ws), l_, c_, db, dl)
+    port._check_bwd_args(x, 5, l, l_, c_, db, dl)
+    assert got[1].shape == (df, l) and got[3].shape == (l, port.KERNEL_A)
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        # sums over up to 1536-term products: the bound scales with each
+        # gradient's largest magnitude
+        w = np.asarray(w)
+        _close(g.numpy(), w, atol=ATOL * max(1.0, np.abs(w).max()),
+               name=name)
+    assert np.all(got[0].numpy()[~mask] == 0.0)
 
 
 def test_fused_pool_bwd_forms_lse_and_c_like_jax():
@@ -190,10 +234,10 @@ def test_bwd_arg_check_rejects_wrong_shapes(arg, shape, match):
     b, n, k = 2, 100, 5
     args = {"lse": torch.zeros(b, k), "c": torch.zeros(b, k),
             "d_bag": torch.zeros(b, k, 128), "d_logits": torch.zeros(b, k, n)}
-    port._check_bwd_args(torch.zeros(b, n, 384), k, **args)
+    port._check_bwd_args(torch.zeros(b, n, 384), k, 128, **args)
     args[arg] = torch.zeros(*shape)
     with pytest.raises(ValueError, match=match):
-        port._check_bwd_args(torch.zeros(b, n, 384), k, **args)
+        port._check_bwd_args(torch.zeros(b, n, 384), k, 128, **args)
 
 
 def test_bare_forward_cpu_route_is_differentiable():
@@ -249,6 +293,39 @@ def test_b2_matches_plain_on_card(cuda_device, feats_dtype, k):
     for name, g, w, g2 in zip(GRAD_NAMES, got, want, again):
         assert torch.equal(g, g2), f"{name} differs between two launches"
         # fp16 dx rounds to one fp16 ulp (2**-11 of the value)
+        tol = 1e-3 if g.dtype == torch.float16 else 1e-4
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.abs().max()), (name, err)
+    assert bool((got[0][~m] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feats_dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("df, l, k", [(512, 256, 5), (768, 384, 5),
+                                      (1024, 512, 1), (1536, 768, 5),
+                                      (1536, 768, 128)])
+def test_b2_matches_plain_on_card_at_wider_l(cuda_device, feats_dtype, df, l,
+                                             k):
+    # the pretrain tags' widths (32-row tiles, larger private slices), a
+    # ragged N, B=2 with a dead tail; two launches agree bit for bit
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, mask, ws, d_bag, d_logits = _inputs_at(11, df, l, k=k, n=2999)
+    x = torch.from_numpy(feats).to(cuda_device, feats_dtype)
+    m, *rest = (t.to(cuda_device) for t in _t(mask, *ws, d_bag, d_logits))
+    ws, d_bag, d_logits = rest[:8], rest[8], rest[9]
+    with torch.no_grad():
+        bag, _, mx, s = port.fused_gated_attn_pool_batched(
+            x, m, *ws, return_stats=True)
+        lse = mx + torch.log(s.clamp_min(1e-30))
+        c = (d_bag * bag).sum(-1)
+        got = port.fused_gated_attn_pool_bwd(x, m, *ws, lse, c, d_bag,
+                                             d_logits)
+        again = port.fused_gated_attn_pool_bwd(x, m, *ws, lse, c, d_bag,
+                                               d_logits)
+        torch.cuda.synchronize()
+        want = port._fused_pool_bwd_stats(x, m, *ws, lse, c, d_bag, d_logits)
+    for name, g, w, g2 in zip(GRAD_NAMES, got, want, again):
+        assert torch.equal(g, g2), f"{name} differs between two launches"
         tol = 1e-3 if g.dtype == torch.float16 else 1e-4
         err = float((g.float() - w.float()).abs().max())
         assert err <= tol * float(w.abs().max()), (name, err)

@@ -82,6 +82,20 @@ def test_ragged_n_matches_jax():
     _check(got, kern, mask)
 
 
+@pytest.mark.parametrize("c", [1, 8, 9, 16, 128])
+def test_port_matches_jax_kernel_at_many_classes(c):
+    # kernel B6 takes classes in groups of 8 a block: one group, a full
+    # group, a group and a remainder, two groups, sixteen groups
+    feats, mask, wq, bq, q_max = _inputs(4, n=300, c=c, fp16=True)
+    kern, ref = _jax(feats, mask, wq, bq, q_max)
+    args = [torch.from_numpy(a) for a in (feats, mask, wq, bq, q_max)]
+    port._check_kernel_args(*args)
+    got = port.fused_dsmil_pool(*args)
+    assert got[0].shape == (2, c, 48) and got[1].shape == (2, c, 300)
+    _check(got, kern, mask)
+    _check(got, ref, mask)
+
+
 def test_cpu_route_launches_no_kernel():
     before = port.fused_dsmil_pool.launches
     port.fused_dsmil_pool(*(torch.from_numpy(a) for a in _inputs(2, n=64)))
@@ -93,7 +107,7 @@ def _torch_inputs(**kw):
 
 
 @pytest.mark.parametrize("change, match", [
-    (dict(c=9), "C <= 8"),
+    (dict(c=129), "C <= 128"),
     (dict(d=44), "multiple of 8"),
     (dict(d=1544), "up to 1536"),
 ])
@@ -117,11 +131,11 @@ def test_kernel_arg_check_rejects_types():
 
 
 def test_kernel_arg_check_accepts_every_pretrain_width():
-    # every (D_feat, D_inner) pair of config.PRETRAIN_DIMS, C up to 8
+    # every (D_feat, D_inner) pair of config.PRETRAIN_DIMS, C up to 128
     from acmil_tpu_torch.config import PRETRAIN_DIMS
 
     for d, q in sorted(set(PRETRAIN_DIMS.values())):
-        for c in (2, 4, 8):
+        for c in (2, 4, 8, 9, 128):
             feats = torch.zeros(1, 8, d, dtype=torch.float16)
             port._check_kernel_args(feats, torch.ones(1, 8, dtype=torch.bool),
                                     torch.zeros(d, q), torch.zeros(q),

@@ -90,6 +90,10 @@ def cuda_device():
     (3, 5000, 384, 128, 4, torch.float32),
     (2, 1000, 1024, 512, 8, torch.float16),
     (1, 70, 1536, 768, 1, torch.float32),
+    (3, 5000, 384, 128, 9, torch.float16),
+    (2, 1000, 512, 256, 16, torch.float32),
+    (1, 3000, 384, 128, 128, torch.float16),
+    (2, 300, 1024, 512, 128, torch.float32),
 ])
 def test_b6_matches_plain_on_card(cuda_device, b, n, d, q, c, dtype):
     feats, mask, wq, bq, q_max = _b6_inputs(cuda_device, b, n, d, q, c, dtype)
@@ -111,9 +115,9 @@ def test_b6_matches_plain_on_card(cuda_device, b, n, d, q, c, dtype):
 
 @pytest.mark.gpu
 def test_b6_raises_on_what_it_does_not_take(cuda_device):
-    feats, mask, wq, bq, q_max = _b6_inputs(cuda_device, 1, 64, 384, 128, 9,
-                                            torch.float16)
-    with pytest.raises(ValueError, match="C <= 8"):
+    feats, mask, wq, bq, q_max = _b6_inputs(cuda_device, 1, 64, 384, 128,
+                                            129, torch.float16)
+    with pytest.raises(ValueError, match="C <= 128"):
         dsmil_pool.fused_dsmil_pool(feats, mask, wq, bq, q_max)
     with pytest.raises(NotImplementedError, match="no backward"):
         dsmil_pool.fused_dsmil_pool(feats, mask, wq.requires_grad_(), bq,

@@ -1,0 +1,144 @@
+"""The GEMM of kernels B3 and B4 (``csrc/vit_gemm.cu`` through
+``acmil_tpu_torch/ops/vit_layer.py::_gemm``) alone, against a plain
+``torch.matmul`` with the same prologue and epilogue. The file imports no
+JAX, so it runs on the card's machine; here the ``gpu`` tests skip and the
+argument checks and the source's structure are tested."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from acmil_tpu_torch.ops import vit_layer as port
+
+SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "acmil_tpu_torch", "csrc", "vit_gemm.cu")
+# the kernel and the plain version both take bf16 operands and f32 sums; the
+# order of the sums differs, which can flip the bf16 rounding of an output
+# (2**-8 of it) or of a LayerNorm'd input element (whose effect on a
+# K-term sum is far smaller): one bf16 step of each output and of the
+# largest output
+TOL = 2.0 ** -7
+
+
+def _plain(a, w, bias, epilogue, out_dtype, ln=None, ls=None, res=None):
+    """The GEMM's contract in plain torch: f32 LayerNorm (or none) of a,
+    rounded to bf16, an f32 product with w, then the epilogue in f32."""
+    af = a.float()
+    if ln is not None:
+        af = port._ln_f32(af, *ln)
+    acc = af.to(torch.bfloat16).float() @ w.float().t()
+    if epilogue == port.EPI_BIAS:
+        y = acc + bias
+    elif epilogue == port.EPI_BIAS_GELU:
+        y = torch.nn.functional.gelu(acc + bias, approximate="tanh")
+    elif epilogue == port.EPI_RES_BIAS:
+        y = (res.float() + acc) + bias
+    else:
+        t = acc + bias
+        y = res.float() + (t * ls if ls is not None else t)
+    return y.to(out_dtype)
+
+
+def _operands(dev, m, n, k, a_dtype, seed=0):
+    rs = np.random.RandomState(seed)
+    f = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).to(dev)
+    a = (1.5 * f(m, k) + 0.3).to(a_dtype)
+    w = (f(n, k) / np.sqrt(k)).to(torch.bfloat16).contiguous()
+    ln = (1 + 0.1 * f(k), 0.1 * f(k))
+    return a, w, 0.1 * f(n), ln, 0.25 + 0.5 * f(n).abs(), f(m, n)
+
+
+def _check(got, want):
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL,
+                               atol=TOL * float(want.float().abs().max()))
+
+
+def test_source_is_tma_and_wgmma():
+    # the products are warpgroup MMAs on TMA-filled tiles through an
+    # mbarrier ring; nothing of the old nvcuda::wmma kernel remains
+    with open(SOURCE) as f:
+        src = f.read()
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor",
+                   "mbarrier.try_wait", "setmaxnreg", "CUtensorMap"):
+        assert needle in src, needle
+    assert "nvcuda" not in src and "mma.h" not in src
+
+
+@pytest.mark.parametrize("change, match", [
+    (dict(k=40), "K % 32 == 0"),
+    (dict(n=12), "N % 8 == 0"),
+    (dict(a_dtype=torch.float16), "bfloat16 or float32"),
+    (dict(w_dtype=torch.float32), "weight must be bfloat16"),
+    (dict(bias_len=7), "vectors must be float32"),
+    (dict(res_shape=(4, 8)), "residual must be"),
+    (dict(strided=True), "contiguous"),
+])
+def test_gemm_rejects_what_the_kernel_does_not_take(change, match):
+    m, n, k = change.get("m", 16), change.get("n", 64), change.get("k", 64)
+    a = torch.zeros(m, k * (2 if change.get("strided") else 1),
+                    dtype=change.get("a_dtype", torch.bfloat16))
+    if change.get("strided"):
+        a = a[:, ::2]
+    w = torch.zeros(n, k, dtype=change.get("w_dtype", torch.bfloat16))
+    bias = torch.zeros(change.get("bias_len", n))
+    res = torch.zeros(*change.get("res_shape", (m, n)))
+    with pytest.raises(ValueError, match=match):
+        port._gemm(a, w, bias, port.EPI_RES_BIAS, out_dtype=torch.bfloat16,
+                   res=res)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("the GEMM is CUDA C++ for sm_90a: needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# (M, N, K): a ViT-S/16 image's tokens against the qkv width; a tiny ragged
+# N; N and K that are not multiples of the tile (392 = 3 x 128 + 8, K = 96
+# is one and a half depth steps); many tiles per block of the persistent
+# grid at fc2's shape
+SHAPES = [(197, 1152, 384), (300, 8, 32), (1000, 392, 96), (9001, 384, 1536)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, n, k", SHAPES)
+@pytest.mark.parametrize("epilogue", [port.EPI_BIAS, port.EPI_BIAS_GELU,
+                                      port.EPI_RES_BIAS, port.EPI_BIAS_LS_RES])
+@pytest.mark.parametrize("a_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_ln", [True, False])
+def test_gemm_matches_plain_on_card(cuda_device, m, n, k, epilogue, a_dtype,
+                                    with_ln):
+    a, w, bias, ln, ls, res = _operands(cuda_device, m, n, k, a_dtype)
+    # the residual and the output in both dtypes, across the cases
+    out_dtype = torch.float32 if a_dtype == torch.bfloat16 else torch.bfloat16
+    res = res.to(torch.bfloat16 if out_dtype == torch.float32
+                 else torch.float32)
+    kw = dict(ln=ln if with_ln else None,
+              ls=ls if epilogue == port.EPI_BIAS_LS_RES and with_ln else None,
+              res=res if epilogue >= port.EPI_RES_BIAS else None)
+    with torch.no_grad():
+        got = port._gemm(a, w, bias, epilogue, out_dtype=out_dtype, **kw)
+        torch.cuda.synchronize()
+        want = _plain(a, w, bias, epilogue, out_dtype, **kw)
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    _check(got, want)
+
+
+@pytest.mark.gpu
+def test_gemm_is_deterministic_and_launches_on_the_current_stream(
+        cuda_device):
+    a, w, bias, ln, _, _ = _operands(cuda_device, 50432, 384, 384,
+                                     torch.bfloat16)
+    side = torch.cuda.Stream()
+    with torch.no_grad(), torch.cuda.stream(side):
+        one = port._gemm(a, w, bias, port.EPI_BIAS, out_dtype=torch.bfloat16,
+                         ln=ln)
+        two = port._gemm(a, w, bias, port.EPI_BIAS, out_dtype=torch.bfloat16,
+                         ln=ln)
+    side.synchronize()
+    assert torch.equal(one, two)
+    _check(one, _plain(a, w, bias, port.EPI_BIAS, torch.bfloat16, ln=ln))

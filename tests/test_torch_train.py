@@ -57,9 +57,9 @@ LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 2e-4, 3e-3, 3e-5
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _bag_arrays(seed, b=2, n=300, dead_tail=True):
+def _bag_arrays(seed, b=2, n=300, dead_tail=True, d=D):
     rs = np.random.RandomState(seed)
-    feats = rs.randn(b, n, D).astype(np.float16).astype(np.float32)
+    feats = rs.randn(b, n, d).astype(np.float16).astype(np.float32)
     mask = rs.rand(b, n) < 0.8
     if dead_tail:
         mask[-1, 200:] = False
@@ -87,7 +87,8 @@ def _models(jconf, conf, seed=0):
     """The flax model with params from ``init`` and the port's model with
     the same weights."""
     jm, _ = jax_build_model(jconf)
-    params = jm.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8, D)),
+    params = jm.init(jax.random.PRNGKey(seed),
+                     jnp.zeros((1, 8, conf.D_feat)),
                      jnp.ones((1, 8), bool))["params"]
     tm, _ = build_mil_model(conf)
     tm.load_state_dict(from_jax_params(
@@ -303,13 +304,13 @@ def _torch_grads(model):
                 else p.grad.numpy()) for n, p in model.named_parameters()}
 
 
-@pytest.mark.parametrize("stkim, n_token", [(False, 5), (True, 5), (False, 1)])
-def test_one_step_loss_and_grads_match_jax(stkim, n_token):
-    # n_token 1 without STKIM is the ABMIL recipe
+def _one_step_matches_jax(stkim, n_token, d=D, l=L_DIM):
+    """One fused step's loss and every gradient against the JAX package's
+    ``value_and_grad`` of its fused step, from the same weights."""
     kw = {} if stkim else dict(n_masked_patch=0, mask_drop=0.0)
-    jconf, conf = _confs(n_token=n_token, **kw)
+    jconf, conf = _confs(n_token=n_token, D_feat=d, D_inner=l, **kw)
     jm, params, tm = _models(jconf, conf, seed=2)
-    jb, tb = _bags(*_bag_arrays(6))
+    jb, tb = _bags(*_bag_arrays(6, d=d))
     jfam, fam = jax_get_family("acmil"), get_family("acmil")
     jconf_d, conf_d = jfam.conf_dict(jconf), fam.conf_dict(conf)
     assert jconf_d["fused"] and conf_d["fused"]
@@ -333,6 +334,21 @@ def test_one_step_loss_and_grads_match_jax(stkim, n_token):
     for name in got:
         _close(got[name], want[name].numpy(), atol=GRAD_ATOL,
                rtol=GRAD_RTOL, name=name)
+
+
+@pytest.mark.parametrize("stkim, n_token", [(False, 5), (True, 5), (False, 1)])
+def test_one_step_loss_and_grads_match_jax(stkim, n_token):
+    # n_token 1 without STKIM is the ABMIL recipe
+    _one_step_matches_jax(stkim, n_token)
+
+
+def test_one_step_at_natural_supervised_widths_matches_jax():
+    # the ACMIL recipe (STKIM on) at the natural_supervised configs'
+    # widths, D_feat 512 and D_inner 256: kernels B1 and B2 at L = 256 on
+    # the card, their plain versions here
+    from acmil_tpu_torch.config import PRETRAIN_DIMS
+
+    _one_step_matches_jax(True, 5, *PRETRAIN_DIMS["natural_supervised"])
 
 
 def test_fused_and_plain_routes_agree_on_a_step():
