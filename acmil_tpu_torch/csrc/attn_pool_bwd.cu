@@ -3,8 +3,8 @@
 // Replaces the Pallas TPU kernel acmil_tpu/ops/attn_pool.py::_bwd_kernel,
 // which _fused_pool_bwd_stats launches. Given the forward's inputs, the
 // per-(bag, branch) softmax couplings lse [B, K] and c = sum_l d_bag * bag
-// [B, K], and the cotangents d_bag [B, K, L] and d_logits [B, K, N], one pass
-// over x computes, for every row:
+// [B, K], and the cotangents d_bag [B, K, L] and d_logits [B, K, N], it
+// computes, for every row:
 //
 //   h = relu(x W1 + b1), gv = tanh(h V + bv), gu = sigmoid(h U + bu), g = gv gu
 //   p     = exp(g w + bw - lse)                 (0 at masked rows and past N)
@@ -17,118 +17,144 @@
 // dW1 = x^T r, db1 = sum r, dV = h^T d_av, dbv = sum d_av, dU = h^T d_au,
 // dbu = sum d_au, dw = g^T d_log, dbw = sum d_log.
 //
-// Design. The TPU kernel walks every (bag, chunk) in order on one core and
-// carries eight gradient accumulators in VMEM from step to step. On the H100
-// blocks run in parallel and nothing carries over, and dW1 alone is
-// Df x L x 4 = 192 KB at Df = 384, L = 128: it does not fit one block's
-// shared memory beside the tiles. So the rows are cut into tiles (64 rows at
-// L = 128, 32 above), and G blocks walk them with a stride of G. Each block
-// accumulates its tiles' gradients into a private slice of a workspace in
-// global memory (about 332 KB at Df = 384, L = 128, K = 5; 4.7 MB at
-// Df = 1536, L = 768): the first tile stores, later tiles add. A second
-// kernel then sums the G slices in a fixed order. No float atomics are used,
-// so two launches on the same inputs give the same bits, at every width. G
-// is the number of blocks the card holds at once (132 SMs x 1 block of 256
-// threads = 132 on an H100 SXM), so every block stays resident; at L = 128
-// the workspace (about 44 MB) mostly stays in the 50 MB L2 cache, at the
-// larger widths it does not.
+// Design. The TPU kernel walks every (bag, chunk) in order on one core,
+// recomputes h and the gates per chunk and carries the gradient
+// accumulators in VMEM, so that no [N, L] intermediate leaves the chip. On
+// the H100 blocks run in parallel and nothing carries over, and a block's
+// shared memory cannot hold dW1 (Df x L x 4 bytes: 4.7 MB at 1536 x 768)
+// beside its tiles. So B2 here writes its intermediates to device memory
+// (M = B N rows) and runs as matrix products over them:
 //
-// Like the TPU kernel, B2 recomputes h, the gates and the logits of its tile
-// from x and the weights and writes no [N, L] intermediate to device memory.
-// Shared memory holds h (later r), g (later d_av), d_au, p and d_log for the
-// tile, and a staging area through which x, W1, V and U pass 8 to 32 rows or
-// columns at a time (fewer at L = 768, where h alone is 96 KB): 134 KB per
-// block at L = 128, K = 5, at most 211 KB (L = 768, K = 128), one block per
-// SM.
+//   b2_norms_kernel     |x| of every row and |W1| of every column
+//   K1 b2_h_kernel      H = relu(X W1 + b1)            [M, Df] [Df, L],
+//                       and each 128-column panel's part of H d_bag^T
+//   b2_hfix_kernel      K1's near-0 elements (below)
+//   K2 b2_row_kernel    per 64-row tile: Z = H [V | U] [L, 2A], the gates,
+//                       p, d_log (d_p from K1's parts), d_av and d_au;
+//                       D_a = [d_av | d_au | p] [M, 2A + K];
+//                       R = [H > 0] ([d_av | d_au | p] [V | U | d_bag^T]^T)
+//                       [M, L], in panels of 128 columns; db1, dbv, dbu,
+//                       dw and dbw as per-block partials
+//   K3 b2_wgrad_kernel  dW1 = X^T R and [dV | dU] = H^T D_a, each over S
+//                       contiguous ranges of rows into S partials
+//   b2_reduce_kernel    sums the partials of K3 and of K2, each in order
+//   K4 b2_dx_kernel     dx = R W1^T in x's dtype (only when asked)
 //
-// Bounds. At Df = 384, L = A = 128 a 65536-row bag costs about 25 GFLOP of
-// f32 FMA without dx (32 GFLOP with it), about three times the forward, and
-// reads 50 MB of fp16 features (plus 50 MB of dx writes when asked). On the
-// CUDA cores (67 TFLOP/s f32 peak) that is compute-bound. Register tiles of
-// rows x columns per thread (8 x 4 at L = 128, 4 x L/32 above, 16 x 4 for
-// dV and dU per panel of 128 columns), fed from shared memory with
-// broadcast and 16-byte loads, carry the products; mma/wgmma on the tensor
-// cores and TMA are later work.
+// Every product of more than K terms is a split-TF32 product on the tensor
+// cores (tf32x3.cuh: mma.sync m16n8k8, hi/lo operands, f32 accumulation;
+// two MMAs per product with fp16 x, which is exact in TF32, three
+// otherwise), fed by a 3-stage cp.async ring of 32-deep slices: 128 x 128
+// output tiles in K1, K3 and K4, 64 x 128 (each half of Z, and each panel
+// of d_h) in K2; 8 warps a block. K3 sums each slice apart (tf32x3's
+// kFlush), since the MMA's accumulation drifts over its long sums
+// (thousands of rows).
 //
-// Features are read as fp16 or f32 and widened in registers; dx is written in
-// the features' dtype; every weight gradient is f32. Widths taken: L in {128,
-// 256, 384, 512, 768} (one instantiation each), A = 128, Df a multiple of 32,
-// 1 <= K <= 128. The Python wrapper (acmil_tpu_torch/ops/attn_pool.py) checks
-// them and raises on anything else.
+// The relu mask. r is discontinuous in h: where h is within rounding of 0,
+// two ways of summing x W1 can give the mask opposite signs, and the row's
+// whole d_h then enters dW1 or not. The mask must be the forward's, whose
+// h is a sequential f32 FMA chain over Df (kernel B1 and the plain
+// version). So K1 recomputes, in that order, every h whose pre-activation
+// lies within kMaskTol |x_row| |W1_col| of 0 (a bound on the rounding of
+// either sum, by Cauchy-Schwarz); that is about 1 element in 10^4, listed
+// by K1's tiles and summed by b2_hfix_kernel, one thread an element.
+//
+// Bounds. At Df = 384, L = A = 128, N = 65536, without dx, B2 does about
+// 25 GFLOP (x W1 and x^T R half of it, 80% at Df = 1536, L = 768) and
+// moves 50 MB of fp16 features plus its intermediates (H, R: M L f32 each,
+// written once and read twice; D_a: M 2A f32): about 0.3 GB at L = 128,
+// 1.3 GB at L = 768, under 0.4 ms of HBM time. So it is bound by the
+// tensor cores' TF32 rate, at two or three MMAs a product.
+//
+// Determinism: no float atomics; every sum runs in a fixed order (within a
+// tile by the MMA's fixed order, across tiles and ranges by the reduce), so
+// two launches on the same inputs give the same bits.
+//
+// Features are read as fp16 or f32; dx is written in the features' dtype;
+// every weight gradient is f32. Widths taken: L in {128, 256, 384, 512, 768}
+// (one instantiation of K2 each), A = 128, Df a multiple of 32, 1 <= K <=
+// 128. The Python wrapper (acmil_tpu_torch/ops/attn_pool.py) checks them,
+// sizes the intermediates and S, and raises on anything else.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr int kA = 128;            // gated-attention hidden width
+constexpr int kDa = 2 * kA;        // columns of D_a = [d_av | d_au], of [V | U]
 constexpr int kThreads = 256;      // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kPanel = 128;        // columns of h per dV/dU/dW1 pass
-constexpr int kVDepth = 32;        // rows of V/U per staged slice
 constexpr int kReduceThreads = 256;
+// a pre-activation within this share of |x_row| |W1_col| of 0 is recomputed
+// in the forward's order: 2**-17, several times the rounding of a sum of up
+// to 1536 terms in either order
+constexpr float kMaskTol = 7.62939453125e-06f;
 
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
+// K1, K3, K4: 128 x 128 output tiles, 32-deep slices, warps 2 x 4 (64 x 32
+// each), 3 stages
+constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3;
 
-// The per-width layout of the partial kernel.
-template <int L>
-struct Shape {
-  static constexpr int kTile = L == 128 ? 64 : 32;   // rows of x per tile
-  static constexpr int kRows = kTile / kWarps;       // rows a thread owns
-  static constexpr int kCols = L / 32;               // columns of h a thread owns
-  static constexpr int kDepth = L == 768 ? 16 : 32;  // x/W1 depth for h
-  static constexpr int kTDepth = L == 768 ? 8 : 16;  // columns of V/U transposed
-  static constexpr int kTStride = L + 1;             // row stride of V^T/U^T slices
-  static constexpr int kD2 = L == 768 ? 16 : 32;     // columns of x for dW1/dx
-  static constexpr int kW1Stride = L + 4;            // staged W1 rows (16 B aligned)
-  // floats in the staging area; 8192 at L = 128 as before
-  static constexpr int kStage = cmax(
-      cmax(cmax(kTile * kDepth + kDepth * L, 2 * kVDepth * kA),
-           2 * kTDepth * kTStride),
-      kTile * kD2 + kD2 * kW1Stride);
-  static_assert(L % kPanel == 0 && kTile * 4 <= kThreads * 4, "widths");
-  static_assert(kThreads == 2 * kA, "thread mappings");
-};
+template <typename T, bool kKMajor, int kExtent>
+using Op = tf32x3::Operand<T, kKMajor, kExtent, kBK>;
+template <class A, class B>
+using Gemm = tf32x3::BlockGemm<A, B, kBM, kBN, kBK, 2, 4, kStages>;
 
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+// K1: A = x (row, d), B(k = d, n = l) = W1[d][l]
+template <typename T>
+using GemmH = Gemm<Op<T, true, kBM>, Op<float, false, kBN>>;
+// K3: A(m = d, k = row) = x[row][d], B(k = row, n = l) = R[row][l]
+template <typename T>
+using GemmXtR = Gemm<Op<T, false, kBM>, Op<float, false, kBN>>;
+// K3: A(m = l, k = row) = H[row][l], B(k = row, n = a) = D_a[row][a]
+using GemmHtD = Gemm<Op<float, false, kBM>, Op<float, false, kBN>>;
+// K4: A = R (row, l), B(k = l, n = d) = W1[d][l]
+using GemmDx = Gemm<Op<float, true, kBM>, Op<float, true, kBN>>;
+
+// K2: 64-row tiles, warps 2 x 4; its products share K1's slices and stages
+constexpr int kTile = 64, kPanel = 128;
+// Z = H [V | U], one half (V or U) at a time: A = H (row, l), B(k = l, n = a)
+// = VU[l][half A + a]
+using GemmZ = tf32x3::BlockGemm<Op<float, true, kTile>, Op<float, false, kA>,
+                                kTile, kA, kBK, 2, 4, kStages>;
+// d_h = [D_a | p] [[V | U]^T ; d_bag] over a panel of 128 columns:
+// A = D_a's row (its last columns hold p), B(k = c, n = l) = VU[l][c] for
+// c < 2A, d_bag^T[l][c - 2A] after
+using GemmDh = tf32x3::BlockGemm<Op<float, true, kTile>,
+                                 Op<float, true, kPanel>, kTile, kPanel, kBK,
+                                 2, 4, kStages>;
+constexpr int kZStride = kDa + 4;     // rows of Z, g, D_a in shared memory
+constexpr int kRStride = kPanel + 4;  // rows of an R panel in shared memory
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int round4(int k) { return (k + 3) / 4 * 4; }
+// bytes of K2's GEMM ring; an R panel aliases it
+constexpr int kRowRing = cmax(cmax(GemmZ::kSmemBytes, GemmDh::kSmemBytes),
+                              kTile * kRStride * 4);
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
-__device__ __forceinline__ void load8(const __half* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __half2* h2 = reinterpret_cast<const __half2*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __half22float2(h2[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-// N consecutive floats of shared memory (16-byte loads where N = 4).
-template <int N>
-__device__ __forceinline__ void load_row(const float* p, float* out) {
-  if (N == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = p[i];
-  }
-}
-
-__device__ __forceinline__ void store_dx(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_dx(__half* p, float v) {
-  *p = __float2half_rn(v);
-}
-
-// The block's private gradient slice: the first tile stores, later ones add.
+// A block's private partial: the first tile stores, later ones add.
 __device__ __forceinline__ void accumulate(float* dst, float v, bool first) {
   *dst = first ? v : *dst + v;
+}
+
+// sum over the tile's rows of p[row * kStride], as four chains in order
+template <int kStride>
+__device__ __forceinline__ float column_sum(const float* p) {
+  float s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int row = 0; row < kTile; row += 4)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s4[i] += p[(row + i) * kStride];
+  return (s4[0] + s4[1]) + (s4[2] + s4[3]);
 }
 
 __device__ __forceinline__ bool row_valid(const uint8_t* mask_b, int row,
@@ -136,81 +162,210 @@ __device__ __forceinline__ bool row_valid(const uint8_t* mask_b, int row,
   return row < n && mask_b[row] != 0;
 }
 
-// Copies `rows` rows of a [*, W] row-major f32 matrix into shared memory.
-template <int W>
-__device__ __forceinline__ void copy_rows(float* dst, const float* src,
-                                          int rows) {
-  const float4* s = reinterpret_cast<const float4*>(src);
-  float4* d = reinterpret_cast<float4*>(dst);
-  for (int q = threadIdx.x; q < rows * W / 4; q += kThreads) d[q] = s[q];
+// bytes of K2's shared memory: the GEMM ring, Z/g/D_a and p, d_log
+size_t row_smem_bytes(int k_br) {
+  return kRowRing + sizeof(float) * (kTile * kZStride + 2 * k_br * kTile);
 }
 
-// Stages columns kc..kc+D-1 of the tile's kTile rows of x as f32
-// [kTile][D]; rows past N read as 0.
-template <int kTile, int D, typename T>
-__device__ __forceinline__ void stage_x(float* xs, const T* xb, int n0, int n,
-                                        int df, int kc) {
-  if (threadIdx.x >= kTile * (D / 8)) return;
-  const int r = threadIdx.x / (D / 8);  // rows x segments of 8 columns
-  const int c = (threadIdx.x % (D / 8)) * 8;
-  float vals[8];
-  if (n0 + r < n) {
-    load8(xb + static_cast<size_t>(n0 + r) * df + kc + c, vals);
-  } else {
+// floats of K3's partial: [dW1 (Df x L) | dV (L x A) | dU (L x A)]
+__host__ __device__ size_t wgrad_floats(int df, int l_dim) {
+  return static_cast<size_t>(df) * l_dim + 2 * static_cast<size_t>(l_dim) * kA;
+}
+
+// floats of K2's partial: [db1 (L) | dbv (A) | dbu (A) | dw (A x K) | dbw (K)]
+__host__ __device__ int row_floats(int l_dim, int k_br) {
+  return l_dim + 2 * kA + kA * k_br + k_br;
+}
+
+// ---- |x| per row and |W1| per column -----------------------------------------
+// Blocks from col_blocks on take 32 rows of x, 8 lanes a row (each lane's
+// loads issued together); the first ones 32 columns of W1 each, 8 warps
+// summing every 8th row, then the 8 sums in order (they start first, as
+// they are the longest). norms = [xn (M) | wn (L)].
+constexpr int kNormRows = kThreads / 8;
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+b2_norms_kernel(const T* __restrict__ x, const float* __restrict__ w1,
+                float* __restrict__ norms, int m, int df, int l_dim) {
+  __shared__ float sums[kWarps][32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int col_blocks = l_dim / 32;
+  if (static_cast<int>(blockIdx.x) >= col_blocks) {
+    constexpr int kVec = 16 / sizeof(T);
+    const int r = (blockIdx.x - col_blocks) * kNormRows + threadIdx.x / 8;
+    const T* xr = x + static_cast<size_t>(min(r, m - 1)) * df;
+    float s = 0.f;
+#pragma unroll 4
+    for (int d = (threadIdx.x % 8) * kVec; d < df; d += 8 * kVec) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(xr + d));
+      const T* v = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) vals[i] = 0.f;
+      for (int i = 0; i < kVec; ++i) {
+        const float f = tf32x3::widen(v[i]);
+        s = fmaf(f, f, s);
+      }
+    }
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (threadIdx.x % 8 == 0 && r < m) norms[r] = sqrtf(s);
+  } else {
+    const int c = blockIdx.x * 32 + lane;
+    float s = 0.f;
+#pragma unroll 4
+    for (int d = warp; d < df; d += kWarps) {
+      const float v = w1[static_cast<size_t>(d) * l_dim + c];
+      s = fmaf(v, v, s);
+    }
+    sums[warp][lane] = s;
+    __syncthreads();
+    if (warp == 0) {
+      float t = 0.f;
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) t += sums[i][lane];
+      norms[m + c] = sqrtf(t);
+    }
   }
-  float4* dst = reinterpret_cast<float4*>(xs + r * D + c);
-  dst[0] = make_float4(vals[0], vals[1], vals[2], vals[3]);
-  dst[1] = make_float4(vals[4], vals[5], vals[6], vals[7]);
 }
 
+// ---- K1: H = relu(x W1 + b1), [M, L] f32 --------------------------------
+// x W1 + b1 as the forward sums it: one f32 FMA chain over d in order. w1t
+// is W1 transposed, [L, Df], so that a column is contiguous.
+template <typename T>
+__device__ float forward_preact(const T* __restrict__ x,
+                                const float* __restrict__ w1t,
+                                const float* __restrict__ b1, int r, int c,
+                                int df) {
+  const T* xr = x + static_cast<size_t>(r) * df;
+  const float* wc = w1t + static_cast<size_t>(c) * df;
+  float s = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < df; d += 8) {   // Df is a multiple of 32
+    float xv[8], wv[8];
+    tf32x3::load8(xr + d, xv);
+    tf32x3::load8(wc + d, wv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s = fmaf(xv[i], wv[i], s);
+  }
+  return s + b1[c];
+}
+
+constexpr int kMaxNear = 512;   // near-0 elements a K1 tile lists
+
+// The tile's product; each pre-activation within kMaskTol |x_row| |W1_col|
+// of 0 (never one of a zero row, whose sum is exactly 0 either way) is
+// listed for b2_hfix_kernel in near[tile] (or, past kMaxNear, recomputed
+// here).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
+b2_h_kernel(const T* __restrict__ x, const float* __restrict__ w1,
+            const float* __restrict__ w1t, const float* __restrict__ b1,
+            const float* __restrict__ norms, const float* __restrict__ dbag,
+            float* __restrict__ h, int2* __restrict__ near,
+            int* __restrict__ near_counts, float* __restrict__ dp_part, int m,
+            int n, int df, int l_dim, int k_br) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ int count;
+  using G = GemmH<T>;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  int2* listed = near + static_cast<size_t>(tile) * kMaxNear;
+  if (threadIdx.x == 0) count = 0;
+  float acc[G::kMT][G::kNT][4];
+  G::zero(acc);
+  G::run(acc, {x, df, m, df}, {w1, l_dim, l_dim, df}, m0, n0, 0, df, smem);
+  const float* wn = norms + m;
+  G::for_pairs(acc, m0, n0, [&](int r, int c, float v0, float v1) {
+    if (r >= m) return;
+    float v[2] = {v0 + b1[c], v1 + b1[c + 1]};
+    const float tol = kMaskTol * norms[r];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (fabsf(v[e]) < tol * wn[c + e]) {
+        const int j = atomicAdd(&count, 1);
+        if (j < kMaxNear) listed[j] = make_int2(r, c + e);
+        else v[e] = forward_preact(x, w1t, b1, r, c + e, df);
+      }
+    }
+    store2(h + static_cast<size_t>(r) * l_dim + c, fmaxf(v[0], 0.f),
+           fmaxf(v[1], 0.f));
+  });
+  __syncthreads();  // the tile of H is stored
+  if (threadIdx.x == 0) near_counts[tile] = min(count, kMaxNear);
+
+  // ---- this panel's part of d_p = H d_bag^T, two threads a row. The listed
+  // elements still hold this product's values, which differ from the
+  // forward's by less than the recompute tolerance: d_p is continuous in h
+  const int r = min(m0 + static_cast<int>(threadIdx.x) / 2, m - 1);
+  const int c0 = n0 + (threadIdx.x % 2) * (kBN / 2);
+  float hv[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(h + static_cast<size_t>(r) * l_dim + c0 + i);
+    hv[i] = v.x; hv[i + 1] = v.y; hv[i + 2] = v.z; hv[i + 3] = v.w;
+  }
+  const float* db = dbag + static_cast<size_t>(r / n) * k_br * l_dim + c0;
+  for (int kb = 0; kb < k_br; ++kb) {
+    float s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < kBN / 2; i += 4)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        s4[j] = fmaf(hv[i + j], __ldg(db + kb * l_dim + i + j), s4[j]);
+    float sum = (s4[0] + s4[1]) + (s4[2] + s4[3]);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (threadIdx.x % 2 == 0 && m0 + static_cast<int>(threadIdx.x) / 2 < m)
+      dp_part[(static_cast<size_t>(blockIdx.y) * m + r) * k_br + kb] = sum;
+  }
+}
+
+// ---- K1's listed elements in the forward's order: one warp a tile, one
+// lane an element ---------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(32)
+b2_hfix_kernel(const T* __restrict__ x, const float* __restrict__ w1t,
+               const float* __restrict__ b1, const int2* __restrict__ near,
+               const int* __restrict__ near_counts, float* __restrict__ h,
+               int df, int l_dim) {
+  const int2* listed = near + static_cast<size_t>(blockIdx.x) * kMaxNear;
+  for (int j = threadIdx.x; j < near_counts[blockIdx.x]; j += 32) {
+    const int2 rc = listed[j];
+    h[static_cast<size_t>(rc.x) * l_dim + rc.y] =
+        fmaxf(forward_preact(x, w1t, b1, rc.x, rc.y, df), 0.f);
+  }
+}
+
+// ---- K2: the row kernel --------------------------------------------------
+// Block g walks the (bag, 64-row tile) pairs g, g + G, ...; for each tile it
+// reads H, writes D_a and R, and accumulates db1, dbv, dbu, dw and dbw into
+// part[g] (row_floats floats). Thread (warp ty, lane tx) owns rows 8 ty..
+// and columns tx + 32 j of the A-wide elementwise steps.
 template <int L>
-size_t partial_smem_bytes(int k_br) {
-  using S = Shape<L>;
-  return sizeof(float) * (static_cast<size_t>(S::kTile) * L +
-                          2 * S::kTile * kA + S::kStage + 2 * k_br * S::kTile);
-}
-
-__host__ __device__ size_t slice_floats(int df, int l_dim, int k_br) {
-  return static_cast<size_t>(df) * l_dim + l_dim + 2 * (l_dim * kA + kA) +
-         kA * k_br + k_br;
-}
-
-// Block g walks tiles g, g + G, ... over all bags and accumulates their
-// gradients into work[g], a slice laid out as
-// [dW1 (Df x L) | db1 (L) | dV (L x A) | dbv (A) | dU (L x A) | dbu (A) |
-//  dw (A x K) | dbw (K)].
-template <typename T, int L>
 __global__ void __launch_bounds__(kThreads, 1)
-pool_bwd_partial_kernel(const T* __restrict__ feats,       // [B, N, Df]
-                        const uint8_t* __restrict__ mask,  // [B, N]
-                        const float* __restrict__ w1,      // [Df, L]
-                        const float* __restrict__ b1,      // [L]
-                        const float* __restrict__ v,       // [L, A]
-                        const float* __restrict__ bv,      // [A]
-                        const float* __restrict__ u,       // [L, A]
-                        const float* __restrict__ bu,      // [A]
-                        const float* __restrict__ w,       // [A, K]
-                        const float* __restrict__ bw,      // [K]
-                        const float* __restrict__ lse,     // [B, K]
-                        const float* __restrict__ cc,      // [B, K]
-                        const float* __restrict__ dbag,    // [B, K, L]
-                        const float* __restrict__ dlo,     // [B, K, N]
-                        T* __restrict__ dx,                // [B, N, Df] or null
-                        float* __restrict__ work,          // [G, slice]
-                        int batch, int n, int df, int k_br) {
-  using S = Shape<L>;
-  constexpr int kTile = S::kTile, kRows = S::kRows, kCols = S::kCols;
-  constexpr int kDepth = S::kDepth, kTDepth = S::kTDepth, kD2 = S::kD2;
-  constexpr int kTStride = S::kTStride, kW1Stride = S::kW1Stride;
-  extern __shared__ __align__(16) float smem[];
-  float* hs = smem;                    // [kTile][L]: h, then r
-  float* r1 = hs + kTile * L;          // [kTile][kA]: g, then d_av
-  float* r2 = r1 + kTile * kA;         // [kTile][kA]: d_au
-  float* stage = r2 + kTile * kA;      // S::kStage floats
-  float* ps = stage + S::kStage;       // [K][kTile]: p
-  float* dls = ps + k_br * kTile;      // [K][kTile]: d_log
+b2_row_kernel(const float* __restrict__ hg,        // [B, N, L]
+              const uint8_t* __restrict__ mask,    // [B, N]
+              const float* __restrict__ vu,        // [L, 2A]: [V | U]
+              const float* __restrict__ bv,        // [A]
+              const float* __restrict__ bu,        // [A]
+              const float* __restrict__ w,         // [A, K]
+              const float* __restrict__ bw,        // [K]
+              const float* __restrict__ lse,       // [B, K]
+              const float* __restrict__ cc,        // [B, K]
+              const float* __restrict__ dbag,      // [B, K, L]
+              const float* __restrict__ dbag_t,    // [B, L, Kp]: d_bag^T
+              const float* __restrict__ dlo,       // [B, K, N]
+              const float* __restrict__ dp_part,   // [L / 128, B N, K]
+              float* __restrict__ rg,              // [B, N, L]
+              float* __restrict__ da,              // [B, N, 2A + Kp]: D_a | p
+              float* __restrict__ part,            // [G, row_floats]
+              int batch, int n, int k_br) {
+  const int da_ld = kDa + round4(k_br);
+  constexpr int kRows = kTile / kWarps;  // rows a thread owns
+  extern __shared__ __align__(16) char smem[];
+  char* ring = smem;                                       // GEMM slices
+  float* rs = reinterpret_cast<float*>(smem);              // [kTile][kRStride], in the ring
+  float* zs = reinterpret_cast<float*>(smem + kRowRing);   // [kTile][kZStride]
+  float* ps = zs + kTile * kZStride;                       // [K][kTile]: p
+  float* dls = ps + k_br * kTile;                          // [K][kTile]: d_log
 
   const int tid = threadIdx.x;
   const int tx = tid & 31;             // lane
@@ -218,146 +373,82 @@ pool_bwd_partial_kernel(const T* __restrict__ feats,       // [B, N, Df]
   const int tiles_per_bag = (n + kTile - 1) / kTile;
   const int total = batch * tiles_per_bag;
 
-  float* g_dw1 = work + blockIdx.x * slice_floats(df, L, k_br);
-  float* g_db1 = g_dw1 + static_cast<size_t>(df) * L;
-  float* g_dv = g_db1 + L;
-  float* g_dbv = g_dv + L * kA;
-  float* g_du = g_dbv + kA;
-  float* g_dbu = g_du + L * kA;
+  float* g_db1 = part + static_cast<size_t>(blockIdx.x) * row_floats(L, k_br);
+  float* g_dbv = g_db1 + L;
+  float* g_dbu = g_dbv + kA;
   float* g_dw = g_dbu + kA;
   float* g_dbw = g_dw + kA * k_br;
 
+  // this thread's columns of dbv | dbu and of db1, summed over the block's
+  // tiles in registers and stored once
+  float sum_da = 0.f, sum_r[L / kPanel];
+#pragma unroll
+  for (int q = 0; q < L / kPanel; ++q) sum_r[q] = 0.f;
   bool first = true;
   for (int t = blockIdx.x; t < total; t += gridDim.x, first = false) {
     const int b = t / tiles_per_bag;
     const int n0 = (t - b * tiles_per_bag) * kTile;
-    const T* xb = feats + static_cast<size_t>(b) * n * df;
+    const int rows = min(kTile, n - n0);                  // rows of this bag
+    const size_t row0 = static_cast<size_t>(b) * n + n0;  // of [M, *]
+    const float* hb = hg + row0 * L;
     const uint8_t* mask_b = mask + static_cast<size_t>(b) * n;
     const float* lse_b = lse + static_cast<size_t>(b) * k_br;
     const float* cc_b = cc + static_cast<size_t>(b) * k_br;
     const float* dbag_b = dbag + static_cast<size_t>(b) * k_br * L;
     const float* dlo_b = dlo + static_cast<size_t>(b) * k_br * n;
+    const float* dbag_tb = dbag_t + static_cast<size_t>(b) * L * (da_ld - kDa);
 
-    // ---- h = relu(x W1 + b1); thread tile rows kRows ty.., columns tx + 32j
-    float acc[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-    {
-      float* xs = stage;                   // [kTile][kDepth]
-      float* ws = stage + kTile * kDepth;  // [kDepth][L]
-      for (int kc = 0; kc < df; kc += kDepth) {
-        __syncthreads();  // the previous slice (or tile) has been read
-        stage_x<kTile, kDepth>(xs, xb, n0, n, df, kc);
-        copy_rows<L>(ws, w1 + static_cast<size_t>(kc) * L, kDepth);
-        __syncthreads();
-#pragma unroll 8
-        for (int kk = 0; kk < kDepth; ++kk) {
-          float a[kRows], bb[kCols];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) a[i] = xs[(ty * kRows + i) * kDepth + kk];
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) bb[j] = ws[kk * L + tx + 32 * j];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-#pragma unroll
-            for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-        }
-      }
+    // ---- Z = H [V | U] + [bv | bu]; rows past N (the next bag's) are 0 ----
+    for (int half = 0; half < 2; ++half) {
+      const float* bias = half ? bu : bv;
+      float acc[GemmZ::kMT][GemmZ::kNT][4];
+      GemmZ::zero(acc);
+      GemmZ::run(acc, {hb, L, rows, L}, {vu + half * kA, kDa, kA, L}, 0, 0, 0,
+                 L, ring);
+      GemmZ::for_pairs(acc, 0, 0, [&](int r, int c, float v0, float v1) {
+        store2(zs + r * kZStride + half * kA + c, v0 + bias[c], v1 + bias[c + 1]);
+      });
     }
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int c = tx + 32 * j;
-      const float bias = b1[c];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        hs[(ty * kRows + i) * L + c] = fmaxf(acc[i][j] + bias, 0.f);
-    }
-
-    // ---- gv = tanh(h V + bv), gu = sigmoid(h U + bu), kept in registers ---
+    __syncthreads();
     float gv[kRows][4], gu[kRows][4];
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        gv[i][j] = 0.f;
-        gu[i][j] = 0.f;
+        const float* z = zs + (ty * kRows + i) * kZStride + tx + 32 * j;
+        gv[i][j] = tanhf(z[0]);
+        gu[i][j] = 1.f / (1.f + expf(-z[kA]));
       }
-    {
-      float* vs = stage;                   // [kVDepth][kA]
-      float* us = stage + kVDepth * kA;    // [kVDepth][kA]
-      for (int lc = 0; lc < L; lc += kVDepth) {
-        __syncthreads();  // h is written; the previous slice has been read
-        copy_rows<kA>(vs, v + static_cast<size_t>(lc) * kA, kVDepth);
-        copy_rows<kA>(us, u + static_cast<size_t>(lc) * kA, kVDepth);
-        __syncthreads();
-#pragma unroll 4
-        for (int ll = 0; ll < kVDepth; ++ll) {
-          float hv[kRows], bvv[4], buu[4];
+    __syncthreads();  // Z has been read
 #pragma unroll
-          for (int i = 0; i < kRows; ++i) hv[i] = hs[(ty * kRows + i) * L + lc + ll];
+    for (int i = 0; i < kRows; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            bvv[j] = vs[ll * kA + tx + 32 * j];
-            buu[j] = us[ll * kA + tx + 32 * j];
-          }
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              gv[i][j] = fmaf(hv[i], bvv[j], gv[i][j]);
-              gu[i][j] = fmaf(hv[i], buu[j], gu[i][j]);
-            }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 32 * j;
-      const float bias_v = bv[c];
-      const float bias_u = bu[c];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        gv[i][j] = tanhf(gv[i][j] + bias_v);
-        gu[i][j] = 1.f / (1.f + expf(-(gu[i][j] + bias_u)));
-        r1[(ty * kRows + i) * kA + c] = gv[i][j] * gu[i][j];
-      }
-    }
+      for (int j = 0; j < 4; ++j)
+        zs[(ty * kRows + i) * kZStride + tx + 32 * j] = gv[i][j] * gu[i][j];
     __syncthreads();
 
-    // ---- p and d_log per (row, branch): one warp per row ------------------
-    for (int row = ty; row < kTile; row += kWarps) {
-      const int grow = n0 + row;
-      const bool valid = row_valid(mask_b, grow, n);
-      float gq[4], hq[kCols];
+    // ---- p and d_log per (row, branch), one thread each -------------------
+    for (int idx = tid; idx < kTile * k_br; idx += kThreads) {
+      const int row = idx / k_br, kb = idx % k_br;
+      float p = 0.f, dl = 0.f;
+      if (row_valid(mask_b, n0 + row, n)) {  // masked rows ignore d_logits
+        float d_p = 0.f;   // K1's panels' parts, in order
+        for (int q = 0; q < L / kBN; ++q)
+          d_p += dp_part[(static_cast<size_t>(q) * batch * n + row0 + row) * k_br + kb];
+        const float* g = zs + row * kZStride;
+        float d4[4] = {0.f, 0.f, 0.f, 0.f};   // four chains, summed in order
+#pragma unroll 8
+        for (int a = 0; a < kA; a += 4)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) gq[q] = r1[row * kA + tx + 32 * q];
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) hq[q] = hs[row * L + tx + 32 * q];
-      for (int kb = 0; kb < k_br; ++kb) {
-        float dot = 0.f, dp = 0.f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          dot = fmaf(gq[q], __ldg(w + (tx + 32 * q) * k_br + kb), dot);
-#pragma unroll
-        for (int q = 0; q < kCols; ++q)
-          dp = fmaf(hq[q], __ldg(dbag_b + kb * L + tx + 32 * q), dp);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-          dp += __shfl_xor_sync(0xffffffffu, dp, off);
-        }
-        if (tx == 0) {
-          float p = 0.f, dl = 0.f;
-          if (valid) {  // a select: masked rows ignore their d_logits
-            p = expf(dot + bw[kb] - lse_b[kb]);
-            dl = fmaf(p, dp - cc_b[kb], dlo_b[static_cast<size_t>(kb) * n + grow]);
-          }
-          ps[kb * kTile + row] = p;
-          dls[kb * kTile + row] = dl;
-        }
+          for (int i = 0; i < 4; ++i)
+            d4[i] = fmaf(g[a + i], __ldg(w + (a + i) * k_br + kb), d4[i]);
+        const float dot = (d4[0] + d4[1]) + (d4[2] + d4[3]);
+        p = expf(dot + bw[kb] - lse_b[kb]);
+        dl = fmaf(p, d_p - cc_b[kb],
+                  dlo_b[static_cast<size_t>(kb) * n + n0 + row]);
       }
+      ps[kb * kTile + row] = p;
+      dls[kb * kTile + row] = dl;
     }
     __syncthreads();
 
@@ -365,11 +456,13 @@ pool_bwd_partial_kernel(const T* __restrict__ feats,       // [B, N, Df]
     for (int idx = tid; idx < kA * k_br; idx += kThreads) {
       const int a = idx % kA;
       const int kb = idx / kA;
-      float s = 0.f;
-#pragma unroll 8
-      for (int row = 0; row < kTile; ++row)
-        s = fmaf(r1[row * kA + a], dls[kb * kTile + row], s);
-      accumulate(g_dw + a * k_br + kb, s, first);
+      float s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int row = 0; row < kTile; row += 4)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s4[i] = fmaf(zs[(row + i) * kZStride + a], dls[kb * kTile + row + i], s4[i]);
+      accumulate(g_dw + a * k_br + kb, (s4[0] + s4[1]) + (s4[2] + s4[3]), first);
     }
     for (int kb = tid; kb < k_br; kb += kThreads) {
       float s = 0.f;
@@ -406,255 +499,203 @@ pool_bwd_partial_kernel(const T* __restrict__ feats,       // [B, N, Df]
     }
     __syncthreads();  // g has been read
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        r1[(ty * kRows + i) * kA + tx + 32 * j] = gv[i][j];
-        r2[(ty * kRows + i) * kA + tx + 32 * j] = gu[i][j];
+      for (int j = 0; j < 4; ++j) {
+        float* z = zs + (ty * kRows + i) * kZStride + tx + 32 * j;
+        z[0] = gv[i][j];
+        z[kA] = gu[i][j];
       }
     __syncthreads();
 
-    // ---- dV = h^T d_av, dU = h^T d_au: thread tile l 16ty.., a 4tx.. per
-    // panel of 128 rows of dV/dU ---------------------------------------------
+    // ---- D_a rows to device memory; dbv = sum d_av, dbu = sum d_au --------
+    for (int q = tid; q < kTile * kDa / 4; q += kThreads) {
+      const int row = q / (kDa / 4);
+      const int c4 = (q % (kDa / 4)) * 4;
+      if (row < rows)
+        *reinterpret_cast<float4*>(da + (row0 + row) * da_ld + c4) =
+            *reinterpret_cast<const float4*>(zs + row * kZStride + c4);
+    }
+    // p after D_a, and 0 in the pad columns (the d_h product reads whole
+    // 16-byte chunks)
+    for (int q = tid; q < kTile * (da_ld - kDa); q += kThreads) {
+      const int row = q % kTile, kb = q / kTile;
+      if (row < rows)
+        da[(row0 + row) * da_ld + kDa + kb] = kb < k_br ? ps[kb * kTile + row] : 0.f;
+    }
+    sum_da += column_sum<kZStride>(zs + tid);
+    __syncthreads();  // D_a is in device memory for the d_h product
+
+    // ---- r = [h > 0] (D_a [V | U]^T + p d_bag), 128 columns at a time -----
 #pragma unroll 1
     for (int lp = 0; lp < L; lp += kPanel) {
-#pragma unroll 1
-      for (int which = 0; which < 2; ++which) {
-        const float* src = which ? r2 : r1;
-        float* dst = (which ? g_du : g_dv) + lp * kA;
-        float ad[16][4];
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) ad[i][q] = 0.f;
-#pragma unroll 2
-        for (int row = 0; row < kTile; ++row) {
-          float hv[16];
-#pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            const float4 h4 = *reinterpret_cast<const float4*>(
-                hs + row * L + lp + ty * 16 + 4 * m);
-            hv[4 * m] = h4.x; hv[4 * m + 1] = h4.y;
-            hv[4 * m + 2] = h4.z; hv[4 * m + 3] = h4.w;
-          }
-          const float4 d4 =
-              *reinterpret_cast<const float4*>(src + row * kA + tx * 4);
-          const float dv4[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-          for (int i = 0; i < 16; ++i)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) ad[i][q] = fmaf(hv[i], dv4[q], ad[i][q]);
+      float acc[GemmDh::kMT][GemmDh::kNT][4];
+      GemmDh::zero(acc);
+      GemmDh::run(acc, {da + row0 * da_ld, da_ld, rows, kDa + k_br},
+                  {vu, kDa, L, kDa + k_br, dbag_tb, da_ld - kDa, kDa},
+                  0, lp, 0, kDa + k_br, ring);
+      GemmDh::for_pairs(acc, 0, lp, [&](int r, int c, float v0, float v1) {
+        store2(rs + r * kRStride + c - lp, v0, v1);
+      });
+      __syncthreads();
+      for (int q = tid; q < kTile * kPanel / 4; q += kThreads) {
+        const int row = q / (kPanel / 4);
+        const int c4 = (q % (kPanel / 4)) * 4;
+        float4* rp = reinterpret_cast<float4*>(rs + row * kRStride + c4);
+        float4 r4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row < rows) {
+          const float4 h4 = __ldg(reinterpret_cast<const float4*>(
+              hb + static_cast<size_t>(row) * L + lp + c4));
+          const float4 d4 = *rp;
+          r4 = make_float4(h4.x > 0.f ? d4.x : 0.f, h4.y > 0.f ? d4.y : 0.f,
+                           h4.z > 0.f ? d4.z : 0.f, h4.w > 0.f ? d4.w : 0.f);
+          *reinterpret_cast<float4*>(rg + (row0 + row) * L + lp + c4) = r4;
         }
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            accumulate(dst + (ty * 16 + i) * kA + tx * 4 + q, ad[i][q], first);
-      }
-    }
-    {
-      const float* src = tid < kA ? r1 : r2;
-      const int a = tid % kA;
-      float s = 0.f;
-      for (int row = 0; row < kTile; ++row) s += src[row * kA + a];
-      accumulate((tid < kA ? g_dbv : g_dbu) + a, s, first);
-    }
-
-    // ---- d_h = p d_bag + d_av V^T + d_au U^T, r = [h > 0] d_h -------------
-    {
-      float dh[kRows][kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) dh[i][j] = 0.f;
-      for (int kb = 0; kb < k_br; ++kb) {
-        float p8[kRows], db4[kCols];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) p8[i] = ps[kb * kTile + ty * kRows + i];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) db4[j] = __ldg(dbag_b + kb * L + tx + 32 * j);
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) dh[i][j] = fmaf(p8[i], db4[j], dh[i][j]);
-      }
-      float* vt = stage;                       // [kTDepth][kTStride]: V^T
-      float* ut = stage + kTDepth * kTStride;  // [kTDepth][kTStride]: U^T
-      for (int a0 = 0; a0 < kA; a0 += kTDepth) {
-        __syncthreads();  // dV/dU are done with h; the last slice is read
-        for (int q = tid; q < L * kTDepth; q += kThreads) {
-          const int l = q / kTDepth;
-          const int aa = q % kTDepth;
-          vt[aa * kTStride + l] = __ldg(v + l * kA + a0 + aa);
-          ut[aa * kTStride + l] = __ldg(u + l * kA + a0 + aa);
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int aa = 0; aa < kTDepth; ++aa) {
-          float dv8[kRows], du8[kRows], vv[kCols], uu[kCols];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            dv8[i] = r1[(ty * kRows + i) * kA + a0 + aa];
-            du8[i] = r2[(ty * kRows + i) * kA + a0 + aa];
-          }
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            vv[j] = vt[aa * kTStride + tx + 32 * j];
-            uu[j] = ut[aa * kTStride + tx + 32 * j];
-          }
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-#pragma unroll
-            for (int j = 0; j < kCols; ++j)
-              dh[i][j] = fmaf(dv8[i], vv[j], fmaf(du8[i], uu[j], dh[i][j]));
-        }
-      }
-      // each thread overwrites only the h entries it reads
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          float* hp = hs + (ty * kRows + i) * L + tx + 32 * j;
-          *hp = *hp > 0.f ? dh[i][j] : 0.f;
-        }
-    }
-    __syncthreads();
-    for (int l = tid; l < L; l += kThreads) {
-      float s = 0.f;
-      for (int row = 0; row < kTile; ++row) s += hs[row * L + l];
-      accumulate(g_db1 + l, s, first);
-    }
-
-    // ---- dW1 = x^T r and dx = r W1^T, kD2 columns of x at a time ----------
-    constexpr int kWRows = kD2 / kWarps;       // dW1 rows a thread owns
-    constexpr int kLaneGroups = 32 / kD2;      // lane groups sharing dx rows
-    constexpr int kDxRows = kRows / kLaneGroups;
-    float* xs = stage;                         // [kTile][kD2]
-    float* w1s = stage + kTile * kD2;          // [kD2][kW1Stride]: W1 rows
-    for (int kc = 0; kc < df; kc += kD2) {
-      __syncthreads();  // the previous slice has been read
-      stage_x<kTile, kD2>(xs, xb, n0, n, df, kc);
-      for (int q = tid; q < kD2 * L / 4; q += kThreads) {
-        const int dd = q / (L / 4);
-        const int l4 = (q % (L / 4)) * 4;
-        *reinterpret_cast<float4*>(w1s + dd * kW1Stride + l4) =
-            __ldg(reinterpret_cast<const float4*>(
-                w1 + static_cast<size_t>(kc + dd) * L + l4));
+        *rp = r4;
       }
       __syncthreads();
-      // dW1 rows kc + kWRows ty.., columns lp + 4tx..
-#pragma unroll 1
-      for (int lp = 0; lp < L; lp += kPanel) {
-        float aw[kWRows][4];
+      if (tid < kPanel) {
+        const float s = column_sum<kRStride>(rs + tid);
 #pragma unroll
-        for (int i = 0; i < kWRows; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) aw[i][q] = 0.f;
-#pragma unroll 4
-        for (int row = 0; row < kTile; ++row) {
-          float xa[kWRows];
-          load_row<kWRows>(xs + row * kD2 + ty * kWRows, xa);
-          const float4 r4 =
-              *reinterpret_cast<const float4*>(hs + row * L + lp + tx * 4);
-          const float ra[4] = {r4.x, r4.y, r4.z, r4.w};
-#pragma unroll
-          for (int i = 0; i < kWRows; ++i)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) aw[i][q] = fmaf(xa[i], ra[q], aw[i][q]);
-        }
-#pragma unroll
-        for (int i = 0; i < kWRows; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            accumulate(g_dw1 + static_cast<size_t>(kc + ty * kWRows + i) * L +
-                           lp + tx * 4 + q,
-                       aw[i][q], first);
+        for (int q = 0; q < L / kPanel; ++q)  // a register index known here
+          if (q == lp / kPanel) sum_r[q] += s;
       }
-      // dx rows kRows ty + kDxRows (lane group).., column kc + lane % kD2
-      if (dx != nullptr) {
-        const int cx = tx % kD2;
-        const int r0 = ty * kRows + (tx / kD2) * kDxRows;
-        float ax[kDxRows];
-#pragma unroll
-        for (int i = 0; i < kDxRows; ++i) ax[i] = 0.f;
-#pragma unroll 4
-        for (int l = 0; l < L; l += 4) {
-          const float4 w4 = *reinterpret_cast<const float4*>(w1s + cx * kW1Stride + l);
-#pragma unroll
-          for (int i = 0; i < kDxRows; ++i) {
-            const float4 r4 =
-                *reinterpret_cast<const float4*>(hs + (r0 + i) * L + l);
-            ax[i] = fmaf(r4.x, w4.x, fmaf(r4.y, w4.y,
-                    fmaf(r4.z, w4.z, fmaf(r4.w, w4.w, ax[i]))));
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kDxRows; ++i) {
-          const int row = n0 + r0 + i;
-          if (row < n)
-            store_dx(dx + (static_cast<size_t>(b) * n + row) * df + kc + cx, ax[i]);
-        }
-      }
+      __syncthreads();  // the panel (in the ring) has been read
     }
+  }
+  (tid < kA ? g_dbv : g_dbu)[tid % kA] = sum_da;
+  if (tid < kPanel) {
+#pragma unroll
+    for (int q = 0; q < L / kPanel; ++q) g_db1[q * kPanel + tid] = sum_r[q];
   }
 }
 
-// out[i] = sum over g = 0..G-1 of work[g][i], in that order.
+// ---- K3: dW1 = x^T R and [dV | dU] = H^T D_a over one range of rows -------
+// blockIdx.x walks the output tiles (those of dW1, then those of [dV | dU]),
+// blockIdx.y the S ranges of `rows` rows; range s writes part[s]
+// (wgrad_floats floats).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+b2_wgrad_kernel(const T* __restrict__ x, const float* __restrict__ hg,
+                const float* __restrict__ rg, const float* __restrict__ da,
+                float* __restrict__ part, int m, int df, int l_dim, int da_ld,
+                int rows) {
+  extern __shared__ __align__(16) char smem[];
+  const int k0 = blockIdx.y * rows;
+  const int k1 = min(m, k0 + rows);
+  float* out = part + blockIdx.y * wgrad_floats(df, l_dim);
+  const int l_tiles = l_dim / kBN;
+  const int w1_tiles = (df + kBM - 1) / kBM * l_tiles;
+  int t = blockIdx.x;
+  if (t < w1_tiles) {
+    using G = GemmXtR<T>;
+    const int m0 = (t / l_tiles) * kBM, n0 = (t % l_tiles) * kBN;
+    float acc[G::kMT][G::kNT][4];
+    G::zero(acc);
+    G::template run<true>(acc, {x, df, df, k1}, {rg, l_dim, l_dim, k1}, m0, n0,
+                          k0, k1, smem);
+    G::for_pairs(acc, m0, n0, [&](int r, int c, float v0, float v1) {
+      if (r < df) store2(out + static_cast<size_t>(r) * l_dim + c, v0, v1);
+    });
+  } else {
+    t -= w1_tiles;
+    using G = GemmHtD;
+    const int m0 = (t / 2) * kBM, n0 = (t % 2) * kBN;   // n0 = 0: dV, kA: dU
+    float* dst = out + static_cast<size_t>(df) * l_dim +
+                 (t % 2) * static_cast<size_t>(l_dim) * kA;
+    float acc[G::kMT][G::kNT][4];
+    G::zero(acc);
+    G::template run<true>(acc, {hg, l_dim, l_dim, k1}, {da, da_ld, kDa, k1}, m0,
+                          n0, k0, k1, smem);
+    G::for_pairs(acc, m0, n0, [&](int r, int c, float v0, float v1) {
+      store2(dst + static_cast<size_t>(r) * kA + c - n0, v0, v1);
+    });
+  }
+}
+
+// ---- K4: dx = R W1^T in x's dtype ------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+b2_dx_kernel(const float* __restrict__ rg, const float* __restrict__ w1,
+             T* __restrict__ dx, int m, int df, int l_dim) {
+  extern __shared__ __align__(16) char smem[];
+  using G = GemmDx;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  float acc[G::kMT][G::kNT][4];
+  G::zero(acc);
+  G::run(acc, {rg, l_dim, m, l_dim}, {w1, l_dim, df, l_dim}, m0, n0, 0,
+         l_dim, smem);
+  G::for_pairs(acc, m0, n0, [&](int r, int c, float v0, float v1) {
+    if (r < m && c < df) store2(dx + static_cast<size_t>(r) * df + c, v0, v1);
+  });
+}
+
+// out[i] = sum over g = 0..G-1 of work[g][i], in that order, for K3's
+// partials (out[0, nw)) and then K2's (out[nw, nw + nr)).
 __global__ void __launch_bounds__(kReduceThreads)
-grad_reduce_kernel(const float* __restrict__ work, float* __restrict__ out,
-                   int groups, int slice) {
-  const int i = blockIdx.x * kReduceThreads + threadIdx.x;
-  if (i >= slice) return;
+b2_reduce_kernel(const float* __restrict__ work_w, int groups_w, size_t nw,
+                 const float* __restrict__ work_r, int groups_r, size_t nr,
+                 float* __restrict__ out) {
+  size_t i = static_cast<size_t>(blockIdx.x) * kReduceThreads + threadIdx.x;
+  const float* work = work_w;
+  int groups = groups_w;
+  size_t slice = nw;
+  if (i >= nw) {
+    i -= nw;
+    work = work_r;
+    groups = groups_r;
+    slice = nr;
+    out += nw;
+    if (i >= nr) return;
+  }
   float s = 0.f;
-  for (int g = 0; g < groups; ++g)
-    s += work[static_cast<size_t>(g) * slice + i];
+#pragma unroll 16
+  for (int g = 0; g < groups; ++g) s += work[static_cast<size_t>(g) * slice + i];
   out[i] = s;
 }
 
-template <typename T, int L>
-cudaError_t set_smem(int k_br) {
-  return cudaFuncSetAttribute(pool_bwd_partial_kernel<T, L>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(partial_smem_bytes<L>(k_br)));
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
-// Blocks of the partial kernel the current device holds at once, or minus
-// a cudaError_t.
-template <typename T, int L>
-int max_blocks(int k_br) {
+// Blocks of the row kernel the current device holds at once, or minus a
+// cudaError_t.
+template <int L>
+int row_blocks(int k_br) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = set_smem<T, L>(k_br);
+  if (err == cudaSuccess) err = allow_smem(b2_row_kernel<L>, row_smem_bytes(k_br));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, pool_bwd_partial_kernel<T, L>, kThreads,
-        partial_smem_bytes<L>(k_br));
+        &per_sm, b2_row_kernel<L>, kThreads, row_smem_bytes(k_br));
   if (err != cudaSuccess) return -static_cast<int>(err);
   if (per_sm < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
   return sms * per_sm;
 }
 
-template <typename T, int L>
-cudaError_t launch(const void* feats, const uint8_t* mask, const float* w1,
-                   const float* b1, const float* v, const float* bv,
-                   const float* u, const float* bu, const float* w,
-                   const float* bw, const float* lse, const float* cc,
-                   const float* dbag, const float* dlo, void* dx, float* work,
-                   float* grads, int batch, int n, int df, int k_br,
-                   int groups, cudaStream_t stream) {
-  cudaError_t err = set_smem<T, L>(k_br);
+struct Args {
+  const void* feats; const uint8_t* mask;
+  const float *w1, *w1t, *b1, *vu, *bv, *bu, *w, *bw, *lse, *cc, *dbag,
+      *dbag_t, *dlo;
+  void* dx; float *norms, *hg; int2* near; int* near_counts;
+  float *dp_part, *rg, *da, *part_w, *part_r, *grads;
+  int batch, n, df, k_br, l_dim, groups, splits, rows;
+  cudaStream_t stream;
+};
+
+template <int L>
+cudaError_t launch_rows(const Args& a) {
+  const size_t smem = row_smem_bytes(a.k_br);
+  cudaError_t err = allow_smem(b2_row_kernel<L>, smem);
   if (err != cudaSuccess) return err;
-  pool_bwd_partial_kernel<T, L><<<groups, kThreads,
-                                  partial_smem_bytes<L>(k_br), stream>>>(
-      static_cast<const T*>(feats), mask, w1, b1, v, bv, u, bu, w, bw, lse,
-      cc, dbag, dlo, static_cast<T*>(dx), work, batch, n, df, k_br);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int slice = static_cast<int>(slice_floats(df, L, k_br));
-  grad_reduce_kernel<<<(slice + kReduceThreads - 1) / kReduceThreads,
-                       kReduceThreads, 0, stream>>>(work, grads, groups, slice);
+  b2_row_kernel<L><<<a.groups, kThreads, smem, a.stream>>>(
+      a.hg, a.mask, a.vu, a.bv, a.bu, a.w, a.bw, a.lse, a.cc, a.dbag,
+      a.dbag_t, a.dlo, a.dp_part, a.rg, a.da, a.part_r, a.batch, a.n,
+      a.k_br);
   return cudaGetLastError();
 }
 
@@ -670,70 +711,113 @@ cudaError_t launch(const void* feats, const uint8_t* mask, const float* w1,
   }
 
 template <typename T>
-int max_blocks_width(int l_dim, int k_br) {
-#define B2_BLOCKS(LL) max_blocks<T, LL>(k_br)
-  B2_WIDTHS(B2_BLOCKS, -static_cast<int>(cudaErrorInvalidValue))
-#undef B2_BLOCKS
-}
-
-template <typename T>
-cudaError_t launch_width(int l_dim, const void* feats, const uint8_t* mask,
-                         const float* w1, const float* b1, const float* v,
-                         const float* bv, const float* u, const float* bu,
-                         const float* w, const float* bw, const float* lse,
-                         const float* cc, const float* dbag, const float* dlo,
-                         void* dx, float* work, float* grads, int batch, int n,
-                         int df, int k_br, int groups, cudaStream_t stream) {
-#define B2_LAUNCH(LL)                                                        \
-  launch<T, LL>(feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, cc, dbag, dlo, \
-                dx, work, grads, batch, n, df, k_br, groups, stream)
-  B2_WIDTHS(B2_LAUNCH, cudaErrorInvalidValue)
-#undef B2_LAUNCH
+cudaError_t launch(const Args& a) {
+  const int m = a.batch * a.n, l_dim = a.l_dim;
+  const int m_tiles = (m + kBM - 1) / kBM;
+  const T* x = static_cast<const T*>(a.feats);
+  // the norms, then K1
+  const int norm_rows = (m + kNormRows - 1) / kNormRows;
+  b2_norms_kernel<T><<<norm_rows + l_dim / 32, kThreads, 0, a.stream>>>(
+      x, a.w1, a.norms, m, a.df, l_dim);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((err = allow_smem(b2_h_kernel<T>, GemmH<T>::kSmemBytes)) != cudaSuccess)
+    return err;
+  const dim3 h_grid(m_tiles, l_dim / kBN);
+  b2_h_kernel<T><<<h_grid, kThreads, GemmH<T>::kSmemBytes, a.stream>>>(
+      x, a.w1, a.w1t, a.b1, a.norms, a.dbag, a.hg, a.near, a.near_counts,
+      a.dp_part, m, a.n, a.df, l_dim, a.k_br);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  b2_hfix_kernel<T><<<h_grid.x * h_grid.y, 32, 0, a.stream>>>(
+      x, a.w1t, a.b1, a.near, a.near_counts, a.hg, a.df, l_dim);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // K2
+#define B2_ROWS(LL) launch_rows<LL>(a)
+  err = [&]() -> cudaError_t { B2_WIDTHS(B2_ROWS, cudaErrorInvalidValue) }();
+#undef B2_ROWS
+  if (err != cudaSuccess) return err;
+  // K3 and the two reductions
+  constexpr int kWSmem = cmax(GemmXtR<T>::kSmemBytes, GemmHtD::kSmemBytes);
+  if ((err = allow_smem(b2_wgrad_kernel<T>, kWSmem)) != cudaSuccess) return err;
+  const int tiles = (a.df + kBM - 1) / kBM * (l_dim / kBN) + (l_dim / kBM) * 2;
+  b2_wgrad_kernel<T><<<dim3(tiles, a.splits), kThreads, kWSmem, a.stream>>>(
+      x, a.hg, a.rg, a.da, a.part_w, m, a.df, l_dim, kDa + round4(a.k_br),
+      a.rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t nw = wgrad_floats(a.df, l_dim), nr = row_floats(l_dim, a.k_br);
+  b2_reduce_kernel<<<static_cast<unsigned>((nw + nr + kReduceThreads - 1) /
+                                           kReduceThreads),
+                     kReduceThreads, 0, a.stream>>>(
+      a.part_w, a.splits, nw, a.part_r, a.groups, nr, a.grads);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // K4
+  if (a.dx != nullptr) {
+    if ((err = allow_smem(b2_dx_kernel<T>, GemmDx::kSmemBytes)) != cudaSuccess)
+      return err;
+    b2_dx_kernel<T><<<dim3(m_tiles, (a.df + kBN - 1) / kBN), kThreads,
+                      GemmDx::kSmemBytes, a.stream>>>(
+        a.rg, a.w1, static_cast<T*>(a.dx), m, a.df, l_dim);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows of x per tile at this L (0 for an L the kernel does not take).
+// Rows per tile of the row kernel at this L (0 for an L B2 does not take).
 int b2_tile_rows(int l_dim) {
-#define B2_TILE(LL) Shape<LL>::kTile
+#define B2_TILE(LL) kTile
   B2_WIDTHS(B2_TILE, 0)
 #undef B2_TILE
 }
 
-// The most blocks (G) a launch should use on the current device for this K,
-// L and feature dtype, or minus a cudaError_t. The caller sizes the
-// workspace as G x slice floats, slice = Df*L + L + 2*(L*A + A) + A*K + K,
-// and passes G = min(this, number of tiles).
-int b2_max_blocks(int k_br, int feats_half, int l_dim) {
-  return feats_half ? max_blocks_width<__half>(l_dim, k_br)
-                    : max_blocks_width<float>(l_dim, k_br);
+// The most blocks (G) the row kernel should use on the current device for
+// this K and L, or minus a cudaError_t. The caller passes G = min(this,
+// number of tiles) and a partial of G x (L + 2A + A K + K) floats.
+int b2_max_blocks(int k_br, int l_dim) {
+#define B2_BLOCKS(LL) row_blocks<LL>(k_br)
+  B2_WIDTHS(B2_BLOCKS, -static_cast<int>(cudaErrorInvalidValue))
+#undef B2_BLOCKS
 }
 
-// Launches kernel B2 on `stream`. All pointers are device pointers to
+// Launches kernel B2 (the norms, K1, K2, K3, the two reductions, and K4 when
+// dx is not null) on `stream`. All pointers are device pointers to
 // contiguous, 16-byte-aligned buffers; `feats_half` selects fp16 (1) or f32
-// (0) features (and dx). dx may be null (no input gradient). `grads`
-// receives the summed gradients in the workspace slice's layout. Returns the
-// cudaError_t of the launches (cudaErrorInvalidValue for an L the kernel
-// does not take).
+// (0) features (and dx); w1t is W1 transposed ([L, Df]); vu is [V | U] as
+// one [L, 2A] matrix, dbag_t is
+// d_bag transposed to [B, L, Kp] with Kp = K rounded up to a multiple of 4
+// and zeros past K. The caller allocates norms (M + L floats, M = batch x
+// n), the intermediates h and r (M x L floats), near (T x 512 int2) and
+// near_counts (T ints), T = ceil(M / 128) L / 128, dp_part (L / 128 x M x K),
+// da (M x (2A + Kp)),
+// part_w (splits x (Df L + 2 L A); range s
+// covers rows [s rows, (s + 1) rows) of M, rows a multiple of 32) and
+// part_r (groups x (L + 2A + A K + K)). `grads` receives, in order, dW1
+// (Df x L), dV (L x A), dU (L x A), db1 (L), dbv (A), dbu (A), dw (A x K)
+// and dbw (K). Returns the cudaError_t of the launches
+// (cudaErrorInvalidValue for an L B2 does not take).
 int b2_attn_pool_backward(const void* feats, int feats_half, const void* mask,
-                          const float* w1, const float* b1, const float* v,
-                          const float* bv, const float* u, const float* bu,
-                          const float* w, const float* bw, const float* lse,
-                          const float* cc, const float* dbag, const float* dlo,
-                          void* dx, float* work, float* grads, int batch,
-                          int n, int df, int k_br, int l_dim, int groups,
-                          void* stream) {
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (feats_half)
-    return static_cast<int>(launch_width<__half>(
-        l_dim, feats, m, w1, b1, v, bv, u, bu, w, bw, lse, cc, dbag, dlo, dx,
-        work, grads, batch, n, df, k_br, groups, st));
-  return static_cast<int>(launch_width<float>(
-      l_dim, feats, m, w1, b1, v, bv, u, bu, w, bw, lse, cc, dbag, dlo, dx,
-      work, grads, batch, n, df, k_br, groups, st));
+                          const float* w1, const float* w1t, const float* b1,
+                          const float* vu,
+                          const float* bv, const float* bu, const float* w,
+                          const float* bw, const float* lse, const float* cc,
+                          const float* dbag, const float* dbag_t,
+                          const float* dlo, void* dx, float* norms,
+                          float* hg, void* near, int* near_counts,
+                          float* dp_part, float* rg, float* da,
+                          float* part_w, float* part_r, float* grads,
+                          int batch, int n, int df, int k_br, int l_dim,
+                          int groups, int splits, int rows, void* stream) {
+  const Args a{feats, static_cast<const uint8_t*>(mask), w1, w1t, b1, vu,
+               bv, bu, w, bw, lse, cc, dbag, dbag_t, dlo, dx, norms, hg,
+               static_cast<int2*>(near), near_counts, dp_part, rg, da,
+               part_w,
+               part_r, grads, batch, n, df, k_br, l_dim, groups, splits, rows,
+               static_cast<cudaStream_t>(stream)};
+  if (b2_tile_rows(l_dim) == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(feats_half ? launch<__half>(a) : launch<float>(a));
 }
 
 }  // extern "C"

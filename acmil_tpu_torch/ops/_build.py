@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``csrc/build/lib<name>-<digest>.so``, where the
-digest covers the source and the flags, so an edited source never loads a
-stale library. The library is then loaded with :mod:`ctypes`. Nothing is
+digest covers the source, the shared headers ``csrc/*.cuh`` and the flags,
+so an edited source or header never loads a stale library. The library is then loaded with :mod:`ctypes`. Nothing is
 built at import time, and a missing ``nvcc`` or a failed build raises.
 :func:`build` compiles several sources at once, one ``nvcc`` each.
 """
@@ -41,9 +41,11 @@ def _nvcc() -> str:
 
 
 def _library(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    # the digest covers the shared headers (csrc/*.cuh) too
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

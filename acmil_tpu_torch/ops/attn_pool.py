@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Tuple
 
 import torch
@@ -270,31 +271,61 @@ def _check_bwd_args(feats, k, l, lse, c, d_bag, d_logits) -> None:
                              f"{tuple(t.shape)}")
 
 
+# the CUDA kernels one B2 call launches (csrc/attn_pool_bwd.cu): the norms
+# of x's rows and W1's columns, K1 (H and H d_bag^T) and its recompute near
+# 0, K2 the row kernel, K3 the weight gradients, the ordered reduction and,
+# when dx is asked for, K4
+B2_KERNELS = ("b2_norms_kernel", "b2_h_kernel", "b2_hfix_kernel",
+              "b2_row_kernel", "b2_wgrad_kernel", "b2_reduce_kernel",
+              "b2_dx_kernel")
+# K1 and K3's output tiles are 128 x 128, and a K1 tile lists at most 512
+# near-0 pre-activations; K3's row ranges are whole 32-row slices
+_B2_TILE, _B2_NEAR, _B2_SLICE = 128, 512, 32
+
+
 @functools.cache
 def _bwd_kernel_entry():
-    """(the launch entry with its ctypes signature, the blocks-per-grid
-    query, the rows-per-tile query of an L), from the library built at
-    first use."""
+    """(the launch entry with its ctypes signature, the row kernel's
+    blocks-per-grid query, its rows-per-tile query of an L), from the
+    library built at first use."""
     from acmil_tpu_torch.ops import _build
 
     lib = _build.load("attn_pool_bwd")
     fn = lib.b2_attn_pool_backward
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 16
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 25
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     blocks = lib.b2_max_blocks
     blocks.restype = ctypes.c_int
-    blocks.argtypes = [ctypes.c_int] * 3
+    blocks.argtypes = [ctypes.c_int] * 2
     lib.b2_tile_rows.restype = ctypes.c_int
     lib.b2_tile_rows.argtypes = [ctypes.c_int]
     return fn, blocks, lib.b2_tile_rows
 
 
-def _grad_slice_sizes(df, l, k):
-    """Lengths of (dW1, db1, dV, dbv, dU, dbu, dw, dbw) in B2's flat
-    gradient buffer, in order."""
+def _grad_layout(df, l, k):
+    """(name, shape) of each gradient in B2's flat buffer, in order: K3's
+    sums (dW1, dV, dU), then the row kernel's."""
     a = KERNEL_A
-    return (df * l, l, l * a, a, l * a, a, a * k, k)
+    return (("dW1", (df, l)), ("dV", (l, a)), ("dU", (l, a)), ("db1", (l,)),
+            ("dbv", (a,)), ("dbu", (a,)), ("dw", (a, k)), ("dbw", (k,)))
+
+
+def _wgrad_splits(m, df, l, sms):
+    """(S, rows): K3 sums its M rows in S contiguous ranges of ``rows`` rows
+    (a multiple of 32; the last range may be shorter), one block per
+    (output tile, range). S is the one that best fills the ``sms``
+    multiprocessors' waves (the least of equals), with ranges of at least
+    512 rows and at most 64 MB of partial sums."""
+    tiles = -(-df // _B2_TILE) * (l // _B2_TILE) + 2 * (l // _B2_TILE)
+
+    def fill(s):
+        return tiles * s / (-(-tiles * s // sms) * sms)
+
+    most = min(64, m // 512, (64 << 20) // (4 * (df * l + 2 * l * KERNEL_A)))
+    s = max(range(1, max(1, most) + 1), key=lambda s: (round(fill(s), 3), -s))
+    rows = -(-(-(-m // s)) // _B2_SLICE) * _B2_SLICE
+    return -(-m // rows), rows
 
 
 def _launch_bwd_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, c,
@@ -304,35 +335,60 @@ def _launch_bwd_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, c,
     l, k = w1.shape[1], w.shape[1]
     _check_bwd_args(feats, k, l, lse, c, d_bag, d_logits)
     dev = feats.device
-    x, mk, *rest = _device_inputs(
-        dev, (feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, c, d_bag,
-              d_logits), "B2")
+    # [V | U] as one [L, 2A] matrix: the row kernel's gate and d_h products
+    # read it whole
+    # W1 transposed, for K1's recompute of near-0 pre-activations in the
+    # forward's order
+    x, mk, w1_, w1t, b1_, vu, bv_, bu_, w_, bw_, lse_, c_, d_bag_, \
+        d_logits_ = _device_inputs(
+            dev, (feats, mask, w1, w1.t(), b1, torch.cat([v, u], dim=1), bv,
+                  bu, w, bw, lse, c, d_bag, d_logits), "B2")
+    # d_bag^T [B, L, Kp], zero past K: the second operand of the d_h
+    # product, whose first is [D_a | p]
+    kp = -(-k // 4) * 4
+    d_bag_t = torch.zeros(b, l, kp, device=dev, dtype=torch.float32)
+    d_bag_t[:, :, :k] = d_bag_.transpose(1, 2)
     fn, max_blocks, tile_rows = _bwd_kernel_entry()
-    sizes = _grad_slice_sizes(df, l, k)
-    slice_len = sum(sizes)
-    half = int(x.dtype == torch.float16)
+    layout = _grad_layout(df, l, k)
+    a = KERNEL_A
     with torch.cuda.device(dev):
-        resident = max_blocks(k, half, l)
+        resident = max_blocks(k, l)
         if resident <= 0:
             raise RuntimeError(f"kernel B2 occupancy query failed: "
                                f"cudaError_t {-resident}")
         groups = min(resident, b * -(-n // tile_rows(l)))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits, rows = _wgrad_splits(b * n, df, l, sms)
         f32 = dict(device=dev, dtype=torch.float32)
-        work = torch.empty(groups, slice_len, **f32)
-        grads = torch.empty(slice_len, **f32)
+        norms = torch.empty(b * n + l, **f32)
+        h = torch.empty(b * n, l, **f32)
+        tiles = -(-(b * n) // _B2_TILE) * (l // _B2_TILE)
+        near = torch.empty(tiles, _B2_NEAR, 2, device=dev, dtype=torch.int32)
+        near_counts = torch.empty(tiles, device=dev, dtype=torch.int32)
+        dp_part = torch.empty(l // _B2_TILE, b * n, k, **f32)
+        r = torch.empty(b * n, l, **f32)
+        d_a = torch.empty(b * n, 2 * a + kp, **f32)
+        part_w = torch.empty(splits, df * l + 2 * l * a, **f32)
+        part_r = torch.empty(groups, l + 2 * a + a * k + k, **f32)
+        grads = torch.empty(sum(math.prod(s) for _, s in layout), **f32)
         dx = torch.empty_like(x) if need_dx else None
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), half, mk.data_ptr(),
-                 *(t.data_ptr() for t in rest),
-                 dx.data_ptr() if need_dx else None, work.data_ptr(),
-                 grads.data_ptr(), b, n, df, k, l, groups, stream)
+        err = fn(x.data_ptr(), int(x.dtype == torch.float16), mk.data_ptr(),
+                 *(t.data_ptr() for t in (w1_, w1t, b1_, vu, bv_, bu_, w_,
+                                          bw_, lse_, c_, d_bag_, d_bag_t,
+                                          d_logits_)),
+                 dx.data_ptr() if need_dx else None,
+                 *(t.data_ptr() for t in (norms, h, near, near_counts,
+                                          dp_part, r, d_a, part_w, part_r,
+                                          grads)),
+                 b, n, df, k, l, groups, splits, rows, stream)
     if err != 0:
         raise RuntimeError(f"kernel B2 launch failed: cudaError_t {err}")
     fused_gated_attn_pool_bwd.launches += 1
-    a = KERNEL_A
-    shapes = ((df, l), (l,), (l, a), (a,), (l, a), (a,), (a, k), (k,))
-    parts = torch.split(grads, sizes)
-    return (dx, *(p.view(s) for p, s in zip(parts, shapes)))
+    parts = torch.split(grads, [math.prod(s) for _, s in layout])
+    g = {name: p.view(s) for (name, s), p in zip(layout, parts)}
+    return (dx, *(g[name] for name in ("dW1", "db1", "dV", "dbv", "dU", "dbu",
+                                       "dw", "dbw")))
 
 
 def fused_gated_attn_pool_bwd(feats, mask, w1, b1, v, bv, u, bu, w, bw,

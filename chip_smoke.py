@@ -28,7 +28,9 @@ code is non-zero:
    N=300 and 65536, K=128 at N=4099), with dx off and on and cotangents
    that are nonzero at pad slots too; two launches must agree bit for bit.
    Then B2 and the plain backward timed at N=16384 and 65536 (and at
-   N=65536 at every L).
+   N=65536 at every L); B2's device time sums every CUDA kernel it runs
+   (``ops/attn_pool.py::B2_KERNELS``), and is printed split by kernel at
+   L=128 and L=768.
 5. serving: an ACMIL_GA head at the camelyon_medical_ssl widths
    (n_token=5, weights from a seeded ``torch.Generator``) scores 16
    synthetic slides of 1k-50k patches through ``cli/predict.py``'s ``main``
@@ -136,7 +138,7 @@ YML = os.path.join(REPO, "config", "camelyon_medical_ssl_config.yml")
 WIDE_YML = os.path.join(REPO, "config", "camelyon_natural_supervised_config.yml")
 D_FEAT, D_INNER, D_ATTN, N_TOKEN = 384, 128, 128, 5   # camelyon_medical_ssl, ACMIL
 # (D_feat, D_inner) of the other pretrain tags (config.PRETRAIN_DIMS), where
-# kernels B1 and B2 run 32-row tiles
+# kernel B1 runs 32-row tiles
 WIDE_DIMS = ((512, 256), (768, 384), (1024, 512), (1536, 768))
 N_MASKED_PATCH, MASK_DROP = 10, 0.6                   # the README's ACMIL recipe
 SEED = 0
@@ -327,6 +329,20 @@ def _device_ms(fn, kernels, reps=20):
     ms = sum(statistics.fmean(v) * per_call[name]
              for name, v in by_name.items()) / 1e3
     return ms, sum(per_call.values())
+
+
+def _b2_split_ms(ap, fn, reps=10) -> dict:
+    """Device ms per call of ``fn`` in each CUDA kernel of B2
+    (``ap.B2_KERNELS``), from one ``torch.profiler`` window with the L2
+    flushed before each call, as in ``_device_ms``."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    prof, _ = _profiled(fn, reps, before=flush.zero_)
+    per = {}
+    for name, us in _device_events(prof):
+        for k in ap.B2_KERNELS:
+            if k in name:
+                per[k] = per.get(k, 0.0) + us / reps / 1e3
+    return per
 
 
 def _fmt_ms(ms) -> str:
@@ -570,7 +586,7 @@ def bwd_kernel_vs_plain(smi: str) -> dict:
     cases = [(k, D_FEAT, D_INNER, n, b, dtype) for k in (N_TOKEN, 1)
              for n in (300, 16384, 65536) for b in (1, 3)
              for dtype in (torch.float16, torch.float32)]
-    # every other pretrain width (32-row tiles, larger private slices)
+    # every other pretrain width (panels of 128 columns, longer products)
     cases += [(k, df, l, n, b, dtype) for df, l in WIDE_DIMS
               for k, n, b in ((N_TOKEN, 300, 3), (128, 4099, 1),
                               (N_TOKEN, 65536, 1))
@@ -596,13 +612,18 @@ def bwd_kernel_vs_plain(smi: str) -> dict:
               f"only: kernel {t_k:.4f} ms, plain autograd backward "
               f"{t_p:.4f} ms [{smi}]")
         times[n] = (t_k, t_p)
-    kernels = ("pool_bwd_partial_kernel", "grad_reduce_kernel")
-    dev, per_call = _device_ms(
-        lambda: ap.fused_gated_attn_pool_bwd(x, m, *ws, lse, c, d_bag,
-                                             d_logits, need_dx=False),
-        kernels)
+    def split(fn):
+        per = _b2_split_ms(ap, fn)
+        return ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+
+    kernels = ap.B2_KERNELS
+    call = lambda: ap.fused_gated_attn_pool_bwd(     # noqa: E731
+        x, m, *ws, lse, c, d_bag, d_logits, need_dx=False)
+    dev, per_call = _device_ms(call, kernels)
     print(f"kernel B2 device time: N=65536 B=1 K={N_TOKEN} fp16, weight "
           f"gradients only: {_fmt_ms(dev)} in {per_call:g} launches per call "
+          f"[{smi}]")
+    print(f"kernel B2 device time by kernel, ms: L={D_INNER}: {split(call)} "
           f"[{smi}]")
     wide = {}
     for df, l in WIDE_DIMS:
@@ -614,16 +635,18 @@ def bwd_kernel_vs_plain(smi: str) -> dict:
             outs = ap._reference_batched(x.float(), m, *wr)
             t_p = _time_ms(lambda: torch.autograd.grad(
                 outs, wr, (d_bag, d_logits), retain_graph=True), 10)
-        r = {"device_ms": _device_ms(
-                 lambda: ap.fused_gated_attn_pool_bwd(
-                     x, m, *ws, lse, c, d_bag, d_logits, need_dx=False),
-                 kernels)[0],
+        call = lambda: ap.fused_gated_attn_pool_bwd(     # noqa: E731
+            x, m, *ws, lse, c, d_bag, d_logits, need_dx=False)
+        r = {"device_ms": _device_ms(call, kernels)[0],
              "plain_ms": t_p, **_b2_bound(65536, N_TOKEN, df, l)}
         print(f"kernel B2 device time: Df={df} L={l} N=65536 B=1 "
               f"K={N_TOKEN} fp16, weight gradients only: "
               f"{_fmt_ms(r['device_ms'])}, plain autograd {t_p:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"{_bound_share(r)} [{smi}]")
+        if l == WIDE_DIMS[-1][1]:
+            print(f"kernel B2 device time by kernel, ms: L={l}: "
+                  f"{split(call)} [{smi}]")
         wide[f"L={l}"] = r
     return {"max_abs_err": worst_abs, "max_rel_to_max_err": worst_rel,
             "ms": times[65536][0], "device_ms": dev,

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Times variants of kernel B5' (``acmil_tpu_torch/csrc/vit_attn.cu``), or
-of the GEMM of B3 and B4 (``csrc/vit_gemm.cu``), on a card, to show what
-each design choice of the kernel is worth:
+"""Times variants of kernel B5' (``acmil_tpu_torch/csrc/vit_attn.cu``), of
+the GEMM of B3 and B4 (``csrc/vit_gemm.cu``), or of the pooling backward B2
+(``csrc/attn_pool_bwd.cu``), on a card, to show what each design choice of
+the kernel is worth:
 
-    python3 scripts/attn_variants.py [--kernel attn|gemm]
+    python3 scripts/attn_variants.py [--kernel attn|gemm|b2]
 
 Each variant is the source with a few lines replaced, built by ``nvcc``
 with the port's flags into ``csrc/build/variants/``. B5' variants are
@@ -12,7 +13,10 @@ shape (ViT-S/16, B=256) and at CLIP-L/336 (B=32), beside one call of
 ``F.scaled_dot_product_attention`` on the same q, k, v; GEMM variants
 through ``vit_gemm`` at the four GEMMs of B3 at Step2's shape (M = 50432
 tokens), each with its epilogue and dtypes as the chain runs it, beside one
-bf16 ``torch.matmul`` at the same shape. Each line gives the CUDA-event
+bf16 ``torch.matmul`` at the same shape; B2 variants through
+``fused_gated_attn_pool_bwd`` (weight gradients only, fp16 features, N =
+65536, K = 5) at L = 128 and 768, each of its CUDA kernels timed apart.
+Each line gives the CUDA-event
 time of one call and the kernel's device time (``chip_smoke._time_ms`` and
 ``_device_ms``, L2 flushed before each call). Variants run in turns, then
 in reverse order, so that a drift of the card shows. Needs one card;
@@ -78,6 +82,9 @@ GEMM_VARIANTS = {
 def build_variants(source: str = "vit_attn.cu", variants=None,
                    entry: str = "b5_mha_packed", argtypes=None) -> dict:
     src = (_build.CSRC / source).read_text()
+    # the shared header inlined, so that a variant may change it too
+    for header in sorted(_build.CSRC.glob("*.cuh")):
+        src = src.replace(f'#include "{header.name}"', header.read_text())
     out = _build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     variants = VARIANTS if variants is None else variants
@@ -163,14 +170,73 @@ def gemm_main(smi: str) -> None:
     print(f"card: {smi}")
 
 
+# the row kernel's GEMMs and its p/d_log step, the mask recompute of K1, the
+# per-slice flush of K3
+B2_VARIANTS = {
+    "as built": ("the kernel in the repository", []),
+    "K2 GEMMs off": ("the row kernel without its tensor-core products",
+                     [("GemmZ::run(", "if (0) GemmZ::run("),
+                      ("GemmDh::run(", "if (0) GemmDh::run(")]),
+    "K2 p/d_log off": ("the row kernel without its per-(row, branch) step",
+                       [("for (int idx = tid; idx < kTile * k_br; idx += "
+                         "kThreads) {", "for (int idx = tid; idx < 0; "
+                         "idx += kThreads) {")]),
+    "K1 recompute off": ("K1 listing no near-0 pre-activation to recompute",
+                         [("const float tol = kMaskTol * norms[r];",
+                           "const float tol = -1.f;")]),
+    "cvt.rna split": ("hi and lo rounded by cvt.rna.tf32.f32 instead of "
+                      "the integer add and mask (the same bits)",
+                      [("return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;",
+                        "uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\" : "
+                        "\"=r\"(r) : \"f\"(a));\n  return r;")]),
+    "K3 no flush": ("K3 without its per-slice sums",
+                    [("G::template run<true>", "G::template run<false>")]),
+    "K3 two blocks": ("K3 without its per-slice sums, two blocks an SM",
+                      [("G::template run<true>", "G::template run<false>"),
+                       ("__launch_bounds__(kThreads, 1)\nb2_wgrad_kernel(",
+                        "__launch_bounds__(kThreads, 2)\nb2_wgrad_kernel(")]),
+}
+
+
+@torch.no_grad()
+def b2_main(smi: str) -> None:
+    from acmil_tpu_torch.ops import attn_pool as ap
+
+    _, blocks, tile_rows = ap._bwd_kernel_entry()
+    p, i = ctypes.c_void_p, ctypes.c_int
+    entries = build_variants("attn_pool_bwd.cu", B2_VARIANTS,
+                             "b2_attn_pool_backward",
+                             [p, i] + [p] * 25 + [i] * 8 + [p])
+    for name, (what, _) in B2_VARIANTS.items():
+        print(f"variant {name!r}: {what}")
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    m = torch.ones(1, 65536, dtype=torch.bool, device="cuda")
+    for df, l in ((cs.D_FEAT, cs.D_INNER), cs.WIDE_DIMS[-1]):
+        ws = cs._weights(gen, cs.N_TOKEN, df, l)
+        x = torch.randn(1, 65536, df, generator=gen, device="cuda").half()
+        lse, c, d_bag, d_logits = cs._bwd_inputs(ap, gen, ws, x, m,
+                                                 cs.N_TOKEN)
+        print(f"Df={df} L={l} N=65536 K={cs.N_TOKEN} fp16, weight gradients "
+              f"only [{smi}]")
+        for name in [*entries, *reversed(entries)]:
+            ap._bwd_kernel_entry = lambda fn=entries[name]: (fn, blocks,
+                                                             tile_rows)
+            per = cs._b2_split_ms(ap, lambda: ap.fused_gated_attn_pool_bwd(
+                x, m, *ws, lse, c, d_bag, d_logits, need_dx=False))
+            print(f"  {name:18s} device {sum(per.values()):.4f} ms: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in per.items()))
+    print(f"card: {smi}")
+
+
 @torch.no_grad()
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=("attn", "gemm"), default="attn")
+    parser.add_argument("--kernel", choices=("attn", "gemm", "b2"),
+                        default="attn")
     kernel = parser.parse_args().kernel
     smi = cs.card()
-    if kernel == "gemm":
-        gemm_main(smi)
+    if kernel in ("gemm", "b2"):
+        (gemm_main if kernel == "gemm" else b2_main)(smi)
         return
     entries = build_variants()
     for name, (what, _) in VARIANTS.items():

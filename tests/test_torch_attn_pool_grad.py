@@ -126,6 +126,136 @@ def test_bwd_stats_matches_pallas_at_every_pretrain_width(df, l):
     assert np.all(got[0].numpy()[~mask] == 0.0)
 
 
+# B2's tolerance on the card (chip_smoke.py BWD_REL): each gradient within
+# 1e-4 of its largest magnitude
+BWD_REL = 1e-4
+
+
+def _tf32(a):
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, keeping 10 of the 23 mantissa bits."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_mm(a, b, exact_a=False):
+    """a @ b as B2's tensor-core products form it: hi/lo TF32 parts, the
+    small terms first; an fp16 ``a`` is exact in TF32, so its lo is 0 and
+    the product takes two terms, not three."""
+    b_hi = _tf32(b)
+    b_lo = _tf32(b - b_hi)
+    if exact_a:
+        assert torch.equal(_tf32(a), a)
+        return a @ b_lo + a @ b_hi
+    a_hi = _tf32(a)
+    a_lo = _tf32(a - a_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _b2_emulated(x, mask, w1, b1, v, bv, u, bu, w, bw, lse, c, d_bag,
+                 d_logits, exact_x, splits=3):
+    """B2's decomposition in f32 with every product split as on the card:
+    H (K1, near-0 pre-activations as the plain route sums them); the
+    gates, d_h, R and D_a (K2); X^T R and H^T D_a summed over
+    ``splits`` row ranges in order (K3 and the reduce); R W1^T (K4)."""
+    b, n, df = x.shape
+    l = w1.shape[1]
+    xf = x.reshape(b * n, df)
+    pre = _split_mm(xf, w1, exact_x) + b1                    # [M, L]
+    # within rounding of 0 the mask is the forward's: K1 recomputes those
+    # pre-activations as the plain route sums them
+    near = pre.abs() <= 2.0 ** -17 * (xf.norm(dim=1)[:, None]
+                                      * w1.norm(dim=0)[None, :])
+    h = torch.relu(torch.where(near, xf @ w1 + b1, pre))
+    z = _split_mm(h, torch.cat([v, u], dim=1))               # [M, 2A]
+    a = v.shape[1]
+    gv = torch.tanh(z[:, :a] + bv)
+    gu = torch.sigmoid(z[:, a:] + bu)
+    g = (gv * gu).view(b, n, a)
+    hb = h.view(b, n, l)
+    valid = mask[..., None]
+    p = torch.where(valid, torch.exp(g @ w + bw - lse[:, None, :]), 0.0)
+    d_log = torch.where(valid, p * (hb @ d_bag.transpose(1, 2)
+                                    - c[:, None, :])
+                        + d_logits.transpose(1, 2), 0.0)     # [B, N, K]
+    d_g = (d_log @ w.T).reshape(b * n, a)
+    d_a = torch.cat([d_g * gu * (1 - gv * gv),
+                     d_g * gv * gu * (1 - gu)], dim=1)       # [M, 2A]
+    d_h = ((p @ d_bag).reshape(b * n, l)
+           + _split_mm(d_a, torch.cat([v, u], dim=1).T))
+    r = torch.where(h > 0, d_h, 0.0)                         # [M, L]
+    bounds = np.linspace(0, b * n, splits + 1).astype(int)
+    dw1 = dvu = 0.0
+    for r0, r1 in zip(bounds[:-1], bounds[1:]):
+        dw1 = dw1 + _split_mm(xf[r0:r1].T.contiguous(), r[r0:r1],
+                              exact_x)
+        dvu = dvu + _split_mm(h[r0:r1].T.contiguous(), d_a[r0:r1])
+    dx = _split_mm(r, w1.T.contiguous()).view(b, n, df)
+    return (dx, dw1, r.sum(0), dvu[:, :a], d_a[:, :a].sum(0), dvu[:, a:],
+            d_a[:, a:].sum(0), g.reshape(b * n, a).T @ d_log.reshape(b * n, -1),
+            d_log.sum(dim=(0, 1)))
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    a = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12])
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                         -(1.0 + 2.0 ** -10), 1.0])
+    assert torch.equal(_tf32(a), want)
+    # fp16 values pass unchanged (exact in TF32), and a split is nearly
+    # exact: hi + lo leaves about 2**-22 of the value
+    h = torch.from_numpy(np.random.RandomState(0).randn(1000).astype(
+        np.float16)).float()
+    assert torch.equal(_tf32(h), h)
+    f = torch.from_numpy(np.random.RandomState(1).randn(1000).astype(
+        np.float32))
+    hi = _tf32(f)
+    rest = (f.double() - hi.double() - _tf32(f - hi).double()).abs()
+    assert float((rest / f.double().abs()).max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("feats_dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("df, l", sorted(set(PRETRAIN_DIMS.values())))
+def test_split_tf32_decomposition_holds_bwd_rel(df, l, feats_dtype):
+    # B2's split-TF32 products through its decomposition against the
+    # float64 closed form, within BWD_REL of each gradient's max: dots of up
+    # to 1536 terms, and 3000-row sums in 5 ranges
+    feats, mask, ws, d_bag, d_logits = _inputs_at(12, df, l, b=2, n=1500)
+    mask[0, :7] = False
+    x = torch.from_numpy(feats).to(feats_dtype)
+    m = torch.from_numpy(mask)
+    w_t = _t(*ws)
+    w64 = [t.double() for t in w_t]
+    bag, logits = port._reference_batched(x.double(), m, *w64)
+    mx, sm = port._softmax_stats(logits, m)
+    lse = mx + torch.log(sm)
+    d_bag64 = torch.from_numpy(d_bag).double()
+    c = (d_bag64 * bag).sum(dim=2)
+    want = port._fused_pool_bwd_stats(x.double(), m, *w64, lse, c, d_bag64,
+                                      torch.from_numpy(d_logits).double())
+    got = _b2_emulated(x.float(), m, *w_t, lse.float(), c.float(),
+                       torch.from_numpy(d_bag), torch.from_numpy(d_logits),
+                       exact_x=feats_dtype == torch.float16, splits=5)
+    for name, g, w_ in zip(GRAD_NAMES, got, want):
+        err = float((g.double() - w_).abs().max())
+        assert err <= BWD_REL * float(w_.abs().max()), (name, err)
+    assert bool((got[0][~m] == 0).all())
+
+
+@pytest.mark.parametrize("m, df, l", [(65536, 384, 128), (65536, 512, 256),
+                                      (65536, 1536, 768), (12297, 384, 128),
+                                      (300, 384, 128), (1, 32, 128),
+                                      (5998, 1536, 768)])
+def test_wgrad_splits_cover_the_rows_in_whole_slices(m, df, l):
+    s, rows = port._wgrad_splits(m, df, l, 132)
+    assert s >= 1 and rows % 32 == 0
+    assert (s - 1) * rows < m <= s * rows      # no empty range
+    if m >= 65536:
+        assert s > 1                           # ranges meet in the reduce
+    sizes = [int(np.prod(shape)) for _, shape in port._grad_layout(df, l, 5)]
+    assert sum(sizes) == df * l + l + 2 * (l * 128 + 128) + 128 * 5 + 5
+
+
 def test_fused_pool_bwd_forms_lse_and_c_like_jax():
     feats, mask, ws, d_bag, d_logits = _inputs(1)
     jws = [jnp.asarray(w) for w in ws]
@@ -306,7 +436,7 @@ def test_b2_matches_plain_on_card(cuda_device, feats_dtype, k):
                                       (1536, 768, 128)])
 def test_b2_matches_plain_on_card_at_wider_l(cuda_device, feats_dtype, df, l,
                                              k):
-    # the pretrain tags' widths (32-row tiles, larger private slices), a
+    # the pretrain tags' widths (panels of 128 columns, longer products), a
     # ragged N, B=2 with a dead tail; two launches agree bit for bit
     torch.backends.cuda.matmul.allow_tf32 = False
     feats, mask, ws, d_bag, d_logits = _inputs_at(11, df, l, k=k, n=2999)
@@ -330,3 +460,73 @@ def test_b2_matches_plain_on_card_at_wider_l(cuda_device, feats_dtype, df, l,
         err = float((g.float() - w.float()).abs().max())
         assert err <= tol * float(w.abs().max()), (name, err)
     assert bool((got[0][~m] == 0).all())
+
+
+def _card_inputs(device, feats_dtype, b, n, df, l, k, seed):
+    feats, mask, ws, d_bag, d_logits = _inputs_at(seed, df, l, k=k, b=b, n=n)
+    x = torch.from_numpy(feats).to(device, feats_dtype)
+    m, *rest = (t.to(device) for t in _t(mask, *ws, d_bag, d_logits))
+    ws, d_bag, d_logits = rest[:8], rest[8], rest[9]
+    with torch.no_grad():
+        bag, _, mx, s = port.fused_gated_attn_pool_batched(
+            x, m, *ws, return_stats=True)
+    lse = mx + torch.log(s.clamp_min(1e-30))
+    c = (d_bag * bag).sum(-1)
+    return x, m, ws, lse, c, d_bag, d_logits
+
+
+def _check_card_grads(got, want):
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        tol = 1e-3 if g.dtype == torch.float16 else 1e-4
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feats_dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("df, l", [(384, 128), (1536, 768)])
+def test_b2_ragged_rows_and_an_all_masked_bag_on_card(cuda_device,
+                                                      feats_dtype, df, l):
+    # M = 3 x 4099 rows is a multiple of no tile (64, 32, 128) or slice;
+    # one bag is all masked; K = 128; dx on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, m, ws, lse, c, d_bag, d_logits = _card_inputs(
+        cuda_device, feats_dtype, 3, 4099, df, l, 128, 13)
+    m[1] = False
+    with torch.no_grad():
+        got = port.fused_gated_attn_pool_bwd(x, m, *ws, lse, c, d_bag,
+                                             d_logits)
+        again = port.fused_gated_attn_pool_bwd(x, m, *ws, lse, c, d_bag,
+                                               d_logits)
+        torch.cuda.synchronize()
+        want = port._fused_pool_bwd_stats(x, m, *ws, lse, c, d_bag, d_logits)
+    for name, g, g2 in zip(GRAD_NAMES, got, again):
+        assert torch.equal(g, g2), f"{name} differs between two launches"
+    _check_card_grads(got, want)
+    assert bool((got[0][~m] == 0).all()) and bool((got[0][1] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("df, l", [(384, 128), (512, 256)])
+def test_b2_row_ranges_meet_in_the_reduce_on_card(cuda_device, monkeypatch,
+                                                  df, l):
+    # the weight gradients summed over S > 1 row ranges agree with one range
+    # and with the plain closed form
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, m, ws, lse, c, d_bag, d_logits = _card_inputs(
+        cuda_device, torch.float16, 2, 20000, df, l, 5, 14)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    splits, rows = port._wgrad_splits(2 * 20000, df, l, sms)
+    assert splits > 1
+    with torch.no_grad():
+        many = port.fused_gated_attn_pool_bwd(x, m, *ws, lse, c, d_bag,
+                                              d_logits, need_dx=False)
+        monkeypatch.setattr(port, "_wgrad_splits",
+                            lambda m_, *a: (1, -(-m_ // 32) * 32))
+        one = port.fused_gated_attn_pool_bwd(x, m, *ws, lse, c, d_bag,
+                                             d_logits, need_dx=False)
+        torch.cuda.synchronize()
+        want = port._fused_pool_bwd_stats(x, m, *ws, lse, c, d_bag, d_logits,
+                                          need_dx=False)
+    _check_card_grads(many[1:], want[1:])
+    _check_card_grads(one[1:], want[1:])
