@@ -25,10 +25,10 @@
 // beside its tiles. So B2 here writes its intermediates to device memory
 // (M = B N rows) and runs as matrix products over them:
 //
-//   b2_norms_kernel     |x| of every row and |W1| of every column
-//   K1 b2_h_kernel      H = relu(X W1 + b1)            [M, Df] [Df, L],
-//                       and each 128-column panel's part of H d_bag^T
-//   b2_hfix_kernel      K1's near-0 elements (below)
+//   gated_h_norms_kernel  |x| of every row and |W1| of every column
+//   K1 gated_h_kernel     H = relu(X W1 + b1)          [M, Df] [Df, L],
+//                         and each 128-column panel's part of H d_bag^T
+//   gated_h_fix_kernel    K1's near-0 elements (below)
 //   K2 b2_row_kernel    per 64-row tile: Z = H [V | U] [L, 2A], the gates,
 //                       p, d_log (d_p from K1's parts), d_av and d_au;
 //                       D_a = [d_av | d_au | p] [M, 2A + K];
@@ -51,12 +51,10 @@
 //
 // The relu mask. r is discontinuous in h: where h is within rounding of 0,
 // two ways of summing x W1 can give the mask opposite signs, and the row's
-// whole d_h then enters dW1 or not. The mask must be the forward's, whose
-// h is a sequential f32 FMA chain over Df (kernel B1 and the plain
-// version). So K1 recomputes, in that order, every h whose pre-activation
-// lies within kMaskTol |x_row| |W1_col| of 0 (a bound on the rounding of
-// either sum, by Cauchy-Schwarz); that is about 1 element in 10^4, listed
-// by K1's tiles and summed by b2_hfix_kernel, one thread an element.
+// whole d_h then enters dW1 or not. The norms, K1 and its recompute are
+// the H stage of gated_h.cuh, which kernel B1 runs too: B1's h and B2's H
+// are the same bits, and every near-0 pre-activation is summed in the
+// forward's order (gated_h.cuh says how).
 //
 // Bounds. At Df = 384, L = A = 128, N = 65536, without dx, B2 does about
 // 25 GFLOP (x W1 and x^T R half of it, 80% at Df = 1536, L = 768) and
@@ -79,32 +77,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gated_h.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kA = 128;            // gated-attention hidden width
-constexpr int kDa = 2 * kA;        // columns of D_a = [d_av | d_au], of [V | U]
-constexpr int kThreads = 256;      // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kReduceThreads = 256;
-// a pre-activation within this share of |x_row| |W1_col| of 0 is recomputed
-// in the forward's order: 2**-17, several times the rounding of a sum of up
-// to 1536 terms in either order
-constexpr float kMaskTol = 7.62939453125e-06f;
-
-// K1, K3, K4: 128 x 128 output tiles, 32-deep slices, warps 2 x 4 (64 x 32
+// the H stage's widths, tiles, slices and stages (gated_h.cuh): K1, K3 and
+// K4 run 128 x 128 output tiles of 32-deep slices, warps 2 x 4 (64 x 32
 // each), 3 stages
-constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3;
+using namespace gated_h;
+constexpr int kDa = 2 * kA;        // columns of D_a = [d_av | d_au], of [V | U]
+constexpr int kReduceThreads = 256;
 
-template <typename T, bool kKMajor, int kExtent>
-using Op = tf32x3::Operand<T, kKMajor, kExtent, kBK>;
-template <class A, class B>
-using Gemm = tf32x3::BlockGemm<A, B, kBM, kBN, kBK, 2, 4, kStages>;
-
-// K1: A = x (row, d), B(k = d, n = l) = W1[d][l]
-template <typename T>
-using GemmH = Gemm<Op<T, true, kBM>, Op<float, false, kBN>>;
 // K3: A(m = d, k = row) = x[row][d], B(k = row, n = l) = R[row][l]
 template <typename T>
 using GemmXtR = Gemm<Op<T, false, kBM>, Op<float, false, kBN>>;
@@ -133,13 +117,6 @@ __host__ __device__ constexpr int round4(int k) { return (k + 3) / 4 * 4; }
 // bytes of K2's GEMM ring; an R panel aliases it
 constexpr int kRowRing = cmax(cmax(GemmZ::kSmemBytes, GemmDh::kSmemBytes),
                               kTile * kRStride * 4);
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__half* p, float a, float b) {
-  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
-}
 
 // A block's private partial: the first tile stores, later ones add.
 __device__ __forceinline__ void accumulate(float* dst, float v, bool first) {
@@ -175,163 +152,6 @@ __host__ __device__ size_t wgrad_floats(int df, int l_dim) {
 // floats of K2's partial: [db1 (L) | dbv (A) | dbu (A) | dw (A x K) | dbw (K)]
 __host__ __device__ int row_floats(int l_dim, int k_br) {
   return l_dim + 2 * kA + kA * k_br + k_br;
-}
-
-// ---- |x| per row and |W1| per column -----------------------------------------
-// Blocks from col_blocks on take 32 rows of x, 8 lanes a row (each lane's
-// loads issued together); the first ones 32 columns of W1 each, 8 warps
-// summing every 8th row, then the 8 sums in order (they start first, as
-// they are the longest). norms = [xn (M) | wn (L)].
-constexpr int kNormRows = kThreads / 8;
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-b2_norms_kernel(const T* __restrict__ x, const float* __restrict__ w1,
-                float* __restrict__ norms, int m, int df, int l_dim) {
-  __shared__ float sums[kWarps][32];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int col_blocks = l_dim / 32;
-  if (static_cast<int>(blockIdx.x) >= col_blocks) {
-    constexpr int kVec = 16 / sizeof(T);
-    const int r = (blockIdx.x - col_blocks) * kNormRows + threadIdx.x / 8;
-    const T* xr = x + static_cast<size_t>(min(r, m - 1)) * df;
-    float s = 0.f;
-#pragma unroll 4
-    for (int d = (threadIdx.x % 8) * kVec; d < df; d += 8 * kVec) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(xr + d));
-      const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        const float f = tf32x3::widen(v[i]);
-        s = fmaf(f, f, s);
-      }
-    }
-#pragma unroll
-    for (int off = 4; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (threadIdx.x % 8 == 0 && r < m) norms[r] = sqrtf(s);
-  } else {
-    const int c = blockIdx.x * 32 + lane;
-    float s = 0.f;
-#pragma unroll 4
-    for (int d = warp; d < df; d += kWarps) {
-      const float v = w1[static_cast<size_t>(d) * l_dim + c];
-      s = fmaf(v, v, s);
-    }
-    sums[warp][lane] = s;
-    __syncthreads();
-    if (warp == 0) {
-      float t = 0.f;
-#pragma unroll
-      for (int i = 0; i < kWarps; ++i) t += sums[i][lane];
-      norms[m + c] = sqrtf(t);
-    }
-  }
-}
-
-// ---- K1: H = relu(x W1 + b1), [M, L] f32 --------------------------------
-// x W1 + b1 as the forward sums it: one f32 FMA chain over d in order. w1t
-// is W1 transposed, [L, Df], so that a column is contiguous.
-template <typename T>
-__device__ float forward_preact(const T* __restrict__ x,
-                                const float* __restrict__ w1t,
-                                const float* __restrict__ b1, int r, int c,
-                                int df) {
-  const T* xr = x + static_cast<size_t>(r) * df;
-  const float* wc = w1t + static_cast<size_t>(c) * df;
-  float s = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < df; d += 8) {   // Df is a multiple of 32
-    float xv[8], wv[8];
-    tf32x3::load8(xr + d, xv);
-    tf32x3::load8(wc + d, wv);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s = fmaf(xv[i], wv[i], s);
-  }
-  return s + b1[c];
-}
-
-constexpr int kMaxNear = 512;   // near-0 elements a K1 tile lists
-
-// The tile's product; each pre-activation within kMaskTol |x_row| |W1_col|
-// of 0 (never one of a zero row, whose sum is exactly 0 either way) is
-// listed for b2_hfix_kernel in near[tile] (or, past kMaxNear, recomputed
-// here).
-template <typename T>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
-b2_h_kernel(const T* __restrict__ x, const float* __restrict__ w1,
-            const float* __restrict__ w1t, const float* __restrict__ b1,
-            const float* __restrict__ norms, const float* __restrict__ dbag,
-            float* __restrict__ h, int2* __restrict__ near,
-            int* __restrict__ near_counts, float* __restrict__ dp_part, int m,
-            int n, int df, int l_dim, int k_br) {
-  extern __shared__ __align__(16) char smem[];
-  __shared__ int count;
-  using G = GemmH<T>;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  int2* listed = near + static_cast<size_t>(tile) * kMaxNear;
-  if (threadIdx.x == 0) count = 0;
-  float acc[G::kMT][G::kNT][4];
-  G::zero(acc);
-  G::run(acc, {x, df, m, df}, {w1, l_dim, l_dim, df}, m0, n0, 0, df, smem);
-  const float* wn = norms + m;
-  G::for_pairs(acc, m0, n0, [&](int r, int c, float v0, float v1) {
-    if (r >= m) return;
-    float v[2] = {v0 + b1[c], v1 + b1[c + 1]};
-    const float tol = kMaskTol * norms[r];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (fabsf(v[e]) < tol * wn[c + e]) {
-        const int j = atomicAdd(&count, 1);
-        if (j < kMaxNear) listed[j] = make_int2(r, c + e);
-        else v[e] = forward_preact(x, w1t, b1, r, c + e, df);
-      }
-    }
-    store2(h + static_cast<size_t>(r) * l_dim + c, fmaxf(v[0], 0.f),
-           fmaxf(v[1], 0.f));
-  });
-  __syncthreads();  // the tile of H is stored
-  if (threadIdx.x == 0) near_counts[tile] = min(count, kMaxNear);
-
-  // ---- this panel's part of d_p = H d_bag^T, two threads a row. The listed
-  // elements still hold this product's values, which differ from the
-  // forward's by less than the recompute tolerance: d_p is continuous in h
-  const int r = min(m0 + static_cast<int>(threadIdx.x) / 2, m - 1);
-  const int c0 = n0 + (threadIdx.x % 2) * (kBN / 2);
-  float hv[kBN / 2];
-#pragma unroll
-  for (int i = 0; i < kBN / 2; i += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(h + static_cast<size_t>(r) * l_dim + c0 + i);
-    hv[i] = v.x; hv[i + 1] = v.y; hv[i + 2] = v.z; hv[i + 3] = v.w;
-  }
-  const float* db = dbag + static_cast<size_t>(r / n) * k_br * l_dim + c0;
-  for (int kb = 0; kb < k_br; ++kb) {
-    float s4[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < kBN / 2; i += 4)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        s4[j] = fmaf(hv[i + j], __ldg(db + kb * l_dim + i + j), s4[j]);
-    float sum = (s4[0] + s4[1]) + (s4[2] + s4[3]);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if (threadIdx.x % 2 == 0 && m0 + static_cast<int>(threadIdx.x) / 2 < m)
-      dp_part[(static_cast<size_t>(blockIdx.y) * m + r) * k_br + kb] = sum;
-  }
-}
-
-// ---- K1's listed elements in the forward's order: one warp a tile, one
-// lane an element ---------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(32)
-b2_hfix_kernel(const T* __restrict__ x, const float* __restrict__ w1t,
-               const float* __restrict__ b1, const int2* __restrict__ near,
-               const int* __restrict__ near_counts, float* __restrict__ h,
-               int df, int l_dim) {
-  const int2* listed = near + static_cast<size_t>(blockIdx.x) * kMaxNear;
-  for (int j = threadIdx.x; j < near_counts[blockIdx.x]; j += 32) {
-    const int2 rc = listed[j];
-    h[static_cast<size_t>(rc.x) * l_dim + rc.y] =
-        fmaxf(forward_preact(x, w1t, b1, rc.x, rc.y, df), 0.f);
-  }
 }
 
 // ---- K2: the row kernel --------------------------------------------------
@@ -654,10 +474,12 @@ b2_reduce_kernel(const float* __restrict__ work_w, int groups_w, size_t nw,
   out[i] = s;
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+// Raises the row kernel's shared memory limit to its size at K = kMaxK,
+// once per width and device.
+template <int L>
+cudaError_t row_kernel_ready() {
+  static SmemLimit limit;
+  return raise_smem(b2_row_kernel<L>, row_smem_bytes(kMaxK), limit);
 }
 
 // Blocks of the row kernel the current device holds at once, or minus a
@@ -668,7 +490,7 @@ int row_blocks(int k_br) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = allow_smem(b2_row_kernel<L>, row_smem_bytes(k_br));
+  if (err == cudaSuccess) err = row_kernel_ready<L>();
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, b2_row_kernel<L>, kThreads, row_smem_bytes(k_br));
@@ -689,10 +511,9 @@ struct Args {
 
 template <int L>
 cudaError_t launch_rows(const Args& a) {
-  const size_t smem = row_smem_bytes(a.k_br);
-  cudaError_t err = allow_smem(b2_row_kernel<L>, smem);
+  const cudaError_t err = row_kernel_ready<L>();
   if (err != cudaSuccess) return err;
-  b2_row_kernel<L><<<a.groups, kThreads, smem, a.stream>>>(
+  b2_row_kernel<L><<<a.groups, kThreads, row_smem_bytes(a.k_br), a.stream>>>(
       a.hg, a.mask, a.vu, a.bv, a.bu, a.w, a.bw, a.lse, a.cc, a.dbag,
       a.dbag_t, a.dlo, a.dp_part, a.rg, a.da, a.part_r, a.batch, a.n,
       a.k_br);
@@ -715,22 +536,11 @@ cudaError_t launch(const Args& a) {
   const int m = a.batch * a.n, l_dim = a.l_dim;
   const int m_tiles = (m + kBM - 1) / kBM;
   const T* x = static_cast<const T*>(a.feats);
-  // the norms, then K1
-  const int norm_rows = (m + kNormRows - 1) / kNormRows;
-  b2_norms_kernel<T><<<norm_rows + l_dim / 32, kThreads, 0, a.stream>>>(
-      x, a.w1, a.norms, m, a.df, l_dim);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if ((err = allow_smem(b2_h_kernel<T>, GemmH<T>::kSmemBytes)) != cudaSuccess)
-    return err;
-  const dim3 h_grid(m_tiles, l_dim / kBN);
-  b2_h_kernel<T><<<h_grid, kThreads, GemmH<T>::kSmemBytes, a.stream>>>(
+  // the norms, K1 with its d_p epilogue, and K1's recompute
+  cudaError_t err = launch_h_stage<T, true>(
       x, a.w1, a.w1t, a.b1, a.norms, a.dbag, a.hg, a.near, a.near_counts,
-      a.dp_part, m, a.n, a.df, l_dim, a.k_br);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  b2_hfix_kernel<T><<<h_grid.x * h_grid.y, 32, 0, a.stream>>>(
-      x, a.w1t, a.b1, a.near, a.near_counts, a.hg, a.df, l_dim);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      a.dp_part, m, a.n, a.df, l_dim, a.k_br, a.stream);
+  if (err != cudaSuccess) return err;
   // K2
 #define B2_ROWS(LL) launch_rows<LL>(a)
   err = [&]() -> cudaError_t { B2_WIDTHS(B2_ROWS, cudaErrorInvalidValue) }();
@@ -738,7 +548,9 @@ cudaError_t launch(const Args& a) {
   if (err != cudaSuccess) return err;
   // K3 and the two reductions
   constexpr int kWSmem = cmax(GemmXtR<T>::kSmemBytes, GemmHtD::kSmemBytes);
-  if ((err = allow_smem(b2_wgrad_kernel<T>, kWSmem)) != cudaSuccess) return err;
+  static SmemLimit wgrad_limit;
+  if ((err = raise_smem(b2_wgrad_kernel<T>, kWSmem, wgrad_limit)) != cudaSuccess)
+    return err;
   const int tiles = (a.df + kBM - 1) / kBM * (l_dim / kBN) + (l_dim / kBM) * 2;
   b2_wgrad_kernel<T><<<dim3(tiles, a.splits), kThreads, kWSmem, a.stream>>>(
       x, a.hg, a.rg, a.da, a.part_w, m, a.df, l_dim, kDa + round4(a.k_br),
@@ -752,7 +564,9 @@ cudaError_t launch(const Args& a) {
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // K4
   if (a.dx != nullptr) {
-    if ((err = allow_smem(b2_dx_kernel<T>, GemmDx::kSmemBytes)) != cudaSuccess)
+    static SmemLimit dx_limit;
+    if ((err = raise_smem(b2_dx_kernel<T>, GemmDx::kSmemBytes, dx_limit)) !=
+        cudaSuccess)
       return err;
     b2_dx_kernel<T><<<dim3(m_tiles, (a.df + kBN - 1) / kBN), kThreads,
                       GemmDx::kSmemBytes, a.stream>>>(

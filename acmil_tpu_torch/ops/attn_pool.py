@@ -18,7 +18,8 @@ the two in a ``torch.autograd.Function``.
 
 Every wrapper picks its route by the device of ``feats`` and nothing else: a
 CPU tensor takes the plain version, a CUDA tensor launches the hand-written
-kernel (``csrc/attn_pool.cu``, ``csrc/attn_pool_bwd.cu``) or raises.
+kernel (``csrc/attn_pool.cu``, ``csrc/attn_pool_bwd.cu``, both on the H
+stage of ``csrc/gated_h.cuh``) or raises.
 """
 
 from __future__ import annotations
@@ -115,56 +116,106 @@ def _device_inputs(dev, tensors, kernel):
     return out
 
 
+# the CUDA kernels one B1 call launches: the H stage of csrc/gated_h.cuh,
+# which B2 shares (the norms of x's rows and W1's columns, H = relu(X W1 +
+# b1), its recompute near 0), then csrc/attn_pool.cu's row kernel (gates,
+# logits, each tile's softmax state and p^T H) and the flash merge
+H_STAGE_KERNELS = ("gated_h_norms_kernel", "gated_h_kernel",
+                   "gated_h_fix_kernel")
+B1_KERNELS = H_STAGE_KERNELS + ("b1_row_kernel", "b1_merge_kernel")
+# the H stage's output tiles are 128 x 128, and a tile lists at most 512
+# near-0 pre-activations; B1's row kernel takes 64-row tiles of one bag
+_H_TILE, _H_NEAR, _B1_TILE = 128, 512, 64
+# each buffer of B1's workspace starts at a multiple of this many bytes
+_ALIGN = 256
+
+
+def _h_stage_buffers(m, l):
+    """(name, dtype, shape) of the H stage's buffers for M rows at width L:
+    the norms, H, the near-0 list and its counts per tile."""
+    tiles = -(-m // _H_TILE) * (l // _H_TILE)
+    return (("norms", torch.float32, (m + l,)),
+            ("h", torch.float32, (m, l)),
+            ("near", torch.int32, (tiles, _H_NEAR, 2)),
+            ("near_counts", torch.int32, (tiles,)))
+
+
+@functools.lru_cache(maxsize=64)
+def _b1_workspace_layout(b, n, l, k):
+    """((name, dtype, shape, byte offset), ...) of each buffer of B1's
+    device workspace, and its total bytes: the H stage's buffers for the
+    B N rows, then each (bag, 64-row tile)'s softmax max and sum [B, T, K]
+    and partial bag [B, T, K, L]. Every buffer starts at a multiple of
+    ``_ALIGN`` bytes."""
+    t = -(-n // _B1_TILE)
+    f32 = torch.float32
+    buffers = _h_stage_buffers(b * n, l) + (
+        ("part_m", f32, (b, t, k)), ("part_s", f32, (b, t, k)),
+        ("part_acc", f32, (b, t, k, l)))
+    layout, offset = [], 0
+    for name, dtype, shape in buffers:
+        layout.append((name, dtype, shape, offset))
+        offset += -(-math.prod(shape) * dtype.itemsize // _ALIGN) * _ALIGN
+    return tuple(layout), offset
+
+
 @functools.cache
 def _kernel_entry():
-    """(the C entry point with its ctypes signature, the rows-per-tile
-    query of an L), from the library built at first use."""
+    """The C entry point with its ctypes signature, from the library built
+    at first use."""
     from acmil_tpu_torch.ops import _build
 
-    lib = _build.load("attn_pool")
-    fn = lib.b1_attn_pool_forward
+    fn = _build.load("attn_pool").b1_attn_pool_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 16
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 21
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.b1_tile_rows.restype = ctypes.c_int
-    lib.b1_tile_rows.argtypes = [ctypes.c_int]
-    return fn, lib.b1_tile_rows
+    return fn
 
 
-def _launch_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw):
+def _launch_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw, workspace=None):
     _check_kernel_args(feats, mask, w1, b1, v, bv, u, bu, w, bw)
     dev = feats.device
-    x, mk, *weights = _device_inputs(
-        dev, (feats, mask, w1, b1, v, bv, u, bu, w, bw), "B1")
-    fn, tile_rows = _kernel_entry()
+    # W1 transposed, for the H stage's recompute of near-0 pre-activations
+    # in the forward's order
+    x, mk, w1_, w1t, *weights = _device_inputs(
+        dev, (feats, mask, w1, w1.t(), b1, v, bv, u, bu, w, bw), "B1")
+    fn = _kernel_entry()
     b, n, df = feats.shape
     l, k = w1.shape[1], w.shape[1]
-    tiles = -(-n // tile_rows(l))
+    layout, nbytes = _b1_workspace_layout(b, n, l, k)
     f32 = dict(device=dev, dtype=torch.float32)
     logits = torch.empty(b, k, n, **f32)
     bag = torch.empty(b, k, l, **f32)
-    m = torch.empty(b, k, **f32)
-    s = torch.empty(b, k, **f32)
-    part_m = torch.empty(b, tiles, k, **f32)
-    part_s = torch.empty(b, tiles, k, **f32)
-    part_acc = torch.empty(b, tiles, k, l, **f32)
-    outs = (logits, bag, m, s, part_m, part_s, part_acc)
+    stats = torch.empty(2, b, k, **f32)
+    work = torch.empty(nbytes, device=dev, dtype=torch.uint8)
+    base = work.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), int(x.dtype == torch.float16), mk.data_ptr(),
-                 *(t.data_ptr() for t in weights),
-                 *(t.data_ptr() for t in outs), b, n, df, k, l, stream)
+                 w1_.data_ptr(), w1t.data_ptr(),
+                 *(t.data_ptr() for t in weights), logits.data_ptr(),
+                 bag.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+                 *(base + off for *_, off in layout), b, n, df, k, l, stream)
     if err != 0:
         raise RuntimeError(f"kernel B1 launch failed: cudaError_t {err}")
     fused_gated_attn_pool_batched.launches += 1
-    return bag, logits, m, s
+    if workspace is not None:
+        workspace.update(_workspace_views(work, layout))
+    return bag, logits, stats[0], stats[1]
 
 
-def _pool_forward(feats, mask, w1, b1, v, bv, u, bu, w, bw):
+def _workspace_views(work, layout):
+    """{name: tensor} views of a uint8 workspace with this layout."""
+    return {name: work[off:off + math.prod(shape) * dtype.itemsize]
+            .view(dtype).view(shape) for name, dtype, shape, off in layout}
+
+
+def _pool_forward(feats, mask, w1, b1, v, bv, u, bu, w, bw, workspace=None):
     """(bag, logits, m, s) by the route of ``feats``'s device. The plain
     route computes in the weights' dtype."""
     if feats.device.type == "cuda":
-        return _launch_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw)
+        return _launch_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw,
+                              workspace)
     if feats.device.type == "cpu":
         bag, logits = _reference_batched(feats.to(w1.dtype), mask, w1, b1, v,
                                          bv, u, bu, w, bw)
@@ -184,6 +235,8 @@ def fused_gated_attn_pool_batched(
     w: torch.Tensor,          # [A, K]
     bw: torch.Tensor,         # [K]
     return_stats: bool = False,
+    *,
+    _workspace: dict = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Batched fused pooling. Returns (bag_feats [B, K, L],
     attn_logits [B, K, N]); with ``return_stats`` also the softmax's max
@@ -193,6 +246,9 @@ def fused_gated_attn_pool_batched(
     add one to ``fused_gated_attn_pool_batched.launches``) or raise. N needs
     no padding to any multiple: rows past N are masked in the kernel. This
     bare forward has no backward: differentiate :func:`gated_attn_pool_grad`.
+    ``_workspace``, for tests and the smoke run, receives views of the
+    kernel's device workspace by name (``"h"``: H [B N, L]); the plain
+    route leaves it empty.
     """
     if (feats.device.type == "cuda" and torch.is_grad_enabled()
             and any(t.requires_grad for t in (feats, w1, b1, v, bv, u, bu,
@@ -201,7 +257,7 @@ def fused_gated_attn_pool_batched(
             "fused_gated_attn_pool_batched has no backward: use "
             "gated_attn_pool_grad, whose backward is kernel B2")
     bag, logits, m, s = _pool_forward(feats, mask, w1, b1, v, bv, u, bu, w,
-                                      bw)
+                                      bw, _workspace)
     if return_stats:
         return bag, logits, m, s
     return bag, logits
@@ -271,16 +327,15 @@ def _check_bwd_args(feats, k, l, lse, c, d_bag, d_logits) -> None:
                              f"{tuple(t.shape)}")
 
 
-# the CUDA kernels one B2 call launches (csrc/attn_pool_bwd.cu): the norms
-# of x's rows and W1's columns, K1 (H and H d_bag^T) and its recompute near
-# 0, K2 the row kernel, K3 the weight gradients, the ordered reduction and,
-# when dx is asked for, K4
-B2_KERNELS = ("b2_norms_kernel", "b2_h_kernel", "b2_hfix_kernel",
-              "b2_row_kernel", "b2_wgrad_kernel", "b2_reduce_kernel",
-              "b2_dx_kernel")
-# K1 and K3's output tiles are 128 x 128, and a K1 tile lists at most 512
-# near-0 pre-activations; K3's row ranges are whole 32-row slices
-_B2_TILE, _B2_NEAR, _B2_SLICE = 128, 512, 32
+# the CUDA kernels one B2 call launches: the H stage (B1's; K1 with its
+# panels' parts of H d_bag^T), then csrc/attn_pool_bwd.cu's K2 the row
+# kernel, K3 the weight gradients, the ordered reduction and, when dx is
+# asked for, K4
+B2_KERNELS = H_STAGE_KERNELS + ("b2_row_kernel", "b2_wgrad_kernel",
+                                "b2_reduce_kernel", "b2_dx_kernel")
+# K3's output tiles are the H stage's, and its row ranges are whole 32-row
+# slices
+_B2_TILE, _B2_SLICE = _H_TILE, 32
 
 
 @functools.cache
@@ -329,7 +384,7 @@ def _wgrad_splits(m, df, l, sms):
 
 
 def _launch_bwd_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, c,
-                       d_bag, d_logits, need_dx):
+                       d_bag, d_logits, need_dx, workspace=None):
     _check_kernel_args(feats, mask, w1, b1, v, bv, u, bu, w, bw)
     b, n, df = feats.shape
     l, k = w1.shape[1], w.shape[1]
@@ -360,11 +415,9 @@ def _launch_bwd_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, c,
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         splits, rows = _wgrad_splits(b * n, df, l, sms)
         f32 = dict(device=dev, dtype=torch.float32)
-        norms = torch.empty(b * n + l, **f32)
-        h = torch.empty(b * n, l, **f32)
-        tiles = -(-(b * n) // _B2_TILE) * (l // _B2_TILE)
-        near = torch.empty(tiles, _B2_NEAR, 2, device=dev, dtype=torch.int32)
-        near_counts = torch.empty(tiles, device=dev, dtype=torch.int32)
+        norms, h, near, near_counts = (
+            torch.empty(shape, device=dev, dtype=dtype)
+            for _, dtype, shape in _h_stage_buffers(b * n, l))
         dp_part = torch.empty(l // _B2_TILE, b * n, k, **f32)
         r = torch.empty(b * n, l, **f32)
         d_a = torch.empty(b * n, 2 * a + kp, **f32)
@@ -385,6 +438,8 @@ def _launch_bwd_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, c,
     if err != 0:
         raise RuntimeError(f"kernel B2 launch failed: cudaError_t {err}")
     fused_gated_attn_pool_bwd.launches += 1
+    if workspace is not None:
+        workspace["h"] = h
     parts = torch.split(grads, [math.prod(s) for _, s in layout])
     g = {name: p.view(s) for (name, s), p in zip(layout, parts)}
     return (dx, *(g[name] for name in ("dW1", "db1", "dV", "dbv", "dU", "dbu",
@@ -392,7 +447,8 @@ def _launch_bwd_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, c,
 
 
 def fused_gated_attn_pool_bwd(feats, mask, w1, b1, v, bv, u, bu, w, bw,
-                              lse, c, d_bag, d_logits, need_dx: bool = True):
+                              lse, c, d_bag, d_logits, need_dx: bool = True,
+                              *, _workspace: dict = None):
     """The pooling's backward given the softmax couplings ``lse`` and ``c``
     ``[B, K]`` (see :func:`_fused_pool_bwd_stats`). Returns (d_feats in
     feats' dtype or None, dW1, db1, dV, dbv, dU, dbu, dw, dbw); the weight
@@ -400,10 +456,13 @@ def fused_gated_attn_pool_bwd(feats, mask, w1, b1, v, bv, u, bu, w, bw,
 
     CPU tensors take the plain closed form; CUDA tensors launch kernel B2
     (and add one to ``fused_gated_attn_pool_bwd.launches``) or raise.
+    ``_workspace``, for tests and the smoke run, receives B2's H [B N, L]
+    as ``"h"``; the plain route leaves it empty.
     """
     if feats.device.type == "cuda":
         return _launch_bwd_kernel(feats, mask, w1, b1, v, bv, u, bu, w, bw,
-                                  lse, c, d_bag, d_logits, need_dx)
+                                  lse, c, d_bag, d_logits, need_dx,
+                                  _workspace)
     if feats.device.type == "cpu":
         return _fused_pool_bwd_stats(feats, mask, w1, b1, v, bv, u, bu, w, bw,
                                      lse, c, d_bag, d_logits, need_dx)

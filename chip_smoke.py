@@ -21,16 +21,21 @@ code is non-zero:
    width (Df=384, L=A=128), K in {5, 1}, N in {300, 16384, 65536}, B=1 and
    B=3 with one all-masked bag, fp16 and f32 features, and at every other
    pretrain width (Df, L) in ``WIDE_DIMS`` (L = 256 to 768) with K in {5,
-   128}; then timed with CUDA events at N=16384 and 65536 (and its device
-   time at N=65536 at every L).
+   128}; two launches must agree bit for bit. Then at every width the
+   near-0 stress bag (``_stress_bag``: rows whose pre-activations all lie
+   within rounding of 0), where B1's H must also equal B2's H bit for bit
+   (both read through the wrappers' ``_workspace``). Then timed with CUDA
+   events at N=16384 and 65536, its device time (every CUDA kernel of
+   ``ops/attn_pool.py::B1_KERNELS``) at N=65536 at every L, printed split
+   by kernel at L=128 and L=768.
 4. kernel B2 against its plain closed form and against torch autograd
    through the plain forward, at the same shapes (at the wider L: K=5 at
    N=300 and 65536, K=128 at N=4099), with dx off and on and cotangents
    that are nonzero at pad slots too; two launches must agree bit for bit.
    Then B2 and the plain backward timed at N=16384 and 65536 (and at
    N=65536 at every L); B2's device time sums every CUDA kernel it runs
-   (``ops/attn_pool.py::B2_KERNELS``), and is printed split by kernel at
-   L=128 and L=768.
+   (``ops/attn_pool.py::B2_KERNELS``; its first three, the H stage, are
+   B1's), and is printed split by kernel at L=128 and L=768.
 5. serving: an ACMIL_GA head at the camelyon_medical_ssl widths
    (n_token=5, weights from a seeded ``torch.Generator``) scores 16
    synthetic slides of 1k-50k patches through ``cli/predict.py``'s ``main``
@@ -111,7 +116,8 @@ the plain version, its time (``ms``: CUDA
 events around one call of the wrapper; ``device_ms``: the kernels' own
 device time from ``torch.profiler``), the plain version's, a library call's
 where one exists, and the bound (the larger of FLOPs / 989 TFLOP/s and
-bytes / 3.35 TB/s); B1 and B2 also at the wider L (``wider_l``), B6 also at
+bytes / 3.35 TB/s); B1 and B2 also at the wider L (``wider_l``) and B1
+split by kernel (``by_kernel``), B6 also at
 C=128 (``c128``), B3 and B4 also their GEMMs' device time and rate; then the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -161,7 +167,6 @@ STEP_LOSS_RTOL, STEP_GRAD_REL, STEP_GRAD_ATOL = 1e-5, 1e-3, 1e-7
 # losses over five AdamW steps: Adam divides by sqrt(v), which magnifies
 # rounding in tiny gradient components, so the paths drift apart slowly
 ADAM_LOSS_RTOL = 1e-3
-F32_PEAK_TFLOPS = 67.0     # H100 SXM, CUDA cores, published
 TRAIN_EPOCHS, N_TRAIN, N_VAL, N_TEST = 2, 16, 4, 4
 # the natural_supervised phases: slides scored; (train, val, test) slides of
 # one training epoch
@@ -331,18 +336,23 @@ def _device_ms(fn, kernels, reps=20):
     return ms, sum(per_call.values())
 
 
-def _b2_split_ms(ap, fn, reps=10) -> dict:
-    """Device ms per call of ``fn`` in each CUDA kernel of B2
-    (``ap.B2_KERNELS``), from one ``torch.profiler`` window with the L2
-    flushed before each call, as in ``_device_ms``."""
+def _split_ms(kernels, fn, reps=10) -> dict:
+    """Device ms per call of ``fn`` in each CUDA kernel named in
+    ``kernels`` (``ap.B1_KERNELS``, ``ap.B2_KERNELS``), from one
+    ``torch.profiler`` window with the L2 flushed before each call, as in
+    ``_device_ms``."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     prof, _ = _profiled(fn, reps, before=flush.zero_)
     per = {}
     for name, us in _device_events(prof):
-        for k in ap.B2_KERNELS:
+        for k in kernels:
             if k in name:
                 per[k] = per.get(k, 0.0) + us / reps / 1e3
     return per
+
+
+def _fmt_split(per: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in per.items())
 
 
 def _fmt_ms(ms) -> str:
@@ -422,9 +432,20 @@ def _b1_check(ap, gen, ws, k, n, b, dtype, df=D_FEAT, l=D_INNER) -> float:
     m = torch.rand(b, n, generator=gen, device="cuda") < 0.9
     if b == 3:
         m[1] = False                  # an all-masked bag
-    bag, lg, mx, s = ap.fused_gated_attn_pool_batched(x, m, *ws,
-                                                      return_stats=True)
+    return _b1_against_plain(ap, x, m, ws, f"Df={df} L={l} K={k} N={n} B={b} "
+                                           f"{str(dtype)[6:]}")
+
+
+def _b1_against_plain(ap, x, m, ws, label, workspace=None) -> float:
+    """B1 twice on (x, m) against its plain version; the two launches must
+    agree bit for bit. The worst abs error of (bag, logits, m)."""
+    got = ap.fused_gated_attn_pool_batched(x, m, *ws, return_stats=True,
+                                           _workspace=workspace)
+    again = ap.fused_gated_attn_pool_batched(x, m, *ws, return_stats=True)
     torch.cuda.synchronize()
+    if not all(torch.equal(g, g2) for g, g2 in zip(got, again)):
+        raise AssertionError(f"B1 differs between two launches ({label})")
+    bag, lg, mx, s = got
     rbag, rlg = ap._reference_batched(x.float(), m, *ws)
     rmx, rs = ap._softmax_stats(rlg, m)
     valid = m[:, None, :].expand_as(lg)
@@ -433,15 +454,59 @@ def _b1_check(ap, gen, ws, k, n, b, dtype, df=D_FEAT, l=D_INNER) -> float:
     torch.testing.assert_close(s, rs, atol=0, rtol=RTOL)
     if not bool((lg[~valid] == ap.NEG).all()):
         raise AssertionError("pad logits are not NEG")
-    if bool(bag.isnan().any()) or (b == 3 and bool(bag[1].any())):
-        raise AssertionError("all-masked bag is not 0")
+    dead = ~m.any(dim=1)
+    if bool(bag.isnan().any()) or bool(bag[dead].any()) \
+            or bool(s[dead].any()) or not bool((mx[dead] == ap.NEG).all()):
+        raise AssertionError("all-masked bag is not bag 0, s 0, m -1e30")
     err = max(float((bag - rbag).abs().max()),
               float((lg[valid] - rlg[valid]).abs().max()),
               float((mx - rmx).abs().max()))
     s_rel = float(((s - rs).abs() / rs.abs().clamp_min(1e-30)).max())
-    print(f"kernel B1 vs plain: Df={df} L={l} K={k} N={n} B={b} "
-          f"{str(dtype)[6:]}: max_abs_err {err:.3e} (bag, logits, m), s rel "
-          f"err {s_rel:.3e}")
+    print(f"kernel B1 vs plain: {label}: max_abs_err {err:.3e} (bag, "
+          f"logits, m), s rel err {s_rel:.3e}, two launches identical")
+    return err
+
+
+def _stress_bag(gen, ws, df, dtype):
+    """Three bags of 4099 rows (one all masked) whose near-0 pre-activations
+    crowd the H stage's recompute: rows 1-5, 200 and 4098 of bag 0 and row 7
+    of bag 2 copy row 0 of bag 0, and b1 = -(x_0 W1), formed on the card,
+    puts every pre-activation of those rows within rounding of 0 (six rows
+    of one 128-row tile list 768 elements, past a tile's list of 512). (x,
+    mask, weights with that b1)."""
+    n = 4099
+    x = torch.randn(3, n, df, generator=gen, device="cuda").to(dtype)
+    m = torch.rand(3, n, generator=gen, device="cuda") < 0.9
+    m[1] = False
+    row = x[0, 0].clone()
+    x[0, [1, 2, 3, 4, 5, 200, n - 1]] = row
+    x[2, 7] = row
+    m[0, :6] = True
+    return x, m, [ws[0], -(row.float() @ ws[0]), *ws[2:]]
+
+
+def _b1_stress_check(ap, gen, df, l, dtype) -> float:
+    """B1 on the stress bag against its plain version, and its H against
+    B2's H on the same inputs, bit for bit."""
+    x, m, ws = _stress_bag(gen, _weights(gen, N_TOKEN, df, l), df, dtype)
+    fwd, bwd = {}, {}
+    err = _b1_against_plain(ap, x, m, ws, f"stress bag Df={df} L={l} "
+                            f"K={N_TOKEN} N={x.shape[1]} B=3 "
+                            f"{str(dtype)[6:]}", fwd)
+    listed = int(fwd["near_counts"].sum())
+    # per 128 columns: rows 0-5 list 512 of their 768, the other three 384
+    if listed < 6 * l:
+        raise AssertionError(f"the stress bag listed only {listed} near-0 "
+                             f"elements")
+    lse, c, d_bag, d_logits = _bwd_inputs(ap, gen, ws, x, m, N_TOKEN)
+    ap.fused_gated_attn_pool_bwd(x, m, *ws, lse, c, d_bag, d_logits,
+                                 need_dx=False, _workspace=bwd)
+    torch.cuda.synchronize()
+    if not torch.equal(fwd["h"], bwd["h"]):
+        raise AssertionError(f"B1's H differs from B2's H (Df={df} L={l} "
+                             f"{dtype})")
+    print(f"  B1's H equals B2's H bit for bit; {listed} near-0 elements "
+          f"listed")
     return err
 
 
@@ -465,6 +530,10 @@ def kernel_vs_plain(smi: str) -> dict:
                 for dtype in (torch.float16, torch.float32):
                     worst = max(worst, _b1_check(ap, gen, ws, k, n, b, dtype,
                                                  df, l))
+    # near-0 pre-activations in crowds, at every width
+    for df, l in ((D_FEAT, D_INNER),) + WIDE_DIMS:
+        for dtype in (torch.float16, torch.float32):
+            worst = max(worst, _b1_stress_check(ap, gen, df, l, dtype))
     times = {}
     ws = _weights(gen, N_TOKEN)
     for n in (16384, 65536):
@@ -476,22 +545,21 @@ def kernel_vs_plain(smi: str) -> dict:
                          + D_ATTN * N_TOKEN + N_TOKEN * D_INNER)
         tflops = flops / (t_k * 1e-3) / 1e12
         print(f"kernel B1 time: N={n} B=1 K={N_TOKEN} fp16: kernel {t_k:.4f} ms, "
-              f"plain {t_p:.4f} ms, kernel {tflops:.1f} TFLOP/s "
-              f"({100 * tflops / F32_PEAK_TFLOPS:.0f}% of f32 CUDA-core peak) "
-              f"[{smi}]")
+              f"plain {t_p:.4f} ms, kernel {tflops:.1f} TFLOP/s [{smi}]")
         times[n] = (t_k, t_p)
-    kernels = ("pool_partial_kernel", "pool_merge_kernel")
-    dev, per_call = _device_ms(
-        lambda: ap.fused_gated_attn_pool_batched(x, m, *ws), kernels)
+    call = lambda: ap.fused_gated_attn_pool_batched(x, m, *ws)  # noqa: E731
+    dev, per_call = _device_ms(call, ap.B1_KERNELS)
+    by_kernel = {f"L={D_INNER}": _split_ms(ap.B1_KERNELS, call)}
     print(f"kernel B1 device time: N=65536 B=1 K={N_TOKEN} fp16: "
           f"{_fmt_ms(dev)} in {per_call:g} launches per call [{smi}]")
+    print(f"kernel B1 device time by kernel, ms: L={D_INNER}: "
+          f"{_fmt_split(by_kernel[f'L={D_INNER}'])} [{smi}]")
     wide = {}
     for df, l in WIDE_DIMS:
         ws = _weights(gen, N_TOKEN, df, l)
         x = torch.randn(1, 65536, df, generator=gen, device="cuda").half()
-        r = {"device_ms": _device_ms(
-                 lambda: ap.fused_gated_attn_pool_batched(x, m, *ws),
-                 kernels)[0],
+        call = lambda: ap.fused_gated_attn_pool_batched(x, m, *ws)  # noqa: E731
+        r = {"device_ms": _device_ms(call, ap.B1_KERNELS)[0],
              "plain_ms": _time_ms(
                  lambda: ap._reference_batched(x.float(), m, *ws), 10),
              **_b1_bound(65536, N_TOKEN, df, l)}
@@ -499,10 +567,14 @@ def kernel_vs_plain(smi: str) -> dict:
               f"K={N_TOKEN} fp16: {_fmt_ms(r['device_ms'])}, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), {_bound_share(r)} [{smi}]")
+        if l == WIDE_DIMS[-1][1]:
+            by_kernel[f"L={l}"] = _split_ms(ap.B1_KERNELS, call)
+            print(f"kernel B1 device time by kernel, ms: L={l}: "
+                  f"{_fmt_split(by_kernel[f'L={l}'])} [{smi}]")
         wide[f"L={l}"] = r
     return {"max_abs_err": worst, "ms": times[65536][0], "device_ms": dev,
             "plain_ms": times[65536][1], **_b1_bound(65536, N_TOKEN),
-            "library_ms": None, "wider_l": wide}
+            "library_ms": None, "wider_l": wide, "by_kernel": by_kernel}
 
 
 GRAD_NAMES = ("dx", "dW1", "db1", "dV", "dbv", "dU", "dbu", "dw", "dbw")
@@ -613,8 +685,7 @@ def bwd_kernel_vs_plain(smi: str) -> dict:
               f"{t_p:.4f} ms [{smi}]")
         times[n] = (t_k, t_p)
     def split(fn):
-        per = _b2_split_ms(ap, fn)
-        return ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+        return _fmt_split(_split_ms(ap.B2_KERNELS, fn))
 
     kernels = ap.B2_KERNELS
     call = lambda: ap.fused_gated_attn_pool_bwd(     # noqa: E731

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Times variants of kernel B5' (``acmil_tpu_torch/csrc/vit_attn.cu``), of
-the GEMM of B3 and B4 (``csrc/vit_gemm.cu``), or of the pooling backward B2
+the GEMM of B3 and B4 (``csrc/vit_gemm.cu``), of the pooling forward B1
+(``csrc/attn_pool.cu``) or of the pooling backward B2
 (``csrc/attn_pool_bwd.cu``), on a card, to show what each design choice of
 the kernel is worth:
 
-    python3 scripts/attn_variants.py [--kernel attn|gemm|b2]
+    python3 scripts/attn_variants.py [--kernel attn|gemm|b1|b2]
 
 Each variant is the source with a few lines replaced, built by ``nvcc``
 with the port's flags into ``csrc/build/variants/``. B5' variants are
@@ -15,7 +16,9 @@ through ``vit_gemm`` at the four GEMMs of B3 at Step2's shape (M = 50432
 tokens), each with its epilogue and dtypes as the chain runs it, beside one
 bf16 ``torch.matmul`` at the same shape; B2 variants through
 ``fused_gated_attn_pool_bwd`` (weight gradients only, fp16 features, N =
-65536, K = 5) at L = 128 and 768, each of its CUDA kernels timed apart.
+65536, K = 5) at L = 128 and 768, each of its CUDA kernels timed apart; B1
+variants likewise through ``fused_gated_attn_pool_batched``, each one's
+outputs compared with the kernel as built.
 Each line gives the CUDA-event
 time of one call and the kernel's device time (``chip_smoke._time_ms`` and
 ``_device_ms``, L2 flushed before each call). Variants run in turns, then
@@ -28,6 +31,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -82,9 +86,15 @@ GEMM_VARIANTS = {
 def build_variants(source: str = "vit_attn.cu", variants=None,
                    entry: str = "b5_mha_packed", argtypes=None) -> dict:
     src = (_build.CSRC / source).read_text()
-    # the shared header inlined, so that a variant may change it too
-    for header in sorted(_build.CSRC.glob("*.cuh")):
-        src = src.replace(f'#include "{header.name}"', header.read_text())
+    # the shared headers inlined, each once where it is first included, so
+    # that a variant may change them too
+    inlined = set()
+    while (inc := re.search(r'#include "(\w+\.cuh)"\n', src)):
+        name = inc.group(1)
+        body = "" if name in inlined else (
+            (_build.CSRC / name).read_text().replace("#pragma once\n", ""))
+        inlined.add(name)
+        src = src[:inc.start()] + body + src[inc.end():]
     out = _build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     variants = VARIANTS if variants is None else variants
@@ -170,6 +180,10 @@ def gemm_main(smi: str) -> None:
     print(f"card: {smi}")
 
 
+# the H stage's near-0 test (csrc/gated_h.cuh); with a tolerance of -1
+# nothing is listed or recomputed
+RECOMPUTE = "const float tol = kMaskTol * xn[r];"
+
 # the row kernel's GEMMs and its p/d_log step, the mask recompute of K1, the
 # per-slice flush of K3
 B2_VARIANTS = {
@@ -182,8 +196,7 @@ B2_VARIANTS = {
                          "kThreads) {", "for (int idx = tid; idx < 0; "
                          "idx += kThreads) {")]),
     "K1 recompute off": ("K1 listing no near-0 pre-activation to recompute",
-                         [("const float tol = kMaskTol * norms[r];",
-                           "const float tol = -1.f;")]),
+                         [(RECOMPUTE, "const float tol = -1.f;")]),
     "cvt.rna split": ("hi and lo rounded by cvt.rna.tf32.f32 instead of "
                       "the integer add and mask (the same bits)",
                       [("return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;",
@@ -221,22 +234,123 @@ def b2_main(smi: str) -> None:
         for name in [*entries, *reversed(entries)]:
             ap._bwd_kernel_entry = lambda fn=entries[name]: (fn, blocks,
                                                              tile_rows)
-            per = cs._b2_split_ms(ap, lambda: ap.fused_gated_attn_pool_bwd(
+            per = cs._split_ms(ap.B2_KERNELS, lambda: ap.fused_gated_attn_pool_bwd(
                 x, m, *ws, lse, c, d_bag, d_logits, need_dx=False))
             print(f"  {name:18s} device {sum(per.values()):.4f} ms: "
                   + ", ".join(f"{k} {v:.4f}" for k, v in per.items()))
     print(f"card: {smi}")
 
 
+# The H stage with the norms folded into its tile kernel: each tile sums
+# |x| over its 128 rows and |W1| over its 128 columns itself, in the norms
+# kernel's orders (the same bits), and the norms kernel is not launched.
+FOLD_NORMS = [("""  const float* xn = norms;
+  const float* wn = norms + m;
+""", """  __shared__ float fold[kBM + kBN];
+  __shared__ float fold_sums[kWarps][kBN];
+  for (int q = threadIdx.x; q < kBM * 8; q += kThreads) {
+    constexpr int kVec = 16 / sizeof(T);
+    const T* xr = x + static_cast<size_t>(min(m0 + q / 8, m - 1)) * df;
+    float s = 0.f;
+    for (int d = (q % 8) * kVec; d < df; d += 8 * kVec) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(xr + d));
+      const T* v = reinterpret_cast<const T*>(&raw);
+      for (int i = 0; i < kVec; ++i) {
+        const float f = tf32x3::widen(v[i]);
+        s = fmaf(f, f, s);
+      }
+    }
+    for (int off = 4; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (q % 8 == 0) fold[q / 8] = sqrtf(s);
+  }
+  for (int q = threadIdx.x; q < kWarps * kBN; q += kThreads) {
+    const int w = q / kBN, c = q % kBN;
+    float s = 0.f;
+    for (int d = w; d < df; d += kWarps) {
+      const float v = w1[static_cast<size_t>(d) * l_dim + n0 + c];
+      s = fmaf(v, v, s);
+    }
+    fold_sums[w][c] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < kBN) {
+    float t = 0.f;
+    for (int i = 0; i < kWarps; ++i) t += fold_sums[i][threadIdx.x];
+    fold[kBM + threadIdx.x] = sqrtf(t);
+  }
+  __syncthreads();
+  const float* xn = fold - m0;
+  const float* wn = fold + kBM - n0;
+"""), ("""  gated_h_norms_kernel<T><<<norm_rows + l_dim / 32, kThreads, 0, stream>>>(
+      x, w1, norms, m, df, l_dim);
+""", "")]
+
+# the H stage's recompute and norms, the row kernel's grid and products
+B1_VARIANTS = {
+    "as built": ("the kernel in the repository", []),
+    "recompute off": ("the H stage listing no near-0 pre-activation to "
+                      "recompute", [(RECOMPUTE, "const float tol = -1.f;")]),
+    "norms folded": ("the norms summed by each H tile from its own rows "
+                     "and columns (the same bits), no norms kernel",
+                     FOLD_NORMS),
+    "persistent grid": ("the row kernel as a persistent grid (the blocks "
+                        "an SM holds at K <= 8, times the SMs), not one "
+                        "block per 64-row tile",
+                        [("  const int blocks = a.batch * ((a.n + kTile - 1) "
+                          "/ kTile);   // one a tile\n",
+                          "  int dev = 0, sms = 0;\n"
+                          "  cudaGetDevice(&dev);\n"
+                          "  cudaDeviceGetAttribute(&sms, "
+                          "cudaDevAttrMultiProcessorCount, dev);\n"
+                          "  const int tiles = a.batch * ((a.n + kTile - 1) "
+                          "/ kTile);\n"
+                          "  const int cap = (a.k_br <= 8 ? 2 : 1) * sms;\n"
+                          "  const int blocks = tiles < cap ? tiles : cap;\n")]),
+    "row products off": ("the row kernel without its two tensor-core "
+                         "products", [("GemmZ::run(", "if (0) GemmZ::run(")]),
+}
+
+
+@torch.no_grad()
+def b1_main(smi: str) -> None:
+    from acmil_tpu_torch.ops import attn_pool as ap
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    entries = build_variants("attn_pool.cu", B1_VARIANTS,
+                             "b1_attn_pool_forward",
+                             [p, i] + [p] * 21 + [i] * 5 + [p])
+    for name, (what, _) in B1_VARIANTS.items():
+        print(f"variant {name!r}: {what}")
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    m = torch.ones(1, 65536, dtype=torch.bool, device="cuda")
+    for df, l in ((cs.D_FEAT, cs.D_INNER), cs.WIDE_DIMS[-1]):
+        ws = cs._weights(gen, cs.N_TOKEN, df, l)
+        x = torch.randn(1, 65536, df, generator=gen, device="cuda").half()
+        print(f"Df={df} L={l} N=65536 K={cs.N_TOKEN} fp16 [{smi}]")
+        built = None
+        for name in [*entries, *reversed(entries)]:
+            ap._kernel_entry = lambda fn=entries[name]: fn
+            call = lambda: ap.fused_gated_attn_pool_batched(  # noqa: E731
+                x, m, *ws, return_stats=True)
+            out = call()
+            built = out if built is None else built
+            diff = max(float((a - b).abs().max()) for a, b in zip(out, built))
+            per = cs._split_ms(ap.B1_KERNELS, call)
+            print(f"  {name:18s} device {sum(per.values()):.4f} ms "
+                  f"(outputs {'identical' if diff == 0 else f'off by {diff:.3e}'}"
+                  f" to as built): " + cs._fmt_split(per))
+    print(f"card: {smi}")
+
+
 @torch.no_grad()
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=("attn", "gemm", "b2"),
+    parser.add_argument("--kernel", choices=("attn", "gemm", "b1", "b2"),
                         default="attn")
     kernel = parser.parse_args().kernel
     smi = cs.card()
-    if kernel in ("gemm", "b2"):
-        (gemm_main if kernel == "gemm" else b2_main)(smi)
+    if kernel != "attn":
+        {"gemm": gemm_main, "b1": b1_main, "b2": b2_main}[kernel](smi)
         return
     entries = build_variants()
     for name, (what, _) in VARIANTS.items():

@@ -530,3 +530,80 @@ def test_b2_row_ranges_meet_in_the_reduce_on_card(cuda_device, monkeypatch,
                                           need_dx=False)
     _check_card_grads(many[1:], want[1:])
     _check_card_grads(one[1:], want[1:])
+
+
+def _plain_with_relu_mask(x, mask, w1, b1, v, bv, u, bu, w, bw, keep):
+    """``port._reference_batched`` with relu's mask given: h = x W1 + b1
+    where ``keep`` [B, N, L], else 0. (bag, logits)"""
+    h = torch.where(keep, x @ w1 + b1, 0.0)
+    logits = (torch.tanh(h @ v + bv) * torch.sigmoid(h @ u + bu)) @ w + bw
+    valid = mask[..., None]
+    logits = torch.where(valid, logits, port.NEG)
+    p = torch.softmax(logits, dim=1) * valid
+    p = p / p.sum(dim=1, keepdim=True).clamp_min(1e-12)
+    return p.transpose(1, 2) @ h, logits.transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feats_dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("df, l", [(384, 128), (1536, 768)])
+def test_step_on_the_stress_bag_on_card(cuda_device, feats_dtype, df, l):
+    # one step through gated_attn_pool_grad, forward B1 and backward B2, on
+    # a batch whose rows 0-5, 200 and n - 1 of bag 0 share one row x_0 and
+    # b1 = -(x_0 W1): all their pre-activations lie within rounding of 0,
+    # where relu's mask is decided by the order of the sum (B1 and B2 share
+    # one, the H stage's; cuBLAS has another). So B1's mask may differ from
+    # the plain forward's only within the recompute tolerance of 0, and the
+    # step's gradients match autograd through the plain forward given B1's
+    # mask, each within BWD_REL of its largest magnitude (an fp16 dx: one
+    # fp16 rounding)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, n = 2, 4099
+    feats, mask, ws, _, _ = _inputs_at(19, df, l, b=b, n=n)
+    feats[0, [1, 2, 3, 4, 5, 200, n - 1]] = feats[0, 0]
+    mask[0, :6] = True
+    x = torch.from_numpy(feats).to(cuda_device, feats_dtype)
+    m = torch.from_numpy(mask).to(cuda_device)
+    w_dev = [torch.from_numpy(w).to(cuda_device) for w in ws]
+    w_dev[1] = -(x[0, 0].float() @ w_dev[0])
+    work = {}
+    with torch.no_grad():
+        port.fused_gated_attn_pool_batched(x, m, *w_dev, _workspace=work)
+        keep = (work["h"] > 0).view(b, n, l)
+        xf = x.float()
+        pre = xf @ w_dev[0] + w_dev[1]
+        tol = 2.0 ** -17 * (xf.norm(dim=2)[..., None]
+                            * w_dev[0].norm(dim=0))
+        flip = keep != (pre > 0)
+        assert bool((pre.abs()[flip] <= tol[flip]).all())
+        assert int((pre[0, :6].abs() <= tol[0, :6]).sum()) == 6 * l
+    leaves = [x.clone().requires_grad_()] + [w.clone().requires_grad_()
+                                             for w in w_dev]
+    ref = [xf.clone().requires_grad_()] + [w.clone().requires_grad_()
+                                           for w in w_dev]
+    before = (port.fused_gated_attn_pool_batched.launches,
+              port.fused_gated_attn_pool_bwd.launches)
+    _loss_torch(*port.gated_attn_pool_grad(leaves[0], m, *leaves[1:])
+                ).backward()
+    _loss_torch(*_plain_with_relu_mask(ref[0], m, *ref[1:], keep)).backward()
+    torch.cuda.synchronize()
+    assert (port.fused_gated_attn_pool_batched.launches,
+            port.fused_gated_attn_pool_bwd.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    for name, got, want in zip(GRAD_NAMES, leaves, ref):
+        g, w_ = got.grad.float(), want.grad
+        tol_ = 1e-3 if got.dtype == torch.float16 else BWD_REL
+        err = float((g - w_).abs().max())
+        assert err <= tol_ * float(w_.abs().max()), (name, err)
+    assert bool((leaves[0].grad[~m] == 0).all())
+
+
+def test_plain_with_relu_mask_is_the_plain_forward_at_its_own_mask():
+    # the stress step's reference: given relu's own mask it is the plain
+    # forward
+    feats, mask, ws, _, _ = _inputs(8)
+    x, m, *w_t = _t(feats, mask, *ws)
+    keep = (x @ w_t[0] + w_t[1]) > 0
+    for got, want in zip(_plain_with_relu_mask(x, m, *w_t, keep),
+                         port._reference_batched(x, m, *w_t)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
