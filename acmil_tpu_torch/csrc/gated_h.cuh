@@ -68,25 +68,8 @@ __device__ __forceinline__ void store2(__half* p, float a, float b) {
   *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
-// The device (and the bytes) a kernel's dynamic shared memory limit was
-// last raised for: one per kernel instantiation, so that the attribute is
-// set once, not at every launch.
-struct SmemLimit {
-  int device = -1;
-  size_t bytes = 0;
-};
-
-template <class K>
-cudaError_t raise_smem(K kernel, size_t bytes, SmemLimit& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev == done.device && bytes <= done.bytes))
-    return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err == cudaSuccess) done = {dev, bytes};
-  return err;
-}
+using tf32x3::raise_smem;
+using tf32x3::SmemLimit;
 
 // ---- |x| per row and |W1| per column -----------------------------------------
 // Blocks from col_blocks on take 32 rows of x, 8 lanes a row (each lane's

@@ -14,11 +14,13 @@
 // of kStages BK-deep slices, so that the fragment loads do not conflict on
 // the banks. Elements past an operand's extent (rows past M, columns past
 // Df, the end of a split range of k) are staged as 0. The kernels of
-// attn_pool_bwd.cu build every product from this one block.
+// attn_pool_bwd.cu build every product from this one block. The header also
+// holds raise_smem, which the launchers of B1, B2 and B6 share.
 
 #pragma once
 
 #include <cuda_fp16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tf32x3 {
@@ -267,5 +269,31 @@ struct BlockGemm {
       }
   }
 };
+
+// Internal linkage, as for the kernels of gated_h.cuh: each library keeps
+// its own copy.
+namespace {
+
+// The device (and the bytes) a kernel's dynamic shared memory limit was
+// last raised for: one per kernel instantiation, so that the attribute is
+// set once, not at every launch.
+struct SmemLimit {
+  int device = -1;
+  size_t bytes = 0;
+};
+
+template <class K>
+cudaError_t raise_smem(K kernel, size_t bytes, SmemLimit& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev == done.device && bytes <= done.bytes))
+    return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done = {dev, bytes};
+  return err;
+}
+
+}  // namespace
 
 }  // namespace tf32x3

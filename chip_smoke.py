@@ -83,10 +83,13 @@ code is non-zero:
 11. kernel B6 (``csrc/dsmil_pool.cu``) against its plain version at (D, Q) of
    camelyon_medical_ssl (384, 128) and UNI (1024, 512), C in {2, 4}, N in
    {300, 16384, 65536}, B=1 and B=3 with one all-masked bag, fp16 and f32
-   features, and C in {9, 128} (class groups of 8 a block) at N=300 (B=3)
-   and 65536; then B6 (C=2 and C=128), the plain pooling and the whole
-   fused and plain DSMIL eval forwards timed with CUDA events, and the N
-   from which the fused forward wins on this card printed beside
+   features (C=4 at D=1024 on the split-TF32 route, the rest on the row
+   kernel), and C in {9, 128} (the split-TF32 route) at N=300 (B=3) and
+   65536; at C=2 and C=128 each launched twice, which must give the same
+   bits. Then B6 (C=2, C=128, and C=2 at UNI's widths), the plain pooling
+   and the whole fused and plain DSMIL eval forwards timed with CUDA events,
+   B6's device time split by kernel (``ops/dsmil_pool.py::B6_KERNELS``), and
+   the N from which the fused forward wins on this card printed beside
    ``FUSE_MIN_N``.
 12. DSMIL scoring, slice 4's main path: a DSMIL head at the
    camelyon_medical_ssl widths (seeded weights, saved through
@@ -117,10 +120,11 @@ events around one call of the wrapper; ``device_ms``: the kernels' own
 device time from ``torch.profiler``), the plain version's, a library call's
 where one exists, and the bound (the larger of FLOPs / 989 TFLOP/s and
 bytes / 3.35 TB/s); B1 and B2 also at the wider L (``wider_l``) and B1
-split by kernel (``by_kernel``), B6 also at
-C=128 (``c128``), B3 and B4 also their GEMMs' device time and rate; then the
-card's name and power limit; the last line is ``{"ok": true, "device":
-{...}}``.
+split by kernel (``by_kernel``), B6 also split by kernel (``by_kernel``),
+with ptxas's registers and spills of each of its kernels (``ptxas``), at
+C=128 (``c128``) and at UNI's widths (``uni``), B3 and B4 also their
+GEMMs' device time and rate; then the card's name and power limit; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -129,6 +133,7 @@ import copy
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import tempfile
@@ -199,7 +204,6 @@ DSMIL_WIDTHS = ((384, 128), (1024, 512))
 DSMIL_ATOL, DSMIL_RTOL = 1e-4, 1e-4
 DSMIL_PROB_ATOL, DSMIL_PROB_RTOL = 2e-5, 2e-4
 DSMIL_SERVE_SLIDES, DSMIL_BIG_SLIDES = 16, 5
-B6_KERNELS = ("fold_queries_kernel", "pool_partial_kernel", "pool_merge_kernel")
 
 
 def card() -> str:
@@ -1547,13 +1551,41 @@ def _dsmil_model(conf):
 
 
 def _b6_bound(n: int, d: int, q: int, c: int, feat_bytes: int) -> dict:
-    """B6 on one bag of n rows, counting the TPU kernel's work (q = x·Wq +
-    bq, the logits and the pooling); reads x, the mask, Wq, bq and q_max
-    once, writes the logits and the bag."""
-    flops = 2 * n * d * q + 2 * n * c * (q + d)
+    """B6 on one bag of n rows, counting the work the function needs: the
+    fold u_c = Wq q_max_c / sqrt(Q), beta_c (2 C Q (D + 1)), then the
+    logits x·u_c + beta_c and the pooling p x (4 N C D). The TPU kernel's
+    q = x·Wq is not counted: the fold gives the same logits without it.
+    Reads x, the mask, Wq, bq and q_max once, writes the logits and the
+    bag."""
+    flops = 2 * c * q * (d + 1) + 4 * n * c * d
     nbytes = (n * d * feat_bytes + n + 4 * (d * q + q + c * q)
               + 4 * (c * n + c * d))
     return _bound(flops, nbytes)
+
+
+def _b6_ptxas() -> dict:
+    """{kernel: [registers, spill store bytes]} of each kernel ptxas built
+    for ``csrc/dsmil_pool.cu`` in this run, its template arguments kept
+    short (``b6_rows_kernel<h,2,2>``: fp16 features, 2 classes, 2 column
+    units a lane)."""
+    from acmil_tpu_torch.ops import _build
+
+    out, kern = {}, None
+    for line in _build.build_info.get("dsmil_pool", {}).get("log", "").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(b6_[a-z]+_kernel)(?:I(6__half|f)((?:Li\d+E)+))?",
+                          line)
+            kern = m and m.group(1)
+            if m and m.group(2):
+                args = ["h" if m.group(2) == "6__half" else "f"]
+                args += re.findall(r"Li(\d+)E", m.group(3))
+                kern += f"<{','.join(args)}>"
+        elif kern and "spill stores" in line:
+            out[kern] = [None, int(re.search(r"(\d+) bytes spill stores",
+                                             line).group(1))]
+        elif kern in out and "registers" in line:
+            out[kern][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
 
 
 def _b6_inputs(gen, b, n, d, q, c, dtype):
@@ -1587,7 +1619,7 @@ def dsmil_kernel_vs_plain(smi: str) -> dict:
     cases = [(d, q, c, n, b, dtype) for d, q in DSMIL_WIDTHS for c in (2, 4)
              for n in (300, 16384, 65536) for b in (1, 3)
              for dtype in (torch.float16, torch.float32)]
-    # 9 to 128 classes: groups of 8 classes a block
+    # 9 to 128 classes: the split-TF32 route
     cases += [(d, q, c, n, b, dtype) for d, q in DSMIL_WIDTHS for c in (9, 128)
               for n, b in ((300, 3), (65536, 1))
               for dtype in (torch.float16, torch.float32)]
@@ -1596,6 +1628,10 @@ def dsmil_kernel_vs_plain(smi: str) -> dict:
         bag, lg = dp.fused_dsmil_pool(x, m, wq, bq, q_max)
         torch.cuda.synchronize()
         checks += 1
+        if c in (2, 128):
+            bag2, lg2 = dp.fused_dsmil_pool(x, m, wq, bq, q_max)
+            if not (torch.equal(bag, bag2) and torch.equal(lg, lg2)):
+                raise AssertionError(f"B6 at C={c}: two launches differ")
         rbag, rlg = dp.dsmil_pool_reference(x.float(), m, wq, bq, q_max)
         valid = m[:, None, :].expand_as(lg)
         torch.testing.assert_close(bag, rbag, atol=DSMIL_ATOL, rtol=DSMIL_RTOL)
@@ -1620,26 +1656,40 @@ def dsmil_kernel_vs_plain(smi: str) -> dict:
         t_p = _time_ms(lambda: dp.dsmil_pool_reference(x.float(), m, wq, bq,
                                                        q_max))
         dev, per_call = _device_ms(
-            lambda: dp.fused_dsmil_pool(x, m, wq, bq, q_max), B6_KERNELS)
+            lambda: dp.fused_dsmil_pool(x, m, wq, bq, q_max), dp.B6_KERNELS)
         times[n] = (t_k, t_p, dev)
         r = {"ms": t_k, "device_ms": dev, **_b6_bound(n, d, q, c, 2)}
         print(f"kernel B6 time: N={n} B=1 D={d} Q={q} C={c} fp16: call "
               f"{t_k:.4f} ms, device {_fmt_ms(dev)} in {per_call:g} launches, "
               f"plain {t_p:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), {_bound_share(r)} [{smi}]")
-    # at the kernel's most classes: 16 groups of 8
-    x, m, wq, bq, q_max = _b6_inputs(gen, 1, 65536, d, q, 128, torch.float16)
-    m[:] = True
-    c128 = {"device_ms": _device_ms(
-                lambda: dp.fused_dsmil_pool(x, m, wq, bq, q_max),
-                B6_KERNELS)[0],
-            "plain_ms": _time_ms(lambda: dp.dsmil_pool_reference(
-                x.float(), m, wq, bq, q_max), 10),
-            **_b6_bound(65536, d, q, 128, 2)}
-    print(f"kernel B6 time: N=65536 B=1 D={d} Q={q} C=128 fp16: device "
-          f"{_fmt_ms(c128['device_ms'])}, plain {c128['plain_ms']:.4f} ms, "
-          f"bound {c128['bound_ms']:.4f} ms ({c128['bound_by']}), "
-          f"{_bound_share(c128)} [{smi}]")
+    call = lambda: dp.fused_dsmil_pool(x, m, wq, bq, q_max)  # noqa: E731
+    by_kernel = {"C=2": _split_ms(dp.B6_KERNELS, call)}
+    # at the kernel's most classes (the split-TF32 route), and at UNI's
+    # widths
+    more = {}
+    for label, dd, qq, cc in (("c128", d, q, 128), ("uni", 1024, 512, 2)):
+        x, m, wq, bq, q_max = _b6_inputs(gen, 1, 65536, dd, qq, cc,
+                                         torch.float16)
+        m[:] = True
+        call = lambda: dp.fused_dsmil_pool(x, m, wq, bq, q_max)  # noqa: E731
+        r = {"ms": _time_ms(call, 10), "device_ms": _device_ms(
+                 call, dp.B6_KERNELS)[0],
+             "plain_ms": _time_ms(lambda: dp.dsmil_pool_reference(
+                 x.float(), m, wq, bq, q_max), 10),
+             **_b6_bound(65536, dd, qq, cc, 2)}
+        by_kernel[f"C={cc}, D={dd}"] = _split_ms(dp.B6_KERNELS, call)
+        more[label] = r
+        print(f"kernel B6 time: N=65536 B=1 D={dd} Q={qq} C={cc} fp16: call "
+              f"{r['ms']:.4f} ms, device {_fmt_ms(r['device_ms'])}, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {_bound_share(r)} [{smi}]")
+    for label, per in by_kernel.items():
+        print(f"kernel B6 device time by kernel, ms: {label}: "
+              f"{_fmt_split(per)} [{smi}]")
+    ptxas = _b6_ptxas()
+    print("kernel B6 ptxas (registers, spill store bytes): " + ", ".join(
+        f"{k} {v[0]}/{v[1]}" for k, v in ptxas.items()))
 
     # the whole eval forward, fused (B6) against plain, per padded length
     conf = Config.from_yaml(YML, {"arch": "dsmil"})
@@ -1671,7 +1721,8 @@ def dsmil_kernel_vs_plain(smi: str) -> dict:
             "plain_ms": times[65536][1],
             **_b6_bound(65536, d, q, c, 2), "library_ms": None,
             "library": "none (q must be formed first: two calls)",
-            "crossover_n": cross, "c128": c128}
+            "crossover_n": cross, "by_kernel": by_kernel, "ptxas": ptxas,
+            **more}
 
 
 def dsmil_serve_run(smi: str) -> dict:
@@ -1682,7 +1733,8 @@ def dsmil_serve_run(smi: str) -> dict:
     from acmil_tpu_torch.data.ptio import write_feature_pt
     from acmil_tpu_torch.engine import checkpoint, make_eval_step
     from acmil_tpu_torch.models import fast
-    from acmil_tpu_torch.ops.dsmil_pool import (dsmil_pool_reference,
+    from acmil_tpu_torch.ops.dsmil_pool import (B6_KERNELS,
+                                                dsmil_pool_reference,
                                                 fused_dsmil_pool)
 
     conf = Config.from_yaml(YML, {"arch": "dsmil"})
@@ -1788,15 +1840,18 @@ def _profile_device_ms(fn, reps: int, wall_ms: float) -> str:
     """Device busy ms per call of ``fn`` and the top kernels by device time,
     from ``torch.profiler``, with the idle share against ``wall_ms`` (the
     call's wall without the profiler, which slows the host); "not measured"
-    when the profiler sees no device time."""
-    prof, prof_wall = _profiled(fn, reps)
-    events = _device_events(prof)
+    when two profiler windows in a row see no device time."""
+    for _ in range(2):   # a window whose trace lost every device event
+        prof, prof_wall = _profiled(fn, reps)
+        events = _device_events(prof)
+        if events:
+            break
     by_name = {}
     for name, us in events:
         by_name[name] = by_name.get(name, 0.0) + us
     total = sum(by_name.values()) / 1e3 / reps
     if total <= 0:
-        return "device time not measured (the profiler saw none)"
+        return "device time not measured (the profiler saw none, twice)"
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:5]
     return (f"{total:.4f} ms of device time per step in {len(events) / reps:g} "
             f"device events, against {wall_ms:.4f} ms of wall unprofiled "

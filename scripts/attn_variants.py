@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Times variants of kernel B5' (``acmil_tpu_torch/csrc/vit_attn.cu``), of
 the GEMM of B3 and B4 (``csrc/vit_gemm.cu``), of the pooling forward B1
-(``csrc/attn_pool.cu``) or of the pooling backward B2
-(``csrc/attn_pool_bwd.cu``), on a card, to show what each design choice of
-the kernel is worth:
+(``csrc/attn_pool.cu``), of the pooling backward B2
+(``csrc/attn_pool_bwd.cu``) or of the DSMIL pooling B6
+(``csrc/dsmil_pool.cu``), on a card, to show what each design choice of the
+kernel is worth:
 
-    python3 scripts/attn_variants.py [--kernel attn|gemm|b1|b2]
+    python3 scripts/attn_variants.py [--kernel attn|gemm|b1|b2|b6]
 
 Each variant is the source with a few lines replaced, built by ``nvcc``
 with the port's flags into ``csrc/build/variants/``. B5' variants are
@@ -18,7 +19,9 @@ bf16 ``torch.matmul`` at the same shape; B2 variants through
 ``fused_gated_attn_pool_bwd`` (weight gradients only, fp16 features, N =
 65536, K = 5) at L = 128 and 768, each of its CUDA kernels timed apart; B1
 variants likewise through ``fused_gated_attn_pool_batched``, each one's
-outputs compared with the kernel as built.
+outputs compared with the kernel as built; B6 variants through
+``fused_dsmil_pool`` at N = 65536, fp16, C = 2 at D = 384 and at UNI's D =
+1024, C = 128 at D = 384, and C = 4 at D = 512, likewise.
 Each line gives the CUDA-event
 time of one call and the kernel's device time (``chip_smoke._time_ms`` and
 ``_device_ms``, L2 flushed before each call). Variants run in turns, then
@@ -342,15 +345,124 @@ def b1_main(smi: str) -> None:
     print(f"card: {smi}")
 
 
+# the rows kernel's work on a slice, skipped
+ROWS_WORK = "    if (warp >= slice) continue;"
+# name -> (what it shows, replacements, blocks the ranges aim at or None)
+B6_VARIANTS = {
+    "as built": ("the kernel in the repository", [], None),
+    "ring of 4": ("the rows kernel's ring of 4 stages, not 3",
+                  [("constexpr int kStages = 3;", "constexpr int kStages = 4;")],
+                  None),
+    "stages of 24 KB": ("ring stages of at most 24 KB, not 32 (8-row slices "
+                        "at D = 1024)", [("constexpr int kStageBytes = 32768;",
+                                          "constexpr int kStageBytes = 24576;")],
+                        None),
+    "half the blocks": ("ranges aimed at half the blocks (132 at C <= 8, one "
+                        "an SM; 66 above)", [], 132),
+    "twice the blocks": ("ranges aimed at twice the blocks (528 at C <= 8, "
+                         "264 above)", [], 528),
+    "copies only": ("the rows kernel's copies and barriers without its "
+                    "dots, softmax and pooling: the floor its memory traffic "
+                    "sets", [(ROWS_WORK, "    continue;")], None),
+    "split-TF32 only": ("the split-TF32 route where the rows kernel fits "
+                        "too", [("  if (rows_fit(a.n_cls, a.d_feat)) {",
+                                 "  if (false) {")], None),
+    "logits products off": ("the split-TF32 logits kernel without its "
+                            "products (u and x still staged)",
+                            [("    Gemm::run(acc, xa, ua, t0, 0, 0, d_feat, smem);",
+                              "    if (t0 < 0) Gemm::run(acc, xa, ua, t0, 0, 0, "
+                              "d_feat, smem);\n    __syncthreads();")], None),
+    "pool products off": ("the split-TF32 pooling kernel without its "
+                          "products (x and the logits still staged, p formed)",
+                          [("        tf32x3::mma(acc[j], ah, bl);\n"
+                            "        tf32x3::mma(acc[j], ah, bh);",
+                            "        if (kk < 0) tf32x3::mma(acc[j], ah, bl);")],
+                          None),
+    "logits copies of 4 B": ("the pooling's logits staged 4 bytes a copy, "
+                             "not 16", [("constexpr bool kLogits16 = true;",
+                                         "constexpr bool kLogits16 = false;")],
+                             None),
+    "G=32": ("class groups of 32 on the split-TF32 route, not 64",
+             [("constexpr int kMaxG = 64;", "constexpr int kMaxG = 32;")],
+             None),
+    "logits tile 64": ("the split-TF32 logits in tiles of 64 rows, not 128 "
+                       "(u staged twice as often)",
+                       [("constexpr int kLTile = 128;",
+                         "constexpr int kLTile = 64;")], None),
+}
+
+
+def _split_clean_ms(kernels, fn, reps=10) -> dict:
+    """``chip_smoke._split_ms`` with the L2 flushed by reading 128 MB
+    instead of writing it: no dirty lines are left for the kernels' first
+    reads to write back to HBM."""
+    flush = torch.zeros(128 << 20, dtype=torch.uint8, device="cuda")
+    prof, _ = cs._profiled(fn, reps, before=flush.max)
+    per = {}
+    for name, us in cs._device_events(prof):
+        for k in kernels:
+            if k in name:
+                per[k] = per.get(k, 0.0) + us / reps / 1e3
+    return per
+
+
+@torch.no_grad()
+def b6_main(smi: str) -> None:
+    from acmil_tpu_torch.ops import dsmil_pool as dp
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    entries = build_variants(
+        "dsmil_pool.cu", {k: v[:2] for k, v in B6_VARIANTS.items()},
+        "b6_dsmil_pool", [p, i] + [p] * 11 + [i] * 7 + [ctypes.c_float, p])
+    for name, (what, *_) in B6_VARIANTS.items():
+        print(f"variant {name!r}: {what}")
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    blocks = dp._B6_BLOCKS
+    # C = 4 at D = 512: the rows kernel's widest D at 4 classes
+    for d, q, c in ((cs.D_FEAT, cs.D_INNER, 2), (1024, 512, 2),
+                    (cs.D_FEAT, cs.D_INNER, 128), (512, 256, 4)):
+        x, m, wq, bq, q_max = cs._b6_inputs(gen, 1, 65536, d, q, c,
+                                            torch.float16)
+        m[:] = True
+        print(f"D={d} Q={q} C={c} N=65536 B=1 fp16 [{smi}]")
+        # a yardstick of one read of the bag: torch's own reduction over x
+        read = lambda: torch.sum(x, dtype=torch.float32)  # noqa: E731
+        print(f"  torch.sum over x (one read of the bag, {x.numel() * 2} "
+              f"bytes): call {cs._time_ms(read):.4f} ms, device "
+              f"{cs._fmt_ms(cs._device_ms(read, ('reduce_kernel',))[0])}")
+        built = None
+        call = lambda: dp.fused_dsmil_pool(x, m, wq, bq, q_max)  # noqa: E731
+        for name in [*entries, *reversed(entries)]:
+            dp._kernel_entry = lambda fn=entries[name]: fn
+            dp._B6_BLOCKS = B6_VARIANTS[name][2] or blocks
+            out = call()
+            built = out if built is None else built
+            diff = max(float((a - b).abs().max()) for a, b in zip(out, built))
+            per = cs._split_ms(dp.B6_KERNELS, call)
+            print(f"  {name:16s} device {sum(per.values()):.4f} ms, call "
+                  f"{cs._time_ms(call):.4f} ms (outputs "
+                  f"{'identical' if diff == 0 else f'off by {diff:.3e}'} to "
+                  f"as built): " + cs._fmt_split(per))
+        dp._kernel_entry = lambda fn=entries["as built"]: fn
+        dp._B6_BLOCKS = blocks
+        for _ in range(2):
+            per = _split_clean_ms(dp.B6_KERNELS, call)
+            print(f"  as built, L2 flushed by a read (no dirty lines): device "
+                  f"{sum(per.values()):.4f} ms: " + cs._fmt_split(per))
+    dp._B6_BLOCKS = blocks
+    print(f"card: {smi}")
+
+
 @torch.no_grad()
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=("attn", "gemm", "b1", "b2"),
+    parser.add_argument("--kernel", choices=("attn", "gemm", "b1", "b2", "b6"),
                         default="attn")
     kernel = parser.parse_args().kernel
     smi = cs.card()
     if kernel != "attn":
-        {"gemm": gemm_main, "b1": b1_main, "b2": b2_main}[kernel](smi)
+        {"gemm": gemm_main, "b1": b1_main, "b2": b2_main,
+         "b6": b6_main}[kernel](smi)
         return
     entries = build_variants()
     for name, (what, _) in VARIANTS.items():

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from acmil_tpu_torch.config import PRETRAIN_DIMS
 from acmil_tpu_torch.ops import dsmil_pool, vit_attn
 
 # B6 vs plain, f32 both with TF32 off: only the order of the sums differs
@@ -111,6 +112,65 @@ def test_b6_matches_plain_on_card(cuda_device, b, n, d, q, c, dtype):
     assert bool((logits[~valid] == dsmil_pool.NEG).all())
     if b > 1:
         assert not bool(bag[1].any())
+
+
+def _b6_check(dev, b, n, d, q, c, dtype, seed=0):
+    """Kernel B6 against its plain version, twice: the same bits each time,
+    NEG at masked rows, an all-masked bag (bag 1 of B > 1) giving 0."""
+    feats, mask, wq, bq, q_max = _b6_inputs(dev, b, n, d, q, c, dtype, seed)
+    before = dsmil_pool.fused_dsmil_pool.launches
+    with torch.no_grad():
+        bag, logits = dsmil_pool.fused_dsmil_pool(feats, mask, wq, bq, q_max)
+        bag2, logits2 = dsmil_pool.fused_dsmil_pool(feats, mask, wq, bq, q_max)
+        torch.cuda.synchronize()
+        rbag, rlogits = dsmil_pool.dsmil_pool_reference(feats.float(), mask,
+                                                        wq, bq, q_max)
+    assert dsmil_pool.fused_dsmil_pool.launches == before + 2
+    assert torch.equal(bag, bag2) and torch.equal(logits, logits2)
+    torch.testing.assert_close(bag, rbag, atol=B6_TOL, rtol=B6_TOL)
+    valid = mask[:, None, :].expand_as(logits)
+    torch.testing.assert_close(logits[valid], rlogits[valid], atol=B6_TOL,
+                               rtol=B6_TOL)
+    assert bool((logits[~valid] == dsmil_pool.NEG).all())
+    assert not bool(bag.isnan().any())
+    if b > 1:
+        assert not bool(bag[1].any())
+
+
+# every (D_feat, D_inner) of config.PRETRAIN_DIMS, as the DSMIL head takes
+# them (D, Q)
+_PRETRAIN_DQ = sorted(set(PRETRAIN_DIMS.values()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("c", [2, 3, 4])
+@pytest.mark.parametrize("d, q", _PRETRAIN_DQ)
+def test_b6_at_every_pretrain_width(cuda_device, d, q, c, dtype):
+    # the row kernel up to D = 512 (and at C = 2 up to 1024), the
+    # split-TF32 route past it
+    _b6_check(cuda_device, 3, 3000, d, q, c, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [2, 9])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 16896, 16897, 16959])
+def test_b6_at_range_edges(cuda_device, n, c):
+    # N = 1 to 65: ranges of one 64-row tile, the last one ragged; 16896 is
+    # 264 tiles (one a range), 16897 and 16959 ranges of two tiles, the last
+    # range one row or one tile less a row long
+    ranges, tiles = dsmil_pool._b6_ranges(1, n)
+    assert n <= 65 or tiles == (1 if n == 16896 else 2)
+    _b6_check(cuda_device, 1, n, 384, 128, c, torch.float16, seed=n)
+    _b6_check(cuda_device, 3, n, 384, 128, c, torch.float32, seed=n + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("c", [9, 32, 33, 64, 65, 128])
+def test_b6_split_tf32_route(cuda_device, c, dtype):
+    # C > 4: the split-TF32 logits and pooling kernels, class groups of 64
+    _b6_check(cuda_device, 3, 4099, 384, 128, c, dtype, seed=c)
 
 
 @pytest.mark.gpu
