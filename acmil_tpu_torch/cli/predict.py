@@ -13,6 +13,8 @@ torch feature file (``data/ptio.py``). On a CUDA device an ACMIL_GA head
 pools each slide through kernel B1, and a DSMIL head (``--arch dsmil``, or
 a checkpoint of one) through kernel B6 when the slide's padded bag reaches
 ``models/fast.py::FUSE_MIN_N`` patches, through its plain forward below.
+ACMIL_MHA (``mha``), MHA (``mha_single``) and ABMIL score through their
+plain forwards on any device, as the JAX package scores them.
 """
 
 from __future__ import annotations

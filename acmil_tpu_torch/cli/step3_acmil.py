@@ -7,8 +7,10 @@ than ``ga`` or ``mha`` becomes ``ga``)::
         --config config/camelyon_medical_ssl_config.yml \\
         --n_token 5 --n_masked_patch 10 --mask_drop 0.6 --device cuda
 
-The ABMIL recipe is ``--n_token 1``. ``--arch mha`` (ACMIL_MHA) is not
-ported yet and raises.
+The ABMIL recipe is ``--n_token 1``. ``--arch ga`` trains ACMIL_GA
+through kernels B1 and B2; ``--arch mha`` trains ACMIL_MHA through its
+plain forward and autograd (its attention is plain products in the JAX
+package too, outside any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -25,8 +27,6 @@ def main(argv=None) -> dict:
     conf = load_conf(args)
     if conf.arch not in ("ga", "mha"):
         conf.arch = "ga"
-    if conf.arch == "mha":
-        raise NotImplementedError("--arch mha (ACMIL_MHA) is not ported yet")
     if args.seed is None:
         conf.seed = 4  # reference default for ACMIL runs (README.md:51-58)
     return run_training(conf)

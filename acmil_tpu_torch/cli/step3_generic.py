@@ -3,7 +3,8 @@
 
 The same flags, YAMLs and arch names; the per-arch loss wiring lives in the
 family registry. Of the JAX trainer's zoo the port registers ``abmil``,
-``ga`` and ``dsmil``; any other arch raises, naming those::
+``ga``, ``mha_single`` (the reference script's ``mha``, MHA) and ``dsmil``;
+any other arch raises, naming those (and ``mha``, ACMIL_MHA)::
 
     python -m acmil_tpu_torch.cli.step3_generic \\
         --config config/camelyon_medical_ssl_config.yml --arch dsmil \\

@@ -8,9 +8,9 @@ are the reference's H5 dump or a torch feature file (``data/ptio.py``):
 ``.pt``.
 
 The JAX trainer's data-parallel mesh (``--mesh_data``, ``mesh_shape``),
-multi-host pods (``--pod``), ``lax.scan`` epochs (``--scan_epoch``) and MHIM
-teacher initialisation (``teacher_init``) are not ported; setting any of
-them raises.
+multi-host pods (``--pod``), ``lax.scan`` epochs (``--scan_epoch``), MHIM
+teacher initialisation (``teacher_init``) and SAM steps (``use_sam``) are not
+ported; setting any of them raises.
 """
 
 from __future__ import annotations
@@ -33,7 +33,8 @@ from acmil_tpu_torch.utils import MetricLogger, MetricsWriter, set_seed
 from acmil_tpu_torch.utils.device import entry_device
 
 # options of the JAX trainer this port does not have
-NOT_PORTED = ("mesh_data", "mesh_shape", "pod", "scan_epoch", "teacher_init")
+NOT_PORTED = ("mesh_data", "mesh_shape", "pod", "scan_epoch", "teacher_init",
+              "use_sam")
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:

@@ -3,8 +3,8 @@
 The reference saves ``checkpoint-{best,last}.pth`` as ``{'model':
 state_dict, 'optimizer': ..., 'epoch': ..., 'config': Struct}``
 (`utils/utils.py:415-422`). The port writes the same dict with the config
-as a plain dict, plus the step count and the val metrics the checkpoint was
-chosen by, and reads both its own files and the reference's with
+as a plain dict, plus the step count, the val metrics the checkpoint was
+chosen by and the state of the generator STKIM draws from, and reads both its own files and the reference's with
 ``torch.load(weights_only=True)``: the reference's pickled
 ``utils.utils.Struct`` config is admitted as a known class and read back as
 a dict. Parameter names are the reference's, so a reference-trained
@@ -43,21 +43,26 @@ def checkpoint_path(ckpt: str, tag: str = "best") -> str:
 
 
 def save(path: str, model, epoch: int = -1, conf=None, optimizer=None,
-         metrics: Optional[Dict[str, float]] = None, step: int = 0) -> None:
+         metrics: Optional[Dict[str, float]] = None, step: int = 0,
+         generator: Optional[torch.Generator] = None) -> None:
     """Write ``model``'s weights, ``optimizer``'s state (empty when None),
-    the epoch, the config, ``metrics`` and the optimizer ``step`` in the
-    reference's format. The file is written whole and then renamed, so a
-    crash leaves the previous checkpoint in place."""
+    the epoch, the config, ``metrics``, the optimizer ``step`` and
+    ``generator``'s state (when given) in the reference's format. The file
+    is written whole and then renamed, so a crash leaves the previous
+    checkpoint in place."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({
+    obj = {
         "model": model.state_dict(),
         "optimizer": optimizer.state_dict() if optimizer is not None else {},
         "epoch": int(epoch),
         "config": conf.to_dict() if conf is not None else {},
         "metrics": {k: float(v) for k, v in (metrics or {}).items()},
         "step": int(step),
-    }, tmp)
+    }
+    if generator is not None:
+        obj["generator"] = generator.get_state()
+    torch.save(obj, tmp)
     os.replace(tmp, path)
 
 
@@ -83,13 +88,17 @@ def adopt_checkpoint_config(conf, saved: Dict[str, Any]) -> None:
 
 def restore(path: str, state) -> Dict[str, Any]:
     """Load a checkpoint into a ``TrainState``: the model's weights, the
-    optimizer's state when the file has one, and the step. Returns the
-    checkpoint dict (epoch, metrics, config)."""
+    optimizer's state when the file has one, the step, and the STKIM
+    generator's state when both have one, so a resumed run draws at step t
+    what an uninterrupted run draws there. Returns the checkpoint dict
+    (epoch, metrics, config)."""
     ckpt = load(path)
     state.model.load_state_dict(ckpt["model"])
     if ckpt.get("optimizer"):
         state.opt.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt.get("step", 0))
+    if state.generator is not None and "generator" in ckpt:
+        state.generator.set_state(ckpt["generator"])
     return ckpt
 
 
@@ -102,7 +111,7 @@ def save_best_and_last(ckpt_dir: str, state, epoch: int, conf,
     from acmil_tpu_torch.engine.train import is_better
 
     kw = dict(epoch=epoch, conf=conf, optimizer=state.opt,
-              metrics=val_metrics, step=state.step)
+              metrics=val_metrics, step=state.step, generator=state.generator)
     if is_better(val_metrics, best,
                  str(getattr(conf, "selection_f1", "macro"))):
         best = dict(val_metrics)

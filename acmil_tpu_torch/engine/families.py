@@ -14,7 +14,7 @@ import torch
 from acmil_tpu_torch.data.bags import Bag
 from acmil_tpu_torch.engine import losses as L
 from acmil_tpu_torch.models import fast
-from acmil_tpu_torch.models.acmil import ACMIL_GA
+from acmil_tpu_torch.models.acmil import ACMIL_GA, ACMIL_MHA
 from acmil_tpu_torch.models.fast import acmil_ga_apply_batched
 from acmil_tpu_torch.ops.masked import masked_max
 
@@ -62,8 +62,10 @@ class ACMILFamily(Family):
     kernels B1 and B2 (``models/fast.py::acmil_ga_apply_batched``), STKIM
     as an O(K·k) correction on the pooled output; ``fused_train: false`` or
     ``droprate > 0`` keeps the plain forward. Eval of an ACMIL_GA head runs
-    B1 unless ``fused=False``. STKIM's uniforms come from ``stkim_u`` when
-    given, else from ``generator``."""
+    B1 unless ``fused=False``. An ACMIL_MHA head runs its plain forward,
+    as in the JAX package, with STKIM inside each branch's logits and
+    ``[B, H, K, N]`` attention for the diversity loss. STKIM's uniforms
+    come from ``stkim_u`` when given, else from ``generator``."""
 
     name = "acmil"
 
@@ -82,7 +84,7 @@ class ACMILFamily(Family):
                 stkim_generator=generator,
                 n_masked_patch=conf_d["n_masked_patch"],
                 mask_drop=conf_d["mask_drop"])
-        if isinstance(model, ACMIL_GA):
+        if isinstance(model, (ACMIL_GA, ACMIL_MHA)):
             return model(bag.feats, bag.mask, deterministic=False,
                          stkim_u=stkim_u, stkim_generator=generator)
         return super().train_outputs(model, bag, conf_d)

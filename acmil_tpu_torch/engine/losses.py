@@ -28,19 +28,24 @@ def attention_diversity_loss(attn_logits: torch.Tensor,
                              mask: torch.Tensor | None, n_token: int,
                              valid: torch.Tensor | None = None) -> torch.Tensor:
     """Mean pairwise cosine similarity between branch attention maps
-    (`Step3_WSI_classification_ACMIL.py:205-213`). ``attn_logits [B, K, N]``;
-    masked positions get 0 probability."""
+    (`Step3_WSI_classification_ACMIL.py:205-213`). ``attn_logits`` is
+    ``[B, K, N]`` (GA) or ``[B, H, K, N]`` (MHA: a softmax and a similarity
+    per head, then the mean over heads, as the reference's ``.mean()`` over
+    the leading axis); masked positions get 0 probability."""
     if n_token <= 1:
         return torch.zeros((), dtype=attn_logits.dtype,
                            device=attn_logits.device)
-    p = masked_softmax(attn_logits,
-                       None if mask is None else mask[:, None, :])   # [B, K, N]
+    if attn_logits.dim() == 3:
+        attn_logits = attn_logits[:, None]                           # [B, 1, K, N]
+    m = None if mask is None else mask[:, None, None, :]
+    p = masked_softmax(attn_logits, m)                               # [B, H, K, N]
     pn = p / torch.linalg.vector_norm(p, dim=-1, keepdim=True).clamp_min(1e-12)
-    sim = pn @ pn.transpose(1, 2)                                    # [B, K, K]
+    sim = pn @ pn.transpose(-1, -2)                                  # [B, H, K, K]
     iu = torch.triu(torch.ones(n_token, n_token, dtype=torch.bool,
                                device=sim.device), diagonal=1)
     per_bag = torch.where(iu, sim, 0.0).sum(dim=(-1, -2)) / (
-        n_token * (n_token - 1) / 2)                                 # [B]
+        n_token * (n_token - 1) / 2)                                 # [B, H]
+    per_bag = per_bag.mean(dim=1)                                    # [B]
     if valid is None:
         return per_bag.mean()
     w = valid.to(per_bag.dtype)

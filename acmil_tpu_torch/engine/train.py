@@ -98,7 +98,8 @@ def make_train_step(model, conf, family="acmil") -> Callable:
     """``step(state, bag, stkim_u=None) -> aux``: one AdamW step on ``bag``,
     ``state`` updated in place. ``aux`` holds the loss, its parts and the
     pre-clip gradient norm as device tensors. STKIM's uniforms are
-    ``stkim_u [B, K, N]`` when given, else drawn from ``state.generator``.
+    ``stkim_u [B, K, N]`` (ACMIL_MHA: ``[B, H, K, N]``) when given, else
+    drawn from ``state.generator``.
 
     The learning rate of step ``t`` (from 0) is ``schedule(t)``, set just
     before ``opt.step()``, as optax evaluates the schedule at the count

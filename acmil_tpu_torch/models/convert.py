@@ -4,10 +4,12 @@ the port's ``state_dict``.
 
 flax kernels are ``[in, out]``, torch weights ``[out, in]``; ACMIL_GA's
 stacked branch classifiers ``branch_w [K, L, C]`` / ``branch_b [K, C]``
-become ``classifier.{k}.fc.*``; DSMIL's dense ``fcc_w [C, C·D]`` becomes the
-Conv1d weight ``b_classifier.fcc.weight [C, C, D]``. The inverses are
-``scripts/import_torch_checkpoint.py::convert_acmil_ga`` and
-``convert_dsmil``.
+become ``classifier.{k}.fc.*``, and ACMIL_MHA's vmapped branch module
+(a leading K axis on every parameter) becomes ``sub_attention.{k}.*``;
+DSMIL's dense ``fcc_w [C, C·D]`` becomes the Conv1d weight
+``b_classifier.fcc.weight [C, C, D]``. The inverses are
+``scripts/import_torch_checkpoint.py::convert_acmil_ga``,
+``convert_acmil_mha``, ``convert_mha_single`` and ``convert_dsmil``.
 """
 
 from __future__ import annotations
@@ -80,16 +82,67 @@ def _dsmil(params) -> Dict[str, torch.Tensor]:
     return sd
 
 
+_MHA_DENSES = ("q_proj", "k_proj", "v_proj", "out_proj")
+
+
+def _mha_module(sd, prefix, p):
+    """A flax ``MultiHeadAttention`` (``Dense_0..3``, ``LayerNorm_0``)."""
+    for i, name in enumerate(_MHA_DENSES):
+        _linear(sd, f"{prefix}.{name}", p[f"Dense_{i}"])
+    _layernorm(sd, f"{prefix}.layer_norm", p["LayerNorm_0"])
+
+
+def _mha(params, arch: str) -> Dict[str, torch.Tensor]:
+    """ACMIL_MHA (``"mha"``) or MHA (``"mha_single"``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "dimreduction.fc1", params["DimReduction_0"]["Dense_0"])
+    sd["q"] = _t(params["q"])
+    cls = params["Classifier1fc_0"]["Dense_0"]
+    if arch == "mha_single":
+        _mha_module(sd, "attention", params["MultiHeadAttention_0"])
+        _linear(sd, "classifier.fc", cls)
+        return sd
+    vm = _unstack(params["VmapMultiHeadAttention_0"])
+    for k, branch in enumerate(vm):
+        _mha_module(sd, f"sub_attention.{k}", branch)
+    bag = params["BagAttention_0"]
+    _linear(sd, "bag_attention.v_proj", bag["Dense_0"])
+    _linear(sd, "bag_attention.out_proj", bag["Dense_1"])
+    _layernorm(sd, "bag_attention.layer_norm", bag["LayerNorm_0"])
+    for k, (w, b) in enumerate(zip(np.asarray(params["branch_w"]),
+                                   np.asarray(params["branch_b"]))):
+        sd[f"classifier.{k}.fc.weight"] = _t(w.T)
+        sd[f"classifier.{k}.fc.bias"] = _t(b)
+    _linear(sd, "Slide_classifier.fc", cls)
+    return sd
+
+
+def _unstack(tree) -> list:
+    """A nested dict of arrays with a leading K axis → K dicts, one per
+    index of that axis."""
+    def leaves(t, k):
+        return {n: leaves(v, k) if isinstance(v, dict) else np.asarray(v)[k]
+                for n, v in t.items()}
+
+    first = tree
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    return [leaves(tree, k) for k in range(np.asarray(first).shape[0])]
+
+
 def from_jax_params(params, arch: str) -> Dict[str, torch.Tensor]:
-    """``arch`` is ``"ga"`` (ACMIL_GA), ``"abmil"``, ``"dsmil"`` or ``"vit"``
-    (a patch encoder of ``acmil_tpu.models.encoders.vit``)."""
+    """``arch`` is ``"ga"`` (ACMIL_GA), ``"mha"`` (ACMIL_MHA), ``"abmil"``,
+    ``"mha_single"`` (MHA), ``"dsmil"`` or ``"vit"`` (a patch encoder of
+    ``acmil_tpu.models.encoders.vit``)."""
     if arch == "vit":
         return _vit(params)
     if arch == "dsmil":
         return _dsmil(params)
+    if arch in ("mha", "mha_single"):
+        return _mha(params, arch)
     if arch not in ("ga", "abmil"):
-        raise ValueError(f"no converter for arch {arch!r} (have 'ga', "
-                         f"'abmil', 'dsmil', 'vit')")
+        raise ValueError(f"no converter for arch {arch!r} (have 'ga', 'mha', "
+                         f"'abmil', 'mha_single', 'dsmil', 'vit')")
     sd: Dict[str, torch.Tensor] = {}
     _linear(sd, "dimreduction.fc1", params["DimReduction_0"]["Dense_0"])
     ag = params["AttentionGated_0"]

@@ -1,17 +1,24 @@
-"""Slide abstraction and open factory, the port of the image part of
-``acmil_tpu/wsi/slide.py``.
+"""Slide abstraction and open factory with an LRU handle cache, the port of
+the image part of ``acmil_tpu/wsi/slide.py``.
 
 :class:`ImageSlide` is an in-memory pyramid over one RGB array, with the
 openslide vocabulary every reference call site uses (``level_count``,
 ``level_dimensions``, ``level_downsamples``, ``best_level_for_downsample``,
 ``read_region``). :func:`open_slide` opens PNG/JPEG/BMP files (``cv2``,
-imported only there). Pyramid containers (SPY, OpenSlide, KFB) need the
-native reader, which waits for the Step1 slice (ROADMAP.md, Queue A).
+imported only there) and keeps the last 16 open (``_LRUSlideCache``, the
+reference's `wsi_core/LRUCacheDict.py:3`). Pyramid containers (SPY,
+OpenSlide, KFB) need the JAX package's native reader
+(``acmil_tpu/csrc/slideio.cpp``), which links libjpeg and libpng: the H100
+machine the port runs on has neither library's headers, so the port does
+not carry it yet and such files raise (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
 
 import os
+import sys
+import threading
+from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -86,17 +93,69 @@ SLIDE_EXTS = (".spy", ".svs", ".tif", ".tiff", ".ndpi", ".mrxs", ".kfb",
               ".png", ".jpg", ".jpeg")
 
 
-def open_slide(path: str) -> Slide:
-    """An :class:`ImageSlide` for an image file; other containers raise
-    NotImplementedError."""
-    ext = os.path.splitext(path)[1].lower()
-    if ext in IMAGE_EXTS:
-        import cv2
+class _LRUSlideCache:
+    """Thread-safe LRU of open slide handles (reference
+    `wsi_core/LRUCacheDict.py:3` + lock at `wsi_core/__init__.py:7-8`)."""
 
-        img = cv2.imread(path, cv2.IMREAD_COLOR)
-        if img is None:
-            raise FileNotFoundError(f"cannot read image {path}")
-        return ImageSlide(cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
-    raise NotImplementedError(
-        f"{ext} slides need the native pyramid reader, which acmil_tpu_torch "
-        "has not ported yet (ROADMAP.md, Queue A: the Step1 slice)")
+    def __init__(self, max_open: int = 16):
+        self.max_open = max_open
+        self._cache: "OrderedDict[str, Slide]" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, path: str):
+        with self._lock:
+            if path in self._cache:
+                self._cache.move_to_end(path)
+                return self._cache[path]
+            return None
+
+    def put(self, path: str, slide: Slide):
+        with self._lock:
+            self._cache[path] = slide
+            self._cache.move_to_end(path)
+            while len(self._cache) > self.max_open:
+                _, evicted = self._cache.popitem(last=False)
+                # close eagerly only when the cache held the only reference
+                # (the local binding + getrefcount's argument); a slide a
+                # caller still holds stays usable
+                if sys.getrefcount(evicted) <= 2:
+                    evicted.close()
+
+    def clear(self):
+        with self._lock:
+            for s in self._cache.values():
+                s.close()
+            self._cache.clear()
+
+
+_CACHE = _LRUSlideCache()
+
+
+def clear_slide_cache() -> None:
+    _CACHE.clear()
+
+
+def open_slide(path: str, cache: bool = True) -> Slide:
+    """An :class:`ImageSlide` for an image file, from the handle cache when
+    ``cache`` and it was opened before; other containers raise
+    NotImplementedError."""
+    path = os.path.abspath(path)
+    if cache:
+        hit = _CACHE.get(path)
+        if hit is not None:
+            return hit
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in IMAGE_EXTS:
+        raise NotImplementedError(
+            f"{ext} slides need the native pyramid reader, which "
+            "acmil_tpu_torch does not carry: it links libjpeg and libpng, "
+            "whose headers the H100 machine lacks (ROADMAP.md, Queue A)")
+    import cv2
+
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    if img is None:
+        raise FileNotFoundError(f"cannot read image {path}")
+    slide = ImageSlide(cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
+    if cache:
+        _CACHE.put(path, slide)
+    return slide

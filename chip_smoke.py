@@ -109,6 +109,28 @@ code is non-zero:
    kernel's edges (``EDGE_N`` x every head width); its backward on the
    card against autograd through the plain version; then B7, the plain
    version and ``F.scaled_dot_product_attention`` timed at ViT-S/16, B=256.
+15. the pipeline in the port alone, Step1 -> Step4: six synthetic
+   5120x3840 slides (PNG: the native pyramid reader needs libjpeg/libpng
+   headers this machine lacks) written by spawned workers;
+   ``cli/step1_patches.py`` segments and tiles them into 256-px patches
+   (coords as torch files), printing each slide's seg, patch and stitch
+   seconds; coords must be non-empty and inside each slide.
+   ``cli/step2_extract.py`` extracts ViT-S/16 features on those coords (full
+   width, depth 12, batch 256; B3 12 times a batch, B5' once per B3;
+   features fp16 and finite), with each slide's open time;
+   ``cli/step3_acmil.py`` trains ACMIL_GA 2 epochs on a 4/1/1 split (B1 and
+   B2 counted, losses finite); ``cli/predict.py`` scores the six (B1 once a
+   slide, rows sum to 1); ``cli/step4_heatmap.py`` renders the test slide
+   through B1 (one launch; a PNG of its rendered level's shape, not blank),
+   and B1's attention must match the plain forward's within
+   ``STEP4_ATOL`` at valid slots.
+16. ACMIL_MHA and MHA: ``cli/step3_acmil.py --arch mha`` (8 heads, n_token
+   5, STKIM on) trains 2 epochs on 24 synthetic slides of 1k-65k patches;
+   ``cli/predict.py`` scores them on the card and on the CPU, which must
+   agree within ``MHA_CPU_ATOL``; ``cli/step4_heatmap.py`` renders two of
+   phase 15's slides with it; ``cli/step3_generic.py --arch mha`` trains
+   MHA (``mha_single``) one epoch; then a training step and a slide's eval
+   at 50000 patches timed, with their device time.
 
 The line before the last but one is ``{"kernels": [...]}`` with each
 kernel's launches on its path (B7's are counted over phases 3-13, where no
@@ -123,8 +145,10 @@ bytes / 3.35 TB/s); B1 and B2 also at the wider L (``wider_l``) and B1
 split by kernel (``by_kernel``), B6 also split by kernel (``by_kernel``),
 with ptxas's registers and spills of each of its kernels (``ptxas``), at
 C=128 (``c128``) and at UNI's widths (``uni``), B3 and B4 also their
-GEMMs' device time and rate; then the card's name and power limit; the
-last line is ``{"ok": true, "device": {...}}``.
+GEMMs' device time and rate; B1, B2, B3 and B5' also their launches in
+phase 15 (``launches_pipeline_step2``, ``_step3``, ``_predict``,
+``_step4``); then the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -204,6 +228,17 @@ DSMIL_WIDTHS = ((384, 128), (1024, 512))
 DSMIL_ATOL, DSMIL_RTOL = 1e-4, 1e-4
 DSMIL_PROB_ATOL, DSMIL_PROB_RTOL = 2e-5, 2e-4
 DSMIL_SERVE_SLIDES, DSMIL_BIG_SLIDES = 16, 5
+# the pipeline phase: six synthetic PNG slides tiled by Step1 into 256-px
+# patches (~120 each at a_t = a_h = 1), a 4/1/1 split; the card's machine
+# lacks the libjpeg/libpng headers the native pyramid reader needs
+PIPE_SLIDE_WH, PIPE_SLIDES, PIPE_PATCH = (5120, 3840), 6, 256
+PIPE_SPLIT = (4, 1, 1)
+# Step4's attention through B1 against the plain forward, probabilities at
+# valid slots, f32 with TF32 off
+STEP4_ATOL = 1e-5
+# ACMIL_MHA on the card against the same checkpoint scored on the CPU
+MHA_CPU_ATOL = 1e-4
+MHA_HEADS = 8
 
 
 def card() -> str:
@@ -1421,7 +1456,8 @@ def step2_run(smi: str) -> dict:
         name0 = sorted(feats)[0]
         coords0, _, _ = load_coords_pt(os.path.join(coords_dir, f"{name0}.pt"))
         t0 = time.perf_counter()
-        slide0 = open_slide(os.path.join(slide_dir, f"{name0}.png"))
+        slide0 = open_slide(os.path.join(slide_dir, f"{name0}.png"),
+                            cache=False)        # a decode, not a cache hit
         open_ms = (time.perf_counter() - t0) * 1e3
         src0 = SlidePatchBatches(slide0, coords0, PATCH_PX, 0,
                                  target_size=spec.img_size,
@@ -1922,6 +1958,393 @@ def dsmil_train_run(smi: str) -> int:
     return launches
 
 
+def _write_pipeline_slide(path: str, seed: int, tumor: bool) -> None:
+    """One synthetic slide as a PNG (run in a worker process)."""
+    import cv2
+
+    from acmil_tpu_torch.wsi.synthetic import make_synthetic_slide_image
+
+    img, _ = make_synthetic_slide_image(*PIPE_SLIDE_WH, seed=seed,
+                                        tumor=tumor)
+    cv2.imwrite(path, cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+
+
+def _write_split(split_dir: str, train, val, test) -> None:
+    os.makedirs(os.path.join(split_dir, "camelyon"), exist_ok=True)
+    with open(os.path.join(split_dir, "camelyon", "split_4.json"), "w") as f:
+        json.dump({"train_names": list(train), "val_names": list(val),
+                   "test_names": list(test)}, f)
+
+
+def _yml_with(tmp: str, name: str, **keys) -> str:
+    """A copy of the camelyon_medical_ssl YAML with ``keys`` appended."""
+    path = os.path.join(tmp, name)
+    with open(YML) as src, open(path, "w") as dst:
+        dst.write(src.read() + "".join(f"\n{k}: {v}" for k, v in keys.items())
+                  + "\n")
+    return path
+
+
+def _epoch_losses(log_dir: str) -> list:
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        return [r["train/loss"] for r in map(json.loads, f)
+                if "_config" not in r]
+
+
+def pipeline_run(smi: str, tmp: str) -> dict:
+    """Step1 -> Step2 -> Step3 -> predict -> Step4 through the port's CLIs
+    alone, on six synthetic slides."""
+    import concurrent.futures
+    import multiprocessing
+    import warnings
+
+    import cv2
+
+    from acmil_tpu_torch.cli import (predict, step1_patches, step2_extract,
+                                     step3_acmil, step4_heatmap)
+    from acmil_tpu_torch.config import Config
+    from acmil_tpu_torch.data.bags import pad_bag
+    from acmil_tpu_torch.data.ptio import open_feature_source
+    from acmil_tpu_torch.engine import checkpoint
+    from acmil_tpu_torch.models import build_mil_model
+    from acmil_tpu_torch.models.encoders.build import (build_encoder,
+                                                       encoder_feature_fn)
+    from acmil_tpu_torch.ops import attn_pool as ap
+    from acmil_tpu_torch.ops import vit_attn_packed, vit_layer
+    from acmil_tpu_torch.wsi.heatmap import render_level
+    from acmil_tpu_torch.wsi.slide import clear_slide_cache, open_slide
+    from acmil_tpu_torch.wsi.tiling import load_coords_pt
+
+    t_phase = time.perf_counter()
+    names = [f"slide_{i}" for i in range(PIPE_SLIDES)]
+    slide_dir = os.path.join(tmp, "slides")
+    os.makedirs(slide_dir)
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(PIPE_SLIDES, os.cpu_count() or 1),
+            mp_context=ctx) as pool:
+        futures = [pool.submit(_write_pipeline_slide,
+                               os.path.join(slide_dir, f"{n}.png"), SEED + i,
+                               bool(i % 2)) for i, n in enumerate(names)]
+        for fut in futures:
+            fut.result()
+    print(f"pipeline inputs: {PIPE_SLIDES} synthetic {PIPE_SLIDE_WH[0]}x"
+          f"{PIPE_SLIDE_WH[1]} PNG slides written in "
+          f"{time.perf_counter() - t0:.2f} s (pyramid containers need the "
+          f"native reader, which the port does not carry: this machine has "
+          f"no libjpeg/libpng headers)")
+
+    # Step1: segmentation, tiling, masks, stitches, coords as torch files
+    save_dir = os.path.join(tmp, "step1")
+    t0 = time.perf_counter()
+    done = step1_patches.main([
+        "--source", slide_dir, "--save_dir", save_dir, "--patch_size",
+        str(PIPE_PATCH), "--step_size", str(PIPE_PATCH), "--a_t", "1",
+        "--a_h", "1", "--coords_format", "pt"])
+    step1_s = time.perf_counter() - t0
+    coords_dir = os.path.join(save_dir, "patches")
+    n_patches = {}
+    for n in names:
+        sid = f"{n}.png"
+        coords, _, attrs = load_coords_pt(os.path.join(coords_dir, f"{n}.pt"))
+        w, h = PIPE_SLIDE_WH
+        if sid not in done or len(coords) == 0 or coords.min() < 0 \
+                or coords[:, 0].max() >= w or coords[:, 1].max() >= h:
+            raise AssertionError(f"{n}: Step1 coords {coords.shape}, "
+                                 f"range {coords.min(0)}-{coords.max(0)}")
+        for sub in ("masks", "stitches"):
+            if not os.path.isfile(os.path.join(save_dir, sub, f"{n}.jpg")):
+                raise AssertionError(f"{n}: no {sub} image")
+        n_patches[n] = len(coords)
+        print(f"  step1 {n}: {len(coords)} patches of {PIPE_PATCH} px; seg "
+              f"{done[sid]['seg_s']:.3f} s, patch {done[sid]['patch_s']:.3f} "
+              f"s, stitch {done[sid]['stitch_s']:.3f} s")
+    total = sum(n_patches.values())
+    print(f"step1: cli/step1_patches.py, {PIPE_SLIDES} slides of "
+          f"{PIPE_SLIDE_WH[0]}x{PIPE_SLIDE_WH[1]}, {total} patches, "
+          f"{step1_s:.2f} s wall (host)")
+
+    # Step2: ViT-S/16 at full width, depth 12, batch 256 (B3, B5')
+    labels = os.path.join(tmp, "labels.csv")
+    with open(labels, "w") as f:
+        f.write("slide_id,label\n" + "".join(f"{n},{i % 2}\n"
+                                             for i, n in enumerate(names)))
+    feat_dir = os.path.join(tmp, "feats")
+    counters = (vit_layer.fused_vit_layer, vit_attn_packed._launch_packed)
+    for c in counters:
+        c.launches = 0
+    # each step runs as its own command in use: no slide handle carries over
+    clear_slide_cache()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")        # no pretrain_weights: seeded
+        t0 = time.perf_counter()
+        res = step2_extract.main([
+            "--slide_dir", slide_dir, "--coords_dir", coords_dir,
+            "--output_dir", feat_dir, "--pretrain", "medical_ssl",
+            "--backbone", "ViT-S/16", "--batch_size", str(STEP2_BATCH),
+            "--label_csv", labels, "--coords_format", "pt", "--out_format",
+            "pt", "--device", "cuda"])
+        torch.cuda.synchronize()
+        step2_wall = time.perf_counter() - t0
+    b3, b5 = (c.launches for c in counters)
+    batches = sum(-(-n // STEP2_BATCH) for n in res["slides"].values())
+    if b3 != STEP2_DEPTH * batches or b5 != b3:
+        raise AssertionError(f"B3/B5' launched {b3}/{b5} times: want "
+                             f"{STEP2_DEPTH} x {batches} batches each")
+    feats = torch.load(res["out_path"], weights_only=True)
+    for n in names:
+        f = feats[n]["feat"]
+        if f.dtype != torch.float16 or tuple(f.shape) != (n_patches[n], 384) \
+                or not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"{n}: features {f.dtype} {tuple(f.shape)}")
+    open_ms = [_host_ms(lambda n=n: open_slide(
+        os.path.join(slide_dir, f"{n}.png"), cache=False)) for n in names]
+    # the encoder's device time per batch of 256 patches of this slide set
+    with warnings.catch_warnings(), torch.random.fork_rng(devices=[]):
+        warnings.simplefilter("ignore")
+        torch.manual_seed(0)
+        model, spec, _ = build_encoder(Config.from_dict(
+            {"pretrain": "medical_ssl", "backbone": "ViT-S/16"}))
+    embed = encoder_feature_fn(model, spec, torch.device("cuda"))
+    pix = np.random.default_rng(SEED).integers(
+        0, 256, (STEP2_BATCH, spec.img_size, spec.img_size, 3), np.uint8)
+    embed_ms = _time_ms(lambda: embed(pix), 5)
+    print(f"step2: cli/step2_extract.py on Step1's coords, ViT-S/16 full "
+          f"width, depth {STEP2_DEPTH}, batch {STEP2_BATCH}: {res['patches']} "
+          f"patches in {batches} batches, {res['patches'] / res['seconds']:.1f} "
+          f"patches/s ({step2_wall:.2f} s for the whole main()); B3 launches "
+          f"{b3}, B5' {b5}; fp16 [N, 384] finite; opening each "
+          f"{PIPE_SLIDE_WH[0]}x{PIPE_SLIDE_WH[1]} PNG (decode and pyramid, "
+          f"ImageSlide; the open is inside the patches/s) "
+          f"{', '.join(f'{m:.1f}' for m in open_ms)} ms; feature "
+          f"closure per batch of {STEP2_BATCH} from host pixels, CUDA events "
+          f"{embed_ms:.4f} ms [{smi}]")
+
+    # Step3: ACMIL_GA at camelyon_medical_ssl widths, 2 epochs, 4/1/1 split
+    n_tr, n_va, _ = PIPE_SPLIT
+    split_dir = os.path.join(tmp, "splits")
+    _write_split(split_dir, names[:n_tr], names[n_tr:n_tr + n_va],
+                 names[n_tr + n_va:])
+    yml = _yml_with(tmp, "pipeline.yml", split_dir=split_dir,
+                    data_dir=feat_dir)
+    ckpt_dir, log_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "log")
+    ap.fused_gated_attn_pool_batched.launches = 0
+    ap.fused_gated_attn_pool_bwd.launches = 0
+    t0 = time.perf_counter()
+    step3_acmil.main(["--config", yml, "--ckpt_dir", ckpt_dir, "--log_dir",
+                      log_dir, "--train_epoch", str(TRAIN_EPOCHS),
+                      "--n_token", str(N_TOKEN), "--n_masked_patch",
+                      str(N_MASKED_PATCH), "--mask_drop", str(MASK_DROP),
+                      "--device", "cuda"])
+    torch.cuda.synchronize()
+    step3_wall = time.perf_counter() - t0
+    step3 = {"B1": ap.fused_gated_attn_pool_batched.launches,
+             "B2": ap.fused_gated_attn_pool_bwd.launches}
+    steps, evals = TRAIN_EPOCHS * n_tr, TRAIN_EPOCHS * (PIPE_SLIDES - n_tr)
+    if step3 != {"B1": steps + evals, "B2": steps}:
+        raise AssertionError(f"Step3 launches {step3}: want B2 {steps}, B1 "
+                             f"{steps + evals}")
+    losses = _epoch_losses(log_dir)
+    if len(losses) != TRAIN_EPOCHS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"epoch losses {losses}")
+
+    # predict over every slide's features
+    ap.fused_gated_attn_pool_batched.launches = 0
+    scored = predict.main(["--config", yml, "--ckpt", ckpt_dir, "--features",
+                           res["out_path"], "--out_csv",
+                           os.path.join(tmp, "preds.csv"), "--device", "cuda"])
+    b1_predict = ap.fused_gated_attn_pool_batched.launches
+    if b1_predict != PIPE_SLIDES:
+        raise AssertionError(f"predict: B1 launched {b1_predict} times")
+    _check_predictions(scored, PIPE_SLIDES, 2)
+
+    # Step4: heatmaps of the test slide through B1
+    heat_dir = os.path.join(tmp, "heatmaps")
+    clear_slide_cache()
+    ap.fused_gated_attn_pool_batched.launches = 0
+    t0 = time.perf_counter()
+    heat = step4_heatmap.main(["--config", yml, "--ckpt_dir", ckpt_dir,
+                               "--slide_dir", slide_dir, "--output_dir",
+                               heat_dir, "--patch_size", str(PIPE_PATCH),
+                               "--device", "cuda"])
+    step4_wall = time.perf_counter() - t0
+    b1_step4 = ap.fused_gated_attn_pool_batched.launches
+    test_names = names[n_tr + n_va:]
+    if sorted(heat["slides"]) != test_names or not heat["fused"] \
+            or b1_step4 != len(test_names):
+        raise AssertionError(f"Step4 rendered {sorted(heat['slides'])}, "
+                             f"fused {heat['fused']}, B1 launches {b1_step4}")
+    for n, r in heat["slides"].items():
+        img = cv2.imread(r["path"])
+        slide = open_slide(os.path.join(slide_dir, f"{n}.png"))
+        lw, lh = slide.level_dimensions[render_level(slide)]
+        if img is None or img.shape != (lh, lw, 3) or img.std() < 5:
+            raise AssertionError(f"{n}: heatmap {None if img is None else img.shape}"
+                                 f" against level {(lh, lw)}")
+    # B1's attention against the plain forward's on the same bag (these
+    # launches are a comparison, outside the counted path)
+    ck = checkpoint.load(checkpoint.checkpoint_path(ckpt_dir, "best"))
+    conf = Config.from_yaml(yml)
+    checkpoint.adopt_checkpoint_config(conf, ck["config"])
+    head, _ = build_mil_model(conf)
+    head.load_state_dict(ck["model"])
+    head.cuda().eval()
+    src = open_feature_source(res["out_path"], test_names)
+    item = src[0]
+    bag = pad_bag(item["input"], item["coords"], item["label"],
+                  dtype=np.float16).to("cuda")
+    fused = step4_heatmap.attention_probs(head, bag.feats, bag.mask)
+    plain = step4_heatmap.attention_probs(head, bag.feats, bag.mask,
+                                          fused=False)
+    n_valid = int(bag.mask.sum())
+    step4_err = float((fused - plain)[0, :n_valid].abs().max())
+    if step4_err > STEP4_ATOL:
+        raise AssertionError(f"Step4 attention B1 vs plain {step4_err}")
+    per = [f"{n}: attention {r['attn_ms']:.2f} ms, render {r['render_ms']:.1f} ms"
+           for n, r in heat["slides"].items()]
+    print(f"step3 -> predict -> step4: cli/step3_acmil.py --arch ga "
+          f"({TRAIN_EPOCHS} epochs x {n_tr} steps on Step2's features, "
+          f"{step3_wall:.2f} s wall; launches B1 {step3['B1']}, B2 "
+          f"{step3['B2']}; epoch losses {', '.join(f'{v:.6f}' for v in losses)})"
+          f"; cli/predict.py scored {PIPE_SLIDES} slides (B1 {b1_predict}); "
+          f"cli/step4_heatmap.py rendered {len(heat['slides'])} test slide "
+          f"heatmap(s) at the rendered level's shape in {step4_wall:.2f} s "
+          f"(B1 {b1_step4}; {'; '.join(per)}); Step4 B1 vs plain attention "
+          f"max |diff| {step4_err:.3e} at valid slots [{smi}]")
+    print(f"pipeline phase wall {time.perf_counter() - t_phase:.2f} s [{smi}]")
+    return {"B3": b3, "B5": b5, "B1_step3": step3["B1"], "B2": step3["B2"],
+            "B1_predict": b1_predict, "B1_step4": b1_step4,
+            "slide_dir": slide_dir, "feat_path": res["out_path"],
+            "names": names, "step4_err": step4_err}
+
+
+def mha_run(smi: str, tmp: str, pipe: dict) -> None:
+    """ACMIL_MHA and MHA: Step3 training, scoring on the card and on the
+    CPU, Step4 on two slides of the pipeline phase, the generic trainer's
+    ``mha``; then a step and a slide at 50000 patches timed."""
+    from acmil_tpu_torch.cli import (predict, step3_acmil, step3_generic,
+                                     step4_heatmap)
+    from acmil_tpu_torch.config import Config
+    from acmil_tpu_torch.data.bags import pad_bag
+    from acmil_tpu_torch.engine import (checkpoint, create_train_state,
+                                        get_family, make_eval_step,
+                                        make_train_step)
+    from acmil_tpu_torch.models import build_mil_model
+    from acmil_tpu_torch.models.acmil import ACMIL_MHA
+
+    t_phase = time.perf_counter()
+    rs = np.random.default_rng(SEED + 15)
+    n_slides = N_TRAIN + N_VAL + N_TEST
+    lengths = rs.integers(1000, 65537, n_slides).tolist()
+    lengths[0], lengths[1] = 1000, 50000
+    lengths[N_TRAIN], lengths[N_TRAIN + N_VAL] = 65536, 50000
+    slides = _synthetic_slides(rs, lengths)
+    root = os.path.join(tmp, "mha")
+    data_dir, feats, yml = _write_split_corpus(root, slides, YML,
+                                               "medical_ssl", N_TRAIN, N_VAL)
+    ckpt_dir, log_dir = os.path.join(root, "ckpt"), os.path.join(root, "log")
+    torch.manual_seed(SEED)
+    t0 = time.perf_counter()
+    step3_acmil.main(["--config", yml, "--arch", "mha", "--data_dir",
+                      data_dir, "--ckpt_dir", ckpt_dir, "--log_dir", log_dir,
+                      "--train_epoch", str(TRAIN_EPOCHS), "--n_token",
+                      str(N_TOKEN), "--n_masked_patch", str(N_MASKED_PATCH),
+                      "--mask_drop", str(MASK_DROP), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = _epoch_losses(log_dir)
+    if len(losses) != TRAIN_EPOCHS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"ACMIL_MHA epoch losses {losses}")
+    ck = checkpoint.load(checkpoint.checkpoint_path(ckpt_dir, "best"))
+    if ck["config"]["arch"] != "mha":
+        raise AssertionError(f"checkpoint arch {ck['config']['arch']}")
+
+    scored = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        scored[dev] = predict.main([
+            "--config", yml, "--ckpt", ckpt_dir, "--features", feats,
+            "--out_csv", os.path.join(root, f"preds_{dev}.csv"), "--device",
+            dev])
+        scored[dev + "_s"] = time.perf_counter() - t0
+        _check_predictions(scored[dev], n_slides, 2)
+    card_p = np.asarray([r[2:4] for r in scored["cuda"]["rows"]])
+    cpu_p = np.asarray([r[2:4] for r in scored["cpu"]["rows"]])
+    cpu_err = float(np.abs(card_p - cpu_p).max())
+    if cpu_err > MHA_CPU_ATOL:
+        raise AssertionError(f"ACMIL_MHA card vs CPU probabilities {cpu_err}")
+
+    # Step4 with this head on two slides of the pipeline phase
+    names = pipe["names"]
+    split_dir = os.path.join(root, "splits4")
+    _write_split(split_dir, names[:-2], [], names[-2:])
+    yml4 = _yml_with(root, "step4.yml", split_dir=split_dir,
+                     data_dir=os.path.dirname(pipe["feat_path"]))
+    heat = step4_heatmap.main(["--config", yml4, "--ckpt_dir", ckpt_dir,
+                               "--slide_dir", pipe["slide_dir"],
+                               "--output_dir", os.path.join(root, "heat"),
+                               "--patch_size", str(PIPE_PATCH),
+                               "--device", "cuda"])
+    if sorted(heat["slides"]) != names[-2:] or any(
+            not os.path.isfile(r["path"]) or not np.isfinite(r["scores"]).all()
+            for r in heat["slides"].values()):
+        raise AssertionError(f"Step4 with ACMIL_MHA: {sorted(heat['slides'])}")
+
+    # the generic trainer's `mha` is MHA (`mha_single`)
+    gen_ckpt, gen_log = os.path.join(root, "ckpt_g"), os.path.join(root, "log_g")
+    t0 = time.perf_counter()
+    step3_generic.main(["--config", yml, "--arch", "mha", "--data_dir",
+                        data_dir, "--ckpt_dir", gen_ckpt, "--log_dir",
+                        gen_log, "--train_epoch", "1", "--device", "cuda"])
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    gen_losses = _epoch_losses(gen_log)
+    gck = checkpoint.load(checkpoint.checkpoint_path(gen_ckpt, "last"))
+    if gck["config"]["arch"] != "mha_single" or len(gen_losses) != 1 \
+            or not math.isfinite(gen_losses[0]):
+        raise AssertionError(f"generic mha: arch {gck['config']['arch']}, "
+                             f"losses {gen_losses}")
+
+    # one 50000-patch bag on the device: a training step and a slide's eval
+    conf = Config.from_yaml(YML, {"arch": "mha", "n_token": N_TOKEN,
+                                  "n_masked_patch": N_MASKED_PATCH,
+                                  "mask_drop": MASK_DROP})
+    model, family = build_mil_model(conf)
+    model.load_state_dict(ck["model"])
+    model.cuda()
+    if not isinstance(model, ACMIL_MHA) or \
+            model.sub_attention[0].num_heads != MHA_HEADS:
+        raise AssertionError("unexpected ACMIL_MHA build")
+    item = slides["slide_01"]
+    bag = pad_bag(item["feat"], item["coords"], item["label"],
+                  dtype=np.float16).to("cuda")
+    state = create_train_state(model, conf, 1)
+    step = make_train_step(model, conf, get_family(family))
+    step_ms = _wall_ms(lambda: step(state, bag), 10)
+    step_dev = _profile_device_ms(lambda: step(state, bag), 5, step_ms)
+    eval_step = make_eval_step(model, family)
+    eval_ms = _wall_ms(lambda: eval_step(bag), 10)
+    eval_dev = _profile_device_ms(lambda: eval_step(bag), 5, eval_ms)
+    print(f"acmil_mha: cli/step3_acmil.py --arch mha ({MHA_HEADS} heads, "
+          f"n_token {N_TOKEN}, STKIM on), {TRAIN_EPOCHS} epochs x {N_TRAIN} "
+          f"steps on {n_slides} slides ({min(lengths)}-{max(lengths)} "
+          f"patches), {wall:.2f} s wall; epoch losses "
+          f"{', '.join(f'{v:.6f}' for v in losses)}; cli/predict.py on cuda "
+          f"{scored['cuda_s']:.2f} s and on the CPU {scored['cpu_s']:.2f} s "
+          f"for {n_slides} slides, max |card - CPU| probability "
+          f"{cpu_err:.3e}; cli/step4_heatmap.py rendered "
+          f"{len(heat['slides'])} slides [{smi}]")
+    print(f"mha (generic trainer, mha_single): 1 epoch x {N_TRAIN} steps, "
+          f"{gen_wall:.2f} s wall, loss {gen_losses[0]:.6f} [{smi}]")
+    print(f"acmil_mha at 50000 patches (bucket 65536), bag on the device: "
+          f"training step {step_ms:.4f} ms wall (median of 10), {step_dev} "
+          f"[{smi}]")
+    print(f"acmil_mha eval per slide at 50000 patches: {eval_ms:.4f} ms wall "
+          f"(median of 10), {eval_dev} [{smi}]")
+    print(f"acmil_mha phase wall {time.perf_counter() - t_phase:.2f} s [{smi}]")
+
+
 VIT_ATTN_SHAPES = (("ViT-S/16", 6, 197, 64), ("ViT-S/8", 6, 785, 64),
                    ("CLIP-L/336", 16, 577, 64))
 # N at csrc/vit_attn.cu's edges: the ragged 16-key chunk; at dh=64 the
@@ -2051,6 +2474,9 @@ def main() -> None:
     dsmil_train = dsmil_train_run(smi)
     b7_launches = fused_vit_attention.launches
     b7 = vit_attn_b7_vs_plain(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        pipe = pipeline_run(smi, tmp)
+        mha_run(smi, tmp, pipe)
     b5_edges = b7.pop("b5_edges")
     vit["B5"]["max_abs_err"] = max(vit["B5"]["max_abs_err"],
                                    b5_edges["max_abs_err"])
@@ -2065,6 +2491,9 @@ def main() -> None:
         "launches_step2_scoring": step2["B1"],
         "launches_natural_supervised_serving": wide_serve,
         "launches_natural_supervised_training": wide_train["B1"],
+        "launches_pipeline_step3": pipe["B1_step3"],
+        "launches_pipeline_predict": pipe["B1_predict"],
+        "launches_pipeline_step4": pipe["B1_step4"],
         **b1}, {
         "name": "B2 fused gated-attention pooling (backward)",
         "route": "cuda",
@@ -2072,6 +2501,7 @@ def main() -> None:
         "replaces": "acmil_tpu/ops/attn_pool.py:240",
         "launches": train_launches["B2"],
         "launches_natural_supervised_training": wide_train["B2"],
+        "launches_pipeline_step3": pipe["B2"],
         **b2}, {
         "name": "B3 fused ViT layer (chain: 4 GEMM launches, 2 of them "
                 "after a LayerNorm prologue, + B5')",
@@ -2079,6 +2509,7 @@ def main() -> None:
         "source": vit_src,
         "replaces": "acmil_tpu/ops/vit_layer.py:45",
         "launches": step2["B3"],
+        "launches_pipeline_step2": pipe["B3"],
         **vit["B3"]}, {
         "name": "B4 fused ViT attention half (chain: 2 GEMM launches, one "
                 "after a LayerNorm prologue, + B5')",
@@ -2095,6 +2526,7 @@ def main() -> None:
         "path": "Step2 ViT-S/16, the attention step of B3; times at its "
                 "shape, B=256 N=197",
         "launches_vit_encode": big["B5'"],
+        "launches_pipeline_step2": pipe["B5"],
         "edge_checks": b5_edges["checks"],
         "clip_l_b32": vit["B5 CLIP-L"],
         **vit["B5"]}, {

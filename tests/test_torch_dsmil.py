@@ -447,14 +447,23 @@ def test_step3_generic_needs_a_card_unless_told_cpu(corpus, monkeypatch):
                                         ("mha", "mha_single")])
 def test_step3_generic_names_the_registered_archs(corpus, tmp_path, arch,
                                                   want):
-    # run_training loads the corpus, then build_mil_model refuses the arch
+    # run_training loads the corpus, then build_mil_model refuses an arch
+    # it does not register, naming those it does; the reference script's
+    # `mha` lands on the registered `mha_single` and trains
     d, _ = corpus
     yml = tmp_path / "conf.yml"
-    yml.write_text(yaml.safe_dump(_run_conf(d, "unknown", pretrain="tiny")))
-    with pytest.raises(ValueError, match=rf"unknown arch '{want}'; have "
-                       r"\['abmil', 'dsmil', 'ga'\]"):
-        step3_generic.main(["--config", str(yml), "--arch", arch,
-                            "--device", "cpu"])
+    yml.write_text(yaml.safe_dump(_run_conf(d, f"arch_{arch}",
+                                            pretrain="tiny", train_epoch=1)))
+    argv = ["--config", str(yml), "--arch", arch, "--device", "cpu"]
+    if want == "transmil":
+        with pytest.raises(ValueError, match=rf"unknown arch '{want}'; have "
+                           r"\['abmil', 'dsmil', 'ga', 'mha', 'mha_single'\]"):
+            step3_generic.main(argv)
+        return
+    step3_generic.main(argv)
+    last = checkpoint.load(checkpoint.checkpoint_path(
+        str(d / f"arch_{arch}" / "ckpt"), "last"))
+    assert last["config"]["arch"] == want
 
 
 def test_step3_generic_reads_w_loss(monkeypatch):

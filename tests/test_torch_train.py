@@ -573,7 +573,8 @@ def test_step3_finds_a_torch_feature_file(corpus, monkeypatch):
     (["--mesh_data", "2"], "mesh_data"),
     (["--pod"], "pod"),
     (["--scan_epoch"], "scan_epoch"),
-    (["--arch", "mha"], "not ported"),
+    # --arch mha trains ACMIL_MHA now; it reaches the trainer's own refusals
+    (["--arch", "mha", "--pod"], "pod"),
 ])
 def test_step3_refuses_what_is_not_ported(argv, match):
     cfg = os.path.join(REPO, "config/camelyon_medical_ssl_config.yml")
@@ -601,3 +602,41 @@ def test_train_step_draws_stkim_from_the_state_generator():
         return [float(step(state, tb)["loss"]) for _ in range(2)]
 
     assert run() == run()
+
+
+def test_use_sam_is_refused():
+    # the JAX engine takes a SAM step when use_sam is set; the port has no
+    # SAM yet, so it must refuse rather than train plain AdamW
+    conf = Config.from_dict({"use_sam": True, "device": "cpu"})
+    with pytest.raises(ValueError, match="use_sam"):
+        port_cli.run_training(conf)
+
+
+def test_checkpoint_restores_the_stkim_generator(tmp_path):
+    """A run resumed from a checkpoint at step t0 draws at t0 what an
+    uninterrupted run draws there: the checkpoint holds the STKIM
+    generator's state and ``restore`` sets it."""
+    _, conf = _confs()
+    _, tb = _bags(*_bag_arrays(9))
+    torch.manual_seed(0)
+    model, _ = build_mil_model(conf)
+    state = create_train_state(model, conf, 4)
+    step = make_train_step(model, conf, "acmil")
+    for _ in range(2):
+        step(state, tb)
+    at_save = state.generator.get_state().clone()
+    best = checkpoint.save_best_and_last(str(tmp_path), state, 0, conf,
+                                         {"f1": 0.5, "auc": 0.5}, {})
+    assert best["epoch"] == 0
+    uninterrupted = [float(step(state, tb)["loss"]) for _ in range(2)]
+
+    resumed_model, _ = build_mil_model(conf)
+    resumed = create_train_state(resumed_model, conf, 4)
+    assert not torch.equal(resumed.generator.get_state(), at_save)
+    checkpoint.restore(checkpoint.checkpoint_path(str(tmp_path), "last"),
+                       resumed)
+    assert torch.equal(resumed.generator.get_state(), at_save)
+    assert resumed.step == 2
+    resumed_step = make_train_step(resumed_model, conf, "acmil")
+    assert [float(resumed_step(resumed, tb)["loss"])
+            for _ in range(2)] == uninterrupted
