@@ -10,9 +10,10 @@ The port of ``scripts/predict.py``::
 ``--ckpt`` is a ``.pth`` file, or a directory holding
 ``checkpoint-{--tag}.pth``. ``--features`` is the reference's H5 dump or a
 torch feature file (``data/ptio.py``). On a CUDA device an ACMIL_GA head
-pools each slide through kernel B1, and a DSMIL head (``--arch dsmil``, or
-a checkpoint of one) through kernel B6 when the slide's padded bag reaches
-``models/fast.py::FUSE_MIN_N`` patches, through its plain forward below.
+pools each slide through kernel B1; a CLAM head (``clam_sb``, ``clam_mb``)
+through B1, and a DSMIL head (``--arch dsmil``, or a checkpoint of one)
+through kernel B6, when the slide's padded bag reaches
+``models/fast.py::FUSE_MIN_N`` patches, through their plain forwards below.
 ACMIL_MHA (``mha``), MHA (``mha_single``) and ABMIL score through their
 plain forwards on any device, as the JAX package scores them.
 """

@@ -147,8 +147,8 @@ class _PtOut:
 
 def main(argv: Optional[List[str]] = None) -> dict:
     """Extracts every slide; returns ``{"out_path", "slides": {name:
-    patches}, "patches", "seconds"}`` (seconds of extraction, slide reads
-    included)."""
+    patches}, "slide_seconds": {name: seconds}, "patches", "seconds"}``
+    (seconds of extraction, the slide's open and reads included)."""
     args = parse_args(argv)
     for flag in NOT_PORTED:
         if getattr(args, flag) not in (None, "", "0"):
@@ -182,7 +182,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     out_path = os.path.join(args.output_dir, f"patch_feats_pretrain_"
                                              f"{conf.pretrain}.{args.out_format}")
     out = _H5Out(out_path) if args.out_format == "h5" else _PtOut(out_path)
-    done, total_s = {}, 0.0
+    done, secs = {}, {}
     try:
         for cf in coord_files:
             name = os.path.splitext(cf)[0]
@@ -206,15 +206,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 int(attrs.get("patch_level", 0)), batch_size)
             dt = time.perf_counter() - t0
             out.add(name, feats, coords, labels.get(name, 0))
-            done[name] = len(feats)
-            total_s += dt
+            done[name], secs[name] = len(feats), dt
             print(f"{name}: {len(feats)} patches in {dt:.1f}s "
                   f"({len(feats) / max(dt, 1e-9):.0f} patches/s)")
     finally:
         out.close()
     print(f"features -> {out_path}")
-    return {"out_path": out_path, "slides": done,
-            "patches": sum(done.values()), "seconds": total_s}
+    return {"out_path": out_path, "slides": done, "slide_seconds": secs,
+            "patches": sum(done.values()), "seconds": sum(secs.values())}
 
 
 if __name__ == "__main__":

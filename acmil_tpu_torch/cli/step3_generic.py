@@ -3,16 +3,21 @@
 
 The same flags, YAMLs and arch names; the per-arch loss wiring lives in the
 family registry. Of the JAX trainer's zoo the port registers ``abmil``,
-``ga``, ``mha_single`` (the reference script's ``mha``, MHA) and ``dsmil``;
-any other arch raises, naming those (and ``mha``, ACMIL_MHA)::
+``ga``, ``mha_single`` (the reference script's ``mha``, MHA), ``dsmil``,
+``clam_sb`` and ``clam_mb``; any other arch raises, naming those (and
+``mha``, ACMIL_MHA)::
 
     python -m acmil_tpu_torch.cli.step3_generic \\
-        --config config/camelyon_medical_ssl_config.yml --arch dsmil \\
+        --config config/camelyon_medical_ssl_config.yml --arch clam_mb \\
         --device cuda
 
 DSMIL trains through its plain forward with autograd; every val/test bag
 whose padded length reaches ``models/fast.py::FUSE_MIN_N`` is scored
-through kernel B6.
+through kernel B6. CLAM scores such bags through kernel B1, and trains them
+through B1 and B2 when the YAML sets ``droprate: 0`` (with the CE instance
+loss, ``inst_loss: ce``, the default); at the reference's dropout 0.25 it
+trains through its plain forward. ``--w_loss`` mixes CLAM's bag and
+instance losses (default 0.7).
 """
 
 from __future__ import annotations

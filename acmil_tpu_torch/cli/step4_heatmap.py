@@ -14,11 +14,13 @@ renders them over the slide with ``wsi/heatmap.py::vis_heatmap``, one
 The scores follow the JAX script (`Step4_visualize_heatmap_camelyon.py:76-118`):
 attention logits with heads (``[B, H, K, N]``, ACMIL_MHA) are averaged over
 heads first, then a masked softmax per branch, the mean over branches, and
-the first n valid probabilities times n. On a CUDA device ACMIL_GA and ABMIL
-take their attention from kernel B1 (``models/fast.py::acmil_ga_infer`` /
-``abmil_infer``); every other head, and the CPU, take the plain forward.
-ABMIL's plain forward is asked for its attention (``return_attn``); a head
-that emits none (MHA) raises.
+the first n valid probabilities times n. CLAM's attention is its output
+dict's ``attn`` (one branch for SB, one per class for MB). On a CUDA device
+ACMIL_GA, ABMIL and CLAM take their attention from kernel B1
+(``models/fast.py::acmil_ga_infer`` / ``abmil_infer`` /
+``clam_apply_fused``); every other head, and the CPU, take the plain
+forward. ABMIL's plain forward is asked for its attention (``return_attn``);
+a head that emits none (MHA) raises.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from acmil_tpu_torch.data.bags import pad_bag
 from acmil_tpu_torch.engine import checkpoint
 from acmil_tpu_torch.models import build_mil_model
 from acmil_tpu_torch.models.acmil import ABMIL, ACMIL_GA
-from acmil_tpu_torch.models.fast import abmil_infer, acmil_ga_infer
+from acmil_tpu_torch.models.fast import (abmil_infer, acmil_ga_infer,
+                                         clam_apply_fused, clam_is_fusable)
 from acmil_tpu_torch.ops.masked import masked_softmax
 from acmil_tpu_torch.utils.device import entry_device
 from acmil_tpu_torch.wsi.slide import SLIDE_EXTS, open_slide
@@ -62,7 +65,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def uses_kernel(model, device: torch.device) -> bool:
     """True where the attention comes from kernel B1."""
-    return device.type == "cuda" and isinstance(model, (ACMIL_GA, ABMIL))
+    return device.type == "cuda" and (isinstance(model, (ACMIL_GA, ABMIL))
+                                      or clam_is_fusable(model))
 
 
 @torch.no_grad()
@@ -73,7 +77,9 @@ def attention_probs(model, feats: torch.Tensor, mask: torch.Tensor,
     ``fused`` takes B1 where :func:`uses_kernel` says so; B1 writes -1e30 at
     pad slots, which the masked softmax never reads."""
     model.eval()
-    if fused and uses_kernel(model, feats.device):
+    if fused and uses_kernel(model, feats.device) and clam_is_fusable(model):
+        a = clam_apply_fused(model, feats, mask, n_class=0)["attn"]
+    elif fused and uses_kernel(model, feats.device):
         infer = acmil_ga_infer if isinstance(model, ACMIL_GA) else abmil_infer
         a = torch.stack([infer(model, f, m)[-1] for f, m in zip(feats, mask)])
     elif isinstance(model, ABMIL):
@@ -82,7 +88,7 @@ def attention_probs(model, feats: torch.Tensor, mask: torch.Tensor,
         out = model(feats, mask, deterministic=True)
         if isinstance(out, tuple):            # acmil, dsmil: (.., .., attn)
             a = out[2]
-        elif isinstance(out, dict) and "attn" in out:
+        elif isinstance(out, dict) and "attn" in out:     # clam
             a = out["attn"]
         else:
             raise ValueError(f"{type(model).__name__} emits no attention")

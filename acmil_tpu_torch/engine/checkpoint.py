@@ -19,9 +19,10 @@ from typing import Any, Dict, Optional
 import torch
 
 # the arch hyperparams a checkpoint's weights were trained with — consumers
-# (predict) must rebuild the model with these
+# (predict) must rebuild the model with these; CLAM's droprate places its
+# attention net (``attention_net.2`` or ``.3``)
 MODEL_CONFIG_KEYS = ("arch", "n_token", "n_masked_patch", "mask_drop",
-                     "D_feat", "D_inner", "n_class")
+                     "D_feat", "D_inner", "n_class", "droprate")
 
 
 class Struct:
@@ -82,8 +83,12 @@ def adopt_checkpoint_config(conf, saved: Dict[str, Any]) -> None:
     """Copy the saved model-shape keys (``MODEL_CONFIG_KEYS``) onto
     ``conf``: weights only load into the model shape that trained them."""
     for k in MODEL_CONFIG_KEYS:
-        if k in saved:
+        if k not in saved:
+            continue
+        if k in conf.__dataclass_fields__:
             setattr(conf, k, saved[k])
+        else:
+            conf.extra[k] = saved[k]
 
 
 def restore(path: str, state) -> Dict[str, Any]:

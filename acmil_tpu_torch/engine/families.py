@@ -105,6 +105,59 @@ class ACMILFamily(Family):
         return torch.softmax(outputs[1], dim=-1)
 
 
+class CLAMFamily(Family):
+    """Bag CE mixed with the instance clustering loss (`engine.py:99-116`:
+    ``w_loss * bag + (1 - w_loss) * instance``); the model needs the labels
+    for its in/out-of-class instance supervision.
+
+    CLAM's ``Attn_Net_Gated`` is the gated attention kernels B1 and B2
+    compute, so a bag whose padded length reaches ``fast.FUSE_MIN_N`` runs
+    ``fast.clam_apply_fused``: in eval always (dropout is off there), in
+    training when ``droprate`` is 0 and the instance loss is CE (the
+    reference default trains with dropout 0.25, which keeps the plain
+    forward, its dropout drawn from ``generator``). ``fused_train: false``
+    keeps the plain forward in training, and ``fused=False`` in eval."""
+
+    name = "clam"
+
+    def conf_dict(self, conf):
+        d = super().conf_dict(conf)
+        d["fused"] = (bool(conf.extra.get("fused_train", True))
+                      and float(getattr(conf, "droprate", 0.25)) == 0.0
+                      and str(getattr(conf, "inst_loss", "ce")) == "ce")
+        d["k_sample"] = int(getattr(conf, "k_sample", 8))
+        sub = getattr(conf, "subtyping", None)
+        d["subtyping"] = (conf.n_class > 2) if sub is None else bool(sub)
+        return d
+
+    @staticmethod
+    def _routed(model, bag) -> bool:
+        return (fast.clam_is_fusable(model)
+                and bag.feats.shape[1] >= fast.FUSE_MIN_N)
+
+    def train_outputs(self, model, bag, conf_d, stkim_u=None, generator=None):
+        if conf_d.get("fused") and self._routed(model, bag):
+            return fast.clam_apply_fused(
+                model, bag.feats, bag.mask, label=bag.label,
+                instance_eval=True, n_class=conf_d["n_class"],
+                k_sample=conf_d["k_sample"], subtyping=conf_d["subtyping"])
+        return model(bag.feats, bag.mask, label=bag.label, instance_eval=True,
+                     deterministic=False, generator=generator)
+
+    def eval_outputs(self, model, bag: Bag, fused: bool = True):
+        if fused and self._routed(model, bag):
+            return fast.clam_apply_fused(model, bag.feats, bag.mask,
+                                         n_class=0)
+        return super().eval_outputs(model, bag)
+
+    def loss(self, outputs, bag, valid, conf_d):
+        logits, inst_loss = outputs["logits"], outputs["instance_loss"]
+        bag_loss = L.cross_entropy(logits, bag.label, valid)
+        w = conf_d["w_loss"]
+        return w * bag_loss + (1 - w) * inst_loss, {
+            "bag_loss": bag_loss, "instance_loss": inst_loss}
+
+
 class DSMILFamily(Family):
     """(inst_logits, bag_logits, attn): 0.5 CE(masked-max inst) + 0.5 CE(bag)
     (`engine.py:41-56`); eval probs = mean of the two softmaxes
@@ -146,7 +199,7 @@ class DSMILFamily(Family):
 
 
 FAMILIES: Dict[str, Family] = {"default": Family(), "acmil": ACMILFamily(),
-                               "dsmil": DSMILFamily()}
+                               "clam": CLAMFamily(), "dsmil": DSMILFamily()}
 
 
 def get_family(name: str) -> Family:

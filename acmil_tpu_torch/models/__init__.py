@@ -3,14 +3,17 @@
 A registry from arch name to ``(factory(conf) -> nn.Module, family)``,
 where ``family`` keys into :mod:`acmil_tpu_torch.engine.families`. The
 port registers ``ga`` (ACMIL_GA), ``mha`` (ACMIL_MHA), ``abmil``,
-``mha_single`` (MHA) and ``dsmil``.
+``mha_single`` (MHA), ``dsmil``, and ``clam_sb`` and ``clam_mb`` (CLAM).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
+import torch
+
 from acmil_tpu_torch.models.acmil import ABMIL, ACMIL_GA, ACMIL_MHA, MHA
+from acmil_tpu_torch.models.clam import CLAM_MB, CLAM_SB
 from acmil_tpu_torch.models.dsmil import DSMIL
 
 _REGISTRY: Dict[str, Tuple[Callable, str]] = {}
@@ -67,6 +70,28 @@ def _dsmil(conf):
                  d_inner=conf.D_inner, nonlinear=False)
 
 
+def _clam(cls, conf):
+    # droprate configurable, so that `droprate: 0` takes the fused training
+    # route (the reference default is dropout 0.25, `clam.py:86`); k_sample
+    # and subtyping as the family reads them, so both routes agree
+    return cls(n_class=conf.n_class, d_feat=conf.D_feat, d_inner=conf.D_inner,
+               k_sample=int(getattr(conf, "k_sample", 8)),
+               droprate=float(getattr(conf, "droprate", 0.25)),
+               subtyping=getattr(conf, "subtyping", None),
+               inst_loss=str(getattr(conf, "inst_loss", "ce")),
+               generator=torch.Generator().manual_seed(int(conf.seed)))
+
+
+@register_model("clam_sb", family="clam")
+def _clam_sb(conf):
+    return _clam(CLAM_SB, conf)
+
+
+@register_model("clam_mb", family="clam")
+def _clam_mb(conf):
+    return _clam(CLAM_MB, conf)
+
+
 def build_mil_model(conf):
     """Returns (model, family) for ``conf.arch``."""
     if conf.arch not in _REGISTRY:
@@ -75,5 +100,5 @@ def build_mil_model(conf):
     return factory(conf), family
 
 
-__all__ = ["ABMIL", "ACMIL_GA", "ACMIL_MHA", "DSMIL", "MHA", "build_mil_model",
-           "register_model"]
+__all__ = ["ABMIL", "ACMIL_GA", "ACMIL_MHA", "CLAM_MB", "CLAM_SB", "DSMIL",
+           "MHA", "build_mil_model", "register_model"]

@@ -7,9 +7,12 @@ stacked branch classifiers ``branch_w [K, L, C]`` / ``branch_b [K, C]``
 become ``classifier.{k}.fc.*``, and ACMIL_MHA's vmapped branch module
 (a leading K axis on every parameter) becomes ``sub_attention.{k}.*``;
 DSMIL's dense ``fcc_w [C, C·D]`` becomes the Conv1d weight
-``b_classifier.fcc.weight [C, C, D]``. The inverses are
+``b_classifier.fcc.weight [C, C, D]``; CLAM's stacked ``inst_w [C, L, 2]``
+and MB's ``bag_w [C, L]`` become ``instance_classifiers.{c}`` and
+``classifiers.{c}``. The inverses are
 ``scripts/import_torch_checkpoint.py::convert_acmil_ga``,
-``convert_acmil_mha``, ``convert_mha_single`` and ``convert_dsmil``.
+``convert_acmil_mha``, ``convert_mha_single``, ``convert_dsmil`` and
+``convert_clam``.
 """
 
 from __future__ import annotations
@@ -82,6 +85,31 @@ def _dsmil(params) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _clam(params, droprate: float) -> Dict[str, torch.Tensor]:
+    """CLAM_SB (``Dense_1``) or CLAM_MB (``bag_w``/``bag_b``); the attention
+    net sits at ``attention_net.3`` after a dropout (``droprate > 0``), else
+    at ``attention_net.2``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "attention_net.0", params["Dense_0"])
+    ang = f"attention_net.{3 if droprate > 0 else 2}"
+    ag = params["AttnNetGated_0"]
+    _linear(sd, f"{ang}.attention_a.0", ag["Dense_0"])
+    _linear(sd, f"{ang}.attention_b.0", ag["Dense_1"])
+    _linear(sd, f"{ang}.attention_c", ag["Dense_2"])
+    if "Dense_1" in params:
+        _linear(sd, "classifiers", params["Dense_1"])
+    else:
+        for c, (w, b) in enumerate(zip(np.asarray(params["bag_w"]),
+                                       np.asarray(params["bag_b"]))):
+            sd[f"classifiers.{c}.weight"] = _t(w[None])
+            sd[f"classifiers.{c}.bias"] = _t(b[None])
+    for c, (w, b) in enumerate(zip(np.asarray(params["inst_w"]),
+                                   np.asarray(params["inst_b"]))):
+        sd[f"instance_classifiers.{c}.weight"] = _t(w.T)
+        sd[f"instance_classifiers.{c}.bias"] = _t(b)
+    return sd
+
+
 _MHA_DENSES = ("q_proj", "k_proj", "v_proj", "out_proj")
 
 
@@ -130,19 +158,24 @@ def _unstack(tree) -> list:
     return [leaves(tree, k) for k in range(np.asarray(first).shape[0])]
 
 
-def from_jax_params(params, arch: str) -> Dict[str, torch.Tensor]:
+def from_jax_params(params, arch: str,
+                    droprate: float = 0.25) -> Dict[str, torch.Tensor]:
     """``arch`` is ``"ga"`` (ACMIL_GA), ``"mha"`` (ACMIL_MHA), ``"abmil"``,
-    ``"mha_single"`` (MHA), ``"dsmil"`` or ``"vit"`` (a patch encoder of
-    ``acmil_tpu.models.encoders.vit``)."""
+    ``"mha_single"`` (MHA), ``"dsmil"``, ``"clam_sb"``, ``"clam_mb"`` or
+    ``"vit"`` (a patch encoder of ``acmil_tpu.models.encoders.vit``).
+    ``droprate`` is CLAM's, which places its attention net."""
     if arch == "vit":
         return _vit(params)
+    if arch in ("clam_sb", "clam_mb"):
+        return _clam(params, droprate)
     if arch == "dsmil":
         return _dsmil(params)
     if arch in ("mha", "mha_single"):
         return _mha(params, arch)
     if arch not in ("ga", "abmil"):
         raise ValueError(f"no converter for arch {arch!r} (have 'ga', 'mha', "
-                         f"'abmil', 'mha_single', 'dsmil', 'vit')")
+                         f"'abmil', 'mha_single', 'dsmil', 'clam_sb', "
+                         f"'clam_mb', 'vit')")
     sd: Dict[str, torch.Tensor] = {}
     _linear(sd, "dimreduction.fc1", params["DimReduction_0"]["Dense_0"])
     ag = params["AttentionGated_0"]

@@ -7,7 +7,9 @@ no conversion. The ACMIL pooling runs
 :func:`acmil_tpu_torch.ops.attn_pool.gated_attn_pool_grad` (B1 forward, B2
 backward); the branch and slide classifiers after it stay plain PyTorch, as
 the JAX package leaves them to XLA. The DimReduction is bias-free, so the
-kernels' ``b1`` is zero. DSMIL's eval forward pools through B6
+kernels' ``b1`` is zero. CLAM_SB pools through the same pair, its fc bias as
+``b1``, and CLAM_MB through their softmax-one wrapper
+(:func:`clam_apply_fused`). DSMIL's eval forward pools through B6
 (:func:`dsmil_eval_fused`).
 
 In training, STKIM applies to the pooled output as an O(K·k) correction
@@ -21,9 +23,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from acmil_tpu_torch.models.clam import _CLAMBase, _instance_loss
 from acmil_tpu_torch.models.dsmil import DSMIL
 from acmil_tpu_torch.ops.attn_pool import (fused_gated_attn_pool,
-                                           gated_attn_pool_grad)
+                                           gated_attn_pool_grad,
+                                           gated_attn_pool_grad_one)
 from acmil_tpu_torch.ops.dsmil_pool import fused_dsmil_pool
 from acmil_tpu_torch.ops.masked import (NEG_INF, masked_fill, masked_max,
                                         stkim_drop)
@@ -157,6 +161,64 @@ def acmil_ga_apply_batched(model, feats, mask,
     sub = _branch_heads(model, bag)
     slide = model.Slide_classifier.fc(bag.mean(dim=1))
     return sub, slide, logits
+
+
+def _clam_weights(model):
+    """The kernels' operands from a CLAM module, in the JAX layout: the fc
+    (with its bias as ``b1``) and ``Attn_Net_Gated``, the same gated
+    attention the kernels compute (`architecture/clam.py:46-67`)."""
+    fc, ag = model.attention_net[0], model.attention_net[-1]
+    return (fc.weight.t(), fc.bias,
+            ag.attention_a[0].weight.t(), ag.attention_a[0].bias,
+            ag.attention_b[0].weight.t(), ag.attention_b[0].bias,
+            ag.attention_c.weight.t(), ag.attention_c.bias)
+
+
+def clam_is_fusable(model) -> bool:
+    """True for a CLAM module with the gated attention net."""
+    return isinstance(model, _CLAMBase) and model.gate
+
+
+def _clam_instance_loss(model, feats, mask, label, A, w1, b1, *,
+                        n_class: int, k_sample: int, subtyping: bool):
+    """``clam._instance_loss`` on the kernels' outputs: top/bottom-k over the
+    attention rows, with h recomputed only for the ≤ 2k gathered rows of
+    each class instead of the whole ``[B, N, L]``: a plain ``torch.matmul``
+    in f32 (TF32 stays as torch's default leaves it, off). CE only: the
+    SVM instance loss keeps the plain forward."""
+    rows = torch.arange(feats.shape[0], device=feats.device)[:, None]
+
+    def gather_h(idx):                                   # [B, k] -> [B, k, L]
+        return torch.relu(feats[rows, idx].to(w1.dtype) @ w1 + b1)
+
+    inst_w, inst_b = model.instance_weights()
+    return _instance_loss(A, gather_h, mask, label, inst_w, inst_b,
+                          n_class=n_class, k_sample=k_sample,
+                          subtyping=subtyping,
+                          multi_branch=model.multi_branch)
+
+
+def clam_apply_fused(model, feats, mask, label=None,
+                     instance_eval: bool = False, *, n_class: int,
+                     k_sample: int = 8, subtyping: bool = False):
+    """CLAM_SB/MB's forward through kernels B1 and B2 (eval always; training
+    when dropout is off), matching ``CLAM_SB/CLAM_MB.forward`` on the same
+    module: SB pools with :func:`gated_attn_pool_grad`, MB with
+    :func:`gated_attn_pool_grad_one` (softmax-one). ``attn`` is the raw
+    attention logits at valid slots, ``NEG`` at pad slots. With
+    ``instance_eval`` the instance loss gathers ≤ 2·k_sample rows per class
+    and recomputes their h (:func:`_clam_instance_loss`)."""
+    w1, b1, *rest = _clam_weights(model)
+    pool = (gated_attn_pool_grad_one if model.multi_branch
+            else gated_attn_pool_grad)
+    M, logits_a = pool(feats, mask, w1, b1, *rest)
+    out = {"logits": model.bag_logits(M), "attn": logits_a, "bag_feat": M}
+    if instance_eval:
+        A = model.normalize(logits_a, mask)
+        out["instance_loss"] = _clam_instance_loss(
+            model, feats, mask, label, A, w1, b1, n_class=n_class,
+            k_sample=k_sample, subtyping=subtyping)
+    return out
 
 
 def dsmil_is_fusable(model) -> bool:

@@ -14,7 +14,9 @@ layout: ``bag [B, K, L]``, raw logits ``[B, K, N]`` with ``NEG`` at pad
 slots, and on request the softmax's max ``m`` and sum ``s`` ``[B, K]``.
 :func:`fused_gated_attn_pool_bwd` is the one-pass backward given the
 softmax couplings ``lse`` and ``c``, and :func:`gated_attn_pool_grad` joins
-the two in a ``torch.autograd.Function``.
+the two in a ``torch.autograd.Function``. :func:`gated_attn_pool_grad_one`
+is the same pooling with CLAM_MB's softmax-one weights (a phantom logit at
+0), on the same two kernels.
 
 Every wrapper picks its route by the device of ``feats`` and nothing else: a
 CPU tensor takes the plain version, a CUDA tensor launches the hand-written
@@ -522,3 +524,76 @@ def gated_attn_pool_grad(feats, mask, w1, b1, v, bv, u, bu, w, bw
     reach the weights always and ``feats`` only when it requires one."""
     return _GatedAttnPoolGrad.apply(feats, mask, w1, b1, v, bv, u, bu, w, bw)
 
+
+# ---------------------------------------------------------------------------
+# Softmax-one pooling (CLAM_MB) on the same kernels
+# ---------------------------------------------------------------------------
+
+def gated_attn_pool_one_reference(feats, mask, w1, b1, v, bv, u, bu, w, bw):
+    """Plain PyTorch softmax-one pooling on :func:`_reference_batched`'s H:
+    weights ``exp(a_n) / (1 + sum_m exp(a_m))`` over the valid rows (a
+    phantom logit pinned at 0, `utils/utils.py:54`). Returns (bag
+    [B, K, L], logits [B, K, N] with ``NEG`` at pad slots); differentiable
+    by autograd. Computes in the weights' dtype."""
+    h = torch.relu(feats.to(w1.dtype) @ w1 + b1)             # [B, N, L]
+    logits = (torch.tanh(h @ v + bv) * torch.sigmoid(h @ u + bu)) @ w + bw
+    a = torch.where(mask[..., None], logits, NEG).transpose(1, 2)
+    # stabilised at m = max(max a, 0), so the phantom logit is in the max
+    m = a.amax(dim=-1, keepdim=True).clamp_min(0.0).detach()
+    ex = torch.exp(a - m) * mask[:, None, :]
+    p = ex / (ex.sum(dim=-1, keepdim=True) + torch.exp(-m))
+    return p @ h, a
+
+
+class _GatedAttnPoolGradOne(torch.autograd.Function):
+    """Softmax-one pooling. Forward: B1 with its online-softmax stats, the
+    plain softmax's bag rescaled by ``s / (s + exp(-m))`` (on the CPU, the
+    plain twin). Backward: B2 (its plain closed form on the CPU) under the
+    phantom-augmented log-normaliser ``lse₁ = logaddexp(0, lse)``; the
+    softmax-one Jacobian has the softmax's ``p (d_p - c)`` form, with ``c``
+    formed on the softmax-one bag."""
+
+    @staticmethod
+    def forward(ctx, feats, mask, w1, b1, v, bv, u, bu, w, bw):
+        if feats.device.type == "cpu":
+            bag, logits = gated_attn_pool_one_reference(
+                feats, mask, w1, b1, v, bv, u, bu, w, bw)
+        else:
+            bag, logits, m, s = _pool_forward(feats, mask, w1, b1, v, bv, u,
+                                              bu, w, bw)
+            # acc / s is the plain bag; softmax-one divides acc by
+            # s + exp(0 - m). An all-masked bag has s = 0: scale 0, not NaN
+            bag = bag * (s / torch.clamp_min(s + torch.exp(-m), 1e-30)
+                         )[..., None]
+        ctx.save_for_backward(feats, mask, w1, b1, v, bv, u, bu, w, bw, bag,
+                              logits)
+        return bag, logits
+
+    @staticmethod
+    def backward(ctx, d_bag, d_logits):
+        feats, mask, w1, b1, v, bv, u, bu, w, bw, bag, logits = \
+            ctx.saved_tensors
+        d_bag = d_bag.to(bag.dtype)
+        lse = torch.logsumexp(torch.where(mask[:, None, :], logits, NEG),
+                              dim=2)                          # [B, K]
+        lse_one = torch.logaddexp(torch.zeros_like(lse), lse)
+        c = (d_bag * bag).sum(dim=2)
+        d_feats, *d_weights = fused_gated_attn_pool_bwd(
+            feats, mask, w1, b1, v, bv, u, bu, w, bw, lse_one, c, d_bag,
+            d_logits.to(bag.dtype), need_dx=ctx.needs_input_grad[0])
+        d_weights = [g.to(t.dtype) for g, t in
+                     zip(d_weights, (w1, b1, v, bv, u, bu, w, bw))]
+        return (None if d_feats is None else d_feats.to(feats.dtype), None,
+                *d_weights)
+
+
+def gated_attn_pool_grad_one(feats, mask, w1, b1, v, bv, u, bu, w, bw
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gated_attn_pool_grad` with softmax-one normalisation (CLAM_MB,
+    `architecture/clam.py:248`): (bag [B, K, L], logits [B, K, N] with
+    ``NEG`` at pad slots). On CUDA tensors the forward is kernel B1 and the
+    backward kernel B2, each counted by its wrapper; CPU tensors take
+    :func:`gated_attn_pool_one_reference` forward and B2's plain closed form
+    backward."""
+    return _GatedAttnPoolGradOne.apply(feats, mask, w1, b1, v, bv, u, bu, w,
+                                       bw)

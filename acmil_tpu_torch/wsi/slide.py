@@ -1,16 +1,14 @@
 """Slide abstraction and open factory with an LRU handle cache, the port of
-the image part of ``acmil_tpu/wsi/slide.py``.
+``acmil_tpu/wsi/slide.py``.
 
 :class:`ImageSlide` is an in-memory pyramid over one RGB array, with the
 openslide vocabulary every reference call site uses (``level_count``,
 ``level_dimensions``, ``level_downsamples``, ``best_level_for_downsample``,
 ``read_region``). :func:`open_slide` opens PNG/JPEG/BMP files (``cv2``,
-imported only there) and keeps the last 16 open (``_LRUSlideCache``, the
-reference's `wsi_core/LRUCacheDict.py:3`). Pyramid containers (SPY,
-OpenSlide, KFB) need the JAX package's native reader
-(``acmil_tpu/csrc/slideio.cpp``), which links libjpeg and libpng: the H100
-machine the port runs on has neither library's headers, so the port does
-not carry it yet and such files raise (ROADMAP.md, Queue A).
+imported only there) as an :class:`ImageSlide`, and every other container
+(SPY, OpenSlide formats, KFB) as a ``wsi/native.py::NativeSlide``; it keeps
+the last 16 open (``_LRUSlideCache``, the reference's
+`wsi_core/LRUCacheDict.py:3`).
 """
 
 from __future__ import annotations
@@ -88,7 +86,7 @@ class ImageSlide(Slide):
 
 
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp")
-# the JAX package's slide extensions
+# the JAX package's slide extensions: pyramid containers and images
 SLIDE_EXTS = (".spy", ".svs", ".tif", ".tiff", ".ndpi", ".mrxs", ".kfb",
               ".png", ".jpg", ".jpeg")
 
@@ -136,26 +134,27 @@ def clear_slide_cache() -> None:
 
 
 def open_slide(path: str, cache: bool = True) -> Slide:
-    """An :class:`ImageSlide` for an image file, from the handle cache when
-    ``cache`` and it was opened before; other containers raise
-    NotImplementedError."""
+    """An :class:`ImageSlide` for an image file, else a ``NativeSlide``
+    (SPY, KFB or OpenSlide by the suffix), from the handle cache when
+    ``cache`` and it was opened before."""
     path = os.path.abspath(path)
     if cache:
         hit = _CACHE.get(path)
         if hit is not None:
             return hit
     ext = os.path.splitext(path)[1].lower()
-    if ext not in IMAGE_EXTS:
-        raise NotImplementedError(
-            f"{ext} slides need the native pyramid reader, which "
-            "acmil_tpu_torch does not carry: it links libjpeg and libpng, "
-            "whose headers the H100 machine lacks (ROADMAP.md, Queue A)")
-    import cv2
+    slide: Slide
+    if ext in IMAGE_EXTS:
+        import cv2
 
-    img = cv2.imread(path, cv2.IMREAD_COLOR)
-    if img is None:
-        raise FileNotFoundError(f"cannot read image {path}")
-    slide = ImageSlide(cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
+        if img is None:
+            raise FileNotFoundError(f"cannot read image {path}")
+        slide = ImageSlide(cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
+    else:
+        from acmil_tpu_torch.wsi.native import NativeSlide
+
+        slide = NativeSlide(path)
     if cache:
         _CACHE.put(path, slide)
     return slide

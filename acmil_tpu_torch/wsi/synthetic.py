@@ -1,9 +1,11 @@
 """Synthetic slides, the port of ``acmil_tpu/wsi/synthetic.py``:
 tissue-like blobs on a white background, optionally with a 'tumor' core,
-kept in memory. The same seed gives the same pixels as the JAX package."""
+kept in memory or written as SPY pyramids. The same seed gives the same
+pixels as the JAX package."""
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -42,3 +44,17 @@ def make_synthetic_slide_image(width: int = 4096, height: int = 3072,
 def make_synthetic_slide(width: int = 4096, height: int = 3072, **kw) -> ImageSlide:
     img, _ = make_synthetic_slide_image(width, height, **kw)
     return ImageSlide(img)
+
+
+def write_synthetic_spy(path: str, width: int = 4096, height: int = 3072,
+                        **kw) -> list:
+    """Write a synthetic slide as a SPY pyramid (JPEG, 256-px tiles, the
+    levels of :class:`ImageSlide`); returns tumor centers."""
+    from acmil_tpu_torch.wsi.native import write_spy
+
+    img, centers = make_synthetic_slide_image(width, height, **kw)
+    sl = ImageSlide(img)
+    levels = [sl._levels[i] for i in range(sl.level_count)]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    write_spy(path, levels)
+    return centers

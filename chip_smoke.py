@@ -109,15 +109,22 @@ code is non-zero:
    kernel's edges (``EDGE_N`` x every head width); its backward on the
    card against autograd through the plain version; then B7, the plain
    version and ``F.scaled_dot_product_attention`` timed at ViT-S/16, B=256.
-15. the pipeline in the port alone, Step1 -> Step4: six synthetic
-   5120x3840 slides (PNG: the native pyramid reader needs libjpeg/libpng
-   headers this machine lacks) written by spawned workers;
-   ``cli/step1_patches.py`` segments and tiles them into 256-px patches
-   (coords as torch files), printing each slide's seg, patch and stitch
-   seconds; coords must be non-empty and inside each slide.
+15. the SPY reader (``wsi/native.py``, cv2's JPEG codec) on this machine: a
+   raw-codec round trip exact; a JPEG one equal to the tiles' own cv2 round
+   trips assembled outside the reader, and within ``SPY_JPEG_MAE`` of its
+   source; regions across the right and bottom edges and fully outside
+   white as ``ImageSlide`` fills them. Then the pipeline in the port alone,
+   Step1 -> Step4: six synthetic 5120x3840 slides written as SPY pyramids
+   (JPEG, 256-px tiles, ``wsi/synthetic.py::write_synthetic_spy``) by
+   spawned workers; ``cli/step1_patches.py`` segments and tiles them into
+   256-px patches (coords as torch files), printing each slide's seg, patch
+   and stitch seconds; coords must be non-empty and inside each slide.
    ``cli/step2_extract.py`` extracts ViT-S/16 features on those coords (full
    width, depth 12, batch 256; B3 12 times a batch, B5' once per B3;
-   features fp16 and finite), with each slide's open time;
+   features fp16 and finite), printing per slide the open time, Step2's
+   patches/s and the host's read+decode ms per 256-patch batch beside the
+   encoder's ms a batch, and for contrast slide 0 as a PNG (open and a
+   batch's read);
    ``cli/step3_acmil.py`` trains ACMIL_GA 2 epochs on a 4/1/1 split (B1 and
    B2 counted, losses finite); ``cli/predict.py`` scores the six (B1 once a
    slide, rows sum to 1); ``cli/step4_heatmap.py`` renders the test slide
@@ -131,6 +138,20 @@ code is non-zero:
    phase 15's slides with it; ``cli/step3_generic.py --arch mha`` trains
    MHA (``mha_single``) one epoch; then a training step and a slide's eval
    at 50000 patches timed, with their device time.
+17. CLAM_SB and CLAM_MB at the camelyon_medical_ssl widths (D_feat 384,
+   D_inner 128, A 128): (a) fused (B1 + B2; MB through
+   ``ops/attn_pool.py::gated_attn_pool_grad_one``, B1's stats and B2 under
+   lse₁) against plain training on 50000-patch bags with ``droprate: 0``,
+   n_class 2 and 4 (subtyping on): one step's loss, instance loss and every
+   gradient by phase 7's rules, five AdamW steps' losses; (b) two epochs of
+   ``cli/step3_generic.py --arch clam_sb`` and ``--arch clam_mb`` at
+   ``droprate: 0`` on phase 16's 24 slides: B1 and B2 once per train step
+   whose bucket reaches ``FUSE_MIN_N``, B1 once per such val/test bag; the
+   best checkpoint scores through ``cli/predict.py`` within
+   ``CLAM_PROB_ATOL`` of the plain route; ``cli/step4_heatmap.py`` renders
+   a SPY slide of phase 15 with the MB head (B1 once); (c) one epoch at the
+   reference's dropout 0.25, which launches no B2; (d) a training step and
+   an eval at 50000 patches timed, with their device time.
 
 The line before the last but one is ``{"kernels": [...]}`` with each
 kernel's launches on its path (B7's are counted over phases 3-13, where no
@@ -147,7 +168,9 @@ with ptxas's registers and spills of each of its kernels (``ptxas``), at
 C=128 (``c128``) and at UNI's widths (``uni``), B3 and B4 also their
 GEMMs' device time and rate; B1, B2, B3 and B5' also their launches in
 phase 15 (``launches_pipeline_step2``, ``_step3``, ``_predict``,
-``_step4``); then the card's name and power limit; the last line is
+``_step4``), and B1 and B2 their launches on phase 17's CLAM paths
+(``launches_clam_*``); then the card's name and power limit; the last line
+is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -228,9 +251,8 @@ DSMIL_WIDTHS = ((384, 128), (1024, 512))
 DSMIL_ATOL, DSMIL_RTOL = 1e-4, 1e-4
 DSMIL_PROB_ATOL, DSMIL_PROB_RTOL = 2e-5, 2e-4
 DSMIL_SERVE_SLIDES, DSMIL_BIG_SLIDES = 16, 5
-# the pipeline phase: six synthetic PNG slides tiled by Step1 into 256-px
-# patches (~120 each at a_t = a_h = 1), a 4/1/1 split; the card's machine
-# lacks the libjpeg/libpng headers the native pyramid reader needs
+# the pipeline phase: six synthetic SPY slides (JPEG, 256-px tiles) tiled by
+# Step1 into 256-px patches (~110 each at a_t = a_h = 1), a 4/1/1 split
 PIPE_SLIDE_WH, PIPE_SLIDES, PIPE_PATCH = (5120, 3840), 6, 256
 PIPE_SPLIT = (4, 1, 1)
 # Step4's attention through B1 against the plain forward, probabilities at
@@ -239,6 +261,20 @@ STEP4_ATOL = 1e-5
 # ACMIL_MHA on the card against the same checkpoint scored on the CPU
 MHA_CPU_ATOL = 1e-4
 MHA_HEADS = 8
+# the SPY reader: a JPEG round trip at quality 90 against its source, mean
+# |error| per channel over a region's pixels inside the slide. The
+# synthetic tissue's +-15 per-pixel texture costs up to 3.09 on a
+# tissue-filled region and 2.51 over level 0 (cv2 4.13 and 5.0 alike); a
+# channel swap costs 8.75. The exact check against the tiles' own round
+# trips is the one a misplaced tile fails
+SPY_JPEG_MAE = 3.5
+# CLAM: the routes are held by phase 7's rules (STEP_*, ADAM_LOSS_RTOL) on
+# bags of these lengths (bucket 65536 each, so both kernels run), at these
+# class counts (4: subtyping on); the card's probabilities (B1) against the
+# plain route's, as ACMIL's PROB_ATOL
+CLAM_ROUTE_LENGTHS = (50000, 40000, 60000)
+CLAM_CLASSES = (2, 4)
+CLAM_PROB_ATOL = 1e-5
 
 
 def card() -> str:
@@ -1959,14 +1995,30 @@ def dsmil_train_run(smi: str) -> int:
 
 
 def _write_pipeline_slide(path: str, seed: int, tumor: bool) -> None:
-    """One synthetic slide as a PNG (run in a worker process)."""
-    import cv2
+    """One synthetic slide as a SPY pyramid, JPEG in 256-px tiles, through
+    the port's writer (run in a worker process)."""
+    from acmil_tpu_torch.wsi.synthetic import write_synthetic_spy
 
-    from acmil_tpu_torch.wsi.synthetic import make_synthetic_slide_image
+    write_synthetic_spy(path, *PIPE_SLIDE_WH, seed=seed, tumor=tumor)
 
-    img, _ = make_synthetic_slide_image(*PIPE_SLIDE_WH, seed=seed,
-                                        tumor=tumor)
-    cv2.imwrite(path, cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+
+def _batch_read_ms(slide, coords_pt: str) -> float:
+    """Median host ms of Step2's read of one full batch from ``slide``: the
+    coords of ``coords_pt`` cycled to STEP2_BATCH, each patch read and
+    resized to 224 px as ``data/patch_dataset.py`` reads it, no prefetch."""
+    from acmil_tpu_torch.data.patch_dataset import SlidePatchBatches
+    from acmil_tpu_torch.wsi.tiling import load_coords_pt
+
+    coords, _, attrs = load_coords_pt(coords_pt)
+    src = SlidePatchBatches(slide, np.resize(coords, (STEP2_BATCH, 2)),
+                            int(attrs["patch_size"] * attrs.get("downsample",
+                                                                1.0)),
+                            int(attrs.get("patch_level", 0)),
+                            target_size=PATCH_PX, batch_size=STEP2_BATCH,
+                            prefetch=0)
+    idx = np.arange(STEP2_BATCH)
+    return statistics.median(_host_ms(lambda: src._make(idx))
+                             for _ in range(3))
 
 
 def _write_split(split_dir: str, train, val, test) -> None:
@@ -2013,6 +2065,7 @@ def pipeline_run(smi: str, tmp: str) -> dict:
     from acmil_tpu_torch.ops import vit_attn_packed, vit_layer
     from acmil_tpu_torch.wsi.heatmap import render_level
     from acmil_tpu_torch.wsi.slide import clear_slide_cache, open_slide
+    from acmil_tpu_torch.wsi.synthetic import make_synthetic_slide_image
     from acmil_tpu_torch.wsi.tiling import load_coords_pt
 
     t_phase = time.perf_counter()
@@ -2025,15 +2078,14 @@ def pipeline_run(smi: str, tmp: str) -> dict:
             max_workers=min(PIPE_SLIDES, os.cpu_count() or 1),
             mp_context=ctx) as pool:
         futures = [pool.submit(_write_pipeline_slide,
-                               os.path.join(slide_dir, f"{n}.png"), SEED + i,
+                               os.path.join(slide_dir, f"{n}.spy"), SEED + i,
                                bool(i % 2)) for i, n in enumerate(names)]
         for fut in futures:
             fut.result()
     print(f"pipeline inputs: {PIPE_SLIDES} synthetic {PIPE_SLIDE_WH[0]}x"
-          f"{PIPE_SLIDE_WH[1]} PNG slides written in "
-          f"{time.perf_counter() - t0:.2f} s (pyramid containers need the "
-          f"native reader, which the port does not carry: this machine has "
-          f"no libjpeg/libpng headers)")
+          f"{PIPE_SLIDE_WH[1]} slides written as SPY pyramids (JPEG, "
+          f"256-px tiles, wsi/native.py::write_spy) in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     # Step1: segmentation, tiling, masks, stitches, coords as torch files
     save_dir = os.path.join(tmp, "step1")
@@ -2046,7 +2098,7 @@ def pipeline_run(smi: str, tmp: str) -> dict:
     coords_dir = os.path.join(save_dir, "patches")
     n_patches = {}
     for n in names:
-        sid = f"{n}.png"
+        sid = f"{n}.spy"
         coords, _, attrs = load_coords_pt(os.path.join(coords_dir, f"{n}.pt"))
         w, h = PIPE_SLIDE_WH
         if sid not in done or len(coords) == 0 or coords.min() < 0 \
@@ -2099,7 +2151,21 @@ def pipeline_run(smi: str, tmp: str) -> dict:
                 or not bool(torch.isfinite(f).all()):
             raise AssertionError(f"{n}: features {f.dtype} {tuple(f.shape)}")
     open_ms = [_host_ms(lambda n=n: open_slide(
-        os.path.join(slide_dir, f"{n}.png"), cache=False)) for n in names]
+        os.path.join(slide_dir, f"{n}.spy"), cache=False)) for n in names]
+    # Step2's host read of one 256-patch batch per slide (its coords cycled
+    # to 256), on the SPY pyramid and, for slide 0, on the same pixels as a
+    # PNG opened as Step2 opened it before (decoded whole, ImageSlide)
+    read_ms = [_batch_read_ms(open_slide(os.path.join(slide_dir, f"{n}.spy"),
+                                         cache=False),
+                              os.path.join(coords_dir, f"{n}.pt"))
+               for n in names]
+    png = os.path.join(tmp, "slide_0.png")
+    img, _ = make_synthetic_slide_image(*PIPE_SLIDE_WH, seed=SEED, tumor=False)
+    cv2.imwrite(png, cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+    del img
+    png_open_ms = _host_ms(lambda: open_slide(png, cache=False))
+    png_read_ms = _batch_read_ms(open_slide(png, cache=False),
+                                 os.path.join(coords_dir, "slide_0.pt"))
     # the encoder's device time per batch of 256 patches of this slide set
     with warnings.catch_warnings(), torch.random.fork_rng(devices=[]):
         warnings.simplefilter("ignore")
@@ -2110,15 +2176,22 @@ def pipeline_run(smi: str, tmp: str) -> dict:
     pix = np.random.default_rng(SEED).integers(
         0, 256, (STEP2_BATCH, spec.img_size, spec.img_size, 3), np.uint8)
     embed_ms = _time_ms(lambda: embed(pix), 5)
-    print(f"step2: cli/step2_extract.py on Step1's coords, ViT-S/16 full "
-          f"width, depth {STEP2_DEPTH}, batch {STEP2_BATCH}: {res['patches']} "
-          f"patches in {batches} batches, {res['patches'] / res['seconds']:.1f} "
-          f"patches/s ({step2_wall:.2f} s for the whole main()); B3 launches "
-          f"{b3}, B5' {b5}; fp16 [N, 384] finite; opening each "
-          f"{PIPE_SLIDE_WH[0]}x{PIPE_SLIDE_WH[1]} PNG (decode and pyramid, "
-          f"ImageSlide; the open is inside the patches/s) "
-          f"{', '.join(f'{m:.1f}' for m in open_ms)} ms; feature "
-          f"closure per batch of {STEP2_BATCH} from host pixels, CUDA events "
+    for n, o, r in zip(names, open_ms, read_ms):
+        print(f"  step2 {n}: open {o:.2f} ms (SPY header and tile tables), "
+              f"{res['slides'][n]} patches at "
+              f"{res['slides'][n] / res['slide_seconds'][n]:.1f} patches/s; "
+              f"read+decode {r:.2f} ms per {STEP2_BATCH}-patch batch (host) "
+              f"beside the encoder's {embed_ms:.4f} ms (device, CUDA events) "
+              f"[{smi}]")
+    print(f"step2: cli/step2_extract.py on Step1's coords over the SPY "
+          f"slides, ViT-S/16 full width, depth {STEP2_DEPTH}, batch "
+          f"{STEP2_BATCH}: {res['patches']} patches in {batches} batches, "
+          f"{res['patches'] / res['seconds']:.1f} patches/s "
+          f"({step2_wall:.2f} s for the whole main()); B3 launches {b3}, B5' "
+          f"{b5}; fp16 [N, 384] finite; the same pixels as a PNG "
+          f"(slide_0): open {png_open_ms:.1f} ms (decode and ImageSlide "
+          f"pyramid), read {png_read_ms:.2f} ms a batch; feature closure per "
+          f"batch of {STEP2_BATCH} from host pixels, CUDA events "
           f"{embed_ms:.4f} ms [{smi}]")
 
     # Step3: ACMIL_GA at camelyon_medical_ssl widths, 2 epochs, 4/1/1 split
@@ -2177,7 +2250,7 @@ def pipeline_run(smi: str, tmp: str) -> dict:
                              f"fused {heat['fused']}, B1 launches {b1_step4}")
     for n, r in heat["slides"].items():
         img = cv2.imread(r["path"])
-        slide = open_slide(os.path.join(slide_dir, f"{n}.png"))
+        slide = open_slide(os.path.join(slide_dir, f"{n}.spy"))
         lw, lh = slide.level_dimensions[render_level(slide)]
         if img is None or img.shape != (lh, lw, 3) or img.std() < 5:
             raise AssertionError(f"{n}: heatmap {None if img is None else img.shape}"
@@ -2219,10 +2292,11 @@ def pipeline_run(smi: str, tmp: str) -> dict:
             "names": names, "step4_err": step4_err}
 
 
-def mha_run(smi: str, tmp: str, pipe: dict) -> None:
+def mha_run(smi: str, tmp: str, pipe: dict) -> dict:
     """ACMIL_MHA and MHA: Step3 training, scoring on the card and on the
     CPU, Step4 on two slides of the pipeline phase, the generic trainer's
-    ``mha``; then a step and a slide at 50000 patches timed."""
+    ``mha``; then a step and a slide at 50000 patches timed. Returns the
+    24-slide corpus (data_dir, yml, feats, lengths, slides) for phase 17."""
     from acmil_tpu_torch.cli import (predict, step3_acmil, step3_generic,
                                      step4_heatmap)
     from acmil_tpu_torch.config import Config
@@ -2343,6 +2417,370 @@ def mha_run(smi: str, tmp: str, pipe: dict) -> None:
     print(f"acmil_mha eval per slide at 50000 patches: {eval_ms:.4f} ms wall "
           f"(median of 10), {eval_dev} [{smi}]")
     print(f"acmil_mha phase wall {time.perf_counter() - t_phase:.2f} s [{smi}]")
+    return {"data_dir": data_dir, "yml": yml, "feats": feats,
+            "lengths": lengths, "slides": slides}
+
+
+# (location in level-0 px, level, (w, h)) of the reader check: inside,
+# across the right and bottom edges, across the top-left corner, fully
+# outside past each edge, straddling tiles, whole levels
+READER_REGIONS = (((0, 0), 0, (256, 256)), ((100, 37), 0, (300, 200)),
+                  ((1200, 1000), 0, (300, 300)), ((1250, 100), 0, (300, 64)),
+                  ((-50, -70), 0, (120, 130)), ((5000, 100), 0, (64, 64)),
+                  ((100, 5000), 0, (64, 64)), ((-900, 0), 0, (100, 100)),
+                  ((0, -900), 0, (100, 100)), ((513, 257), 1, (300, 200)),
+                  ((-100, 300), 1, (700, 500)), ((0, 0), 0, (1300, 1100)),
+                  ((0, 0), 1, (650, 550)))
+
+
+def _tile_round_trip(level: np.ndarray, tile: int) -> np.ndarray:
+    """``level`` with each tile JPEG-coded and decoded on its own by cv2, as
+    a SPY file holds it."""
+    from acmil_tpu_torch.wsi.native import decode_jpeg, encode_jpeg
+
+    out = np.empty_like(level)
+    for y in range(0, level.shape[0], tile):
+        for x in range(0, level.shape[1], tile):
+            t = level[y:y + tile, x:x + tile]
+            out[y:y + tile, x:x + tile] = decode_jpeg(encode_jpeg(t))
+    return out
+
+
+def reader_check(smi: str, tmp: str) -> None:
+    """The SPY reader on this machine's cv2: a raw-codec round trip exact; a
+    JPEG one equal to the tiles' own round trips assembled, and within
+    SPY_JPEG_MAE of its source; white past every edge as ``ImageSlide``
+    fills it."""
+    import cv2
+
+    from acmil_tpu_torch.wsi.native import NativeSlide, write_spy
+    from acmil_tpu_torch.wsi.slide import ImageSlide
+    from acmil_tpu_torch.wsi.synthetic import make_synthetic_slide_image
+
+    img, _ = make_synthetic_slide_image(1300, 1100, seed=SEED + 20,
+                                        tumor=True)
+    ref = ImageSlide(img)
+    # the JPEG file's pixels, assembled tile by tile outside the reader
+    coded = copy.copy(ref)
+    coded._levels = [_tile_round_trip(l, 256) for l in ref._levels]
+    worst, timing = {}, {}
+    for codec in ("raw", "jpeg"):
+        path = os.path.join(tmp, f"reader_{codec}.spy")
+        write_spy(path, ref._levels, tile_size=256, codec=codec)
+        t0 = time.perf_counter()
+        slide = NativeSlide(path)
+        open_ms = (time.perf_counter() - t0) * 1e3
+        if (slide.level_dimensions != ref.level_dimensions
+                or slide.level_downsamples != ref.level_downsamples):
+            raise AssertionError(f"{codec}: levels {slide.level_dimensions}")
+        mae = 0.0
+        for loc, level, (w, h) in READER_REGIONS:
+            got = slide.read_region(loc, level, (w, h))
+            want = ref.read_region(loc, level, (w, h))
+            # the window's pixels inside the level
+            lw, lh = ref.level_dimensions[level]
+            ds = ref.level_downsamples[level]
+            xs = int(loc[0] / ds) + np.arange(w)
+            ys = int(loc[1] / ds) + np.arange(h)
+            inside = (((ys >= 0) & (ys < lh))[:, None]
+                      & ((xs >= 0) & (xs < lw))[None, :])
+            if not np.array_equal(got[~inside], want[~inside]) \
+                    or not (got[~inside] == 255).all():
+                raise AssertionError(f"{codec} {loc} {level}: fill past the "
+                                     "edge is not ImageSlide's white")
+            exact = want if codec == "raw" else coded.read_region(
+                loc, level, (w, h))
+            if not np.array_equal(got, exact):
+                raise AssertionError(f"{codec} {loc} {level}: pixels differ "
+                                     "from the tiles' own round trip")
+            if inside.any():
+                mae = max(mae, float(np.abs(got[inside].astype(np.float64)
+                                            - want[inside]).mean()))
+        if codec == "jpeg" and not mae <= SPY_JPEG_MAE:
+            raise AssertionError(f"JPEG round trip: mean |error| {mae}")
+        worst[codec] = mae
+        read_ms = statistics.median(
+            _host_ms(lambda: slide.read_region((700, 500), 0, (256, 256)))
+            for _ in range(20))
+        timing[codec] = (open_ms, read_ms)
+        slide.close()
+    print(f"SPY reader (wsi/native.py, cv2 {cv2.__version__}): a 1300x1100 "
+          f"synthetic slide, {len(ref._levels)} levels, 256-px tiles, "
+          f"{len(READER_REGIONS)} regions each (edges, fully outside, whole "
+          f"levels): raw round trip exact, JPEG equal to its tiles' own cv2 "
+          f"round trips and its worst mean |error| against the source "
+          f"{worst['jpeg']:.4f} (limit {SPY_JPEG_MAE}); white past every edge "
+          f"as ImageSlide; open {timing['raw'][0]:.3f} / "
+          f"{timing['jpeg'][0]:.3f} ms, a 256-px read across 4 tiles "
+          f"{timing['raw'][1]:.3f} / {timing['jpeg'][1]:.3f} ms (raw / JPEG, "
+          f"host) [{smi}]")
+
+
+def _clam_conf(arch: str, n_class: int, **keys):
+    from acmil_tpu_torch.config import Config
+
+    return Config.from_yaml(YML, {"arch": arch, "n_class": n_class,
+                                  "droprate": 0, **keys})
+
+
+def _clam_routes(smi: str, arch: str, n_class: int) -> float:
+    """Fused (B1 + B2) against plain training of one CLAM head on 50000-patch
+    bags, from the same weights: one step's loss, instance loss and every
+    gradient, then five AdamW steps' losses. Returns the worst relative
+    gradient difference."""
+    from acmil_tpu_torch.data.bags import pad_bag
+    from acmil_tpu_torch.engine import (create_train_state, get_family,
+                                        make_train_step)
+    from acmil_tpu_torch.models import build_mil_model
+    from acmil_tpu_torch.ops import attn_pool as ap
+
+    model0, family = build_mil_model(_clam_conf(arch, n_class))
+    fam = get_family(family)
+    rs = np.random.default_rng(SEED + 16)
+    bags = [pad_bag(d["feat"], d["coords"], i % n_class,
+                    dtype=np.float16).to("cuda")
+            for i, d in enumerate(_synthetic_slides(
+                rs, CLAM_ROUTE_LENGTHS).values())]
+    one = {}
+    for fused in (True, False):
+        model = copy.deepcopy(model0).cuda()
+        conf_d = fam.conf_dict(_clam_conf(arch, n_class, fused_train=fused))
+        ap.fused_gated_attn_pool_batched.launches = 0
+        ap.fused_gated_attn_pool_bwd.launches = 0
+        out = fam.train_outputs(model.train(), bags[0], conf_d)
+        loss, parts = fam.loss(out, bags[0], bags[0].mask.any(dim=1), conf_d)
+        loss.backward()
+        launched = (ap.fused_gated_attn_pool_batched.launches,
+                    ap.fused_gated_attn_pool_bwd.launches)
+        if launched != ((1, 1) if fused else (0, 0)):
+            raise AssertionError(f"{arch}: B1/B2 launched {launched}")
+        one[fused] = (float(loss.detach()),
+                      float(parts["instance_loss"].detach()),
+                      {n: p.grad for n, p in model.named_parameters()})
+    (l_f, i_f, g_f), (l_p, i_p, g_p) = one[True], one[False]
+    if not (abs(l_f - l_p) <= STEP_LOSS_RTOL * abs(l_p)
+            and abs(i_f - i_p) <= STEP_LOSS_RTOL * abs(i_p)):
+        raise AssertionError(f"{arch} C={n_class} one step: loss fused {l_f} "
+                             f"plain {l_p}, instance {i_f} / {i_p}")
+    # the attention output bias's gradient is the sum of the rows' logit
+    # gradients, which cancels: to 0 in exact arithmetic for SB's softmax
+    # (a shift is ignored), to the phantom logit's share, ~1/N, for MB's
+    # softmax-one. Both routes give that sum's rounding residue, so it is
+    # held against the scale of the output weight's gradient, whose terms
+    # are the same rows'
+    zero = "attention_net.2.attention_c.bias"
+    for n in g_p:
+        err = float((g_f[n] - g_p[n]).abs().max())
+        scale = g_p[n.replace("bias", "weight") if n == zero else n]
+        if not err <= STEP_GRAD_REL * float(scale.abs().max()) + STEP_GRAD_ATOL:
+            raise AssertionError(f"{arch} C={n_class}: gradient of {n} "
+                                 f"differs by {err:.3e}")
+    worst = max(_rel_to_max(g_f[n], g_p[n]) for n in g_p if n != zero)
+    losses = {}
+    for fused in (True, False):
+        conf = _clam_conf(arch, n_class, fused_train=fused)
+        model = copy.deepcopy(model0).cuda()
+        state = create_train_state(model, conf, steps_per_epoch=len(bags))
+        step = make_train_step(model, conf, family)
+        losses[fused] = [float(step(state, bags[i % 3])["loss"])
+                         for i in range(5)]
+    adam = max(abs(a - b) / abs(b) for a, b in zip(losses[True],
+                                                   losses[False]))
+    if not adam <= ADAM_LOSS_RTOL:
+        raise AssertionError(f"{arch} C={n_class} AdamW losses {losses}")
+    print(f"  {arch} C={n_class}: one step at {CLAM_ROUTE_LENGTHS[0]} "
+          f"patches, loss fused {l_f:.7f} plain {l_p:.7f}, instance loss "
+          f"{i_f:.7f} / {i_p:.7f}; worst gradient difference {worst:.3e} of "
+          f"its max over the other {len(g_p) - 1} tensors, attention output "
+          f"bias |fused| {float(g_f[zero].abs().max()):.3e} |plain| "
+          f"{float(g_p[zero].abs().max()):.3e} against |output weight| "
+          f"{float(g_p[zero.replace('bias', 'weight')].abs().max()):.3e}; "
+          f"five AdamW steps, worst relative loss difference {adam:.3e}")
+    return worst
+
+
+def _clam_train(yml, data_dir, arch, ckpt_dir, log_dir, epochs):
+    """``cli/step3_generic.py --arch ARCH`` on the card; (launches of B1 and
+    B2, wall s, epoch losses)."""
+    from acmil_tpu_torch.cli import step3_generic
+    from acmil_tpu_torch.ops import attn_pool as ap
+
+    ap.fused_gated_attn_pool_batched.launches = 0
+    ap.fused_gated_attn_pool_bwd.launches = 0
+    t0 = time.perf_counter()
+    step3_generic.main(["--config", yml, "--arch", arch, "--data_dir",
+                        data_dir, "--ckpt_dir", ckpt_dir, "--log_dir", log_dir,
+                        "--train_epoch", str(epochs), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"B1": ap.fused_gated_attn_pool_batched.launches,
+                "B2": ap.fused_gated_attn_pool_bwd.launches}
+    losses = _epoch_losses(log_dir)
+    if len(losses) != epochs or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{arch} epoch losses {losses}")
+    return launches, wall, losses
+
+
+def clam_run(smi: str, tmp: str, pipe: dict, corpus: dict) -> dict:
+    """CLAM_SB and CLAM_MB at the camelyon_medical_ssl widths: (a) fused
+    against plain training on 50000-patch bags, n_class 2 and 4; (b) two
+    epochs of the generic trainer per arch at ``droprate: 0`` on phase 16's
+    24 slides, B1/B2 counted, the best checkpoint scored through
+    ``cli/predict.py`` against the plain route, Step4 on a SPY slide of
+    phase 15 with the MB head; (c) one epoch at the reference's dropout
+    0.25, which must launch no B2; (d) a step and an eval at 50000 patches
+    timed. Returns the launch counts."""
+    from acmil_tpu_torch.cli import predict, step4_heatmap
+    from acmil_tpu_torch.config import Config
+    from acmil_tpu_torch.data.bags import bucket_length, pad_bag
+    from acmil_tpu_torch.engine import (checkpoint, create_train_state,
+                                        get_family, make_eval_step,
+                                        make_train_step)
+    from acmil_tpu_torch.models import build_mil_model, fast
+    from acmil_tpu_torch.ops import attn_pool as ap
+    from acmil_tpu_torch.wsi.slide import clear_slide_cache
+
+    t_phase = time.perf_counter()
+    # (a) the routes, and the softmax-one wrapper on the card (MB)
+    worst = {(a, c): _clam_routes(smi, a, c) for a in ("clam_sb", "clam_mb")
+             for c in CLAM_CLASSES}
+    print(f"clam routes: fused (B1, B2; MB through the softmax-one rescale "
+          f"and lse1) against plain, f32 with TF32 off, at n_class "
+          f"{CLAM_CLASSES}: worst gradient difference "
+          f"{max(worst.values()):.3e} of its max [{smi}]")
+
+    # (b) two epochs per arch at droprate 0 on phase 16's corpus
+    root = os.path.join(tmp, "clam")
+    os.makedirs(root)
+    yml = os.path.join(root, "clam.yml")
+    with open(corpus["yml"]) as src, open(yml, "w") as dst:
+        dst.write(src.read() + "\ndroprate: 0\n")
+    conf = Config.from_yaml(yml)
+    big = [bucket_length(n, conf.min_bucket, conf.max_patches)
+           >= fast.FUSE_MIN_N for n in corpus["lengths"]]
+    steps, evals = sum(big[:N_TRAIN]), sum(big[N_TRAIN:])
+    out, ckpts = {}, {}
+    for arch in ("clam_sb", "clam_mb"):
+        ckpts[arch] = os.path.join(root, f"ckpt_{arch}")
+        launches, wall, losses = _clam_train(
+            yml, corpus["data_dir"], arch, ckpts[arch],
+            os.path.join(root, f"log_{arch}"), TRAIN_EPOCHS)
+        want = {"B1": TRAIN_EPOCHS * (steps + evals),
+                "B2": TRAIN_EPOCHS * steps}
+        if launches != want:
+            raise AssertionError(f"{arch} launches {launches}: want {want} "
+                                 f"({steps} train steps and {evals} val/test "
+                                 f"bags a epoch with a bucket >= FUSE_MIN_N)")
+        ck = checkpoint.load(checkpoint.checkpoint_path(ckpts[arch], "best"))
+        if ck["config"]["arch"] != arch or ck["config"]["droprate"] != 0:
+            raise AssertionError(f"{arch} checkpoint config {ck['config']}")
+        # the best checkpoint through cli/predict.py (B1 at every bucket >=
+        # FUSE_MIN_N), against the plain route on the same bags
+        ap.fused_gated_attn_pool_batched.launches = 0
+        t0 = time.perf_counter()
+        scored = predict.main(["--config", yml, "--ckpt", ckpts[arch],
+                               "--features", corpus["feats"], "--out_csv",
+                               os.path.join(root, f"preds_{arch}.csv"),
+                               "--device", "cuda"])
+        predict_s = time.perf_counter() - t0
+        b1_predict = ap.fused_gated_attn_pool_batched.launches
+        if b1_predict != sum(big):
+            raise AssertionError(f"{arch} predict: B1 launched {b1_predict}")
+        _check_predictions(scored, len(corpus["lengths"]), 2)
+        head, _ = build_mil_model(_clam_conf(arch, 2))
+        head.load_state_dict(ck["model"])
+        plain_step = make_eval_step(head.cuda(), "clam", fused=False)
+        err = 0.0
+        for row in scored["rows"]:
+            d = corpus["slides"][row[0]]
+            bag = pad_bag(d["feat"], d["coords"], d["label"],
+                          dtype=np.float16).to("cuda")
+            want_p = plain_step(bag)[0].cpu().numpy()
+            err = max(err, float(np.abs(np.asarray(row[2:4]) - want_p).max()))
+        if not err <= CLAM_PROB_ATOL:
+            raise AssertionError(f"{arch} predict against plain: {err}")
+        out[arch] = {"B1": launches["B1"], "B2": launches["B2"],
+                     "B1_predict": b1_predict}
+        print(f"{arch}: cli/step3_generic.py --arch {arch} (droprate 0), "
+              f"{TRAIN_EPOCHS} epochs x {N_TRAIN} steps on "
+              f"{len(corpus['lengths'])} slides "
+              f"({min(corpus['lengths'])}-{max(corpus['lengths'])} patches), "
+              f"{wall:.2f} s wall; launches B1 {launches['B1']}, B2 "
+              f"{launches['B2']} (= {TRAIN_EPOCHS} x ({steps} steps, {evals} "
+              f"eval bags) with a bucket >= FUSE_MIN_N); epoch losses "
+              f"{', '.join(f'{v:.6f}' for v in losses)}; cli/predict.py "
+              f"{predict_s:.2f} s, B1 {b1_predict}, max |card - plain| "
+              f"probability {err:.3e} [{smi}]")
+
+    # Step4 on a SPY slide of phase 15 with the MB head (B1 once)
+    names = pipe["names"]
+    split_dir = os.path.join(root, "splits4")
+    _write_split(split_dir, names[:-1], [], names[-1:])
+    yml4 = _yml_with(root, "step4.yml", split_dir=split_dir,
+                     data_dir=os.path.dirname(pipe["feat_path"]))
+    clear_slide_cache()
+    ap.fused_gated_attn_pool_batched.launches = 0
+    heat = step4_heatmap.main(["--config", yml4, "--ckpt_dir",
+                               ckpts["clam_mb"], "--slide_dir",
+                               pipe["slide_dir"], "--output_dir",
+                               os.path.join(root, "heat"), "--patch_size",
+                               str(PIPE_PATCH), "--device", "cuda"])
+    b1_step4 = ap.fused_gated_attn_pool_batched.launches
+    r = heat["slides"].get(names[-1])
+    if not heat["fused"] or b1_step4 != 1 or r is None \
+            or not os.path.isfile(r["path"]) \
+            or not np.isfinite(r["scores"]).all():
+        raise AssertionError(f"Step4 with CLAM_MB: {sorted(heat['slides'])}, "
+                             f"B1 {b1_step4}")
+    print(f"clam_mb Step4: cli/step4_heatmap.py rendered {names[-1]}.spy "
+          f"(attention {r['attn_ms']:.2f} ms, render {r['render_ms']:.1f} "
+          f"ms; B1 {b1_step4}) [{smi}]")
+
+    # (c) the reference's dropout 0.25: the plain training route, no B2
+    drop, drop_wall, drop_losses = _clam_train(
+        corpus["yml"], corpus["data_dir"], "clam_mb",
+        os.path.join(root, "ckpt_drop"), os.path.join(root, "log_drop"), 1)
+    if drop != {"B1": evals, "B2": 0}:
+        raise AssertionError(f"droprate 0.25 launches {drop}: want B1 "
+                             f"{evals} (eval only), B2 0")
+    print(f"clam_mb at droprate 0.25: 1 epoch, {drop_wall:.2f} s wall, loss "
+          f"{drop_losses[0]:.6f}; launches B1 {drop['B1']} (eval bags), B2 "
+          f"{drop['B2']} [{smi}]")
+
+    # (d) a step and an eval at 50000 patches (bucket 65536)
+    d = corpus["slides"]["slide_01"]
+    bag = pad_bag(d["feat"], d["coords"], d["label"],
+                  dtype=np.float16).to("cuda")
+    for arch in ("clam_sb", "clam_mb"):
+        conf = _clam_conf(arch, 2)
+        model, family = build_mil_model(conf)
+        model.cuda()
+        state = create_train_state(model, conf, 1)
+        step = make_train_step(model, conf, get_family(family))
+        eval_step = make_eval_step(model, family)
+        ap.fused_gated_attn_pool_batched.launches = 0
+        ap.fused_gated_attn_pool_bwd.launches = 0
+        step(state, bag)
+        eval_step(bag)
+        torch.cuda.synchronize()
+        per = (ap.fused_gated_attn_pool_batched.launches,
+               ap.fused_gated_attn_pool_bwd.launches)
+        if per != (2, 1):
+            raise AssertionError(f"{arch}: a step and an eval launched "
+                                 f"B1/B2 {per}")
+        step_ms = _wall_ms(lambda: step(state, bag), 10)
+        step_dev = _profile_device_ms(lambda: step(state, bag), 5, step_ms)
+        eval_ms = _wall_ms(lambda: eval_step(bag), 10)
+        eval_dev = _profile_device_ms(lambda: eval_step(bag), 5, eval_ms)
+        print(f"{arch} at {len(d['feat'])} patches (bucket "
+              f"{bag.feats.shape[1]}), bag on the device: training step "
+              f"(B1 1, B2 1) {step_ms:.4f} ms wall (median of 10), "
+              f"{step_dev} [{smi}]")
+        print(f"{arch} eval (B1 1): {eval_ms:.4f} ms wall (median of 10), "
+              f"{eval_dev} [{smi}]")
+    print(f"clam phase wall {time.perf_counter() - t_phase:.2f} s [{smi}]")
+    out["B1_step4"], out["dropout_epoch"] = b1_step4, drop
+    return out
 
 
 VIT_ATTN_SHAPES = (("ViT-S/16", 6, 197, 64), ("ViT-S/8", 6, 785, 64),
@@ -2475,8 +2913,11 @@ def main() -> None:
     b7_launches = fused_vit_attention.launches
     b7 = vit_attn_b7_vs_plain(smi)
     with tempfile.TemporaryDirectory() as tmp:
+        reader_check(smi, tmp)
         pipe = pipeline_run(smi, tmp)
-        mha_run(smi, tmp, pipe)
+        corpus = mha_run(smi, tmp, pipe)
+        clam = clam_run(smi, tmp, pipe, corpus)
+        del corpus
     b5_edges = b7.pop("b5_edges")
     vit["B5"]["max_abs_err"] = max(vit["B5"]["max_abs_err"],
                                    b5_edges["max_abs_err"])
@@ -2494,6 +2935,12 @@ def main() -> None:
         "launches_pipeline_step3": pipe["B1_step3"],
         "launches_pipeline_predict": pipe["B1_predict"],
         "launches_pipeline_step4": pipe["B1_step4"],
+        "launches_clam_sb_step3": clam["clam_sb"]["B1"],
+        "launches_clam_mb_step3": clam["clam_mb"]["B1"],
+        "launches_clam_sb_predict": clam["clam_sb"]["B1_predict"],
+        "launches_clam_mb_predict": clam["clam_mb"]["B1_predict"],
+        "launches_clam_mb_step4": clam["B1_step4"],
+        "launches_clam_dropout_epoch": clam["dropout_epoch"]["B1"],
         **b1}, {
         "name": "B2 fused gated-attention pooling (backward)",
         "route": "cuda",
@@ -2502,6 +2949,9 @@ def main() -> None:
         "launches": train_launches["B2"],
         "launches_natural_supervised_training": wide_train["B2"],
         "launches_pipeline_step3": pipe["B2"],
+        "launches_clam_sb_step3": clam["clam_sb"]["B2"],
+        "launches_clam_mb_step3": clam["clam_mb"]["B2"],
+        "launches_clam_dropout_epoch": clam["dropout_epoch"]["B2"],
         **b2}, {
         "name": "B3 fused ViT layer (chain: 4 GEMM launches, 2 of them "
                 "after a LayerNorm prologue, + B5')",

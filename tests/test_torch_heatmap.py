@@ -255,6 +255,37 @@ def test_step4_cli_matches_jax_formula(step4_inputs, tmp_path, arch):
         np.testing.assert_allclose(scores, want, rtol=1e-4, atol=1e-5)
 
 
+def test_step4_on_raw_spy_slides_renders_as_on_pngs(step4_inputs, tmp_path):
+    """The test slides as raw SPY pyramids of their ImageSlide levels: every
+    read equals the PNG's, so the heatmaps are the same images."""
+    import cv2
+
+    from acmil_tpu_torch.wsi.native import write_spy
+    from acmil_tpu_torch.wsi.slide import clear_slide_cache
+
+    d, yml, _ = step4_inputs
+    ckpt_dir, _, _ = _checkpoint(d, "ga")
+    spy_dir = tmp_path / "spy"
+    os.makedirs(spy_dir)
+    for name in ("slide_2", "slide_3"):
+        png = ImageSlide(cv2.cvtColor(
+            cv2.imread(str(d / "slides" / f"{name}.png")), cv2.COLOR_BGR2RGB))
+        write_spy(str(spy_dir / f"{name}.spy"), png._levels, tile_size=128,
+                  codec="raw")
+    outs = {}
+    for kind, slide_dir in (("png", d / "slides"), ("spy", spy_dir)):
+        outs[kind] = step4_heatmap.main([
+            "--config", str(yml), "--ckpt_dir", ckpt_dir, "--slide_dir",
+            str(slide_dir), "--output_dir", str(tmp_path / kind),
+            "--patch_size", "128", "--device", "cpu"])
+    clear_slide_cache()
+    assert sorted(outs["spy"]["slides"]) == ["slide_2", "slide_3"]
+    for name, res in outs["spy"]["slides"].items():
+        assert res["path"].startswith(str(tmp_path / "spy"))
+        np.testing.assert_array_equal(cv2.imread(res["path"]), cv2.imread(
+            outs["png"]["slides"][name]["path"]))
+
+
 def test_step4_refuses_a_head_without_attention(step4_inputs, tmp_path):
     d, yml, _ = step4_inputs
     ckpt_dir, _, _ = _checkpoint(d, "mha_single")

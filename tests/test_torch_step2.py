@@ -157,6 +157,37 @@ def test_torch_file_adapters_match_the_h5_path(step2_inputs, tiny_specs,
         assert item["label"] == want[name][2]
 
 
+def test_step2_on_spy_slides_matches_the_jax_script(step2_inputs, tiny_specs,
+                                                   monkeypatch, tmp_path):
+    """The same two slides as JPEG SPY pyramids (64-px tiles, so patches
+    straddle tiles), read by each package's own native reader."""
+    import cv2
+
+    from acmil_tpu_torch.wsi.native import write_spy
+
+    d, weights = step2_inputs
+    spy_dir = tmp_path / "spy"
+    os.makedirs(spy_dir)
+    for name, *_ in SLIDES:
+        img = cv2.cvtColor(cv2.imread(str(d / "slides" / f"{name}.png")),
+                           cv2.COLOR_BGR2RGB)
+        write_spy(str(spy_dir / f"{name}.spy"), [img], tile_size=64)
+    argv = _args(d, weights, tmp_path / "jax")
+    argv[argv.index("--slide_dir") + 1] = str(spy_dir)
+    monkeypatch.setattr(sys, "argv", ["Step2"] + argv)
+    jax_step2.main()
+    want = _read_h5(tmp_path / "jax" / "patch_feats_pretrain_medical_ssl.h5")
+    argv[argv.index("--output_dir") + 1] = str(tmp_path / "port")
+    res = step2_extract.main(argv + ["--device", "cpu"])
+    got = _read_h5(res["out_path"])
+    assert set(got) == set(want) == {"slide_a", "slide_b"}
+    for name in want:
+        np.testing.assert_array_equal(got[name][1], want[name][1])
+        np.testing.assert_allclose(got[name][0].astype(np.float32),
+                                   want[name][0].astype(np.float32),
+                                   atol=FEAT_TOL, rtol=FEAT_TOL)
+
+
 def test_image_slide_matches_jax(tmp_path):
     # a PNG wider than 1024 px, so both pyramids have a second level; reads
     # at both levels, one of them past the right edge
