@@ -14,8 +14,16 @@ pools each slide through kernel B1; a CLAM head (``clam_sb``, ``clam_mb``)
 through B1, and a DSMIL head (``--arch dsmil``, or a checkpoint of one)
 through kernel B6, when the slide's padded bag reaches
 ``models/fast.py::FUSE_MIN_N`` patches, through their plain forwards below.
-ACMIL_MHA (``mha``), MHA (``mha_single``) and ABMIL score through their
-plain forwards on any device, as the JAX package scores them.
+ACMIL_MHA (``mha``), MHA (``mha_single``), ABMIL and the rest of the
+generic zoo (``meanmil``, ``maxmil``, ``lbmil``, ``attmil``,
+``attmil_gated``, ``ilra``, ``ips``, ``ibmil``, and ``bmil_vis``,
+``bmil_enc`` and ``bmil_spvis`` with the slide's coords) score through
+their plain forwards on any device, as the JAX package scores them.
+
+The model's shape comes from the checkpoint's ``MODEL_CONFIG_KEYS``, which
+do not hold IBMIL's ``c_path``: a phase-2 IBMIL checkpoint loads only when
+the ``--config`` YAML names the same ``c_path``, and raises otherwise, as
+``scripts/predict.py`` of the JAX package does.
 """
 
 from __future__ import annotations

@@ -4,8 +4,13 @@
 The same flags, YAMLs and arch names; the per-arch loss wiring lives in the
 family registry. Of the JAX trainer's zoo the port registers ``abmil``,
 ``ga``, ``mha_single`` (the reference script's ``mha``, MHA), ``dsmil``,
-``clam_sb`` and ``clam_mb``; any other arch raises, naming those (and
-``mha``, ACMIL_MHA)::
+``clam_sb``, ``clam_mb``, ``meanmil``, ``maxmil``, ``lbmil``, ``attmil``,
+``attmil_gated``, ``ilra``, ``ips`` (``ips_m``/``ips_chunk`` from the
+YAML), ``ibmil`` (its two-phase protocol has its own entry points,
+``cli/step3_ibmil.py`` and ``cli/ibmil_clustering.py``) and ``bmil_vis``,
+``bmil_enc`` and ``bmil_spvis`` (the BMIL family: CE plus the ARD and data
+KLs; ``bmil_grid`` from the YAML); any other arch (``transmil``, ``dtfd``,
+``mhim``, ``pure``) raises, naming those (and ``mha``, ACMIL_MHA)::
 
     python -m acmil_tpu_torch.cli.step3_generic \\
         --config config/camelyon_medical_ssl_config.yml --arch clam_mb \\
@@ -17,7 +22,9 @@ through kernel B6. CLAM scores such bags through kernel B1, and trains them
 through B1 and B2 when the YAML sets ``droprate: 0`` (with the CE instance
 loss, ``inst_loss: ce``, the default); at the reference's dropout 0.25 it
 trains through its plain forward. ``--w_loss`` mixes CLAM's bag and
-instance losses (default 0.7).
+instance losses (default 0.7). The rest of the zoo trains and scores
+through plain forwards with autograd, as in the JAX package: none of those
+heads reaches a kernel there.
 """
 
 from __future__ import annotations

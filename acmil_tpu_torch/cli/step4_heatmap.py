@@ -19,8 +19,14 @@ dict's ``attn`` (one branch for SB, one per class for MB). On a CUDA device
 ACMIL_GA, ABMIL and CLAM take their attention from kernel B1
 (``models/fast.py::acmil_ga_infer`` / ``abmil_infer`` /
 ``clam_apply_fused``); every other head, and the CPU, take the plain
-forward. ABMIL's plain forward is asked for its attention (``return_attn``);
-a head that emits none (MHA) raises.
+forward under its family's calling convention
+(``engine/families.py::Family.plain_outputs``). ABMIL's plain forward is
+asked for its attention (``return_attn``). IBMIL (either phase) and the
+BMIL heads give the ``attn`` of their output dict; the BMIL family gives
+its heads the bag's coords (the JAX script passes none, which puts every
+patch of a ``bmil_spvis`` bag in one cell of its canvas). A head that
+returns bare logits (MHA, meanmil, maxmil, lbmil, attmil, attmil_gated,
+ilra, ips) raises ``model emits no attention``, as the JAX script does.
 """
 
 from __future__ import annotations
@@ -36,8 +42,8 @@ import torch
 from acmil_tpu_torch.cli.train import feature_file
 from acmil_tpu_torch.config import Config
 from acmil_tpu_torch.data import build_hdf5_feat_dataset
-from acmil_tpu_torch.data.bags import pad_bag
-from acmil_tpu_torch.engine import checkpoint
+from acmil_tpu_torch.data.bags import Bag, pad_bag
+from acmil_tpu_torch.engine import checkpoint, get_family
 from acmil_tpu_torch.models import build_mil_model
 from acmil_tpu_torch.models.acmil import ABMIL, ACMIL_GA
 from acmil_tpu_torch.models.fast import (abmil_infer, acmil_ga_infer,
@@ -70,13 +76,15 @@ def uses_kernel(model, device: torch.device) -> bool:
 
 
 @torch.no_grad()
-def attention_probs(model, feats: torch.Tensor, mask: torch.Tensor,
+def attention_probs(model, bag: Bag, family: str = "default",
                     fused: bool = True) -> torch.Tensor:
     """Per-patch attention ``[B, N]`` of a padded batch: the masked softmax
     of each branch's logits (heads averaged first), averaged over branches.
     ``fused`` takes B1 where :func:`uses_kernel` says so; B1 writes -1e30 at
-    pad slots, which the masked softmax never reads."""
+    pad slots, which the masked softmax never reads. Any other head runs
+    its ``family``'s plain forward."""
     model.eval()
+    feats, mask = bag.feats, bag.mask
     if fused and uses_kernel(model, feats.device) and clam_is_fusable(model):
         a = clam_apply_fused(model, feats, mask, n_class=0)["attn"]
     elif fused and uses_kernel(model, feats.device):
@@ -85,13 +93,14 @@ def attention_probs(model, feats: torch.Tensor, mask: torch.Tensor,
     elif isinstance(model, ABMIL):
         a = model(feats, mask, deterministic=True, return_attn=True)[1]
     else:
-        out = model(feats, mask, deterministic=True)
+        out = get_family(family).plain_outputs(model, bag)
         if isinstance(out, tuple):            # acmil, dsmil: (.., .., attn)
             a = out[2]
-        elif isinstance(out, dict) and "attn" in out:     # clam
+        elif isinstance(out, dict) and "attn" in out:  # clam, ibmil, bmil
             a = out["attn"]
         else:
-            raise ValueError(f"{type(model).__name__} emits no attention")
+            raise ValueError(f"model emits no attention "
+                             f"({type(model).__name__})")
     if a.dim() == 4:                          # [B, H, K, N] -> mean heads
         a = a.mean(dim=1)
     return masked_softmax(a, mask[:, None, :]).mean(dim=1)
@@ -121,7 +130,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     # the checkpoint's config holds the model shape its weights load into
     ckpt = checkpoint.load(checkpoint.checkpoint_path(args.ckpt_dir, "best"))
     checkpoint.adopt_checkpoint_config(conf, ckpt["config"])
-    model, _ = build_mil_model(conf)
+    model, family = build_mil_model(conf)
     model.load_state_dict(ckpt["model"])
     model.to(device).eval()
 
@@ -147,7 +156,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                       min_bucket=conf.min_bucket, max_patches=conf.max_patches,
                       dtype=np.float16).to(device)
         t0 = time.perf_counter()
-        probs = attention_probs(model, bag.feats, bag.mask)[0].cpu().numpy()
+        probs = attention_probs(model, bag, family)[0].cpu().numpy()
         attn_ms = (time.perf_counter() - t0) * 1e3
         n = int(bag.mask.sum())
         # reference scaling: softmax attention x N (Step4:117-118)

@@ -14,7 +14,7 @@ checkpoint loads with no conversion.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -79,11 +79,16 @@ def load(path: str) -> Dict[str, Any]:
     return ckpt
 
 
-def adopt_checkpoint_config(conf, saved: Dict[str, Any]) -> None:
-    """Copy the saved model-shape keys (``MODEL_CONFIG_KEYS``) onto
-    ``conf``: weights only load into the model shape that trained them."""
-    for k in MODEL_CONFIG_KEYS:
-        if k not in saved:
+def adopt_checkpoint_config(conf, saved: Dict[str, Any],
+                            keys: Sequence[str] = MODEL_CONFIG_KEYS,
+                            cli_args=None) -> None:
+    """Copy the saved config's ``keys`` (by default the model-shape keys,
+    ``MODEL_CONFIG_KEYS``) onto ``conf``: weights only load into the model
+    shape that trained them. With ``cli_args``, a key the user set on the
+    command line (not None there) keeps the command line's value."""
+    for k in keys:
+        if k not in saved or (cli_args is not None
+                              and getattr(cli_args, k, None) is not None):
             continue
         if k in conf.__dataclass_fields__:
             setattr(conf, k, saved[k])

@@ -15,12 +15,16 @@ from acmil_tpu_torch.data.bags import Bag
 from acmil_tpu_torch.engine import losses as L
 from acmil_tpu_torch.models import fast
 from acmil_tpu_torch.models.acmil import ACMIL_GA, ACMIL_MHA
+from acmil_tpu_torch.models.bmil import kl_model
 from acmil_tpu_torch.models.fast import acmil_ga_apply_batched
 from acmil_tpu_torch.ops.masked import masked_max
 
 
 class Family:
-    """Default: the model returns slide logits; loss = CE."""
+    """Default: the model returns slide logits; loss = CE. Every head of the
+    family takes ``generator`` in its forward, the draws of its dropout in
+    training; a head with no dropout, and ABMIL, MHA and DSMIL, whose
+    dropout draws from torch's default generator, ignore it."""
 
     name = "default"
 
@@ -34,15 +38,21 @@ class Family:
     def train_outputs(self, model, bag: Bag, conf_d,
                       stkim_u: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None):
-        return model(bag.feats, bag.mask, deterministic=False)
+        return model(bag.feats, bag.mask, deterministic=False,
+                     generator=generator)
 
     def loss(self, outputs, bag: Bag, valid, conf_d):
         logits = outputs["logits"] if isinstance(outputs, dict) else outputs
         loss = L.cross_entropy(logits, bag.label, valid)
         return loss, {"ce_loss": loss}
 
-    def eval_outputs(self, model, bag: Bag):
+    def plain_outputs(self, model, bag: Bag):
+        """The model's own deterministic forward, no kernel route and
+        nothing added: what Step4 reads the attention from."""
         return model(bag.feats, bag.mask, deterministic=True)
+
+    def eval_outputs(self, model, bag: Bag):
+        return self.plain_outputs(model, bag)
 
     def probs(self, outputs):
         if isinstance(outputs, dict):
@@ -189,8 +199,7 @@ class DSMILFamily(Family):
         if (fused and fast.dsmil_is_fusable(model)
                 and bag.feats.shape[1] >= fast.FUSE_MIN_N):
             return fast.dsmil_eval_fused(model, bag.feats, bag.mask)
-        return self._max_inst(model(bag.feats, bag.mask, deterministic=True),
-                              bag)
+        return self._max_inst(self.plain_outputs(model, bag), bag)
 
     def probs(self, outputs):
         max_preds, bag_logits = outputs
@@ -198,8 +207,44 @@ class DSMILFamily(Family):
             + 0.5 * torch.softmax(bag_logits, dim=-1)
 
 
+class BMILFamily(Family):
+    """CE + 1e-8 · model ARD KL + 1e-6 · data KL (`engine.py:74-96`). The
+    data KL comes back in the output dict; the model's (ARD) KL is every
+    ``LinearVDO`` child's summed (``models/bmil.py::kl_model``), where the
+    JAX family sums the sown ``kl`` collection. Training passes ``coords``
+    and ``label``, eval ``coords`` only, as in the JAX family; the noise
+    comes from ``generator``."""
+
+    name = "bmil"
+
+    @staticmethod
+    def _with_kl_model(model, out):
+        out = dict(out)
+        out["kl_model"] = kl_model(model)
+        return out
+
+    def train_outputs(self, model, bag, conf_d, stkim_u=None, generator=None):
+        return self._with_kl_model(model, model(
+            bag.feats, bag.mask, coords=bag.coords, label=bag.label,
+            deterministic=False, generator=generator))
+
+    def loss(self, outputs, bag, valid, conf_d):
+        ce = L.cross_entropy(outputs["logits"], bag.label, valid)
+        loss = ce + 1e-8 * outputs["kl_model"] + 1e-6 * outputs["kl_data"]
+        return loss, {"ce_loss": ce, "kl_model": outputs["kl_model"],
+                      "kl_data": outputs["kl_data"]}
+
+    def plain_outputs(self, model, bag: Bag):
+        return model(bag.feats, bag.mask, coords=bag.coords,
+                     deterministic=True)
+
+    def eval_outputs(self, model, bag: Bag):
+        return self._with_kl_model(model, self.plain_outputs(model, bag))
+
+
 FAMILIES: Dict[str, Family] = {"default": Family(), "acmil": ACMILFamily(),
-                               "clam": CLAMFamily(), "dsmil": DSMILFamily()}
+                               "clam": CLAMFamily(), "dsmil": DSMILFamily(),
+                               "bmil": BMILFamily()}
 
 
 def get_family(name: str) -> Family:

@@ -45,7 +45,8 @@ class ABMIL(nn.Module):
         self.classifier = Classifier1fc(d_inner, n_class, droprate)
 
     def forward(self, feats, mask=None, deterministic: bool = True,
-                return_attn: bool = False):
+                return_attn: bool = False,
+                generator: Optional[torch.Generator] = None):
         x = self.dimreduction(_as_weight_dtype(feats, self))     # [B, N, L]
         a = self.attention(x)                                     # [B, 1, N]
         attn = masked_softmax(a, None if mask is None else mask[:, None, :])
@@ -186,7 +187,8 @@ class MHA(nn.Module):
                                             droprate=droprate)
         self.classifier = Classifier1fc(d_inner, n_class)
 
-    def forward(self, feats, mask=None, deterministic: bool = True):
+    def forward(self, feats, mask=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         x = self.dimreduction(_as_weight_dtype(feats, self))     # [B, N, L]
         q = self.q.expand(x.shape[0], -1, -1)
         out, _ = self.attention(q, x, x, mask, deterministic)

@@ -9,10 +9,18 @@ become ``classifier.{k}.fc.*``, and ACMIL_MHA's vmapped branch module
 DSMIL's dense ``fcc_w [C, C·D]`` becomes the Conv1d weight
 ``b_classifier.fcc.weight [C, C, D]``; CLAM's stacked ``inst_w [C, L, 2]``
 and MB's ``bag_w [C, L]`` become ``instance_classifiers.{c}`` and
-``classifiers.{c}``. The inverses are
+``classifiers.{c}``; LBMIL's ``cls_w``/``cls_b`` become ``classifier``;
+ILRA's three in-projection Dense layers become one stacked
+``multihead_attn.in_proj_weight``; a LinearVDO's ``kernel``/``log_alp``
+``[in, out]`` become ``weight``/``log_alp`` ``[out, in]``. The inverses are
 ``scripts/import_torch_checkpoint.py::convert_acmil_ga``,
-``convert_acmil_mha``, ``convert_mha_single``, ``convert_dsmil`` and
-``convert_clam``.
+``convert_acmil_mha``, ``convert_mha_single``, ``convert_dsmil``,
+``convert_clam``, ``convert_mean_max``, ``convert_lbmil``,
+``convert_attmil``, ``convert_ilra``, ``convert_bmil_vis`` and
+``convert_ibmil`` (phase 1). IPS, ``bmil_enc``, ``bmil_spvis`` and phase-2
+IBMIL have no reference converter; their maps follow the flax tree alone.
+A frozen IBMIL dictionary is a constant of the flax module, not a
+parameter, so its ``confounder_feat`` buffer is not in the returned dict.
 """
 
 from __future__ import annotations
@@ -158,12 +166,150 @@ def _unstack(tree) -> list:
     return [leaves(tree, k) for k in range(np.asarray(first).shape[0])]
 
 
+def _gated(sd, prefix, ag):
+    """An ``AttentionGated`` (``Dense_0..2``) at ``prefix``."""
+    _linear(sd, f"{prefix}.attention_V.0", ag["Dense_0"])
+    _linear(sd, f"{prefix}.attention_U.0", ag["Dense_1"])
+    _linear(sd, f"{prefix}.attention_weights", ag["Dense_2"])
+
+
+def _mean_max(params, droprate: float) -> Dict[str, torch.Tensor]:
+    """``head.0`` and the head's last Linear, after a dropout (``head.3``)
+    when ``droprate > 0``, else ``head.2``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "head.0", params["Dense_0"])
+    _linear(sd, f"head.{3 if droprate > 0 else 2}", params["Dense_1"])
+    return sd
+
+
+def _lbmil(params) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "dimreduction.fc1", params["DimReduction_0"]["Dense_0"])
+    _linear(sd, "classifier", {"kernel": params["cls_w"],
+                               "bias": params["cls_b"]})
+    return sd
+
+
+def _attmil(params, arch: str) -> Dict[str, torch.Tensor]:
+    """flax numbers Dense layers in construction order: the gated head's
+    are stem, a, b, c, classifier; the ungated head builds its outer 1-unit
+    Dense before the inner tanh Dense."""
+    names = (("feature.0", "attention_a.0", "attention_b.0", "attention_c",
+              "classifier.0") if arch == "attmil_gated" else
+             ("feature.0", "attention.2", "attention.0", "classifier.0"))
+    sd: Dict[str, torch.Tensor] = {}
+    for i, name in enumerate(names):
+        _linear(sd, name, params[f"Dense_{i}"])
+    return sd
+
+
+def _ilra_mha(sd, prefix, p):
+    for i, name in enumerate(("fc_q", "fc_k", "fc_v")):
+        _linear(sd, f"{prefix}.{name}", p[f"Dense_{i}"])
+    ins = [p[f"Dense_{i}"] for i in (3, 4, 5)]
+    sd[f"{prefix}.multihead_attn.in_proj_weight"] = _t(np.concatenate(
+        [np.asarray(d["kernel"]).T for d in ins]))
+    sd[f"{prefix}.multihead_attn.in_proj_bias"] = _t(np.concatenate(
+        [np.asarray(d["bias"]) for d in ins]))
+    _linear(sd, f"{prefix}.multihead_attn.out_proj", p["Dense_6"])
+    _linear(sd, f"{prefix}.fc_o", p["Dense_7"])
+    for i in (0, 1):
+        _layernorm(sd, f"{prefix}.ln{i}", p[f"LayerNorm_{i}"])
+    if "Dense_8" in p:
+        _linear(sd, f"{prefix}.gate.0", p["Dense_8"])
+
+
+def _ilra(params) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    i = 0
+    while f"GAB_{i}" in params:
+        gab = params[f"GAB_{i}"]
+        sd[f"gab_blocks.{i}.latent"] = _t(gab["latent"])
+        _ilra_mha(sd, f"gab_blocks.{i}.project_forward", gab["_MHA_0"])
+        _ilra_mha(sd, f"gab_blocks.{i}.project_backward", gab["_MHA_1"])
+        i += 1
+    sd["pooling.S"] = _t(params["NLP_0"]["seeds"])
+    _ilra_mha(sd, "pooling.mha", params["NLP_0"]["_MHA_0"])
+    _linear(sd, "classifier", params["Dense_0"])
+    return sd
+
+
+def _ips(params) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "dimreduction.fc1", params["DimReduction_0"]["Dense_0"])
+    _gated(sd, "scorer", params["AttentionGated_0"])
+    _gated(sd, "attention", params["AttentionGated_1"])
+    _linear(sd, "classifier.fc", params["Classifier1fc_0"]["Dense_0"])
+    return sd
+
+
+def _ibmil(params) -> Dict[str, torch.Tensor]:
+    """Phase 1, plus ``W_q``, ``W_k`` and a learned ``confounder_feat`` in
+    phase 2."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "dimreduction.fc1", params["DimReduction_0"]["Dense_0"])
+    _gated(sd, "attention", params["AttentionGated_0"])
+    _linear(sd, "classifier.fc", params["Classifier1fc_0"]["Dense_0"])
+    for name in ("W_q", "W_k"):
+        if name in params:
+            _linear(sd, name, params[name])
+    if "confounder_feat" in params:
+        sd["confounder_feat"] = _t(params["confounder_feat"])
+    return sd
+
+
+def _vdo(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    sd[f"{prefix}.log_alp"] = _t(np.asarray(p["log_alp"]).T)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _bmil(params, arch: str, droprate: float) -> Dict[str, torch.Tensor]:
+    """vis/enc: the gated net at ``attention_net.3`` after a dropout
+    (``droprate > 0``), else ``attention_net.2``; spvis: ``fc`` and four
+    LinearVDO layers."""
+    sd: Dict[str, torch.Tensor] = {}
+    if arch == "bmil_spvis":
+        _linear(sd, "fc", params["Dense_0"])
+        for i, name in enumerate(("attention_a", "attention_b",
+                                  "attention_c", "classifiers")):
+            _vdo(sd, name, params[f"LinearVDO_{i}"])
+        return sd
+    _linear(sd, "attention_net.0", params["Dense_0"])
+    ang = f"attention_net.{3 if droprate > 0 else 2}"
+    for i, name in enumerate(("attention_a.0", "attention_b.0",
+                              "attention_c"), start=1):
+        _linear(sd, f"{ang}.{name}", params[f"Dense_{i}"])
+    _vdo(sd, "classifiers", params["LinearVDO_0"])
+    return sd
+
+
+_ZOO = {
+    "meanmil": lambda p, dr: _mean_max(p, dr),
+    "maxmil": lambda p, dr: _mean_max(p, dr),
+    "lbmil": lambda p, dr: _lbmil(p),
+    "attmil": lambda p, dr: _attmil(p, "attmil"),
+    "attmil_gated": lambda p, dr: _attmil(p, "attmil_gated"),
+    "ilra": lambda p, dr: _ilra(p),
+    "ips": lambda p, dr: _ips(p),
+    "ibmil": lambda p, dr: _ibmil(p),
+    "bmil_vis": lambda p, dr: _bmil(p, "bmil_vis", dr),
+    "bmil_enc": lambda p, dr: _bmil(p, "bmil_enc", dr),
+    "bmil_spvis": lambda p, dr: _bmil(p, "bmil_spvis", dr),
+}
+
+
 def from_jax_params(params, arch: str,
                     droprate: float = 0.25) -> Dict[str, torch.Tensor]:
     """``arch`` is ``"ga"`` (ACMIL_GA), ``"mha"`` (ACMIL_MHA), ``"abmil"``,
-    ``"mha_single"`` (MHA), ``"dsmil"``, ``"clam_sb"``, ``"clam_mb"`` or
-    ``"vit"`` (a patch encoder of ``acmil_tpu.models.encoders.vit``).
-    ``droprate`` is CLAM's, which places its attention net."""
+    ``"mha_single"`` (MHA), ``"dsmil"``, ``"clam_sb"``, ``"clam_mb"``, an
+    arch of the generic zoo (``"meanmil"``, ``"maxmil"``, ``"lbmil"``,
+    ``"attmil"``, ``"attmil_gated"``, ``"ilra"``, ``"ips"``, ``"ibmil"``,
+    ``"bmil_vis"``, ``"bmil_enc"``, ``"bmil_spvis"``) or ``"vit"`` (a patch
+    encoder of ``acmil_tpu.models.encoders.vit``). ``droprate`` places the
+    layer after a dropout in CLAM's attention net, mean/max's head and
+    BMIL vis/enc's attention net."""
     if arch == "vit":
         return _vit(params)
     if arch in ("clam_sb", "clam_mb"):
@@ -172,16 +318,15 @@ def from_jax_params(params, arch: str,
         return _dsmil(params)
     if arch in ("mha", "mha_single"):
         return _mha(params, arch)
+    if arch in _ZOO:
+        return _ZOO[arch](params, droprate)
     if arch not in ("ga", "abmil"):
         raise ValueError(f"no converter for arch {arch!r} (have 'ga', 'mha', "
                          f"'abmil', 'mha_single', 'dsmil', 'clam_sb', "
-                         f"'clam_mb', 'vit')")
+                         f"'clam_mb', {', '.join(map(repr, _ZOO))}, 'vit')")
     sd: Dict[str, torch.Tensor] = {}
     _linear(sd, "dimreduction.fc1", params["DimReduction_0"]["Dense_0"])
-    ag = params["AttentionGated_0"]
-    _linear(sd, "attention.attention_V.0", ag["Dense_0"])
-    _linear(sd, "attention.attention_U.0", ag["Dense_1"])
-    _linear(sd, "attention.attention_weights", ag["Dense_2"])
+    _gated(sd, "attention", params["AttentionGated_0"])
     cls = params["Classifier1fc_0"]["Dense_0"]
     if arch == "abmil":
         _linear(sd, "classifier.fc", cls)

@@ -23,6 +23,7 @@ score divisor is sqrt(Q) in f32 whatever the features' dtype.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -82,7 +83,8 @@ class DSMIL(nn.Module):
         self.b_classifier = BClassifier(n_class, d_feat, d_inner, d_query,
                                         nonlinear, passing_v, dropout_v)
 
-    def forward(self, feats, mask=None, deterministic: bool = True):
+    def forward(self, feats, mask=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         x = _as_weight_dtype(feats, self)
         b = x.shape[0]
         inst_logits = self.i_classifier(x)                    # [B, N, C]

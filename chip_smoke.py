@@ -152,8 +152,31 @@ code is non-zero:
    a SPY slide of phase 15 with the MB head (B1 once); (c) one epoch at the
    reference's dropout 0.25, which launches no B2; (d) a training step and
    an eval at 50000 patches timed, with their device time.
+18. the rest of the generic zoo at the camelyon_medical_ssl widths, on
+   phase 16's 24 slides: (a) ``cli/step3_generic.py --arch A`` trains one
+   epoch for each A of ``ZOO_ARCHS`` (meanmil, maxmil, lbmil, attmil,
+   attmil_gated, ilra, ips, bmil_vis, bmil_enc, bmil_spvis with the slides'
+   coords), every loss finite; each best checkpoint scores
+   ``ZOO_CPU_SLIDES`` through ``cli/predict.py`` on the card and on the CPU,
+   within ``ZOO_CPU_ATOL``; (b) IBMIL: ``cli/step3_ibmil.py`` phase 1,
+   ``cli/ibmil_clustering.py`` (prototypes [8, 128], finite), phase 2 with
+   ``--c_path`` (finite loss, ``deconf_attn`` rows summing to 1);
+   ``cli/predict.py`` refuses the phase-2 checkpoint with the training YAML
+   (its model keys hold no ``c_path``, as in the JAX package) and scores it,
+   card against CPU, with a YAML that names ``c_path``; (c)
+   ``cli/step4_heatmap.py`` renders a SPY slide of phase 15 with the IBMIL
+   and bmil_spvis heads (a PNG of the rendered level's shape, not blank) and
+   refuses lbmil (``model emits no attention``); (d) for each arch a
+   training step and an eval at 50000 patches timed with CUDA events, with
+   their device time and device events from ``torch.profiler``. None of
+   these heads reaches a kernel, in either package: B1, B2 and B6 must
+   count no launch over the phase.
 
-The line before the last but one is ``{"kernels": [...]}`` with each
+The line before the kernels line is ``{"zoo": {...}}``: phase 18's numbers
+per arch (training epoch wall and loss, predict seconds, card-vs-CPU error,
+step and eval ms, device ms and device events) and the kernel launches the
+phase counted. The line before the last but one is ``{"kernels": [...]}``
+with each
 kernel's launches on its path (B7's are counted over phases 3-13, where no
 production path calls it, and its entry also gives the count of its
 checks; B5''s are its launches as B3's attention step on the Step2 path,
@@ -275,6 +298,17 @@ SPY_JPEG_MAE = 3.5
 CLAM_ROUTE_LENGTHS = (50000, 40000, 60000)
 CLAM_CLASSES = (2, 4)
 CLAM_PROB_ATOL = 1e-5
+# the generic zoo (phase 18): the archs cli/step3_generic.py trains one epoch
+# each on phase 16's corpus; IBMIL runs its two-phase protocol beside them.
+# Each best checkpoint scores ZOO_CPU_SLIDES (1000, 50000, 65536 and 50000
+# patches) through cli/predict.py on the card and on the CPU: f32 both, TF32
+# off, so the probabilities differ by the order of sums only, as ACMIL_MHA's
+# do in phase 16 (MHA_CPU_ATOL)
+ZOO_ARCHS = ("meanmil", "maxmil", "lbmil", "attmil", "attmil_gated", "ilra",
+             "ips", "bmil_vis", "bmil_enc", "bmil_spvis")
+ZOO_CPU_SLIDES = ("slide_00", "slide_01", "slide_16", "slide_20")
+ZOO_CPU_ATOL = 1e-4
+IBMIL_K = 8
 
 
 def card() -> str:
@@ -2260,16 +2294,15 @@ def pipeline_run(smi: str, tmp: str) -> dict:
     ck = checkpoint.load(checkpoint.checkpoint_path(ckpt_dir, "best"))
     conf = Config.from_yaml(yml)
     checkpoint.adopt_checkpoint_config(conf, ck["config"])
-    head, _ = build_mil_model(conf)
+    head, family = build_mil_model(conf)
     head.load_state_dict(ck["model"])
     head.cuda().eval()
     src = open_feature_source(res["out_path"], test_names)
     item = src[0]
     bag = pad_bag(item["input"], item["coords"], item["label"],
                   dtype=np.float16).to("cuda")
-    fused = step4_heatmap.attention_probs(head, bag.feats, bag.mask)
-    plain = step4_heatmap.attention_probs(head, bag.feats, bag.mask,
-                                          fused=False)
+    fused = step4_heatmap.attention_probs(head, bag, family)
+    plain = step4_heatmap.attention_probs(head, bag, family, fused=False)
     n_valid = int(bag.mask.sum())
     step4_err = float((fused - plain)[0, :n_valid].abs().max())
     if step4_err > STEP4_ATOL:
@@ -2783,6 +2816,251 @@ def clam_run(smi: str, tmp: str, pipe: dict, corpus: dict) -> dict:
     return out
 
 
+def _event_ms(fn, reps):
+    """Median ms of ``fn`` between two CUDA events over ``reps`` calls."""
+    out = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return statistics.median(out)
+
+
+def _device_profile(fn, reps):
+    """(device ms, device events) per call of ``fn`` from ``torch.profiler``:
+    every kernel, copy and set on the card; (None, None) when two windows in
+    a row see no device event."""
+    for _ in range(2):
+        prof, _ = _profiled(fn, reps)
+        events = _device_events(prof)
+        if events:
+            return sum(us for _, us in events) / 1e3 / reps, len(events) / reps
+    return None, None
+
+
+def _raises(fn, exc, words: str) -> str:
+    """Run ``fn``, which must raise ``exc`` with ``words`` in its message;
+    returns the message. Any other outcome raises."""
+    try:
+        fn()
+    except exc as e:
+        if words not in str(e):
+            raise
+        return str(e)
+    raise AssertionError(f"expected {exc.__name__} ({words!r})")
+
+
+def zoo_run(smi: str, tmp: str, pipe: dict, corpus: dict) -> dict:
+    """The rest of the generic zoo at the camelyon_medical_ssl widths on
+    phase 16's 24 slides: (a) one epoch of ``cli/step3_generic.py`` per arch
+    of ``ZOO_ARCHS``, each best checkpoint scored through ``cli/predict.py``
+    on the card and on the CPU; (b) IBMIL's two phases and its clustering
+    between them; (c) Step4 on a SPY slide of phase 15 with IBMIL and
+    bmil_spvis, and lbmil refused; (d) a training step and an eval at 50000
+    patches per arch, timed with CUDA events, with their device time and
+    device events from ``torch.profiler``. None of these heads reaches a
+    kernel (as in the JAX package): B1, B2 and B6 must count no launch over
+    the phase. Returns the ``zoo`` line's object."""
+    import cv2
+
+    from acmil_tpu_torch.cli import (ibmil_clustering, predict,
+                                     step3_generic, step3_ibmil,
+                                     step4_heatmap)
+    from acmil_tpu_torch.config import Config
+    from acmil_tpu_torch.data.bags import pad_bag
+    from acmil_tpu_torch.data.ptio import write_feature_pt
+    from acmil_tpu_torch.engine import (checkpoint, create_train_state,
+                                        make_eval_step, make_train_step)
+    from acmil_tpu_torch.models import IBMIL, build_mil_model
+    from acmil_tpu_torch.ops import attn_pool as ap
+    from acmil_tpu_torch.ops.dsmil_pool import fused_dsmil_pool
+    from acmil_tpu_torch.wsi.heatmap import render_level
+    from acmil_tpu_torch.wsi.slide import clear_slide_cache, open_slide
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "zoo")
+    os.makedirs(root)
+    subset = os.path.join(root, "cpu_subset.pt")
+    write_feature_pt(subset, {n: corpus["slides"][n] for n in ZOO_CPU_SLIDES})
+    counters = (ap.fused_gated_attn_pool_batched, ap.fused_gated_attn_pool_bwd,
+                fused_dsmil_pool)
+    for c in counters:
+        c.launches = 0
+    data = ["--data_dir", corpus["data_dir"]]
+    res = {}
+
+    def train(cli, tag, *args):
+        ckpt_dir = os.path.join(root, f"ckpt_{tag}")
+        log_dir = os.path.join(root, f"log_{tag}")
+        t0 = time.perf_counter()
+        cli.main(["--config", corpus["yml"], *data, "--ckpt_dir", ckpt_dir,
+                  "--log_dir", log_dir, "--train_epoch", "1", "--device",
+                  "cuda", *args])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = _epoch_losses(log_dir)
+        if len(losses) != 1 or not math.isfinite(losses[0]):
+            raise AssertionError(f"{tag} epoch losses {losses}")
+        return ckpt_dir, wall, losses[0]
+
+    def score(tag, yml, ckpt_dir):
+        """The subset through cli/predict.py on the card and on the CPU;
+        (card seconds, max |card - CPU| probability)."""
+        probs, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            out = predict.main(["--config", yml, "--ckpt", ckpt_dir,
+                                "--features", subset, "--out_csv",
+                                os.path.join(root, f"preds_{tag}_{dev}.csv"),
+                                "--device", dev])
+            secs[dev] = time.perf_counter() - t0
+            _check_predictions(out, len(ZOO_CPU_SLIDES), 2)
+            probs[dev] = np.asarray([r[2:4] for r in out["rows"]])
+        err = float(np.abs(probs["cuda"] - probs["cpu"]).max())
+        if not err <= ZOO_CPU_ATOL:
+            raise AssertionError(f"{tag}: card vs CPU probabilities {err}")
+        return secs["cuda"], err
+
+    # (a) one epoch per arch, then predict on the card and on the CPU
+    ckpts = {}
+    for arch in ZOO_ARCHS:
+        ckpts[arch], wall, loss = train(step3_generic, arch, "--arch", arch)
+        ck = checkpoint.load(checkpoint.checkpoint_path(ckpts[arch], "best"))
+        if ck["config"]["arch"] != arch:
+            raise AssertionError(f"{arch}: checkpoint arch "
+                                 f"{ck['config']['arch']}")
+        predict_s, err = score(arch, corpus["yml"], ckpts[arch])
+        res[arch] = {"train_s": wall, "loss": loss, "predict_s": predict_s,
+                     "cpu_err": err}
+        print(f"{arch}: cli/step3_generic.py 1 epoch x {N_TRAIN} steps on "
+              f"{len(corpus['lengths'])} slides, {wall:.2f} s wall, loss "
+              f"{loss:.6f}; cli/predict.py on {len(ZOO_CPU_SLIDES)} slides "
+              f"{predict_s:.2f} s on the card, max |card - CPU| probability "
+              f"{err:.3e} [{smi}]")
+
+    # (b) IBMIL: phase 1, the clustering, phase 2
+    ckpts["ibmil"], wall1, loss1 = train(step3_ibmil, "ibmil")
+    t0 = time.perf_counter()
+    npy = ibmil_clustering.main(["--config", corpus["yml"], *data,
+                                 "--ckpt_dir", ckpts["ibmil"], "--k",
+                                 str(IBMIL_K), "--out_dir",
+                                 os.path.join(root, "deconf"), "--device",
+                                 "cuda"])
+    cluster_s = time.perf_counter() - t0
+    protos = np.load(npy)
+    if protos.shape != (IBMIL_K, D_INNER) or not np.isfinite(protos).all():
+        raise AssertionError(f"IBMIL prototypes {protos.shape}")
+    ckpts["ibmil_p2"], wall2, loss2 = train(step3_ibmil, "ibmil_p2",
+                                            "--c_path", npy)
+    ck2 = checkpoint.load(checkpoint.checkpoint_path(ckpts["ibmil_p2"],
+                                                     "best"))
+    head = IBMIL(2, D_FEAT, D_INNER, confounders=protos)
+    head.load_state_dict(ck2["model"])
+    d = corpus["slides"]["slide_01"]
+    bag = pad_bag(d["feat"], d["coords"], d["label"],
+                  dtype=np.float16).to("cuda")
+    with torch.no_grad():
+        deconf = head.cuda().eval()(bag.feats, bag.mask)["deconf_attn"]
+    row_err = float((deconf.sum(-1) - 1).abs().max())
+    if deconf.shape != (1, IBMIL_K) or row_err > 1e-5:
+        raise AssertionError(f"deconf_attn {tuple(deconf.shape)}, rows sum "
+                             f"to 1 within {row_err}")
+    # the checkpoint's model keys hold no c_path: with the training YAML the
+    # phase-2 weights do not load, as in the JAX package's scripts/predict.py
+    refused = _raises(lambda: predict.main([
+        "--config", corpus["yml"], "--ckpt", ckpts["ibmil_p2"], "--features",
+        subset, "--out_csv", os.path.join(root, "refused.csv"), "--device",
+        "cuda"]), RuntimeError, "W_q")
+    yml2 = os.path.join(root, "ibmil_p2.yml")
+    with open(corpus["yml"]) as src, open(yml2, "w") as dst:
+        dst.write(src.read() + f"\nc_path: [{npy}]\n")
+    for tag, yml, loss, wall in (("ibmil", corpus["yml"], loss1, wall1),
+                                 ("ibmil_p2", yml2, loss2, wall2)):
+        predict_s, err = score(tag, yml, ckpts[tag])
+        res[tag] = {"train_s": wall, "loss": loss, "predict_s": predict_s,
+                    "cpu_err": err}
+    res["ibmil"]["cluster_s"] = cluster_s
+    print(f"ibmil: cli/step3_ibmil.py phase 1 {wall1:.2f} s (loss "
+          f"{loss1:.6f}); cli/ibmil_clustering.py k={IBMIL_K} on the card "
+          f"{cluster_s:.2f} s -> {protos.shape}; phase 2 --c_path "
+          f"{wall2:.2f} s (loss {loss2:.6f}), deconf_attn rows sum to 1 "
+          f"within {row_err:.1e}; cli/predict.py with the training YAML "
+          f"refuses the phase-2 checkpoint ({refused.splitlines()[0][:80]}"
+          f"...), and with c_path in the YAML scores it, max |card - CPU| "
+          f"{res['ibmil_p2']['cpu_err']:.3e} (phase 1 "
+          f"{res['ibmil']['cpu_err']:.3e}) [{smi}]")
+
+    # (c) Step4 on a SPY slide of phase 15: IBMIL and bmil_spvis render,
+    # lbmil has no attention
+    names = pipe["names"]
+    split_dir = os.path.join(root, "splits4")
+    _write_split(split_dir, names[:-1], [], names[-1:])
+    yml4 = _yml_with(root, "step4.yml", split_dir=split_dir,
+                     data_dir=os.path.dirname(pipe["feat_path"]))
+    slide = open_slide(os.path.join(pipe["slide_dir"], f"{names[-1]}.spy"))
+    lw, lh = slide.level_dimensions[render_level(slide)]
+    for arch in ("ibmil", "bmil_spvis"):
+        clear_slide_cache()
+        heat = step4_heatmap.main([
+            "--config", yml4, "--ckpt_dir", ckpts[arch], "--slide_dir",
+            pipe["slide_dir"], "--output_dir", os.path.join(root, f"heat_{arch}"),
+            "--patch_size", str(PIPE_PATCH), "--device", "cuda"])
+        r = heat["slides"].get(names[-1])
+        img = None if r is None else cv2.imread(r["path"])
+        if img is None or img.shape != (lh, lw, 3) or img.std() < 5 \
+                or not np.isfinite(r["scores"]).all():
+            raise AssertionError(f"Step4 with {arch}: "
+                                 f"{None if img is None else img.shape} "
+                                 f"against level {(lh, lw)}")
+        print(f"{arch} Step4: cli/step4_heatmap.py rendered {names[-1]}.spy "
+              f"at {img.shape[1]}x{img.shape[0]} (pixel std "
+              f"{img.std():.1f}; attention {r['attn_ms']:.2f} ms, render "
+              f"{r['render_ms']:.1f} ms) [{smi}]")
+    _raises(lambda: step4_heatmap.main([
+        "--config", yml4, "--ckpt_dir", ckpts["lbmil"], "--slide_dir",
+        pipe["slide_dir"], "--output_dir", os.path.join(root, "heat_lbmil"),
+        "--patch_size", str(PIPE_PATCH), "--device", "cuda"]),
+        ValueError, "model emits no attention")
+
+    # (d) a training step and an eval at 50000 patches (bucket 65536)
+    for arch in ZOO_ARCHS + ("ibmil", "ibmil_p2"):
+        keys = {"arch": arch}
+        if arch.startswith("ibmil"):
+            keys = {"arch": "ibmil", "c_path": [npy] if arch == "ibmil_p2"
+                    else None}
+        conf = Config.from_yaml(YML, keys)
+        model, family = build_mil_model(conf)
+        model.cuda()
+        state = create_train_state(model, conf, 1)
+        step = make_train_step(model, conf, family)
+        eval_step = make_eval_step(model, family)
+        step(state, bag)
+        eval_step(bag)
+        r = res[arch]
+        r["step_ms"] = _event_ms(lambda: step(state, bag), 10)
+        r["step_device_ms"], r["step_launches"] = _device_profile(
+            lambda: step(state, bag), 5)
+        r["eval_ms"] = _event_ms(lambda: eval_step(bag), 10)
+        r["eval_device_ms"], r["eval_launches"] = _device_profile(
+            lambda: eval_step(bag), 5)
+        print(f"{arch} at {len(d['feat'])} patches (bucket "
+              f"{bag.feats.shape[1]}): training step {r['step_ms']:.4f} ms "
+              f"(CUDA events, median of 10), {_fmt_ms(r['step_device_ms'])} "
+              f"of device time in {r['step_launches']} device events; eval "
+              f"{r['eval_ms']:.4f} ms, {_fmt_ms(r['eval_device_ms'])} in "
+              f"{r['eval_launches']} device events [{smi}]")
+    launched = {c.__name__: c.launches for c in counters}
+    if any(launched.values()):
+        raise AssertionError(f"the zoo's path launched kernels {launched}")
+    print(f"zoo phase wall {time.perf_counter() - t_phase:.2f} s [{smi}]")
+    return {"archs": res, "kernel_launches": launched,
+            "bag_patches": len(d["feat"]), "bucket": int(bag.feats.shape[1])}
+
+
 VIT_ATTN_SHAPES = (("ViT-S/16", 6, 197, 64), ("ViT-S/8", 6, 785, 64),
                    ("CLIP-L/336", 16, 577, 64))
 # N at csrc/vit_attn.cu's edges: the ragged 16-key chunk; at dh=64 the
@@ -2917,11 +3195,13 @@ def main() -> None:
         pipe = pipeline_run(smi, tmp)
         corpus = mha_run(smi, tmp, pipe)
         clam = clam_run(smi, tmp, pipe, corpus)
+        zoo = zoo_run(smi, tmp, pipe, corpus)
         del corpus
     b5_edges = b7.pop("b5_edges")
     vit["B5"]["max_abs_err"] = max(vit["B5"]["max_abs_err"],
                                    b5_edges["max_abs_err"])
     vit_src = "acmil_tpu_torch/csrc/vit_gemm.cu + acmil_tpu_torch/csrc/vit_attn.cu"
+    print(json.dumps({"zoo": zoo}))
     print(json.dumps({"kernels": [{
         "name": "B1 fused gated-attention pooling (forward)",
         "route": "cuda",

@@ -640,7 +640,7 @@ def test_step4_scores_clam_attention_as_the_jax_formula(corpus, tmp_path,
     name = sorted(slides)[0]
     x = torch.from_numpy(slides[name]["feat"].astype(np.float32))[None]
     m = torch.ones(x.shape[:2], dtype=torch.bool)
-    got = step4_heatmap.attention_probs(tm, x, m)
+    got = step4_heatmap.attention_probs(tm, Bag(x, m, None, None), "clam")
     a = jm.apply({"params": params}, jnp.asarray(x.numpy()), jnp.asarray(
         m.numpy()), deterministic=True)["attn"]
     want = jax_masked_softmax(a, jnp.asarray(m.numpy())[:, None, :]).mean(1)

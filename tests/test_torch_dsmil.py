@@ -457,8 +457,10 @@ def test_step3_generic_names_the_registered_archs(corpus, tmp_path, arch,
     argv = ["--config", str(yml), "--arch", arch, "--device", "cpu"]
     if want == "transmil":
         with pytest.raises(ValueError, match=rf"unknown arch '{want}'; have "
-                           r"\['abmil', 'clam_mb', 'clam_sb', 'dsmil', 'ga', "
-                           r"'mha', 'mha_single'\]"):
+                           r"\['abmil', 'attmil', 'attmil_gated', 'bmil_enc', "
+                           r"'bmil_spvis', 'bmil_vis', 'clam_mb', 'clam_sb', "
+                           r"'dsmil', 'ga', 'ibmil', 'ilra', 'ips', 'lbmil', "
+                           r"'maxmil', 'meanmil', 'mha', 'mha_single'\]"):
             step3_generic.main(argv)
         return
     step3_generic.main(argv)

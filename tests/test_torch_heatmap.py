@@ -27,6 +27,7 @@ from acmil_tpu.wsi.slide import ImageSlide as JaxImageSlide
 from acmil_tpu_torch.cli import step4_heatmap
 from acmil_tpu_torch.config import Config
 from acmil_tpu_torch.data import write_feature_pt
+from acmil_tpu_torch.data.bags import Bag
 from acmil_tpu_torch.engine import checkpoint
 from acmil_tpu_torch.models import build_mil_model
 from acmil_tpu_torch.models.common import torch_linear_init_
@@ -309,11 +310,12 @@ def test_step4_needs_a_card_unless_told_cpu(step4_inputs, tmp_path,
 def test_attention_probs_of_every_route_sum_to_one():
     conf = Config.from_dict({"arch": "ga", "n_token": 3, "D_feat": 16,
                              "D_inner": 8})
-    model, _ = build_mil_model(conf)
+    model, family = build_mil_model(conf)
     x = torch.randn(2, 40, 16)
     mask = torch.ones(2, 40, dtype=torch.bool)
     mask[1, 25:] = False
     for fused in (True, False):
-        p = step4_heatmap.attention_probs(model, x, mask, fused=fused)
+        p = step4_heatmap.attention_probs(model, Bag(x, mask, None, None),
+                                          family, fused=fused)
         torch.testing.assert_close(p.sum(-1), torch.ones(2))
         assert (p[1, 25:] == 0).all()
