@@ -26,7 +26,9 @@ BMIL heads give the ``attn`` of their output dict; the BMIL family gives
 its heads the bag's coords (the JAX script passes none, which puts every
 patch of a ``bmil_spvis`` bag in one cell of its canvas). A head that
 returns bare logits (MHA, meanmil, maxmil, lbmil, attmil, attmil_gated,
-ilra, ips) raises ``model emits no attention``, as the JAX script does.
+ilra, ips, transmil), or a dict without ``attn`` (mhim and pure, whose
+attention comes only with ``return_attn``, which the JAX script never asks
+for), raises ``model emits no attention``, as the JAX script does.
 """
 
 from __future__ import annotations

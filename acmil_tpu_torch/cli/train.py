@@ -7,10 +7,12 @@ are the reference's H5 dump or a torch feature file (``data/ptio.py``):
 ``{data_dir}/patch_feats_pretrain_{pretrain}.h5``, else the same name with
 ``.pt``.
 
-The JAX trainer's data-parallel mesh (``--mesh_data``, ``mesh_shape``),
-multi-host pods (``--pod``), ``lax.scan`` epochs (``--scan_epoch``), MHIM
-teacher initialisation (``teacher_init``) and SAM steps (``use_sam``) are not
-ported; setting any of them raises.
+MHIM's teacher initialisation (``teacher_init``, ``init_stu_type``) loads a
+pre-trained 'pure' checkpoint into the EMA teacher, and into the student
+as ``init_stu_type`` says. The JAX trainer's data-parallel mesh
+(``--mesh_data``, ``mesh_shape``), multi-host pods (``--pod``), ``lax.scan``
+epochs (``--scan_epoch``) and SAM steps (``use_sam``) are not ported;
+setting any of them raises.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import os
 from pprint import pprint
 
 import numpy as np
+import torch
 
 from acmil_tpu_torch.config import Config
 from acmil_tpu_torch.data import BagLoader, build_hdf5_feat_dataset
@@ -28,13 +31,12 @@ from acmil_tpu_torch.engine import (create_train_state, evaluate, get_family,
                                     make_eval_step, make_train_step,
                                     train_one_epoch)
 from acmil_tpu_torch.engine import checkpoint
-from acmil_tpu_torch.models import build_mil_model
+from acmil_tpu_torch.models import build_mil_model, model_family
 from acmil_tpu_torch.utils import MetricLogger, MetricsWriter, set_seed
 from acmil_tpu_torch.utils.device import entry_device
 
 # options of the JAX trainer this port does not have
-NOT_PORTED = ("mesh_data", "mesh_shape", "pod", "scan_epoch", "teacher_init",
-              "use_sam")
+NOT_PORTED = ("mesh_data", "mesh_shape", "pod", "scan_epoch", "use_sam")
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -95,6 +97,43 @@ def _refuse_unported(conf) -> None:
             raise ValueError(f"{key!r} is a feature of the JAX package "
                              f"(acmil_tpu) that acmil_tpu_torch has not "
                              f"ported; unset it")
+    family = model_family(conf.arch)
+    if conf.extra.get("teacher_init") and not get_family(family).teacher:
+        # the JAX trainer ignores it here; a set option that does nothing
+        # is refused instead
+        raise ValueError(f"'teacher_init' needs an arch with an EMA teacher "
+                         f"(mhim); {conf.arch!r} trains with family "
+                         f"{family!r}")
+
+
+def init_teacher_student(state, conf) -> None:
+    """MHIM's teacher initialisation (`Step3_MHIM:340-375`, the JAX
+    ``init_teacher_student``): the teacher loads ``checkpoint-best.pth``,
+    else ``checkpoint-last.pth``, of the ``teacher_init`` directory (or that
+    file itself), a 'pure' run of the port or of the reference; then
+    ``init_stu_type`` ``fc`` copies its ``patch_to_emb`` into the student,
+    ``all`` every weight, ``none`` nothing. Any other type raises."""
+    teacher_init = getattr(conf, "teacher_init", "")
+    if not teacher_init:
+        return
+    stu_type = str(getattr(conf, "init_stu_type", "none"))
+    if stu_type not in ("none", "fc", "all"):
+        raise ValueError(f"init_stu_type must be none|fc|all, got {stu_type!r}")
+    tag = ("best" if os.path.exists(checkpoint.checkpoint_path(
+        teacher_init, "best")) else "last")
+    weights = checkpoint.load(checkpoint.checkpoint_path(teacher_init,
+                                                         tag))["model"]
+    state.teacher.load_state_dict(weights)
+    if stu_type == "all":
+        state.model.load_state_dict(weights)
+    elif stu_type == "fc":
+        student = state.model.state_dict()
+        with torch.no_grad():
+            for k, v in weights.items():
+                if k.startswith("patch_to_emb."):
+                    student[k].copy_(v)
+    print(f"teacher initialised from {teacher_init} ({tag}), "
+          f"student init: {stu_type}")
 
 
 def run_training(conf: Config, extra_config: dict | None = None) -> dict:
@@ -130,7 +169,8 @@ def run_training(conf: Config, extra_config: dict | None = None) -> dict:
     fam = get_family(family)
     steps_per_epoch = max(len(train_loader), 1)
     conf.extra.setdefault("steps_per_epoch", steps_per_epoch)
-    state = create_train_state(model, conf, steps_per_epoch)
+    state = create_train_state(model, conf, steps_per_epoch, family=fam)
+    init_teacher_student(state, conf)
     train_step = make_train_step(model, conf, fam)
     # `fused_train: false` opts eval out of the fused kernel too: the flag
     # exists to bisect a suspected kernel bug, which must cover val/test

@@ -4,8 +4,9 @@ The reference saves ``checkpoint-{best,last}.pth`` as ``{'model':
 state_dict, 'optimizer': ..., 'epoch': ..., 'config': Struct}``
 (`utils/utils.py:415-422`). The port writes the same dict with the config
 as a plain dict, plus the step count, the val metrics the checkpoint was
-chosen by and the state of the generator STKIM draws from, and reads both its own files and the reference's with
-``torch.load(weights_only=True)``: the reference's pickled
+chosen by, the state of the generator STKIM draws from and, for MHIM, the
+EMA teacher's weights under ``teacher``, and reads both its own files and
+the reference's with ``torch.load(weights_only=True)``: the reference's pickled
 ``utils.utils.Struct`` config is admitted as a known class and read back as
 a dict. Parameter names are the reference's, so a reference-trained
 checkpoint loads with no conversion.
@@ -45,10 +46,12 @@ def checkpoint_path(ckpt: str, tag: str = "best") -> str:
 
 def save(path: str, model, epoch: int = -1, conf=None, optimizer=None,
          metrics: Optional[Dict[str, float]] = None, step: int = 0,
-         generator: Optional[torch.Generator] = None) -> None:
+         generator: Optional[torch.Generator] = None,
+         teacher: Optional[torch.nn.Module] = None) -> None:
     """Write ``model``'s weights, ``optimizer``'s state (empty when None),
-    the epoch, the config, ``metrics``, the optimizer ``step`` and
-    ``generator``'s state (when given) in the reference's format. The file
+    the epoch, the config, ``metrics``, the optimizer ``step``,
+    ``generator``'s state and ``teacher``'s weights (each when given) in the
+    reference's format. The file
     is written whole and then renamed, so a crash leaves the previous
     checkpoint in place."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -63,6 +66,8 @@ def save(path: str, model, epoch: int = -1, conf=None, optimizer=None,
     }
     if generator is not None:
         obj["generator"] = generator.get_state()
+    if teacher is not None:
+        obj["teacher"] = teacher.state_dict()
     torch.save(obj, tmp)
     os.replace(tmp, path)
 
@@ -99,11 +104,15 @@ def adopt_checkpoint_config(conf, saved: Dict[str, Any],
 def restore(path: str, state) -> Dict[str, Any]:
     """Load a checkpoint into a ``TrainState``: the model's weights, the
     optimizer's state when the file has one, the step, and the STKIM
-    generator's state when both have one, so a resumed run draws at step t
-    what an uninterrupted run draws there. Returns the checkpoint dict
-    (epoch, metrics, config)."""
+    generator's state and the EMA teacher's weights when both have one, so a
+    resumed run draws at step t what an uninterrupted run draws there, with
+    the same teacher. A file without a teacher (the reference's) leaves the
+    state's teacher as it is. Returns the checkpoint dict (epoch, metrics,
+    config)."""
     ckpt = load(path)
     state.model.load_state_dict(ckpt["model"])
+    if state.teacher is not None and "teacher" in ckpt:
+        state.teacher.load_state_dict(ckpt["teacher"])
     if ckpt.get("optimizer"):
         state.opt.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt.get("step", 0))
@@ -121,7 +130,8 @@ def save_best_and_last(ckpt_dir: str, state, epoch: int, conf,
     from acmil_tpu_torch.engine.train import is_better
 
     kw = dict(epoch=epoch, conf=conf, optimizer=state.opt,
-              metrics=val_metrics, step=state.step, generator=state.generator)
+              metrics=val_metrics, step=state.step, generator=state.generator,
+              teacher=state.teacher)
     if is_better(val_metrics, best,
                  str(getattr(conf, "selection_f1", "macro"))):
         best = dict(val_metrics)

@@ -2,13 +2,17 @@
 
 A family says how to run a model's training forward, how to turn its outputs
 into a loss, and how to run its deterministic forward and turn that into eval
-probabilities.
+probabilities. A family may also bring its own optimizer (``make_optimizer``,
+the JAX ``make_tx``), keep an EMA teacher in the train state (``teacher``)
+and bring its own train step (``make_step``, the JAX ``make_step_body``):
+MHIM does all three, and its 'pure' stage the first.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from acmil_tpu_torch.data.bags import Bag
@@ -17,6 +21,7 @@ from acmil_tpu_torch.models import fast
 from acmil_tpu_torch.models.acmil import ACMIL_GA, ACMIL_MHA
 from acmil_tpu_torch.models.bmil import kl_model
 from acmil_tpu_torch.models.fast import acmil_ga_apply_batched
+from acmil_tpu_torch.models.mhim import soft_target_ce
 from acmil_tpu_torch.ops.masked import masked_max
 
 
@@ -27,6 +32,20 @@ class Family:
     dropout draws from torch's default generator, ignore it."""
 
     name = "default"
+    # True: the train state keeps an EMA teacher, a copy of the model
+    teacher = False
+
+    def make_optimizer(self, params, conf, lr: float,
+                       device: torch.device) -> Optional[torch.optim.Optimizer]:
+        """The family's whole optimizer at learning rate ``lr`` (the trainer
+        sets each step's rate from the schedule), or None for the trainer's
+        AdamW with its global-norm clip."""
+        return None
+
+    def make_step(self, model, conf):
+        """The family's own ``step(state, bag, stkim_u=None) -> aux``, or
+        None for the trainer's."""
+        return None
 
     def conf_dict(self, conf) -> Dict[str, Any]:
         return {
@@ -242,9 +261,112 @@ class BMILFamily(Family):
         return self._with_kl_model(model, self.plain_outputs(model, bag))
 
 
+def mhim_script_optimizer(params, conf, lr: float,
+                          device: torch.device) -> torch.optim.Optimizer:
+    """The MHIM script's optimizer (`Step3_MHIM:380`): plain
+    ``torch.optim.Adam(lr, weight_decay=wd)``, whose decay is coupled (added
+    to the gradient before the moments, as ``optax.add_decayed_weights``
+    then ``adam``), and no gradient clipping even when ``grad_clipping`` is
+    set (the script defines the flag and never applies it)."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=float(conf.wd),
+                            fused=True if device.type == "cuda" else None)
+
+
+class PureFamily(Family):
+    """The MHIM script's ``--model pure`` stage (`Step3_MHIM:312-314`): the
+    default family's CE training through the script's coupled-L2 Adam."""
+
+    name = "pure"
+
+    def make_optimizer(self, params, conf, lr, device):
+        return mhim_script_optimizer(params, conf, lr, device)
+
+
+class MHIMFamily(PureFamily):
+    """The teacher-EMA step (`Step3_MHIM:124-161`): the teacher's forward
+    (no grad, deterministic, with its attention), the student's with masks
+    composed from that attention and the scheduled ``mask_ratio_h``, loss =
+    ``cls_alpha`` CE + ``cl_alpha`` soft-target CE (student cls feature
+    against the teacher's, temperatures ``temp_t`` 0.1 and ``temp_s`` 1.0),
+    the Adam step, then the EMA ``t <- t·mm + s·(1 - mm)`` in float32 over
+    every parameter. ``mm`` and the mask ratio follow the reference's cosine
+    arrays when ``mm_sche``/``mrh_sche`` are set, indexed by the step and
+    clamped to the array's end."""
+
+    name = "mhim"
+    teacher = True
+
+    def make_step(self, model, conf):
+        from acmil_tpu_torch.engine.schedules import cosine_array
+        from acmil_tpu_torch.engine.train import apply_gradients
+
+        cls_alpha = float(getattr(conf, "cls_alpha", 1.0))
+        cl_alpha = float(getattr(conf, "cl_alpha", 0.1))
+        # the reference CLI's temperatures (`Step3_MHIM:72`), not the
+        # module's defaults
+        temp_t = float(getattr(conf, "temp_t", 0.1))
+        temp_s = float(getattr(conf, "temp_s", 1.0))
+        mm0 = float(getattr(conf, "mm", 0.9999))
+        per_epoch = max(int(getattr(conf, "steps_per_epoch", 1)), 1)
+
+        def array(base, final):
+            return cosine_array(base, final, conf.train_epoch,
+                                per_epoch).astype(np.float32)
+
+        mm_arr = (array(mm0, float(getattr(conf, "mm_final", 1.0)))
+                  if bool(getattr(conf, "mm_sche", False)) else None)
+        mrh_arr = (array(float(getattr(conf, "mask_ratio_h", 0.0)), 0.0)
+                   if bool(getattr(conf, "mrh_sche", False)) else None)
+        params = [p for p in model.parameters() if p.requires_grad]
+
+        def step(state, bag, stkim_u=None) -> Dict[str, torch.Tensor]:
+            """``stkim_u [2, B, N]``: the student's mask uniforms (random
+            masking, then the high-attention subset); drawn from
+            ``state.generator`` when None."""
+            if state.teacher is None:
+                raise ValueError("the mhim family needs a train state with "
+                                 "a teacher: create_train_state(..., "
+                                 "family='mhim')")
+            if mm_arr is not None:
+                mm = mm_arr[min(state.step, len(mm_arr) - 1)]
+                one_minus = np.float32(1.0) - mm
+            else:
+                mm, one_minus = np.float32(mm0), np.float32(1.0 - mm0)
+            mrh = None
+            if mrh_arr is not None:
+                mrh = torch.tensor(mrh_arr[min(state.step, len(mrh_arr) - 1)],
+                                   device=bag.feats.device)
+            valid = bag.mask.any(dim=1)
+            with torch.no_grad():
+                tea = state.teacher.eval()(bag.feats, bag.mask,
+                                           deterministic=True,
+                                           return_attn=True)
+            model.train()
+            out = model(bag.feats, bag.mask, deterministic=False,
+                        teacher_attn=tea["attn"], mask_ratio_h=mrh,
+                        generator=state.generator, mask_u=stkim_u)
+            ce = L.cross_entropy(out["logits"], bag.label, valid)
+            cl = (soft_target_ce(out["cls_feat"], tea["cls_feat"], temp_t,
+                                 temp_s) if cl_alpha > 0
+                  else torch.zeros((), device=ce.device))
+            loss = cls_alpha * ce + cl_alpha * cl
+            norm = apply_gradients(state, loss, params)
+            with torch.no_grad():
+                tp = list(state.teacher.parameters())
+                torch._foreach_mul_(tp, float(mm))
+                torch._foreach_add_(tp, torch._foreach_mul(
+                    list(model.parameters()), float(one_minus)))
+            return {"logit_loss": ce.detach(), "cls_loss": cl.detach(),
+                    "loss": loss.detach(), "grad_norm": norm}
+
+        return step
+
+
 FAMILIES: Dict[str, Family] = {"default": Family(), "acmil": ACMILFamily(),
                                "clam": CLAMFamily(), "dsmil": DSMILFamily(),
-                               "bmil": BMILFamily()}
+                               "bmil": BMILFamily(), "pure": PureFamily(),
+                               "mhim": MHIMFamily()}
 
 
 def get_family(name: str) -> Family:

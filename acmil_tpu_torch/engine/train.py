@@ -1,9 +1,10 @@
 """Training and eval engine, the port of ``acmil_tpu/engine/train.py``
-(without scan epochs, SAM, custom family steps or meshes).
+(without scan epochs, SAM or meshes).
 
 ``create_train_state`` holds the model, AdamW with the reference's
-half-cosine schedule, and the step; ``make_train_step`` makes one gradient
-step per bag; ``train_one_epoch`` drives a loader and reads its metrics back
+half-cosine schedule (or the family's own optimizer), the step and, for a
+family with a teacher, the EMA teacher; ``make_train_step`` makes one
+gradient step per bag (or the family's own step); ``train_one_epoch`` drives a loader and reads its metrics back
 once, at the epoch's end. ``make_eval_step`` binds a model to its family's
 eval forward; ``evaluate`` scores a loader and computes acc/auc/f1/loss with
 one host transfer at the end.
@@ -11,6 +12,7 @@ one host transfer at the end.
 
 from __future__ import annotations
 
+import copy
 import inspect
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
@@ -27,7 +29,8 @@ from acmil_tpu_torch.engine.schedules import half_cosine_schedule
 class TrainState:
     """What a training run carries from step to step. ``step`` counts
     optimizer steps from 0; ``generator`` draws STKIM's uniforms on the
-    model's device."""
+    model's device; ``teacher`` is the EMA teacher of a family that keeps
+    one (the JAX ``EMATrainState``), else None."""
 
     model: torch.nn.Module
     opt: torch.optim.Optimizer
@@ -35,26 +38,38 @@ class TrainState:
     step: int = 0
     grad_clip: Optional[float] = None
     generator: Optional[torch.Generator] = None
+    teacher: Optional[torch.nn.Module] = None
 
 
 def create_train_state(model, conf, steps_per_epoch: int,
-                       grad_clip: Optional[float] = None) -> TrainState:
+                       grad_clip: Optional[float] = None,
+                       family=None) -> TrainState:
     """AdamW as ``optax.adamw(half_cosine_schedule(...), weight_decay=wd)``
     (betas 0.9/0.999, eps 1e-8, decay scaled by the learning rate), with
     optax's global-norm clip when ``grad_clip`` or ``conf.grad_clipping``
-    is set, over ``model``'s parameters on their device."""
+    is set, over ``model``'s parameters on their device. A ``family`` with
+    its own optimizer takes it instead, with no clip; a family with a
+    teacher gets a deep copy of ``model``, frozen, as the teacher."""
     device = next(model.parameters()).device
     sched = half_cosine_schedule(conf.lr, conf.min_lr, conf.train_epoch,
                                  conf.warmup_epoch, steps_per_epoch)
-    opt = torch.optim.AdamW(model.parameters(), lr=sched(0),
-                            betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=conf.wd,
-                            fused=True if device.type == "cuda" else None)
-    if grad_clip is None:
-        grad_clip = getattr(conf, "grad_clipping", None)
+    fam = _resolve_family(family) if family is not None else Family()
+    opt = fam.make_optimizer(model.parameters(), conf, sched(0), device)
+    if opt is None:
+        opt = torch.optim.AdamW(model.parameters(), lr=sched(0),
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=conf.wd,
+                                fused=True if device.type == "cuda" else None)
+        if grad_clip is None:
+            grad_clip = getattr(conf, "grad_clipping", None)
+    else:
+        grad_clip = None
+    teacher = None
+    if fam.teacher:
+        teacher = copy.deepcopy(model).eval().requires_grad_(False)
     gen = torch.Generator(device=device).manual_seed(int(conf.seed))
     return TrainState(model, opt, sched, 0,
-                      float(grad_clip) if grad_clip else None, gen)
+                      float(grad_clip) if grad_clip else None, gen, teacher)
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
@@ -72,6 +87,32 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
                         max_norm / norm)
     for g in grads:
         g.mul_(scale)
+
+
+def apply_gradients(state: TrainState, loss: torch.Tensor,
+                    params) -> torch.Tensor:
+    """Backpropagate ``loss`` into ``params`` and take one optimizer step:
+    a parameter the loss does not reach gets a zero gradient (as in JAX:
+    torch's optimizers skip a parameter whose grad is None, optax still
+    decays it), the global-norm clip when ``state.grad_clip`` is set, the
+    learning rate ``schedule(step)`` (optax evaluates the schedule at the
+    count before it increments), then ``step += 1``. Returns the pre-clip
+    gradient norm."""
+    state.opt.zero_grad(set_to_none=True)
+    loss.backward()
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    gnorm = global_norm(grads)
+    if state.grad_clip:
+        clip_by_global_norm_(grads, state.grad_clip, gnorm)
+    lr = state.schedule(state.step)
+    for group in state.opt.param_groups:
+        group["lr"] = lr
+    state.opt.step()
+    state.step += 1
+    return gnorm
 
 
 def _resolve_family(family) -> Family:
@@ -95,16 +136,16 @@ def make_eval_step(model, family="default", fused: bool = True) -> Callable:
 
 
 def make_train_step(model, conf, family="acmil") -> Callable:
-    """``step(state, bag, stkim_u=None) -> aux``: one AdamW step on ``bag``,
-    ``state`` updated in place. ``aux`` holds the loss, its parts and the
-    pre-clip gradient norm as device tensors. STKIM's uniforms are
+    """``step(state, bag, stkim_u=None) -> aux``: one optimizer step on
+    ``bag`` (:func:`apply_gradients`), ``state`` updated in place; the
+    family's own step where it has one. ``aux`` holds the loss, its parts
+    and the pre-clip gradient norm as device tensors. STKIM's uniforms are
     ``stkim_u [B, K, N]`` (ACMIL_MHA: ``[B, H, K, N]``) when given, else
-    drawn from ``state.generator``.
-
-    The learning rate of step ``t`` (from 0) is ``schedule(t)``, set just
-    before ``opt.step()``, as optax evaluates the schedule at the count
-    before it increments."""
+    drawn from ``state.generator``."""
     fam = _resolve_family(family)
+    custom = fam.make_step(model, conf)
+    if custom is not None:
+        return custom
     conf_d = fam.conf_dict(conf)
     params = [p for p in model.parameters() if p.requires_grad]
 
@@ -114,23 +155,7 @@ def make_train_step(model, conf, family="acmil") -> Callable:
         outputs = fam.train_outputs(model, bag, conf_d, stkim_u=stkim_u,
                                     generator=state.generator)
         loss, aux = fam.loss(outputs, bag, valid, conf_d)
-        state.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        for p in params:
-            # a parameter the loss does not reach (the branch classifier
-            # at n_token 1) gets a zero gradient, as in JAX: AdamW skips a
-            # parameter whose grad is None, optax still decays it
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        norm = global_norm(grads)
-        if state.grad_clip:
-            clip_by_global_norm_(grads, state.grad_clip, norm)
-        lr = state.schedule(state.step)
-        for group in state.opt.param_groups:
-            group["lr"] = lr
-        state.opt.step()
-        state.step += 1
+        norm = apply_gradients(state, loss, params)
         aux = {k: v.detach() for k, v in aux.items()}
         aux["loss"] = loss.detach()
         aux["grad_norm"] = norm

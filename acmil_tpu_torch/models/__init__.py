@@ -6,11 +6,12 @@ port registers ``ga`` (ACMIL_GA), ``mha`` (ACMIL_MHA), ``abmil``,
 ``mha_single`` (MHA), ``dsmil``, ``clam_sb`` and ``clam_mb`` (CLAM), and
 the rest of the generic zoo: ``meanmil``, ``maxmil``, ``lbmil``,
 ``attmil``, ``attmil_gated``, ``ilra``, ``ips``, ``ibmil`` (phase 2 when the
-config names ``c_path``), and ``bmil_vis``, ``bmil_enc`` and ``bmil_spvis``
-(family ``bmil``), with the JAX registry's families. Every head draws its
-initial weights from a ``torch.Generator`` seeded with ``conf.seed``.
-``transmil``, ``dtfd``, ``mhim``/``pure`` and the rest of the JAX registry
-raise.
+config names ``c_path``), ``bmil_vis``, ``bmil_enc`` and ``bmil_spvis``
+(family ``bmil``), ``transmil`` (``transmil_pad_mode`` zero or wrap,
+``compute_dtype`` float32 or bfloat16), and MHIM's two stages, ``mhim``
+(family ``mhim``) and ``pure`` (family ``pure``), with the JAX registry's
+families. Every head draws its initial weights from a ``torch.Generator``
+seeded with ``conf.seed``. ``dtfd`` raises.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from acmil_tpu_torch.models.ilra import ILRA
 from acmil_tpu_torch.models.ips import IPSNet
 from acmil_tpu_torch.models.lbmil import LBMIL
 from acmil_tpu_torch.models.mean_max import MaxMIL, MeanMIL
+from acmil_tpu_torch.models.mhim import MHIM
+from acmil_tpu_torch.models.transmil import TransMIL
 
 _REGISTRY: Dict[str, Tuple[Callable, str]] = {}
 
@@ -194,15 +197,70 @@ def _bmil_spvis(conf):
                      generator=_gen(conf))
 
 
+def _compute_dtype(conf) -> torch.dtype:
+    return (torch.bfloat16 if str(getattr(conf, "compute_dtype", "float32"))
+            == "bfloat16" else torch.float32)
+
+
+@register_model("transmil")
+def _transmil(conf):
+    return TransMIL(n_class=conf.n_class, d_feat=conf.D_feat,
+                    d_inner=conf.D_inner, dtype=_compute_dtype(conf),
+                    pad_mode=str(getattr(conf, "transmil_pad_mode", "zero")),
+                    generator=_gen(conf))
+
+
+def _mhim_shared_kwargs(conf):
+    """The keys the MHIM script gives both stages
+    (`Step3_WSI_classification_MHIM.py:50-68,313`), with the script's
+    defaults (act and da_act relu, not the class's). ``pos`` picks
+    SAttention's positional embedding (ppeg, the JAX registry's only one,
+    peg, sincos or none)."""
+    return dict(
+        n_class=conf.n_class, d_feat=conf.D_feat,
+        mlp_dim=int(getattr(conf, "mlp_dim", 512)),
+        baseline=str(getattr(conf, "baseline", "selfattn")),
+        act=str(getattr(conf, "act", "relu")),
+        da_act=str(getattr(conf, "da_act", "relu")),
+        droprate=float(getattr(conf, "dropout", 0.25)),
+        attn_layer=int(getattr(conf, "attn_layer", 0)),
+        pos=str(getattr(conf, "pos", "ppeg")),
+        pad_mode=str(getattr(conf, "mhim_pad_mode", "zero")),
+        generator=_gen(conf))
+
+
+@register_model("mhim", family="mhim")
+def _mhim(conf):
+    return MHIM(dtype=_compute_dtype(conf),
+                mask_ratio=float(getattr(conf, "mask_ratio", 0.0)),
+                mask_ratio_l=float(getattr(conf, "mask_ratio_l", 0.0)),
+                mask_ratio_h=float(getattr(conf, "mask_ratio_h", 0.0)),
+                mask_ratio_hr=float(getattr(conf, "mask_ratio_hr", 1.0)),
+                **_mhim_shared_kwargs(conf))
+
+
+@register_model("pure", family="pure")
+def _pure(conf):
+    """The MHIM script's 'pure' baseline: the same network without masks or
+    teacher (`Step3_MHIM:135-137`), which pre-trains the teacher. As in the
+    JAX registry, it runs in float32 whatever ``compute_dtype`` says."""
+    return MHIM(**_mhim_shared_kwargs(conf))
+
+
+def model_family(arch: str) -> str:
+    """The family ``arch`` trains with, without building it."""
+    if arch not in _REGISTRY:
+        raise ValueError(f"unknown arch {arch!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[arch][1]
+
+
 def build_mil_model(conf):
     """Returns (model, family) for ``conf.arch``."""
-    if conf.arch not in _REGISTRY:
-        raise ValueError(f"unknown arch {conf.arch!r}; have {sorted(_REGISTRY)}")
-    factory, family = _REGISTRY[conf.arch]
-    return factory(conf), family
+    family = model_family(conf.arch)
+    return _REGISTRY[conf.arch][0](conf), family
 
 
 __all__ = ["ABMIL", "ACMIL_GA", "ACMIL_MHA", "BMILSpvis", "BMILVis",
            "CLAM_MB", "CLAM_SB", "DAttentionMIL", "DSMIL", "IBMIL", "ILRA",
-           "IPSNet", "LBMIL", "MHA", "MaxMIL", "MeanMIL", "build_mil_model",
-           "register_model"]
+           "IPSNet", "LBMIL", "MHA", "MHIM", "MaxMIL", "MeanMIL", "TransMIL",
+           "build_mil_model", "model_family", "register_model"]

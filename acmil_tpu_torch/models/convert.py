@@ -12,13 +12,18 @@ and MB's ``bag_w [C, L]`` become ``instance_classifiers.{c}`` and
 ``classifiers.{c}``; LBMIL's ``cls_w``/``cls_b`` become ``classifier``;
 ILRA's three in-projection Dense layers become one stacked
 ``multihead_attn.in_proj_weight``; a LinearVDO's ``kernel``/``log_alp``
-``[in, out]`` become ``weight``/``log_alp`` ``[out, in]``. The inverses are
+``[in, out]`` become ``weight``/``log_alp`` ``[out, in]``; a Nystrom
+block's ``res_conv [H, k]`` becomes the conv weight ``[H, 1, k, 1]``, and
+PPEG's ``proj7``/``proj5``/``proj3`` the reference's ``proj``/``proj1``/
+``proj2``. The inverses are
 ``scripts/import_torch_checkpoint.py::convert_acmil_ga``,
 ``convert_acmil_mha``, ``convert_mha_single``, ``convert_dsmil``,
 ``convert_clam``, ``convert_mean_max``, ``convert_lbmil``,
 ``convert_attmil``, ``convert_ilra``, ``convert_bmil_vis`` and
-``convert_ibmil`` (phase 1). IPS, ``bmil_enc``, ``bmil_spvis`` and phase-2
-IBMIL have no reference converter; their maps follow the flax tree alone.
+``convert_ibmil`` (phase 1), ``convert_transmil`` and ``convert_mhim``
+(both baselines, PPEG). IPS, ``bmil_enc``, ``bmil_spvis`` and phase-2
+IBMIL and MHIM's PEG have no reference converter; their maps follow the
+flax tree alone.
 A frozen IBMIL dictionary is a constant of the flax module, not a
 parameter, so its ``confounder_feat`` buffer is not in the returned dict.
 """
@@ -285,6 +290,60 @@ def _bmil(params, arch: str, droprate: float) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _nystrom_layer(sd, prefix, p):
+    """A ``TransLayer`` (``LayerNorm_0``, ``NystromAttention_0``)."""
+    _layernorm(sd, f"{prefix}.norm", p["LayerNorm_0"])
+    ny = p["NystromAttention_0"]
+    _linear(sd, f"{prefix}.attn.to_qkv", ny["Dense_0"])
+    _linear(sd, f"{prefix}.attn.to_out.0", ny["Dense_1"])
+    sd[f"{prefix}.attn.res_conv.weight"] = _t(
+        np.asarray(ny["res_conv"])[:, None, :, None])
+
+
+def _pos(sd, prefix, params):
+    """``PPEG_0`` or ``PEG_0`` (SINCOS has no parameters)."""
+    if "PPEG_0" in params:
+        for flax_name, conv in (("proj7", "proj"), ("proj5", "proj1"),
+                                ("proj3", "proj2")):
+            sd[f"{prefix}.{conv}.weight"] = _t(params["PPEG_0"][flax_name])
+            sd[f"{prefix}.{conv}.bias"] = _t(params["PPEG_0"][flax_name + "_b"])
+    if "PEG_0" in params:
+        sd[f"{prefix}.proj.weight"] = _t(params["PEG_0"]["proj"])
+        sd[f"{prefix}.proj.bias"] = _t(params["PEG_0"]["proj_b"])
+
+
+def _transmil(params) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "_fc1.0", params["Dense_0"])
+    sd["cls_token"] = _t(params["cls_token"])
+    _nystrom_layer(sd, "layer1", params["TransLayer_0"])
+    _pos(sd, "pos_layer", params)
+    _nystrom_layer(sd, "layer2", params["TransLayer_1"])
+    _layernorm(sd, "norm", params["LayerNorm_0"])
+    _linear(sd, "_fc2", params["Dense_1"])
+    return sd
+
+
+def _mhim(params) -> Dict[str, torch.Tensor]:
+    """``mhim`` and ``pure``: SAttention (any ``pos``) or DAttention."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "patch_to_emb.0", params["patch_to_emb"])
+    _linear(sd, "predictor", params["predictor"])
+    enc = "online_encoder"
+    if "SAttentionEncoder_0" in params:
+        sa = params["SAttentionEncoder_0"]
+        sd[f"{enc}.cls_token"] = _t(sa["cls_token"])
+        _nystrom_layer(sd, f"{enc}.layer1", sa["TransLayer_0"])
+        _pos(sd, f"{enc}.pos_embedding", sa)
+        _nystrom_layer(sd, f"{enc}.layer2", sa["TransLayer_1"])
+        _layernorm(sd, f"{enc}.norm", sa["LayerNorm_0"])
+        return sd
+    da = params["DAttentionEncoder_0"]
+    _linear(sd, f"{enc}.attention.attention.0", da["Dense_0"])
+    _linear(sd, f"{enc}.attention.attention.2", da["Dense_1"])
+    return sd
+
+
 _ZOO = {
     "meanmil": lambda p, dr: _mean_max(p, dr),
     "maxmil": lambda p, dr: _mean_max(p, dr),
@@ -297,6 +356,9 @@ _ZOO = {
     "bmil_vis": lambda p, dr: _bmil(p, "bmil_vis", dr),
     "bmil_enc": lambda p, dr: _bmil(p, "bmil_enc", dr),
     "bmil_spvis": lambda p, dr: _bmil(p, "bmil_spvis", dr),
+    "transmil": lambda p, dr: _transmil(p),
+    "mhim": lambda p, dr: _mhim(p),
+    "pure": lambda p, dr: _mhim(p),
 }
 
 
@@ -306,7 +368,8 @@ def from_jax_params(params, arch: str,
     ``"mha_single"`` (MHA), ``"dsmil"``, ``"clam_sb"``, ``"clam_mb"``, an
     arch of the generic zoo (``"meanmil"``, ``"maxmil"``, ``"lbmil"``,
     ``"attmil"``, ``"attmil_gated"``, ``"ilra"``, ``"ips"``, ``"ibmil"``,
-    ``"bmil_vis"``, ``"bmil_enc"``, ``"bmil_spvis"``) or ``"vit"`` (a patch
+    ``"bmil_vis"``, ``"bmil_enc"``, ``"bmil_spvis"``, ``"transmil"``,
+    ``"mhim"``, ``"pure"``) or ``"vit"`` (a patch
     encoder of ``acmil_tpu.models.encoders.vit``). ``droprate`` places the
     layer after a dropout in CLAM's attention net, mean/max's head and
     BMIL vis/enc's attention net."""

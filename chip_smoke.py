@@ -171,11 +171,33 @@ code is non-zero:
    their device time and device events from ``torch.profiler``. None of
    these heads reaches a kernel, in either package: B1, B2 and B6 must
    count no launch over the phase.
+19. TransMIL and MHIM on phase 16's 24 slides: (a) ``cli/step3_generic.py
+   --arch transmil`` trains one epoch at the camelyon_medical_ssl widths
+   (D_inner 128: 8 heads of 16, 64 landmarks), every loss finite; its best
+   checkpoint scores ``TM_CPU_SLIDES`` through ``cli/predict.py`` on the
+   card and on the CPU within ``ZOO_CPU_ATOL``, a ``compute_dtype:
+   bfloat16`` eval on the card within ``TRANSMIL_BF16_ATOL`` of the f32
+   one, and ``cli/step4_heatmap.py`` refuses it (``model emits no
+   attention``); (b) MHIM's two stages through ``cli/step3_mhim.py`` at the
+   script's mlp_dim 512 (8 heads of 64, 256 landmarks), for each baseline
+   (selfattn, attn): ``--model pure`` one epoch, then ``--model mhim
+   --teacher_init <its dir> --init_stu_type fc --mask_ratio_h 0.1
+   --mask_ratio_hr 0.5 --mm_sche --mrh_sche`` one epoch, every loss finite,
+   the checkpoint's teacher off its start and off the student; each best
+   checkpoint scored card against CPU within ``ZOO_CPU_ATOL``; on one
+   50000-patch bag at step 0 the student keeps exactly 45000 patches, every
+   dropped one in the teacher's top 20% by rank; (c) a training step and
+   an eval at 50000 patches for transmil, pure, mhim selfattn and mhim
+   attn, timed with CUDA events, with device time and device events from
+   ``torch.profiler``, the step's four largest device events by name and
+   its peak memory. No kernel runs: B1, B2 and B6 must count no launch
+   over the phase.
 
-The line before the kernels line is ``{"zoo": {...}}``: phase 18's numbers
-per arch (training epoch wall and loss, predict seconds, card-vs-CPU error,
-step and eval ms, device ms and device events) and the kernel launches the
-phase counted. The line before the last but one is ``{"kernels": [...]}``
+The line before the kernels line is ``{"zoo": {...}}``: phase 18's and
+phase 19's numbers per arch (training epoch wall and loss, predict seconds,
+card-vs-CPU error, step and eval ms, device ms and device events; phase
+19's also the step's peak memory), the kernel launches phase 18 counted,
+and phase 19's checks under ``transmil_mhim``. The line before the last but one is ``{"kernels": [...]}``
 with each
 kernel's launches on its path (B7's are counted over phases 3-13, where no
 production path calls it, and its entry also gives the count of its
@@ -309,6 +331,16 @@ ZOO_ARCHS = ("meanmil", "maxmil", "lbmil", "attmil", "attmil_gated", "ilra",
 ZOO_CPU_SLIDES = ("slide_00", "slide_01", "slide_16", "slide_20")
 ZOO_CPU_ATOL = 1e-4
 IBMIL_K = 8
+# TransMIL (phase 19): a compute_dtype bfloat16 eval of the f32 checkpoint,
+# probabilities against the f32 eval's, at the bf16-vs-f32 logit tolerance
+# of the JAX package's tests/test_model_zoo.py::test_transmil_bf16_matches_f32
+TRANSMIL_BF16_ATOL = 0.05
+# phase 19's card-vs-CPU slides (1000 and 50000 patches): an MHIM
+# SAttention forward at 65536 patches is ~1.4 TFLOP, seconds on the CPU
+TM_CPU_SLIDES = ("slide_00", "slide_01")
+# MHIM's two stages (the head-to-head's stage B, scripts/head_to_head.py)
+MHIM_STAGE_B = ("--mask_ratio_h", "0.1", "--mask_ratio_hr", "0.5",
+                "--mm_sche", "--mrh_sche")
 
 
 def card() -> str:
@@ -2842,6 +2874,16 @@ def _device_profile(fn, reps):
     return None, None
 
 
+def _top_kernels(fn, reps=3, k=4) -> dict:
+    """The ``k`` device events of ``fn`` with the most time, ms per call by
+    name (cut to 60 characters), from one ``torch.profiler`` window."""
+    prof, _ = _profiled(fn, reps)
+    per = {}
+    for name, us in _device_events(prof):
+        per[name[:60]] = per.get(name[:60], 0.0) + us / reps / 1e3
+    return dict(sorted(per.items(), key=lambda kv: -kv[1])[:k])
+
+
 def _raises(fn, exc, words: str) -> str:
     """Run ``fn``, which must raise ``exc`` with ``words`` in its message;
     returns the message. Any other outcome raises."""
@@ -3061,6 +3103,223 @@ def zoo_run(smi: str, tmp: str, pipe: dict, corpus: dict) -> dict:
             "bag_patches": len(d["feat"]), "bucket": int(bag.feats.shape[1])}
 
 
+def transmil_mhim_run(smi: str, tmp: str, pipe: dict, corpus: dict) -> dict:
+    """TransMIL and MHIM on phase 16's 24 slides: (a) one epoch of
+    ``cli/step3_generic.py --arch transmil``, its best checkpoint scored card
+    against CPU, in bf16 against f32, and refused by Step4; (b) MHIM's two
+    stages through ``cli/step3_mhim.py`` for each baseline, each best
+    checkpoint scored card against CPU, the teacher moved, the student's
+    masks at step 0 on a 50000-patch bag held to the ranks; (c) a step and
+    an eval at 50000 patches per head, timed, with device time, device
+    events and the step's peak memory. None of these heads reaches a kernel:
+    B1, B2 and B6 must count no launch over the phase. Returns the phase's
+    numbers: ``archs`` joins the ``zoo`` line's archs, the rest goes under
+    its ``transmil_mhim``."""
+    from acmil_tpu_torch.cli import predict, step3_generic, step3_mhim
+    from acmil_tpu_torch.cli import step4_heatmap
+    from acmil_tpu_torch.config import Config
+    from acmil_tpu_torch.data.bags import pad_bag
+    from acmil_tpu_torch.data.ptio import write_feature_pt
+    from acmil_tpu_torch.engine import (checkpoint, create_train_state,
+                                        make_eval_step, make_train_step)
+    from acmil_tpu_torch.models import build_mil_model
+    from acmil_tpu_torch.models.mhim import _rank
+    from acmil_tpu_torch.ops import attn_pool as ap
+    from acmil_tpu_torch.ops.dsmil_pool import fused_dsmil_pool
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "transmil_mhim")
+    os.makedirs(root)
+    subset = os.path.join(root, "cpu_subset.pt")
+    write_feature_pt(subset, {n: corpus["slides"][n] for n in TM_CPU_SLIDES})
+    counters = (ap.fused_gated_attn_pool_batched, ap.fused_gated_attn_pool_bwd,
+                fused_dsmil_pool)
+    for c in counters:
+        c.launches = 0
+    data = ["--data_dir", corpus["data_dir"]]
+    res, out = {}, {}
+
+    def train(cli, tag, *args):
+        ckpt_dir = os.path.join(root, f"ckpt_{tag}")
+        log_dir = os.path.join(root, f"log_{tag}")
+        t0 = time.perf_counter()
+        cli.main(["--config", corpus["yml"], *data, "--ckpt_dir", ckpt_dir,
+                  "--log_dir", log_dir, "--train_epoch", "1", "--device",
+                  "cuda", *args])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = _epoch_losses(log_dir)
+        if len(losses) != 1 or not math.isfinite(losses[0]):
+            raise AssertionError(f"{tag} epoch losses {losses}")
+        return ckpt_dir, {"train_s": wall, "loss": losses[0]}
+
+    def score(tag, yml, ckpt_dir, devices=("cuda", "cpu")):
+        """TM_CPU_SLIDES through cli/predict.py on each device; (card
+        seconds, probabilities per device)."""
+        probs, secs = {}, {}
+        for dev in devices:
+            t0 = time.perf_counter()
+            res_ = predict.main(["--config", yml, "--ckpt", ckpt_dir,
+                                 "--features", subset, "--out_csv",
+                                 os.path.join(root, f"preds_{tag}_{dev}.csv"),
+                                 "--device", dev])
+            secs[dev] = time.perf_counter() - t0
+            _check_predictions(res_, len(TM_CPU_SLIDES), 2)
+            probs[dev] = np.asarray([r[2:4] for r in res_["rows"]])
+        return secs["cuda"], probs
+
+    def card_vs_cpu(tag, yml, ckpt_dir):
+        predict_s, probs = score(tag, yml, ckpt_dir)
+        err = float(np.abs(probs["cuda"] - probs["cpu"]).max())
+        if not err <= ZOO_CPU_ATOL:
+            raise AssertionError(f"{tag}: card vs CPU probabilities {err}")
+        return {"predict_s": predict_s, "cpu_err": err}
+
+    # (a) TransMIL: one epoch, predict card vs CPU, bf16, Step4 refuses
+    ckpt, res["transmil"] = train(step3_generic, "transmil", "--arch",
+                                  "transmil")
+    res["transmil"].update(card_vs_cpu("transmil", corpus["yml"], ckpt))
+    bf16_yml = _yml_with(root, "bf16.yml", compute_dtype="bfloat16")
+    _, p16 = score("transmil_bf16", bf16_yml, ckpt, ("cuda",))
+    _, p32 = score("transmil_f32", corpus["yml"], ckpt, ("cuda",))
+    bf16_err = float(np.abs(p16["cuda"] - p32["cuda"]).max())
+    if not bf16_err <= TRANSMIL_BF16_ATOL:
+        raise AssertionError(f"transmil bf16 vs f32 probabilities {bf16_err}")
+    out["transmil_bf16_err"] = bf16_err
+    names = pipe["names"]
+    split_dir = os.path.join(root, "splits4")
+    _write_split(split_dir, names[:-1], [], names[-1:])
+    yml4 = _yml_with(root, "step4.yml", split_dir=split_dir,
+                     data_dir=os.path.dirname(pipe["feat_path"]))
+    _raises(lambda: step4_heatmap.main([
+        "--config", yml4, "--ckpt_dir", ckpt, "--slide_dir",
+        pipe["slide_dir"], "--output_dir", os.path.join(root, "heat"),
+        "--patch_size", str(PIPE_PATCH), "--device", "cuda"]),
+        ValueError, "model emits no attention")
+    r = res["transmil"]
+    print(f"transmil: cli/step3_generic.py 1 epoch x {N_TRAIN} steps, "
+          f"{r['train_s']:.2f} s wall, loss {r['loss']:.6f}; cli/predict.py "
+          f"on {len(TM_CPU_SLIDES)} slides {r['predict_s']:.2f} s on the "
+          f"card, max |card - CPU| probability {r['cpu_err']:.3e}; bf16 eval "
+          f"max |bf16 - f32| probability {bf16_err:.3e}; Step4 refuses it "
+          f"[{smi}]")
+
+    # (b) MHIM: pure, then mhim with the pure run as teacher, per baseline
+    for baseline in ("selfattn", "attn"):
+        yml = _yml_with(root, f"{baseline}.yml", baseline=baseline)
+        common = ["--baseline", baseline]
+        pure_ckpt, pure_r = train(step3_mhim, f"pure_{baseline}", *common,
+                                  "--model", "pure")
+        mhim_ckpt, mhim_r = train(step3_mhim, f"mhim_{baseline}", *common,
+                                  "--model", "mhim", "--teacher_init",
+                                  pure_ckpt, "--init_stu_type", "fc",
+                                  *MHIM_STAGE_B)
+        start = checkpoint.load(checkpoint.checkpoint_path(pure_ckpt, "best"))
+        last = checkpoint.load(checkpoint.checkpoint_path(mhim_ckpt, "last"))
+        moved = {k: float((last["teacher"][k] - v).abs().max())
+                 for k, v in start["model"].items()}
+        apart = {k: float((last["teacher"][k] - v).abs().max())
+                 for k, v in last["model"].items()}
+        if not max(moved.values()) > 0 or not max(apart.values()) > 0:
+            raise AssertionError(f"mhim {baseline}: teacher moved "
+                                 f"{max(moved.values())}, apart from the "
+                                 f"student {max(apart.values())}")
+        for tag, ck, r in ((f"pure_{baseline}", pure_ckpt, pure_r),
+                           (f"mhim_{baseline}", mhim_ckpt, mhim_r)):
+            r.update(card_vs_cpu(tag, yml, ck))
+            res[tag] = r
+        mhim_r["teacher_max_move"] = max(moved.values())
+        mhim_r["teacher_student_max_diff"] = max(apart.values())
+        print(f"mhim {baseline}: cli/step3_mhim.py --model pure 1 epoch "
+              f"{pure_r['train_s']:.2f} s (loss {pure_r['loss']:.6f}), then "
+              f"--model mhim --teacher_init --init_stu_type fc "
+              f"{' '.join(MHIM_STAGE_B)} 1 epoch {mhim_r['train_s']:.2f} s "
+              f"(loss {mhim_r['loss']:.6f}); teacher moved up to "
+              f"{mhim_r['teacher_max_move']:.3e} off the pure weights and "
+              f"differs from the student by up to "
+              f"{mhim_r['teacher_student_max_diff']:.3e}; cli/predict.py max "
+              f"|card - CPU| probability pure {pure_r['cpu_err']:.3e}, mhim "
+              f"{mhim_r['cpu_err']:.3e} [{smi}]")
+
+    # the student's masks at step 0 on one 50000-patch bag
+    d = corpus["slides"]["slide_01"]
+    bag = pad_bag(d["feat"], d["coords"], d["label"],
+                  dtype=np.float16).to("cuda")
+    n_valid = int(bag.mask.sum())
+    mhim_conf = dict(arch="mhim", mask_ratio_h=0.1, mask_ratio_hr=0.5,
+                     mm_sche=True, mrh_sche=True, steps_per_epoch=N_TRAIN)
+    conf = Config.from_yaml(YML, mhim_conf)
+    model, family = build_mil_model(conf)
+    model.cuda()
+    state = create_train_state(model, conf, N_TRAIN, family=family)
+    mrh = torch.tensor(np.float32(0.1), device="cuda")
+    with torch.no_grad():
+        tea = state.teacher(bag.feats, bag.mask, return_attn=True)
+        keep = model.train()(bag.feats, bag.mask, deterministic=False,
+                             teacher_attn=tea["attn"], mask_ratio_h=mrh,
+                             generator=state.generator)["keep"]
+    dropped = bag.mask & ~keep
+    ranks = _rank(tea["attn"], bag.mask, largest=True)
+    want_keep = n_valid - math.ceil(n_valid * 0.1)
+    top = math.ceil(n_valid * 0.2)
+    if int(keep.sum()) != want_keep or not bool(
+            (ranks[dropped] < top).all()) or bool((keep & ~bag.mask).any()):
+        raise AssertionError(f"mhim masks: kept {int(keep.sum())} of "
+                             f"{n_valid} (want {want_keep}), dropped ranks "
+                             f"up to {int(ranks[dropped].max())}")
+    out["mask_check"] = {"valid": n_valid, "kept": int(keep.sum()),
+                         "dropped_max_rank": int(ranks[dropped].max()),
+                         "top": top}
+    print(f"mhim masks at step 0 on a {n_valid}-patch bag (mrh 0.1, hr "
+          f"0.5): the student keeps {int(keep.sum())} = {n_valid} - "
+          f"ceil({n_valid} x 0.1); every dropped patch ranks below {top} of "
+          f"the teacher's attention (worst rank "
+          f"{out['mask_check']['dropped_max_rank']}) [{smi}]")
+
+    # (c) a training step and an eval at 50000 patches (bucket 65536)
+    heads = {"transmil": {"arch": "transmil"},
+             "pure_selfattn": {"arch": "pure"}, "mhim_selfattn": mhim_conf,
+             "mhim_attn": dict(mhim_conf, baseline="attn")}
+    for tag, keys in heads.items():
+        conf = Config.from_yaml(YML, keys)
+        model, family = build_mil_model(conf)
+        model.cuda()
+        state = create_train_state(model, conf, N_TRAIN, family=family)
+        step = make_train_step(model, conf, family)
+        eval_step = make_eval_step(model, family)
+        step(state, bag)
+        eval_step(bag)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, bag)
+        torch.cuda.synchronize()
+        r = res.setdefault(tag, {})
+        r["step_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        r["step_ms"] = _event_ms(lambda: step(state, bag), 10)
+        r["step_device_ms"], r["step_launches"] = _device_profile(
+            lambda: step(state, bag), 5)
+        r["step_top"] = _top_kernels(lambda: step(state, bag))
+        r["eval_ms"] = _event_ms(lambda: eval_step(bag), 10)
+        r["eval_device_ms"], r["eval_launches"] = _device_profile(
+            lambda: eval_step(bag), 5)
+        print(f"{tag} at {n_valid} patches (bucket {bag.feats.shape[1]}): "
+              f"training step {r['step_ms']:.4f} ms (CUDA events, median of "
+              f"10), {_fmt_ms(r['step_device_ms'])} of device time in "
+              f"{r['step_launches']} device events, peak "
+              f"{r['step_peak_gib']:.3f} GiB allocated; eval "
+              f"{r['eval_ms']:.4f} ms, {_fmt_ms(r['eval_device_ms'])} in "
+              f"{r['eval_launches']} device events; the step's largest "
+              f"device events: {_fmt_split(r['step_top'])} [{smi}]")
+        del model, state, step, eval_step
+    launched = {c.__name__: c.launches for c in counters}
+    if any(launched.values()):
+        raise AssertionError(f"TransMIL/MHIM launched kernels {launched}")
+    out["kernel_launches"] = launched
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"transmil/mhim phase wall {out['wall_s']:.2f} s [{smi}]")
+    return {"archs": res, **out}
+
+
 VIT_ATTN_SHAPES = (("ViT-S/16", 6, 197, 64), ("ViT-S/8", 6, 785, 64),
                    ("CLIP-L/336", 16, 577, 64))
 # N at csrc/vit_attn.cu's edges: the ragged 16-key chunk; at dh=64 the
@@ -3196,7 +3455,10 @@ def main() -> None:
         corpus = mha_run(smi, tmp, pipe)
         clam = clam_run(smi, tmp, pipe, corpus)
         zoo = zoo_run(smi, tmp, pipe, corpus)
+        transmil_mhim = transmil_mhim_run(smi, tmp, pipe, corpus)
         del corpus
+    zoo["archs"].update(transmil_mhim.pop("archs"))
+    zoo["transmil_mhim"] = transmil_mhim
     b5_edges = b7.pop("b5_edges")
     vit["B5"]["max_abs_err"] = max(vit["B5"]["max_abs_err"],
                                    b5_edges["max_abs_err"])

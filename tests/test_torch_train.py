@@ -583,6 +583,8 @@ def test_step3_refuses_what_is_not_ported(argv, match):
 
 
 def test_teacher_init_is_refused(tmp_path):
+    # teacher_init is ported for MHIM; on an arch without an EMA teacher (the
+    # default ga) it would do nothing, so the trainer refuses it
     conf = Config.from_dict({"teacher_init": str(tmp_path)})
     with pytest.raises(ValueError, match="teacher_init"):
         port_cli.run_training(conf)
