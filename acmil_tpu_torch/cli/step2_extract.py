@@ -8,15 +8,22 @@ patch pixels and writes one entry per slide: ``feat`` (float16 ``[N, D]``),
 ``coords`` and a ``label`` (from ``--label_csv``, else 0), the schema the
 Step3 trainers read. ViT trunks run through ``encoders.fast.vit_encode``:
 kernel B3 per layer for ViT-S/16, B4 for ViT-B/UNI/ViT-S/8, B5' for
-CLIP-L/GigaPath.
+CLIP-L/GigaPath. ResNet-18/50 trunks (``--backbone Resnet18|Resnet50``)
+run their plain forward, cuDNN's convolutions in bf16.
+
+``--roi_dir`` takes the ROI side path instead (`Step2:52-93`): an
+ImageFolder-style directory of class subdirectories of crops, each crop
+read with cv2, made RGB and resized to the encoder's size; the per-class
+mean features, class 0 skipped, go to ``roi_feats.npy`` in
+``--output_dir``.
 
 Readers a machine may lack have torch-file adapters, each chosen by a flag:
 ``--coords_format pt`` reads ``<slide>.pt`` coords written by
 ``wsi/tiling.py::save_coords_pt`` instead of ``<slide>.h5``, and
 ``--out_format pt`` writes ``patch_feats_pretrain_{pretrain}.pt`` through
 ``data/ptio.py::write_feature_pt`` instead of the H5 (both need no
-``h5py``). ``--roi_dir``, ``--mesh_data`` and ``--mesh_model`` are not
-ported and raise.
+``h5py``). ``--mesh_data`` and ``--mesh_model`` are not ported and
+raise.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from acmil_tpu_torch.utils.device import entry_device
 from acmil_tpu_torch.wsi.slide import SLIDE_EXTS, open_slide
 from acmil_tpu_torch.wsi.tiling import load_coords_h5, load_coords_pt
 
-NOT_PORTED = ("roi_dir", "mesh_data", "mesh_model")
+NOT_PORTED = ("mesh_data", "mesh_model")
 
 
 def extract_slide_features(embed, spec, slide, coords, patch_size_l0,
@@ -51,6 +58,45 @@ def extract_slide_features(embed, spec, slide, coords, patch_size_l0,
     if not feats:
         return np.zeros((0, spec.embed_dim), np.float16)
     return torch.cat(feats).cpu().numpy()
+
+
+def extract_roi_features(embed, spec, roi_dir: str, output_dir: str,
+                         batch_size: int = 64) -> np.ndarray:
+    """Per-class mean features ``[n_classes - 1, embed_dim]`` (float32) of
+    the crops under ``roi_dir``'s class subdirectories (sorted; class 0
+    skipped, as the reference does), written to
+    ``output_dir/roi_feats.npy``. ``embed`` is a float32 closure of
+    ``encoder_feature_fn``; each batch is padded to ``batch_size`` with
+    zeros, so every call has one shape."""
+    import cv2
+
+    classes = sorted(d for d in os.listdir(roi_dir)
+                     if os.path.isdir(os.path.join(roi_dir, d)))
+    size = spec.img_size
+    feats, labels = [], []
+    for ci, cls in enumerate(classes):
+        cdir = os.path.join(roi_dir, cls)
+        files = sorted(f for f in os.listdir(cdir)
+                       if f.lower().endswith((".png", ".jpg", ".jpeg")))
+        for i in range(0, len(files), batch_size):
+            chunk = files[i:i + batch_size]
+            imgs = np.zeros((batch_size, size, size, 3), np.uint8)
+            for j, fname in enumerate(chunk):
+                img = cv2.imread(os.path.join(cdir, fname))
+                if img is None:
+                    raise ValueError(f"cv2 cannot read {cdir}/{fname}")
+                imgs[j] = cv2.resize(cv2.cvtColor(img, cv2.COLOR_BGR2RGB),
+                                     (size, size))
+            feats.append(embed(imgs)[:len(chunk)].float().cpu().numpy())
+            labels.extend([ci] * len(chunk))
+    feats, labels = np.concatenate(feats), np.asarray(labels)
+    centroids = np.stack([feats[labels == c].mean(axis=0)
+                          for c in range(1, len(classes))])
+    os.makedirs(output_dir, exist_ok=True)
+    out = os.path.join(output_dir, "roi_feats.npy")
+    np.save(out, centroids)
+    print(f"roi centroids {centroids.shape} -> {out}")
+    return centroids
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -75,6 +121,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--out_format", choices=["h5", "pt"], default="h5",
                    help="feature file: the reference's H5, or a torch file "
                         "(data/ptio.py)")
+    p.add_argument("--roi_dir", default=None,
+                   help="ImageFolder-style ROI crops: write per-class "
+                        "centroid features instead of slide bags")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; without a card, raises "
                         "unless this is cpu)")
@@ -96,6 +145,15 @@ def _find_slide(slide_dir: str, name: str) -> Optional[str]:
         if os.path.exists(cand):
             return cand
     return None
+
+
+def _encoder(conf):
+    """The encoder and its spec; seeded random (seed 0) when no weights are
+    given."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model, spec, _ = build_encoder(conf)
+    return model, spec
 
 
 class _H5Out:
@@ -148,7 +206,8 @@ class _PtOut:
 def main(argv: Optional[List[str]] = None) -> dict:
     """Extracts every slide; returns ``{"out_path", "slides": {name:
     patches}, "slide_seconds": {name: seconds}, "patches", "seconds"}``
-    (seconds of extraction, the slide's open and reads included)."""
+    (seconds of extraction, the slide's open and reads included). With
+    ``--roi_dir``: ``{"out_path", "centroids"}``."""
     args = parse_args(argv)
     for flag in NOT_PORTED:
         if getattr(args, flag) not in (None, "", "0"):
@@ -162,8 +221,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
             else Config.from_dict(overrides))
     conf.resolve_dims()
     batch_size = int(getattr(conf, "batch_size", 0) or 256)
+    if args.roi_dir:
+        model, spec = _encoder(conf)
+        embed = encoder_feature_fn(model, spec, device,
+                                   out_dtype=torch.float32)
+        centroids = extract_roi_features(embed, spec, args.roi_dir,
+                                         args.output_dir, batch_size)
+        return {"out_path": os.path.join(args.output_dir, "roi_feats.npy"),
+                "centroids": centroids}
     if not args.slide_dir or not args.coords_dir:
-        raise SystemExit("--slide_dir and --coords_dir are required")
+        raise SystemExit("--slide_dir and --coords_dir are required "
+                         "(or use --roi_dir)")
     labels = _read_labels(args.label_csv)
     suffix = "." + args.coords_format
     coord_files = sorted(f for f in os.listdir(args.coords_dir)
@@ -173,9 +241,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                          "Step1 writes them under <save_dir>/patches/")
     load_coords = load_coords_h5 if args.coords_format == "h5" else load_coords_pt
 
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)        # the random init when no weights are given
-        model, spec, _ = build_encoder(conf)
+    model, spec = _encoder(conf)
     embed = encoder_feature_fn(model, spec, device)
 
     os.makedirs(args.output_dir, exist_ok=True)

@@ -10,8 +10,10 @@ YAML), ``ibmil`` (its two-phase protocol has its own entry points,
 ``cli/step3_ibmil.py`` and ``cli/ibmil_clustering.py``), ``bmil_vis``,
 ``bmil_enc`` and ``bmil_spvis`` (the BMIL family: CE plus the ARD and data
 KLs; ``bmil_grid`` from the YAML), ``transmil`` (``transmil_pad_mode``,
-``compute_dtype`` from the YAML), and ``mhim`` and ``pure`` (their keys from
-the YAML; ``cli/step3_mhim.py`` is their own entry point); ``dtfd`` raises::
+``compute_dtype`` from the YAML), ``mhim`` and ``pure`` (their keys from
+the YAML; ``cli/step3_mhim.py`` is their own entry point), and ``dtfd``
+(``numGroup``, ``total_instance``, ``distill`` and ``grad_clipping`` from the
+YAML; ``cli/step3_dtfd.py`` is its own entry point)::
 
     python -m acmil_tpu_torch.cli.step3_generic \\
         --config config/camelyon_medical_ssl_config.yml --arch clam_mb \\
@@ -22,7 +24,9 @@ whose padded length reaches ``models/fast.py::FUSE_MIN_N`` is scored
 through kernel B6. CLAM scores such bags through kernel B1, and trains them
 through B1 and B2 when the YAML sets ``droprate: 0`` (with the CE instance
 loss, ``inst_loss: ce``, the default); at the reference's dropout 0.25 it
-trains through its plain forward. ``--w_loss`` mixes CLAM's bag and
+trains through its plain forward. DTFD pools each pseudo-bag through B1
+and B2 where ``models/fast.py::DTFD_FUSE_MIN_S`` routes it (never, at its
+default). ``--w_loss`` mixes CLAM's bag and
 instance losses (default 0.7). The rest of the zoo, TransMIL and MHIM
 included, trains and scores through plain forwards with autograd, as in the
 JAX package: none of those heads reaches a kernel there.

@@ -28,7 +28,11 @@ patch of a ``bmil_spvis`` bag in one cell of its canvas). A head that
 returns bare logits (MHA, meanmil, maxmil, lbmil, attmil, attmil_gated,
 ilra, ips, transmil), or a dict without ``attn`` (mhim and pure, whose
 attention comes only with ``return_attn``, which the JAX script never asks
-for), raises ``model emits no attention``, as the JAX script does.
+for), raises ``model emits no attention``, as the JAX script does. DTFD raises
+``DTFD has no per-patch attention``: its attention is per pseudo-bag,
+``[B, G, N/G]`` in permuted order, which the JAX script's masked softmax
+against the bag's ``[B, 1, N]`` mask cannot broadcast at numGroup > 1 (and
+at numGroup 1 would paint in the permuted order).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from acmil_tpu_torch.data.bags import Bag, pad_bag
 from acmil_tpu_torch.engine import checkpoint, get_family
 from acmil_tpu_torch.models import build_mil_model
 from acmil_tpu_torch.models.acmil import ABMIL, ACMIL_GA
+from acmil_tpu_torch.models.dtfd import DTFD
 from acmil_tpu_torch.models.fast import (abmil_infer, acmil_ga_infer,
                                          clam_apply_fused, clam_is_fusable)
 from acmil_tpu_torch.ops.masked import masked_softmax
@@ -85,6 +90,10 @@ def attention_probs(model, bag: Bag, family: str = "default",
     ``fused`` takes B1 where :func:`uses_kernel` says so; B1 writes -1e30 at
     pad slots, which the masked softmax never reads. Any other head runs
     its ``family``'s plain forward."""
+    if isinstance(model, DTFD):
+        raise ValueError("DTFD has no per-patch attention: its attention is "
+                         "per pseudo-bag, in the grouping's permuted order "
+                         "(the JAX Step4 fails on it at numGroup > 1)")
     model.eval()
     feats, mask = bag.feats, bag.mask
     if fused and uses_kernel(model, feats.device) and clam_is_fusable(model):

@@ -10,9 +10,10 @@ are the reference's H5 dump or a torch feature file (``data/ptio.py``):
 MHIM's teacher initialisation (``teacher_init``, ``init_stu_type``) loads a
 pre-trained 'pure' checkpoint into the EMA teacher, and into the student
 as ``init_stu_type`` says. The JAX trainer's data-parallel mesh
-(``--mesh_data``, ``mesh_shape``), multi-host pods (``--pod``), ``lax.scan``
-epochs (``--scan_epoch``) and SAM steps (``use_sam``) are not ported;
-setting any of them raises.
+(``--mesh_data``, ``mesh_shape``), multi-host pods (``--pod``) and
+``lax.scan`` epochs (``--scan_epoch``) are not ported; setting any of them
+raises. ``use_sam: true`` (with ``sam_rho``) trains every family but MHIM's
+with SAM steps (``engine/train.py::make_train_step``).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from acmil_tpu_torch.utils import MetricLogger, MetricsWriter, set_seed
 from acmil_tpu_torch.utils.device import entry_device
 
 # options of the JAX trainer this port does not have
-NOT_PORTED = ("mesh_data", "mesh_shape", "pod", "scan_epoch", "use_sam")
+NOT_PORTED = ("mesh_data", "mesh_shape", "pod", "scan_epoch")
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:

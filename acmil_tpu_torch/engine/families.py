@@ -3,9 +3,10 @@
 A family says how to run a model's training forward, how to turn its outputs
 into a loss, and how to run its deterministic forward and turn that into eval
 probabilities. A family may also bring its own optimizer (``make_optimizer``,
-the JAX ``make_tx``), keep an EMA teacher in the train state (``teacher``)
+the JAX ``make_tx``) and name the parameter groups it clips each by its own
+norm (``clip_groups``), keep an EMA teacher in the train state (``teacher``)
 and bring its own train step (``make_step``, the JAX ``make_step_body``):
-MHIM does all three, and its 'pure' stage the first.
+MHIM does three, its 'pure' stage the first, and DTFD the first two.
 """
 
 from __future__ import annotations
@@ -40,6 +41,11 @@ class Family:
         """The family's whole optimizer at learning rate ``lr`` (the trainer
         sets each step's rate from the schedule), or None for the trainer's
         AdamW with its global-norm clip."""
+        return None
+
+    def clip_groups(self, model, conf):
+        """``(max_norm, [[param, ...], ...])``: each group clipped by its own
+        norm before the family's optimizer steps, or None for no clip."""
         return None
 
     def make_step(self, model, conf):
@@ -273,6 +279,80 @@ def mhim_script_optimizer(params, conf, lr: float,
                             fused=True if device.type == "cuda" else None)
 
 
+class DTFDFamily(Family):
+    """Tier-1 CE over every valid pseudo-bag's logits (``loss0``) plus the
+    tier-2 CE (``loss1``), `Step3_DTFD:131-148`; eval probabilities are the
+    tier-2 softmax. The reference's two ``torch.optim.Adam(weight_decay=wd)``
+    are one coupled-L2 Adam over the union (:func:`mhim_script_optimizer`),
+    and its per-module ``clip_grad_norm_`` clips ``dimReduction``,
+    ``attention``, ``classifier`` and ``UClassifier`` each by its own norm
+    (``grad_clipping``, 5.0 when unset, 0 for none). The two losses reach
+    disjoint parameters, so clipping their joint gradient per module is the
+    reference's per-loss clip.
+
+    The pseudo-bags pool through kernels B1 and B2
+    (``fast.dtfd_apply_fused``) when ``fused_train`` is on (the default),
+    ``droprate`` is 0 and the per-group length reaches
+    ``fast.DTFD_FUSE_MIN_S``; eval takes the kernels at any droprate, since
+    dropout is off there. The grouping's uniforms are ``stkim_u [B, N]``
+    when given, else drawn from ``generator``."""
+
+    name = "dtfd"
+
+    def conf_dict(self, conf):
+        d = super().conf_dict(conf)
+        num_group = int(getattr(conf, "numGroup", 4))
+        d["num_group"] = num_group
+        d["instance_per_group"] = max(
+            1, int(getattr(conf, "total_instance", 4)) // num_group)
+        d["distill"] = str(getattr(conf, "distill", "MaxMinS"))
+        d["fused"] = bool(conf.extra.get("fused_train", True))
+        d["droprate"] = float(getattr(conf, "droprate", 0.0))
+        return d
+
+    @staticmethod
+    def _routed(model, bag) -> bool:
+        n, g = bag.feats.shape[1], model.num_group
+        return (fast.DTFD_FUSE_MIN_S is not None and n % g == 0
+                and n // g >= fast.DTFD_FUSE_MIN_S)
+
+    def train_outputs(self, model, bag, conf_d, stkim_u=None, generator=None):
+        if (conf_d["fused"] and conf_d["droprate"] == 0.0
+                and self._routed(model, bag)):
+            return fast.dtfd_apply_fused(model, bag.feats, bag.mask,
+                                         deterministic=False, group_u=stkim_u,
+                                         generator=generator)
+        return model(bag.feats, bag.mask, deterministic=False,
+                     group_u=stkim_u, generator=generator)
+
+    def eval_outputs(self, model, bag: Bag, fused: bool = True):
+        if fused and self._routed(model, bag):
+            return fast.dtfd_apply_fused(model, bag.feats, bag.mask)
+        return super().eval_outputs(model, bag)
+
+    def loss(self, outputs, bag, valid, conf_d):
+        sub = outputs["sub_preds"]                               # [B, G, C]
+        b, g, c = sub.shape
+        gvalid = outputs["group_valid"] & valid[:, None]
+        loss0 = L.cross_entropy(sub.reshape(b * g, c),
+                                bag.label.repeat_interleave(g),
+                                gvalid.reshape(b * g))
+        loss1 = L.cross_entropy(outputs["logits"], bag.label, valid)
+        return loss0 + loss1, {"loss0": loss0, "loss1": loss1}
+
+    def make_optimizer(self, params, conf, lr, device):
+        return mhim_script_optimizer(params, conf, lr, device)
+
+    def clip_groups(self, model, conf):
+        raw = getattr(conf, "grad_clipping", None)
+        clip = 5.0 if raw is None else float(raw)   # the reference CLI's
+        if not clip:
+            return None
+        return clip, [list(getattr(model, name).parameters()) for name in
+                      ("dimReduction", "attention", "classifier",
+                       "UClassifier")]
+
+
 class PureFamily(Family):
     """The MHIM script's ``--model pure`` stage (`Step3_MHIM:312-314`): the
     default family's CE training through the script's coupled-L2 Adam."""
@@ -365,7 +445,8 @@ class MHIMFamily(PureFamily):
 
 FAMILIES: Dict[str, Family] = {"default": Family(), "acmil": ACMILFamily(),
                                "clam": CLAMFamily(), "dsmil": DSMILFamily(),
-                               "bmil": BMILFamily(), "pure": PureFamily(),
+                               "bmil": BMILFamily(), "dtfd": DTFDFamily(),
+                               "pure": PureFamily(),
                                "mhim": MHIMFamily()}
 
 

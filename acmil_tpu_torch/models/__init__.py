@@ -9,9 +9,10 @@ the rest of the generic zoo: ``meanmil``, ``maxmil``, ``lbmil``,
 config names ``c_path``), ``bmil_vis``, ``bmil_enc`` and ``bmil_spvis``
 (family ``bmil``), ``transmil`` (``transmil_pad_mode`` zero or wrap,
 ``compute_dtype`` float32 or bfloat16), and MHIM's two stages, ``mhim``
-(family ``mhim``) and ``pure`` (family ``pure``), with the JAX registry's
-families. Every head draws its initial weights from a ``torch.Generator``
-seeded with ``conf.seed``. ``dtfd`` raises.
+(family ``mhim``) and ``pure`` (family ``pure``), and ``dtfd`` (family
+``dtfd``: ``numGroup``, ``total_instance``, ``distill`` and ``droprate``
+from the config), with the JAX registry's families. Every head draws its
+initial weights from a ``torch.Generator`` seeded with ``conf.seed``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from acmil_tpu_torch.models.attmil import DAttentionMIL
 from acmil_tpu_torch.models.bmil import BMILSpvis, BMILVis
 from acmil_tpu_torch.models.clam import CLAM_MB, CLAM_SB
 from acmil_tpu_torch.models.dsmil import DSMIL
+from acmil_tpu_torch.models.dtfd import DTFD
 from acmil_tpu_torch.models.ibmil import IBMIL
 from acmil_tpu_torch.models.ilra import ILRA
 from acmil_tpu_torch.models.ips import IPSNet
@@ -247,6 +249,18 @@ def _pure(conf):
     return MHIM(**_mhim_shared_kwargs(conf))
 
 
+@register_model("dtfd", family="dtfd")
+def _dtfd(conf):
+    num_group = int(getattr(conf, "numGroup", 4))
+    return DTFD(n_class=conf.n_class, d_feat=conf.D_feat,
+                d_inner=conf.D_inner, num_group=num_group,
+                instance_per_group=max(
+                    1, int(getattr(conf, "total_instance", 4)) // num_group),
+                distill=str(getattr(conf, "distill", "MaxMinS")),
+                droprate=float(getattr(conf, "droprate", 0.0)),
+                generator=_gen(conf))
+
+
 def model_family(arch: str) -> str:
     """The family ``arch`` trains with, without building it."""
     if arch not in _REGISTRY:
@@ -261,6 +275,6 @@ def build_mil_model(conf):
 
 
 __all__ = ["ABMIL", "ACMIL_GA", "ACMIL_MHA", "BMILSpvis", "BMILVis",
-           "CLAM_MB", "CLAM_SB", "DAttentionMIL", "DSMIL", "IBMIL", "ILRA",
+           "CLAM_MB", "CLAM_SB", "DAttentionMIL", "DSMIL", "DTFD", "IBMIL", "ILRA",
            "IPSNet", "LBMIL", "MHA", "MHIM", "MaxMIL", "MeanMIL", "TransMIL",
            "build_mil_model", "model_family", "register_model"]

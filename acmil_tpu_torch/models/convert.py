@@ -15,7 +15,8 @@ ILRA's three in-projection Dense layers become one stacked
 ``[in, out]`` become ``weight``/``log_alp`` ``[out, in]``; a Nystrom
 block's ``res_conv [H, k]`` becomes the conv weight ``[H, 1, k, 1]``, and
 PPEG's ``proj7``/``proj5``/``proj3`` the reference's ``proj``/``proj1``/
-``proj2``. The inverses are
+``proj2``; DTFD's ``tier1_w``/``tier1_b`` become ``classifier.fc`` and its
+tier-2 ``AttentionGated_1``/``Classifier1fc_0`` ``UClassifier.*``. The inverses are
 ``scripts/import_torch_checkpoint.py::convert_acmil_ga``,
 ``convert_acmil_mha``, ``convert_mha_single``, ``convert_dsmil``,
 ``convert_clam``, ``convert_mean_max``, ``convert_lbmil``,
@@ -359,7 +360,23 @@ _ZOO = {
     "transmil": lambda p, dr: _transmil(p),
     "mhim": lambda p, dr: _mhim(p),
     "pure": lambda p, dr: _mhim(p),
+    "dtfd": lambda p, dr: _dtfd(p),
 }
+
+
+def _dtfd(params) -> Dict[str, torch.Tensor]:
+    """The reference's names (`tests/test_training_parity.py`'s DTFD map):
+    ``dimReduction.fc1``, ``attention``, ``classifier.fc`` and
+    ``UClassifier.{attention, classifier.fc}``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "dimReduction.fc1", params["DimReduction_0"]["Dense_0"])
+    _gated(sd, "attention", params["AttentionGated_0"])
+    _linear(sd, "classifier.fc", {"kernel": params["tier1_w"],
+                                  "bias": params["tier1_b"]})
+    _gated(sd, "UClassifier.attention", params["AttentionGated_1"])
+    _linear(sd, "UClassifier.classifier.fc",
+            params["Classifier1fc_0"]["Dense_0"])
+    return sd
 
 
 def from_jax_params(params, arch: str,
@@ -369,7 +386,7 @@ def from_jax_params(params, arch: str,
     arch of the generic zoo (``"meanmil"``, ``"maxmil"``, ``"lbmil"``,
     ``"attmil"``, ``"attmil_gated"``, ``"ilra"``, ``"ips"``, ``"ibmil"``,
     ``"bmil_vis"``, ``"bmil_enc"``, ``"bmil_spvis"``, ``"transmil"``,
-    ``"mhim"``, ``"pure"``) or ``"vit"`` (a patch
+    ``"mhim"``, ``"pure"``), ``"dtfd"`` or ``"vit"`` (a patch
     encoder of ``acmil_tpu.models.encoders.vit``). ``droprate`` places the
     layer after a dropout in CLAM's attention net, mean/max's head and
     BMIL vis/enc's attention net."""

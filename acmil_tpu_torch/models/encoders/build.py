@@ -4,8 +4,8 @@
 ``ENCODER_SPECS`` mirrors the reference's ``build_model`` dispatch on
 ``(pretrain, backbone)`` (``models.py:191-206``) with the eval-transform
 constants (ImageNet mean/std for pretrained encoders, 0.5/0.5 otherwise,
-CLIP's own). The ViT rows are ported; the ResNet rows are listed and raise
-NotImplementedError (ResNet trunks are a later slice, ROADMAP Queue A).
+CLIP's own): the ViT trunks and the ResNet-18/50 trunks
+(``encoders/resnet.py``).
 
 Weights load from a local torch checkpoint (``conf.pretrain_weights``);
 without one the encoder keeps its random initialisation, with a warning.
@@ -13,6 +13,7 @@ without one the encoder keeps its random initialisation, with a warning.
 
 from __future__ import annotations
 
+import copy
 import warnings
 from dataclasses import dataclass
 from typing import Callable, Tuple
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from acmil_tpu_torch.models.encoders.resnet import ResNet, resnet18, resnet50
 from acmil_tpu_torch.models.encoders.vit import ViT
 
 IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
@@ -40,14 +42,6 @@ class EncoderSpec:
     depth: int = 12
 
 
-def _resnet(name: str):
-    def build(dtype):
-        raise NotImplementedError(
-            f"{name} is not ported to acmil_tpu_torch yet: the ResNet trunks "
-            "of Step2 wait for a later slice (ROADMAP.md, Queue A)")
-    return build
-
-
 ENCODER_SPECS = {
     # (pretrain, backbone) keys follow models.py:191-206
     ("medical_ssl", "ViT-S/16"): EncoderSpec(
@@ -60,17 +54,16 @@ ENCODER_SPECS = {
         lambda dt: ViT(16, 768, 12, 12, dtype=dt), 768, 224,
         IMAGENET_MEAN, IMAGENET_STD, "vit"),
     ("natural_supervised", "Resnet18"): EncoderSpec(
-        _resnet("Resnet18"), 512, 224, IMAGENET_MEAN, IMAGENET_STD, "resnet"),
+        resnet18, 512, 224, IMAGENET_MEAN, IMAGENET_STD, "resnet"),
     ("natural_supervised", "resnet18"): EncoderSpec(
-        _resnet("resnet18"), 512, 224, IMAGENET_MEAN, IMAGENET_STD, "resnet"),
+        resnet18, 512, 224, IMAGENET_MEAN, IMAGENET_STD, "resnet"),
     ("natural_supervised", "Resnet50"): EncoderSpec(
-        _resnet("Resnet50"), 2048, 224, IMAGENET_MEAN, IMAGENET_STD,
-        "resnet"),
+        resnet50, 2048, 224, IMAGENET_MEAN, IMAGENET_STD, "resnet"),
     ("medical_ssl", "Resnet50"): EncoderSpec(
-        _resnet("Resnet50"), 2048, 224, HALF_MEAN, HALF_STD, "resnet"),
+        resnet50, 2048, 224, HALF_MEAN, HALF_STD, "resnet"),
+    # DINO ResNet50 (models.py:208-210: a torchvision-layout RN50 trunk)
     ("natural_ssl", "Resnet50"): EncoderSpec(
-        _resnet("Resnet50"), 2048, 224, IMAGENET_MEAN, IMAGENET_STD,
-        "resnet"),
+        resnet50, 2048, 224, IMAGENET_MEAN, IMAGENET_STD, "resnet"),
     # Lunit pathology DINO ViT-S/8 (models.py:117-121)
     ("medical_ssl", "ViT-S/8"): EncoderSpec(
         lambda dt: ViT(8, 384, 12, 6, dtype=dt), 384, 224,
@@ -133,12 +126,13 @@ def build_encoder(conf, dtype=torch.bfloat16):
     The state dict is converted from ``conf.pretrain_weights`` when given;
     otherwise None, and the model keeps the random initialisation it was
     built with. In bf16 the ViT module's attention is kernel B5' with a bf16
-    softmax, as in the JAX package; Step2 itself runs
-    :func:`encoder_feature_fn`, which takes every ViT through ``vit_encode``.
+    softmax, as in the JAX package, and a ResNet computes in bf16; Step2
+    itself runs :func:`encoder_feature_fn`, which takes every ViT through
+    ``vit_encode``.
     """
     spec = encoder_spec(conf)
     encoder = spec.builder(dtype)
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and isinstance(encoder, ViT):
         for blk in encoder.blocks:
             blk.attn.softmax_f32, blk.attn.attn_impl = False, "fused"
     model = CustomModel(encoder, conf.n_class)
@@ -148,9 +142,12 @@ def build_encoder(conf, dtype=torch.bfloat16):
         from acmil_tpu_torch.models.encoders import convert as C
 
         sd = C.load_torch_checkpoint(wpath)
-        state = (C.convert_clip_vit(sd, depth=spec.depth)
-                 if spec.converter == "clip_vit"
-                 else C.vit_state_dict(sd, depth=spec.depth))
+        if spec.converter == "resnet":
+            state = C.resnet_state_dict(sd)
+        elif spec.converter == "clip_vit":
+            state = C.convert_clip_vit(sd, depth=spec.depth)
+        else:
+            state = C.vit_state_dict(sd, depth=spec.depth)
         model.encoder.load_state_dict(state)
     else:
         warnings.warn(
@@ -171,35 +168,47 @@ def preprocess(images_u8: torch.Tensor, spec: EncoderSpec,
 
 
 def encoder_feature_fn(model: CustomModel, spec: EncoderSpec,
-                       device: torch.device, fused: bool = True):
+                       device: torch.device, fused: bool = True,
+                       out_dtype: torch.dtype = torch.float16):
     """Step2's feature closure: a uint8 ``[B, H, W, 3]`` numpy batch on the
-    host → fp16 ``[B, embed_dim]`` features on ``device``, through
-    :func:`~acmil_tpu_torch.models.encoders.fast.vit_encode` (kernels B3,
-    B4 and B5' on CUDA). The encoder's parameters go to the device once,
-    here, with the matrices of the route's kernel cast to its dtype once.
+    host → ``[B, embed_dim]`` features in ``out_dtype`` on ``device``. A ViT
+    runs through :func:`~acmil_tpu_torch.models.encoders.fast.vit_encode`
+    (kernels B3, B4 and B5' on CUDA), a ResNet through its plain forward
+    (cuDNN's convolutions, as the JAX package runs them in XLA). The
+    encoder's parameters go to the device once, here, with the matrices of
+    the route's kernel (a ResNet: its convolutions) cast to its dtype once.
     ``fused=False`` makes ``vit_encode`` use the kernels' plain versions
     (tests and ``chip_smoke.py`` compare the two)."""
     from acmil_tpu_torch.models.encoders.fast import (cast_kernel_weights,
                                                       vit_encode)
 
     enc = model.encoder
-    if not isinstance(enc, ViT):
-        raise NotImplementedError("encoder_feature_fn takes ViT trunks only "
-                                  "(ROADMAP.md, Queue A)")
+    pin = device.type == "cuda"
+
+    def to_device(images_u8):
+        t = torch.from_numpy(np.ascontiguousarray(images_u8))
+        return t.pin_memory().to(device, non_blocking=True) if pin else t
+
+    if isinstance(enc, ResNet):
+        trunk = copy.deepcopy(enc).to(device).eval().cast_convs_(enc.dtype)
+
+        @torch.no_grad()
+        def resnet_fn(images_u8):
+            x = preprocess(to_device(images_u8), spec, dtype=enc.dtype)
+            return trunk(x).to(out_dtype)
+
+        return resnet_fn
     params = cast_kernel_weights(
         {k: v.detach().to(device) for k, v in enc.state_dict().items()},
         n_tok=(enc.img_size // enc.patch) ** 2 + 1, heads=enc.heads,
         dtype=enc.dtype, act=enc.act)
-    pin = device.type == "cuda"
 
     @torch.no_grad()
     def feat_fn(images_u8):
-        t = torch.from_numpy(np.ascontiguousarray(images_u8))
-        t = t.pin_memory().to(device, non_blocking=True) if pin else t
-        x = preprocess(t, spec, dtype=enc.dtype)
+        x = preprocess(to_device(images_u8), spec, dtype=enc.dtype)
         return vit_encode(params, x, patch=enc.patch, depth=enc.depth,
                           heads=enc.heads, dtype=enc.dtype, act=enc.act,
                           pre_norm=enc.pre_norm, proj_dim=enc.proj_dim,
-                          fused=fused).to(torch.float16)
+                          fused=fused).to(out_dtype)
 
     return feat_fn

@@ -6,13 +6,19 @@ names and layouts, so a timm/DINO checkpoint needs only its wrapper prefix
 stripped and its extra keys (classifier heads, DINO projection heads)
 dropped (:func:`vit_state_dict`). An OpenAI/open_clip visual tower is
 renamed key by key (:func:`convert_clip_vit`, the same map as the JAX
-package's). Weights come from local files: there is no network.
+package's). The port's ResNet uses torchvision's names, so a torchvision
+checkpoint needs its wrapper prefix stripped and its ``fc`` and
+``num_batches_tracked`` keys dropped (:func:`resnet_state_dict`); a flax
+ResNet's ``params`` and ``batch_stats`` map across with
+:func:`resnet_from_flax`. Weights come from local files: there is no
+network.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 
@@ -81,3 +87,51 @@ def convert_clip_vit(state_dict: Dict, depth: int = 24) -> Dict[str, torch.Tenso
             for q in ("weight", "bias"):
                 p[f"{dst}.{new}.{q}"] = _f32(sd[f"{src}.{old}.{q}"])
     return p
+
+
+_RESNET_TOP = ("conv1", "bn1", "layer1", "layer2", "layer3", "layer4")
+
+
+def resnet_state_dict(state_dict: Dict) -> Dict[str, torch.Tensor]:
+    """torchvision ResNet checkpoint → the port's ResNet state dict: the
+    trunk's convolutions and batch norms (the keys
+    :func:`acmil_tpu.models.encoders.convert.convert_resnet` reads), with
+    ``module.`` stripped."""
+    sd = {k.replace("module.", ""): v for k, v in state_dict.items()}
+    return {k: _f32(v) for k, v in sd.items()
+            if k.split(".", 1)[0] in _RESNET_TOP
+            and not k.endswith("num_batches_tracked")}
+
+
+def resnet_from_flax(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
+    """A flax ``encoders.resnet.ResNet``'s ``params`` and ``batch_stats`` →
+    the port's state dict: conv kernels HWIO → OIHW; batch norm scale, bias,
+    mean and var → weight, bias, running_mean and running_var;
+    ``layerI_J`` → ``layerI.J`` and ``down_conv``/``down_bn`` →
+    ``downsample.0``/``downsample.1``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def conv(name, p):
+        out[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(p["kernel"], np.float32).transpose(3, 2, 0, 1)))
+
+    def bn(name, p, st):
+        for key, v in (("weight", p["scale"]), ("bias", p["bias"]),
+                       ("running_mean", st["mean"]), ("running_var", st["var"])):
+            out[f"{name}.{key}"] = torch.from_numpy(np.array(v, np.float32))
+
+    names = {"down_conv": "downsample.0", "down_bn": "downsample.1"}
+    for top, p in params.items():
+        prefix = top.replace("_", ".")
+        if "kernel" in p:
+            conv(prefix, p)
+        elif top.startswith("bn"):
+            bn(prefix, p, batch_stats[top])
+        else:
+            for sub, q in p.items():
+                name = f"{prefix}.{names.get(sub, sub)}"
+                if "kernel" in q:
+                    conv(name, q)
+                else:
+                    bn(name, q, batch_stats[top][sub])
+    return out

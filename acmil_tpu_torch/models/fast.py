@@ -10,7 +10,9 @@ the JAX package leaves them to XLA. The DimReduction is bias-free, so the
 kernels' ``b1`` is zero. CLAM_SB pools through the same pair, its fc bias as
 ``b1``, and CLAM_MB through their softmax-one wrapper
 (:func:`clam_apply_fused`). DSMIL's eval forward pools through B6
-(:func:`dsmil_eval_fused`).
+(:func:`dsmil_eval_fused`). DTFD pools each pseudo-bag through B1 and B2
+with an identity first layer over the dim-reduced features
+(:func:`dtfd_apply_fused`), when ``DTFD_FUSE_MIN_S`` lets it.
 
 In training, STKIM applies to the pooled output as an O(K·k) correction
 (:func:`_stkim_correct`), so the recipe with STKIM keeps the fused kernels.
@@ -25,12 +27,13 @@ import torch.nn.functional as F
 
 from acmil_tpu_torch.models.clam import _CLAMBase, _instance_loss
 from acmil_tpu_torch.models.dsmil import DSMIL
+from acmil_tpu_torch.models.dtfd import DTFD
 from acmil_tpu_torch.ops.attn_pool import (fused_gated_attn_pool,
                                            gated_attn_pool_grad,
                                            gated_attn_pool_grad_one)
 from acmil_tpu_torch.ops.dsmil_pool import fused_dsmil_pool
 from acmil_tpu_torch.ops.masked import (NEG_INF, masked_fill, masked_max,
-                                        stkim_drop)
+                                        masked_softmax, stkim_drop)
 
 # The DSMIL families route eval through B6 only at N ≥ this threshold,
 # copied verbatim from the JAX package (acmil_tpu/models/fast.py), so the
@@ -38,6 +41,12 @@ from acmil_tpu_torch.ops.masked import (NEG_INF, masked_fill, masked_max,
 # crossover on its TPU, not a measurement of the H100's (chip_smoke.py times
 # both routes there). Tests pin it to 0 to force the kernel at small N.
 FUSE_MIN_N = 49152
+
+# The DTFD family routes through B1/B2 only at a per-group length N / numGroup
+# of at least this; None never routes. The JAX package keeps None (its fused
+# route measured 0.89-0.94x of XLA on its TPU); chip_smoke.py phase 20 times
+# both routes on the H100 at 50000 patches. Tests pin it to 0.
+DTFD_FUSE_MIN_S = None
 
 # Smallest kept softmax mass (1 − Σ dropped probabilities) the O(K·k)
 # STKIM subtract-renormalise identity stays accurate for in f32:
@@ -250,3 +259,31 @@ def dsmil_eval_fused(model, feats, mask):
     bag_logits = F.linear(bag_feat.reshape(x.shape[0], -1),
                           fcc.weight.reshape(fcc.out_channels, -1), fcc.bias)
     return masked_max(inst, mask, dim=1), bag_logits
+
+
+def dtfd_apply_fused(model: DTFD, feats, mask, deterministic: bool = True,
+                     group_u: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None):
+    """DTFD's forward with the tier-1 pooling on kernels B1 and B2, matching
+    ``DTFD.forward`` on the same module and uniforms.
+
+    ``mid = relu(feats @ W1)`` is computed once (the CAM and the distilled
+    gathers need it anyway) and gathered per group, and the pooling runs on
+    ``[B·G, S, L]`` with the kernels' first layer the identity and ``b1``
+    zero: relu is idempotent on the rectified ``mid``, so the kernels' H is
+    ``mid`` itself. B1 runs once a call and B2 once a backward (with the
+    features' gradient, which ``mid`` needs)."""
+    gfeat, gmask = model.pseudo_bags(feats, mask, deterministic, group_u,
+                                     generator)              # [B, G, S, L]
+    b, g, s, ldim = gfeat.shape
+    eye = torch.eye(ldim, dtype=gfeat.dtype, device=gfeat.device)
+    zb = torch.zeros(ldim, dtype=gfeat.dtype, device=gfeat.device)
+    att = model.attention
+    v, uu = att.attention_V[0], att.attention_U[0]
+    bag, logits = gated_attn_pool_grad(
+        gfeat.reshape(b * g, s, ldim), gmask.reshape(b * g, s), eye, zb,
+        v.weight.t(), v.bias, uu.weight.t(), uu.bias,
+        att.attention_weights.weight.t(), att.attention_weights.bias)
+    a = logits.reshape(b, g, s)
+    return model.tiers(gfeat, gmask, a, masked_softmax(a, gmask),
+                       bag.reshape(b, g, ldim), deterministic, generator)

@@ -192,12 +192,38 @@ code is non-zero:
    ``torch.profiler``, the step's four largest device events by name and
    its peak memory. No kernel runs: B1, B2 and B6 must count no launch
    over the phase.
+20. DTFD, SAM and Step2's ResNet trunks, with ``models/fast.py::
+   DTFD_FUSE_MIN_S`` pinned to 0 for DTFD (as the JAX package's tests pin
+   it): (a) ``cli/step3_dtfd.py`` (numGroup 4, MaxMinS, per-module clip 5)
+   trains one epoch on phase 16's 24 slides, every loss finite, B1 and B2
+   once a train step and B1 once an eval bag; its best checkpoint scores
+   ``ZOO_CPU_SLIDES`` through ``cli/predict.py`` on the card (B1 once a
+   slide) and on the CPU within ``DTFD_CPU_ATOL``; one epoch at the
+   natural_supervised widths (L = 256) under the same launch rule; (b) on
+   one 50000-patch bag, fused (B1 + B2 on the gathered ``mid``, W1 = I)
+   against plain from the same weights and grouping uniforms: one step's
+   ``loss0``, ``loss1`` and every gradient by phase 7's rules, five clipped
+   Adam steps' losses; the step and the eval of each route timed (CUDA
+   events, ``torch.profiler`` device time and events, the step's peak
+   memory), and B1 and B2 alone at DTFD's call shape split by kernel, the
+   H stage's share printed; (c) ``cli/step3_acmil.py`` with ``use_sam:
+   true`` trains ACMIL_GA one epoch, B1 and B2 twice a train step; one SAM
+   step on a 50000-patch bag card against CPU from the same weights and
+   STKIM uniforms (``SAM_CPU_RTOL``, parameters within lr); the SAM step
+   timed against the plain one; (d) ``cli/step2_extract.py`` with ResNet-50
+   and ResNet-18 (natural_supervised, bf16, batch 256, seeded random
+   weights) on two of phase 15's SPY slides, features finite; one batch's
+   first ``RESNET_CPU_PATCHES`` on the card against float32 on the CPU
+   (per-row cosine ``COS_MIN``); patches/s, the encoder's ms a batch and
+   the host's read ms; ``--roi_dir`` on a synthetic ImageFolder writes
+   ``roi_feats.npy``, card against CPU within cosine ``COS_MIN``.
 
 The line before the kernels line is ``{"zoo": {...}}``: phase 18's and
 phase 19's numbers per arch (training epoch wall and loss, predict seconds,
 card-vs-CPU error, step and eval ms, device ms and device events; phase
 19's also the step's peak memory), the kernel launches phase 18 counted,
-and phase 19's checks under ``transmil_mhim``. The line before the last but one is ``{"kernels": [...]}``
+phase 19's checks under ``transmil_mhim`` and phase 20's numbers under
+``dtfd_sam_resnet``. The line before the last but one is ``{"kernels": [...]}``
 with each
 kernel's launches on its path (B7's are counted over phases 3-13, where no
 production path calls it, and its entry also gives the count of its
@@ -214,7 +240,9 @@ C=128 (``c128``) and at UNI's widths (``uni``), B3 and B4 also their
 GEMMs' device time and rate; B1, B2, B3 and B5' also their launches in
 phase 15 (``launches_pipeline_step2``, ``_step3``, ``_predict``,
 ``_step4``), and B1 and B2 their launches on phase 17's CLAM paths
-(``launches_clam_*``); then the card's name and power limit; the last line
+(``launches_clam_*``) and on phase 20's DTFD and SAM paths
+(``launches_dtfd_*``, ``launches_sam_step3``) with their device time at
+DTFD's call shape split by kernel (``dtfd_call``); then the card's name and power limit; the last line
 is
 ``{"ok": true, "device": {...}}``.
 """
@@ -341,6 +369,29 @@ TM_CPU_SLIDES = ("slide_00", "slide_01")
 # MHIM's two stages (the head-to-head's stage B, scripts/head_to_head.py)
 MHIM_STAGE_B = ("--mask_ratio_h", "0.1", "--mask_ratio_hr", "0.5",
                 "--mm_sche", "--mrh_sche")
+# DTFD (phase 20): the routes' bags (50000, 65536 and 50000 patches, each
+# bucket 65536: four groups of 16384); its checkpoint scored card against CPU
+# on ZOO_CPU_SLIDES, f32 both with TF32 off, as the zoo's heads, on the same
+# distilled instances (DTFD_TIE_ATOL)
+DTFD_ROUTE_SLIDES = ("slide_01", "slide_16", "slide_20")
+DTFD_CPU_ATOL = 1e-4
+# DTFD distils the top-k CAM probabilities; near 0.5 they tie within an ulp
+# (6e-8) or two, and two devices or routes round them apart, so compared
+# runs share the first run's choices, and a choice the second run would
+# have made otherwise must score within this of the first's: rounding's
+# reach, not a different instance
+DTFD_TIE_ATOL = 1e-6
+# one SAM step, card against CPU: the loss, grad_norm and parts relative;
+# each parameter within one learning rate (Adam's first step is about
+# lr * sign(g), and a rounding-noise gradient may flip its sign)
+SAM_CPU_RTOL = 1e-3
+# Step2's ResNet trunks (natural_supervised rows) on two of phase 15's SPY
+# slides; the card's bf16 features against the CPU's float32 on the first
+# patches of one batch (per-row cosine COS_MIN); the ROI path on a synthetic
+# ImageFolder, card against CPU (both bf16)
+RESNET_BACKBONES = ("Resnet50", "Resnet18")
+RESNET_CPU_PATCHES = 32
+ROI_CLASSES, ROI_CROPS = 3, 2
 
 
 def card() -> str:
@@ -2353,7 +2404,8 @@ def pipeline_run(smi: str, tmp: str) -> dict:
     print(f"pipeline phase wall {time.perf_counter() - t_phase:.2f} s [{smi}]")
     return {"B3": b3, "B5": b5, "B1_step3": step3["B1"], "B2": step3["B2"],
             "B1_predict": b1_predict, "B1_step4": b1_step4,
-            "slide_dir": slide_dir, "feat_path": res["out_path"],
+            "slide_dir": slide_dir, "coords_dir": coords_dir,
+            "feat_path": res["out_path"],
             "names": names, "step4_err": step4_err}
 
 
@@ -3320,6 +3372,511 @@ def transmil_mhim_run(smi: str, tmp: str, pipe: dict, corpus: dict) -> dict:
     return {"archs": res, **out}
 
 
+class _Selections:
+    """DTFD's distillation choices (``models/dtfd.py::first_k``) recorded on
+    one run and replayed on a second, so that two devices or routes are
+    compared on the same distilled instances. CAM probabilities near 0.5
+    tie within an ulp or two, and the devices' exp and sums round apart, so
+    their own top-k may pick another member of a tie: each choice the
+    replayed run would have made otherwise must score within
+    ``DTFD_TIE_ATOL`` of the recorded one, on both runs' scores."""
+
+    def __init__(self):
+        from acmil_tpu_torch.models import dtfd
+
+        self.dtfd, self.real = dtfd, dtfd.first_k
+        self.calls, self.flips, self.worst_gap = [], 0, 0.0
+
+    def record(self):
+        def rec(score, k):
+            idx = self.real(score, k)
+            self.calls.append((score.detach().cpu(), idx.cpu()))
+            return idx
+        self.dtfd.first_k = rec
+        return self
+
+    def replay(self):
+        it = iter(self.calls)
+
+        def rep(score, k):
+            s0, idx0 = next(it)
+            s1, own = score.detach().cpu(), self.real(score, k).cpu()
+            differ = own != idx0
+            if differ.any():
+                gap = max(float((s.gather(-1, own) - s.gather(-1, idx0)
+                                 ).abs()[differ].max()) for s in (s0, s1))
+                if not gap <= DTFD_TIE_ATOL:
+                    raise AssertionError(f"dtfd: the runs distil other "
+                                         f"instances, {gap:.3e} apart")
+                self.flips += int(differ.sum())
+                self.worst_gap = max(self.worst_gap, gap)
+            return idx0.to(score.device)
+        self.dtfd.first_k = rep
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.dtfd.first_k = self.real
+
+
+def _dtfd_train(smi: str, root: str, corpus: dict) -> dict:
+    """(a) one epoch of ``cli/step3_dtfd.py`` at camelyon_medical_ssl on
+    phase 16's corpus, the best checkpoint scored card against CPU, then one
+    epoch at natural_supervised (L = 256); B1/B2 counted over each."""
+    from acmil_tpu_torch.cli import predict, step3_dtfd
+    from acmil_tpu_torch.data.ptio import write_feature_pt
+    from acmil_tpu_torch.ops import attn_pool as ap
+
+    b1, b2 = ap.fused_gated_attn_pool_batched, ap.fused_gated_attn_pool_bwd
+    evals = N_VAL + N_TEST
+
+    def train(tag, yml, data_dir, n_train, n_evals):
+        ckpt_dir = os.path.join(root, f"ckpt_{tag}")
+        log_dir = os.path.join(root, f"log_{tag}")
+        b1.launches = b2.launches = 0
+        t0 = time.perf_counter()
+        step3_dtfd.main(["--config", yml, "--data_dir", data_dir,
+                         "--ckpt_dir", ckpt_dir, "--log_dir", log_dir,
+                         "--train_epoch", "1", "--device", "cuda"])
+        torch.cuda.synchronize()
+        r = {"train_s": time.perf_counter() - t0, "B1": b1.launches,
+             "B2": b2.launches}
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            rows = [x for x in map(json.loads, f) if "_config" not in x]
+        if len(rows) != 1 or not all(math.isfinite(rows[0][f"train/{k}"])
+                                     for k in ("loss", "loss0", "loss1")):
+            raise AssertionError(f"dtfd {tag} epoch rows {rows}")
+        r.update(loss0=rows[0]["train/loss0"], loss1=rows[0]["train/loss1"])
+        if (r["B1"], r["B2"]) != (n_train + n_evals, n_train):
+            raise AssertionError(f"dtfd {tag}: B1/B2 launched {r['B1']}/"
+                                 f"{r['B2']}, want {n_train + n_evals}/"
+                                 f"{n_train}")
+        return ckpt_dir, r
+
+    ckpt, res = train("medical_ssl", corpus["yml"], corpus["data_dir"],
+                      N_TRAIN, evals)
+    subset = os.path.join(root, "cpu_subset.pt")
+    write_feature_pt(subset, {n: corpus["slides"][n] for n in ZOO_CPU_SLIDES})
+    probs = {}
+    with _Selections() as sel:
+        for tag, dev in (("card", "cuda"), ("cpu", "cpu")):
+            (sel.record() if tag == "card" else sel.replay())
+            b1.launches = 0
+            t0 = time.perf_counter()
+            scored = predict.main(["--config", corpus["yml"], "--ckpt", ckpt,
+                                   "--features", subset, "--out_csv",
+                                   os.path.join(root, f"preds_{tag}.csv"),
+                                   "--device", dev])
+            res[f"predict_{tag}_s"] = time.perf_counter() - t0
+            _check_predictions(scored, len(ZOO_CPU_SLIDES), 2)
+            probs[tag] = np.asarray([r[2:4] for r in scored["rows"]])
+            res[f"B1_predict_{tag}"] = b1.launches
+    res["cpu_flips"], res["cpu_flip_gap"] = sel.flips, sel.worst_gap
+    if (res["B1_predict_card"], res["B1_predict_cpu"]) != (
+            len(ZOO_CPU_SLIDES), 0):
+        raise AssertionError(f"dtfd predict launched B1 "
+                             f"{res['B1_predict_card']} on the card, "
+                             f"{res['B1_predict_cpu']} on the CPU")
+    res["cpu_err"] = float(np.abs(probs["card"] - probs["cpu"]).max())
+    if not res["cpu_err"] <= DTFD_CPU_ATOL:
+        raise AssertionError(f"dtfd card vs CPU probabilities "
+                             f"{res['cpu_err']}")
+    print(f"dtfd (camelyon_medical_ssl, numGroup 4, MaxMinS): "
+          f"cli/step3_dtfd.py 1 epoch x {N_TRAIN} steps, "
+          f"{res['train_s']:.2f} s wall, loss0 {res['loss0']:.6f} loss1 "
+          f"{res['loss1']:.6f}; B1 {res['B1']} B2 {res['B2']}; cli/predict.py "
+          f"on {len(ZOO_CPU_SLIDES)} slides {res['predict_card_s']:.2f} s on "
+          f"the card (B1 {res['B1_predict_card']}), max |card - CPU| probability "
+          f"{res['cpu_err']:.3e} on the card's distilled instances (the "
+          f"CPU's own top-k differs in {res['cpu_flips']} choices, ties "
+          f"within {res['cpu_flip_gap']:.3e}) [{smi}]")
+
+    rs = np.random.default_rng(SEED + 20)
+    n_train, n_val, n_test = WIDE_TRAIN
+    lengths = [1000, 50000] + rs.integers(
+        1000, 50001, n_train + n_val + n_test - 2).tolist()
+    slides = _synthetic_slides(rs, lengths, WIDE_DIMS[0][0])
+    wide_root = os.path.join(root, "natural_supervised")
+    data_dir, _, yml = _write_split_corpus(wide_root, slides, WIDE_YML,
+                                           "natural_supervised", n_train,
+                                           n_val)
+    _, wide = train("natural_supervised", yml, data_dir, n_train,
+                    n_val + n_test)
+    print(f"dtfd (natural_supervised, L={WIDE_DIMS[0][1]}): 1 epoch x "
+          f"{n_train} steps, {wide['train_s']:.2f} s wall, loss0 "
+          f"{wide['loss0']:.6f} loss1 {wide['loss1']:.6f}; B1 {wide['B1']} "
+          f"B2 {wide['B2']} [{smi}]")
+    res["natural_supervised"] = wide
+    return res
+
+
+def _dtfd_routes(smi: str, corpus: dict) -> dict:
+    """(b) fused against plain DTFD on one 50000-patch bag: one step's
+    losses and gradients, five clipped Adam steps, then the step and the
+    eval timed per route, the step's peak memory, and B1's and B2's device
+    time at DTFD's call shape split by kernel."""
+    from acmil_tpu_torch.config import Config
+    from acmil_tpu_torch.data.bags import pad_bag
+    from acmil_tpu_torch.engine import (create_train_state, get_family,
+                                        make_eval_step, make_train_step)
+    from acmil_tpu_torch.models import build_mil_model
+    from acmil_tpu_torch.ops import attn_pool as ap
+
+    b1, b2 = ap.fused_gated_attn_pool_batched, ap.fused_gated_attn_pool_bwd
+    conf_of = lambda fused: Config.from_yaml(YML, {"arch": "dtfd",
+                                                   "fused_train": fused})
+    model0, family = build_mil_model(conf_of(True))
+    fam = get_family(family)
+    bags = [pad_bag(d["feat"], d["coords"], d["label"],
+                    dtype=np.float16).to("cuda")
+            for d in (corpus["slides"][n] for n in DTFD_ROUTE_SLIDES)]
+    bag = bags[0]
+    n_valid = int(bag.mask.sum())
+    u = torch.rand(bag.mask.shape, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(SEED))
+    one = {}
+    # the plain route first: the fused route replays its distilled instances
+    with _Selections() as sel:
+        for fused in (False, True):
+            (sel.replay() if fused else sel.record())
+            model = copy.deepcopy(model0).cuda()
+            conf_d = fam.conf_dict(conf_of(fused))
+            b1.launches = b2.launches = 0
+            out = fam.train_outputs(model.train(), bag, conf_d, stkim_u=u)
+            loss, parts = fam.loss(out, bag, bag.mask.any(dim=1), conf_d)
+            loss.backward()
+            if (b1.launches, b2.launches) != ((1, 1) if fused else (0, 0)):
+                raise AssertionError(f"dtfd route fused={fused}: B1/B2 "
+                                     f"launched {b1.launches}/{b2.launches}")
+            one[fused] = ({k: float(v.detach()) for k, v in parts.items()},
+                          {n: p.grad for n, p in model.named_parameters()})
+    flips = sel.flips
+    (l_f, g_f), (l_p, g_p) = one[True], one[False]
+    for k in l_p:
+        if not abs(l_f[k] - l_p[k]) <= STEP_LOSS_RTOL * abs(l_p[k]):
+            raise AssertionError(f"dtfd one step {k}: fused {l_f[k]} plain "
+                                 f"{l_p[k]}")
+    # each attention's output bias has a 0 gradient in exact arithmetic (a
+    # softmax ignores a shift): held to its output weight's scale, as CLAM's
+    for n in g_p:
+        scale = g_p[n.replace("weights.bias", "weights.weight")]
+        err = float((g_f[n] - g_p[n]).abs().max())
+        if not err <= STEP_GRAD_REL * float(scale.abs().max()) + STEP_GRAD_ATOL:
+            raise AssertionError(f"dtfd: gradient of {n} differs by {err:.3e}")
+    worst = max(_rel_to_max(g_f[n], g_p[n]) for n in g_p
+                if not n.endswith("weights.bias"))
+    losses = {}
+    with _Selections() as sel:
+        for fused in (False, True):
+            (sel.replay() if fused else sel.record())
+            model = copy.deepcopy(model0).cuda()
+            conf = conf_of(fused)
+            state = create_train_state(model, conf, len(bags), family=family)
+            step = make_train_step(model, conf, family)
+            losses[fused] = [float(step(state, bags[i % len(bags)])["loss"])
+                             for i in range(5)]
+    flips += sel.flips
+    adam = max(abs(a - b) / abs(b) for a, b in zip(losses[True],
+                                                   losses[False]))
+    if not adam <= ADAM_LOSS_RTOL:
+        raise AssertionError(f"dtfd clipped Adam losses {losses}")
+    r = {"one_step": {"fused": l_f, "plain": l_p, "worst_grad_rel": worst},
+         "adam_worst_rel": adam, "patches": n_valid, "flips": flips,
+         "bucket": int(bag.feats.shape[1])}
+    print(f"dtfd fused vs plain at {n_valid} patches (bucket "
+          f"{r['bucket']}, 4 groups of {r['bucket'] // 4}): one step loss0 "
+          f"{l_f['loss0']:.7f} / {l_p['loss0']:.7f}, loss1 "
+          f"{l_f['loss1']:.7f} / {l_p['loss1']:.7f}; worst gradient "
+          f"difference {worst:.3e} of its max; five clipped Adam steps, "
+          f"worst relative loss difference {adam:.3e}; on the plain route's "
+          f"distilled instances (the fused route's own top-k differs in "
+          f"{flips} choices, ties within {DTFD_TIE_ATOL}) [{smi}]")
+
+    for fused in (True, False):
+        tag = "fused" if fused else "plain"
+        model = copy.deepcopy(model0).cuda()
+        conf = conf_of(fused)
+        state = create_train_state(model, conf, len(bags), family=family)
+        step = make_train_step(model, conf, family)
+        eval_step = make_eval_step(model, family, fused=fused)
+        step(state, bag)
+        eval_step(bag)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, bag)
+        torch.cuda.synchronize()
+        t = {"step_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "step_ms": _event_ms(lambda: step(state, bag), 10),
+             "eval_ms": _event_ms(lambda: eval_step(bag), 10)}
+        t["step_device_ms"], t["step_events"] = _device_profile(
+            lambda: step(state, bag), 5)
+        t["eval_device_ms"], t["eval_events"] = _device_profile(
+            lambda: eval_step(bag), 5)
+        t["step_top"] = _top_kernels(lambda: step(state, bag))
+        r[tag] = t
+        print(f"dtfd {tag} at {n_valid} patches: training step "
+              f"{t['step_ms']:.4f} ms (CUDA events, median of 10), "
+              f"{_fmt_ms(t['step_device_ms'])} of device time in "
+              f"{t['step_events']} device events, peak "
+              f"{t['step_peak_gib']:.3f} GiB allocated; eval "
+              f"{t['eval_ms']:.4f} ms, {_fmt_ms(t['eval_device_ms'])} in "
+              f"{t['eval_events']} device events; the step's largest device "
+              f"events: {_fmt_split(t['step_top'])} [{smi}]")
+
+    # B1 and B2 alone at DTFD's call: the gathered mid [B·G, S, L] f32,
+    # W1 = I, b1 = 0, K = 1
+    model = model0.cuda()
+    with torch.no_grad():
+        gfeat, gmask = model.pseudo_bags(bag.feats, bag.mask, False, u)
+        x = gfeat.reshape(-1, *gfeat.shape[2:]).contiguous()
+    m = gmask.reshape(x.shape[:2])
+    att = model.attention
+    ldim = x.shape[-1]
+    ws = [torch.eye(ldim, device="cuda"), torch.zeros(ldim, device="cuda"),
+          att.attention_V[0].weight.t().contiguous(),
+          att.attention_V[0].bias.detach(),
+          att.attention_U[0].weight.t().contiguous(),
+          att.attention_U[0].bias.detach(),
+          att.attention_weights.weight.t().contiguous(),
+          att.attention_weights.bias.detach()]
+    ws = [w.detach() for w in ws]
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    lse, c, d_bag, d_logits = _bwd_inputs(ap, gen, ws, x, m, 1)
+    calls = {"B1": (ap.B1_KERNELS, lambda: b1(x, m, *ws)),
+             "B2": (ap.B2_KERNELS, lambda: b2(x, m, *ws, lse, c, d_bag,
+                                               d_logits, True))}
+    n_rows = x.shape[0] * x.shape[1]
+    bounds = {"B1": _b1_bound(n_rows, 1, ldim, ldim),
+              "B2": _b2_bound(n_rows, 1, ldim, ldim)}
+    for name, (kernels, fn) in calls.items():
+        per = _split_ms(kernels, fn)
+        total = sum(per.values())
+        h = sum(v for k, v in per.items() if k in ap.H_STAGE_KERNELS)
+        r[f"{name}_call"] = {"ms": _time_ms(fn), "device_ms": total,
+                             "by_kernel": per,
+                             "h_stage_share": h / total if total else None,
+                             "shape": list(x.shape), **bounds[name]}
+        print(f"{name} at DTFD's call (x {list(x.shape)} f32, W1 = I, K = 1, "
+              f"{int(m.sum())} valid rows): {r[name + '_call']['ms']:.4f} ms "
+              f"call, {total:.4f} ms device: {_fmt_split(per)}; the H stage "
+              f"{100 * h / max(total, 1e-12):.1f}%; bound "
+              f"{bounds[name]['bound_ms']:.4f} ms ({bounds[name]['bound_by']}) "
+              f"[{smi}]")
+    return r
+
+
+def _sam_run(smi: str, root: str, corpus: dict) -> dict:
+    """(c) one epoch of ``cli/step3_acmil.py`` with ``use_sam: true``
+    (B1 and B2 twice a train step), one SAM step on a 50000-patch bag card
+    against CPU, and the SAM step timed against the plain step."""
+    from acmil_tpu_torch.cli import step3_acmil
+    from acmil_tpu_torch.config import Config
+    from acmil_tpu_torch.data.bags import pad_bag
+    from acmil_tpu_torch.engine import create_train_state, make_train_step
+    from acmil_tpu_torch.models import build_mil_model
+    from acmil_tpu_torch.ops import attn_pool as ap
+
+    b1, b2 = ap.fused_gated_attn_pool_batched, ap.fused_gated_attn_pool_bwd
+    yml = os.path.join(root, "sam.yml")
+    with open(corpus["yml"]) as src, open(yml, "w") as dst:
+        dst.write(src.read() + "\nuse_sam: true\n")
+    log_dir = os.path.join(root, "log_sam")
+    b1.launches = b2.launches = 0
+    t0 = time.perf_counter()
+    step3_acmil.main(["--config", yml, "--data_dir", corpus["data_dir"],
+                      "--ckpt_dir", os.path.join(root, "ckpt_sam"),
+                      "--log_dir", log_dir, "--train_epoch", "1",
+                      "--n_token", str(N_TOKEN), "--n_masked_patch",
+                      str(N_MASKED_PATCH), "--mask_drop", str(MASK_DROP),
+                      "--device", "cuda"])
+    torch.cuda.synchronize()
+    r = {"train_s": time.perf_counter() - t0, "B1": b1.launches,
+         "B2": b2.launches}
+    losses = _epoch_losses(log_dir)
+    if len(losses) != 1 or not math.isfinite(losses[0]):
+        raise AssertionError(f"sam epoch losses {losses}")
+    if (r["B1"], r["B2"]) != (2 * N_TRAIN + N_VAL + N_TEST, 2 * N_TRAIN):
+        raise AssertionError(f"sam: B1/B2 launched {r['B1']}/{r['B2']}")
+    r["loss"] = losses[0]
+
+    keys = {"arch": "ga", "n_token": N_TOKEN, "n_masked_patch":
+            N_MASKED_PATCH, "mask_drop": MASK_DROP}
+    d = corpus["slides"]["slide_01"]
+    model0, family = build_mil_model(Config.from_yaml(YML, keys))
+    bag = pad_bag(d["feat"], d["coords"], d["label"], dtype=np.float16)
+    u = torch.rand(1, N_TOKEN, bag.feats.shape[1],
+                   generator=torch.Generator().manual_seed(SEED))
+    got = {}
+    for tag, dev in (("card", "cuda"), ("cpu", "cpu")):
+        conf = Config.from_yaml(YML, {**keys, "use_sam": True})
+        model = copy.deepcopy(model0).to(dev)
+        bag = bag.to(dev)
+        state = create_train_state(model, conf, N_TRAIN, family=family)
+        aux = make_train_step(model, conf, family)(state, bag,
+                                                   stkim_u=u.to(dev))
+        got[tag] = ({k: float(v) for k, v in aux.items()},
+                    {n: p.detach().cpu() for n, p in model.named_parameters()})
+    (a_c, p_c), (a_h, p_h) = got["card"], got["cpu"]
+    for k in a_h:
+        if not abs(a_c[k] - a_h[k]) <= SAM_CPU_RTOL * abs(a_h[k]):
+            raise AssertionError(f"sam step {k}: card {a_c[k]} CPU {a_h[k]}")
+    lr = Config.from_yaml(YML, keys).lr
+    moved = max(float((p_c[n] - p_h[n]).abs().max()) for n in p_h)
+    if not moved <= lr:
+        raise AssertionError(f"sam step: parameters apart by {moved}")
+    r.update(step_card=a_c, step_cpu=a_h, params_max_diff=moved)
+
+    bag = bag.to("cuda")
+    ug = u.cuda()
+    for sam in (True, False):
+        conf = Config.from_yaml(YML, {**keys, "use_sam": sam})
+        model = copy.deepcopy(model0).cuda()
+        state = create_train_state(model, conf, N_TRAIN, family=family)
+        step = make_train_step(model, conf, family)
+        step(state, bag, stkim_u=ug)
+        tag = "sam" if sam else "plain"
+        r[f"{tag}_step_ms"] = _event_ms(lambda: step(state, bag, stkim_u=ug),
+                                        10)
+        r[f"{tag}_step_device_ms"], r[f"{tag}_step_events"] = \
+            _device_profile(lambda: step(state, bag, stkim_u=ug), 5)
+    print(f"sam (ACMIL_GA, rho 0.05): cli/step3_acmil.py 1 epoch x {N_TRAIN} "
+          f"steps, {r['train_s']:.2f} s wall, loss {r['loss']:.6f}; B1 "
+          f"{r['B1']} B2 {r['B2']}; one step at 50000 patches card vs CPU: "
+          f"loss {a_c['loss']:.7f} / {a_h['loss']:.7f}, grad_norm "
+          f"{a_c['grad_norm']:.6f} / {a_h['grad_norm']:.6f}, parameters "
+          f"apart by {moved:.3e}; step {r['sam_step_ms']:.4f} ms with SAM "
+          f"({_fmt_ms(r['sam_step_device_ms'])} device), "
+          f"{r['plain_step_ms']:.4f} ms without "
+          f"({_fmt_ms(r['plain_step_device_ms'])}) [{smi}]")
+    return r
+
+
+def _resnet_step2(smi: str, root: str, pipe: dict) -> dict:
+    """(d) ``cli/step2_extract.py`` with ResNet-50 and ResNet-18 on two of
+    phase 15's SPY slides, one batch card (bf16) against CPU (f32), the
+    encoder's and the host's ms a batch; then ``--roi_dir`` card against
+    CPU."""
+    import cv2
+
+    from acmil_tpu_torch.cli import step2_extract
+    from acmil_tpu_torch.config import Config
+    from acmil_tpu_torch.data.patch_dataset import SlidePatchBatches
+    from acmil_tpu_torch.data.ptio import open_feature_source
+    from acmil_tpu_torch.models.encoders.build import encoder_feature_fn
+    from acmil_tpu_torch.wsi.slide import open_slide
+    from acmil_tpu_torch.wsi.tiling import load_coords_pt
+
+    names = pipe["names"][:2]
+    coords_dir = os.path.join(root, "resnet_coords")
+    os.makedirs(coords_dir)
+    for n in names:
+        with open(os.path.join(pipe["coords_dir"], f"{n}.pt"), "rb") as src, \
+                open(os.path.join(coords_dir, f"{n}.pt"), "wb") as dst:
+            dst.write(src.read())
+    slide_pt = os.path.join(coords_dir, f"{names[0]}.pt")
+    coords, _, attrs = load_coords_pt(slide_pt)
+    slide = open_slide(os.path.join(pipe["slide_dir"], f"{names[0]}.spy"))
+    imgs = next(iter(SlidePatchBatches(
+        slide, coords, int(attrs["patch_size"] * attrs.get("downsample", 1.0)),
+        int(attrs.get("patch_level", 0)), target_size=PATCH_PX,
+        batch_size=STEP2_BATCH, prefetch=0)))[0]
+    read_ms = _batch_read_ms(slide, slide_pt)
+    out = {}
+    for backbone in RESNET_BACKBONES:
+        res = step2_extract.main([
+            "--slide_dir", pipe["slide_dir"], "--coords_dir", coords_dir,
+            "--output_dir", os.path.join(root, f"feats_{backbone}"),
+            "--pretrain", "natural_supervised", "--backbone", backbone,
+            "--batch_size", str(STEP2_BATCH), "--coords_format", "pt",
+            "--out_format", "pt", "--device", "cuda"])
+        src = open_feature_source(res["out_path"], names)
+        dim = 2048 if backbone == "Resnet50" else 512
+        for n in names:
+            f = np.asarray(src[src.names.index(n)]["input"], np.float32)
+            if f.shape != (res["slides"][n], dim) or not np.isfinite(f).all():
+                raise AssertionError(f"{backbone} {n}: features {f.shape}")
+        conf = Config.from_dict({"pretrain": "natural_supervised",
+                                 "backbone": backbone})
+        model, spec = step2_extract._encoder(conf)
+        card = encoder_feature_fn(model, spec, torch.device("cuda"))
+        batch_ms = _event_ms(lambda: card(imgs), 10)
+        cpu_model = copy.deepcopy(model)
+        cpu_model.encoder.dtype = torch.float32
+        cpu = encoder_feature_fn(cpu_model, spec, torch.device("cpu"),
+                                 out_dtype=torch.float32)
+        few = imgs[:RESNET_CPU_PATCHES]
+        cos = float(_row_cosine(card(few).float().cpu(),
+                                cpu(few)).min())
+        if not cos >= COS_MIN:
+            raise AssertionError(f"{backbone}: card vs CPU cosine {cos}")
+        r = {"patches": res["patches"], "seconds": res["seconds"],
+             "patches_per_s": res["patches"] / res["seconds"],
+             "encoder_batch_ms": batch_ms, "host_read_ms": read_ms,
+             "cpu_cosine_min": cos}
+        out[backbone] = r
+        print(f"step2 {backbone} (natural_supervised, bf16, batch "
+              f"{STEP2_BATCH}) on {len(names)} SPY slides: {r['patches']} "
+              f"patches in {r['seconds']:.2f} s, {r['patches_per_s']:.1f} "
+              f"patches/s; encoder {batch_ms:.4f} ms a batch (CUDA events, "
+              f"median of 10), the host's read+decode {read_ms:.1f} ms a "
+              f"batch; card vs CPU (f32) on {len(few)} patches, worst row "
+              f"cosine {cos:.6f} [{smi}]")
+
+    rs = np.random.default_rng(SEED + 21)
+    roi = os.path.join(root, "roi")
+    for c in range(ROI_CLASSES):
+        os.makedirs(os.path.join(roi, f"class_{c}"))
+        for j in range(ROI_CROPS):
+            h, w = rs.integers(200, 320, 2)
+            img = rs.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            cv2.imwrite(os.path.join(roi, f"class_{c}", f"crop_{j}.png"), img)
+    cents = {}
+    for tag, dev in (("card", "cuda"), ("cpu", "cpu")):
+        res = step2_extract.main([
+            "--roi_dir", roi, "--output_dir", os.path.join(root, f"roi_{tag}"),
+            "--pretrain", "natural_supervised", "--backbone", "Resnet18",
+            "--batch_size", str(ROI_CROPS), "--device", dev])
+        cents[tag] = np.load(res["out_path"])
+    if cents["card"].shape != (ROI_CLASSES - 1, 512):
+        raise AssertionError(f"roi centroids {cents['card'].shape}")
+    roi_cos = float(_row_cosine(torch.from_numpy(cents["card"]),
+                                torch.from_numpy(cents["cpu"])).min())
+    if not roi_cos >= COS_MIN:
+        raise AssertionError(f"roi centroids card vs CPU cosine {roi_cos}")
+    out["roi_cosine_min"] = roi_cos
+    print(f"step2 --roi_dir (Resnet18, {ROI_CLASSES} classes x {ROI_CROPS} "
+          f"crops): roi_feats.npy {list(cents['card'].shape)}, card vs CPU "
+          f"worst centroid cosine {roi_cos:.6f} [{smi}]")
+    return out
+
+
+def dtfd_sam_resnet_run(smi: str, tmp: str, pipe: dict,
+                        corpus: dict) -> dict:
+    """Phase 20: DTFD's training, scoring and routes with
+    ``models/fast.py::DTFD_FUSE_MIN_S`` pinned to 0 (as the JAX package's
+    tests pin it), SAM's step, Step2's ResNet trunks and ROI path. Returns
+    the phase's numbers and B1/B2's launches on its paths."""
+    from acmil_tpu_torch.models import fast
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "dtfd_sam_resnet")
+    os.makedirs(root)
+    gate = fast.DTFD_FUSE_MIN_S
+    fast.DTFD_FUSE_MIN_S = 0
+    try:
+        out = {"dtfd_train": _dtfd_train(smi, root, corpus),
+               "dtfd_routes": _dtfd_routes(smi, corpus)}
+    finally:
+        fast.DTFD_FUSE_MIN_S = gate
+    out["sam"] = _sam_run(smi, root, corpus)
+    out["resnet"] = _resnet_step2(smi, root, pipe)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"dtfd/sam/resnet phase wall {out['wall_s']:.2f} s [{smi}]")
+    return out
+
+
 VIT_ATTN_SHAPES = (("ViT-S/16", 6, 197, 64), ("ViT-S/8", 6, 785, 64),
                    ("CLIP-L/336", 16, 577, 64))
 # N at csrc/vit_attn.cu's edges: the ragged 16-key chunk; at dh=64 the
@@ -3456,9 +4013,12 @@ def main() -> None:
         clam = clam_run(smi, tmp, pipe, corpus)
         zoo = zoo_run(smi, tmp, pipe, corpus)
         transmil_mhim = transmil_mhim_run(smi, tmp, pipe, corpus)
+        p20 = dtfd_sam_resnet_run(smi, tmp, pipe, corpus)
         del corpus
     zoo["archs"].update(transmil_mhim.pop("archs"))
     zoo["transmil_mhim"] = transmil_mhim
+    zoo["dtfd_sam_resnet"] = p20
+    dtfd_t, dtfd_r, sam = p20["dtfd_train"], p20["dtfd_routes"], p20["sam"]
     b5_edges = b7.pop("b5_edges")
     vit["B5"]["max_abs_err"] = max(vit["B5"]["max_abs_err"],
                                    b5_edges["max_abs_err"])
@@ -3483,6 +4043,12 @@ def main() -> None:
         "launches_clam_mb_predict": clam["clam_mb"]["B1_predict"],
         "launches_clam_mb_step4": clam["B1_step4"],
         "launches_clam_dropout_epoch": clam["dropout_epoch"]["B1"],
+        "launches_dtfd_step3": dtfd_t["B1"],
+        "launches_dtfd_predict": dtfd_t["B1_predict_card"],
+        "launches_dtfd_natural_supervised_step3":
+            dtfd_t["natural_supervised"]["B1"],
+        "launches_sam_step3": sam["B1"],
+        "dtfd_call": dtfd_r["B1_call"],
         **b1}, {
         "name": "B2 fused gated-attention pooling (backward)",
         "route": "cuda",
@@ -3494,6 +4060,11 @@ def main() -> None:
         "launches_clam_sb_step3": clam["clam_sb"]["B2"],
         "launches_clam_mb_step3": clam["clam_mb"]["B2"],
         "launches_clam_dropout_epoch": clam["dropout_epoch"]["B2"],
+        "launches_dtfd_step3": dtfd_t["B2"],
+        "launches_dtfd_natural_supervised_step3":
+            dtfd_t["natural_supervised"]["B2"],
+        "launches_sam_step3": sam["B2"],
+        "dtfd_call": dtfd_r["B2_call"],
         **b2}, {
         "name": "B3 fused ViT layer (chain: 4 GEMM launches, 2 of them "
                 "after a LayerNorm prologue, + B5')",

@@ -448,27 +448,26 @@ def test_step3_generic_needs_a_card_unless_told_cpu(corpus, monkeypatch):
                                         ("dtfd", "dtfd")])
 def test_step3_generic_names_the_registered_archs(corpus, tmp_path, arch,
                                                   want):
-    # run_training refuses an arch the registry does not hold, naming those
-    # it does; the reference script's `mha` lands on the registered
-    # `mha_single` and trains, and so does `transmil` since it is ported
+    # the reference script's `mha` lands on the registered `mha_single` and
+    # trains, and so do `transmil` and `dtfd` since they are ported; an arch
+    # the registry does not hold is refused, naming those it does
     d, _ = corpus
     yml = tmp_path / "conf.yml"
     yml.write_text(yaml.safe_dump(_run_conf(d, f"arch_{arch}",
                                             pretrain="tiny", train_epoch=1)))
     argv = ["--config", str(yml), "--arch", arch, "--device", "cpu"]
-    if want == "dtfd":
-        with pytest.raises(ValueError, match=rf"unknown arch '{want}'; have "
-                           r"\['abmil', 'attmil', 'attmil_gated', 'bmil_enc', "
-                           r"'bmil_spvis', 'bmil_vis', 'clam_mb', 'clam_sb', "
-                           r"'dsmil', 'ga', 'ibmil', 'ilra', 'ips', 'lbmil', "
-                           r"'maxmil', 'meanmil', 'mha', 'mha_single', 'mhim', "
-                           r"'pure', 'transmil'\]"):
-            step3_generic.main(argv)
-        return
     step3_generic.main(argv)
     last = checkpoint.load(checkpoint.checkpoint_path(
         str(d / f"arch_{arch}" / "ckpt"), "last"))
     assert last["config"]["arch"] == want
+    with pytest.raises(ValueError, match=r"unknown arch 'nope'; have "
+                       r"\['abmil', 'attmil', 'attmil_gated', 'bmil_enc', "
+                       r"'bmil_spvis', 'bmil_vis', 'clam_mb', 'clam_sb', "
+                       r"'dsmil', 'dtfd', 'ga', 'ibmil', 'ilra', 'ips', "
+                       r"'lbmil', 'maxmil', 'meanmil', 'mha', 'mha_single', "
+                       r"'mhim', 'pure', 'transmil'\]"):
+        step3_generic.main(["--config", str(yml), "--arch", "nope",
+                            "--device", "cpu"])
 
 
 def test_step3_generic_reads_w_loss(monkeypatch):

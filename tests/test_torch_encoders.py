@@ -215,14 +215,20 @@ def test_build_encoder_loads_a_timm_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("backbone", ["Resnet50", "resnet18"])
 def test_resnet_rows_are_listed_and_raise(backbone):
+    # the ResNet rows build now (the name is kept): the JAX rows' trunk
+    # width and the spec's, a seeded random encoder, no state without weights
     class C:
         pretrain, n_class, pretrain_weights = "natural_supervised", 2, ""
 
     C.backbone = backbone
     assert set(build.ENCODER_SPECS) == set(jax_build.ENCODER_SPECS)
     assert build.PRETRAIN_ONLY == jax_build.PRETRAIN_ONLY
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build.build_encoder(C())
+    with pytest.warns(UserWarning, match="random initialisation"):
+        model, spec, state = build.build_encoder(C())
+    want = jax_build.ENCODER_SPECS[("natural_supervised", backbone)]
+    assert spec.embed_dim == want.embed_dim == model.encoder.embed_dim
+    assert model.encoder.stage_sizes == want.builder(jnp.float32).stage_sizes
+    assert model.encoder.dtype == torch.bfloat16 and state is None
 
 
 def test_preprocess_matches_jax():

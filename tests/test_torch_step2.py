@@ -216,7 +216,7 @@ def test_synthetic_slides_match_jax():
     assert ca == cb
 
 
-@pytest.mark.parametrize("flag", ["--roi_dir", "--mesh_data", "--mesh_model"])
+@pytest.mark.parametrize("flag", ["--mesh_data", "--mesh_model"])
 def test_step2_refuses_what_is_not_ported(step2_inputs, flag, tmp_path):
     d, weights = step2_inputs
     with pytest.raises(NotImplementedError, match="ROADMAP"):

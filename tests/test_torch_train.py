@@ -607,11 +607,14 @@ def test_train_step_draws_stkim_from_the_state_generator():
 
 
 def test_use_sam_is_refused():
-    # the JAX engine takes a SAM step when use_sam is set; the port has no
-    # SAM yet, so it must refuse rather than train plain AdamW
-    conf = Config.from_dict({"use_sam": True, "device": "cpu"})
-    with pytest.raises(ValueError, match="use_sam"):
-        port_cli.run_training(conf)
+    # SAM is ported; the family with its own step (mhim) takes no SAM
+    # gradient (the JAX engine ignores use_sam there), so it is refused
+    conf = Config.from_dict({"use_sam": True, "device": "cpu",
+                             "arch": "mhim", "n_class": 2, "D_feat": 32,
+                             "mlp_dim": 16})
+    model, family = build_mil_model(conf)
+    with pytest.raises(ValueError, match="use_sam.*'mhim'"):
+        make_train_step(model, conf, family)
 
 
 def test_checkpoint_restores_the_stkim_generator(tmp_path):
