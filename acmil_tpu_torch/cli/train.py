@@ -2,18 +2,25 @@
 
 YAML + CLI config, dataset and loader setup, per-epoch train and val/test
 eval, JSONL (or wandb) logging, best and last ``.pth`` checkpoints chosen on
-val F1 + AUC, ``--resume`` and ``--eval_only``, on one device. The features
+val F1 + AUC, ``--resume`` and ``--eval_only``. The features
 are the reference's H5 dump or a torch feature file (``data/ptio.py``):
 ``{data_dir}/patch_feats_pretrain_{pretrain}.h5``, else the same name with
 ``.pt``.
 
 MHIM's teacher initialisation (``teacher_init``, ``init_stu_type``) loads a
 pre-trained 'pure' checkpoint into the EMA teacher, and into the student
-as ``init_stu_type`` says. The JAX trainer's data-parallel mesh
-(``--mesh_data``, ``mesh_shape``), multi-host pods (``--pod``) and
-``lax.scan`` epochs (``--scan_epoch``) are not ported; setting any of them
-raises. ``use_sam: true`` (with ``sam_rho``) trains every family but MHIM's
-with SAM steps (``engine/train.py::make_train_step``).
+as ``init_stu_type`` says. ``use_sam: true`` (with ``sam_rho``) trains
+every family but MHIM's with SAM steps (``engine/train.py::make_train_step``).
+
+On a mesh the trainer runs one process per device, as ``torchrun`` starts
+them: ``--mesh_data N`` (data N, seq 1), the YAML's ``mesh_shape: {data,
+seq}``, or ``--pod`` (data over every process, seq 1; one process is a
+world-1 mesh). The layout must equal ``WORLD_SIZE``, or the trainer raises
+and names ``torchrun --nproc_per_node``. The backend is ``nccl`` on CUDA and
+``gloo`` on the CPU unless the YAML's ``dist_backend`` names one; global rank
+0 alone writes checkpoints, logs and prints, and every rank reads a
+checkpoint for ``--resume`` and ``--eval_only``. The JAX trainer's
+``lax.scan`` epochs (``--scan_epoch``) are not ported; setting it raises.
 """
 
 from __future__ import annotations
@@ -33,11 +40,12 @@ from acmil_tpu_torch.engine import (create_train_state, evaluate, get_family,
                                     train_one_epoch)
 from acmil_tpu_torch.engine import checkpoint
 from acmil_tpu_torch.models import build_mil_model, model_family
+from acmil_tpu_torch.parallel import shard_params
 from acmil_tpu_torch.utils import MetricLogger, MetricsWriter, set_seed
 from acmil_tpu_torch.utils.device import entry_device
 
 # options of the JAX trainer this port does not have
-NOT_PORTED = ("mesh_data", "mesh_shape", "pod", "scan_epoch")
+NOT_PORTED = ("scan_epoch",)
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -60,9 +68,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--B", type=int, default=None)
     p.add_argument("--n_shot", type=int, default=None)
     p.add_argument("--mesh_data", type=int, default=None,
-                   help="not ported: raises if set")
+                   help="data-parallel over this many processes (launch "
+                        "with torchrun --nproc_per_node N)")
     p.add_argument("--pod", action="store_true", default=None,
-                   help="not ported: raises if set")
+                   help="data-parallel over every process of a multi-node "
+                        "torchrun launch")
     p.add_argument("--scan_epoch", action=argparse.BooleanOptionalAction,
                    default=None, help="not ported: raises if set")
     p.add_argument("--resume", action="store_true",
@@ -107,7 +117,7 @@ def _refuse_unported(conf) -> None:
                          f"{family!r}")
 
 
-def init_teacher_student(state, conf) -> None:
+def init_teacher_student(state, conf, say=print) -> None:
     """MHIM's teacher initialisation (`Step3_MHIM:340-375`, the JAX
     ``init_teacher_student``): the teacher loads ``checkpoint-best.pth``,
     else ``checkpoint-last.pth``, of the ``teacher_init`` directory (or that
@@ -133,25 +143,59 @@ def init_teacher_student(state, conf) -> None:
             for k, v in weights.items():
                 if k.startswith("patch_to_emb."):
                     student[k].copy_(v)
-    print(f"teacher initialised from {teacher_init} ({tag}), "
-          f"student init: {stu_type}")
+    say(f"teacher initialised from {teacher_init} ({tag}), "
+        f"student init: {stu_type}")
+
+
+def build_mesh(conf, device: torch.device):
+    """The run's mesh from ``pod``, ``mesh_data`` or ``mesh_shape`` (the
+    JAX trainer's order), or None when none is set. Joins the process
+    group ``torchrun`` describes first (``parallel/mesh.py``)."""
+    pod = bool(getattr(conf, "pod", False))
+    mesh_data = getattr(conf, "mesh_data", None)
+    shape = conf.mesh_shape
+    if not (pod or mesh_data or shape):
+        return None
+    from acmil_tpu_torch.parallel import (init_distributed, make_mesh,
+                                          make_pod_mesh)
+
+    backend = getattr(conf, "dist_backend", None)
+    if pod:
+        return make_pod_mesh(seq=1, device=device, backend=backend)
+    if mesh_data:
+        data, seq = int(mesh_data), 1
+    else:
+        data, seq = int(shape.get("data", 1)), int(shape.get("seq", 1))
+    # make_mesh raises, naming the torchrun launch, unless the world is
+    # data x seq processes
+    init_distributed(device, backend)
+    return make_mesh(data, seq, device)
 
 
 def run_training(conf: Config, extra_config: dict | None = None) -> dict:
     _refuse_unported(conf)
     device = entry_device(conf.extra.get("device"))
+    if any(getattr(conf, k, None) for k in ("pod", "mesh_data", "mesh_shape")):
+        from acmil_tpu_torch.parallel import local_device
+
+        device = local_device(conf.extra.get("device"))
+    mesh = build_mesh(conf, device)
+    lead = mesh is None or mesh.rank == 0
     set_seed(conf.seed)
-    writer = MetricsWriter(mode=conf.wandb_mode, log_dir=conf.log_dir,
+    writer = MetricsWriter(mode=conf.wandb_mode if lead else "disabled",
+                           log_dir=conf.log_dir, enabled=lead,
                            config={**conf.to_dict(), **(extra_config or {})})
-    print("Used config:")
-    pprint(conf.to_dict())
+    say = print if lead else (lambda *a, **k: None)
+    say("Used config:")
+    if lead:
+        pprint(conf.to_dict())
 
     train_src, val_src, test_src = build_hdf5_feat_dataset(
         feature_file(conf), conf)
     # fp16 on the wire (features are stored fp16 anyway); eval loaders keep
     # their batches resident on the device across epochs
     kw = dict(min_bucket=conf.min_bucket, max_patches=conf.max_patches,
-              dtype=np.float16, device=device)
+              dtype=np.float16, device=device, mesh=mesh)
     # train bags stay on the device too when they fit: with B = 1 (the
     # reference protocol) replaying cached single-bag batches in a fresh
     # random order is shuffled training; with B > 1 batch composition
@@ -165,21 +209,25 @@ def run_training(conf: Config, extra_config: dict | None = None) -> dict:
     val_loader = BagLoader(val_src, conf.B, cache_device=True, **kw)
     test_loader = BagLoader(test_src, conf.B, cache_device=True, **kw)
 
-    model, family = build_mil_model(conf)
+    model, family = (build_mil_model(conf) if mesh is None
+                     else build_mil_model(conf, mesh=mesh))
     model.to(device)
+    if mesh is not None:
+        shard_params(model, mesh)
     fam = get_family(family)
     steps_per_epoch = max(len(train_loader), 1)
     conf.extra.setdefault("steps_per_epoch", steps_per_epoch)
     state = create_train_state(model, conf, steps_per_epoch, family=fam)
-    init_teacher_student(state, conf)
-    train_step = make_train_step(model, conf, fam)
+    init_teacher_student(state, conf, say)
+    train_step = make_train_step(model, conf, fam, mesh=mesh)
     # `fused_train: false` opts eval out of the fused kernel too: the flag
     # exists to bisect a suspected kernel bug, which must cover val/test
     eval_step = make_eval_step(model, fam,
-                               fused=bool(conf.extra.get("fused_train", True)))
+                               fused=bool(conf.extra.get("fused_train", True)),
+                               mesh=mesh)
 
     def run_eval(loader):
-        return evaluate(eval_step, loader, conf.n_class)
+        return evaluate(eval_step, loader, conf.n_class, mesh=mesh)
 
     ckpt_dir = conf.ckpt_dir
     best_path = checkpoint.checkpoint_path(ckpt_dir, "best")
@@ -190,7 +238,7 @@ def run_training(conf: Config, extra_config: dict | None = None) -> dict:
                      else ("last", last_path))
         checkpoint.restore(path, state)
         val_m, test_m = run_eval(val_loader), run_eval(test_loader)
-        print(f"[eval-only, {tag}] val auc {val_m['auc']:.4f} "
+        say(f"[eval-only, {tag}] val auc {val_m['auc']:.4f} "
               f"f1 {val_m['f1']:.4f} | test auc {test_m['auc']:.4f} "
               f"f1 {test_m['f1']:.4f}")
         writer.finish()
@@ -208,7 +256,7 @@ def run_training(conf: Config, extra_config: dict | None = None) -> dict:
             saved = checkpoint.load(best_path)
             best = dict(saved.get("metrics", {}))
             best["epoch"] = int(saved["epoch"])
-        print(f"resumed from epoch {start_epoch - 1} "
+        say(f"resumed from epoch {start_epoch - 1} "
               f"(step {state.step}, best so far: {best or 'none'})")
 
     for epoch in range(start_epoch, conf.train_epoch):
@@ -219,13 +267,13 @@ def run_training(conf: Config, extra_config: dict | None = None) -> dict:
             # surface divergence instead of burning the remaining epochs
             raise RuntimeError(
                 f"non-finite training loss at epoch {epoch}: {stats}")
-        print(f"Epoch [{epoch}] {logger}")
+        say(f"Epoch [{epoch}] {logger}")
         writer.log({f"train/{k}": v for k, v in stats.items()}, commit=False)
 
         val_m, test_m = run_eval(val_loader), run_eval(test_loader)
-        print(f"  val  auc {val_m['auc']:.4f} acc {val_m['acc']:.4f} "
+        say(f"  val  auc {val_m['auc']:.4f} acc {val_m['acc']:.4f} "
               f"f1 {val_m['f1']:.4f} loss {val_m['loss']:.4f}")
-        print(f"  test auc {test_m['auc']:.4f} acc {test_m['acc']:.4f} "
+        say(f"  test auc {test_m['auc']:.4f} acc {test_m['acc']:.4f} "
               f"f1 {test_m['f1']:.4f} loss {test_m['loss']:.4f}")
         writer.log({f"perf/val_{k}": v for k, v in val_m.items()},
                    commit=False)
@@ -233,11 +281,11 @@ def run_training(conf: Config, extra_config: dict | None = None) -> dict:
 
         prev_best_epoch = best.get("epoch")
         best = checkpoint.save_best_and_last(ckpt_dir, state, epoch, conf,
-                                             val_m, best)
+                                             val_m, best, write=lead)
         if best.get("epoch") == epoch and prev_best_epoch != epoch:
             best.update({f"test_{k}": v for k, v in test_m.items()})
-    print("Results on best epoch:")
-    print(best)
+    say("Results on best epoch:")
+    say(best)
     writer.finish()
     return best
 

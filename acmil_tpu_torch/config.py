@@ -2,8 +2,9 @@
 
 The same dataclass and the same YAML round trip, so the reference's configs
 under ``config/*.yml`` are drop-in. ``yaml`` is imported only where a file is
-read. The TPU-only fields ``scan_epoch`` and ``mesh_shape`` are not fields
-here: a YAML that sets them keeps them in ``extra``.
+read. ``mesh_shape`` (``{data, seq}``) lays out a Step3 run over processes;
+the TPU-only ``scan_epoch`` is not a field here: a YAML that sets it keeps it
+in ``extra``.
 """
 
 from __future__ import annotations
@@ -72,6 +73,9 @@ class Config:
     max_patches: int = 65536        # hard cap on bag length
     min_bucket: int = 256           # smallest pad bucket
     feat_dtype: str = "float32"     # compute dtype for features
+
+    # --- parallelism: one process per device (torchrun) ---
+    mesh_shape: Optional[Dict[str, int]] = None   # e.g. {"data": 2, "seq": 2}
 
     # --- bookkeeping ---
     ckpt_dir: str = "./ckpt"

@@ -1,14 +1,18 @@
 """Bucketed bag loader with background prefetch, the port of
-``acmil_tpu/data/loader.py`` for one device.
+``acmil_tpu/data/loader.py``.
 
 - batches are grouped by bucketed pad length (see :func:`bags.bucket_plan`);
 - a background thread reads and collates on the host while the device works,
   into pinned memory when the device is CUDA, and each batch is copied with
   ``non_blocking=True`` to the loader's ``device``;
 - ``cache_device=True`` keeps every batch resident on the device after the
-  first pass, for eval loaders that are scored again and again.
+  first pass, for eval loaders that are scored again and again;
+- with a ``mesh`` (``parallel/mesh.py``), every rank builds the same plan
+  from the seed, pads a ragged batch to ``batch_size`` with all-False rows
+  of label 0, and keeps its rows of the batch and its slice of N
+  (``shard_bag``), cut on the host before the copy to its device.
 
-The JAX loader's mesh placement and stacked scan groups are not ported.
+The JAX loader's stacked scan groups are not ported.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from acmil_tpu_torch.data.bags import Bag, bucket_plan, collate_bags
+from acmil_tpu_torch.parallel.mesh import shard_bag
 
 
 class BagLoader:
@@ -37,7 +42,11 @@ class BagLoader:
         dtype=np.float32,
         cache_device: bool = False,
         device="cpu",
+        mesh=None,
     ):
+        if mesh is not None and batch_size % mesh.data:
+            raise ValueError(f"B={batch_size} slides a batch do not split "
+                             f"over the mesh's data axis of {mesh.data}")
         self.source = source
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -51,6 +60,7 @@ class BagLoader:
         # once; epochs replay them in a fresh random ORDER
         self.cache_device = cache_device
         self.device = torch.device(device)
+        self.mesh = mesh
         self._device_batches: Optional[List[Bag]] = None
 
     # -- batch plan ---------------------------------------------------------
@@ -77,10 +87,23 @@ class BagLoader:
     def _collate(self, idxs: List[int]) -> Bag:
         """Host side: read and collate, pinned when bound for a GPU."""
         items = [self.source[i] for i in idxs]
-        bag = collate_bags([it["input"] for it in items],
-                           [it.get("coords") for it in items],
-                           [it["label"] for it in items],
-                           self.min_bucket, self.max_patches, dtype=self.dtype)
+        feats = [it["input"] for it in items]
+        coords = [it.get("coords") for it in items]
+        labels = [it["label"] for it in items]
+        n_real = len(items)
+        if self.mesh is not None:
+            # a ragged batch is padded to a full one: rows of one zero patch,
+            # masked below, label 0
+            while len(feats) < self.batch_size:
+                feats.append(np.zeros_like(np.asarray(feats[0][:1])))
+                coords.append(None)
+                labels.append(0)
+        bag = collate_bags(feats, coords, labels, self.min_bucket,
+                           self.max_patches, dtype=self.dtype)
+        if self.mesh is not None:
+            bag.mask[n_real:] = False
+            bag = shard_bag(bag, self.mesh, shard_seq=self.mesh.seq > 1)
+            bag = Bag(*(t.contiguous() for t in bag._fields()))
         return bag.pin_memory() if self.device.type == "cuda" else bag
 
     def _to_device(self, bag: Bag) -> Bag:

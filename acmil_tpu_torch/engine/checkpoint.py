@@ -123,10 +123,13 @@ def restore(path: str, state) -> Dict[str, Any]:
 
 def save_best_and_last(ckpt_dir: str, state, epoch: int, conf,
                        val_metrics: Dict[str, float],
-                       best: Dict[str, float]) -> Dict[str, float]:
+                       best: Dict[str, float],
+                       write: bool = True) -> Dict[str, float]:
     """Apply the reference's selection rule (`Step3_ACMIL:156-170`): write
     ``checkpoint-best.pth`` when ``val_metrics`` beat ``best``, and
-    ``checkpoint-last.pth`` always. Returns the updated best record."""
+    ``checkpoint-last.pth`` always. Returns the updated best record. With
+    ``write`` False (every rank of a mesh but global rank 0, whose states
+    are the same) the record is kept and nothing is written."""
     from acmil_tpu_torch.engine.train import is_better
 
     kw = dict(epoch=epoch, conf=conf, optimizer=state.opt,
@@ -136,6 +139,8 @@ def save_best_and_last(ckpt_dir: str, state, epoch: int, conf,
                  str(getattr(conf, "selection_f1", "macro"))):
         best = dict(val_metrics)
         best["epoch"] = epoch
-        save(checkpoint_path(ckpt_dir, "best"), state.model, **kw)
-    save(checkpoint_path(ckpt_dir, "last"), state.model, **kw)
+        if write:
+            save(checkpoint_path(ckpt_dir, "best"), state.model, **kw)
+    if write:
+        save(checkpoint_path(ckpt_dir, "last"), state.model, **kw)
     return best

@@ -7,6 +7,12 @@ the JAX ``make_tx``) and name the parameter groups it clips each by its own
 norm (``clip_groups``), keep an EMA teacher in the train state (``teacher``)
 and bring its own train step (``make_step``, the JAX ``make_step_body``):
 MHIM does three, its 'pure' stage the first, and DTFD the first two.
+
+On a mesh (``conf_d["mesh"]``, the ``mesh`` of an eval forward) a family
+whose head has a sequence path of its own says so (``takes_seq_slice``): its
+forward gets this rank's slice of N. Every other head gets the bag gathered
+over the seq group. CLAM, DSMIL and DTFD keep their plain forwards on a mesh,
+as the JAX families do.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from acmil_tpu_torch.models.bmil import kl_model
 from acmil_tpu_torch.models.fast import acmil_ga_apply_batched
 from acmil_tpu_torch.models.mhim import soft_target_ce
 from acmil_tpu_torch.ops.masked import masked_max
+from acmil_tpu_torch.parallel.mesh import replicated_share
 
 
 class Family:
@@ -35,6 +42,13 @@ class Family:
     name = "default"
     # True: the train state keeps an EMA teacher, a copy of the model
     teacher = False
+    # the axis of the batch in the step's ``stkim_u`` draws
+    draws_batch_dim = 0
+
+    def takes_seq_slice(self, model, fused: bool) -> bool:
+        """True when the forward works on this rank's slice of N (on a mesh
+        whose seq axis is above 1), False when it needs the whole bag."""
+        return False
 
     def make_optimizer(self, params, conf, lr: float,
                        device: torch.device) -> Optional[torch.optim.Optimizer]:
@@ -112,23 +126,28 @@ class ACMILFamily(Family):
         d["mask_drop"] = float(getattr(conf, "mask_drop", 0.0))
         return d
 
+    def takes_seq_slice(self, model, fused):
+        return bool(fused) and isinstance(model, ACMIL_GA)
+
     def train_outputs(self, model, bag, conf_d, stkim_u=None, generator=None):
         if conf_d.get("fused", False) and isinstance(model, ACMIL_GA):
             return acmil_ga_apply_batched(
                 model, bag.feats, bag.mask, stkim_u=stkim_u,
                 stkim_generator=generator,
                 n_masked_patch=conf_d["n_masked_patch"],
-                mask_drop=conf_d["mask_drop"])
+                mask_drop=conf_d["mask_drop"], mesh=conf_d.get("mesh"))
         if isinstance(model, (ACMIL_GA, ACMIL_MHA)):
             return model(bag.feats, bag.mask, deterministic=False,
                          stkim_u=stkim_u, stkim_generator=generator)
         return super().train_outputs(model, bag, conf_d)
 
-    def eval_outputs(self, model, bag: Bag, fused: bool = True):
+    def eval_outputs(self, model, bag: Bag, fused: bool = True, mesh=None):
         # eval is always deterministic (no STKIM, no dropout), so the fused
-        # kernel is valid for every ACMIL_GA head
+        # kernel is valid for every ACMIL_GA head; on a mesh it pools this
+        # rank's slice of N
         if fused and isinstance(model, ACMIL_GA):
-            return acmil_ga_apply_batched(model, bag.feats, bag.mask)
+            return acmil_ga_apply_batched(model, bag.feats, bag.mask,
+                                          mesh=mesh)
         return super().eval_outputs(model, bag)
 
     def loss(self, outputs, bag, valid, conf_d):
@@ -171,7 +190,8 @@ class CLAMFamily(Family):
                 and bag.feats.shape[1] >= fast.FUSE_MIN_N)
 
     def train_outputs(self, model, bag, conf_d, stkim_u=None, generator=None):
-        if conf_d.get("fused") and self._routed(model, bag):
+        if (conf_d.get("fused") and conf_d.get("mesh") is None
+                and self._routed(model, bag)):
             return fast.clam_apply_fused(
                 model, bag.feats, bag.mask, label=bag.label,
                 instance_eval=True, n_class=conf_d["n_class"],
@@ -179,8 +199,8 @@ class CLAMFamily(Family):
         return model(bag.feats, bag.mask, label=bag.label, instance_eval=True,
                      deterministic=False, generator=generator)
 
-    def eval_outputs(self, model, bag: Bag, fused: bool = True):
-        if fused and self._routed(model, bag):
+    def eval_outputs(self, model, bag: Bag, fused: bool = True, mesh=None):
+        if fused and mesh is None and self._routed(model, bag):
             return fast.clam_apply_fused(model, bag.feats, bag.mask,
                                          n_class=0)
         return super().eval_outputs(model, bag)
@@ -220,8 +240,8 @@ class DSMILFamily(Family):
         loss = ce + conf_d["w_loss"] * div
         return loss, {"ce_loss": ce, "diff_loss": div}
 
-    def eval_outputs(self, model, bag: Bag, fused: bool = True):
-        if (fused and fast.dsmil_is_fusable(model)
+    def eval_outputs(self, model, bag: Bag, fused: bool = True, mesh=None):
+        if (fused and mesh is None and fast.dsmil_is_fusable(model)
                 and bag.feats.shape[1] >= fast.FUSE_MIN_N):
             return fast.dsmil_eval_fused(model, bag.feats, bag.mask)
         return self._max_inst(self.plain_outputs(model, bag), bag)
@@ -255,8 +275,10 @@ class BMILFamily(Family):
 
     def loss(self, outputs, bag, valid, conf_d):
         ce = L.cross_entropy(outputs["logits"], bag.label, valid)
-        loss = ce + 1e-8 * outputs["kl_model"] + 1e-6 * outputs["kl_data"]
-        return loss, {"ce_loss": ce, "kl_model": outputs["kl_model"],
+        # the ARD KL is the parameters' alone: each data rank adds its share
+        kl_model = replicated_share(outputs["kl_model"])
+        loss = ce + 1e-8 * kl_model + 1e-6 * outputs["kl_data"]
+        return loss, {"ce_loss": ce, "kl_model": kl_model,
                       "kl_data": outputs["kl_data"]}
 
     def plain_outputs(self, model, bag: Bag):
@@ -318,15 +340,15 @@ class DTFDFamily(Family):
 
     def train_outputs(self, model, bag, conf_d, stkim_u=None, generator=None):
         if (conf_d["fused"] and conf_d["droprate"] == 0.0
-                and self._routed(model, bag)):
+                and conf_d.get("mesh") is None and self._routed(model, bag)):
             return fast.dtfd_apply_fused(model, bag.feats, bag.mask,
                                          deterministic=False, group_u=stkim_u,
                                          generator=generator)
         return model(bag.feats, bag.mask, deterministic=False,
                      group_u=stkim_u, generator=generator)
 
-    def eval_outputs(self, model, bag: Bag, fused: bool = True):
-        if fused and self._routed(model, bag):
+    def eval_outputs(self, model, bag: Bag, fused: bool = True, mesh=None):
+        if fused and mesh is None and self._routed(model, bag):
             return fast.dtfd_apply_fused(model, bag.feats, bag.mask)
         return super().eval_outputs(model, bag)
 
@@ -376,6 +398,7 @@ class MHIMFamily(PureFamily):
 
     name = "mhim"
     teacher = True
+    draws_batch_dim = 1
 
     def make_step(self, model, conf):
         from acmil_tpu_torch.engine.schedules import cosine_array

@@ -3,7 +3,10 @@
 `Step3_WSI_classification_ACMIL.py:199-216`).
 
 Padded batch rows are excluded through a ``valid`` vector (rows whose bag
-mask is all False).
+mask is all False). Under an active mesh (``parallel/mesh.py::active``)
+each data rank holds some rows of the batch, and each mean over the batch is
+this rank's share of the global mean, ``sum_local w x / sum_global w``, as
+the JAX losses over the global arrays are; the shares sum to it.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from acmil_tpu_torch.ops.masked import masked_softmax
+from acmil_tpu_torch.parallel.mesh import weighted_mean
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -18,10 +22,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean softmax cross-entropy. ``logits [B, C]``, ``labels [B]``."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[:, None].long())[:, 0]
-    if valid is None:
-        return nll.mean()
-    w = valid.to(nll.dtype)
-    return (nll * w).sum() / w.sum().clamp_min(1.0)
+    return weighted_mean(nll, valid)
 
 
 def attention_diversity_loss(attn_logits: torch.Tensor,
@@ -46,10 +47,7 @@ def attention_diversity_loss(attn_logits: torch.Tensor,
     per_bag = torch.where(iu, sim, 0.0).sum(dim=(-1, -2)) / (
         n_token * (n_token - 1) / 2)                                 # [B, H]
     per_bag = per_bag.mean(dim=1)                                    # [B]
-    if valid is None:
-        return per_bag.mean()
-    w = valid.to(per_bag.dtype)
-    return (per_bag * w).sum() / w.sum().clamp_min(1.0)
+    return weighted_mean(per_bag, valid)
 
 
 def acmil_loss(sub_preds, slide_preds, attn_logits, labels, mask, n_token,

@@ -1,5 +1,6 @@
 """Evaluation metrics — AUROC / macro-F1 / accuracy; a numpy copy of
-``acmil_tpu/engine/metrics.py`` (the multi-host gather is not ported).
+``acmil_tpu/engine/metrics.py``, with its multi-host gather over a process
+group (:func:`gather_across_hosts`).
 
 The reference uses torchmetrics AUROC/F1 (`engine.py:210-215`) and timm
 ``accuracy``. Here: host-side numpy implementations (no sklearn dependency
@@ -77,3 +78,23 @@ def classification_metrics(probs: np.ndarray, labels: np.ndarray) -> Dict[str, f
         "auc": auroc(probs, labels),
         "f1": f1_macro(preds, labels, probs.shape[1]),
     }
+
+
+
+def gather_across_hosts(probs, labels, valid, group):
+    """Every data rank's ``probs [n, C]``, ``labels [n]`` and ``valid [n]``
+    (torch tensors of one shape on each rank) concatenated in rank order,
+    so that every rank computes the metrics of the whole split: the working
+    version of the reference's vestigial ``synchronize_between_processes``
+    (`utils/utils.py:92-103`). Returns them unchanged for a group of None."""
+    if group is None:
+        return probs, labels, valid
+    import torch
+
+    from acmil_tpu_torch.parallel.collectives import gather_list
+
+    def whole(t):
+        return torch.cat(gather_list(t, group))
+
+    return (whole(probs), whole(labels.long()),
+            whole(valid.to(torch.uint8)).bool())

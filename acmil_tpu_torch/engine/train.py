@@ -1,5 +1,5 @@
 """Training and eval engine, the port of ``acmil_tpu/engine/train.py``
-(without scan epochs or meshes).
+(without scan epochs).
 
 ``create_train_state`` holds the model, AdamW with the reference's
 half-cosine schedule (or the family's own optimizer and per-module clip),
@@ -9,6 +9,11 @@ the step and, for a family with a teacher, the EMA teacher;
 once, at the epoch's end. ``make_eval_step`` binds a model to its family's
 eval forward; ``evaluate`` scores a loader and computes acc/auc/f1/loss with
 one host transfer at the end.
+
+With a ``mesh`` (``parallel/mesh.py``), the steps run on this rank's part
+of each batch under the mesh made active: each data rank's loss is its
+share of the global loss, ``step_optimizer`` sums the gradients over the
+data group, and ``evaluate`` gathers the probabilities of every data rank.
 """
 
 from __future__ import annotations
@@ -22,9 +27,12 @@ import numpy as np
 import torch
 
 from acmil_tpu_torch.engine.families import Family, get_family
-from acmil_tpu_torch.engine.metrics import classification_metrics
+from acmil_tpu_torch.engine.metrics import (classification_metrics,
+                                            gather_across_hosts)
 from acmil_tpu_torch.engine.schedules import half_cosine_schedule
 from acmil_tpu_torch.ops.sam import sam_gradient
+from acmil_tpu_torch.parallel import collectives as C
+from acmil_tpu_torch.parallel.mesh import active, current, gather_seq
 
 
 @dataclass
@@ -123,13 +131,28 @@ def apply_gradients(state: TrainState, loss: torch.Tensor,
     return step_optimizer(state, params)
 
 
+def sum_over_data_(grads: List[torch.Tensor]) -> None:
+    """Sum ``grads`` in place over the active mesh's data group, in one
+    collective: each data rank holds the gradient of its share of the
+    loss, and the shares sum to the global loss."""
+    mesh = current()
+    if mesh is None or mesh.data_group is None or not grads:
+        return
+    flat = C.all_reduce_(torch.cat([g.reshape(-1) for g in grads]),
+                         mesh.data_group)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
 def step_optimizer(state: TrainState, params) -> torch.Tensor:
-    """One optimizer step from the gradients ``params`` hold: the per-module
-    clip when ``state.clip_groups`` is set, else the global-norm clip when
+    """One optimizer step from the gradients ``params`` hold: summed over
+    the data ranks of the active mesh, then the per-module clip when
+    ``state.clip_groups`` is set, else the global-norm clip when
     ``state.grad_clip`` is, the learning rate ``schedule(step)`` (optax
     evaluates the schedule at the count before it increments), then
     ``step += 1``. Returns the pre-clip global gradient norm."""
     grads = [p.grad for p in params]
+    sum_over_data_(grads)
     gnorm = global_norm(grads)
     if state.clip_groups:
         clip_by_module_norms_(state.clip_groups, state.grad_clip)
@@ -147,18 +170,27 @@ def _resolve_family(family) -> Family:
     return get_family(family) if isinstance(family, str) else family
 
 
-def make_eval_step(model, family="default", fused: bool = True) -> Callable:
+def make_eval_step(model, family="default", fused: bool = True,
+                   mesh=None) -> Callable:
     """``step(bag) -> probs [B, C]`` on the bag's device, under
-    ``torch.no_grad`` with the model in eval mode. ``fused`` reaches only
-    families whose eval forward takes it."""
+    ``torch.no_grad`` with the model in eval mode. ``fused`` and ``mesh``
+    reach only families whose eval forward takes them. On a ``mesh`` the
+    bag is this rank's part: a head with no sequence path of its own gets
+    the bag gathered over the seq group."""
     fam = _resolve_family(family)
-    kw = ({"fused": fused}
-          if "fused" in inspect.signature(fam.eval_outputs).parameters else {})
+    params = inspect.signature(fam.eval_outputs).parameters
+    kw = {"fused": fused} if "fused" in params else {}
+    if mesh is not None and "mesh" in params:
+        kw["mesh"] = mesh
+    sliced = mesh is not None and fam.takes_seq_slice(model, fused)
 
     @torch.no_grad()
     def step(bag):
         model.eval()
-        return fam.probs(fam.eval_outputs(model, bag, **kw))
+        with active(mesh):
+            if not sliced:
+                bag = gather_seq(bag, mesh)
+            return fam.probs(fam.eval_outputs(model, bag, **kw))
 
     return step
 
@@ -182,7 +214,15 @@ def _rng_replay(state: TrainState, device: torch.device) -> Callable[[], None]:
     return replay
 
 
-def make_train_step(model, conf, family="acmil") -> Callable:
+def _data_rows(u: Optional[torch.Tensor], mesh, dim: int):
+    """This data rank's rows of a global-batch tensor of draws."""
+    if u is None or mesh is None or mesh.data == 1:
+        return u
+    rows = u.shape[dim] // mesh.data
+    return u.narrow(dim, mesh.data_index * rows, rows)
+
+
+def make_train_step(model, conf, family="acmil", mesh=None) -> Callable:
     """``step(state, bag, stkim_u=None) -> aux``: one optimizer step on
     ``bag`` (:func:`apply_gradients`), ``state`` updated in place; the
     family's own step where it has one. ``aux`` holds the loss, its parts
@@ -194,27 +234,36 @@ def make_train_step(model, conf, family="acmil") -> Callable:
     (``ops/sam.py::sam_gradient``, radius ``sam_rho``, 0.05 by default):
     two passes that make the same random draws. ``aux`` then holds the
     first pass's loss and the SAM gradient's norm. A family with its own
-    step refuses ``use_sam`` (the JAX package ignores it there)."""
+    step refuses ``use_sam`` (the JAX package ignores it there).
+
+    On a ``mesh``, ``bag`` is this rank's part of the batch
+    (``parallel/mesh.py::shard_bag``) and ``stkim_u`` the whole batch's
+    draws, of which the step keeps this rank's rows. The step runs with the
+    mesh active: the ACMIL_GA fused route works on this rank's slice of N,
+    every other head on the bag gathered over the seq group; the losses are
+    shares of the global batch's, and ``aux`` holds their sums over the data
+    ranks, the global values."""
     fam = _resolve_family(family)
     use_sam = bool(getattr(conf, "use_sam", False))
     custom = fam.make_step(model, conf)
-    if custom is not None:
-        if use_sam:
-            raise ValueError(f"use_sam: family {fam.name!r} brings its own "
-                             f"train step, which takes no SAM gradient")
-        return custom
+    if custom is not None and use_sam:
+        raise ValueError(f"use_sam: family {fam.name!r} brings its own "
+                         f"train step, which takes no SAM gradient")
     conf_d = fam.conf_dict(conf)
+    conf_d["mesh"] = mesh
     params = [p for p in model.parameters() if p.requires_grad]
     sam_rho = float(getattr(conf, "sam_rho", 0.05))
+    sliced = mesh is not None and fam.takes_seq_slice(
+        model, conf_d.get("fused", False))
 
-    def step(state: TrainState, bag, stkim_u=None) -> Dict[str, torch.Tensor]:
+    def body(state: TrainState, bag, full, stkim_u) -> Dict[str, torch.Tensor]:
         model.train()
-        valid = bag.mask.any(dim=1)
+        valid = full.mask.any(dim=1)
 
         def loss_fn():
             outputs = fam.train_outputs(model, bag, conf_d, stkim_u=stkim_u,
                                         generator=state.generator)
-            return fam.loss(outputs, bag, valid, conf_d)
+            return fam.loss(outputs, full, valid, conf_d)
 
         if use_sam:
             replay = _rng_replay(state, bag.feats.device)
@@ -223,7 +272,8 @@ def make_train_step(model, conf, family="acmil") -> Callable:
                 replay()
                 return loss_fn()
 
-            (loss, aux), grads = sam_gradient(replayed, params, sam_rho)
+            (loss, aux), grads = sam_gradient(replayed, params, sam_rho,
+                                              reduce_grads=sum_over_data_)
             for p, g in zip(params, grads):
                 p.grad = g
             norm = step_optimizer(state, params)
@@ -235,7 +285,30 @@ def make_train_step(model, conf, family="acmil") -> Callable:
         aux["grad_norm"] = norm
         return aux
 
+    def step(state: TrainState, bag, stkim_u=None) -> Dict[str, torch.Tensor]:
+        with active(mesh):
+            full = gather_seq(bag, mesh, feats=not sliced)
+            stkim_u = _data_rows(stkim_u, mesh, fam.draws_batch_dim)
+            if custom is not None:
+                aux = custom(state, full, stkim_u)
+            else:
+                aux = body(state, bag if sliced else full, full, stkim_u)
+            return _sum_shares(aux, mesh)
+
     return step
+
+
+def _sum_shares(aux: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """``aux``'s loss shares summed over the data ranks, in one collective
+    (the gradient norm is already the global one)."""
+    if mesh is None or mesh.data_group is None:
+        return aux
+    keys = [k for k in aux if k != "grad_norm"]
+    summed = C.all_reduce_(torch.stack([aux[k].float() for k in keys]),
+                           mesh.data_group)
+    out = dict(aux)
+    out.update({k: v.to(aux[k].dtype) for k, v in zip(keys, summed)})
+    return out
 
 
 def train_one_epoch(state: TrainState, train_step, loader, epoch: int,
@@ -274,13 +347,21 @@ def _finalize_metrics(probs_h, valid_h, labels_h, n_class: int) -> Dict[str, flo
     return m
 
 
-def evaluate(eval_step, loader, n_class: int) -> Dict[str, float]:
-    """Returns acc/auc/f1/loss over a split (`Step3_ACMIL:242-287`)."""
+def evaluate(eval_step, loader, n_class: int, mesh=None) -> Dict[str, float]:
+    """Returns acc/auc/f1/loss over a split (`Step3_ACMIL:242-287`). On a
+    ``mesh`` each data rank scores its rows of each batch, and the
+    probabilities, labels and valid flags of every data rank are gathered
+    (``engine/metrics.py::gather_across_hosts``) before the metrics, which
+    every rank then computes alike."""
     probs_dev, valid_dev, labels_dev = [], [], []
     for bag in loader:
         probs_dev.append(eval_step(bag))       # stays on device (async)
-        valid_dev.append(bag.mask.any(dim=1))
+        valid_dev.append(gather_seq(bag, mesh, feats=False).mask.any(dim=1))
         labels_dev.append(bag.label)
+    if mesh is not None and mesh.data_group is not None and probs_dev:
+        whole = gather_across_hosts(torch.cat(probs_dev), torch.cat(labels_dev),
+                                    torch.cat(valid_dev), mesh.data_group)
+        probs_dev, labels_dev, valid_dev = ([t] for t in whole)
     # one bulk host transfer at the end instead of a sync per batch
     to_np = lambda ts: [t.cpu().numpy() for t in ts]
     return _finalize_metrics(to_np(probs_dev), to_np(valid_dev),

@@ -17,6 +17,7 @@ initial weights from a ``torch.Generator`` seeded with ``conf.seed``.
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -205,11 +206,11 @@ def _compute_dtype(conf) -> torch.dtype:
 
 
 @register_model("transmil")
-def _transmil(conf):
+def _transmil(conf, mesh=None):
     return TransMIL(n_class=conf.n_class, d_feat=conf.D_feat,
                     d_inner=conf.D_inner, dtype=_compute_dtype(conf),
                     pad_mode=str(getattr(conf, "transmil_pad_mode", "zero")),
-                    generator=_gen(conf))
+                    generator=_gen(conf), mesh=mesh)
 
 
 def _mhim_shared_kwargs(conf):
@@ -268,10 +269,16 @@ def model_family(arch: str) -> str:
     return _REGISTRY[arch][1]
 
 
-def build_mil_model(conf):
-    """Returns (model, family) for ``conf.arch``."""
+def build_mil_model(conf, mesh=None):
+    """Returns (model, family) for ``conf.arch``. ``mesh`` (a
+    ``parallel.Mesh``) reaches only the builders that take it, the heads
+    with a sequence path inside the module (TransMIL); the others ignore
+    it."""
     family = model_family(conf.arch)
-    return _REGISTRY[conf.arch][0](conf), family
+    builder = _REGISTRY[conf.arch][0]
+    if mesh is not None and "mesh" in inspect.signature(builder).parameters:
+        return builder(conf, mesh=mesh), family
+    return builder(conf), family
 
 
 __all__ = ["ABMIL", "ACMIL_GA", "ACMIL_MHA", "BMILSpvis", "BMILVis",

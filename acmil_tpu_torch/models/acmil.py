@@ -20,11 +20,10 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from acmil_tpu_torch.models.common import (AttentionGated, Classifier1fc,
-                                           DimReduction)
+                                           DimReduction, dropout)
 from acmil_tpu_torch.ops.masked import masked_softmax, stkim_mask
 
 
@@ -144,8 +143,9 @@ class MultiHeadAttention(nn.Module):
                                 m, stkim_u, stkim_generator)
         attn = masked_softmax(logits, m)                          # [B, H, Q, N]
         out = (attn @ vh).transpose(1, 2).flatten(2)              # [B, Q, dim]
-        out = F.dropout(self.out_proj(out), self.droprate,
-                        training=self.training and not deterministic)
+        out = self.out_proj(out)
+        if self.training and not deterministic and self.droprate > 0:
+            out = dropout(out, self.droprate)
         return self.layer_norm(out), logits
 
 
@@ -168,8 +168,9 @@ class BagAttention(nn.Module):
         vh = self.v_proj(v).reshape(b, n, self.num_heads,
                                     d // self.num_heads).transpose(1, 2)
         out = (attn @ vh).transpose(1, 2).flatten(2)              # [B, Q, dim]
-        out = F.dropout(self.out_proj(out), self.droprate,
-                        training=self.training and not deterministic)
+        out = self.out_proj(out)
+        if self.training and not deterministic and self.droprate > 0:
+            out = dropout(out, self.droprate)
         return self.layer_norm(out)[:, 0]
 
 

@@ -55,6 +55,7 @@ from torch import nn
 from acmil_tpu_torch.models.acmil import _as_weight_dtype
 from acmil_tpu_torch.models.common import (Attn_Net_Gated, dropout,
                                            xavier_normal_init_)
+from acmil_tpu_torch.parallel.mesh import batch_mean, batch_total, draw
 
 _EPS = 1e-8
 PRIOR_MU = (-5.0, 0.0)        # class-dependent prior (bmil.py:352-353)
@@ -72,8 +73,7 @@ def vdo_kl(log_alp: torch.Tensor) -> torch.Tensor:
 
 def _normal(shape, like: torch.Tensor,
             generator: Optional[torch.Generator]) -> torch.Tensor:
-    return torch.randn(shape, generator=generator, device=like.device,
-                       dtype=like.dtype)
+    return draw(shape, generator, like.device, like.dtype, normal=True)
 
 
 class LinearVDO(nn.Module):
@@ -190,9 +190,10 @@ class BMILVis(nn.Module):
             mu_pr, lv_pr = _prior(label, mu)
             kl = _kl_logistic_normal(mu_pr[:, None], mu, lv_pr[:, None], logvar)
             if mask is not None:
-                kl_data = (kl * mask.to(kl.dtype)).sum() / mask.sum().clamp_min(1)
+                kl_data = (kl * mask.to(kl.dtype)).sum() / batch_total(
+                    mask.sum()).clamp_min(1)
             else:
-                kl_data = kl.mean()
+                kl_data = batch_mean(kl)
         return {"logits": logits, "attn": A[:, None, :], "kl_data": kl_data,
                 "kl_model": torch.zeros_like(kl_data)}
 
@@ -286,8 +287,8 @@ class BMILSpvis(nn.Module):
         kl_data = torch.zeros((), dtype=mu.dtype, device=mu.device)
         if label is not None:
             mu_pr, lv_pr = _prior(label, mu)
-            kl_data = _kl_logistic_normal(mu_pr[:, None, None], mu,
-                                          lv_pr[:, None, None], logvar).mean()
+            kl_data = batch_mean(_kl_logistic_normal(
+                mu_pr[:, None, None], mu, lv_pr[:, None, None], logvar))
 
         mu_s = F.conv2d(mu[:, None], self.smooth.to(mu.dtype), padding=1)[:, 0]
         g = mu_s

@@ -31,6 +31,7 @@ from acmil_tpu_torch.models.acmil import _as_weight_dtype
 from acmil_tpu_torch.models.common import (Attn_Net, Attn_Net_Gated, dropout,
                                            xavier_normal_init_)
 from acmil_tpu_torch.ops.masked import masked_fill, masked_softmax, softmax_one
+from acmil_tpu_torch.parallel.mesh import weighted_mean
 
 
 def _topk_gather(scores, gather_h, mask, k):
@@ -94,11 +95,8 @@ def _instance_loss(A, gather_h, mask, label, inst_w, inst_b, *, n_class: int,
     if subtyping:
         total = (total + ((1 - onehot) * torch.stack(losses_out, dim=-1))
                  .sum(dim=-1)) / n_class
-    if mask is None:
-        return total.mean()
     # average over real bags only: an all-masked row contributes nothing
-    valid = mask.any(dim=1).to(total.dtype)
-    return (total * valid).sum() / valid.sum().clamp_min(1.0)
+    return weighted_mean(total, None if mask is None else mask.any(dim=1))
 
 
 class _CLAMBase(nn.Module):

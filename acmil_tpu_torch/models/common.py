@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from acmil_tpu_torch.parallel.mesh import draw
+
 
 def torch_linear_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-draw every ``nn.Linear`` in ``module`` from torch's default
@@ -50,8 +52,10 @@ def xavier_normal_init_(module: nn.Module,
 def dropout(x: torch.Tensor, p: float,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout at rate ``p`` with its draws from ``generator``:
-    each element kept with probability 1 - p and scaled by 1 / (1 - p)."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    each element kept with probability 1 - p and scaled by 1 / (1 - p).
+    ``x``'s first axis is the batch: under an active mesh the global
+    batch's draws are made (``parallel/mesh.py::draw``)."""
+    keep = draw(x.shape, generator, x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
@@ -65,8 +69,10 @@ class Classifier1fc(nn.Module):
         self.dropout = nn.Dropout(droprate) if droprate > 0.0 else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.dropout is not None:
-            x = self.dropout(x)
+        # the module's dropout in training, its draws from torch's default
+        # generator through :func:`dropout`
+        if self.dropout is not None and self.training:
+            x = dropout(x, self.dropout.p)
         return self.fc(x)
 
 

@@ -37,6 +37,7 @@ from acmil_tpu_torch.models.common import (AttentionGated, Classifier1fc,
                                            torch_linear_init_)
 from acmil_tpu_torch.ops.masked import masked_fill, masked_softmax
 from acmil_tpu_torch.ops.prng import eval_uniforms
+from acmil_tpu_torch.parallel.mesh import draw, global_rows
 
 DISTILL_MODES = ("MaxMinS", "MaxS", "AFS")
 
@@ -51,8 +52,8 @@ def group_uniforms(shape: Tuple[int, int], device, deterministic: bool,
     if group_u is not None:
         return group_u.to(device)
     if deterministic:
-        return eval_uniforms(shape, device)
-    return torch.rand(shape, generator=generator, device=device)
+        return global_rows(lambda s: eval_uniforms(s, device), shape)
+    return draw(shape, generator, device)
 
 
 def group_permutation(u: torch.Tensor, mask: torch.Tensor, num_group: int

@@ -30,10 +30,12 @@ from acmil_tpu_torch.models.dsmil import DSMIL
 from acmil_tpu_torch.models.dtfd import DTFD
 from acmil_tpu_torch.ops.attn_pool import (fused_gated_attn_pool,
                                            gated_attn_pool_grad,
-                                           gated_attn_pool_grad_one)
+                                           gated_attn_pool_grad_one,
+                                           sharded_gated_attn_pool_grad)
 from acmil_tpu_torch.ops.dsmil_pool import fused_dsmil_pool
 from acmil_tpu_torch.ops.masked import (NEG_INF, masked_fill, masked_max,
                                         masked_softmax, stkim_drop)
+from acmil_tpu_torch.parallel import collectives as C
 
 # The DSMIL families route eval through B6 only at N ≥ this threshold,
 # copied verbatim from the JAX package (acmil_tpu/models/fast.py), so the
@@ -94,7 +96,7 @@ def abmil_infer(model, feats, mask):
 
 def _stkim_correct(bag, logits, feats, mask, w1, n_masked_patch: int,
                    mask_drop: float, u: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None, mesh=None):
     """Apply STKIM to an already-pooled bag as an O(K·k) correction.
 
     The kernel pools with the full softmax and emits the raw logits
@@ -114,6 +116,13 @@ def _stkim_correct(bag, logits, feats, mask, w1, n_masked_patch: int,
     this on the device (``lax.cond``); here the branch reads one element
     back to the host, one sync per step.
 
+    On a ``mesh`` with a seq axis, ``logits`` and ``mask`` are the whole
+    bag's (gathered) and ``feats`` this rank's slice of N: the top-k runs
+    over the whole bag, each rank adds the terms of its own rows, and a
+    psum over the seq group joins them. Every rank of the world takes the
+    branch of the world's least kept mass, as the JAX ``lax.cond`` takes
+    the branch of the global batch's.
+
     Returns (bag' [B, K, L], post-drop logits [B, K, N] with NEG_INF at
     dropped positions).
     """
@@ -121,6 +130,10 @@ def _stkim_correct(bag, logits, feats, mask, w1, n_masked_patch: int,
                                 mask[:, None, :], u, generator)
     if drop is None:
         return bag, logits
+    group = mesh.seq_group if mesh is not None else None
+    n_loc = feats.shape[1]
+    off = mesh.seq_index * n_loc if group is not None else 0
+    w1 = C.fan_out(w1, group)
     a_drop = torch.where(drop, NEG_INF, logits)
     lse_full = torch.logsumexp(torch.where(mask[:, None, :], logits, NEG_INF),
                                dim=-1, keepdim=True)
@@ -129,25 +142,36 @@ def _stkim_correct(bag, logits, feats, mask, w1, n_masked_patch: int,
     p_top = torch.exp(a_top - lse_full) * dflag.to(logits.dtype)
     kept_mass = 1.0 - p_top.sum(dim=-1)                       # [B, K]
 
-    if float(kept_mass.detach().min()) >= _STKIM_KEPT_MIN:
-        # subtract the dropped terms: gather ≤k rows per branch, recompute h
+    least = kept_mass.detach().min()
+    if mesh is not None:
+        least = C.all_reduce_(least.clone(), mesh.world_group, C.ReduceOp.MIN)
+    if float(least) >= _STKIM_KEPT_MIN:
+        # subtract the dropped terms: gather ≤k rows per branch (this
+        # rank's), recompute h
+        local = topk_idx - off
+        own = (local >= 0) & (local < n_loc)
         rows = torch.arange(feats.shape[0], device=feats.device)[:, None, None]
-        x_top = feats[rows, topk_idx]                         # [B, K, k, Df]
+        x_top = feats[rows, local.clamp(0, n_loc - 1)]        # [B, K, k, Df]
         h_top = torch.relu(x_top.to(w1.dtype) @ w1)           # [B, K, k, L]
-        num = bag - torch.einsum("bkt,bktl->bkl", p_top, h_top)
+        terms = torch.einsum("bkt,bktl->bkl",
+                             C.fan_out(p_top, group) * own.to(p_top.dtype),
+                             h_top)
+        num = bag - C.psum(terms, group)
         return num / kept_mass[..., None].clamp_min(_STKIM_KEPT_MIN / 4), a_drop
     # kept-softmax pooling from scratch: exact, at the cost of the
     # dim-reduction GEMM over every patch
-    h = torch.relu(feats.to(w1.dtype) @ w1)                   # [B, N, L]
+    h = torch.relu(feats.to(w1.dtype) @ w1)                   # [B, n, L]
     keep = mask[:, None, :] & ~drop
     attn = torch.softmax(torch.where(keep, a_drop, NEG_INF), dim=-1)
-    return torch.einsum("bkn,bnl->bkl", attn, h), a_drop
+    attn = C.group_slice(C.fan_out(attn, group), group, 2)
+    return C.psum(torch.einsum("bkn,bnl->bkl", attn, h), group), a_drop
 
 
 def acmil_ga_apply_batched(model, feats, mask,
                            stkim_u: Optional[torch.Tensor] = None,
                            stkim_generator: Optional[torch.Generator] = None,
-                           n_masked_patch: int = 0, mask_drop: float = 0.0):
+                           n_masked_patch: int = 0, mask_drop: float = 0.0,
+                           mesh=None):
     """Differentiable fused ACMIL_GA forward, batched: feats
     ``[B, N, D_feat]`` (fp16 or f32), mask ``[B, N]`` → (sub [B, K, C],
     slide [B, C], logits [B, K, N]).
@@ -159,14 +183,27 @@ def acmil_ga_apply_batched(model, feats, mask,
     a generator to draw them, STKIM applies as :func:`_stkim_correct`;
     without either it is off, as in eval. Logits hold ``NEG`` (-1e30) at
     pad slots, where the plain forward keeps raw values.
+
+    With a ``mesh`` whose seq axis is above 1, ``feats`` and ``mask`` are
+    this rank's slice of N: the pooling runs
+    ``ops/attn_pool.py::sharded_gated_attn_pool_grad`` (B1 and B2 on the
+    slice, the flash merge across the seq group), and the logits come back
+    gathered over the whole bag, ``[B, K, N_pad]``, as the loss reads them.
     """
     w1, *rest = _ga_weights(model)
-    bag, logits = gated_attn_pool_grad(feats, mask, w1, *rest)
+    group = mesh.seq_group if mesh is not None else None
+    if group is None:
+        bag, logits = gated_attn_pool_grad(feats, mask, w1, *rest)
+    else:
+        bag, logits = sharded_gated_attn_pool_grad(feats, mask, w1, *rest,
+                                                   group)
+        logits = C.all_gather(logits, group, dim=2)
+        mask = torch.cat(C.gather_list(mask, group), dim=1)
     stkim = stkim_u is not None or stkim_generator is not None
     if stkim and n_masked_patch > 0 and mask_drop > 0:
         bag, logits = _stkim_correct(bag, logits, feats, mask, w1,
                                      n_masked_patch, mask_drop, stkim_u,
-                                     stkim_generator)
+                                     stkim_generator, mesh)
     sub = _branch_heads(model, bag)
     slide = model.Slide_classifier.fc(bag.mean(dim=1))
     return sub, slide, logits

@@ -39,6 +39,7 @@ from acmil_tpu_torch.models.emb_position import PEG, SINCOS
 from acmil_tpu_torch.models.transmil import (LN_EPS, PPEG, TransLayer,
                                              _grid_shape, wrap_to_grid)
 from acmil_tpu_torch.ops.masked import masked_softmax
+from acmil_tpu_torch.parallel.mesh import batch_mean, draw
 
 _F32 = torch.float32
 
@@ -293,8 +294,7 @@ class MHIM(nn.Module):
     def _drop(self, mask, teacher_attn, mask_ratio_h, mask_u, generator):
         b, n = mask.shape
         if mask_u is None:
-            mask_u = torch.rand((2, b, n), generator=generator,
-                                device=mask.device)
+            mask_u = draw((2, b, n), generator, mask.device, batch_dim=1)
         elif tuple(mask_u.shape) != (2, b, n):
             raise ValueError(f"mask_u must be [2, {b}, {n}], got "
                              f"{tuple(mask_u.shape)}")
@@ -360,7 +360,8 @@ class MHIM(nn.Module):
 
 def soft_target_ce(student: torch.Tensor, teacher: torch.Tensor,
                    temp_t: float = 1.0, temp_s: float = 1.0) -> torch.Tensor:
-    """``SoftTargetCrossEntropy_v2`` (`modules/mhim.py:20-33`)."""
+    """``SoftTargetCrossEntropy_v2`` (`modules/mhim.py:20-33`); the mean
+    over the batch is the global batch's under an active mesh."""
     t = torch.softmax(teacher / temp_t, dim=-1)
     ls = torch.log_softmax(student / temp_s, dim=-1)
-    return torch.mean(torch.sum(-t * ls, dim=-1))
+    return batch_mean(torch.sum(-t * ls, dim=-1))

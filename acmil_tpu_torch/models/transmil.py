@@ -32,7 +32,11 @@ from torch import nn
 from acmil_tpu_torch.models.common import (dropout, torch_linear_init_,
                                            xavier_normal_init_)
 from acmil_tpu_torch.models.emb_position import torch_conv_init_
-from acmil_tpu_torch.ops.nystrom import depthwise_seq_conv, nystrom_attention
+from acmil_tpu_torch.ops.nystrom import (depthwise_seq_conv,
+                                         nystrom_attention,
+                                         sharded_depthwise_seq_conv,
+                                         sharded_nystrom_attention)
+from acmil_tpu_torch.parallel import collectives as C
 
 LN_EPS = 1e-6
 
@@ -54,7 +58,17 @@ class NystromAttention(nn.Module):
     rows, as in the pip package, which never gets a mask. ``init`` is
     ``"torch"`` (torch defaults) or ``"xavier"`` (MHIM's SAttention:
     xavier-normal Linear weights, zero biases; the conv keeps torch's
-    default)."""
+    default).
+
+    With ``seq_group`` set (a mesh's seq group, :class:`TransMIL`'s
+    ``mesh``), every rank holds the whole sequence, and the Nystrom core and
+    the value conv run on this rank's slice of it
+    (``ops/nystrom.py::sharded_nystrom_attention``,
+    ``sharded_depthwise_seq_conv``), their outputs gathered: the parts the
+    JAX package runs under ``shard_map``. Attention rows (heatmaps) take the
+    one-process core."""
+
+    seq_group = None
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  num_landmarks: int = 256, pinv_iterations: int = 6,
@@ -97,21 +111,38 @@ class NystromAttention(nn.Module):
                 mask = torch.ones((b, n), dtype=torch.bool, device=x.device)
             mask = F.pad(mask, (pad, 0), value=bool(self.strict_pad))
 
-        qkv = _linear(self.to_qkv, x, self.dtype)
+        group = None if return_attn_rows else self.seq_group
+        w_qkv = self.to_qkv.weight
+        if group is not None:
+            # this rank's rows of the replicated sequence, projected here
+            x = C.group_slice(C.fan_out(x, group), group, 1)
+            w_qkv = C.fan_out(w_qkv, group)
+            if mask is not None:
+                mask = C.group_slice(mask, group, 1)
+        qkv = F.linear(x.to(self.dtype), w_qkv.to(self.dtype))
 
         def heads_first(t):
             return t.reshape(b, t.shape[1], h, dh).transpose(1, 2)
 
         q, k, v = (heads_first(t) for t in qkv.chunk(3, dim=-1))
         q = q * (dh ** -0.5)
-        out, rows = nystrom_attention(
-            q, k, v, mask, m, self.pinv_iterations,
-            return_attn_rows=return_attn_rows, attn_row_offset=pad)
+        rows = None
+        if group is not None:
+            out = sharded_nystrom_attention(q, k, v, mask, m, group,
+                                            self.pinv_iterations)
+        else:
+            out, rows = nystrom_attention(
+                q, k, v, mask, m, self.pinv_iterations,
+                return_attn_rows=return_attn_rows, attn_row_offset=pad)
         if self.res_conv is not None:
             # zero the masked slots first: v at pad rows is nonzero once
             # trained, and the 33-wide conv would mix it into valid rows
             v_in = v if mask is None else v * mask[:, None, :, None].to(v.dtype)
-            out = out + depthwise_seq_conv(v_in, self.res_conv.weight[:, 0, :, 0])
+            w = self.res_conv.weight[:, 0, :, 0]
+            out = out + (depthwise_seq_conv(v_in, w) if group is None
+                         else sharded_depthwise_seq_conv(v_in, w, group))
+        if group is not None:
+            out = C.all_gather(out, group, dim=2)
         out = out.transpose(1, 2).reshape(b, -1, h * dh)
         out = _linear(self.to_out[0], out, self.dtype).to(torch.float32)
         if not deterministic and self.droprate > 0:
@@ -213,11 +244,13 @@ class TransMIL(nn.Module):
     ``forward(feats [B, N, D_feat], mask [B, N])`` returns the logits
     ``[B, C]``, with ``return_attn`` also the cls token's attention over the
     bag ``[B, N]`` from the second layer's rebuilt rows. Dropout draws come
-    from ``generator``."""
+    from ``generator``. With a ``mesh`` whose seq axis is above 1, each
+    layer's Nystrom core runs sequence-sharded (:class:`NystromAttention`);
+    the caller gives every seq rank the whole bag."""
 
     def __init__(self, n_class: int, d_feat: int, d_inner: int = 512,
                  dtype: torch.dtype = torch.float32, pad_mode: str = "zero",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         if pad_mode not in ("zero", "wrap"):
             raise ValueError(f"pad_mode must be zero|wrap, got {pad_mode!r}")
@@ -234,6 +267,9 @@ class TransMIL(nn.Module):
         self.layer2 = TransLayer(d_inner, dtype, strict, generator)
         self.norm = nn.LayerNorm(d_inner, eps=LN_EPS)
         self._fc2 = torch_linear_init_(nn.Linear(d_inner, n_class), generator)
+        if mesh is not None:
+            for layer in (self.layer1, self.layer2):
+                layer.attn.seq_group = mesh.seq_group
 
     def forward(self, feats: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 deterministic: bool = True, return_attn: bool = False,

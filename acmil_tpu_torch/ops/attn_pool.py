@@ -597,3 +597,91 @@ def gated_attn_pool_grad_one(feats, mask, w1, b1, v, bv, u, bu, w, bw
     backward."""
     return _GatedAttnPoolGradOne.apply(feats, mask, w1, b1, v, bv, u, bu, w,
                                        bw)
+
+
+# ---------------------------------------------------------------------------
+# Sequence-sharded pooling: B1 and B2 on each rank's slice, a flash merge
+# ---------------------------------------------------------------------------
+
+def _merge_seq(bag, m, s, group):
+    """The flash merge of per-rank (bag, m, s) across ``group``
+    (``_sharded_pool_fwd_impl``): ``m* = pmax(m)``, ``w = s e^(m - m*)``,
+    bag = psum(bag w) / psum(w), lse = m* + log psum(w). A slice with no
+    valid row has s = 0 and bag 0, so it adds w = 0 and nothing else."""
+    from acmil_tpu_torch.parallel import collectives as C
+
+    m_star = C.pmax(m, group)
+    wgt = s * torch.exp(m - m_star)                         # [B, K]
+    # one collective for the weighted bags and the weights together
+    acc = C.all_reduce_(torch.cat([bag * wgt[..., None], wgt[..., None]],
+                                  dim=-1), group)
+    denom = acc[..., -1]
+    bag_g = acc[..., :-1] / torch.clamp_min(denom[..., None], 1e-12)
+    lse = m_star + torch.log(torch.clamp_min(denom, 1e-30))
+    return bag_g, lse
+
+
+class _ShardedGatedAttnPoolGrad(torch.autograd.Function):
+    """Forward: B1 on this rank's slice with its stats, then the merge over
+    the seq group. Backward: B2 on the slice under the global ``lse`` and
+    ``c``; the weight gradients summed over the seq group, the features'
+    gradient local."""
+
+    @staticmethod
+    def forward(ctx, feats, mask, group, w1, b1, v, bv, u, bu, w, bw):
+        bag, logits, m, s = _pool_forward(feats, mask, w1, b1, v, bv, u, bu,
+                                          w, bw)
+        bag, lse = _merge_seq(bag, m, s, group)
+        ctx.group = group
+        ctx.save_for_backward(feats, mask, w1, b1, v, bv, u, bu, w, bw, lse,
+                              bag)
+        return bag, logits
+
+    @staticmethod
+    def backward(ctx, d_bag, d_logits):
+        from acmil_tpu_torch.parallel import collectives as C
+
+        feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, bag = ctx.saved_tensors
+        d_bag = d_bag.to(lse.dtype)
+        c = (d_bag * bag).sum(dim=2)                        # [B, K], global
+        d_feats, *d_weights = fused_gated_attn_pool_bwd(
+            feats, mask, w1, b1, v, bv, u, bu, w, bw, lse, c, d_bag,
+            d_logits.to(lse.dtype), need_dx=ctx.needs_input_grad[0])
+        # the weights' gradients of this slice's rows, summed in one
+        # collective
+        sizes = [g.numel() for g in d_weights]
+        flat = C.all_reduce_(torch.cat([g.reshape(-1) for g in d_weights]),
+                             ctx.group)
+        d_weights = [g.view(t.shape).to(t.dtype) for g, t in
+                     zip(flat.split(sizes), (w1, b1, v, bv, u, bu, w, bw))]
+        return (None if d_feats is None else d_feats.to(feats.dtype), None,
+                None, *d_weights)
+
+
+def sharded_gated_attn_pool_grad(feats, mask, w1, b1, v, bv, u, bu, w, bw,
+                                 group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable pooling of a bag whose patch axis is split over the
+    ranks of ``group`` (the mesh's seq group; None for one rank), the port
+    of ``sharded_gated_attn_pool_grad``. ``feats [B, n, Df]`` and
+    ``mask [B, n]`` are this rank's contiguous slice of N.
+
+    Returns (bag [B, K, L], the same on every rank of the group, the global
+    softmax's pooling; logits [B, K, n] of this rank's slice). Each rank
+    runs kernel B1 on its slice (its plain version on the CPU) and the
+    flash merge joins them; the backward runs kernel B2 on the slice with
+    the global log-normaliser, so the result equals the one-process pooling
+    up to f32 summation order. Gradients reach the weights (summed over the
+    group) always and ``feats`` (local) when it requires one."""
+    return _ShardedGatedAttnPoolGrad.apply(feats, mask, group, w1, b1, v,
+                                           bv, u, bu, w, bw)
+
+
+def sharded_gated_attn_pool(feats, mask, w1, b1, v, bv, u, bu, w, bw, group
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward of :func:`sharded_gated_attn_pool_grad` alone, for
+    inference: (bag [B, K, L], this slice's logits [B, K, n])."""
+    with torch.no_grad():
+        bag, logits, m, s = _pool_forward(feats, mask, w1, b1, v, bv, u, bu,
+                                          w, bw)
+        bag, _ = _merge_seq(bag, m, s, group)
+    return bag, logits

@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from acmil_tpu_torch.parallel.mesh import draw
+
 # Matches the reference's masked_fill value (transformer.py:320). Large but
 # finite so the softmax stays NaN-free even when a row is fully masked.
 NEG_INF = -1e9
@@ -93,7 +95,8 @@ def stkim_drop(attn_logits: torch.Tensor, n_masked_patch: int,
     or ``(None, None)`` when STKIM is a no-op.
 
     ``u`` holds the uniforms ``[..., K, N]`` in [0, 1); without it they are
-    drawn with ``generator`` (torch's default generator when None). The
+    drawn with ``generator`` (torch's default generator when None), the
+    global batch's under an active mesh (``parallel/mesh.py::draw``). The
     top-k runs on detached scores.
     """
     n = attn_logits.shape[-1]
@@ -122,8 +125,7 @@ def stkim_drop(attn_logits: torch.Tensor, n_masked_patch: int,
     # rank trick: the top-k positions compete on iid uniforms and the
     # n_drop smallest are dropped, a uniform random n_drop-subset
     if u is None:
-        u = torch.rand(attn_logits.shape, generator=generator,
-                       device=attn_logits.device)
+        u = draw(attn_logits.shape, generator, attn_logits.device)
     elif tuple(u.shape) != tuple(attn_logits.shape):
         raise ValueError(f"u must have the logits' shape "
                          f"{tuple(attn_logits.shape)}, got {tuple(u.shape)}")

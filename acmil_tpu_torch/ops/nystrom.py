@@ -132,3 +132,114 @@ def depthwise_seq_conv(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     h, ksize = w.shape
     return F.conv2d(v, w[:, None, :, None].to(v.dtype),
                     padding=(ksize // 2, 0), groups=h)
+
+
+def sharded_nystrom_attention(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, mask: Optional[torch.Tensor],
+                              num_landmarks: int, group,
+                              pinv_iterations: int = 6,
+                              eps: float = 1e-8) -> torch.Tensor:
+    """:func:`nystrom_attention` of a sequence split over the ranks of
+    ``group`` (the mesh's seq group), the port of
+    ``sharded_nystrom_attention``. ``q``, ``k``, ``v`` ``[B, H, n, Dh]`` and
+    ``mask [B, n]`` are this rank's contiguous slice of N; the landmarks
+    split with it (``num_landmarks`` a multiple of the group's size), so
+    nothing is approximated:
+
+    - the landmark means of each slice are gathered;
+    - attn2 and its pseudo-inverse are computed whole on every rank;
+    - attn1's rows are this slice's, over all landmarks;
+    - attn3's softmax runs over the split position axis: its row max by
+      pmax, its denominator and ``attn3 @ v`` by one psum.
+
+    Returns this slice's output ``[B, H, n, Dh]`` float32. Differentiable:
+    gathered and summed values enter the slice's work through ``fan_out``.
+    """
+    from acmil_tpu_torch.parallel import collectives as C
+
+    s = C.group_size(group)
+    m = num_landmarks
+    if m % s:
+        raise ValueError(f"landmarks {m} not divisible by seq shards {s}")
+    b, h, n_loc, dh = q.shape
+    m_loc = m // s
+    if n_loc % m_loc:
+        raise ValueError(f"slice of {n_loc} not divisible by {m_loc} "
+                         f"landmarks")
+    l = n_loc // m_loc
+    neg = -1e9
+
+    if mask is not None:
+        mk = mask[:, None, :, None].to(q.dtype)
+        q_, k_, v_ = q * mk, k * mk, v * mk
+        counts = mask.reshape(b, m_loc, l).sum(dim=-1)           # [B, m/S]
+        divisor = counts[:, None, :, None].to(q.dtype) + eps
+        lmv_loc = counts > 0
+    else:
+        q_, k_, v_ = q, k, v
+        divisor = torch.tensor(float(l), dtype=q.dtype, device=q.device)
+        lmv_loc = torch.ones((b, m_loc), dtype=torch.bool, device=q.device)
+    q_l = q_.reshape(b, h, m_loc, l, dh).sum(dim=3) / divisor
+    k_l = k_.reshape(b, h, m_loc, l, dh).sum(dim=3) / divisor
+
+    # the landmark stats, [B, H, m, Dh] on every rank
+    q_lg = C.fan_out(C.all_gather(q_l, group, dim=2), group)
+    k_lg = C.fan_out(C.all_gather(k_l, group, dim=2), group)
+    lmv = torch.cat(C.gather_list(lmv_loc, group), dim=1)        # [B, m]
+
+    lm_cols = lmv[:, None, None, :]
+    attn1 = masked_softmax(torch.einsum("bhnd,bhmd->bhnm", q_, k_lg), lm_cols)
+    if mask is not None:
+        attn1 = attn1 * mask[:, None, :, None].to(q.dtype)
+
+    attn2 = masked_softmax(torch.einsum("bhid,bhjd->bhij", q_lg, k_lg),
+                           lm_cols)
+    lm_row = lmv[:, None, :, None].to(q.dtype)
+    eye = torch.eye(m, dtype=q.dtype, device=q.device)
+    attn2 = attn2 * lm_row + eye * (1.0 - lm_row)
+    attn2_inv = newton_schulz_pinv(attn2, pinv_iterations)
+
+    sim3 = torch.einsum("bhmd,bhnd->bhmn", q_lg, k_)
+    if mask is not None:
+        sim3 = torch.where(mask[:, None, None, :], sim3, neg)
+    # the max only stabilises, so it carries no gradient
+    row_max = C.pmax(sim3.amax(dim=-1, keepdim=True), group)
+    p3 = torch.exp(sim3 - row_max)
+    if mask is not None:
+        p3 = torch.where(mask[:, None, None, :], p3, 0.0)
+    # the denominator rides along the [m, Dh] partial products: one psum
+    part = torch.cat([torch.einsum("bhmn,bhnd->bhmd", p3, v_),
+                      p3.sum(dim=-1, keepdim=True)], dim=-1)
+    tot = C.fan_out(C.psum(part, group), group)
+    attn3_v = tot[..., :-1] / torch.clamp_min(tot[..., -1:], eps) * lm_row
+
+    f32 = torch.float32
+    return (attn1.to(f32) @ attn2_inv) @ attn3_v.to(f32)
+
+
+def sharded_depthwise_seq_conv(v: torch.Tensor, w: torch.Tensor,
+                               group) -> torch.Tensor:
+    """:func:`depthwise_seq_conv` of a sequence split over the ranks of
+    ``group``, the port of ``sharded_depthwise_seq_conv``: each slice
+    ``v [B, H, n, Dh]`` takes ``ksize // 2`` rows from each neighbour, zeros
+    at the two ends. The halos come from one all_gather of every slice's
+    edge rows (``gloo`` has no point-to-point calls for CUDA tensors)."""
+    from acmil_tpu_torch.parallel import collectives as C
+
+    s = C.group_size(group)
+    if s == 1:
+        return depthwise_seq_conv(v, w)
+    h, ksize = w.shape
+    pad = ksize // 2
+    if v.shape[2] < pad:
+        raise ValueError(f"slice of {v.shape[2]} rows is shorter than the "
+                         f"conv's halo of {pad}")
+    idx = C.group_rank(group)
+    edges = C.fan_out(C.all_gather(
+        torch.stack([v[:, :, :pad], v[:, :, -pad:]]), group, dim=0), group)
+    zeros = torch.zeros_like(v[:, :, :pad])
+    from_left = edges[2 * idx - 1] if idx > 0 else zeros     # left's right edge
+    from_right = edges[2 * idx + 2] if idx < s - 1 else zeros
+    ext = torch.cat([from_left, v, from_right], dim=2)
+    return F.conv2d(ext, C.fan_out(w, group)[:, None, :, None].to(v.dtype),
+                    groups=h)

@@ -8,7 +8,7 @@ with: two gradient passes a step.
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,16 +34,21 @@ def _norm(ts: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def sam_gradient(loss_fn: Callable[[], Tuple[torch.Tensor, dict]],
                  params: Sequence[torch.Tensor], rho: float = 0.05,
-                 adaptive: bool = False
+                 adaptive: bool = False,
+                 reduce_grads: Optional[Callable[[List[torch.Tensor]],
+                                                 None]] = None
                  ) -> Tuple[Tuple[torch.Tensor, dict], List[torch.Tensor]]:
     """``loss_fn()`` → ``(loss, aux)`` at the parameters' current values.
     Returns ``((loss, aux), sam_grads)``: the loss and ``aux`` of the first
     pass, detached, and the gradient at the perturbed point. ``loss_fn``
     must make the same random draws on each call; the parameters come back
     from a saved copy, bit for bit, whatever ``p + ε - ε`` would round
-    to."""
+    to. ``reduce_grads``, when given, completes the first pass's gradients
+    in place before the ascent (their sum over a mesh's data ranks)."""
     loss, aux = loss_fn()
     grads = _grads(loss, params)
+    if reduce_grads is not None:
+        reduce_grads(grads)
     with torch.no_grad():
         if adaptive:
             norm = _norm([p.abs() * g for p, g in zip(params, grads)])

@@ -110,15 +110,20 @@ class MetricLogger:
 
 class MetricsWriter:
     """wandb-compatible writer: uses wandb when importable+enabled, else
-    appends JSONL under ``log_dir`` (`Wandb_Writer`, utils/utils.py:486)."""
+    appends JSONL under ``log_dir`` (`Wandb_Writer`, utils/utils.py:486).
+    With ``enabled`` False (every rank of a mesh but global rank 0) it
+    writes nothing."""
 
     def __init__(self, project: str = "wsi_classification", mode: str = "disabled",
                  log_dir: str = "./logs", config: Optional[dict] = None,
-                 group: str = ""):
+                 group: str = "", enabled: bool = True):
         self.mode = mode
         self._wandb = None
         self._pending: dict = {}
         self._step = 0
+        self._fh = None
+        if not enabled:
+            return
         if mode != "disabled":
             try:
                 import wandb
@@ -141,6 +146,8 @@ class MetricsWriter:
         return os.path.dirname(self.path)
 
     def log(self, metrics: dict, commit: bool = True, step: Optional[int] = None):
+        if self._fh is None:
+            return
         if self._wandb is not None:
             self._wandb.log(metrics, commit=commit, step=step)
         self._pending.update({k: float(v) for k, v in metrics.items()})
@@ -158,4 +165,5 @@ class MetricsWriter:
     def finish(self):
         if self._wandb is not None:
             self._wandb.finish()
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()

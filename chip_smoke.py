@@ -217,13 +217,30 @@ code is non-zero:
    (per-row cosine ``COS_MIN``); patches/s, the encoder's ms a batch and
    the host's read ms; ``--roi_dir`` on a synthetic ImageFolder writes
    ``roi_feats.npy``, card against CPU within cosine ``COS_MIN``.
+21. Step3 across processes (``acmil_tpu_torch/parallel``), each launch
+   ``python -m torch.distributed.run --standalone`` of this script's
+   ``--mesh-worker`` mode, every rank required to exit 0: (a) NCCL at world
+   size 1, ``cli/step3_acmil.py --mesh_data 1`` for one epoch on phase 15's
+   corpus, its metrics and B1/B2 launches equal to the run without a mesh;
+   (b) two ranks on the card joined by ``gloo`` at seq 2, one ACMIL_GA step
+   at full width (``MESH_LENGTHS`` patches in bucket ``MESH_N``, the second
+   bag's valid rows all on rank 0): B1 and B2 once a rank, bag and lse
+   within ``MESH_POOL_ATOL`` of the one-process kernel, loss and every
+   gradient by phase 7's rules, each rank's step timed with CUDA events and
+   its collectives' host time apart, and which collectives ``gloo`` takes
+   on CUDA tensors; (c) four ranks, ``gloo``, data 2
+   x seq 2: ``cli/step3_acmil.py`` with ``mesh_shape`` on phase 16's
+   slides, one epoch and eval, metrics within ``MESH_METRIC_ATOL`` of the
+   one-process run's, one writer; (d) TransMIL's step at seq 2 on
+   ``MESH_TM_N`` patches against the one-process step.
 
 The line before the kernels line is ``{"zoo": {...}}``: phase 18's and
 phase 19's numbers per arch (training epoch wall and loss, predict seconds,
 card-vs-CPU error, step and eval ms, device ms and device events; phase
 19's also the step's peak memory), the kernel launches phase 18 counted,
 phase 19's checks under ``transmil_mhim`` and phase 20's numbers under
-``dtfd_sam_resnet``. The line before the last but one is ``{"kernels": [...]}``
+``dtfd_sam_resnet`` and phase 21's under ``mesh``. The line before the last
+but one is ``{"kernels": [...]}``
 with each
 kernel's launches on its path (B7's are counted over phases 3-13, where no
 production path calls it, and its entry also gives the count of its
@@ -242,7 +259,10 @@ phase 15 (``launches_pipeline_step2``, ``_step3``, ``_predict``,
 ``_step4``), and B1 and B2 their launches on phase 17's CLAM paths
 (``launches_clam_*``) and on phase 20's DTFD and SAM paths
 (``launches_dtfd_*``, ``launches_sam_step3``) with their device time at
-DTFD's call shape split by kernel (``dtfd_call``); then the card's name and power limit; the last line
+DTFD's call shape split by kernel (``dtfd_call``), and on phase 21's mesh
+paths (``launches_sharded_step3`` and B1's ``launches_sharded_eval``: the
+data 2 x seq 2 epoch summed over its ranks; ``launches_sharded_step_seq2``,
+``launches_mesh_nccl_world1``); then the card's name and power limit; the last line
 is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2405,7 +2425,7 @@ def pipeline_run(smi: str, tmp: str) -> dict:
     return {"B3": b3, "B5": b5, "B1_step3": step3["B1"], "B2": step3["B2"],
             "B1_predict": b1_predict, "B1_step4": b1_step4,
             "slide_dir": slide_dir, "coords_dir": coords_dir,
-            "feat_path": res["out_path"],
+            "feat_path": res["out_path"], "yml": yml,
             "names": names, "step4_err": step4_err}
 
 
@@ -3983,9 +4003,502 @@ def vit_attn_b7_vs_plain(smi: str) -> dict:
             "b5_edges": {"max_abs_err": b5_worst, "checks": b5_checks}}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: Step3 across processes (acmil_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+
+# the sequence-sharded step's bags: a 100000-patch bag under max_patches
+# 131072 (bucket 131072: 65536 fp16 rows a rank at seq 2), and a 40000-patch
+# bag padded to the same bucket, whose valid rows all lie on rank 0
+MESH_N, MESH_LENGTHS = 131072, (100000, 40000)
+# TransMIL at seq 2: one bag of this many patches (bucket 65536)
+MESH_TM_N, MESH_TM_BUCKET = 50000, 65536
+# the sharded pooling's bag and lse against the one-process kernel's (the
+# JAX package's tests/test_attn_pool.py sharded-pool tolerance)
+MESH_POOL_ATOL = 2e-5
+# TransMIL's Nystrom pseudo-inverse amplifies the order of f32 sums (the
+# tolerance of tests/test_torch_transmil.py): loss relative, each gradient
+# relative to its largest magnitude
+MESH_TM_LOSS_RTOL, MESH_TM_GRAD_REL = 1e-4, 1e-3
+# metrics of a mesh run's epoch against the one-process run's
+MESH_METRIC_ATOL = 1e-4
+# the phase's ranks must be done in this many seconds a launch
+MESH_LAUNCH_TIMEOUT = 300
+
+
+class _CollectiveClock:
+    """Host seconds spent in ``parallel/collectives.py``'s transfers
+    (``all_reduce_``, ``gather_list``, ``broadcast_``), each timed from a
+    synchronised card: ``gloo`` moves CUDA tensors through host memory, so
+    the wall time around a call is its cost, the copies and the wait for
+    the other ranks included."""
+
+    def __init__(self):
+        from acmil_tpu_torch.parallel import collectives as C
+
+        self.C, self.seconds, self.calls = C, 0.0, 0
+        self._orig = {n: getattr(C, n) for n in
+                      ("all_reduce_", "gather_list", "broadcast_")}
+        for name, fn in self._orig.items():
+            setattr(C, name, self._timed(fn))
+
+    def _timed(self, fn):
+        def run(*a, **k):
+            # the card's queued work first, so the clock reads the transfer
+            # and the wait for the other ranks, not this rank's kernels
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+        return run
+
+    def reset(self):
+        self.seconds, self.calls = 0.0, 0
+
+
+def _mesh_bag(n_lengths, n_pad, device, seed):
+    """The global bag of the sharded step: fp16 features from a seeded CUDA
+    generator, the first ``n`` rows of each bag valid, labels 1, 0, ..."""
+    from acmil_tpu_torch.data.bags import Bag
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b = len(n_lengths)
+    feats = torch.randn(b, n_pad, D_FEAT, generator=gen, device=device,
+                        dtype=torch.float16)
+    mask = torch.zeros(b, n_pad, dtype=torch.bool, device=device)
+    for i, n in enumerate(n_lengths):
+        mask[i, :n] = True
+    feats = feats * mask[..., None]
+    coords = torch.zeros(b, n_pad, 2, dtype=torch.int32, device=device)
+    label = torch.tensor([(i + 1) % 2 for i in range(b)], device=device)
+    return Bag(feats, mask, coords, label)
+
+
+def _mesh_ga_setup(device, mesh=None):
+    from acmil_tpu_torch.config import Config
+    from acmil_tpu_torch.engine import create_train_state, make_train_step
+    from acmil_tpu_torch.models import build_mil_model
+    from acmil_tpu_torch.parallel import shard_params
+
+    conf = Config.from_yaml(YML, {"arch": "ga", "n_token": N_TOKEN,
+                                  "n_masked_patch": N_MASKED_PATCH,
+                                  "mask_drop": MASK_DROP,
+                                  "max_patches": MESH_N})
+    model, fam = build_mil_model(conf, mesh=mesh)
+    model.to(device)
+    if mesh is not None:
+        shard_params(model, mesh)
+    state = create_train_state(model, conf, 10, family=fam)
+    return model, state, make_train_step(model, conf, fam, mesh=mesh)
+
+
+def _mesh_tm_setup(device, mesh=None):
+    from acmil_tpu_torch.config import Config
+    from acmil_tpu_torch.engine import create_train_state, make_train_step
+    from acmil_tpu_torch.models import build_mil_model
+    from acmil_tpu_torch.parallel import shard_params
+
+    conf = Config.from_yaml(YML, {"arch": "transmil"})
+    model, fam = build_mil_model(conf, mesh=mesh)
+    model.to(device)
+    if mesh is not None:
+        shard_params(model, mesh)
+    state = create_train_state(model, conf, 10, family=fam)
+    return model, state, make_train_step(model, conf, fam, mesh=mesh)
+
+
+def _grads(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _gloo_cuda_probe(device) -> dict:
+    """Which collectives of the sharded path ``gloo`` takes on a CUDA
+    tensor (``parallel/collectives.py`` hands them to it as they are):
+    ``ok``, or the first line of its refusal. Run on a group of its own, so
+    that a refusal leaves the mesh's groups alone."""
+    import torch.distributed as dist
+
+    group = dist.new_group(backend="gloo")
+    t = torch.ones(4, device=device)
+    out = {}
+    calls = {
+        "all_reduce_sum": lambda: dist.all_reduce(t.clone(), group=group),
+        "all_reduce_max": lambda: dist.all_reduce(
+            t.clone(), op=dist.ReduceOp.MAX, group=group),
+        "all_reduce_min": lambda: dist.all_reduce(
+            t.clone(), op=dist.ReduceOp.MIN, group=group),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(t) for _ in range(dist.get_world_size())],
+            t, group=group),
+        "broadcast": lambda: dist.broadcast(t.clone(), src=0, group=group)}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:        # a refusal is the answer sought
+            out[name] = str(e).splitlines()[0][:160]
+    return out
+
+
+def _mesh_worker_steps(out: str) -> None:
+    """(b) and (d) on this rank of a (data 1, seq 2) gloo mesh: ACMIL_GA's
+    sequence-sharded step at full width, then TransMIL's."""
+    from acmil_tpu_torch.models.fast import _ga_weights
+    from acmil_tpu_torch.ops import attn_pool as ap
+    from acmil_tpu_torch.parallel import (init_distributed, make_mesh,
+                                          shard_bag)
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(device, backend="gloo", timeout=MESH_LAUNCH_TIMEOUT)
+    mesh = make_mesh(1, 2, device)
+    res = {"rank": mesh.rank, "gloo_cuda": _gloo_cuda_probe(device)}
+    clock = _CollectiveClock()
+
+    whole = _mesh_bag(MESH_LENGTHS, MESH_N, device, SEED + 21)
+    part = shard_bag(whole, mesh, shard_seq=True)
+    u = torch.rand(len(MESH_LENGTHS), N_TOKEN, MESH_N, device=device,
+                   generator=torch.Generator(device=device).manual_seed(SEED))
+    torch.manual_seed(SEED)
+    model, state, step = _mesh_ga_setup(device, mesh)
+    # the merge's bag and lse, read for the check (outside the counted step)
+    with torch.no_grad():
+        b_, _, m, s = ap._pool_forward(part.feats, part.mask,
+                                       *_ga_weights(model))
+        bag, lse = ap._merge_seq(b_, m, s, mesh.seq_group)
+    res["valid_rows"] = int(part.mask.sum())
+    ap.fused_gated_attn_pool_batched.launches = 0
+    ap.fused_gated_attn_pool_bwd.launches = 0
+    aux = step(state, part, stkim_u=u)
+    torch.cuda.synchronize()
+    res["B1"] = ap.fused_gated_attn_pool_batched.launches
+    res["B2"] = ap.fused_gated_attn_pool_bwd.launches
+    res["loss"], res["grad_norm"] = float(aux["loss"]), float(aux["grad_norm"])
+    torch.save({"bag": bag.cpu(), "lse": lse.cpu(),
+                "grads": {n: g.cpu() for n, g in _grads(model).items()}},
+               f"{out}.ga{mesh.rank}.pt")
+    # the step timed: CUDA events around it, and the host's time in the
+    # collectives apart
+    clock.reset()
+    res["step_ms"] = _event_ms(lambda: step(state, part, stkim_u=u), 5)
+    res["collective_ms"] = clock.seconds * 1e3 / 5
+    res["collective_calls"] = clock.calls / 5
+    # the card's share: every kernel of a step, and B1's and B2's alone
+    res["device_ms"], res["device_events"] = _device_profile(
+        lambda: step(state, part, stkim_u=u), 3)
+    res["b1_b2_device_ms"], _ = _device_ms(
+        lambda: step(state, part, stkim_u=u),
+        ap.B1_KERNELS + ap.B2_KERNELS, reps=3)
+    del whole, part, u, model, state, step
+    torch.cuda.empty_cache()
+
+    # (d) TransMIL: the bag's slices gathered, the Nystrom core sharded
+    tm_whole = _mesh_bag((MESH_TM_N,), MESH_TM_BUCKET, device, SEED + 22)
+    tm_part = shard_bag(tm_whole, mesh, shard_seq=True)
+    torch.manual_seed(SEED)
+    model, state, step = _mesh_tm_setup(device, mesh)
+    aux = step(state, tm_part)
+    res["tm_loss"] = float(aux["loss"])
+    torch.save({n: g.cpu() for n, g in _grads(model).items()},
+               f"{out}.tm{mesh.rank}.pt")
+    clock.reset()
+    res["tm_step_ms"] = _event_ms(lambda: step(state, tm_part), 3)
+    res["tm_collective_ms"] = clock.seconds * 1e3 / 3
+    with open(f"{out}.rank{mesh.rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def _mesh_worker_cli(out: str, argv: list) -> None:
+    """``cli/step3_acmil.py`` on this rank, B1 and B2 counted apart for the
+    train steps and the eval (``evaluate``)."""
+    import acmil_tpu_torch.cli.train as cli
+    from acmil_tpu_torch.cli import step3_acmil
+    from acmil_tpu_torch.ops import attn_pool as ap
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    evaluate, evals = cli.evaluate, {"B1": 0}
+
+    def counted(*a, **k):
+        before = ap.fused_gated_attn_pool_batched.launches
+        try:
+            return evaluate(*a, **k)
+        finally:
+            evals["B1"] += ap.fused_gated_attn_pool_batched.launches - before
+
+    cli.evaluate = counted
+    ap.fused_gated_attn_pool_batched.launches = 0
+    ap.fused_gated_attn_pool_bwd.launches = 0
+    clock = _CollectiveClock()
+    t0 = time.perf_counter()
+    best = step3_acmil.main(argv)
+    torch.cuda.synchronize()
+    res = {"best": best, "wall_s": time.perf_counter() - t0,
+           "B1": ap.fused_gated_attn_pool_batched.launches,
+           "B2": ap.fused_gated_attn_pool_bwd.launches,
+           "B1_eval": evals["B1"], "collective_s": clock.seconds,
+           "backend": (torch.distributed.get_backend()
+                       if torch.distributed.is_initialized() else None)}
+    rank = int(os.environ.get("RANK", "0"))
+    with open(f"{out}.rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def mesh_worker(job: str, out: str, *argv: str) -> None:
+    """One rank of a phase-21 launch (``python -m torch.distributed.run ...
+    chip_smoke.py --mesh-worker JOB OUT [ARGV...]``)."""
+    if job == "steps":
+        _mesh_worker_steps(out)
+    elif job == "cli":
+        _mesh_worker_cli(out, list(argv))
+    else:
+        raise ValueError(f"no mesh job {job!r}")
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+def _torchrun(n: int, job: str, out: str, *argv: str) -> list:
+    """``n`` ranks of ``mesh_worker(job)`` under torchrun; every rank must
+    exit 0. Returns each rank's result."""
+    import sys
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(n), os.path.abspath(__file__),
+           "--mesh-worker", job, out, *argv]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=MESH_LAUNCH_TIMEOUT)
+    if r.returncode:
+        raise RuntimeError(f"{n}-rank {job} launch failed ({r.returncode}):\n"
+                           f"{r.stdout[-3000:]}\n{r.stderr[-6000:]}")
+    res = []
+    for rank in range(n):
+        with open(f"{out}.rank{rank}.json") as f:
+            res.append(json.load(f))
+    res[0]["launch_s"] = time.perf_counter() - t0
+    return res
+
+
+def _same_metrics(got: dict, want: dict, what: str) -> float:
+    worst = 0.0
+    for k, v in want.items():
+        if k == "epoch":
+            if got[k] != v:
+                raise AssertionError(f"{what}: best epoch {got[k]} != {v}")
+            continue
+        if math.isnan(v) and math.isnan(got[k]):
+            continue
+        worst = max(worst, abs(got[k] - v))
+    if not worst <= MESH_METRIC_ATOL:
+        raise AssertionError(f"{what}: metrics {got} against one process "
+                             f"{want}")
+    return worst
+
+
+def mesh_run(smi: str, tmp: str, pipe: dict, corpus: dict) -> dict:
+    """Phase 21: Step3 on a (data, seq) mesh of processes, the ranks started
+    by torchrun. (a) NCCL at world size 1 on phase 15's corpus; (b) gloo, two
+    ranks on the card at seq 2: ACMIL_GA's sharded step at full width against
+    the one-process step; (c) gloo, four ranks, data 2 x seq 2: one epoch of
+    cli/step3_acmil.py against the one-process run; (d) TransMIL's step at
+    seq 2 against the one-process step."""
+    from acmil_tpu_torch.cli import step3_acmil
+    from acmil_tpu_torch.ops import attn_pool as ap
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "mesh")
+    os.makedirs(root)
+    out = {}
+
+    # (a) NCCL at world size 1, against the run without a mesh
+    def pipe_argv(tag, *extra):
+        return ["--config", pipe["yml"], "--train_epoch", "1",
+                "--n_token", str(N_TOKEN), "--n_masked_patch",
+                str(N_MASKED_PATCH), "--mask_drop", str(MASK_DROP),
+                "--ckpt_dir", os.path.join(root, tag, "ckpt"),
+                "--log_dir", os.path.join(root, tag, "log"),
+                "--device", "cuda", *extra]
+
+    ap.fused_gated_attn_pool_batched.launches = 0
+    ap.fused_gated_attn_pool_bwd.launches = 0
+    want = step3_acmil.main(pipe_argv("one_a"))
+    want_counts = (ap.fused_gated_attn_pool_batched.launches,
+                   ap.fused_gated_attn_pool_bwd.launches)
+    (a,) = _torchrun(1, "cli", os.path.join(root, "a"),
+                     *pipe_argv("nccl", "--mesh_data", "1"))
+    if a["backend"] != "nccl" or (a["B1"], a["B2"]) != want_counts:
+        raise AssertionError(f"(a) backend {a['backend']}, launches B1 "
+                             f"{a['B1']} B2 {a['B2']} against {want_counts}")
+    err_a = _same_metrics(a["best"], want, "(a) NCCL world 1")
+    out["nccl_world1"] = {"B1": a["B1"], "B2": a["B2"],
+                          "metric_err": err_a, "wall_s": a["wall_s"],
+                          "launch_s": a["launch_s"]}
+    print(f"mesh (a): cli/step3_acmil.py --mesh_data 1 under torchrun, "
+          f"nccl, world 1: one epoch's metrics equal the run without a "
+          f"mesh (max |diff| {err_a:.3e}), B1 {a['B1']} B2 {a['B2']} as "
+          f"there; {a['wall_s']:.2f} s in main(), {a['launch_s']:.2f} s the "
+          f"launch [{smi}]")
+
+    # (b) and (d): two ranks on the card, gloo, seq 2
+    ranks = _torchrun(2, "steps", os.path.join(root, "b"))
+    device = torch.device("cuda")
+    whole = _mesh_bag(MESH_LENGTHS, MESH_N, device, SEED + 21)
+    u = torch.rand(len(MESH_LENGTHS), N_TOKEN, MESH_N, device=device,
+                   generator=torch.Generator(device=device).manual_seed(SEED))
+    torch.manual_seed(SEED)
+    model, state, step = _mesh_ga_setup(device)
+    from acmil_tpu_torch.models.fast import _ga_weights
+
+    with torch.no_grad():
+        b_, _, m, s = ap._pool_forward(whole.feats, whole.mask,
+                                       *_ga_weights(model))
+        lse1 = m + torch.log(torch.clamp_min(s, 1e-30))
+    aux = step(state, whole, stkim_u=u)
+    g1 = _grads(model)
+    loss1 = float(aux["loss"])
+    pool_err, grad_worst = 0.0, 0.0
+    for r in ranks:
+        got = torch.load(os.path.join(root, f"b.ga{r['rank']}.pt"),
+                         map_location=device)
+        pool_err = max(pool_err, float((got["bag"] - b_).abs().max()),
+                       float((got["lse"] - lse1).abs().max()))
+        if not abs(r["loss"] - loss1) <= STEP_LOSS_RTOL * abs(loss1):
+            raise AssertionError(f"(b) rank {r['rank']} loss {r['loss']} "
+                                 f"against {loss1}")
+        for n, g in g1.items():
+            e = float((got["grads"][n] - g).abs().max())
+            if not e <= STEP_GRAD_REL * float(g.abs().max()) + STEP_GRAD_ATOL:
+                raise AssertionError(f"(b) rank {r['rank']} gradient of {n} "
+                                     f"differs by {e:.3e}")
+            if n != "attention.attention_weights.bias":
+                grad_worst = max(grad_worst, _rel_to_max(got["grads"][n], g))
+        if (r["B1"], r["B2"]) != (1, 1):
+            raise AssertionError(f"(b) rank {r['rank']} launched B1 {r['B1']}"
+                                 f" B2 {r['B2']} in one step")
+    if pool_err > MESH_POOL_ATOL:
+        raise AssertionError(f"(b) sharded bag/lse differ by {pool_err:.3e}")
+    one_ms = _event_ms(lambda: step(state, whole, stkim_u=u), 5)
+    del whole, u, model, state, step, b_, g1
+    torch.cuda.empty_cache()
+    out["ga_seq2"] = {"ranks": ranks, "pool_err": pool_err,
+                      "grad_rel": grad_worst, "one_process_step_ms": one_ms}
+    print(f"mesh (b): ACMIL_GA at full width (Df {D_FEAT}, L = A = "
+          f"{D_INNER}, K {N_TOKEN}, STKIM {N_MASKED_PATCH}/{MASK_DROP}), two "
+          f"bags of {MESH_LENGTHS} patches in bucket {MESH_N}, seq 2 over two "
+          f"gloo ranks on the card (valid rows a rank: "
+          f"{[r['valid_rows'] for r in ranks]}): B1 and B2 once a rank a "
+          f"step; bag and lse against the one-process kernel max |diff| "
+          f"{pool_err:.3e}, loss {[r['loss'] for r in ranks]} against "
+          f"{loss1:.7f}, worst gradient {grad_worst:.3e} of its max; step "
+          f"{[round(r['step_ms'], 4) for r in ranks]} ms a rank (CUDA events, "
+          f"median of 5), of it {[round(r['collective_ms'], 4) for r in ranks]} "
+          f"ms of host time in {ranks[0]['collective_calls']:.0f} gloo "
+          f"collectives; one process {one_ms:.4f} ms [{smi}]")
+    print(f"mesh (b): a rank's step on the card (torch.profiler): "
+          f"{[r['device_ms'] for r in ranks]} ms of device time in "
+          f"{[r['device_events'] for r in ranks]} events, B1 + B2 "
+          f"{[r['b1_b2_device_ms'] for r in ranks]} ms; gloo on CUDA tensors "
+          f"as they are: {ranks[0]['gloo_cuda']} [{smi}]")
+
+    # (d) TransMIL against the one-process step
+    tm_whole = _mesh_bag((MESH_TM_N,), MESH_TM_BUCKET, device, SEED + 22)
+    torch.manual_seed(SEED)
+    model, state, step = _mesh_tm_setup(device)
+    aux = step(state, tm_whole)
+    tm_loss, tm_g = float(aux["loss"]), _grads(model)
+    tm_worst = 0.0
+    for r in ranks:
+        if not abs(r["tm_loss"] - tm_loss) <= MESH_TM_LOSS_RTOL * abs(tm_loss):
+            raise AssertionError(f"(d) rank {r['rank']} TransMIL loss "
+                                 f"{r['tm_loss']} against {tm_loss}")
+        got = torch.load(os.path.join(root, f"b.tm{r['rank']}.pt"),
+                         map_location=device)
+        for n, g in tm_g.items():
+            e = _rel_to_max(got[n], g)
+            if not e <= MESH_TM_GRAD_REL:
+                raise AssertionError(f"(d) rank {r['rank']} TransMIL "
+                                     f"gradient of {n}: {e:.3e} of its max")
+            tm_worst = max(tm_worst, e)
+    tm_ms = _event_ms(lambda: step(state, tm_whole), 3)
+    del tm_whole, model, state, step, tm_g
+    torch.cuda.empty_cache()
+    out["transmil_seq2"] = {"loss": tm_loss, "grad_rel": tm_worst,
+                            "step_ms": [r["tm_step_ms"] for r in ranks],
+                            "collective_ms": [r["tm_collective_ms"]
+                                              for r in ranks],
+                            "one_process_step_ms": tm_ms}
+    print(f"mesh (d): TransMIL one step at seq 2 on {MESH_TM_N} patches "
+          f"(bucket {MESH_TM_BUCKET}): loss {[r['tm_loss'] for r in ranks]} "
+          f"against one process {tm_loss:.7f}, worst gradient {tm_worst:.3e} "
+          f"of its max; step {[round(r['tm_step_ms'], 4) for r in ranks]} "
+          f"ms a rank, {[round(r['tm_collective_ms'], 4) for r in ranks]} ms "
+          f"of it in gloo collectives; one process {tm_ms:.4f} ms [{smi}]")
+
+    # (c) four ranks on the card, gloo, data 2 x seq 2, against one process
+    yml = os.path.join(root, "mesh.yml")
+    with open(corpus["yml"]) as src, open(yml, "w") as dst:
+        dst.write(src.read() + "\nmesh_shape: {data: 2, seq: 2}"
+                  "\ndist_backend: gloo\n")
+
+    def corpus_argv(cfg, tag, device):
+        return ["--config", cfg, "--data_dir", corpus["data_dir"],
+                "--arch", "ga", "--B", "2",
+                "--train_epoch", "1", "--n_token", str(N_TOKEN),
+                "--n_masked_patch", str(N_MASKED_PATCH), "--mask_drop",
+                str(MASK_DROP), "--ckpt_dir", os.path.join(root, tag, "ckpt"),
+                "--log_dir", os.path.join(root, tag, "log"), "--device",
+                device]
+
+    want = step3_acmil.main(corpus_argv(corpus["yml"], "one_c", "cuda"))
+    ranks_c = _torchrun(4, "cli", os.path.join(root, "c"),
+                        *corpus_argv(yml, "mesh_c", "cuda:0"))
+    err_c = max(_same_metrics(r["best"], want, f"(c) rank {i}")
+                for i, r in enumerate(ranks_c))
+    for i, r in enumerate(ranks_c):
+        if r["B1"] - r["B1_eval"] != r["B2"] or not r["B2"] \
+                or not r["B1_eval"] or r["backend"] != "gloo":
+            raise AssertionError(f"(c) rank {i}: {r}")
+    logs = os.listdir(os.path.join(root, "mesh_c", "log"))
+    if sorted(os.listdir(os.path.join(root, "mesh_c", "ckpt"))) != [
+            "checkpoint-best.pth", "checkpoint-last.pth"] \
+            or logs != ["metrics.jsonl"]:
+        raise AssertionError(f"(c) one writer: ckpt/log hold {logs}")
+    out["data2_seq2_cli"] = {
+        "B1_step3": sum(r["B1"] - r["B1_eval"] for r in ranks_c),
+        "B2_step3": sum(r["B2"] for r in ranks_c),
+        "B1_eval": sum(r["B1_eval"] for r in ranks_c),
+        "metric_err": err_c, "wall_s": [r["wall_s"] for r in ranks_c],
+        "collective_s": [r["collective_s"] for r in ranks_c],
+        "launch_s": ranks_c[0]["launch_s"]}
+    print(f"mesh (c): cli/step3_acmil.py with mesh_shape {{data: 2, seq: 2}}, "
+          f"four gloo ranks on the card, B 2, one epoch and eval on phase "
+          f"16's slides: metrics equal the one-process run's (max |diff| "
+          f"{err_c:.3e}); B1 {[r['B1'] - r['B1_eval'] for r in ranks_c]} and "
+          f"B2 {[r['B2'] for r in ranks_c]} a rank in training, B1 "
+          f"{[r['B1_eval'] for r in ranks_c]} in eval; "
+          f"{[round(r['wall_s'], 2) for r in ranks_c]} s in main(), of it "
+          f"{[round(r['collective_s'], 2) for r in ranks_c]} s in gloo "
+          f"collectives; {ranks_c[0]['launch_s']:.2f} s the launch [{smi}]")
+    print(f"mesh phase wall {time.perf_counter() - t_phase:.2f} s [{smi}]")
+    return out
+
+
 def main() -> None:
+    import sys
+
     from acmil_tpu_torch.ops.vit_attn import fused_vit_attention
 
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        # one rank of phase 21, started by torchrun
+        mesh_worker(*sys.argv[2:])
+        return
     smi = card()
     build()
     # B7 has no production caller: its count over every path below (phases
@@ -4014,10 +4527,13 @@ def main() -> None:
         zoo = zoo_run(smi, tmp, pipe, corpus)
         transmil_mhim = transmil_mhim_run(smi, tmp, pipe, corpus)
         p20 = dtfd_sam_resnet_run(smi, tmp, pipe, corpus)
+        p21 = mesh_run(smi, tmp, pipe, corpus)
         del corpus
     zoo["archs"].update(transmil_mhim.pop("archs"))
     zoo["transmil_mhim"] = transmil_mhim
     zoo["dtfd_sam_resnet"] = p20
+    zoo["mesh"] = p21
+    mesh_ga, mesh_cli = p21["ga_seq2"]["ranks"], p21["data2_seq2_cli"]
     dtfd_t, dtfd_r, sam = p20["dtfd_train"], p20["dtfd_routes"], p20["sam"]
     b5_edges = b7.pop("b5_edges")
     vit["B5"]["max_abs_err"] = max(vit["B5"]["max_abs_err"],
@@ -4048,6 +4564,10 @@ def main() -> None:
         "launches_dtfd_natural_supervised_step3":
             dtfd_t["natural_supervised"]["B1"],
         "launches_sam_step3": sam["B1"],
+        "launches_sharded_step3": mesh_cli["B1_step3"],
+        "launches_sharded_eval": mesh_cli["B1_eval"],
+        "launches_sharded_step_seq2": sum(r["B1"] for r in mesh_ga),
+        "launches_mesh_nccl_world1": p21["nccl_world1"]["B1"],
         "dtfd_call": dtfd_r["B1_call"],
         **b1}, {
         "name": "B2 fused gated-attention pooling (backward)",
@@ -4064,6 +4584,9 @@ def main() -> None:
         "launches_dtfd_natural_supervised_step3":
             dtfd_t["natural_supervised"]["B2"],
         "launches_sam_step3": sam["B2"],
+        "launches_sharded_step3": mesh_cli["B2_step3"],
+        "launches_sharded_step_seq2": sum(r["B2"] for r in mesh_ga),
+        "launches_mesh_nccl_world1": p21["nccl_world1"]["B2"],
         "dtfd_call": dtfd_r["B2_call"],
         **b2}, {
         "name": "B3 fused ViT layer (chain: 4 GEMM launches, 2 of them "

@@ -37,7 +37,7 @@ from acmil_tpu_torch.config import Config
 from acmil_tpu_torch.data.bags import Bag
 from acmil_tpu_torch.engine import (create_train_state, families,
                                     get_family, make_train_step)
-from acmil_tpu_torch.models import build_mil_model, dtfd
+from acmil_tpu_torch.models import acmil, build_mil_model, dtfd
 from acmil_tpu_torch.models.convert import from_jax_params
 from acmil_tpu_torch.ops.sam import sam_gradient
 from tests.conftest import make_synthetic_bags
@@ -175,14 +175,16 @@ def test_both_passes_make_the_same_draws(arch, monkeypatch):
     _, tb = _bags(5)
     draws = []
     if arch == "mha_single":
-        real = torch.nn.functional.dropout
+        # MHA's dropout draws from torch's default generator through
+        # models/common.py::dropout
+        real = acmil.dropout
 
-        def rec(x, p=0.5, training=True, inplace=False):
-            out = real(x, p, training, inplace)
+        def rec(x, p, generator=None):
+            out = real(x, p, generator)
             draws.append((out == 0) & (x != 0))
             return out
 
-        monkeypatch.setattr(torch.nn.functional, "dropout", rec)
+        monkeypatch.setattr(acmil, "dropout", rec)
     else:
         real_u, real_d = dtfd.group_uniforms, dtfd.dropout
         monkeypatch.setattr(dtfd, "group_uniforms", lambda *a: draws.append(

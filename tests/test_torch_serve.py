@@ -150,7 +150,8 @@ def test_torch_feature_file_matches_h5(corpus):
 def test_import_pulls_in_no_jax():
     code = ("import sys, acmil_tpu_torch, acmil_tpu_torch.cli.predict, "
             "acmil_tpu_torch.models.fast, acmil_tpu_torch.models.convert, "
-            "acmil_tpu_torch.data, acmil_tpu_torch.engine.checkpoint; "
+            "acmil_tpu_torch.data, acmil_tpu_torch.engine.checkpoint, "
+            "acmil_tpu_torch.parallel, acmil_tpu_torch.cli.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'acmil_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -174,8 +175,7 @@ def test_port_sources_import_no_jax():
 def test_config_matches_jax_config(yml):
     want = JaxConfig.from_yaml(yml, {"n_token": 5}).to_dict()
     got = Config.from_yaml(yml, {"n_token": 5}).to_dict()
-    for tpu_only in ("scan_epoch", "mesh_shape"):
-        want.pop(tpu_only)
+    want.pop("scan_epoch")                   # the TPU-only field
     assert got == want
 
 

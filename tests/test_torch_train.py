@@ -18,6 +18,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import yaml
 
 from acmil_tpu.cli import train as jax_cli
 from acmil_tpu.config import Config as JaxConfig
@@ -573,13 +574,34 @@ def test_step3_finds_a_torch_feature_file(corpus, monkeypatch):
     (["--mesh_data", "2"], "mesh_data"),
     (["--pod"], "pod"),
     (["--scan_epoch"], "scan_epoch"),
-    # --arch mha trains ACMIL_MHA now; it reaches the trainer's own refusals
+    # --arch mha trains ACMIL_MHA, on a --pod mesh too
     (["--arch", "mha", "--pod"], "pod"),
 ])
-def test_step3_refuses_what_is_not_ported(argv, match):
+def test_step3_refuses_what_is_not_ported(argv, match, corpus, tmp_path):
+    """``match`` names the option. scan_epoch stays refused; a mesh of 2
+    in one process is refused with the launch it needs; --pod (ported) in
+    one process trains on a world-1 mesh."""
     cfg = os.path.join(REPO, "config/camelyon_medical_ssl_config.yml")
-    with pytest.raises((ValueError, NotImplementedError), match=match):
-        step3_acmil.main(["--config", cfg, *argv])
+    if match != "pod":
+        want = "torchrun --nproc_per_node 2" if match == "mesh_data" else match
+        with pytest.raises((ValueError, NotImplementedError), match=want):
+            step3_acmil.main(["--config", cfg, "--device", "cpu", *argv])
+        return
+    d, _ = corpus
+    os.symlink(d / "pt" / "patch_feats_pretrain_medical_ssl.pt",
+               tmp_path / "patch_feats_pretrain_tiny.pt")
+    with open(tmp_path / "tiny.yml", "w") as f:
+        yaml.safe_dump(dict(dataset="camelyon", n_class=N_CLASS,
+                            pretrain="tiny", D_feat=D, D_inner=L_DIM,
+                            n_token=3, train_epoch=1, min_bucket=256,
+                            split_dir=str(d / "splits")), f)
+    best = step3_acmil.main(["--config", str(tmp_path / "tiny.yml"),
+                             "--data_dir", str(tmp_path), "--seed", "0",
+                             "--ckpt_dir", str(tmp_path / "ckpt"),
+                             "--log_dir", str(tmp_path / "log"),
+                             "--device", "cpu", *argv])
+    assert best["epoch"] == 0 and 0.0 <= best["acc"] <= 1.0
+    assert os.path.exists(tmp_path / "ckpt" / "checkpoint-last.pth")
 
 
 def test_teacher_init_is_refused(tmp_path):
