@@ -22,14 +22,31 @@ Readers a machine may lack have torch-file adapters, each chosen by a flag:
 ``wsi/tiling.py::save_coords_pt`` instead of ``<slide>.h5``, and
 ``--out_format pt`` writes ``patch_feats_pretrain_{pretrain}.pt`` through
 ``data/ptio.py::write_feature_pt`` instead of the H5 (both need no
-``h5py``). ``--mesh_data`` and ``--mesh_model`` are not ported and
-raise.
+``h5py``).
+
+Across processes, one per device as ``torchrun`` starts them, with the JAX
+script's meaning and precedence (``Step2_feature_extract.py:186-201``)::
+
+    torchrun --nproc_per_node 4 -m acmil_tpu_torch.cli.step2_extract \
+        --mesh_data 2 --mesh_model 2 ...
+
+``--mesh_model M > 1`` splits a ViT trunk's heads and MLP hidden units over
+M ranks (``parallel/tp.py``) on a ``(max(mesh_data, 1), M)`` mesh;
+otherwise ``--mesh_data N`` gives a data mesh of N ranks. On a data axis
+each rank reads and encodes only every N-th row of every batch, and the
+features are gathered back into coord order; under tensor parallelism the
+first rank of each model group reads and broadcasts the images. Rank 0
+alone writes the output. The backend is NCCL on the card and gloo on the
+CPU, unless the YAML's ``dist_backend`` names one: ``gloo`` puts several
+ranks on one card. ``--roi_dir`` runs on rank 0
+alone, before any mesh is made.
 """
 
 from __future__ import annotations
 
 import argparse
 import csv
+import itertools
 import os
 import time
 from typing import List, Optional
@@ -45,16 +62,34 @@ from acmil_tpu_torch.utils.device import entry_device
 from acmil_tpu_torch.wsi.slide import SLIDE_EXTS, open_slide
 from acmil_tpu_torch.wsi.tiling import load_coords_h5, load_coords_pt
 
-NOT_PORTED = ("mesh_data", "mesh_model")
-
 
 def extract_slide_features(embed, spec, slide, coords, patch_size_l0,
-                           patch_level, batch_size=256) -> np.ndarray:
+                           patch_level, batch_size=256, mesh=None,
+                           device=None) -> np.ndarray:
     """fp16 features ``[len(coords), embed_dim]`` of one slide; ``embed`` is
-    the closure of ``encoder_feature_fn``, built once for all slides."""
+    the closure of ``encoder_feature_fn`` (or, under tensor parallelism,
+    ``parallel/tp.py::tp_encoder_feature_fn``), built once for all slides.
+    On a ``mesh`` this rank reads its rows of each batch (on the model
+    group's first rank only, which broadcasts them to the group) and every
+    rank gets the whole slide's features."""
+    shard = (0, 1) if mesh is None else (mesh.data_index, mesh.data)
     src = SlidePatchBatches(slide, coords, patch_size_l0, patch_level,
-                            target_size=spec.img_size, batch_size=batch_size)
-    feats = [embed(imgs)[:n] for imgs, _, n in src]   # stays on the device
+                            target_size=spec.img_size, batch_size=batch_size,
+                            shard=shard)
+    tp = mesh is not None and mesh.model_group is not None
+    if tp:
+        from acmil_tpu_torch.parallel.tp import broadcast_images
+
+        block = (src.rows, spec.img_size, spec.img_size, 3)
+    reads = not tp or mesh.model_index == 0
+    batches = (item[0] for item in src) if reads else itertools.repeat(
+        None, len(src))
+    feats = []
+    for g, imgs in enumerate(batches):
+        if tp:
+            imgs = broadcast_images(imgs, mesh, block, device)
+        n = min(batch_size, len(coords) - g * batch_size)
+        feats.append(embed(imgs)[:n])                 # stays on the device
     if not feats:
         return np.zeros((0, spec.embed_dim), np.float16)
     return torch.cat(feats).cpu().numpy()
@@ -127,8 +162,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; without a card, raises "
                         "unless this is cpu)")
-    for flag in NOT_PORTED:
-        p.add_argument(f"--{flag}", default=None, help="not ported: raises")
+    p.add_argument("--mesh_data", type=int, default=None,
+                   help="shard extraction batches over N processes (one "
+                        "per device, under torchrun; 0 = one process)")
+    p.add_argument("--mesh_model", type=int, default=None,
+                   help="tensor-parallel degree of the trunk: attention "
+                        "heads and MLP hidden units over N processes "
+                        "(Megatron, ViT trunks only; composes with "
+                        "--mesh_data as a (data, model) mesh)")
     return p.parse_args(argv)
 
 
@@ -203,32 +244,64 @@ class _PtOut:
         write_feature_pt(self.path, self.slides)
 
 
+def build_mesh(conf, device: torch.device):
+    """The extraction mesh from ``mesh_model`` and ``mesh_data`` (the JAX
+    script's precedence), or None when neither asks for one. Joins the
+    process group ``torchrun`` describes first; ``make_mesh`` raises,
+    naming the launch, unless the world has the mesh's size."""
+    mesh_data = int(getattr(conf, "mesh_data", 0) or 0)
+    mesh_model = int(getattr(conf, "mesh_model", 0) or 0)
+    if mesh_model <= 1 and not mesh_data:
+        return None
+    from acmil_tpu_torch.parallel import init_distributed, make_mesh
+
+    if device.type == "cuda":
+        torch.cuda.set_device(device)       # NCCL's objects go to this card
+    init_distributed(device, getattr(conf, "dist_backend", None))
+    if mesh_model > 1:
+        return make_mesh(max(mesh_data, 1), 1, device, model=mesh_model)
+    return make_mesh(mesh_data, 1, device)
+
+
+def _skipped_by_lead(names, out, mesh) -> set:
+    """The slides the output already holds, as rank 0 (the writer) sees
+    them, on every rank: every rank must walk the same slides, or the ranks
+    reach different collectives."""
+    held = {n for n in names if n in out} if out is not None else None
+    if mesh is None or mesh.world == 1:
+        return held
+    import torch.distributed as dist
+
+    box = [held]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     """Extracts every slide; returns ``{"out_path", "slides": {name:
     patches}, "slide_seconds": {name: seconds}, "patches", "seconds"}``
     (seconds of extraction, the slide's open and reads included). With
-    ``--roi_dir``: ``{"out_path", "centroids"}``."""
+    ``--roi_dir``: ``{"out_path", "centroids"}`` (centroids None on a rank
+    other than 0). On a mesh every rank returns the same slides; rank 0
+    alone writes."""
     args = parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(args, flag) not in (None, "", "0"):
-            raise NotImplementedError(
-                f"--{flag} is a feature of the JAX package's Step2 that "
-                "acmil_tpu_torch has not ported (ROADMAP.md, Queue A)")
     device = entry_device(args.device)
-    overrides = {k: v for k, v in vars(args).items()
-                 if v is not None and k not in NOT_PORTED}
+    overrides = {k: v for k, v in vars(args).items() if v is not None}
     conf = (Config.from_yaml(args.config, overrides) if args.config
             else Config.from_dict(overrides))
     conf.resolve_dims()
     batch_size = int(getattr(conf, "batch_size", 0) or 256)
     if args.roi_dir:
+        # before any mesh, as the JAX script; one writer under torchrun
+        out_path = os.path.join(args.output_dir, "roi_feats.npy")
+        if int(os.environ.get("RANK", "0")) != 0:
+            return {"out_path": out_path, "centroids": None}
         model, spec = _encoder(conf)
         embed = encoder_feature_fn(model, spec, device,
                                    out_dtype=torch.float32)
         centroids = extract_roi_features(embed, spec, args.roi_dir,
                                          args.output_dir, batch_size)
-        return {"out_path": os.path.join(args.output_dir, "roi_feats.npy"),
-                "centroids": centroids}
+        return {"out_path": out_path, "centroids": centroids}
     if not args.slide_dir or not args.coords_dir:
         raise SystemExit("--slide_dir and --coords_dir are required "
                          "(or use --roi_dir)")
@@ -241,27 +314,43 @@ def main(argv: Optional[List[str]] = None) -> dict:
                          "Step1 writes them under <save_dir>/patches/")
     load_coords = load_coords_h5 if args.coords_format == "h5" else load_coords_pt
 
-    model, spec = _encoder(conf)
-    embed = encoder_feature_fn(model, spec, device)
+    if getattr(conf, "mesh_data", None) or getattr(conf, "mesh_model", None):
+        from acmil_tpu_torch.parallel import local_device
 
+        device = local_device(args.device)
+    mesh = build_mesh(conf, device)
+    model, spec = _encoder(conf)
+    if mesh is not None and mesh.model > 1:
+        from acmil_tpu_torch.parallel.tp import tp_encoder_feature_fn
+
+        embed = tp_encoder_feature_fn(model, spec, mesh, device)
+    else:
+        embed = encoder_feature_fn(model, spec, device, mesh=mesh)
+
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     os.makedirs(args.output_dir, exist_ok=True)
     out_path = os.path.join(args.output_dir, f"patch_feats_pretrain_"
                                              f"{conf.pretrain}.{args.out_format}")
-    out = _H5Out(out_path) if args.out_format == "h5" else _PtOut(out_path)
+    out = None
+    if lead:
+        out = _H5Out(out_path) if args.out_format == "h5" else _PtOut(out_path)
     done, secs = {}, {}
     try:
+        held = _skipped_by_lead([os.path.splitext(cf)[0]
+                                 for cf in coord_files], out, mesh)
         for cf in coord_files:
             name = os.path.splitext(cf)[0]
-            if name in out:
-                print(f"{name}: exists, skipping")
+            if name in held:
+                say(f"{name}: exists, skipping")
                 continue
             slide_path = _find_slide(args.slide_dir, name)
             if slide_path is None:
-                print(f"{name}: slide not found, skipping")
+                say(f"{name}: slide not found, skipping")
                 continue
             coords, _, attrs = load_coords(os.path.join(args.coords_dir, cf))
             if len(coords) == 0:
-                print(f"{name}: no patches, skipping")
+                say(f"{name}: no patches, skipping")
                 continue
             t0 = time.perf_counter()
             slide = open_slide(slide_path)
@@ -269,15 +358,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                 attrs.get("downsample", 1.0))
             feats = extract_slide_features(
                 embed, spec, slide, coords, patch_size_l0,
-                int(attrs.get("patch_level", 0)), batch_size)
+                int(attrs.get("patch_level", 0)), batch_size, mesh, device)
             dt = time.perf_counter() - t0
-            out.add(name, feats, coords, labels.get(name, 0))
+            if out is not None:
+                out.add(name, feats, coords, labels.get(name, 0))
             done[name], secs[name] = len(feats), dt
-            print(f"{name}: {len(feats)} patches in {dt:.1f}s "
-                  f"({len(feats) / max(dt, 1e-9):.0f} patches/s)")
+            say(f"{name}: {len(feats)} patches in {dt:.1f}s "
+                f"({len(feats) / max(dt, 1e-9):.0f} patches/s)")
     finally:
-        out.close()
-    print(f"features -> {out_path}")
+        if out is not None:
+            out.close()
+    say(f"features -> {out_path}")
     return {"out_path": out_path, "slides": done, "slide_seconds": secs,
             "patches": sum(done.values()), "seconds": sum(secs.values())}
 

@@ -167,35 +167,60 @@ def preprocess(images_u8: torch.Tensor, spec: EncoderSpec,
     return ((x - mean) / std).to(dtype)
 
 
+def to_device(images_u8, device: torch.device) -> torch.Tensor:
+    """A uint8 image batch on ``device``: numpy through pinned memory to a
+    card, a tensor already there as it is."""
+    if isinstance(images_u8, torch.Tensor):
+        return images_u8.to(device)
+    t = torch.from_numpy(np.ascontiguousarray(images_u8))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def gather_rows(feats: torch.Tensor, mesh) -> torch.Tensor:
+    """The features of the whole padded batch in row order from every data
+    rank's block (``data/patch_dataset.py::shard_rows``): rank d's j-th row
+    is the batch's row ``j · data + d``. The block as it is without a data
+    axis."""
+    if mesh is None or mesh.data_group is None:
+        return feats
+    from acmil_tpu_torch.parallel import collectives as C
+
+    return torch.stack(C.gather_list(feats, mesh.data_group), 1).flatten(0, 1)
+
+
 def encoder_feature_fn(model: CustomModel, spec: EncoderSpec,
                        device: torch.device, fused: bool = True,
-                       out_dtype: torch.dtype = torch.float16):
-    """Step2's feature closure: a uint8 ``[B, H, W, 3]`` numpy batch on the
-    host → ``[B, embed_dim]`` features in ``out_dtype`` on ``device``. A ViT
-    runs through :func:`~acmil_tpu_torch.models.encoders.fast.vit_encode`
-    (kernels B3, B4 and B5' on CUDA), a ResNet through its plain forward
-    (cuDNN's convolutions, as the JAX package runs them in XLA). The
-    encoder's parameters go to the device once, here, with the matrices of
-    the route's kernel (a ResNet: its convolutions) cast to its dtype once.
+                       out_dtype: torch.dtype = torch.float16, mesh=None):
+    """Step2's feature closure: a uint8 ``[B, H, W, 3]`` batch on the host
+    (numpy, or a uint8 tensor on ``device``) → ``[B, embed_dim]`` features
+    in ``out_dtype`` on ``device``. A ViT runs through
+    :func:`~acmil_tpu_torch.models.encoders.fast.vit_encode` (kernels B3,
+    B4 and B5' on CUDA), a ResNet through its plain forward (cuDNN's
+    convolutions, as the JAX package runs them in XLA). The encoder's
+    parameters go to the device once, here, with the matrices of the
+    route's kernel (a ResNet: its convolutions) cast to its dtype once.
     ``fused=False`` makes ``vit_encode`` use the kernels' plain versions
-    (tests and ``chip_smoke.py`` compare the two)."""
+    (tests and ``chip_smoke.py`` compare the two).
+
+    With a ``mesh`` (the counterpart of the JAX package's ``_shard_batch``)
+    the closure takes this rank's block of a batch
+    (``data/patch_dataset.py::shard_rows``, which each data rank reads on
+    its own) and returns the features of the
+    whole padded batch in row order, gathered over the data group."""
     from acmil_tpu_torch.models.encoders.fast import (cast_kernel_weights,
                                                       vit_encode)
 
     enc = model.encoder
-    pin = device.type == "cuda"
-
-    def to_device(images_u8):
-        t = torch.from_numpy(np.ascontiguousarray(images_u8))
-        return t.pin_memory().to(device, non_blocking=True) if pin else t
-
     if isinstance(enc, ResNet):
         trunk = copy.deepcopy(enc).to(device).eval().cast_convs_(enc.dtype)
 
         @torch.no_grad()
         def resnet_fn(images_u8):
-            x = preprocess(to_device(images_u8), spec, dtype=enc.dtype)
-            return trunk(x).to(out_dtype)
+            x = preprocess(to_device(images_u8, device), spec,
+                           dtype=enc.dtype)
+            return gather_rows(trunk(x).to(out_dtype), mesh)
 
         return resnet_fn
     params = cast_kernel_weights(
@@ -205,10 +230,10 @@ def encoder_feature_fn(model: CustomModel, spec: EncoderSpec,
 
     @torch.no_grad()
     def feat_fn(images_u8):
-        x = preprocess(to_device(images_u8), spec, dtype=enc.dtype)
-        return vit_encode(params, x, patch=enc.patch, depth=enc.depth,
-                          heads=enc.heads, dtype=enc.dtype, act=enc.act,
-                          pre_norm=enc.pre_norm, proj_dim=enc.proj_dim,
-                          fused=fused).to(out_dtype)
+        x = preprocess(to_device(images_u8, device), spec, dtype=enc.dtype)
+        return gather_rows(vit_encode(
+            params, x, patch=enc.patch, depth=enc.depth, heads=enc.heads,
+            dtype=enc.dtype, act=enc.act, pre_norm=enc.pre_norm,
+            proj_dim=enc.proj_dim, fused=fused).to(out_dtype), mesh)
 
     return feat_fn

@@ -110,17 +110,12 @@ def cast_kernel_weights(params: dict, *, n_tok: int, heads: int,
     return {k: v.to(dtype) if cast(k) else v for k, v in params.items()}
 
 
-def vit_encode(params: dict, images: torch.Tensor, *, patch: int, depth: int,
-               heads: int, dtype: torch.dtype = torch.bfloat16,
-               act: str = "gelu", pre_norm: bool = False, proj_dim=None,
-               fused: bool = True) -> torch.Tensor:
-    """images ``[B, H, W, 3]`` normalised → cls features ``[B, D or
-    proj_dim]`` in ``dtype``.
-
-    ``params``: a :class:`ViT` state dict (timm names), on the images'
-    device. The patch embed is a convolution in ``dtype``; on the CPU a
-    bf16 convolution is computed in f32 and rounded.
-    """
+def vit_embed(params: dict, images: torch.Tensor, *, patch: int,
+              dtype: torch.dtype, pre_norm: bool = False) -> torch.Tensor:
+    """images ``[B, H, W, 3]`` normalised → tokens ``[B, 1 + P, D]`` in
+    ``dtype``: the patch embed (a convolution in ``dtype``; on the CPU a
+    bf16 convolution is computed in f32 and rounded), the cls token, the
+    position embedding and, with ``pre_norm``, ``norm_pre``."""
     b = images.shape[0]
     kernel = params["patch_embed.proj.weight"].to(dtype)      # [D, 3, p, p]
     x = images.to(dtype).permute(0, 3, 1, 2)
@@ -137,7 +132,32 @@ def vit_encode(params: dict, images: torch.Tensor, *, patch: int, depth: int,
     if pre_norm:
         x = _ln_f32(x.float(), params["norm_pre.weight"],
                     params["norm_pre.bias"]).to(dtype)
+    return x
 
+
+def vit_head(params: dict, x: torch.Tensor, proj_dim=None) -> torch.Tensor:
+    """Tokens ``[B, 1 + P, D]`` → the cls feature ``[B, D or proj_dim]`` in
+    x's dtype: the final layernorm (f32 statistics) and, for CLIP,
+    ``proj_out``."""
+    xn = _ln_f32(x.float(), params["norm.weight"], params["norm.bias"])
+    feat = xn[:, 0].to(x.dtype)
+    if proj_dim:
+        feat = _mm(feat, params["proj_out.weight"].to(x.dtype).t())
+    return feat
+
+
+def vit_encode(params: dict, images: torch.Tensor, *, patch: int, depth: int,
+               heads: int, dtype: torch.dtype = torch.bfloat16,
+               act: str = "gelu", pre_norm: bool = False, proj_dim=None,
+               fused: bool = True) -> torch.Tensor:
+    """images ``[B, H, W, 3]`` normalised → cls features ``[B, D or
+    proj_dim]`` in ``dtype``.
+
+    ``params``: a :class:`ViT` state dict (timm names), on the images'
+    device.
+    """
+    x = vit_embed(params, images, patch=patch, dtype=dtype,
+                  pre_norm=pre_norm)
     route = vit_route(params, x.shape[1], heads, dtype, act)
     for i in range(depth):
         bp = block_weights(params, i)
@@ -150,9 +170,4 @@ def vit_encode(params: dict, images: torch.Tensor, *, patch: int, depth: int,
         else:
             x = _xla_attn_half(x, bp, heads, fused)
             x = _mlp_half(x, bp, act)
-
-    xn = _ln_f32(x.float(), params["norm.weight"], params["norm.bias"])
-    feat = xn[:, 0].to(dtype)
-    if proj_dim:
-        feat = _mm(feat, params["proj_out.weight"].to(dtype).t())
-    return feat
+    return vit_head(params, x, proj_dim)

@@ -2,17 +2,27 @@
 version.
 
 The port of ``acmil_tpu/ops/vit_attn.py``. :func:`fused_vit_attention` takes
-q, k, v ``[B, H, N, dh]`` and returns ``softmax(q kᵀ · scale) v`` in q's
-dtype, ``scale`` defaulting to ``1/sqrt(dh)``. It is a
+q, k, v ``[B, H, N, dh]`` of one float dtype (float32, float16 or bfloat16)
+and any head width up to 256, and returns ``softmax(q kᵀ · scale) v`` in
+q's dtype, ``scale`` defaulting to ``1/sqrt(dh)``. It is a
 ``torch.autograd.Function``: the forward launches kernel B7 on CUDA tensors
-(``csrc/vit_attn.cu``'s strided entry, the body of kernel B5' reading each
-operand through its strides) and takes the plain version
-:func:`_reference_attention` on CPU tensors; the backward recomputes through
-the plain version, as the JAX ``custom_vjp`` does. The kernel takes bfloat16
-and the head widths of B5'; any other CUDA input raises.
+and takes the plain version :func:`_reference_attention` on CPU tensors;
+the backward recomputes through the plain version, as the JAX
+``custom_vjp`` does.
 
-No production path calls it: Step2's fused ViT route goes through B5'
-(``ops/vit_attn_packed.py``), as in the JAX package.
+B7 has two routes, chosen by :func:`_route`:
+
+- ``mma``: bfloat16 at dh in {16, 32, 64, 128} with rows 16-byte aligned,
+  on the tensor cores (``csrc/vit_attn.cu``'s strided entry, the body of
+  kernel B5' reading each operand through its strides);
+- ``fma``: every other dtype, head width and alignment, on the f32 FMA
+  units in two passes over the keys (``csrc/vit_attn_generic.cu``).
+
+Both keep the Pallas kernel's rounding points and read every operand, the
+``out`` buffer included, through its strides. Step2's tensor-parallel block
+(``parallel/tp.py::_tp_block``) runs its local heads through it; the
+one-process ViT routes go through B5' (``ops/vit_attn_packed.py``), as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -25,6 +35,13 @@ from typing import Optional
 import torch
 
 from acmil_tpu_torch.ops.vit_attn_packed import KERNEL_HEAD_DIMS, _mm
+
+# the widest head the fma route takes: its query tile [64, dh] of f32 and a
+# key tile of the same size stay in shared memory (the Pallas kernel's
+# bound is VMEM instead)
+MAX_HEAD_DIM = 256
+# the fma route's dtype codes (csrc/vit_attn_generic.cu::b7_mha_generic)
+_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
 def _reference_attention(q, k, v, scale: Optional[float] = None):
@@ -41,7 +58,16 @@ def _reference_attention(q, k, v, scale: Optional[float] = None):
     return _mm(p, v)
 
 
-def _check_kernel_args(q, k, v) -> None:
+def _check_out(q, out) -> None:
+    """Raise ValueError unless ``out`` can take the result for ``q``."""
+    if out.shape != q.shape or out.dtype != q.dtype \
+            or out.device != q.device:
+        raise ValueError(f"out must be {tuple(q.shape)} {q.dtype} on "
+                         f"{q.device}, got {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device}")
+
+
+def _check_kernel_args(q, k, v, out=None) -> None:
     """Raise ValueError for any input kernel B7 does not take."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be [B, H, N, dh] of one shape, got "
@@ -51,54 +77,90 @@ def _check_kernel_args(q, k, v) -> None:
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q, k, v must be on one device, got {q.device}, "
                          f"{k.device}, {v.device}")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise ValueError(f"kernel B7 takes bfloat16 q, k, v, got {q.dtype}, "
-                         f"{k.dtype}, {v.dtype}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"kernel B7 takes q, k, v of one dtype, float32, "
+                         f"float16 or bfloat16, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
     if b < 1 or h < 1 or n < 1:
         raise ValueError(f"empty input: B={b}, H={h}, N={n}")
     if b > 65535 or h > 65535:
         raise ValueError(f"B={b} or H={h} exceeds the kernel's grid limit "
                          f"of 65535")
-    if dh not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel B7 takes head widths {KERNEL_HEAD_DIMS}, "
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"kernel B7 takes head widths up to {MAX_HEAD_DIM}, "
                          f"got dh={dh}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
+    if out is not None:
+        _check_out(q, out)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t is not None and t.stride(-1) != 1:
             raise ValueError(f"kernel B7 needs {name}'s rows of dh elements "
-                             f"contiguous and 16-byte aligned")
+                             f"contiguous")
+
+
+def _route(q, k, v, out) -> str:
+    """``mma`` where the tensor-core route takes the operands (bfloat16,
+    dh in ``KERNEL_HEAD_DIMS``, every row 16-byte aligned), else ``fma``."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in KERNEL_HEAD_DIMS:
+        return "fma"
+    for t in (q, k, v, out):
+        if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+            return "fma"
+    return "mma"
 
 
 @functools.cache
-def _kernel_entry():
-    """The C entry point with its ctypes signature, from the library built
-    at first use."""
+def _kernel_entry(route: str):
+    """The C entry point of ``route`` with its ctypes signature, from the
+    library built at first use."""
     from acmil_tpu_torch.ops import _build
 
-    fn = _build.load("vit_attn").b7_mha_strided
+    if route == "mma":
+        fn = _build.load("vit_attn").b7_mha_strided
+        head = []
+    else:
+        fn = _build.load("vit_attn_generic").b7_mha_generic
+        head = [ctypes.c_int]
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3) * 4 + [
+    fn.argtypes = head + ([ctypes.c_void_p] + [ctypes.c_longlong] * 3) * 4 + [
         ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     return fn
 
 
-def _launch(q, k, v, scale: Optional[float]) -> torch.Tensor:
-    """One launch of kernel B7 on CUDA tensors; raises on what it does not
-    take or a failed launch."""
-    _check_kernel_args(q, k, v)
+def _launch(q, k, v, scale: Optional[float], out=None) -> torch.Tensor:
+    """One launch of kernel B7 on CUDA tensors, into ``out`` when given;
+    raises on what it does not take or a failed launch."""
+    _check_kernel_args(q, k, v, out)
     b, h, n, dh = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(dh)
-    out = torch.empty(b, h, n, dh, dtype=q.dtype, device=q.device)
-    args = []
+    if out is None:
+        out = torch.empty(b, h, n, dh, dtype=q.dtype, device=q.device)
+    route = _route(q, k, v, out)
+    args = [] if route == "mma" else [_DTYPE_CODES[q.dtype]]
     for t in (q, k, v, out):
         args += [t.data_ptr(), *t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel_entry()(*args, b, h, n, dh, float(scale), stream)
+        err = _kernel_entry(route)(*args, b, h, n, dh, float(scale), stream)
     if err != 0:
-        raise RuntimeError(f"kernel B7 launch failed: cudaError_t {err}")
+        raise RuntimeError(f"kernel B7 ({route} route) launch failed: "
+                           f"cudaError_t {err}")
+    fused_vit_attention.launches += 1
+    fused_vit_attention.route_launches[route] += 1
     return out
+
+
+def _forward(q, k, v, scale, out=None) -> torch.Tensor:
+    if q.device.type == "cuda":
+        return _launch(q, k, v, scale, out)
+    if q.device.type == "cpu":
+        want = _reference_attention(q, k, v, scale)
+        if out is None:
+            return want
+        _check_out(q, out)
+        return out.copy_(want)
+    raise ValueError(f"no kernel B7 route for device {q.device}")
 
 
 class _FusedVitAttention(torch.autograd.Function):
@@ -109,13 +171,7 @@ class _FusedVitAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, scale):
         ctx.save_for_backward(q, k, v)
         ctx.scale = scale
-        if q.device.type == "cuda":
-            out = _launch(q, k, v, scale)
-            fused_vit_attention.launches += 1
-            return out
-        if q.device.type == "cpu":
-            return _reference_attention(q, k, v, scale)
-        raise ValueError(f"no kernel B7 route for device {q.device}")
+        return _forward(q, k, v, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -131,16 +187,27 @@ class _FusedVitAttention(torch.autograd.Function):
 
 
 def fused_vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q kᵀ · scale) v for q, k, v ``[B, H, N, dh]`` → ``[B, H, N,
     dh]`` in q's dtype; ``scale`` defaults to ``1/sqrt(dh)``.
 
     CPU tensors take the plain version; CUDA tensors launch kernel B7 (and
-    add one to ``fused_vit_attention.launches``) or raise: the kernel takes
-    bfloat16 only. Differentiable: the backward recomputes through the plain
-    version. The kernel streams keys, so any N is taken (the TPU kernel's
-    VMEM bound on N does not apply)."""
-    return _FusedVitAttention.apply(q, k, v, scale)
+    add one to ``fused_vit_attention.launches`` and to its route's count in
+    ``fused_vit_attention.route_launches``) or raise: the kernel takes
+    float32, float16 and bfloat16 at dh up to 256, any N (keys are
+    streamed), rows of dh elements contiguous. Differentiable: the backward
+    recomputes through the plain version. ``out``, a ``[B, H, N, dh]``
+    tensor of q's dtype with any strides (e.g. a view of a token-major
+    ``[B, N, H·dh]`` buffer), takes the result in place; a call with
+    ``out`` takes no gradient."""
+    if out is None:
+        return _FusedVitAttention.apply(q, k, v, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("fused_vit_attention(out=...) takes no gradient: "
+                         "call it under torch.no_grad()")
+    return _forward(q, k, v, scale, out)
 
 
 fused_vit_attention.launches = 0
+fused_vit_attention.route_launches = {"mma": 0, "fma": 0}

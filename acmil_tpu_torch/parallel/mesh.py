@@ -5,6 +5,9 @@ PyTorch has no one-process-many-devices mesh, so the port runs one process
 per device, as ``torchrun`` starts them. Rank ``r`` sits at ``(r // seq,
 r % seq)``: ``seq`` innermost, as ``make_mesh`` lays it, and the ranks of
 one data row consecutive, as ``make_pod_mesh`` groups devices process-major.
+Step2's tensor-parallel mesh is ``(data, model)`` instead (``seq`` 1), rank
+``r`` at ``(r // model, r % model)``: ``model`` innermost, as
+``acmil_tpu/parallel/tp.py::make_tp_mesh`` lays it.
 
 - ``data``: slides of a batch are split over the data ranks. Parameters are
   replicated, each data rank's loss is its share of the global loss, and
@@ -14,6 +17,9 @@ one data row consecutive, as ``make_pod_mesh`` groups devices process-major.
   with a sequence path of their own (ACMIL_GA's fused pooling, TransMIL's
   Nystrom core) work on their slice and combine with collectives; every
   other head first gathers the bag over ``seq``.
+- ``model``: Step2's ViT trunk is split over the model ranks, attention
+  heads and MLP hidden units (``parallel/tp.py``); the ranks of one model
+  group encode the same images.
 
 While a step runs, its mesh is *active* (:func:`active`): the losses then
 divide by global counts (:func:`batch_total`), and random draws take the
@@ -74,9 +80,11 @@ def local_device(name: Optional[str] = None) -> torch.device:
 
 @dataclass(frozen=True)
 class Mesh:
-    """This rank's place in a ``(data, seq)`` mesh of ``data * seq``
-    processes. ``data_group`` and ``seq_group`` are this rank's groups
-    along each axis, None where the axis has size 1."""
+    """This rank's place in a ``(data, seq, model)`` mesh of ``data * seq *
+    model`` processes, ``model`` innermost (Step3 runs ``(data, seq)`` at
+    model 1, Step2 ``(data, model)`` at seq 1). ``data_group``,
+    ``seq_group`` and ``model_group`` are this rank's groups along each
+    axis, None where the axis has size 1."""
 
     data: int
     seq: int
@@ -84,18 +92,24 @@ class Mesh:
     device: torch.device
     data_group: object = None
     seq_group: object = None
+    model: int = 1
+    model_group: object = None
 
     @property
     def world(self) -> int:
-        return self.data * self.seq
+        return self.data * self.seq * self.model
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.seq
+        return self.rank // (self.seq * self.model)
 
     @property
     def seq_index(self) -> int:
-        return self.rank % self.seq
+        return self.rank // self.model % self.seq
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
 
     @property
     def world_group(self):
@@ -104,32 +118,50 @@ class Mesh:
 
 
 def make_mesh(data: Optional[int] = None, seq: int = 1,
-              device: Optional[torch.device] = None) -> Mesh:
-    """The ``(data, seq)`` mesh over this process group (the world size
-    must be ``data * seq``; ``data`` defaults to world // seq). Every rank
-    calls ``new_group`` for every group, in one order."""
+              device: Optional[torch.device] = None,
+              model: int = 1) -> Mesh:
+    """The ``(data, seq, model)`` mesh over this process group (the world
+    size must be ``data * seq * model``; ``data`` defaults to world //
+    (seq * model)). Every rank calls ``new_group`` for every group, in one
+    order."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
+    inner = seq * model
     if data is None:
-        data = world // seq
-    if data < 1 or seq < 1 or data * seq != world:
+        data = world // inner
+    if data < 1 or seq < 1 or model < 1 or data * inner != world:
+        shape = (f"(data={data}, seq={seq})" if model == 1 else
+                 f"(data={data}, model={model})" if seq == 1 else
+                 f"(data={data}, seq={seq}, model={model})")
         raise ValueError(
-            f"a (data={data}, seq={seq}) mesh needs {data * seq} processes, "
-            f"one per device; this run has {world}. Launch it with "
-            f"`{LAUNCH_HINT} {data * seq}`")
-    data_group = seq_group = None
+            f"a {shape} mesh needs {data * inner} processes, one per device; "
+            f"this run has {world}. Launch it with "
+            f"`{LAUNCH_HINT} {data * inner}`")
+
+    def at(d, s, m):
+        return (d * seq + s) * model + m
+
+    def axis_group(members):
+        # this rank's group along one axis: one new_group per line of it
+        mine = None
+        for line in members:
+            g = dist.new_group(line)
+            if rank in line:
+                mine = g
+        return mine
+
+    data_group = seq_group = model_group = None
     if data > 1:
-        for s in range(seq):
-            g = dist.new_group([d * seq + s for d in range(data)])
-            if rank % seq == s:
-                data_group = g
+        data_group = axis_group([[at(d, s, m) for d in range(data)]
+                                 for s in range(seq) for m in range(model)])
     if seq > 1:
-        for d in range(data):
-            g = dist.new_group([d * seq + s for s in range(seq)])
-            if rank // seq == d:
-                seq_group = g
+        seq_group = axis_group([[at(d, s, m) for s in range(seq)]
+                                for d in range(data) for m in range(model)])
+    if model > 1:
+        model_group = axis_group([[at(d, s, m) for m in range(model)]
+                                  for d in range(data) for s in range(seq)])
     return Mesh(data, seq, rank, torch.device(device or "cpu"), data_group,
-                seq_group)
+                seq_group, model, model_group)
 
 
 def make_pod_mesh(seq: int = 1, device: Optional[torch.device] = None,

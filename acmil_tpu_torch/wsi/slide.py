@@ -4,8 +4,11 @@
 :class:`ImageSlide` is an in-memory pyramid over one RGB array, with the
 openslide vocabulary every reference call site uses (``level_count``,
 ``level_dimensions``, ``level_downsamples``, ``best_level_for_downsample``,
-``read_region``). :func:`open_slide` opens PNG/JPEG/BMP files (``cv2``,
-imported only there) as an :class:`ImageSlide`, and every other container
+``read_region``) and the scale-based interface of the reference's
+``SlideBase`` (``read``, ``get_slide_window_info``, ``get_thumbnail``),
+which every slide inherits. :func:`open_slide` opens PNG/JPEG/BMP files
+(``cv2``, imported at use, as ``read`` imports it) as an
+:class:`ImageSlide`, and every other container
 (SPY, OpenSlide formats, KFB) as a ``wsi/native.py::NativeSlide``; it keeps
 the last 16 open (``_LRUSlideCache``, the reference's
 `wsi_core/LRUCacheDict.py:3`).
@@ -47,6 +50,44 @@ class Slide:
                     size: Tuple[int, int]) -> np.ndarray:
         """RGB uint8 [h, w, 3]; ``location`` in level-0 coordinates."""
         raise NotImplementedError
+
+    def read(self, location: Tuple[int, int], size_l0: Tuple[int, int],
+             scale: float) -> np.ndarray:
+        """Scale-space read (reference `SlideBase.read`,
+        `wsi_core/SlideBase.py:6-64`): a level-0 window read at an
+        arbitrary output ``scale`` (output = size_l0 * scale), from the best
+        pyramid level, resized with ``cv2``."""
+        import cv2
+
+        lvl = self.best_level_for_downsample(1.0 / scale)
+        lds = self.level_downsamples[lvl]
+        w_l = max(int(size_l0[0] / lds), 1)
+        h_l = max(int(size_l0[1] / lds), 1)
+        img = self.read_region(location, lvl, (w_l, h_l))
+        out_w = max(int(size_l0[0] * scale), 1)
+        out_h = max(int(size_l0[1] * scale), 1)
+        if (out_w, out_h) != (w_l, h_l):
+            interp = cv2.INTER_AREA if out_w < w_l else cv2.INTER_LINEAR
+            img = cv2.resize(img, (out_w, out_h), interpolation=interp)
+        return img
+
+    def get_slide_window_info(self, window_l0: int, overlap_l0: int = 0):
+        """Sliding-window plan over the slide (`SlideBase.
+        get_slide_window_info`, `SlideBase.py:66`): the level-0 (x, y)
+        origins covering the whole slide, row by row."""
+        w0, h0 = self.dimensions
+        step = max(window_l0 - overlap_l0, 1)
+        xs = list(range(0, max(w0 - overlap_l0, 1), step))
+        ys = list(range(0, max(h0 - overlap_l0, 1), step))
+        return [(x, y) for y in ys for x in xs]
+
+    def get_thumbnail(self, max_size: int = 1024) -> np.ndarray:
+        """The whole slide at the level that best fits ``max_size`` (the
+        level's own size, not resized)."""
+        ds = max(self.dimensions) / max_size
+        lvl = self.best_level_for_downsample(ds)
+        w, h = self.level_dimensions[lvl]
+        return self.read_region((0, 0), lvl, (w, h))
 
     def close(self) -> None:
         pass

@@ -12,7 +12,8 @@ code is non-zero:
 2. build: kernels B1 (``acmil_tpu_torch/csrc/attn_pool.cu``), B2
    (``acmil_tpu_torch/csrc/attn_pool_bwd.cu``), the ViT GEMM
    (``csrc/vit_gemm.cu``: TMA, wgmma, LayerNorm prologue) and MHA B5'/B7
-   (``csrc/vit_attn.cu``) from which the B3 and B4 chains are built, and B6
+   (``csrc/vit_attn.cu``) from which the B3 and B4 chains are built, B7's
+   fma route (``csrc/vit_attn_generic.cu``), and B6
    (``csrc/dsmil_pool.cu``): one ``nvcc`` each, all together; ptxas's
    registers and spills of every kernel, and how B5'/B7 launches at the
    trunks' shapes (wgmma or mma.sync, passes over the keys, warps, shared
@@ -233,18 +234,43 @@ code is non-zero:
    slides, one epoch and eval, metrics within ``MESH_METRIC_ATOL`` of the
    one-process run's, one writer; (d) TransMIL's step at seq 2 on
    ``MESH_TM_N`` patches against the one-process step.
+22. Step2 across processes (``--mesh_data``, ``--mesh_model``,
+   ``parallel/tp.py``), each multi-rank launch a torchrun of this script's
+   ``--mesh-worker`` mode, every rank required to exit 0: (a) NCCL at world
+   size 1, ``cli/step2_extract.py --mesh_data 1`` at ViT-S/16 (depth 12,
+   batch 256) on phase 15's SPY slides: the file equal to phase 15's bit for
+   bit, B3 and B5' launched as there; (b) two gloo ranks on the card,
+   ``--mesh_data 2``: the same file bit for bit, each rank's launches one
+   process's (it encodes half of every batch), patches/s (also over the
+   slides after the first, beside phase 15's) and each rank's host read of
+   its half batch; (c) ``--mesh_model 2`` at ViT-S/16, batch
+   ``TP_BATCH``, two slides: per-patch cosine ``COS_MIN`` against phase
+   15's file, B7 (tensor-core route) depth x batches a rank, a batch's
+   span and its ms in collectives; (d) four ranks, data 2 x model 2, at UNI
+   (full width and depth, layerscale ``TP_LS``, random weights), batch
+   ``TP_UNI_BATCH``, against the one-process run (B4 + the f32 MLP half);
+   (e) GigaPath ViT-G/16 at full width, depth ``TP_GIGA_DEPTH``, model 2
+   through ``tp_encoder_feature_fn`` against one process (B5' + the MLP
+   half); (f) an f32 ViT-S/16 at model 2 (B7's fma route) within
+   ``TP_F32_REL`` of the module forward at f32, ``vit_encode(fused=False)``
+   printed beside it; (g) B7 against its plain version at f32 and fp16,
+   dh in ``B7_DH``, N in ``B7_N``, contiguous and strided, then its fma
+   route timed at f32 [256, 6, 197, 64] beside the plain version and SDPA.
 
 The line before the kernels line is ``{"zoo": {...}}``: phase 18's and
 phase 19's numbers per arch (training epoch wall and loss, predict seconds,
 card-vs-CPU error, step and eval ms, device ms and device events; phase
 19's also the step's peak memory), the kernel launches phase 18 counted,
 phase 19's checks under ``transmil_mhim`` and phase 20's numbers under
-``dtfd_sam_resnet`` and phase 21's under ``mesh``. The line before the last
+``dtfd_sam_resnet``, phase 21's under ``mesh`` and phase 22's under
+``step2_mesh``. The line before the last
 but one is ``{"kernels": [...]}``
 with each
-kernel's launches on its path (B7's are counted over phases 3-13, where no
-production path calls it, and its entry also gives the count of its
-checks; B5''s are its launches as B3's attention step on the Step2 path,
+kernel's launches on its path (B7 has an entry per route, each with its
+launches on phase 22's tensor-parallel paths summed over the ranks: the
+tensor-core route's at bf16 (c)-(e), timed at phase 14's bf16 shape, its
+count over phases 3-13 beside it; the fma route's at f32 (f), timed at
+f32; B5''s are its launches as B3's attention step on the Step2 path,
 with its launches in ``vit_encode`` beside them), its worst error against
 the plain version, its time (``ms``: CUDA
 events around one call of the wrapper; ``device_ms``: the kernels' own
@@ -429,7 +455,8 @@ def card() -> str:
 def build() -> None:
     from acmil_tpu_torch.ops import _build
 
-    names = ("attn_pool", "attn_pool_bwd", "vit_gemm", "vit_attn", "dsmil_pool")
+    names = ("attn_pool", "attn_pool_bwd", "vit_gemm", "vit_attn",
+             "vit_attn_generic", "dsmil_pool")
     t0 = time.perf_counter()
     _build.build(*names)
     for name in names:
@@ -2139,10 +2166,11 @@ def _write_pipeline_slide(path: str, seed: int, tumor: bool) -> None:
     write_synthetic_spy(path, *PIPE_SLIDE_WH, seed=seed, tumor=tumor)
 
 
-def _batch_read_ms(slide, coords_pt: str) -> float:
+def _batch_read_ms(slide, coords_pt: str, shard=(0, 1)) -> float:
     """Median host ms of Step2's read of one full batch from ``slide``: the
     coords of ``coords_pt`` cycled to STEP2_BATCH, each patch read and
-    resized to 224 px as ``data/patch_dataset.py`` reads it, no prefetch."""
+    resized to 224 px as ``data/patch_dataset.py`` reads it, no prefetch.
+    With ``shard=(index, count)``, data rank ``index``'s rows of it."""
     from acmil_tpu_torch.data.patch_dataset import SlidePatchBatches
     from acmil_tpu_torch.wsi.tiling import load_coords_pt
 
@@ -2152,8 +2180,8 @@ def _batch_read_ms(slide, coords_pt: str) -> float:
                                                                 1.0)),
                             int(attrs.get("patch_level", 0)),
                             target_size=PATCH_PX, batch_size=STEP2_BATCH,
-                            prefetch=0)
-    idx = np.arange(STEP2_BATCH)
+                            prefetch=0, shard=shard)
+    idx = np.arange(STEP2_BATCH)[src.pick]
     return statistics.median(_host_ms(lambda: src._make(idx))
                              for _ in range(3))
 
@@ -2425,7 +2453,9 @@ def pipeline_run(smi: str, tmp: str) -> dict:
     return {"B3": b3, "B5": b5, "B1_step3": step3["B1"], "B2": step3["B2"],
             "B1_predict": b1_predict, "B1_step4": b1_step4,
             "slide_dir": slide_dir, "coords_dir": coords_dir,
-            "feat_path": res["out_path"], "yml": yml,
+            "feat_path": res["out_path"], "yml": yml, "labels": labels,
+            "step2_slides": res["slides"],
+            "step2_seconds": res["slide_seconds"],
             "names": names, "step4_err": step4_err}
 
 
@@ -4058,6 +4088,11 @@ class _CollectiveClock:
     def reset(self):
         self.seconds, self.calls = 0.0, 0
 
+    def restore(self):
+        """Put the untimed collectives back."""
+        for name, fn in self._orig.items():
+            setattr(self.C, name, fn)
+
 
 def _mesh_bag(n_lengths, n_pad, device, seed):
     """The global bag of the sharded step: fp16 features from a seeded CUDA
@@ -4251,12 +4286,17 @@ def _mesh_worker_cli(out: str, argv: list) -> None:
 
 
 def mesh_worker(job: str, out: str, *argv: str) -> None:
-    """One rank of a phase-21 launch (``python -m torch.distributed.run ...
-    chip_smoke.py --mesh-worker JOB OUT [ARGV...]``)."""
+    """One rank of a phase-21 or phase-22 launch (``python -m
+    torch.distributed.run ... chip_smoke.py --mesh-worker JOB OUT
+    [ARGV...]``)."""
     if job == "steps":
         _mesh_worker_steps(out)
     elif job == "cli":
         _mesh_worker_cli(out, list(argv))
+    elif job == "step2_cli":
+        _step2_worker_cli(out, list(argv))
+    elif job == "step2_pair":
+        _step2_worker_pair(out, *argv)
     else:
         raise ValueError(f"no mesh job {job!r}")
     if torch.distributed.is_initialized():
@@ -4490,6 +4530,566 @@ def mesh_run(smi: str, tmp: str, pipe: dict, corpus: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: Step2 across processes (the data axis, parallel/tp.py, B7)
+# ---------------------------------------------------------------------------
+
+# (c) tensor parallelism at ViT-S/16: this batch, on two of phase 15's slides
+TP_BATCH, TP_SLIDES = 64, 2
+# (d) UNI at data 2 x model 2: this batch over the first patches of a slide
+TP_UNI_BATCH, TP_UNI_PATCHES = 16, 48
+# (e) GigaPath ViT-G/16 at full width and this depth; (e) and (f) encode one
+# batch of this many seeded images
+TP_GIGA_DEPTH, TP_IMAGES = 2, 16
+# layerscale of the random UNI and GigaPath trunks: at the init's 1e-5 the
+# blocks would add next to nothing to the residual stream
+TP_LS = 0.5
+# (f) the f32 TP forward against the module forward at f32 on the card, TF32
+# off both: the order of the f32 sums differs (the model group's all-reduce
+# adds two partial products), relative to the largest feature
+TP_F32_REL = 1e-4
+# (g) B7 against its plain version at these head widths and token counts;
+# f32 within B7_F32_TOL of the largest output (the order of f32 sums and
+# exp's rounding), fp16 and bf16 by B5_TOL
+B7_DH, B7_N, B7_F32_TOL = (16, 48, 64, 80, 128, 256), (197, 577, 1025), 1e-5
+# (g) the TP block's B7 call at each path's shape: (path, images a rank,
+# heads a rank, dtype, route); dh 64 and N 197 throughout
+TP_B7_CALLS = (("(f)", TP_IMAGES, 3, torch.float32, "fma"),
+               ("(c)", TP_BATCH, 3, torch.bfloat16, "mma"),
+               ("(d)", TP_UNI_BATCH // 2, 8, torch.bfloat16, "mma"),
+               ("(e)", TP_IMAGES, 12, torch.bfloat16, "mma"))
+# float32 outside the tensor cores, H100 SXM, published
+PEAK_F32_FLOPS = 67e12
+# the fma route's kernel, as the profiler names it
+B7_FMA_KERNELS = ("b7_generic_kernel",)
+
+
+def _step2_counts() -> dict:
+    """The ViT kernels' launch counts: B3, B4, B5' and B7 by route."""
+    from acmil_tpu_torch.ops import vit_attn, vit_attn_packed, vit_layer
+
+    routes = vit_attn.fused_vit_attention.route_launches
+    return {"B3": vit_layer.fused_vit_layer.launches,
+            "B4": vit_layer.fused_vit_attn_half.launches,
+            "B5": vit_attn_packed._launch_packed.launches,
+            "B7_mma": routes["mma"], "B7_fma": routes["fma"]}
+
+
+def _counted(clock, fn):
+    """(fn's result, its kernel launches, host seconds, seconds of it in
+    collectives)."""
+    before = _step2_counts()
+    clock.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = _step2_counts()
+    return out, {k: after[k] - before[k] for k in after}, wall, clock.seconds
+
+
+class _UniSpec:
+    """UNI's encoder spec with every layerscale at ``TP_LS``, for the
+    duration (random UNI weights whose blocks count)."""
+
+    KEY = ("UNI", "ViT-L/16")
+
+    def __enter__(self):
+        from dataclasses import replace
+
+        from acmil_tpu_torch.models.encoders import build
+        from acmil_tpu_torch.models.encoders.vit import ViT
+
+        self.build, self.old = build, build.ENCODER_SPECS[self.KEY]
+        build.ENCODER_SPECS[self.KEY] = replace(self.old, builder=lambda dt: ViT(
+            16, 1024, 24, 16, layerscale=True, ls_init=TP_LS, dtype=dt))
+        return self
+
+    def __exit__(self, *exc):
+        self.build.ENCODER_SPECS[self.KEY] = self.old
+
+
+def _tp_trunk(kind: str):
+    """(CustomModel, spec) of a seeded trunk: GigaPath ViT-G/16 at full
+    width and ``TP_GIGA_DEPTH`` (bf16), or ViT-S/16 at f32."""
+    from acmil_tpu_torch.models.encoders import build
+    from acmil_tpu_torch.models.encoders.vit import ViT
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        if kind == "giga":
+            spec = build.ENCODER_SPECS[("GigaPath", "ViT-G/16")]
+            enc = ViT(16, 1536, TP_GIGA_DEPTH, 24, mlp_ratio=16.0 / 3.0,
+                      act="swiglu", layerscale=True, ls_init=TP_LS,
+                      dtype=torch.bfloat16)
+        else:
+            spec = build.ENCODER_SPECS[("medical_ssl", "ViT-S/16")]
+            enc = ViT(16, 384, STEP2_DEPTH, 6, dtype=torch.float32)
+    return build.CustomModel(enc, 2), spec
+
+
+def _tp_images() -> np.ndarray:
+    return np.random.default_rng(SEED + 22).integers(
+        0, 256, (TP_IMAGES, PATCH_PX, PATCH_PX, 3), np.uint8)
+
+
+def _step2_worker_cli(out: str, argv: list) -> None:
+    """``cli/step2_extract.py`` on this rank (UNI's layerscale at
+    ``TP_LS``), its ViT kernel launches and collective seconds counted."""
+    from acmil_tpu_torch.cli import step2_extract
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    clock = _CollectiveClock()
+    with _UniSpec():
+        res, counts, wall, coll = _counted(
+            clock, lambda: step2_extract.main(argv))
+    rank = int(os.environ.get("RANK", "0"))
+    with open(f"{out}.rank{rank}.json", "w") as f:
+        json.dump({"rank": rank, "counts": counts, "wall_s": wall,
+                   "collective_s": coll, "slides": res["slides"],
+                   "patches": res["patches"], "seconds": res["seconds"],
+                   "out_path": res["out_path"],
+                   "backend": torch.distributed.get_backend()}, f)
+
+
+def _step2_worker_pair(out: str, params_path: str) -> None:
+    """(b), (c), (e) and (f) on this rank of two gloo ranks on the card."""
+    from acmil_tpu_torch.cli import step2_extract
+    from acmil_tpu_torch.parallel import init_distributed, make_mesh
+    from acmil_tpu_torch.parallel.tp import tp_encoder_feature_fn
+    from acmil_tpu_torch.wsi.slide import open_slide
+
+    with open(params_path) as f:
+        p = json.load(f)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(device, backend="gloo", timeout=MESH_LAUNCH_TIMEOUT)
+    rank = torch.distributed.get_rank()
+    clock = _CollectiveClock()
+    res = {"rank": rank}
+
+    def cli(key, argv):
+        r, counts, wall, coll = _counted(clock,
+                                         lambda: step2_extract.main(argv))
+        res[key] = {"counts": counts, "wall_s": wall, "collective_s": coll,
+                    "collective_calls": clock.calls,
+                    "slides": r["slides"], "patches": r["patches"],
+                    "seconds": r["seconds"],
+                    "slide_seconds": r["slide_seconds"],
+                    "out_path": r["out_path"]}
+
+    # (b) the data axis: each rank reads and encodes half of every batch
+    cli("b", p["b"])
+    name = p["names"][0]
+    res["b"]["read_ms"] = _batch_read_ms(
+        open_slide(os.path.join(p["slide_dir"], f"{name}.spy"), cache=False),
+        os.path.join(p["coords_dir"], f"{name}.pt"), shard=(rank, 2))
+    # (c) the model axis at ViT-S/16 through the CLI
+    cli("c", p["c"])
+    # (e) GigaPath, (f) ViT-S/16 at f32, through tp_encoder_feature_fn
+    mesh = make_mesh(1, 1, device, model=2)
+    u8 = _tp_images()
+    for key, kind, dtype in (("e", "giga", torch.float16),
+                             ("f", "vits_f32", torch.float32)):
+        model, spec = _tp_trunk(kind)
+        fn = tp_encoder_feature_fn(model, spec, mesh, device, out_dtype=dtype)
+        feats, counts, wall, _ = _counted(clock, lambda: fn(u8))
+        torch.save(feats[:TP_IMAGES].cpu(), f"{out}.{key}{rank}.pt")
+        clock.reset()
+        ms = _event_ms(lambda: fn(u8), 3)
+        res[key] = {"counts": counts, "ms": ms,
+                    "collective_ms": clock.seconds * 1e3 / 3}
+        del model, fn, feats
+        torch.cuda.empty_cache()
+    with open(f"{out}.rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def _same_file(got_path: str, want: dict, names, what: str) -> dict:
+    """Hold a feature file against ``want`` slide by slide: coords and labels
+    equal; returns the features' worst |diff| and worst row cosine."""
+    got = torch.load(got_path, weights_only=True)
+    if sorted(got) != sorted(names):
+        raise AssertionError(f"{what}: slides {sorted(got)} != {sorted(names)}")
+    worst, cos = 0.0, 1.0
+    for n in names:
+        g, w = got[n], want[n]
+        if not torch.equal(g["coords"], w["coords"]) \
+                or int(g["label"]) != int(w["label"]) \
+                or g["feat"].shape != w["feat"].shape \
+                or g["feat"].dtype != torch.float16:
+            raise AssertionError(f"{what}: {n} coords, label or shape differ")
+        worst = max(worst, float((g["feat"].float()
+                                  - w["feat"].float()).abs().max()))
+        cos = min(cos, float(_row_cosine(g["feat"], w["feat"]).min()))
+    return {"max_abs_diff": worst, "cosine_min": cos}
+
+
+def _want_launches(got: dict, want: dict, what: str) -> None:
+    for k, v in want.items():
+        if got[k] != v:
+            raise AssertionError(f"{what}: {k} launched {got[k]} times, "
+                                 f"want {v} ({got})")
+
+
+@torch.no_grad()
+def vit_attn_b7_every_width(smi: str) -> dict:
+    """(g): B7 at f32 and fp16 against its plain version over ``B7_DH`` x
+    ``B7_N``, contiguous and on strided views of a packed qkv; then its fma
+    route timed at f32 [256, 6, 197, 64] beside the plain version and SDPA."""
+    from acmil_tpu_torch.ops import vit_attn as va
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    worst = {torch.float32: 0.0, torch.float16: 0.0}
+    checks = 0
+    for dtype in worst:
+        tol = B7_F32_TOL if dtype == torch.float32 else B5_TOL
+        for dh in B7_DH:
+            for n in B7_N:
+                base = 2 * torch.randn(2, n, 3, 2, dh, generator=gen,
+                                       device="cuda")
+                packed = base.to(dtype).permute(2, 0, 3, 1, 4)
+                for q, k, v in (packed, [t.contiguous() for t in packed]):
+                    before = va.fused_vit_attention.route_launches["fma"]
+                    got = va.fused_vit_attention(q, k, v, scale=0.3)
+                    torch.cuda.synchronize()
+                    if va.fused_vit_attention.route_launches["fma"] != \
+                            before + 1:
+                        raise AssertionError(f"B7 {dtype} dh={dh}: not the "
+                                             f"fma route")
+                    worst[dtype] = max(worst[dtype], _err(
+                        got, va._reference_attention(q, k, v, 0.3), tol))
+                    checks += 1
+    print(f"kernel B7 fma route vs plain: dh in {B7_DH}, N in {B7_N}, B=2 "
+          f"H=2, contiguous and strided views of a packed qkv, scale 0.3: "
+          f"{checks} shapes, max_abs_err f32 {worst[torch.float32]:.3e} "
+          f"(tol {B7_F32_TOL} of the max), fp16 "
+          f"{worst[torch.float16]:.3e} [{smi}]")
+
+    # the TP block's own call at each path's shape: strided views of the
+    # local qkv in, a token-major buffer's view out (parallel/tp.py)
+    n, dh = VIT_S16[0], 64
+    tp_err = {}
+    for tag, b, hl, dtype, route in TP_B7_CALLS:
+        qkv = torch.randn(b, n, 3 * hl * dh, generator=gen,
+                          device="cuda").to(dtype)
+        q, k, v = qkv.view(b, n, 3, hl, dh).permute(2, 0, 3, 1, 4)
+        buf = torch.empty(b, n, hl * dh, dtype=dtype, device="cuda")
+        before = va.fused_vit_attention.route_launches[route]
+        va.fused_vit_attention(q, k, v,
+                               out=buf.view(b, n, hl, dh).transpose(1, 2))
+        torch.cuda.synchronize()
+        if va.fused_vit_attention.route_launches[route] != before + 1:
+            raise AssertionError(f"B7 TP call {tag}: not the {route} route")
+        tol = B7_F32_TOL if dtype == torch.float32 else B5_TOL
+        tp_err[tag] = _err(buf.view(b, n, hl, dh).transpose(1, 2),
+                           va._reference_attention(q, k, v), tol)
+    print(f"kernel B7 vs plain on the TP block's call (strided q, k, v of a "
+          f"packed local qkv, out a view of a token-major buffer): "
+          + ", ".join(f"{tag} [{b}, {hl}, {n}, {dh}] {str(dt)[6:]} {route} "
+                      f"{tp_err[tag]:.3e}"
+                      for tag, b, hl, dt, route in TP_B7_CALLS)
+          + f" (tol f32 {B7_F32_TOL}, bf16 {B5_TOL} of the max) [{smi}]")
+
+    b, (n, d, heads) = STEP2_BATCH, VIT_S16
+    dh = d // heads
+    q, k, v = (torch.randn(b, heads, n, dh, generator=gen, device="cuda")
+               for _ in range(3))
+    timed_err = _err(va.fused_vit_attention(q, k, v),
+                     va._reference_attention(q, k, v), B7_F32_TOL)
+    r = {"ms": _time_ms(lambda: va.fused_vit_attention(q, k, v), 20),
+         "device": _device_ms(lambda: va.fused_vit_attention(q, k, v),
+                              B7_FMA_KERNELS),
+         "plain_ms": _time_ms(lambda: va._reference_attention(q, k, v), 10),
+         "library_ms": _time_ms(
+             lambda: torch.nn.functional.scaled_dot_product_attention(
+                 q, k, v), 20)}
+    flops, nbytes = b * 4 * n * n * d, b * 4 * 4 * n * d
+    t_ops, t_mem = flops / PEAK_F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    r.update(bound_ms=max(t_ops, t_mem),
+             bound_by="operations" if t_ops >= t_mem else "bytes")
+    r["device_ms"], per_call = r.pop("device")
+    print(f"kernel B7 fma route time: ViT-S/16 B={b} H={heads} N={n} "
+          f"dh={dh} float32 (against its plain version {timed_err:.3e}, tol "
+          f"{B7_F32_TOL} of the max): kernel {r['ms']:.4f} ms (device "
+          f"{_fmt_ms(r['device_ms'])} in {per_call:g} launches), plain "
+          f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention f32 "
+          f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}, f32 at {PEAK_F32_FLOPS / 1e12:g} TFLOP/s), "
+          f"{_bound_share(r)} [{smi}]")
+    by_route = {rt: {c[0]: tp_err[c[0]] for c in TP_B7_CALLS if c[4] == rt}
+                for rt in ("fma", "mma")}
+    return {"max_abs_err": max(worst[torch.float32], timed_err,
+                               *by_route["fma"].values()),
+            "max_abs_err_fp16": worst[torch.float16],
+            "max_abs_err_tp_calls": by_route["fma"],
+            "max_abs_err_tp_calls_mma": by_route["mma"],
+            "max_abs_err_timed": timed_err,
+            "checks": checks + len(TP_B7_CALLS) + 1, **r}
+
+
+def step2_mesh_run(smi: str, tmp: str, pipe: dict) -> dict:
+    """Phase 22: Step2 on a (data, model) mesh of processes, each launch a
+    torchrun of this script's ``--mesh-worker`` mode. (a) NCCL at world 1
+    and (b) two gloo ranks at data 2, each file against phase 15's; (c)
+    model 2 at ViT-S/16, (d) data 2 x model 2 at UNI, (e) GigaPath and (f)
+    an f32 ViT-S/16 at model 2, against one process; (g) B7 against its
+    plain version at every width, and timed at f32."""
+    import warnings
+
+    from acmil_tpu_torch.cli import step2_extract
+    from acmil_tpu_torch.models.encoders.build import (encoder_feature_fn,
+                                                       preprocess)
+    from acmil_tpu_torch.models.encoders.fast import vit_encode
+    from acmil_tpu_torch.wsi.tiling import load_coords_pt, save_coords_pt
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "step2_mesh")
+    os.makedirs(root)
+    names = pipe["names"]
+    want = torch.load(pipe["feat_path"], weights_only=True)
+    one = {"B3": pipe["B3"], "B5": pipe["B5"]}
+
+    def argv(tag, coords_dir=pipe["coords_dir"], batch=STEP2_BATCH,
+             device="cuda", pretrain=("medical_ssl", "ViT-S/16")):
+        return ["--slide_dir", pipe["slide_dir"], "--coords_dir", coords_dir,
+                "--output_dir", os.path.join(root, tag), "--pretrain",
+                pretrain[0], "--backbone", pretrain[1], "--batch_size",
+                str(batch), "--label_csv", pipe["labels"], "--coords_format",
+                "pt", "--out_format", "pt", "--device", device]
+
+    out = {}
+    # (a) NCCL at world size 1: the one-process file, the same launches
+    (a,) = _torchrun(1, "step2_cli", os.path.join(root, "a"),
+                     *argv("a", device="cuda"), "--mesh_data", "1")
+    if a["backend"] != "nccl":
+        raise AssertionError(f"(a) backend {a['backend']}")
+    _want_launches(a["counts"], {**one, "B7_mma": 0, "B7_fma": 0}, "(a)")
+    diff_a = _same_file(a["out_path"], want, names, "(a)")
+    if diff_a["max_abs_diff"] != 0.0:
+        raise AssertionError(f"(a) features differ from one process: {diff_a}")
+    out["a_nccl_world1"] = {"counts": a["counts"], "wall_s": a["wall_s"],
+                            "launch_s": a["launch_s"]}
+    print(f"step2 mesh (a): cli/step2_extract.py --mesh_data 1 under "
+          f"torchrun, nccl, world 1, ViT-S/16 depth {STEP2_DEPTH} batch "
+          f"{STEP2_BATCH} on phase 15's {len(names)} SPY slides: the file "
+          f"equals the one-process file bit for bit; B3 {a['counts']['B3']} "
+          f"B5' {a['counts']['B5']} as there; {a['wall_s']:.2f} s in main(), "
+          f"{a['launch_s']:.2f} s the launch [{smi}]")
+
+    # (b), (c), (e), (f): two gloo ranks on the card
+    coords2 = os.path.join(root, "coords_two")
+    os.makedirs(coords2)
+    for n in names[:TP_SLIDES]:
+        c, labels, attrs = load_coords_pt(os.path.join(pipe["coords_dir"],
+                                                       f"{n}.pt"))
+        save_coords_pt(os.path.join(coords2, f"{n}.pt"), c, attrs, labels)
+    gloo_yml = os.path.join(root, "gloo.yml")
+    with open(gloo_yml, "w") as f:
+        f.write("dist_backend: gloo\n")      # several ranks on the one card
+    gloo = ["--config", gloo_yml]
+    params = {"b": argv("b", device="cuda:0") + ["--mesh_data", "2"] + gloo,
+              "c": argv("c", coords2, TP_BATCH, "cuda:0")
+              + ["--mesh_model", "2"] + gloo,
+              "names": names, "slide_dir": pipe["slide_dir"],
+              "coords_dir": pipe["coords_dir"]}
+    params_path = os.path.join(root, "pair.json")
+    with open(params_path, "w") as f:
+        json.dump(params, f)
+    pair = _torchrun(2, "step2_pair", os.path.join(root, "pair"), params_path)
+
+    # (b) every rank reads and encodes half of every batch
+    batches = sum(-(-v // STEP2_BATCH) for v in pair[0]["b"]["slides"].values())
+    for r in pair:
+        _want_launches(r["b"]["counts"], {**one, "B7_mma": 0}, f"(b) rank "
+                       f"{r['rank']}")
+    diff_b = _same_file(pair[0]["b"]["out_path"], want, names, "(b)")
+    pps = pair[0]["b"]["patches"] / pair[0]["b"]["seconds"]
+
+    def warm_rate(slides, seconds):
+        # patches/s over the slides after the first, whose time holds the
+        # process's first launches (the worker's card is cold)
+        rest = [n for n in names[1:] if n in slides]
+        return sum(slides[n] for n in rest) / sum(seconds[n] for n in rest)
+
+    warm_b = warm_rate(pair[0]["b"]["slides"], pair[0]["b"]["slide_seconds"])
+    warm_one = warm_rate(pipe["step2_slides"], pipe["step2_seconds"])
+    out["b_data2"] = {"diff": diff_b, "patches_per_s": pps,
+                      "patches_per_s_after_first": warm_b,
+                      "one_process_patches_per_s_after_first": warm_one,
+                      "read_ms": [r["b"]["read_ms"] for r in pair],
+                      "collective_s": [r["b"]["collective_s"] for r in pair],
+                      "counts": [r["b"]["counts"] for r in pair]}
+    print(f"step2 mesh (b): --mesh_data 2, two gloo ranks on the card, same "
+          f"slides: the file against the one-process file max |diff| "
+          f"{diff_b['max_abs_diff']:.3e} (worst row cosine "
+          f"{diff_b['cosine_min']:.7f}); B3 {[r['b']['counts']['B3'] for r in pair]} "
+          f"a rank ({batches} batches of {STEP2_BATCH // 2} rows each); "
+          f"{pps:.1f} patches/s, {warm_b:.1f} after the first slide "
+          f"(phase 15's one process {warm_one:.1f}); each rank's "
+          f"read+decode of its "
+          f"{STEP2_BATCH // 2} rows of a batch "
+          f"{[round(r['b']['read_ms'], 2) for r in pair]} ms (host), "
+          f"{[round(r['b']['collective_s'], 3) for r in pair]} s in gloo "
+          f"collectives [{smi}]")
+    if diff_b["max_abs_diff"] != 0.0:
+        raise AssertionError(f"(b) features differ from one process: "
+                             f"{diff_b}")
+
+    # (c) model 2 at ViT-S/16 against the one-process file
+    two = names[:TP_SLIDES]
+    batches_c = sum(-(-v // TP_BATCH) for v in pair[0]["c"]["slides"].values())
+    for r in pair:
+        _want_launches(r["c"]["counts"], {"B3": 0, "B5": 0, "B7_fma": 0,
+                                          "B7_mma": STEP2_DEPTH * batches_c},
+                       f"(c) rank {r['rank']}")
+    diff_c = _same_file(pair[0]["c"]["out_path"], want, two, "(c)")
+    if diff_c["cosine_min"] < COS_MIN:
+        raise AssertionError(f"(c) against one process: {diff_c}")
+    span_c = [1e3 * r["c"]["seconds"] / batches_c for r in pair]
+    coll_c = [1e3 * r["c"]["collective_s"] / batches_c for r in pair]
+    calls_c = pair[0]["c"]["collective_calls"] / batches_c
+    out["c_model2_vits"] = {"diff": diff_c, "batch_ms": span_c,
+                            "collective_ms_a_batch": coll_c,
+                            "collectives_a_batch": calls_c,
+                            "collective_s": [r["c"]["collective_s"]
+                                             for r in pair],
+                            "B7": [r["c"]["counts"]["B7_mma"] for r in pair]}
+    print(f"step2 mesh (c): --mesh_model 2 at ViT-S/16 (3 heads a rank), "
+          f"depth {STEP2_DEPTH}, batch {TP_BATCH}, {TP_SLIDES} slides: worst "
+          f"row cosine against the one-process file {diff_c['cosine_min']:.6f}, "
+          f"max |diff| {diff_c['max_abs_diff']:.3e}; B7 (mma route) "
+          f"{out['c_model2_vits']['B7']} a rank ({STEP2_DEPTH} x {batches_c} "
+          f"batches); a batch {[round(s, 2) for s in span_c]} ms a rank "
+          f"(host), of it {[round(c, 2) for c in coll_c]} ms in "
+          f"{calls_c:.1f} gloo collectives (two all-reduces a layer of "
+          f"[{TP_BATCH}, 197, 384] f32, {TP_BATCH * 197 * 384 * 4 / 1e6:.1f} "
+          f"MB each) [{smi}]")
+
+    # (e) GigaPath at full width, depth TP_GIGA_DEPTH, model 2
+    u8 = _tp_images()
+    model, spec = _tp_trunk("giga")
+    ref = encoder_feature_fn(model, spec, torch.device("cuda"))(u8)
+    del model
+    torch.cuda.empty_cache()
+    got = [torch.load(os.path.join(root, f"pair.e{r}.pt")).cuda()
+           for r in range(2)]
+    cos_e = float(_row_cosine(got[0], ref).min())
+    if not torch.equal(got[0], got[1]) or cos_e < COS_MIN \
+            or not bool(torch.isfinite(got[0]).all()):
+        raise AssertionError(f"(e) GigaPath: ranks equal "
+                             f"{torch.equal(got[0], got[1])}, cosine {cos_e}")
+    for r in pair:
+        _want_launches(r["e"]["counts"], {"B7_mma": TP_GIGA_DEPTH, "B5": 0},
+                       f"(e) rank {r['rank']}")
+    out["e_model2_gigapath"] = {
+        "cosine_min": cos_e,
+        "max_abs_diff": float((got[0].float() - ref.float()).abs().max()),
+        "ms": [r["e"]["ms"] for r in pair],
+        "collective_ms": [r["e"]["collective_ms"] for r in pair]}
+    print(f"step2 mesh (e): GigaPath ViT-G/16 full width (SwiGLU halves split "
+          f"on the hidden axis, 12 heads a rank), depth {TP_GIGA_DEPTH}, "
+          f"{TP_IMAGES} images, model 2: worst row cosine against one process "
+          f"(B5' + the MLP half) {cos_e:.6f}, max |diff| "
+          f"{out['e_model2_gigapath']['max_abs_diff']:.3e}; B7 "
+          f"{[r['e']['counts']['B7_mma'] for r in pair]} a rank; a batch "
+          f"{[round(r['e']['ms'], 3) for r in pair]} ms (CUDA events), "
+          f"{[round(r['e']['collective_ms'], 3) for r in pair]} ms of it in "
+          f"gloo collectives [{smi}]")
+
+    # (f) f32 ViT-S/16 through tp_encoder_feature_fn: B7's fma route
+    model, spec = _tp_trunk("vits_f32")
+    enc = model.encoder.cuda().eval()
+    x = preprocess(torch.from_numpy(u8).cuda(), spec, torch.float32)
+    with torch.no_grad():
+        module = enc(x)
+        encode = vit_encode({k: v for k, v in enc.state_dict().items()}, x,
+                            patch=16, depth=STEP2_DEPTH, heads=6,
+                            dtype=torch.float32, fused=False)
+    got = [torch.load(os.path.join(root, f"pair.f{r}.pt")).cuda()
+           for r in range(2)]
+    scale = float(module.abs().max())
+    rel_f = float((got[0] - module).abs().max()) / scale
+    rel_encode = float((got[0] - encode).abs().max()) / scale
+    if not torch.equal(got[0], got[1]) or not rel_f <= TP_F32_REL:
+        raise AssertionError(f"(f) f32 TP against the module forward: "
+                             f"{rel_f:.3e} of the max")
+    for r in pair:
+        _want_launches(r["f"]["counts"], {"B7_fma": STEP2_DEPTH,
+                                          "B7_mma": 0}, f"(f) rank "
+                       f"{r['rank']}")
+    out["f_model2_vits_f32"] = {"rel_to_module": rel_f,
+                                "rel_to_vit_encode": rel_encode,
+                                "ms": [r["f"]["ms"] for r in pair]}
+    print(f"step2 mesh (f): ViT-S/16 at float32 through tp_encoder_feature_fn,"
+          f" model 2, {TP_IMAGES} images: against the module forward at f32 "
+          f"on the card {rel_f:.3e} of the largest feature (tol "
+          f"{TP_F32_REL}); against vit_encode(fused=False) {rel_encode:.3e} "
+          f"(its B3 route's gelu is tanh-approximate at every dtype); B7 fma "
+          f"route {[r['f']['counts']['B7_fma'] for r in pair]} a rank; a batch "
+          f"{[round(r['f']['ms'], 3) for r in pair]} ms [{smi}]")
+    del model, enc, x, module, encode
+    torch.cuda.empty_cache()
+
+    # (d) UNI at data 2 x model 2 on four ranks against one process
+    uni_dir = os.path.join(root, "coords_uni")
+    os.makedirs(uni_dir)
+    c, labels, attrs = load_coords_pt(os.path.join(pipe["coords_dir"],
+                                                   f"{names[0]}.pt"))
+    save_coords_pt(os.path.join(uni_dir, f"{names[0]}.pt"),
+                   c[:TP_UNI_PATCHES], attrs,
+                   None if labels is None else labels[:TP_UNI_PATCHES])
+    uni = ("UNI", "ViT-L/16")
+    clock = _CollectiveClock()
+    with _UniSpec(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")        # no pretrain_weights: seeded
+        res, counts_one, _, _ = _counted(clock, lambda: step2_extract.main(
+            argv("uni_one", uni_dir, TP_UNI_BATCH, pretrain=uni)))
+    clock.restore()
+    batches_d = -(-TP_UNI_PATCHES // TP_UNI_BATCH)
+    _want_launches(counts_one, {"B4": 24 * batches_d}, "(d) one process")
+    want_uni = torch.load(res["out_path"], weights_only=True)
+    ranks_d = _torchrun(4, "step2_cli", os.path.join(root, "d"),
+                        *argv("uni_mesh", uni_dir, TP_UNI_BATCH, "cuda:0",
+                              uni), "--mesh_data", "2", "--mesh_model", "2",
+                        *gloo)
+    for r in ranks_d:
+        _want_launches(r["counts"], {"B4": 0, "B7_mma": 24 * batches_d},
+                       f"(d) rank {r['rank']}")
+    diff_d = _same_file(ranks_d[0]["out_path"], want_uni, [names[0]], "(d)")
+    if diff_d["cosine_min"] < COS_MIN:
+        raise AssertionError(f"(d) UNI against one process: {diff_d}")
+    out["d_data2_model2_uni"] = {
+        "diff": diff_d, "wall_s": [r["wall_s"] for r in ranks_d],
+        "collective_s": [r["collective_s"] for r in ranks_d],
+        "B7": [r["counts"]["B7_mma"] for r in ranks_d],
+        "launch_s": ranks_d[0]["launch_s"]}
+    print(f"step2 mesh (d): UNI ViT-L/16 full width and depth 24 (layerscale "
+          f"{TP_LS}, random weights), data 2 x model 2 on four gloo ranks, "
+          f"batch {TP_UNI_BATCH}, {TP_UNI_PATCHES} patches: worst row cosine "
+          f"against one process (B4 + the f32 MLP half) "
+          f"{diff_d['cosine_min']:.6f}, max |diff| "
+          f"{diff_d['max_abs_diff']:.3e}; B7 {out['d_data2_model2_uni']['B7']} "
+          f"a rank (24 x {batches_d} batches), B4 {counts_one['B4']} in one "
+          f"process; {[round(r['wall_s'], 2) for r in ranks_d]} s in main() "
+          f"a rank, {[round(r['collective_s'], 3) for r in ranks_d]} s of it "
+          f"in gloo collectives [{smi}]")
+
+    # (g) B7 against its plain version at every width; the fma route timed
+    out["b7_fma"] = vit_attn_b7_every_width(smi)
+    out["B7_mma_path"] = (sum(out["c_model2_vits"]["B7"])
+                          + sum(out["d_data2_model2_uni"]["B7"])
+                          + sum(r["e"]["counts"]["B7_mma"] for r in pair))
+    out["B7_fma_path"] = sum(r["f"]["counts"]["B7_fma"] for r in pair)
+    print(f"step2 mesh phase wall {time.perf_counter() - t_phase:.2f} s "
+          f"[{smi}]")
+    return out
+
+
 def main() -> None:
     import sys
 
@@ -4529,10 +5129,16 @@ def main() -> None:
         p20 = dtfd_sam_resnet_run(smi, tmp, pipe, corpus)
         p21 = mesh_run(smi, tmp, pipe, corpus)
         del corpus
+        p22 = step2_mesh_run(smi, tmp, pipe)
     zoo["archs"].update(transmil_mhim.pop("archs"))
     zoo["transmil_mhim"] = transmil_mhim
     zoo["dtfd_sam_resnet"] = p20
     zoo["mesh"] = p21
+    b7_fma = p22.pop("b7_fma")
+    b7["max_abs_err_tp_calls"] = b7_fma.pop("max_abs_err_tp_calls_mma")
+    b7["max_abs_err"] = max(b7["max_abs_err"],
+                            *b7["max_abs_err_tp_calls"].values())
+    zoo["step2_mesh"] = p22
     mesh_ga, mesh_cli = p21["ga_seq2"]["ranks"], p21["data2_seq2_cli"]
     dtfd_t, dtfd_r, sam = p20["dtfd_train"], p20["dtfd_routes"], p20["sam"]
     b5_edges = b7.pop("b5_edges")
@@ -4624,14 +5230,27 @@ def main() -> None:
         "launches_serving": dsmil_serve["launches"],
         "launches_training_eval": dsmil_train,
         **b6}, {
-        "name": "B7 multi-head attention over separate q, k, v (strided "
-                "entry of B5')",
+        "name": "B7 multi-head attention over separate q, k, v, tensor-core "
+                "route (bfloat16, dh in {16, 32, 64, 128}; the strided entry "
+                "of B5')",
         "route": "cuda",
         "source": "acmil_tpu_torch/csrc/vit_attn.cu",
         "replaces": "acmil_tpu/ops/vit_attn.py:39",
-        "launches": b7_launches,
-        "path": "none (no production caller)",
-        **b7}]}))
+        "launches": p22["B7_mma_path"],
+        "path": "Step2 --mesh_model: the tensor-parallel block's local "
+                "attention, phase 22 (c)-(e) summed over the ranks; times at "
+                "ViT-S/16 B=256 bf16 (phase 14)",
+        "launches_phases_3_13": b7_launches,
+        **b7}, {
+        "name": "B7 multi-head attention over separate q, k, v, fma route "
+                "(float32, float16, bfloat16 at any dh <= 256)",
+        "route": "cuda",
+        "source": "acmil_tpu_torch/csrc/vit_attn_generic.cu",
+        "replaces": "acmil_tpu/ops/vit_attn.py:39",
+        "launches": p22["B7_fma_path"],
+        "path": "Step2 tensor parallelism at float32, phase 22 (f) summed "
+                "over the ranks; times at ViT-S/16 B=256 float32",
+        **b7_fma}]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,9 @@ B6_TOL = 1e-4
 # output that cancels to near 0, so the bound is one bf16 step of each
 # output and of the largest output
 BF16_TOL = 2.0 ** -7
+# B7's fma route vs plain at float32: only the order of the f32 sums and
+# exp's rounding differ
+F32_TOL = 1e-5
 # token counts at the edges of csrc/vit_attn.cu: the ragged 16-key chunk,
 # the trunks' 197, 577 and 785, at dh = 64 the warpgroup routes' 208-key
 # steps (N in [145, 208], up to 416, up to 624), keys resident in shared
@@ -49,8 +52,8 @@ def _b7_inputs(dev, shape, dtype=torch.bfloat16, seed=0):
 
 
 @pytest.mark.parametrize("shape, dtype, match", [
-    ((2, 3, 50, 32), torch.float32, "bfloat16"),
-    ((2, 3, 50, 48), torch.bfloat16, "head widths"),
+    ((2, 3, 50, 32), torch.int32, "bfloat16"),
+    ((2, 3, 50, 272), torch.bfloat16, "head widths"),
     ((2, 3, 50), torch.bfloat16, r"\[B, H, N, dh\]"),
     ((2, 3, 0, 32), torch.bfloat16, "empty"),
 ])
@@ -74,6 +77,32 @@ def test_b7_arg_check_accepts_every_trunk_width():
                          (2, 50, 128)):
         q = torch.zeros(1, heads, n, dh, dtype=torch.bfloat16)
         vit_attn._check_kernel_args(q, q, q)
+        assert vit_attn._route(q, q, q, q) == "mma"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("dh", [1, 16, 48, 80, 256])
+def test_b7_takes_every_dtype_and_head_width_up_to_256(dtype, dh):
+    q = torch.zeros(2, 3, 50, dh, dtype=dtype)
+    vit_attn._check_kernel_args(q, q, q, q)
+    tc = dtype == torch.bfloat16 and dh in (16, 64)
+    assert vit_attn._route(q, q, q, q) == ("mma" if tc else "fma")
+
+
+def test_b7_out_must_match_q():
+    q = torch.zeros(2, 3, 50, 32)
+    with pytest.raises(ValueError, match="out must be"):
+        vit_attn._check_kernel_args(q, q, q, q.bfloat16())
+    with pytest.raises(ValueError, match="no gradient"):
+        vit_attn.fused_vit_attention(q.requires_grad_(), q, q,
+                                     out=torch.empty_like(q))
+    # a token-major [B, N, H*dh] buffer takes the result through a view
+    buf = torch.empty(2, 50, 3 * 32, dtype=torch.bfloat16)
+    view = buf.view(2, 50, 3, 32).transpose(1, 2)
+    k = torch.zeros(2, 3, 50, 32, dtype=torch.bfloat16)
+    vit_attn._check_kernel_args(k, k, k, view)
+    assert vit_attn._route(k, k, k, view) == "mma"
 
 
 @pytest.fixture
@@ -239,5 +268,14 @@ def test_b7_backward_and_float32_on_card(cuda_device):
         vit_attn._reference_attention(*refs).float().sum(), refs)
     for g, w in zip(grads, want):
         torch.testing.assert_close(g, w, atol=0, rtol=0)
-    with pytest.raises(ValueError, match="bfloat16"):
-        vit_attn.fused_vit_attention(*(t.detach().float() for t in ins))
+    # float32 takes the fma route: only the order of f32 sums differs
+    f32 = [t.detach().float() for t in ins]
+    before = dict(vit_attn.fused_vit_attention.route_launches)
+    with torch.no_grad():
+        got = vit_attn.fused_vit_attention(*f32)
+        torch.cuda.synchronize()
+        want = vit_attn._reference_attention(*f32)
+    assert vit_attn.fused_vit_attention.route_launches["fma"] == \
+        before["fma"] + 1
+    torch.testing.assert_close(got, want, rtol=F32_TOL,
+                               atol=F32_TOL * float(want.abs().max()))

@@ -2,10 +2,11 @@
 Nystrom, the mesh routes of the engine, loader and CLI) on the CPU with
 ``gloo``.
 
-Ranks are spawned with ``torch.multiprocessing`` and meet through a
-``file://`` store in a temporary directory. Each group of ranks runs all its
-cases once, in a module-scoped fixture, and writes its results to a file;
-the tests hold them against the JAX package's mesh results (computed here,
+Ranks are spawned with ``torch.multiprocessing`` (``tests/torch_ranks.py``)
+and meet through a ``file://`` store in a temporary directory. Each group of
+ranks runs all its cases once, in a module-scoped fixture, and writes its
+results to a file; the tests hold them against the JAX package's mesh
+results (computed here,
 on the 8 virtual CPU devices of tests/conftest.py) or against the port's
 own one-process run, which the port's other tests hold against JAX. Every
 process group has a timeout, and the parent kills ranks that outlive their
@@ -20,7 +21,6 @@ atol 1e-5).
 
 from __future__ import annotations
 
-import datetime
 import json
 import os
 import traceback
@@ -28,11 +28,8 @@ import traceback
 import numpy as np
 import pytest
 import torch
-import torch.distributed as dist
-import torch.multiprocessing as mp
 
-DEADLINE = 150          # seconds a group of ranks may take in all
-GROUP_TIMEOUT = 60      # seconds any one collective may wait
+from tests.torch_ranks import ranks, spawn
 
 # (a) pooling shapes, as tests/test_attn_pool.py:378
 POOL = dict(b=4, n=512, df=32, l=16, a=16, k=3)
@@ -365,66 +362,16 @@ CASES = {"pool": _case_pool, "collectives": _case_collectives,
          "transmil": _case_transmil, "zoo": _case_zoo, "pod": _case_pod}
 
 
-def _rank_main(rank, world, init_file, inputs_path, out_dir, cases):
-    torch.set_num_threads(1)
-    # what torchrun would export, for the CLI cases
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), JAX_PLATFORMS="cpu")
-    dist.init_process_group(
-        "gloo", init_method=f"file://{init_file}", rank=rank,
-        world_size=world, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
-    inp = torch.load(inputs_path, weights_only=False)
-    out = {}
-    for name in cases:
-        try:
-            out[name] = CASES[name](inp)
-        except Exception:
-            out[name] = {"error": traceback.format_exc()}
-    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
-    dist.destroy_process_group()
+def _spawn(world, names, inputs, tmp):
+    """Run the named cases on ``world`` spawned ranks
+    (``tests/torch_ranks.py``)."""
+    return spawn(world, [CASES[n] for n in names], inputs, tmp)
 
 
-def _spawn(world, cases, inputs, tmp):
-    """Run ``cases`` on ``world`` spawned ranks; returns each rank's
-    results. Ranks alive past ``DEADLINE`` are killed."""
-    import time
-
-    os.makedirs(tmp, exist_ok=True)
-    inputs_path = os.path.join(tmp, "inputs.pt")
-    torch.save(inputs, inputs_path)
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main,
-                         args=(r, world, os.path.join(tmp, "store"),
-                               inputs_path, tmp, cases), daemon=True)
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    end = time.monotonic() + DEADLINE
-    for p in procs:
-        p.join(max(0.0, end - time.monotonic()))
-    hung = [p for p in procs if p.is_alive()]
-    for p in hung:
-        p.kill()
-        p.join()
-    results = []
-    for r in range(world):
-        path = os.path.join(tmp, f"rank{r}.pt")
-        results.append(torch.load(path, weights_only=False)
-                       if os.path.exists(path) else None)
-    return {"ranks": results, "hung": len(hung),
-            "codes": [p.exitcode for p in procs]}
-
-
-def _ranks(group, case):
-    """Each rank's result of ``case``, failing on a hung or failed rank."""
-    assert not group["hung"], f"{group['hung']} ranks outlived the deadline"
-    out = []
-    for r, res in enumerate(group["ranks"]):
-        assert res is not None, f"rank {r} wrote nothing: {group['codes']}"
-        got = res[case]
-        assert "error" not in got, f"rank {r}:\n{got['error']}"
-        out.append(got)
-    return out
+def _ranks(group, name):
+    """Each rank's result of the named case, failing on a hung or failed
+    rank."""
+    return ranks(group, CASES[name])
 
 
 # ---------------------------------------------------------------------------

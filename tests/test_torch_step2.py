@@ -216,14 +216,6 @@ def test_synthetic_slides_match_jax():
     assert ca == cb
 
 
-@pytest.mark.parametrize("flag", ["--mesh_data", "--mesh_model"])
-def test_step2_refuses_what_is_not_ported(step2_inputs, flag, tmp_path):
-    d, weights = step2_inputs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step2_extract.main(_args(d, weights, tmp_path) + [flag, "2",
-                                                          "--device", "cpu"])
-
-
 @pytest.mark.parametrize("entry", ["step2", "predict", "step3"])
 def test_entry_points_need_a_card_unless_told_cpu(entry, step2_inputs,
                                                   monkeypatch, tmp_path):

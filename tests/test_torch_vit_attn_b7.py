@@ -112,3 +112,40 @@ def test_cpu_route_launches_no_kernel():
     port.fused_vit_attention(*(torch.from_numpy(t)
                                for t in _qkv(6, SHAPES[1])))
     assert port.fused_vit_attention.launches == before
+
+
+# fp16: the bf16 rule with fp16's step (2**-11 relative)
+FP16_TOL = 2.0 ** -10
+# head widths off the tensor-core route's {16, 32, 64, 128}, up to B7's 256
+WIDE_DH = (48, 80, 256)
+
+
+@pytest.mark.parametrize("dh", WIDE_DH)
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+def test_plain_matches_pallas_kernel_at_every_width(dtype, dh):
+    # the oracle of the card's fma route: float32 and float16 at head widths
+    # the tensor-core route does not take
+    q, k, v = _qkv(30 + dh, (2, 2, 50, dh))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(jax_va.fused_vit_attention(
+        *(jnp.asarray(t, jdt) for t in (q, k, v)), 0.2).astype(jnp.float32))
+    got = port.fused_vit_attention(*(torch.from_numpy(t).to(tdt)
+                                     for t in (q, k, v)), 0.2)
+    assert got.dtype == tdt and got.shape == (2, 2, 50, dh)
+    tol = F32_TOL if dtype == "float32" else FP16_TOL
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
+
+
+def test_out_takes_the_result_through_a_token_major_view():
+    # the tensor-parallel block's call: q, k, v strided views of a packed
+    # qkv [B, N, 3, H, dh], the result written into a [B, N, H*dh] buffer
+    rs = np.random.RandomState(8)
+    qkv = torch.from_numpy(rs.randn(2, 50, 3, 4, 48).astype(np.float32))
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    buf = torch.full((2, 50, 4 * 48), float("nan"))
+    got = port.fused_vit_attention(q, k, v,
+                                   out=buf.view(2, 50, 4, 48).transpose(1, 2))
+    want = port._reference_attention(q, k, v)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    torch.testing.assert_close(buf, want.transpose(1, 2).reshape(2, 50, -1),
+                               atol=0, rtol=0)
