@@ -19,8 +19,15 @@ world-1 mesh). The layout must equal ``WORLD_SIZE``, or the trainer raises
 and names ``torchrun --nproc_per_node``. The backend is ``nccl`` on CUDA and
 ``gloo`` on the CPU unless the YAML's ``dist_backend`` names one; global rank
 0 alone writes checkpoints, logs and prints, and every rank reads a
-checkpoint for ``--resume`` and ``--eval_only``. The JAX trainer's
-``lax.scan`` epochs (``--scan_epoch``) are not ported; setting it raises.
+checkpoint for ``--resume`` and ``--eval_only``.
+
+``--scan_epoch`` (or ``scan_epoch: true``) on one process trains through the
+scanned epoch of ``engine/train.py`` when the train bags are cached on the
+device (``cache_train``, the JAX gate): the stacked shape groups visited in
+the JAX package's order (``scan_interleave`` chunks), each group's step a
+CUDA graph on a card for the archs of ``GRAPH_SCAN_ARCHS``, eager
+otherwise; val and test, and ``--eval_only``, score through
+``evaluate_scanned``. The route is printed once. With a mesh it raises.
 """
 
 from __future__ import annotations
@@ -35,17 +42,21 @@ import torch
 from acmil_tpu_torch.config import Config
 from acmil_tpu_torch.data import BagLoader, build_hdf5_feat_dataset
 from acmil_tpu_torch.data.bags import bucket_length
-from acmil_tpu_torch.engine import (create_train_state, evaluate, get_family,
-                                    make_eval_step, make_train_step,
-                                    train_one_epoch)
+from acmil_tpu_torch.engine import (create_train_state, evaluate,
+                                    evaluate_scanned, get_family,
+                                    make_eval_step, make_scan_eval_step,
+                                    make_scan_train_step, make_train_step,
+                                    train_one_epoch, train_one_epoch_scanned)
 from acmil_tpu_torch.engine import checkpoint
 from acmil_tpu_torch.models import build_mil_model, model_family
 from acmil_tpu_torch.parallel import shard_params
 from acmil_tpu_torch.utils import MetricLogger, MetricsWriter, set_seed
 from acmil_tpu_torch.utils.device import entry_device
 
-# options of the JAX trainer this port does not have
+# options of the JAX trainer this port has only on one process, each
+# refused together with a mesh
 NOT_PORTED = ("scan_epoch",)
+MESH_OPTIONS = ("mesh_data", "mesh_shape", "pod")
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -74,7 +85,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="data-parallel over every process of a multi-node "
                         "torchrun launch")
     p.add_argument("--scan_epoch", action=argparse.BooleanOptionalAction,
-                   default=None, help="not ported: raises if set")
+                   default=None,
+                   help="scanned epochs over stacked shape groups (one "
+                        "process; CUDA graphs on a card); raises on a mesh")
     p.add_argument("--resume", action="store_true",
                    help="resume from checkpoint-last.pth in ckpt_dir, with "
                         "the optimizer state and the best-so-far record")
@@ -103,11 +116,13 @@ def feature_file(conf) -> str:
 
 
 def _refuse_unported(conf) -> None:
+    mesh = [k for k in MESH_OPTIONS if getattr(conf, k, None)]
     for key in NOT_PORTED:
-        if conf.extra.get(key) not in (None, False, 0, "", {}):
-            raise ValueError(f"{key!r} is a feature of the JAX package "
-                             f"(acmil_tpu) that acmil_tpu_torch has not "
-                             f"ported; unset it")
+        if conf.extra.get(key) not in (None, False, 0, "", {}) and mesh:
+            raise ValueError(f"{key!r} on a mesh ({mesh[0]!r}) is a feature "
+                             f"of the JAX package (acmil_tpu) that "
+                             f"acmil_tpu_torch has not ported; it runs on "
+                             f"one process: unset one of them")
     family = model_family(conf.arch)
     if conf.extra.get("teacher_init") and not get_family(family).teacher:
         # the JAX trainer ignores it here; a set option that does nothing
@@ -202,6 +217,8 @@ def run_training(conf: Config, extra_config: dict | None = None) -> dict:
     # would freeze. Sized by padded bucket lengths, as cached bags are.
     feat_bytes = sum(bucket_length(n, conf.min_bucket, conf.max_patches)
                      for n in train_src.lengths()) * conf.D_feat * 2
+    # the JAX package's gate on one process: the same configuration caches
+    # (and may scan) alike
     cache_train = bool(conf.extra.get(
         "cache_train", conf.B == 1 and feat_bytes < 6 * 2 ** 30))
     train_loader = BagLoader(train_src, conf.B, shuffle=True, drop_last=True,
@@ -226,7 +243,30 @@ def run_training(conf: Config, extra_config: dict | None = None) -> dict:
                                fused=bool(conf.extra.get("fused_train", True)),
                                mesh=mesh)
 
+    # scanned epochs: stacked shape groups resident on the device, one CUDA
+    # graph per group on a card; a family with a custom step and no step
+    # body falls back to the per-bag loop, as in JAX
+    scan_train = scan_eval = None
+    if bool(getattr(conf, "scan_epoch", False)):
+        if not cache_train:
+            say("scan_epoch: train bags are not device-cached (B>1, "
+                "cache_train: false, or features exceed the 6 GiB gate); "
+                "using the per-bag loop")
+        else:
+            scan_train = make_scan_train_step(model, conf, fam)
+            if scan_train is not None:
+                scan_eval = make_scan_eval_step(
+                    model, fam, fused=bool(conf.extra.get("fused_train", True)),
+                    route=scan_train.route)
+                say(f"scan_epoch: {scan_train.route} route "
+                    f"({scan_train.reason})")
+            else:
+                say(f"scan_epoch: family '{family}' has a custom train "
+                    "step; using the per-bag loop")
+
     def run_eval(loader):
+        if scan_eval is not None:
+            return evaluate_scanned(scan_eval, loader, conf.n_class)
         return evaluate(eval_step, loader, conf.n_class, mesh=mesh)
 
     ckpt_dir = conf.ckpt_dir
@@ -261,8 +301,13 @@ def run_training(conf: Config, extra_config: dict | None = None) -> dict:
 
     for epoch in range(start_epoch, conf.train_epoch):
         logger = MetricLogger()
-        state, stats = train_one_epoch(state, train_step, train_loader, epoch,
-                                       logger)
+        if scan_train is not None:
+            state, stats = train_one_epoch_scanned(
+                state, scan_train, train_loader, epoch, logger,
+                interleave=int(getattr(conf, "scan_interleave", 1)))
+        else:
+            state, stats = train_one_epoch(state, train_step, train_loader,
+                                           epoch, logger)
         if not np.isfinite(stats.get("loss", 0.0)):
             # surface divergence instead of burning the remaining epochs
             raise RuntimeError(

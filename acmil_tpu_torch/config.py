@@ -3,8 +3,10 @@
 The same dataclass and the same YAML round trip, so the reference's configs
 under ``config/*.yml`` are drop-in. ``yaml`` is imported only where a file is
 read. ``mesh_shape`` (``{data, seq}``) lays out a Step3 run over processes;
-the TPU-only ``scan_epoch`` is not a field here: a YAML that sets it keeps it
-in ``extra``.
+``scan_epoch`` and ``scan_interleave`` are not fields here: a YAML that sets
+them keeps them in ``extra``, where the Step3 trainer reads them.
+``add_config_argument`` and ``load_config`` are the reference's YAML-then-CLI
+loading for scripts of one's own.
 """
 
 from __future__ import annotations
@@ -126,3 +128,16 @@ class Config:
         if name in extra:
             return extra[name]
         raise AttributeError(name)
+
+
+def add_config_argument(parser) -> None:
+    """The ``--config`` option of a script that reads a YAML config."""
+    parser.add_argument("--config", type=str, required=True,
+                        help="YAML config path")
+
+
+def load_config(args) -> Config:
+    """The reference's rule (`Step3_ACMIL:64-67`): the YAML is the base and
+    every command-line value that is set (not None) wins."""
+    overrides = {k: v for k, v in vars(args).items() if k != "config"}
+    return Config.from_yaml(args.config, overrides)

@@ -10,9 +10,10 @@
 - with a ``mesh`` (``parallel/mesh.py``), every rank builds the same plan
   from the seed, pads a ragged batch to ``batch_size`` with all-False rows
   of label 0, and keeps its rows of the batch and its slice of N
-  (``shard_bag``), cut on the host before the copy to its device.
-
-The JAX loader's stacked scan groups are not ported.
+  (``shard_bag``), cut on the host before the copy to its device;
+- :meth:`BagLoader.device_groups` stacks same-shape batches on a new leading
+  axis, resident on the device, for the scanned epochs of
+  ``engine/train.py`` (one process only).
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ class BagLoader:
         self.device = torch.device(device)
         self.mesh = mesh
         self._device_batches: Optional[List[Bag]] = None
+        self._device_groups: Optional[List[Bag]] = None
 
     # -- batch plan ---------------------------------------------------------
     def _plan(self, shuffle: Optional[bool] = None) -> List[List[int]]:
@@ -108,6 +110,34 @@ class BagLoader:
 
     def _to_device(self, bag: Bag) -> Bag:
         return bag.to(self.device, non_blocking=True)
+
+    # -- stacked shape groups (scanned epochs) -------------------------------
+    def device_groups(self) -> List[Bag]:
+        """Same-shape batches stacked along a new leading axis, resident on
+        the loader's device: the input of the scanned epochs
+        (``engine/train.py::train_one_epoch_scanned`` and
+        ``evaluate_scanned``). Built once, grouped by the batch's
+        ``(feats.shape, dtype)`` in first-seen order over one plan, which
+        draws from ``self.rng`` as the JAX loader's does, so one seed gives
+        the groups and the later permutations of the JAX package. Epochs
+        visit the groups, and the bags within a group, in fresh random
+        orders when ``shuffle`` is set. A loader on a mesh raises: scanned
+        epochs run on one process."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "device_groups: scan_epoch on a mesh is not ported; the "
+                "scanned epoch runs on one process")
+        if self._device_groups is None:
+            by_shape: dict = {}
+            for g in self._plan():
+                b = self._collate(g)
+                by_shape.setdefault((tuple(b.feats.shape), str(b.feats.dtype)),
+                                    []).append(b)
+            self._device_groups = [
+                Bag(*(torch.stack(ts).to(self.device)
+                      for ts in zip(*(b._fields() for b in bs))))
+                for bs in by_shape.values()]
+        return self._device_groups
 
     # -- iteration ----------------------------------------------------------
     def __iter__(self) -> Iterator[Bag]:

@@ -4,9 +4,13 @@ from acmil_tpu_torch.engine.metrics import (accuracy, auroc,
                                             classification_metrics, f1_macro)
 from acmil_tpu_torch.engine.schedules import half_cosine_schedule
 from acmil_tpu_torch.engine.train import (TrainState, create_train_state,
-                                          evaluate, is_better,
-                                          make_eval_step, make_train_step,
-                                          train_one_epoch)
+                                          evaluate, evaluate_scanned,
+                                          family_supports_scan, is_better,
+                                          make_eval_step,
+                                          make_scan_eval_step,
+                                          make_scan_train_step,
+                                          make_train_step, train_one_epoch,
+                                          train_one_epoch_scanned)
 
 __all__ = [
     "ACMILFamily",
@@ -22,8 +26,13 @@ __all__ = [
     "TrainState",
     "create_train_state",
     "evaluate",
+    "evaluate_scanned",
+    "family_supports_scan",
     "is_better",
     "make_eval_step",
+    "make_scan_eval_step",
+    "make_scan_train_step",
     "make_train_step",
     "train_one_epoch",
+    "train_one_epoch_scanned",
 ]

@@ -110,7 +110,9 @@ class ACMILFamily(Family):
     With ``fused_train`` on (the default), an ACMIL_GA head trains through
     kernels B1 and B2 (``models/fast.py::acmil_ga_apply_batched``), STKIM
     as an O(K·k) correction on the pooled output; ``fused_train: false`` or
-    ``droprate > 0`` keeps the plain forward. Eval of an ACMIL_GA head runs
+    ``droprate > 0`` keeps the plain forward. The scanned step sets
+    ``stkim_on_device`` in ``conf_d``, which decides STKIM's correction
+    branch on the device instead of the host. Eval of an ACMIL_GA head runs
     B1 unless ``fused=False``. An ACMIL_MHA head runs its plain forward,
     as in the JAX package, with STKIM inside each branch's logits and
     ``[B, H, K, N]`` attention for the diversity loss. STKIM's uniforms
@@ -135,7 +137,8 @@ class ACMILFamily(Family):
                 model, bag.feats, bag.mask, stkim_u=stkim_u,
                 stkim_generator=generator,
                 n_masked_patch=conf_d["n_masked_patch"],
-                mask_drop=conf_d["mask_drop"], mesh=conf_d.get("mesh"))
+                mask_drop=conf_d["mask_drop"], mesh=conf_d.get("mesh"),
+                stkim_on_device=conf_d.get("stkim_on_device", False))
         if isinstance(model, (ACMIL_GA, ACMIL_MHA)):
             return model(bag.feats, bag.mask, deterministic=False,
                          stkim_u=stkim_u, stkim_generator=generator)
@@ -464,6 +467,12 @@ class MHIMFamily(PureFamily):
                     "loss": loss.detach(), "grad_norm": norm}
 
         return step
+
+    def make_step_body(self, model, conf):
+        """The step the scanned epoch runs per bag (the JAX
+        ``make_step_body``): :meth:`make_step`'s, which reads its tables and
+        takes its rate on the host, so its scanned route is eager."""
+        return self.make_step(model, conf)
 
 
 FAMILIES: Dict[str, Family] = {"default": Family(), "acmil": ACMILFamily(),

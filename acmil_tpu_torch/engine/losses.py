@@ -25,6 +25,23 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return weighted_mean(nll, valid)
 
 
+def binary_cross_entropy_with_logits(logits: torch.Tensor,
+                                     targets: torch.Tensor,
+                                     valid: torch.Tensor | None = None
+                                     ) -> torch.Tensor:
+    """Elementwise sigmoid cross-entropy from log-sigmoids, averaged: over
+    every element, or over the elements of the rows ``valid [B]`` keeps (its
+    shape broadcast over the trailing axes). Not sharded: the JAX function's
+    plain mean, whatever mesh is active."""
+    loss = -(targets * torch.nn.functional.logsigmoid(logits)
+             + (1.0 - targets) * torch.nn.functional.logsigmoid(-logits))
+    if valid is None:
+        return loss.mean()
+    w = valid.reshape(valid.shape + (1,) * (loss.dim() - valid.dim())
+                      ).expand(loss.shape).to(loss.dtype)
+    return (loss * w).sum() / w.sum().clamp_min(1.0)
+
+
 def attention_diversity_loss(attn_logits: torch.Tensor,
                              mask: torch.Tensor | None, n_token: int,
                              valid: torch.Tensor | None = None) -> torch.Tensor:

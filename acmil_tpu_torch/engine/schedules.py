@@ -1,6 +1,6 @@
 """Schedules, the port of ``acmil_tpu/engine/schedules.py``:
-``half_cosine_schedule`` (the learning rate) and ``cosine_array`` (MHIM's
-EMA momentum and mask ratio)."""
+``half_cosine_schedule`` (the learning rate), ``step_schedule`` (step
+decay) and ``cosine_array`` (MHIM's EMA momentum and mask ratio)."""
 
 from __future__ import annotations
 
@@ -24,6 +24,24 @@ def half_cosine_schedule(lr: float, min_lr: float, total_epochs: int,
         denom = max(total_epochs - warmup_epochs, 1e-8)
         return min_lr + (lr - min_lr) * 0.5 * (
             1.0 + math.cos(math.pi * (epoch - warmup_epochs) / denom))
+
+    return schedule
+
+
+def step_schedule(lr: float, total_epochs: int, steps_per_epoch: int,
+                  milestones=(0.5, 0.75),
+                  gamma: float = 0.1) -> Callable[[int], float]:
+    """Step decay at fractional milestones (`utils/utils.py:264-270`): the
+    rate times ``gamma`` for each milestone ``m`` with ``epoch >= m *
+    total_epochs``, the epoch fractional per step."""
+
+    def schedule(step: int) -> float:
+        epoch = step / steps_per_epoch
+        factor = 1.0
+        for m in milestones:
+            if epoch >= m * total_epochs:
+                factor *= gamma
+        return lr * factor
 
     return schedule
 

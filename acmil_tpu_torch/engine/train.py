@@ -1,5 +1,4 @@
-"""Training and eval engine, the port of ``acmil_tpu/engine/train.py``
-(without scan epochs).
+"""Training and eval engine, the port of ``acmil_tpu/engine/train.py``.
 
 ``create_train_state`` holds the model, AdamW with the reference's
 half-cosine schedule (or the family's own optimizer and per-module clip),
@@ -14,6 +13,14 @@ With a ``mesh`` (``parallel/mesh.py``), the steps run on this rank's part
 of each batch under the mesh made active: each data rank's loss is its
 share of the global loss, ``step_optimizer`` sums the gradients over the
 data group, and ``evaluate`` gathers the probabilities of every data rank.
+
+Scanned epochs (``scan_epoch``, one process): ``train_one_epoch_scanned``
+and ``evaluate_scanned`` drive the stacked shape groups of
+``BagLoader.device_groups`` in the JAX package's visit order, through
+``make_scan_train_step`` and ``make_scan_eval_step``. On a card the step of
+each group of the archs in ``GRAPH_SCAN_ARCHS`` is captured once as a CUDA
+graph and replayed once per bag (``engine/graphs.py``); every other case
+runs the same step eagerly, for the reason ``scan_route`` gives.
 """
 
 from __future__ import annotations
@@ -26,7 +33,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from acmil_tpu_torch.data.bags import Bag
 from acmil_tpu_torch.engine.families import Family, get_family
+from acmil_tpu_torch.engine.graphs import GraphSteps, take
 from acmil_tpu_torch.engine.metrics import (classification_metrics,
                                             gather_across_hosts)
 from acmil_tpu_torch.engine.schedules import half_cosine_schedule
@@ -363,6 +372,422 @@ def evaluate(eval_step, loader, n_class: int, mesh=None) -> Dict[str, float]:
                                     torch.cat(valid_dev), mesh.data_group)
         probs_dev, labels_dev, valid_dev = ([t] for t in whole)
     # one bulk host transfer at the end instead of a sync per batch
+    to_np = lambda ts: [t.cpu().numpy() for t in ts]
+    return _finalize_metrics(to_np(probs_dev), to_np(valid_dev),
+                             to_np(labels_dev), n_class)
+
+
+# ---------------------------------------------------------------------------
+# Scanned epochs
+# ---------------------------------------------------------------------------
+
+# The archs whose scanned step is captured as one CUDA graph per shape group
+# on a card (train and eval).
+GRAPH_SCAN_ARCHS = ("ga", "mha", "abmil", "clam_sb", "clam_mb", "dsmil")
+
+# Why the scanned step runs eagerly on a card, by option or arch.
+_UNCHECKED = ("its step has not been checked under capture on the card "
+              "yet; no kernel of the port is on its path")
+EAGER_SCAN_REASONS = {
+    "use_sam": "SAM's two passes set the generators back from the host "
+               "(_rng_replay), which a replay cannot repeat",
+    "mhim": "its step reads the EMA momentum and mask-ratio tables on the "
+            "host by state.step",
+    "dtfd": "its step has not been checked under capture on the card yet "
+            "(B1/B2 run only when DTFD_FUSE_MIN_S is set)",
+    **{arch: _UNCHECKED for arch in (
+        "pure", "transmil", "mha_single", "meanmil", "maxmil", "lbmil",
+        "attmil", "attmil_gated", "ilra", "ips", "ibmil", "bmil_vis",
+        "bmil_enc", "bmil_spvis")},
+}
+
+
+def scan_route(conf, device) -> Tuple[str, str]:
+    """``("graph" | "eager", why)``: how the scanned step of ``conf.arch``
+    runs on ``device``, decided from the configuration and the device alone
+    and before any capture. A capture that then fails raises."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "eager", f"the device is {device.type}, not a card"
+    if bool(getattr(conf, "use_sam", False)):
+        return "eager", "use_sam: " + EAGER_SCAN_REASONS["use_sam"]
+    if conf.arch in GRAPH_SCAN_ARCHS:
+        return "graph", (f"{conf.arch!r}: one CUDA graph per shape group, "
+                         f"replayed once per bag")
+    return "eager", f"{conf.arch!r}: " + EAGER_SCAN_REASONS.get(
+        conf.arch, _UNCHECKED)
+
+
+def family_supports_scan(family) -> bool:
+    """True iff :func:`make_scan_train_step` returns a scanned step for this
+    family, the JAX rule: a family scans unless it brings its own step
+    without a step body (MHIM brings one, ``make_step_body``)."""
+    fam = _resolve_family(family)
+    return (hasattr(fam, "make_step_body")
+            or type(fam).make_step is Family.make_step)
+
+
+class DeviceSchedule:
+    """The learning rate of the scanned steps on the device, where a graph
+    reads it: ``table`` holds ``schedule`` at the steps of one dispatch,
+    each rounded to float32, ``pos`` the position of the next step in it,
+    and ``lr`` the rate the optimizer reads as a tensor."""
+
+    def __init__(self, schedule: Callable[[int], float], size: int,
+                 device: torch.device):
+        self.schedule, self.size = schedule, max(int(size), 1)
+        self.table = torch.zeros(self.size, dtype=torch.float32, device=device)
+        self.pos = torch.zeros(1, dtype=torch.int64, device=device)
+        self.lr = torch.zeros((), dtype=torch.float32, device=device)
+
+    def load(self, step: int, n: int) -> None:
+        """The rates of steps ``step .. step + n - 1``, from position 0."""
+        if n > self.size:
+            raise ValueError(f"{n} steps do not fit a table of {self.size}")
+        vals = torch.tensor([self.schedule(step + j) for j in range(n)],
+                            dtype=torch.float32)
+        if self.table.device.type == "cuda":
+            vals = vals.pin_memory()
+        self.table[:n].copy_(vals, non_blocking=True)
+        self.pos.zero_()
+
+    def advance(self) -> None:
+        """``lr`` <- the next step's rate; the position moves on."""
+        self.lr.copy_(self.table.index_select(
+            0, self.pos.clamp(max=self.size - 1)).squeeze(0))
+        self.pos.add_(1)
+
+
+def _device_step_optimizer(state: TrainState, params,
+                           sched: DeviceSchedule) -> torch.Tensor:
+    """:func:`step_optimizer` for a step a graph can hold: the rate comes
+    from ``sched`` on the device, and ``state.step`` is left to the caller,
+    which adds a dispatch's steps after it."""
+    grads = [p.grad for p in params]
+    gnorm = global_norm(grads)
+    if state.clip_groups:
+        clip_by_module_norms_(state.clip_groups, state.grad_clip)
+    elif state.grad_clip:
+        clip_by_global_norm_(grads, state.grad_clip, gnorm)
+    sched.advance()
+    state.opt.step()
+    return gnorm
+
+
+def _make_scan_body(model, conf, fam: Family):
+    """``(body(state, bag, sched) -> aux, params, device_lr)``: the per-bag
+    step of the scanned route. It is :func:`make_train_step`'s on one
+    process, with STKIM's branch decided on the device
+    (``models/fast.py::_stkim_correct``, ``on_device``) and, when
+    ``sched`` is given, the rate from the device. A family's own step body
+    (MHIM) and SAM steps keep the host's rate and step count."""
+    use_sam = bool(getattr(conf, "use_sam", False))
+    custom = (fam.make_step_body(model, conf)
+              if hasattr(fam, "make_step_body") else None)
+    if custom is not None and use_sam:
+        raise ValueError(f"use_sam: family {fam.name!r} brings its own "
+                         f"train step, which takes no SAM gradient")
+    conf_d = fam.conf_dict(conf)
+    conf_d["mesh"] = None
+    conf_d["stkim_on_device"] = True
+    params = [p for p in model.parameters() if p.requires_grad]
+    sam_rho = float(getattr(conf, "sam_rho", 0.05))
+
+    def body(state: TrainState, bag, sched: Optional[DeviceSchedule]
+             ) -> Dict[str, torch.Tensor]:
+        if custom is not None:
+            return custom(state, bag)
+        model.train()
+        valid = bag.mask.any(dim=1)
+
+        def loss_fn():
+            outputs = fam.train_outputs(model, bag, conf_d,
+                                        generator=state.generator)
+            return fam.loss(outputs, bag, valid, conf_d)
+
+        if use_sam:
+            replay = _rng_replay(state, bag.feats.device)
+
+            def replayed():
+                replay()
+                return loss_fn()
+
+            (loss, aux), grads = sam_gradient(replayed, params, sam_rho,
+                                              reduce_grads=sum_over_data_)
+            for p, g in zip(params, grads):
+                p.grad = g
+            norm = step_optimizer(state, params)
+        else:
+            loss, aux = loss_fn()
+            state.opt.zero_grad(set_to_none=True)
+            loss.backward()
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            norm = (step_optimizer(state, params) if sched is None
+                    else _device_step_optimizer(state, params, sched))
+        aux = {k: v.detach() for k, v in aux.items()}
+        aux["loss"] = loss.detach()
+        aux["grad_norm"] = norm
+        return aux
+
+    return body, params, custom is None and not use_sam
+
+
+def _opt_tensors(opt) -> List[torch.Tensor]:
+    return [t for st in opt.state.values() for t in st.values()
+            if isinstance(t, torch.Tensor)]
+
+
+class ScanTrainStep:
+    """``scan_step(state, stacked, chunk) -> sums``: the steps of the bags
+    ``chunk`` (indices into the stacked group, in visit order), ``state``
+    updated in place; ``sums`` are the sums of every ``aux`` entry over the
+    chunk, on the device.
+
+    ``route`` is ``"graph"`` or ``"eager"`` (:func:`scan_route`), ``reason``
+    says why. Both run the same body in the same order with the same draws:
+    STKIM's uniforms and dropout from ``state.generator`` and torch's
+    default generator, registered with each graph. On a card the rate is
+    the device's (:class:`DeviceSchedule`) on both routes, and the optimizer
+    runs with ``capturable`` set; ``state.step`` is brought up to date after
+    each chunk. The graph route captures every group of the first epoch
+    after one warm-up step each, from which parameters, optimizer state
+    and generators are put back."""
+
+    def __init__(self, model, conf, fam: Family, route: Optional[str] = None):
+        self.device = next(model.parameters()).device
+        self.route, self.reason = scan_route(conf, self.device)
+        if route is not None and route != self.route:
+            if route == "graph" and self.device.type != "cuda":
+                raise ValueError("the graph route needs a card")
+            self.route, self.reason = route, f"{route} route asked for"
+        self.body, self.params, own = _make_scan_body(model, conf, fam)
+        self.device_lr = own and self.device.type == "cuda"
+        self.keys: Optional[List[str]] = None
+        self.acc: Optional[torch.Tensor] = None
+        self.sched: Optional[DeviceSchedule] = None
+        self.graphs: Optional[GraphSteps] = None
+        self._state: Optional[TrainState] = None
+        self._idx = torch.zeros(1, dtype=torch.int64, device=self.device)
+
+    # -- the body and its sums -------------------------------------------
+    def _run(self, bag) -> Dict[str, torch.Tensor]:
+        return self.body(self._state, bag, self.sched)
+
+    def _record(self, stacked, aux, idx) -> None:
+        if self.keys is None:
+            self.keys = list(aux)
+            self.acc = torch.zeros(len(self.keys), dtype=torch.float32,
+                                   device=self.device)
+        self.acc.add_(torch.stack([aux[k].float() for k in self.keys]))
+
+    # -- set-up on the first call ----------------------------------------
+    def _setup(self, state: TrainState, groups: List[Bag]) -> None:
+        self._state = state
+        if self.device_lr:
+            self.sched = DeviceSchedule(
+                state.schedule, sum(int(g.label.shape[0]) for g in groups),
+                self.device)
+            for group in state.opt.param_groups:
+                group["lr"] = self.sched.lr
+                if "capturable" in group:
+                    group["capturable"] = True
+        if self.route == "graph":
+            gens = [state.generator] if state.generator is not None else []
+            self.graphs = GraphSteps(self._run, self._record, self.device,
+                                     gens, warm=self._warm)
+            self.graphs.prepare(groups)
+
+    def _warm(self, groups: List[Bag]) -> None:
+        """One step per group, then everything it changed put back."""
+        state = self._state
+        with torch.no_grad():
+            params = [p.detach().clone() for p in self.params]
+            had = {id(p) for p in state.opt.state}
+            opt_saved = [t.clone() for t in _opt_tensors(state.opt)]
+        gen = state.generator.get_state() if state.generator else None
+        cuda_rng = torch.cuda.get_rng_state(self.device)
+        step = state.step
+        for stacked in groups:
+            self._idx.fill_(0)
+            if self.sched is not None:
+                self.sched.load(state.step, 1)
+            self._record(stacked, self._run(take(stacked, self._idx)),
+                         self._idx)
+        with torch.no_grad():
+            for p, saved in zip(self.params, params):
+                p.copy_(saved)
+            old = [t for p, st in state.opt.state.items() if id(p) in had
+                   for t in st.values() if isinstance(t, torch.Tensor)]
+            for t, saved in zip(old, opt_saved):
+                t.copy_(saved)
+            # state the warm-up created: zeros, as a first step finds it
+            for p, st in state.opt.state.items():
+                if id(p) not in had:
+                    for t in st.values():
+                        if isinstance(t, torch.Tensor):
+                            t.zero_()
+        if gen is not None:
+            state.generator.set_state(gen)
+        torch.cuda.set_rng_state(cuda_rng, self.device)
+        state.step = step
+        self.acc.zero_()
+
+    # -- one dispatch ----------------------------------------------------
+    def __call__(self, state: TrainState, stacked: Bag, chunk,
+                 groups: Optional[List[Bag]] = None) -> Dict[str, torch.Tensor]:
+        chunk = [int(i) for i in chunk]
+        if self._state is None:
+            self._setup(state, groups if groups is not None else [stacked])
+        elif self._state is not state:
+            raise ValueError("a scanned step serves the one TrainState it "
+                             "was first called with")
+        if self.sched is not None:
+            self.sched.load(state.step, len(chunk))
+        if self.acc is not None:
+            self.acc.zero_()
+        for i in chunk:
+            if self.graphs is not None:
+                self.graphs.replay(stacked, i)
+            else:
+                self._idx.fill_(i)
+                self._record(stacked, self._run(take(stacked, self._idx)),
+                             self._idx)
+        if self.device_lr:
+            state.step += len(chunk)
+        return dict(zip(self.keys, self.acc.clone().unbind()))
+
+    def kernel_launches(self) -> Dict[str, int]:
+        """Kernel launches of the graph route's replays (empty eagerly,
+        where the wrappers count their own)."""
+        return self.graphs.kernel_launches() if self.graphs else {}
+
+
+def make_scan_train_step(model, conf, family="acmil", mesh=None,
+                         route: Optional[str] = None
+                         ) -> Optional[ScanTrainStep]:
+    """The scanned counterpart of :func:`make_train_step` (the JAX
+    ``make_scan_train_step``), or None for a family that brings its own
+    step without a step body (none does: every family scans). ``route``
+    ("graph" or "eager") overrides :func:`scan_route`'s choice, to compare
+    the two. On a ``mesh`` it raises: scanned epochs run on one process."""
+    if mesh is not None:
+        raise NotImplementedError("scan_epoch on a mesh is not ported; "
+                                  "scanned epochs run on one process")
+    fam = _resolve_family(family)
+    if not family_supports_scan(fam):
+        return None
+    return ScanTrainStep(model, conf, fam, route)
+
+
+class ScanEvalStep:
+    """``scan_eval(stacked) -> probs [k, B, C]`` for a whole stacked group,
+    with the model in eval mode: :func:`make_eval_step`'s forward per bag,
+    eagerly or, on the graph route, as one CUDA graph per group (captured
+    on the group's first call after one eager warm-up) replayed per bag
+    into a buffer outside the pool."""
+
+    def __init__(self, model, family, fused: bool, route: str):
+        self.step = make_eval_step(model, family, fused=fused)
+        self.device = next(model.parameters()).device
+        self.route = route
+        self.out: Dict[int, torch.Tensor] = {}
+        self.graphs = (GraphSteps(self.step, self._record, self.device,
+                                  warm=self._warm)
+                       if route == "graph" else None)
+        self._idx = torch.zeros(1, dtype=torch.int64, device=self.device)
+
+    def _warm(self, groups: List[Bag]) -> None:
+        for stacked in groups:
+            self._idx.fill_(0)
+            probs = self.step(take(stacked, self._idx))
+            self.out[GraphSteps.key(stacked)] = torch.zeros(
+                (int(stacked.label.shape[0]),) + tuple(probs.shape),
+                dtype=probs.dtype, device=self.device)
+
+    def _record(self, stacked, probs, idx) -> None:
+        self.out[GraphSteps.key(stacked)].index_copy_(0, idx, probs[None])
+
+    def __call__(self, stacked: Bag) -> torch.Tensor:
+        k = int(stacked.label.shape[0])
+        if self.graphs is None:
+            probs = []
+            for i in range(k):
+                self._idx.fill_(i)
+                probs.append(self.step(take(stacked, self._idx)))
+            return torch.stack(probs)
+        self.graphs.prepare([stacked])
+        for i in range(k):
+            self.graphs.replay(stacked, i)
+        return self.out[GraphSteps.key(stacked)].clone()
+
+    def kernel_launches(self) -> Dict[str, int]:
+        return self.graphs.kernel_launches() if self.graphs else {}
+
+
+def make_scan_eval_step(model, family="default", fused: bool = True,
+                        mesh=None, route: str = "eager") -> ScanEvalStep:
+    """The scanned counterpart of :func:`make_eval_step`: probabilities for
+    a whole stacked shape group, ``[k, B, C]``, on ``route``: the trainer
+    passes its train step's (``ScanTrainStep.route``); "graph" needs a
+    card."""
+    if mesh is not None:
+        raise NotImplementedError("scan_epoch on a mesh is not ported; "
+                                  "scanned epochs run on one process")
+    return ScanEvalStep(model, family, fused, route)
+
+
+def train_one_epoch_scanned(state: TrainState, scan_step, loader,
+                            epoch: int, logger=None, interleave: int = 1
+                            ) -> Tuple[TrainState, Dict[str, float]]:
+    """One epoch over ``loader.device_groups()`` in the JAX package's visit
+    order: groups in a fresh random order and bags shuffled within their
+    group; with ``interleave`` C > 1 each group's order is cut into C chunks
+    and the chunks of all groups are shuffled together. ``scan_step`` runs
+    one chunk (``(state, stacked, chunk, groups)``). The sums stay on the
+    device and are read back once, at the end."""
+    groups = loader.device_groups()
+    totals: Dict[str, torch.Tensor] = {}
+    n = 0
+    dispatches = []
+    for gi, stacked in enumerate(groups):
+        k = int(stacked.label.shape[0])
+        perm = (loader.rng.permutation(k) if loader.shuffle
+                else np.arange(k))
+        c = max(1, min(int(interleave), k))
+        m = -(-k // c)                       # ceil(k / c)
+        for lo in range(0, k, m):
+            dispatches.append((gi, perm[lo:lo + m]))
+    if loader.shuffle:
+        order = loader.rng.permutation(len(dispatches))
+    else:
+        order = range(len(dispatches))
+    for di in order:
+        gi, chunk = dispatches[di]
+        sums = scan_step(state, groups[gi], chunk, groups)
+        n += len(chunk)
+        for k, v in sums.items():
+            totals[k] = totals[k] + v if k in totals else v.clone()
+    keys = list(totals)
+    vals = (torch.stack([totals[k].float() for k in keys]).tolist()
+            if keys else [])
+    stats = {k: v / max(n, 1) for k, v in zip(keys, vals)}
+    if logger is not None:
+        logger.update(**stats)
+    return state, stats
+
+
+def evaluate_scanned(scan_eval_step, loader, n_class: int) -> Dict[str, float]:
+    """:func:`evaluate` over the loader's stacked shape groups, one
+    ``scan_eval_step`` call per group; the same probabilities, metrics
+    from one host transfer at the end."""
+    probs_dev, valid_dev, labels_dev = [], [], []
+    for stacked in loader.device_groups():
+        probs = scan_eval_step(stacked)                   # [k, B, C]
+        probs_dev.append(probs.reshape(-1, probs.shape[-1]))
+        valid_dev.append(stacked.mask.any(dim=2).reshape(-1))
+        labels_dev.append(stacked.label.reshape(-1))
     to_np = lambda ts: [t.cpu().numpy() for t in ts]
     return _finalize_metrics(to_np(probs_dev), to_np(valid_dev),
                              to_np(labels_dev), n_class)

@@ -16,7 +16,8 @@ The JAX package's choices are kept: LinearVDO returns its mean in eval;
 the variance's ε is added inside the product and once more outside it, so
 an all-zero padded row has a finite sqrt gradient; the coords' int cast
 truncates toward 0. The ARD KL of the model (``kl_model``) is summed over
-the module's ``LinearVDO`` children by ``BMILFamily``.
+the module's ``LinearVDO`` and ``Conv2dVDO`` children by ``BMILFamily``;
+``Conv2dVDO`` is the JAX module's variational conv, which no head builds.
 
 **The spvis scatter.** Many patches share a cell of the 64x64 canvas. XLA's
 ``.at[ix].set`` promises no order for duplicate indices and neither do
@@ -103,6 +104,49 @@ class LinearVDO(nn.Module):
             return mu
         var = F.linear(x * x, torch.exp(self.log_alp) * self.weight ** 2
                        + _EPS) + _EPS
+        eps = noise if noise is not None else _normal(mu.shape, mu, generator)
+        return mu + eps * torch.sqrt(var)
+
+
+class Conv2dVDO(nn.Module):
+    """Variational-dropout conv layer (`linear_vdo.py:124-249`), the conv
+    analogue of :class:`LinearVDO`: the mean conv, and in training a sampled
+    variance term, the conv of x² with α ⊙ W². Bias-free (the reference
+    notes that a bias gives NaN); same padding, stride 1. Takes and returns
+    ``[B, H, W, C]`` as the JAX module does; ``weight`` and ``log_alp`` are
+    ``[out, in, k, k]``, torch's layout. As there, the variance's ε is added
+    inside the conv and once more outside it: an all-zero input window (a
+    padded grid region) then has a finite sqrt gradient."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 3,
+                 ard_init: float = -1.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        shape = (features, in_channels, kernel, kernel)
+        self.kernel = kernel
+        self.weight = nn.Parameter(torch.empty(shape))
+        self.log_alp = nn.Parameter(torch.full(shape, float(ard_init)))
+        with torch.no_grad():
+            self.weight.normal_(0.0, 0.01, generator=generator)
+
+    def kl(self) -> torch.Tensor:
+        """``vdo_kl`` of log α as the JAX module sows it: ``[k, k, in,
+        out]`` flattened to ``[k k in, out]``."""
+        return vdo_kl(self.log_alp.permute(2, 3, 1, 0)
+                      .reshape(-1, self.log_alp.shape[0]))
+
+    def forward(self, x, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``noise`` ([B, H, W, out]) stands for the draw of ε when given."""
+        pad = self.kernel // 2
+        xc = x.permute(0, 3, 1, 2)
+        mu = F.conv2d(xc, self.weight, padding=pad)
+        if deterministic:
+            return mu.permute(0, 2, 3, 1)
+        var = F.conv2d(xc * xc, torch.exp(self.log_alp) * self.weight ** 2
+                       + _EPS, padding=pad) + _EPS
+        mu, var = mu.permute(0, 2, 3, 1), var.permute(0, 2, 3, 1)
         eps = noise if noise is not None else _normal(mu.shape, mu, generator)
         return mu + eps * torch.sqrt(var)
 
@@ -306,11 +350,13 @@ class BMILSpvis(nn.Module):
 
 
 def vdo_layers(model: nn.Module):
-    return [m for m in model.modules() if isinstance(m, LinearVDO)]
+    return [m for m in model.modules()
+            if isinstance(m, (LinearVDO, Conv2dVDO))]
 
 
 def kl_model(model: nn.Module) -> torch.Tensor:
-    """The model's ARD KL: every LinearVDO's ``vdo_kl`` summed, what the JAX
+    """The model's ARD KL: every LinearVDO's and Conv2dVDO's ``vdo_kl``
+    summed, what the JAX
     family sums from the sown ``kl`` collection (`get_ard_reg_vdo`,
     `bmil.py:446`)."""
     return sum(m.kl() for m in vdo_layers(model))

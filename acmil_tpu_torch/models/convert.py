@@ -379,19 +379,50 @@ def _dtfd(params) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def from_jax_params(params, arch: str,
-                    droprate: float = 0.25) -> Dict[str, torch.Tensor]:
+def _conv2d_vdo(params) -> Dict[str, torch.Tensor]:
+    """A ``Conv2dVDO``'s HWIO ``kernel`` and ``log_alp`` → OIHW ``weight``
+    and ``log_alp``."""
+    return {name: _t(np.asarray(params[key]).transpose(3, 2, 0, 1))
+            for name, key in (("weight", "kernel"), ("log_alp", "log_alp"))}
+
+
+def _resnet_e2e(params, batch_stats) -> Dict[str, torch.Tensor]:
+    """``ResnetE2EMIL``: the trunk through
+    ``encoders/convert.py::resnet_from_flax`` under ``resnet.``, its three
+    Dense layers (in construction order) as ``fc1``-``fc3``."""
+    from acmil_tpu_torch.models.encoders.convert import resnet_from_flax
+
+    if batch_stats is None:
+        raise ValueError("resnet_e2e needs the flax batch_stats too")
+    trunk = next(k for k in params if k.startswith("ResNet"))
+    sd = {f"resnet.{k}": v for k, v in resnet_from_flax(
+        params[trunk], batch_stats[trunk]).items()}
+    dense = sorted((k for k in params if k.startswith("Dense")),
+                   key=lambda k: int(k.rsplit("_", 1)[1]))
+    for i, k in enumerate(dense):
+        _linear(sd, f"fc{i + 1}", params[k])
+    return sd
+
+
+def from_jax_params(params, arch: str, droprate: float = 0.25,
+                    batch_stats=None) -> Dict[str, torch.Tensor]:
     """``arch`` is ``"ga"`` (ACMIL_GA), ``"mha"`` (ACMIL_MHA), ``"abmil"``,
     ``"mha_single"`` (MHA), ``"dsmil"``, ``"clam_sb"``, ``"clam_mb"``, an
     arch of the generic zoo (``"meanmil"``, ``"maxmil"``, ``"lbmil"``,
     ``"attmil"``, ``"attmil_gated"``, ``"ilra"``, ``"ips"``, ``"ibmil"``,
     ``"bmil_vis"``, ``"bmil_enc"``, ``"bmil_spvis"``, ``"transmil"``,
-    ``"mhim"``, ``"pure"``), ``"dtfd"`` or ``"vit"`` (a patch
-    encoder of ``acmil_tpu.models.encoders.vit``). ``droprate`` places the
+    ``"mhim"``, ``"pure"``), ``"dtfd"``, ``"vit"`` (a patch
+    encoder of ``acmil_tpu.models.encoders.vit``), ``"conv2d_vdo"`` (one
+    ``Conv2dVDO``) or ``"resnet_e2e"`` (``ResnetE2EMIL``, which needs the
+    flax ``batch_stats`` too). ``droprate`` places the
     layer after a dropout in CLAM's attention net, mean/max's head and
     BMIL vis/enc's attention net."""
     if arch == "vit":
         return _vit(params)
+    if arch == "conv2d_vdo":
+        return _conv2d_vdo(params)
+    if arch == "resnet_e2e":
+        return _resnet_e2e(params, batch_stats)
     if arch in ("clam_sb", "clam_mb"):
         return _clam(params, droprate)
     if arch == "dsmil":
@@ -403,7 +434,8 @@ def from_jax_params(params, arch: str,
     if arch not in ("ga", "abmil"):
         raise ValueError(f"no converter for arch {arch!r} (have 'ga', 'mha', "
                          f"'abmil', 'mha_single', 'dsmil', 'clam_sb', "
-                         f"'clam_mb', {', '.join(map(repr, _ZOO))}, 'vit')")
+                         f"'clam_mb', {', '.join(map(repr, _ZOO))}, 'vit', "
+                         f"'conv2d_vdo', 'resnet_e2e')")
     sd: Dict[str, torch.Tensor] = {}
     _linear(sd, "dimreduction.fc1", params["DimReduction_0"]["Dense_0"])
     _gated(sd, "attention", params["AttentionGated_0"])

@@ -96,7 +96,8 @@ def abmil_infer(model, feats, mask):
 
 def _stkim_correct(bag, logits, feats, mask, w1, n_masked_patch: int,
                    mask_drop: float, u: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None, mesh=None):
+                   generator: Optional[torch.Generator] = None, mesh=None,
+                   on_device: bool = False):
     """Apply STKIM to an already-pooled bag as an O(K·k) correction.
 
     The kernel pools with the full softmax and emits the raw logits
@@ -114,7 +115,11 @@ def _stkim_correct(bag, logits, feats, mask, w1, n_masked_patch: int,
     all the mass, so below ``_STKIM_KEPT_MIN`` kept mass the whole batch
     takes an exact kept-softmax recompute instead. The JAX package decides
     this on the device (``lax.cond``); here the branch reads one element
-    back to the host, one sync per step.
+    back to the host, one sync per step. With ``on_device`` (the scanned
+    step, which a CUDA graph holds) both branches are computed and
+    ``torch.where`` keeps the one the host would have taken, with its very
+    numbers: the cost is the exact branch's dim-reduction GEMM over every
+    patch, ``[B, N, Df] x [Df, L]``, each step. ``on_device`` takes no mesh.
 
     On a ``mesh`` with a seq axis, ``logits`` and ``mask`` are the whole
     bag's (gathered) and ``feats`` this rank's slice of N: the top-k runs
@@ -143,9 +148,8 @@ def _stkim_correct(bag, logits, feats, mask, w1, n_masked_patch: int,
     kept_mass = 1.0 - p_top.sum(dim=-1)                       # [B, K]
 
     least = kept_mass.detach().min()
-    if mesh is not None:
-        least = C.all_reduce_(least.clone(), mesh.world_group, C.ReduceOp.MIN)
-    if float(least) >= _STKIM_KEPT_MIN:
+
+    def subtract():
         # subtract the dropped terms: gather ≤k rows per branch (this
         # rank's), recompute h
         local = topk_idx - off
@@ -157,21 +161,34 @@ def _stkim_correct(bag, logits, feats, mask, w1, n_masked_patch: int,
                              C.fan_out(p_top, group) * own.to(p_top.dtype),
                              h_top)
         num = bag - C.psum(terms, group)
-        return num / kept_mass[..., None].clamp_min(_STKIM_KEPT_MIN / 4), a_drop
-    # kept-softmax pooling from scratch: exact, at the cost of the
-    # dim-reduction GEMM over every patch
-    h = torch.relu(feats.to(w1.dtype) @ w1)                   # [B, n, L]
-    keep = mask[:, None, :] & ~drop
-    attn = torch.softmax(torch.where(keep, a_drop, NEG_INF), dim=-1)
-    attn = C.group_slice(C.fan_out(attn, group), group, 2)
-    return C.psum(torch.einsum("bkn,bnl->bkl", attn, h), group), a_drop
+        return num / kept_mass[..., None].clamp_min(_STKIM_KEPT_MIN / 4)
+
+    def exact():
+        # kept-softmax pooling from scratch: exact, at the cost of the
+        # dim-reduction GEMM over every patch
+        h = torch.relu(feats.to(w1.dtype) @ w1)               # [B, n, L]
+        keep = mask[:, None, :] & ~drop
+        attn = torch.softmax(torch.where(keep, a_drop, NEG_INF), dim=-1)
+        attn = C.group_slice(C.fan_out(attn, group), group, 2)
+        return C.psum(torch.einsum("bkn,bnl->bkl", attn, h), group)
+
+    if on_device:
+        if mesh is not None:
+            raise ValueError("STKIM's branch on the device takes no mesh")
+        return torch.where(least >= _STKIM_KEPT_MIN, subtract(), exact()), \
+            a_drop
+    if mesh is not None:
+        least = C.all_reduce_(least.clone(), mesh.world_group, C.ReduceOp.MIN)
+    if float(least) >= _STKIM_KEPT_MIN:
+        return subtract(), a_drop
+    return exact(), a_drop
 
 
 def acmil_ga_apply_batched(model, feats, mask,
                            stkim_u: Optional[torch.Tensor] = None,
                            stkim_generator: Optional[torch.Generator] = None,
                            n_masked_patch: int = 0, mask_drop: float = 0.0,
-                           mesh=None):
+                           mesh=None, stkim_on_device: bool = False):
     """Differentiable fused ACMIL_GA forward, batched: feats
     ``[B, N, D_feat]`` (fp16 or f32), mask ``[B, N]`` → (sub [B, K, C],
     slide [B, C], logits [B, K, N]).
@@ -181,8 +198,9 @@ def acmil_ga_apply_batched(model, feats, mask,
     gradient unless they require one. With ``n_masked_patch`` and
     ``mask_drop`` > 0 and STKIM's uniforms given (``stkim_u [B, K, N]``) or
     a generator to draw them, STKIM applies as :func:`_stkim_correct`;
-    without either it is off, as in eval. Logits hold ``NEG`` (-1e30) at
-    pad slots, where the plain forward keeps raw values.
+    without either it is off, as in eval. ``stkim_on_device`` decides its
+    correction branch on the device (the scanned step's). Logits hold
+    ``NEG`` (-1e30) at pad slots, where the plain forward keeps raw values.
 
     With a ``mesh`` whose seq axis is above 1, ``feats`` and ``mask`` are
     this rank's slice of N: the pooling runs
@@ -203,7 +221,7 @@ def acmil_ga_apply_batched(model, feats, mask,
     if stkim and n_masked_patch > 0 and mask_drop > 0:
         bag, logits = _stkim_correct(bag, logits, feats, mask, w1,
                                      n_masked_patch, mask_drop, stkim_u,
-                                     stkim_generator, mesh)
+                                     stkim_generator, mesh, stkim_on_device)
     sub = _branch_heads(model, bag)
     slide = model.Slide_classifier.fc(bag.mean(dim=1))
     return sub, slide, logits

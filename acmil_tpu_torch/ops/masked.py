@@ -23,8 +23,10 @@ NEG_INF = -1e9
 
 
 def masked_fill(x: torch.Tensor, mask: torch.Tensor, value: float = NEG_INF) -> torch.Tensor:
-    """Where ``mask`` is False, replace with ``value``. mask broadcasts to x."""
-    return torch.where(mask, x, torch.as_tensor(value, dtype=x.dtype))
+    """Where ``mask`` is False, replace with ``value``. mask broadcasts to x.
+    The fill value is made on ``x``'s device: a host scalar tensor would be
+    a copy from pageable host memory, which a CUDA graph cannot hold."""
+    return torch.where(mask, x, x.new_full((), value))
 
 
 def masked_softmax(logits: torch.Tensor, mask: torch.Tensor | None, dim: int = -1) -> torch.Tensor:

@@ -256,6 +256,25 @@ code is non-zero:
    printed beside it; (g) B7 against its plain version at f32 and fp16,
    dh in ``B7_DH``, N in ``B7_N``, contiguous and strided, then its fma
    route timed at f32 [256, 6, 197, 64] beside the plain version and SDPA.
+23. Step3's scanned epoch (``--scan_epoch``) on bench.py's scan-epoch
+   cohort (242 bags of clip(lognormal(log 3000, 0.7), 500, 20000) patches,
+   D_feat 384, fp16, ``min_bucket`` 1024, the ACMIL recipe at lr 1e-4, 100
+   epochs scheduled), plus 20 val and 20 test bags: (a)
+   ``cli/step3_acmil.py --scan_epoch`` trains 2 epochs from the cohort's
+   ``.pt`` file, printing the graph route once, B1 and B2 launched by the
+   replays once per step and eval bag; (b) one epoch on the graph route
+   against the eager scanned route, same order and draws, bit for bit
+   (``SCAN_GRAPH_ATOL``), with each bucket's capture ms and pool growth;
+   (c) ``evaluate_scanned`` against ``evaluate`` and against each bag's eval
+   step; (d) ``torch.profiler`` over one graph epoch counts one B1 row
+   kernel and one B2 weight-gradient kernel a replay, short by at most
+   ``SCAN_PROFILER_LOST`` of them (events the tracer loses); (e) the per-bag loop,
+   the eager scanned route and the graph route, one epoch each: wall
+   (``utils/profiling.py::StepTimer``), device busy time and idle share
+   (``profile_trace``), and STKIM's branch on the device against the
+   host's; (f) ABMIL, CLAM_SB and CLAM_MB graph against eager on the first
+   ``SCAN_SUB`` bags, and DSMIL's scanned eval with B6 in the graph
+   against ``evaluate``.
 
 The line before the kernels line is ``{"zoo": {...}}``: phase 18's and
 phase 19's numbers per arch (training epoch wall and loss, predict seconds,
@@ -263,7 +282,7 @@ card-vs-CPU error, step and eval ms, device ms and device events; phase
 19's also the step's peak memory), the kernel launches phase 18 counted,
 phase 19's checks under ``transmil_mhim`` and phase 20's numbers under
 ``dtfd_sam_resnet``, phase 21's under ``mesh`` and phase 22's under
-``step2_mesh``. The line before the last
+``step2_mesh`` and phase 23's under ``scan_epoch``. The line before the last
 but one is ``{"kernels": [...]}``
 with each
 kernel's launches on its path (B7 has an entry per route, each with its
@@ -288,7 +307,11 @@ phase 15 (``launches_pipeline_step2``, ``_step3``, ``_predict``,
 DTFD's call shape split by kernel (``dtfd_call``), and on phase 21's mesh
 paths (``launches_sharded_step3`` and B1's ``launches_sharded_eval``: the
 data 2 x seq 2 epoch summed over its ranks; ``launches_sharded_step_seq2``,
-``launches_mesh_nccl_world1``); then the card's name and power limit; the last line
+``launches_mesh_nccl_world1``), and on phase 23's scanned epochs
+(``launches_scan_epoch_step3``: (a)'s warm-ups plus its replays times the
+launches of one capture; ``launches_scan_graph_epochs``: (b) and (e)'s
+graph epochs; B6's ``launches_scan_eval_graph``: (f)); then the card's
+name and power limit; the last line
 is
 ``{"ok": true, "device": {...}}``.
 """
@@ -5090,6 +5113,474 @@ def step2_mesh_run(smi: str, tmp: str, pipe: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: Step3's scanned epoch, each shape group's step a CUDA graph
+# ---------------------------------------------------------------------------
+
+# the cohort of bench.py's scan-epoch line: bags of clip(lognormal(log 3000,
+# 0.7), 500, 20000) patches at D_feat 384, fp16, labels i % 2, min_bucket
+# 1024, and its ACMIL recipe with 100 epochs scheduled
+SCAN_BAGS, SCAN_VAL, SCAN_TEST = 242, 20, 20
+SCAN_MIN_BUCKET = 1024
+SCAN_LOADER_SEED = 4
+# (f): the bags of the ABMIL and CLAM graph epochs; DSMIL's scanned eval on
+# SCAN_DSMIL_BAGS bags of SCAN_DSMIL_N patches, whose bucket reaches
+# FUSE_MIN_N, so that B6 replays in the graph
+SCAN_SUB = 64
+SCAN_DSMIL_BAGS, SCAN_DSMIL_N = 4, 65536
+# the graph route against the eager scanned route: the same kernels on the
+# same inputs in the same order, so bit for bit
+SCAN_GRAPH_ATOL = 0.0
+# (d): the share of a graph epoch's B1/B2 kernel events the tracer may
+# lose (it loses a few of any route's, the eager route's included)
+SCAN_PROFILER_LOST = 0.02
+
+
+class _ListSrc:
+    """In-RAM bags with the loader's source protocol."""
+
+    def __init__(self, slides):
+        self.items = [{"input": d["feat"], "coords": d["coords"],
+                       "label": d["label"]} for d in slides.values()]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+    def lengths(self):
+        return [len(it["input"]) for it in self.items]
+
+
+def _scan_cohort(n: int, seed: int) -> dict:
+    """bench.py's recipe from ``RandomState(seed)``: its first 242 bags are
+    bench.py's at seed 0, the rest drawn on from the same stream."""
+    rs = np.random.RandomState(seed)
+    slides = {}
+    for i in range(n):
+        m = int(np.clip(rs.lognormal(np.log(3000), 0.7), 500, 20000))
+        slides[f"slide_{i:03d}"] = {
+            "feat": rs.randn(m, D_FEAT).astype(np.float16),
+            "coords": np.zeros((m, 2), np.int64), "label": i % 2}
+    return slides
+
+
+def _scan_conf(arch="ga", **kw):
+    from acmil_tpu_torch.config import Config
+
+    d = dict(n_class=2, D_feat=D_FEAT, D_inner=D_INNER, arch=arch,
+             n_token=N_TOKEN, n_masked_patch=N_MASKED_PATCH,
+             mask_drop=MASK_DROP, lr=1e-4, wd=1e-5, train_epoch=100,
+             warmup_epoch=2, B=1, min_bucket=SCAN_MIN_BUCKET, seed=SEED)
+    d.update(kw)
+    return Config.from_dict(d)
+
+
+def _counts() -> dict:
+    from acmil_tpu_torch.engine.graphs import launch_counters
+
+    return {k: f.launches for k, f in launch_counters().items()}
+
+
+def _zero_counts() -> None:
+    from acmil_tpu_torch.engine.graphs import launch_counters
+
+    for f in launch_counters().values():
+        f.launches = 0
+
+
+def _sum_counts(*ds) -> dict:
+    out = {}
+    for d in ds:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _scan_cli(smi: str, tmp: str, slides: dict) -> dict:
+    """(a) ``cli/step3_acmil.py --scan_epoch`` on the cohort's feature file,
+    2 epochs with val and test: the graph route, printed once."""
+    import contextlib
+    import io
+
+    from acmil_tpu_torch.cli import step3_acmil
+    from acmil_tpu_torch.cli import train as train_cli
+
+    data_dir, _, yml = _write_split_corpus(tmp, slides, YML, "medical_ssl",
+                                           SCAN_BAGS, SCAN_VAL)
+    ckpt_dir, log_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "log")
+    made = []
+    real = (train_cli.make_scan_train_step, train_cli.make_scan_eval_step)
+    train_cli.make_scan_train_step = lambda *a, **k: made.append(
+        real[0](*a, **k)) or made[-1]
+    train_cli.make_scan_eval_step = lambda *a, **k: made.append(
+        real[1](*a, **k)) or made[-1]
+    out = io.StringIO()
+    _zero_counts()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            best = step3_acmil.main([
+                "--config", yml, "--data_dir", data_dir, "--ckpt_dir",
+                ckpt_dir, "--log_dir", log_dir, "--train_epoch", "2",
+                "--n_token", str(N_TOKEN), "--n_masked_patch",
+                str(N_MASKED_PATCH), "--mask_drop", str(MASK_DROP),
+                "--min_bucket", str(SCAN_MIN_BUCKET), "--scan_epoch",
+                "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        train_cli.make_scan_train_step, train_cli.make_scan_eval_step = real
+    text = out.getvalue()
+    routes = [ln for ln in text.splitlines() if ln.startswith("scan_epoch:")]
+    if len(routes) != 1 or "graph route" not in routes[0]:
+        raise AssertionError(f"the CLI's route lines: {routes}")
+    warm = _counts()
+    replayed = _sum_counts(*(m.kernel_launches() for m in made))
+    steps, evals = 2 * SCAN_BAGS, 2 * (SCAN_VAL + SCAN_TEST)
+    if replayed.get("B2") != steps or replayed.get("B1") != steps + evals:
+        raise AssertionError(f"replayed launches {replayed}: want B2 {steps} "
+                             f"and B1 {steps + evals}")
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        epochs = [r for r in map(json.loads, f) if "_config" not in r]
+    vals = [r[k] for r in epochs for k in ("train/loss", "perf/val_loss",
+                                           "perf/test_loss")]
+    if len(epochs) != 2 or not all(map(math.isfinite, vals)):
+        raise AssertionError(f"epochs {epochs}")
+    for tag in ("best", "last"):
+        if not os.path.isfile(os.path.join(ckpt_dir, f"checkpoint-{tag}.pth")):
+            raise AssertionError(f"no checkpoint-{tag}.pth")
+    total = _sum_counts(warm, replayed)
+    print(f"scan (a): cli/step3_acmil.py --scan_epoch, 2 epochs x "
+          f"{SCAN_BAGS} bags + {SCAN_VAL} val + {SCAN_TEST} test, "
+          f"{wall:.2f} s wall; {routes[0]}; launches B1 {total['B1']}, B2 "
+          f"{total['B2']} (replays {replayed['B1']}/{replayed['B2']}, "
+          f"warm-ups {warm['B1']}/{warm['B2']}); train losses "
+          f"{', '.join('%.6f' % r['train/loss'] for r in epochs)}; best "
+          f"epoch {best.get('epoch')} val auc {best.get('auc', float('nan')):.4f} "
+          f"[{smi}]")
+    return total
+
+
+def _same_eval(got: dict, want: dict) -> bool:
+    """Equal metrics; the loss, a mean over the bags taken in another
+    order, to 1e-12 relative."""
+    return got.keys() == want.keys() and all(
+        math.isclose(got[k], want[k], rel_tol=1e-12) if k == "loss"
+        else got[k] == want[k] or (math.isnan(got[k]) and math.isnan(want[k]))
+        for k in got)
+
+
+def _scan_timed(fn, device) -> dict:
+    """One epoch ``fn()`` timed (host span ending in a synchronise, and
+    ``StepTimer``'s CUDA events), then one more under ``profile_trace``,
+    the card's activity alone: its device busy time and its B1 row and B2
+    weight-gradient kernels (one each a launch), and the idle share of the
+    timed epoch."""
+    from acmil_tpu_torch.utils.profiling import (StepTimer, device_events,
+                                                 profile_trace)
+
+    timer = StepTimer(device)
+    t0 = time.perf_counter()
+    fn()
+    event_s = timer.tick()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with profile_trace(trace_dir, device, cpu=False) as prof:
+            fn()
+            torch.cuda.synchronize()
+    events = device_events(prof)
+    busy = sum(ms for _, ms in events)
+    count = lambda k: sum(k in name for name, _ in events)
+    return {"wall_ms": wall_ms, "event_ms": event_s * 1e3,
+            "device_ms": busy, "idle": 1.0 - busy / wall_ms,
+            "events": len(events), "b1_rows": count("b1_row_kernel"),
+            "b2_wgrads": count("b2_wgrad_kernel")}
+
+
+def _scan_routes(smi: str, slides: dict) -> dict:
+    """(b)-(e) on the cohort: the graph route against the eager scanned
+    route, the scanned eval against ``evaluate``, B1/B2 in the replays by
+    the profiler's count, and the three routes' epochs timed."""
+    from acmil_tpu_torch.data import BagLoader
+    from acmil_tpu_torch.engine.graphs import take
+    from acmil_tpu_torch.engine.train import (create_train_state, evaluate,
+                                              evaluate_scanned,
+                                              make_eval_step,
+                                              make_scan_eval_step,
+                                              make_scan_train_step,
+                                              make_train_step,
+                                              train_one_epoch,
+                                              train_one_epoch_scanned)
+    from acmil_tpu_torch.models import build_mil_model
+    from acmil_tpu_torch.models.fast import acmil_ga_apply_batched
+
+    dev = torch.device("cuda")
+    conf = _scan_conf()
+    src = _ListSrc(slides)
+    kw = dict(min_bucket=SCAN_MIN_BUCKET, dtype=np.float16, device=dev)
+    base = BagLoader(src, 1, shuffle=True, seed=SCAN_LOADER_SEED, **kw)
+    t0 = time.perf_counter()
+    groups = base.device_groups()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    rng0 = copy.deepcopy(base.rng)
+
+    def twin():
+        loader = BagLoader(src, 1, shuffle=True, seed=SCAN_LOADER_SEED, **kw)
+        loader._device_groups, loader.rng = groups, copy.deepcopy(rng0)
+        return loader
+
+    torch.manual_seed(SEED)
+    model, family = build_mil_model(conf)
+    model.to(dev)
+    out = {"upload_s": upload_s,
+           "buckets": {int(g.feats.shape[2]): int(g.label.shape[0])
+                       for g in groups}}
+    runs = {}
+    for route in ("eager", "graph"):
+        m = copy.deepcopy(model)
+        state = create_train_state(m, conf, SCAN_BAGS, family=family)
+        scan = make_scan_train_step(m, conf, family, route=route)
+        loader = twin()
+        torch.cuda.manual_seed(SEED)
+        t0 = time.perf_counter()
+        _, stats = train_one_epoch_scanned(state, scan, loader, 0)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        runs[route] = (m, state, stats, scan, loader, first_s)
+    (m_e, st_e, s_e, _, l_e, _), (m_g, st_g, s_g, scan_g, l_g, first_g) = (
+        runs["eager"], runs["graph"])
+    diff = max(float((p - q).detach().abs().max()) for p, q in
+               zip(m_g.parameters(), m_e.parameters()))
+    if st_g.step != st_e.step or diff > SCAN_GRAPH_ATOL:
+        raise AssertionError(f"graph route vs eager: step {st_g.step} vs "
+                             f"{st_e.step}, max param diff {diff:.3e}")
+    sums = {k: (s_g[k] * SCAN_BAGS, s_e[k] * SCAN_BAGS)
+            for k in ("loss", "grad_norm")}
+    if any(a != b for a, b in sums.values()):
+        raise AssertionError(f"graph vs eager sums {sums}")
+    graphs = scan_g.graphs
+    by_key = {g.feats.data_ptr(): int(g.feats.shape[2]) for g in groups}
+    capture = {by_key[k]: round(v * 1e3, 3) for k, v in
+               graphs.capture_s.items()}
+    pool = {by_key[k]: v for k, v in graphs.pool_bytes.items()}
+    print(f"scan (b): one epoch of {SCAN_BAGS} bags in "
+          f"{len(groups)} buckets {out['buckets']}, graph route vs eager "
+          f"scanned route in one visit order: max param diff {diff:.3e} "
+          f"(tolerance {SCAN_GRAPH_ATOL}), loss sums "
+          f"{sums['loss'][0]:.9g} / {sums['loss'][1]:.9g}, grad_norm sums "
+          f"{sums['grad_norm'][0]:.9g} / {sums['grad_norm'][1]:.9g}; "
+          f"first graph epoch {first_g:.3f} s with warm-ups and captures "
+          f"(capture ms by bucket {capture}, pool bytes by bucket {pool}) "
+          f"[{smi}]")
+    out.update(graph_vs_eager_max_diff=diff, capture_ms=capture,
+               pool_bytes=pool, first_graph_epoch_s=first_g)
+
+    # (c) the scanned eval, graph route, against evaluate and per bag
+    eval_loader = BagLoader(src, 1, **kw)
+    scan_eval = make_scan_eval_step(m_g, family, route="graph")
+    step = make_eval_step(m_g, family)
+    got = evaluate_scanned(scan_eval, eval_loader, conf.n_class)
+    want = evaluate(step, BagLoader(src, 1, **kw), conf.n_class)
+    worst = 0.0
+    for stacked in eval_loader.device_groups():
+        probs = scan_eval(stacked)
+        for i in range(int(stacked.label.shape[0])):
+            one = step(take(stacked, torch.tensor([i], device=dev)))
+            worst = max(worst, float((probs[i] - one).abs().max()))
+    if not _same_eval(got, want) or worst != 0.0:
+        raise AssertionError(f"evaluate_scanned {got} vs evaluate {want}, "
+                             f"largest probability difference {worst:.3e}")
+    print(f"scan (c): evaluate_scanned (graph route) vs evaluate on "
+          f"{SCAN_BAGS} bags: largest probability difference {worst:.3e}, "
+          f"auc {got['auc']:.6f} = {want['auc']:.6f} [{smi}]")
+
+    # (e): one more epoch of each route timed, one more profiled
+    before = graphs.kernel_launches()
+    epoch = iter(range(1, 3))
+    t_graph = _scan_timed(lambda: train_one_epoch_scanned(
+        st_g, scan_g, l_g, next(epoch)), dev)
+    after = graphs.kernel_launches()
+    per = {k: after[k] - before[k] for k in ("B1", "B2")}
+    if per["B1"] != 2 * SCAN_BAGS or per["B2"] != 2 * SCAN_BAGS:
+        raise AssertionError(f"replays of two epochs launched {per}")
+    # (d): the tracer loses a kernel event now and then (one of 242 and one
+    # of 32 b1_row_kernel in two runs, 3-4 of the eager route's 242, whose
+    # wrapper counted every launch), so the count may fall short of
+    # replays x launches per capture by SCAN_PROFILER_LOST of it, never more
+    lost = {k: SCAN_BAGS - t_graph[k] for k in ("b1_rows", "b2_wgrads")}
+    if not all(0 <= v <= max(1, SCAN_PROFILER_LOST * SCAN_BAGS)
+               for v in lost.values()):
+        raise AssertionError(
+            f"the profiler saw {t_graph['b1_rows']} b1_row_kernel and "
+            f"{t_graph['b2_wgrads']} b2_wgrad_kernel in one graph epoch; "
+            f"replays x launches per capture = {SCAN_BAGS}")
+    print(f"scan (d): one profiled graph epoch: {t_graph['b1_rows']} "
+          f"b1_row_kernel and {t_graph['b2_wgrads']} b2_wgrad_kernel events "
+          f"against {SCAN_BAGS} replays x 1 launch per capture (events the "
+          f"tracer lost: {lost['b1_rows']}, {lost['b2_wgrads']}) [{smi}]")
+    epoch = iter(range(1, 3))
+    t_eager = _scan_timed(lambda: train_one_epoch_scanned(
+        st_e, runs["eager"][3], l_e, next(epoch)), dev)
+    m_l = copy.deepcopy(model)
+    st_l = create_train_state(m_l, conf, SCAN_BAGS, family=family)
+    loop_step = make_train_step(m_l, conf, family)
+    loop_loader = BagLoader(src, 1, shuffle=True, seed=SCAN_LOADER_SEED,
+                            cache_device=True, **kw)
+    train_one_epoch(st_l, loop_step, loop_loader, 0)       # uploads the bags
+    epoch = iter(range(1, 3))
+    t_loop = _scan_timed(lambda: train_one_epoch(st_l, loop_step,
+                                                 loop_loader, next(epoch)),
+                         dev)
+    # STKIM's branch on the device: a step's forward and backward at the
+    # most common bucket with the select (both branches) and with the
+    # host's branch (one sync)
+    bag = take(max(groups, key=lambda g: int(g.label.shape[0])),
+               torch.tensor([0], device=dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    m_x = copy.deepcopy(model)
+
+    def fwd_bwd(on_device):
+        sub, slide, _ = acmil_ga_apply_batched(
+            m_x, bag.feats, bag.mask, stkim_generator=gen,
+            n_masked_patch=N_MASKED_PATCH, mask_drop=MASK_DROP,
+            stkim_on_device=on_device)
+        (sub.sum() + slide.sum()).backward()
+
+    stkim = {on: _event_ms(lambda: fwd_bwd(on), 20) for on in (True, False)}
+    del m_x
+    n_bucket = int(bag.feats.shape[1])
+    routes = {"per-bag loop": t_loop, "eager scanned": t_eager,
+              "graph": t_graph}
+    for name, t in routes.items():
+        print(f"scan (e): {name} epoch of {SCAN_BAGS} bags: wall "
+              f"{t['wall_ms']:.3f} ms (CUDA events {t['event_ms']:.3f} ms), "
+              f"device busy {t['device_ms']:.3f} ms in {t['events']} device "
+              f"events, idle {100 * t['idle']:.1f}%, "
+              f"{t['wall_ms'] / SCAN_BAGS:.4f} ms a bag [{smi}]")
+    print(f"scan (e): STKIM's branch on the device at N={n_bucket}: forward "
+          f"+ backward {stkim[True]:.4f} ms with both branches selected on "
+          f"the device, {stkim[False]:.4f} ms with the host's branch and its "
+          f"sync (+{stkim[True] - stkim[False]:.4f} ms) [{smi}]")
+    out.update(epochs={k: {kk: round(vv, 4) if isinstance(vv, float) else vv
+                           for kk, vv in v.items()}
+                       for k, v in routes.items()},
+               stkim_select_ms=stkim[True], stkim_host_ms=stkim[False],
+               stkim_n=n_bucket,
+               launches_graph=graphs.kernel_launches())
+    return out
+
+
+def _scan_heads(smi: str, slides: dict) -> dict:
+    """(f) ABMIL, CLAM_SB and CLAM_MB: one graph epoch on the first
+    ``SCAN_SUB`` bags against their eager scanned epoch; DSMIL's scanned
+    eval on bags of ``SCAN_DSMIL_N`` patches (B6 in the graph) against
+    ``evaluate``."""
+    from acmil_tpu_torch.data import BagLoader
+    from acmil_tpu_torch.engine.train import (create_train_state, evaluate,
+                                              evaluate_scanned,
+                                              make_eval_step,
+                                              make_scan_eval_step,
+                                              make_scan_train_step,
+                                              train_one_epoch_scanned)
+    from acmil_tpu_torch.models import build_mil_model, fast
+
+    dev = torch.device("cuda")
+    names = sorted(slides)[:SCAN_SUB]
+    src = _ListSrc({n: slides[n] for n in names})
+    kw = dict(min_bucket=SCAN_MIN_BUCKET, dtype=np.float16, device=dev)
+    out = {}
+    for arch in ("abmil", "clam_sb", "clam_mb"):
+        conf = _scan_conf(arch)
+        torch.manual_seed(SEED)
+        model, family = build_mil_model(conf)
+        model.to(dev)
+        res = {}
+        for route in ("eager", "graph"):
+            m = copy.deepcopy(model)
+            state = create_train_state(m, conf, SCAN_SUB, family=family)
+            scan = make_scan_train_step(m, conf, family, route=route)
+            loader = BagLoader(src, 1, shuffle=True, seed=SCAN_LOADER_SEED,
+                               **kw)
+            torch.cuda.manual_seed(SEED)
+            t0 = time.perf_counter()
+            _, stats = train_one_epoch_scanned(state, scan, loader, 0)
+            torch.cuda.synchronize()
+            res[route] = (m, stats, time.perf_counter() - t0)
+        diff = max(float((p - q).detach().abs().max()) for p, q in zip(
+            res["graph"][0].parameters(), res["eager"][0].parameters()))
+        if diff > SCAN_GRAPH_ATOL or res["graph"][1] != res["eager"][1]:
+            raise AssertionError(f"{arch}: graph vs eager max param diff "
+                                 f"{diff:.3e}, stats {res['graph'][1]} vs "
+                                 f"{res['eager'][1]}")
+        out[arch] = {"max_param_diff": diff,
+                     "loss": res["graph"][1]["loss"],
+                     "graph_epoch_s": res["graph"][2],
+                     "eager_epoch_s": res["eager"][2]}
+        print(f"scan (f): {arch} one epoch of {SCAN_SUB} bags, graph vs "
+              f"eager scanned: max param diff {diff:.3e}, loss "
+              f"{res['graph'][1]['loss']:.6f}; first epochs "
+              f"{res['graph'][2]:.3f} s (with captures) / "
+              f"{res['eager'][2]:.3f} s [{smi}]")
+    rs = np.random.RandomState(SEED + 23)
+    big = {f"dsmil_{i}": {
+        "feat": rs.randn(SCAN_DSMIL_N - 7 * i, D_FEAT).astype(np.float16),
+        "coords": np.zeros((SCAN_DSMIL_N - 7 * i, 2), np.int64),
+        "label": i % 2} for i in range(SCAN_DSMIL_BAGS)}
+    conf = _scan_conf("dsmil")
+    torch.manual_seed(SEED)
+    model, family = build_mil_model(conf)
+    model.to(dev)
+    src = _ListSrc(big)
+    scan_eval = make_scan_eval_step(model, family, route="graph")
+    from acmil_tpu_torch.ops import dsmil_pool
+
+    before = dsmil_pool.fused_dsmil_pool.launches
+    got = evaluate_scanned(scan_eval, BagLoader(src, 1, **kw), conf.n_class)
+    warm = dsmil_pool.fused_dsmil_pool.launches - before
+    want = evaluate(make_eval_step(model, family), BagLoader(src, 1, **kw),
+                    conf.n_class)
+    replayed = scan_eval.kernel_launches().get("B6", 0)
+    if int(SCAN_DSMIL_N) < fast.FUSE_MIN_N or replayed != SCAN_DSMIL_BAGS:
+        raise AssertionError(f"B6 replays {replayed}, want {SCAN_DSMIL_BAGS}")
+    diff = abs(got["loss"] - want["loss"])
+    if not _same_eval(got, want):
+        raise AssertionError(f"dsmil evaluate_scanned {got} vs evaluate {want}")
+    print(f"scan (f): dsmil scanned eval (graph) of {SCAN_DSMIL_BAGS} bags "
+          f"of ~{SCAN_DSMIL_N} patches vs evaluate: metrics equal (loss diff "
+          f"{diff:.3e}); B6 replays {replayed} (1 launch per capture), "
+          f"warm-up launches {warm} [{smi}]")
+    out["dsmil_eval"] = {"B6_replays": replayed, "B6_warm": warm,
+                         "loss": got["loss"]}
+    return out
+
+
+def scan_epoch_run(smi: str, tmp: str) -> dict:
+    """Phase 23: Step3's scanned epoch on the card (a)-(f)."""
+    t0 = time.perf_counter()
+    slides = _scan_cohort(SCAN_BAGS + SCAN_VAL + SCAN_TEST, SEED)
+    cohort = {k: slides[k] for k in sorted(slides)[:SCAN_BAGS]}
+    made_s = time.perf_counter() - t0
+    root = os.path.join(tmp, "scan")
+    os.makedirs(root)
+    t1 = time.perf_counter()
+    cli = _scan_cli(smi, root, slides)
+    t2 = time.perf_counter()
+    out = _scan_routes(smi, cohort)
+    t3 = time.perf_counter()
+    out["heads"] = _scan_heads(smi, cohort)
+    out["part_s"] = {"cohort": t1 - t0, "cli": t2 - t1, "routes": t3 - t2,
+                     "heads": time.perf_counter() - t3}
+    out["launches_cli"] = cli
+    out["cohort_s"] = made_s
+    out["seconds"] = time.perf_counter() - t0
+    print(f"scan: phase 23 in {out['seconds']:.1f} s (by part "
+          f"{ {k: round(v, 1) for k, v in out['part_s'].items()} }) [{smi}]")
+    return out
+
+
 def main() -> None:
     import sys
 
@@ -5130,6 +5621,7 @@ def main() -> None:
         p21 = mesh_run(smi, tmp, pipe, corpus)
         del corpus
         p22 = step2_mesh_run(smi, tmp, pipe)
+        p23 = scan_epoch_run(smi, tmp)
     zoo["archs"].update(transmil_mhim.pop("archs"))
     zoo["transmil_mhim"] = transmil_mhim
     zoo["dtfd_sam_resnet"] = p20
@@ -5139,6 +5631,11 @@ def main() -> None:
     b7["max_abs_err"] = max(b7["max_abs_err"],
                             *b7["max_abs_err_tp_calls"].values())
     zoo["step2_mesh"] = p22
+    zoo["scan_epoch"] = {k: p23[k] for k in (
+        "buckets", "graph_vs_eager_max_diff", "capture_ms", "pool_bytes",
+        "first_graph_epoch_s", "epochs", "stkim_select_ms", "stkim_host_ms",
+        "stkim_n", "heads", "seconds")}
+    scan_cli, scan_graph = p23["launches_cli"], p23["launches_graph"]
     mesh_ga, mesh_cli = p21["ga_seq2"]["ranks"], p21["data2_seq2_cli"]
     dtfd_t, dtfd_r, sam = p20["dtfd_train"], p20["dtfd_routes"], p20["sam"]
     b5_edges = b7.pop("b5_edges")
@@ -5174,6 +5671,8 @@ def main() -> None:
         "launches_sharded_eval": mesh_cli["B1_eval"],
         "launches_sharded_step_seq2": sum(r["B1"] for r in mesh_ga),
         "launches_mesh_nccl_world1": p21["nccl_world1"]["B1"],
+        "launches_scan_epoch_step3": scan_cli["B1"],
+        "launches_scan_graph_epochs": scan_graph["B1"],
         "dtfd_call": dtfd_r["B1_call"],
         **b1}, {
         "name": "B2 fused gated-attention pooling (backward)",
@@ -5193,6 +5692,8 @@ def main() -> None:
         "launches_sharded_step3": mesh_cli["B2_step3"],
         "launches_sharded_step_seq2": sum(r["B2"] for r in mesh_ga),
         "launches_mesh_nccl_world1": p21["nccl_world1"]["B2"],
+        "launches_scan_epoch_step3": scan_cli["B2"],
+        "launches_scan_graph_epochs": scan_graph["B2"],
         "dtfd_call": dtfd_r["B2_call"],
         **b2}, {
         "name": "B3 fused ViT layer (chain: 4 GEMM launches, 2 of them "
@@ -5229,6 +5730,8 @@ def main() -> None:
         "launches": dsmil_serve["launches"] + dsmil_train,
         "launches_serving": dsmil_serve["launches"],
         "launches_training_eval": dsmil_train,
+        "launches_scan_eval_graph": p23["heads"]["dsmil_eval"]["B6_replays"]
+        + p23["heads"]["dsmil_eval"]["B6_warm"],
         **b6}, {
         "name": "B7 multi-head attention over separate q, k, v, tensor-core "
                 "route (bfloat16, dh in {16, 32, 64, 128}; the strided entry "

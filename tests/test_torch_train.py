@@ -573,12 +573,13 @@ def test_step3_finds_a_torch_feature_file(corpus, monkeypatch):
 @pytest.mark.parametrize("argv, match", [
     (["--mesh_data", "2"], "mesh_data"),
     (["--pod"], "pod"),
-    (["--scan_epoch"], "scan_epoch"),
+    # scan_epoch runs on one process (tests/test_torch_scan_epoch.py)
+    (["--scan_epoch", "--mesh_data", "2"], "scan_epoch"),
     # --arch mha trains ACMIL_MHA, on a --pod mesh too
     (["--arch", "mha", "--pod"], "pod"),
 ])
 def test_step3_refuses_what_is_not_ported(argv, match, corpus, tmp_path):
-    """``match`` names the option. scan_epoch stays refused; a mesh of 2
+    """``match`` names the option. scan_epoch stays refused on a mesh; a mesh of 2
     in one process is refused with the launch it needs; --pod (ported) in
     one process trains on a world-1 mesh."""
     cfg = os.path.join(REPO, "config/camelyon_medical_ssl_config.yml")
