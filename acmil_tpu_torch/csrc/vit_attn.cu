@@ -8,8 +8,13 @@
 //
 //   q, k, v = qkv[b, :, h*dh : (h+1)*dh] of the q, k and v thirds
 //   s       = (q k^T) * scale,  keys >= N masked to -inf              (f32)
-//   p       = exp(s - max s) / sum exp(s - max s), rounded to bf16
-//   o[b, :, h*dh : (h+1)*dh] = p v   (f32 sums, stored as bf16)
+//   p       = exp(s - max s) / sum exp(s - max s), rounded to T
+//   o[b, :, h*dh : (h+1)*dh] = p v   (f32 sums, stored as T)
+//
+// where T, the operands' type, is bf16 or fp16: the tensor cores' rate is
+// the same for both (989 TFLOP/s dense), and every route below is one
+// template over T that differs only in the instructions' type (mma.sync
+// and wgmma .bf16 or .f16) and in the rounding of p and o (to nearest).
 //
 // with scale = 1/sqrt(dh), so heads are split inside the kernel and no
 // [B, H, N, dh] copy of q, k, v or o reaches device memory. p is rounded
@@ -48,7 +53,7 @@
 // Rows are 16-byte units XOR-swizzled by the row (the 128-byte swizzle at
 // dh = 64), so that ldmatrix phases and wgmma reads meet no bank conflict.
 // q becomes A fragments in registers. p =
-// 2^(s*scale*log2e - m) * (1/l) is formed in registers, rounded to bf16 and
+// 2^(s*scale*log2e - m) * (1/l) is formed in registers, rounded to T and
 // fed back as the A operand of p v (the C layout of two n8 score tiles is
 // the A layout of one k16 step); row max and sum take two shuffles over the
 // 4 lanes that share a row. Three routes:
@@ -75,19 +80,28 @@
 // Keys are padded to the next 16 on the mma.sync route and to the next 208
 // on the warpgroup routes (197 -> 208, 577 -> 624).
 //
-// Widths the kernel takes: bf16 operands with dh in {16, 32, 64, 128}, each
-// row of dh elements contiguous and 16-byte aligned. The Python wrappers
-// (acmil_tpu_torch/ops/vit_attn_packed.py, ops/vit_attn.py) check them and
-// raise.
+// Widths the kernel takes: bf16 or fp16 operands with dh in {16, 32, 64,
+// 128}, each row of dh elements contiguous and 16-byte aligned. The Python
+// wrappers (acmil_tpu_torch/ops/vit_attn_packed.py, ops/vit_attn.py) check
+// them and send float32 and other head widths to B7's fma route
+// (csrc/vit_attn_generic.cu).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+
+// the operands' type T (bf16 or f16) names the tensor-core instructions
+template <typename T>
+constexpr bool kHalf = std::is_same<T, f16>::value;
 
 // The warpgroup routes (dh = 64): 64-query tiles against steps of 13
 // chunks (208 keys), one warpgroup a step, for N in [145, 624]
@@ -132,7 +146,8 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Byte offset of 16-byte unit u of row r in a [rows, DH] bf16 tile. The unit
+// Byte offset of 16-byte unit u of row r in a [rows, DH] tile of 2-byte
+// elements. The unit
 // is XOR-swizzled by the row so that the 8 rows an ldmatrix phase reads at
 // one logical unit fall in 8 distinct 16-byte bank groups.
 template <int DH>
@@ -171,19 +186,31 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
       : "r"(addr));
 }
 
-// c += a b for one m16n8k16 tile: bf16 operands, f32 sums
+// c += a b for one m16n8k16 tile: T operands (TY: "bf16" or "f16"), f32
+// sums
+#define MMA16816(TY)                                                        \
+  asm volatile(                                                             \
+      "mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "            \
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"   \
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+
+template <typename T>
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (kHalf<T>) MMA16816("f16"); else MMA16816("bf16");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// two f32 rounded to T (to nearest), as the low and high halves of a word
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kHalf<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -231,7 +258,7 @@ __device__ __forceinline__ void fence_operands(float (&x)[N][M][L]) {
   for (int i = 0; i < N; ++i) fence_operands(x[i]);
 }
 
-// The descriptor of a 128-byte-swizzled bf16 operand in shared memory whose
+// The descriptor of a 128-byte-swizzled 2-byte operand in shared memory whose
 // rows are 128 bytes (dh = 64) and whose 8-row atoms lie 1024 bytes apart:
 // the layout swz<64> gives from a 1024-byte-aligned base. Both byte offsets
 // are 1024 (the leading one is unused at these shapes).
@@ -242,89 +269,98 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
 }
 
 // s += q k^T for one k16 step of a 64-query tile against 208 keys: A (q)
-// from registers, B (keys, dims contiguous: K-major) by descriptor.
+// from registers, B (keys, dims contiguous: K-major) by descriptor; T
+// operands (TY: "bf16" or "f16").
+#define WGMMA_SCORES(TY)                                                    \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\n"                                                  \
+      "setp.ne.b32 p, %109, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n208k16.f32." TY "." TY " "          \
+      "{"                                                                   \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                    \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                              \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                            \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                            \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                            \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                            \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                            \
+      "%56, %57, %58, %59, %60, %61, %62, %63, "                            \
+      "%64, %65, %66, %67, %68, %69, %70, %71, "                            \
+      "%72, %73, %74, %75, %76, %77, %78, %79, "                            \
+      "%80, %81, %82, %83, %84, %85, %86, %87, "                            \
+      "%88, %89, %90, %91, %92, %93, %94, %95, "                            \
+      "%96, %97, %98, %99, %100, %101, %102, %103"                          \
+      "}, {%104, %105, %106, %107}, %108, p, 1, 1, 0;\n}\n"                 \
+      : "+f"(s[0][0][0]), "+f"(s[0][0][1]), "+f"(s[0][0][2]), "+f"(s[0][0][3]), \
+        "+f"(s[0][1][0]), "+f"(s[0][1][1]), "+f"(s[0][1][2]), "+f"(s[0][1][3]), \
+        "+f"(s[1][0][0]), "+f"(s[1][0][1]), "+f"(s[1][0][2]), "+f"(s[1][0][3]), \
+        "+f"(s[1][1][0]), "+f"(s[1][1][1]), "+f"(s[1][1][2]), "+f"(s[1][1][3]), \
+        "+f"(s[2][0][0]), "+f"(s[2][0][1]), "+f"(s[2][0][2]), "+f"(s[2][0][3]), \
+        "+f"(s[2][1][0]), "+f"(s[2][1][1]), "+f"(s[2][1][2]), "+f"(s[2][1][3]), \
+        "+f"(s[3][0][0]), "+f"(s[3][0][1]), "+f"(s[3][0][2]), "+f"(s[3][0][3]), \
+        "+f"(s[3][1][0]), "+f"(s[3][1][1]), "+f"(s[3][1][2]), "+f"(s[3][1][3]), \
+        "+f"(s[4][0][0]), "+f"(s[4][0][1]), "+f"(s[4][0][2]), "+f"(s[4][0][3]), \
+        "+f"(s[4][1][0]), "+f"(s[4][1][1]), "+f"(s[4][1][2]), "+f"(s[4][1][3]), \
+        "+f"(s[5][0][0]), "+f"(s[5][0][1]), "+f"(s[5][0][2]), "+f"(s[5][0][3]), \
+        "+f"(s[5][1][0]), "+f"(s[5][1][1]), "+f"(s[5][1][2]), "+f"(s[5][1][3]), \
+        "+f"(s[6][0][0]), "+f"(s[6][0][1]), "+f"(s[6][0][2]), "+f"(s[6][0][3]), \
+        "+f"(s[6][1][0]), "+f"(s[6][1][1]), "+f"(s[6][1][2]), "+f"(s[6][1][3]), \
+        "+f"(s[7][0][0]), "+f"(s[7][0][1]), "+f"(s[7][0][2]), "+f"(s[7][0][3]), \
+        "+f"(s[7][1][0]), "+f"(s[7][1][1]), "+f"(s[7][1][2]), "+f"(s[7][1][3]), \
+        "+f"(s[8][0][0]), "+f"(s[8][0][1]), "+f"(s[8][0][2]), "+f"(s[8][0][3]), \
+        "+f"(s[8][1][0]), "+f"(s[8][1][1]), "+f"(s[8][1][2]), "+f"(s[8][1][3]), \
+        "+f"(s[9][0][0]), "+f"(s[9][0][1]), "+f"(s[9][0][2]), "+f"(s[9][0][3]), \
+        "+f"(s[9][1][0]), "+f"(s[9][1][1]), "+f"(s[9][1][2]), "+f"(s[9][1][3]), \
+        "+f"(s[10][0][0]), "+f"(s[10][0][1]), "+f"(s[10][0][2]), "+f"(s[10][0][3]), \
+        "+f"(s[10][1][0]), "+f"(s[10][1][1]), "+f"(s[10][1][2]), "+f"(s[10][1][3]), \
+        "+f"(s[11][0][0]), "+f"(s[11][0][1]), "+f"(s[11][0][2]), "+f"(s[11][0][3]), \
+        "+f"(s[11][1][0]), "+f"(s[11][1][1]), "+f"(s[11][1][2]), "+f"(s[11][1][3]), \
+        "+f"(s[12][0][0]), "+f"(s[12][0][1]), "+f"(s[12][0][2]), "+f"(s[12][0][3]), \
+        "+f"(s[12][1][0]), "+f"(s[12][1][1]), "+f"(s[12][1][2]), "+f"(s[12][1][3]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),              \
+        "r"(scale_d))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_scores(float (&s)[kWgChunks][2][4],
     const uint32_t (&a)[4], uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %109, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103"
-      "}, {%104, %105, %106, %107}, %108, p, 1, 1, 0;\n}\n"
-      : "+f"(s[0][0][0]), "+f"(s[0][0][1]), "+f"(s[0][0][2]), "+f"(s[0][0][3]),
-        "+f"(s[0][1][0]), "+f"(s[0][1][1]), "+f"(s[0][1][2]), "+f"(s[0][1][3]),
-        "+f"(s[1][0][0]), "+f"(s[1][0][1]), "+f"(s[1][0][2]), "+f"(s[1][0][3]),
-        "+f"(s[1][1][0]), "+f"(s[1][1][1]), "+f"(s[1][1][2]), "+f"(s[1][1][3]),
-        "+f"(s[2][0][0]), "+f"(s[2][0][1]), "+f"(s[2][0][2]), "+f"(s[2][0][3]),
-        "+f"(s[2][1][0]), "+f"(s[2][1][1]), "+f"(s[2][1][2]), "+f"(s[2][1][3]),
-        "+f"(s[3][0][0]), "+f"(s[3][0][1]), "+f"(s[3][0][2]), "+f"(s[3][0][3]),
-        "+f"(s[3][1][0]), "+f"(s[3][1][1]), "+f"(s[3][1][2]), "+f"(s[3][1][3]),
-        "+f"(s[4][0][0]), "+f"(s[4][0][1]), "+f"(s[4][0][2]), "+f"(s[4][0][3]),
-        "+f"(s[4][1][0]), "+f"(s[4][1][1]), "+f"(s[4][1][2]), "+f"(s[4][1][3]),
-        "+f"(s[5][0][0]), "+f"(s[5][0][1]), "+f"(s[5][0][2]), "+f"(s[5][0][3]),
-        "+f"(s[5][1][0]), "+f"(s[5][1][1]), "+f"(s[5][1][2]), "+f"(s[5][1][3]),
-        "+f"(s[6][0][0]), "+f"(s[6][0][1]), "+f"(s[6][0][2]), "+f"(s[6][0][3]),
-        "+f"(s[6][1][0]), "+f"(s[6][1][1]), "+f"(s[6][1][2]), "+f"(s[6][1][3]),
-        "+f"(s[7][0][0]), "+f"(s[7][0][1]), "+f"(s[7][0][2]), "+f"(s[7][0][3]),
-        "+f"(s[7][1][0]), "+f"(s[7][1][1]), "+f"(s[7][1][2]), "+f"(s[7][1][3]),
-        "+f"(s[8][0][0]), "+f"(s[8][0][1]), "+f"(s[8][0][2]), "+f"(s[8][0][3]),
-        "+f"(s[8][1][0]), "+f"(s[8][1][1]), "+f"(s[8][1][2]), "+f"(s[8][1][3]),
-        "+f"(s[9][0][0]), "+f"(s[9][0][1]), "+f"(s[9][0][2]), "+f"(s[9][0][3]),
-        "+f"(s[9][1][0]), "+f"(s[9][1][1]), "+f"(s[9][1][2]), "+f"(s[9][1][3]),
-        "+f"(s[10][0][0]), "+f"(s[10][0][1]), "+f"(s[10][0][2]), "+f"(s[10][0][3]),
-        "+f"(s[10][1][0]), "+f"(s[10][1][1]), "+f"(s[10][1][2]), "+f"(s[10][1][3]),
-        "+f"(s[11][0][0]), "+f"(s[11][0][1]), "+f"(s[11][0][2]), "+f"(s[11][0][3]),
-        "+f"(s[11][1][0]), "+f"(s[11][1][1]), "+f"(s[11][1][2]), "+f"(s[11][1][3]),
-        "+f"(s[12][0][0]), "+f"(s[12][0][1]), "+f"(s[12][0][2]), "+f"(s[12][0][3]),
-        "+f"(s[12][1][0]), "+f"(s[12][1][1]), "+f"(s[12][1][2]), "+f"(s[12][1][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(scale_d));
+  if constexpr (kHalf<T>) WGMMA_SCORES("f16"); else WGMMA_SCORES("bf16");
 }
 
 // o += p v for one k16 step (16 keys) of a 64-query tile: A (p) from
 // registers, B (values, dims contiguous: MN-major, so transposed) by
-// descriptor.
+// descriptor; T operands (TY: "bf16" or "f16").
+#define WGMMA_PV(TY)                                                        \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\n"                                                  \
+      "setp.ne.b32 p, %37, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "           \
+      "{"                                                                   \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                    \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                              \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                            \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                              \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                      \
+      : "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]),         \
+        "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]), "+f"(o[1][3]),         \
+        "+f"(o[2][0]), "+f"(o[2][1]), "+f"(o[2][2]), "+f"(o[2][3]),         \
+        "+f"(o[3][0]), "+f"(o[3][1]), "+f"(o[3][2]), "+f"(o[3][3]),         \
+        "+f"(o[4][0]), "+f"(o[4][1]), "+f"(o[4][2]), "+f"(o[4][3]),         \
+        "+f"(o[5][0]), "+f"(o[5][1]), "+f"(o[5][2]), "+f"(o[5][3]),         \
+        "+f"(o[6][0]), "+f"(o[6][1]), "+f"(o[6][2]), "+f"(o[6][3]),         \
+        "+f"(o[7][0]), "+f"(o[7][1]), "+f"(o[7][2]), "+f"(o[7][3])          \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),              \
+        "r"(scale_d))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_pv(float (&o)[8][4],
     const uint32_t (&a)[4], uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]),
-        "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]), "+f"(o[1][3]),
-        "+f"(o[2][0]), "+f"(o[2][1]), "+f"(o[2][2]), "+f"(o[2][3]),
-        "+f"(o[3][0]), "+f"(o[3][1]), "+f"(o[3][2]), "+f"(o[3][3]),
-        "+f"(o[4][0]), "+f"(o[4][1]), "+f"(o[4][2]), "+f"(o[4][3]),
-        "+f"(o[5][0]), "+f"(o[5][1]), "+f"(o[5][2]), "+f"(o[5][3]),
-        "+f"(o[6][0]), "+f"(o[6][1]), "+f"(o[6][2]), "+f"(o[6][3]),
-        "+f"(o[7][0]), "+f"(o[7][1]), "+f"(o[7][2]), "+f"(o[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(scale_d));
+  if constexpr (kHalf<T>) WGMMA_PV("f16"); else WGMMA_PV("bf16");
 }
 
 // Starts the copy of rows [row0, row0 + rows) of one head (rows st apart
 // from src) into a swizzled shared tile; rows past n become zeros.
-template <int DH>
-__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src,
+template <int DH, typename T>
+__device__ __forceinline__ void load_rows(uint32_t dst, const T* src,
                                           long long st, int row0, int rows,
                                           int n) {
   constexpr int kUnits = DH / 8;
@@ -359,9 +395,9 @@ struct LaneOffsets {
 
 // The A fragments of query rows [row0, row0 + 16) over all dh, straight
 // from device memory; rows past n are zeros.
-template <int DH>
+template <int DH, typename T>
 __device__ __forceinline__ void load_q(uint32_t (&qa)[DH / 16][4],
-                                       const bf16* qh, long long st, int row0,
+                                       const T* qh, long long st, int row0,
                                        int n, int lane) {
   const int r0 = row0 + (lane >> 2), r1 = r0 + 8;
   const int c = 2 * (lane & 3);
@@ -405,7 +441,7 @@ __device__ __forceinline__ void mask_chunk(float (&s)[2][4], int key0, int n,
 // c .. c + N - 1 of the shared key tile, as two n8 C fragments a chunk
 // (rows g and g + 8), scaled into the log2 domain; for each k16 step the N
 // chunks' products issue back to back.
-template <int DH, int N>
+template <typename T, int DH, int N>
 __device__ __forceinline__ void scores(const uint32_t (&qa)[DH / 16][4],
                                        uint32_t kbase,
                                        const LaneOffsets<DH>& lo, int c,
@@ -421,8 +457,8 @@ __device__ __forceinline__ void scores(const uint32_t (&qa)[DH / 16][4],
     for (int cc = 0; cc < N; ++cc) {
       uint32_t b[4];
       ldsm_x4(kbase + (c + cc) * kChunk + lo.k[kk], b);
-      mma16816(s[cc][0], qa[kk], b[0], b[1]);
-      mma16816(s[cc][1], qa[kk], b[2], b[3]);
+      mma16816<T>(s[cc][0], qa[kk], b[0], b[1]);
+      mma16816<T>(s[cc][1], qa[kk], b[2], b[3]);
     }
 #pragma unroll
   for (int cc = 0; cc < N; ++cc)
@@ -495,19 +531,20 @@ __device__ __forceinline__ void exp_and_sum(float (&s)[N][2][4],
   l[1] = t[0][1];
 }
 
-// p = 2^(s - m) of rows g and g + 8 times 1/l, rounded to bf16, as the A
+// p = 2^(s - m) of rows g and g + 8 times 1/l, rounded to T, as the A
 // fragment of one k16 step of p v: the C layout of two n8 score tiles is
 // the A layout.
+template <typename T>
 __device__ __forceinline__ void pack_p(const float (&p)[2][4], float inv0,
                                        float inv1, uint32_t (&a)[4]) {
-  a[0] = pack_bf16(p[0][0] * inv0, p[0][1] * inv0);
-  a[1] = pack_bf16(p[0][2] * inv1, p[0][3] * inv1);
-  a[2] = pack_bf16(p[1][0] * inv0, p[1][1] * inv0);
-  a[3] = pack_bf16(p[1][2] * inv1, p[1][3] * inv1);
+  a[0] = pack2<T>(p[0][0] * inv0, p[0][1] * inv0);
+  a[1] = pack2<T>(p[0][2] * inv1, p[0][3] * inv1);
+  a[2] = pack2<T>(p[1][0] * inv0, p[1][1] * inv0);
+  a[3] = pack2<T>(p[1][2] * inv1, p[1][3] * inv1);
 }
 
 // o += p v for the 16 keys of chunk c, p given as its A fragment.
-template <int DH>
+template <typename T, int DH>
 __device__ __forceinline__ void chunk_pv(const uint32_t (&a)[4],
                                          uint32_t vbase,
                                          const LaneOffsets<DH>& lo, int c,
@@ -517,13 +554,13 @@ __device__ __forceinline__ void chunk_pv(const uint32_t (&a)[4],
   for (int dd = 0; dd < DH / 16; ++dd) {
     uint32_t b[4];
     ldsm_x4_trans(base + lo.v[dd], b);
-    mma16816(o[2 * dd], a, b[0], b[1]);
-    mma16816(o[2 * dd + 1], a, b[2], b[3]);
+    mma16816<T>(o[2 * dd], a, b[0], b[1]);
+    mma16816<T>(o[2 * dd + 1], a, b[2], b[3]);
   }
 }
 
-template <int DH>
-__device__ __forceinline__ void store_o(const float (&o)[DH / 8][4], bf16* oh,
+template <int DH, typename T>
+__device__ __forceinline__ void store_o(const float (&o)[DH / 8][4], T* oh,
                                         long long st, int row0, int n,
                                         int lane) {
   const int r0 = row0 + (lane >> 2), r1 = r0 + 8;
@@ -532,17 +569,17 @@ __device__ __forceinline__ void store_o(const float (&o)[DH / 8][4], bf16* oh,
   for (int j = 0; j < DH / 8; ++j) {
     if (r0 < n)
       *reinterpret_cast<uint32_t*>(oh + r0 * st + 8 * j + c) =
-          pack_bf16(o[j][0], o[j][1]);
+          pack2<T>(o[j][0], o[j][1]);
     if (r1 < n)
       *reinterpret_cast<uint32_t*>(oh + r1 * st + 8 * j + c) =
-          pack_bf16(o[j][2], o[j][3]);
+          pack2<T>(o[j][2], o[j][3]);
   }
 }
 
 // Pass 1 over kCount chunks from chunk c of the shared keys: fold their
 // scores into the running max m and this lane's share of the sum l (m is
 // the same on the 4 lanes of a row, so the shares add up at the end).
-template <int DH, int kCount>
+template <typename T, int DH, int kCount>
 __device__ __forceinline__ void stats_step(const uint32_t (&qa)[DH / 16][4],
                                            uint32_t kbase,
                                            const LaneOffsets<DH>& lo, int c,
@@ -550,7 +587,7 @@ __device__ __forceinline__ void stats_step(const uint32_t (&qa)[DH / 16][4],
                                            int lane, float (&m)[2],
                                            float (&l)[2]) {
   float s[kCount][2][4], t[2], sum[2];
-  scores<DH, kCount>(qa, kbase, lo, c, c2, s);
+  scores<T, DH, kCount>(qa, kbase, lo, c, c2, s);
   mask_and_max<kCount>(s, key0, n, lane, t);
   // a step's first key is < n, so the new max is finite
   const float mn[2] = {fmaxf(m[0], quad_max(t[0])),
@@ -563,7 +600,7 @@ __device__ __forceinline__ void stats_step(const uint32_t (&qa)[DH / 16][4],
 }
 
 // Pass 2 over kCount chunks from chunk c: the scores again, p, o += p v.
-template <int DH, int kCount>
+template <typename T, int DH, int kCount>
 __device__ __forceinline__ void pv_step(const uint32_t (&qa)[DH / 16][4],
                                         uint32_t kbase, uint32_t vbase,
                                         const LaneOffsets<DH>& lo, int c,
@@ -571,7 +608,7 @@ __device__ __forceinline__ void pv_step(const uint32_t (&qa)[DH / 16][4],
                                         const float (&m)[2], float inv0,
                                         float inv1, float (&o)[DH / 8][4]) {
   float s[kCount][2][4];
-  scores<DH, kCount>(qa, kbase, lo, c, c2, s);
+  scores<T, DH, kCount>(qa, kbase, lo, c, c2, s);
 #pragma unroll
   for (int cc = 0; cc < kCount; ++cc)
     mask_chunk(s[cc], key0 + 16 * cc, n, lane);
@@ -579,8 +616,8 @@ __device__ __forceinline__ void pv_step(const uint32_t (&qa)[DH / 16][4],
 #pragma unroll
   for (int cc = 0; cc < kCount; ++cc) {
     uint32_t a[4];
-    pack_p(s[cc], inv0, inv1, a);
-    chunk_pv<DH>(a, vbase, lo, c + cc, o);
+    pack_p<T>(s[cc], inv0, inv1, a);
+    chunk_pv<T, DH>(a, vbase, lo, c + cc, o);
   }
 }
 
@@ -588,13 +625,14 @@ __device__ __forceinline__ void pv_step(const uint32_t (&qa)[DH / 16][4],
 // 13j .. 13j + 12 of the shared keys), 104 registers a thread in the C
 // layout of 26 n8 tiles, scaled into the log2 domain; this warp's A
 // fragments (q) from registers.
+template <typename T>
 __device__ __forceinline__ void wg_scores(const uint32_t (&qa)[4][4],
                                           uint32_t kbase, int j, float c2,
                                           float (&s)[kWgChunks][2][4]) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)               // 32 bytes of dims a step;
-    wgmma_scores(s, qa[kk],                    // the first overwrites s
+    wgmma_scores<T>(s, qa[kk],                    // the first overwrites s
                  sw128_desc(kbase + j * kWgStepBytes + 32 * kk), kk);
   wgmma_commit_and_wait();
   fence_operands(s);
@@ -622,15 +660,15 @@ struct WgExchange {
 // 0 adds the partial sums and stores. This warp's rows are row0 .. row0 +
 // 15 (qa), rows 16 (warp % 4) .. of the tile. The caller waits for the keys
 // before; wait_values runs on every thread.
-template <bool kSplit, typename WaitValues>
+template <bool kSplit, typename T, typename WaitValues>
 __device__ __forceinline__ void wg_tile(const uint32_t (&qa)[4][4],
                                         uint32_t kbase, uint32_t vbase, int n,
                                         float c2, int lane, int group,
                                         int groups, WgExchange* x,
-                                        WaitValues wait_values, bf16* orow,
+                                        WaitValues wait_values, T* orow,
                                         long long st, int row0) {
   float s[kWgChunks][2][4], m[2], l[2];
-  wg_scores(qa, kbase, group, c2, s);
+  wg_scores<T>(qa, kbase, group, c2, s);
   mask_and_max<kWgChunks>(s, kWgKeys * group, n, lane, m);
   m[0] = quad_max(m[0]);
   m[1] = quad_max(m[1]);
@@ -663,16 +701,16 @@ __device__ __forceinline__ void wg_tile(const uint32_t (&qa)[4][4],
     }
   }
   const float inv0 = 1.0f / l[0], inv1 = 1.0f / l[1];
-  // p, packed to bf16 as soon as l is known: half the registers of s
+  // p, packed to T as soon as l is known: half the registers of s
   uint32_t pa[kWgChunks][4];
 #pragma unroll
-  for (int c = 0; c < kWgChunks; ++c) pack_p(s[c], inv0, inv1, pa[c]);
+  for (int c = 0; c < kWgChunks; ++c) pack_p<T>(s[c], inv0, inv1, pa[c]);
   wait_values();
   float acc[8][4];
   wgmma_fence();
 #pragma unroll
   for (int c = 0; c < kWgChunks; ++c)          // 16 keys of 128 bytes a step;
-    wgmma_pv(acc, pa[c],                       // the first overwrites acc
+    wgmma_pv<T>(acc, pa[c],                       // the first overwrites acc
              sw128_desc(vbase + group * kWgStepBytes + 2048 * c), c);
   wgmma_commit_and_wait();
   fence_operands(acc);
@@ -706,21 +744,20 @@ __device__ __forceinline__ void wg_tile(const uint32_t (&qa)[4][4],
 // Shared memory, from a 1024-byte-aligned base: keys then values,
 // span_rows rows each, every key resident when span_rows covers them, else
 // streamed span by span.
-template <int DH, int kRoute>
+template <typename T, int DH, int kRoute>
 __global__ void __launch_bounds__(32 * Config<DH, kRoute>::kWarps,
                                   Config<DH, kRoute>::kMinBlocks)
-mha_kernel(Strided<const bf16> q, Strided<const bf16> k,
-           Strided<const bf16> v, Strided<bf16> o, int n, float scale,
-           int span_rows) {
+mha_kernel(Strided<const T> q, Strided<const T> k, Strided<const T> v,
+           Strided<T> o, int n, float scale, int span_rows) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int head = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
   const LaneOffsets<DH> lo(lane);
-  const bf16* qh = q.head(b, head);
-  const bf16* kh = k.head(b, head);
-  const bf16* vh = v.head(b, head);
-  bf16* oh = o.head(b, head);
+  const T* qh = q.head(b, head);
+  const T* kh = k.head(b, head);
+  const T* vh = v.head(b, head);
+  T* oh = o.head(b, head);
   const uint32_t kbase = (smem_addr(smem) + 1023) & ~1023u;
   const uint32_t vbase = kbase + span_rows * DH * 2;
   const int chunks = (n + 15) / 16;        // 16-key chunks = 16-query tiles
@@ -798,16 +835,16 @@ mha_kernel(Strided<const bf16> q, Strided<const bf16> k,
         if (active) {
           int c = c0;
           for (; c + kStepChunks <= c1; c += kStepChunks)
-            stats_step<DH, kStepChunks>(qa, kbase, lo, c - c0, 16 * c, n, c2,
+            stats_step<T, DH, kStepChunks>(qa, kbase, lo, c - c0, 16 * c, n, c2,
                                         lane, m, l);
           for (; c < c1; ++c)
-            stats_step<DH, 1>(qa, kbase, lo, c - c0, 16 * c, n, c2, lane, m,
+            stats_step<T, DH, 1>(qa, kbase, lo, c - c0, 16 * c, n, c2, lane, m,
                               l);
         }
       }
       const float inv0 = 1.0f / quad_sum(l[0]);
       const float inv1 = 1.0f / quad_sum(l[1]);
-      // pass 2: p = exp(s - m) / l rounded to bf16, then o += p v
+      // pass 2: p = exp(s - m) / l rounded to T, then o += p v
       float acc[DH / 8][4] = {};
       for (int c0 = 0; c0 < chunks; c0 += span) {
         const int c1 = min(chunks, c0 + span);
@@ -824,10 +861,10 @@ mha_kernel(Strided<const bf16> q, Strided<const bf16> k,
         if (active) {
           int c = c0;
           for (; c + kStepChunks <= c1; c += kStepChunks)
-            pv_step<DH, kStepChunks>(qa, kbase, vbase, lo, c - c0, 16 * c, n,
+            pv_step<T, DH, kStepChunks>(qa, kbase, vbase, lo, c - c0, 16 * c, n,
                                      c2, lane, m, inv0, inv1, acc);
           for (; c < c1; ++c)
-            pv_step<DH, 1>(qa, kbase, vbase, lo, c - c0, 16 * c, n, c2, lane,
+            pv_step<T, DH, 1>(qa, kbase, vbase, lo, c - c0, 16 * c, n, c2, lane,
                            m, inv0, inv1, acc);
         }
       }
@@ -875,92 +912,120 @@ Shape shape_for(int n, int dh) {
   return s;
 }
 
-template <int DH, int kRoute>
-cudaError_t launch(Strided<const bf16> q, Strided<const bf16> k,
-                   Strided<const bf16> v, Strided<bf16> o, int batch,
-                   int heads, int n, float scale, const Shape& s,
-                   cudaStream_t stream) {
+template <typename T, int DH, int kRoute>
+cudaError_t launch(Strided<const T> q, Strided<const T> k, Strided<const T> v,
+                   Strided<T> o, int batch, int heads, int n, float scale,
+                   const Shape& s, cudaStream_t stream) {
   const int smem = s.smem(DH);
   cudaError_t err = cudaFuncSetAttribute(
-      mha_kernel<DH, kRoute>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mha_kernel<T, DH, kRoute>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(1, heads, batch);
-  mha_kernel<DH, kRoute><<<grid, 32 * s.warps, smem, stream>>>(
+  mha_kernel<T, DH, kRoute><<<grid, 32 * s.warps, smem, stream>>>(
       q, k, v, o, n, scale, s.span_rows);
   return cudaGetLastError();
 }
 
-template <int DH>
-cudaError_t launch_route(Strided<const bf16> q, Strided<const bf16> k,
-                         Strided<const bf16> v, Strided<bf16> o, int batch,
+template <typename T, int DH>
+cudaError_t launch_route(Strided<const T> q, Strided<const T> k,
+                         Strided<const T> v, Strided<T> o, int batch,
                          int heads, int n, float scale, cudaStream_t stream) {
   const Shape s = shape_for(n, DH);
   if constexpr (DH == 64) {
     if (s.route == kWgOnePass)
-      return launch<DH, kWgOnePass>(q, k, v, o, batch, heads, n, scale, s,
-                                    stream);
+      return launch<T, DH, kWgOnePass>(q, k, v, o, batch, heads, n, scale, s,
+                                       stream);
     if (s.route == kWgSplit)
-      return launch<DH, kWgSplit>(q, k, v, o, batch, heads, n, scale, s,
-                                  stream);
+      return launch<T, DH, kWgSplit>(q, k, v, o, batch, heads, n, scale, s,
+                                     stream);
   }
-  return launch<DH, kMmaSync>(q, k, v, o, batch, heads, n, scale, s, stream);
+  return launch<T, DH, kMmaSync>(q, k, v, o, batch, heads, n, scale, s,
+                                 stream);
 }
 
-cudaError_t launch_dh(int dh, Strided<const bf16> q, Strided<const bf16> k,
-                      Strided<const bf16> v, Strided<bf16> o, int batch,
-                      int heads, int n, float scale, cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_dh(int dh, Strided<const T> q, Strided<const T> k,
+                      Strided<const T> v, Strided<T> o, int batch, int heads,
+                      int n, float scale, cudaStream_t stream) {
   if (n < 1 || batch < 1 || heads < 1) return cudaErrorInvalidValue;
   switch (dh) {
-    case 16: return launch_route<16>(q, k, v, o, batch, heads, n, scale, stream);
-    case 32: return launch_route<32>(q, k, v, o, batch, heads, n, scale, stream);
-    case 64: return launch_route<64>(q, k, v, o, batch, heads, n, scale, stream);
-    case 128: return launch_route<128>(q, k, v, o, batch, heads, n, scale, stream);
+    case 16: return launch_route<T, 16>(q, k, v, o, batch, heads, n, scale, stream);
+    case 32: return launch_route<T, 32>(q, k, v, o, batch, heads, n, scale, stream);
+    case 64: return launch_route<T, 64>(q, k, v, o, batch, heads, n, scale, stream);
+    case 128: return launch_route<T, 128>(q, k, v, o, batch, heads, n, scale, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// B5' on the packed qkv layout of T elements
+template <typename T>
+cudaError_t launch_packed(const void* qkv, void* out, int batch, int n,
+                          int dim, int heads, cudaStream_t stream) {
+  const int dh = dim / heads;
+  const T* in = static_cast<const T*>(qkv);
+  const long long sb = static_cast<long long>(n) * 3 * dim;
+  const Strided<const T> q{in, sb, dh, 3LL * dim};
+  const Strided<const T> k{in + dim, sb, dh, 3LL * dim};
+  const Strided<const T> v{in + 2 * dim, sb, dh, 3LL * dim};
+  const Strided<T> o{static_cast<T*>(out), static_cast<long long>(n) * dim,
+                     dh, dim};
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(dh)));
+  return launch_dh<T>(dh, q, k, v, o, batch, heads, n, scale, stream);
+}
+
+// B7 on separate strided q, k, v and out of T elements
+template <typename T>
+cudaError_t launch_strided(const void* q, const long long* qs, const void* k,
+                           const long long* ks, const void* v,
+                           const long long* vs, void* out,
+                           const long long* os, int batch, int heads, int n,
+                           int dh, float scale, cudaStream_t stream) {
+  using In = Strided<const T>;
+  const In qt{static_cast<const T*>(q), qs[0], qs[1], qs[2]};
+  const In kt{static_cast<const T*>(k), ks[0], ks[1], ks[2]};
+  const In vt{static_cast<const T*>(v), vs[0], vs[1], vs[2]};
+  const Strided<T> ot{static_cast<T*>(out), os[0], os[1], os[2]};
+  return launch_dh<T>(dh, qt, kt, vt, ot, batch, heads, n, scale, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches kernel B5' on `stream`: qkv [batch, n, 3*dim] bf16 -> out
-// [batch, n, dim] bf16, device pointers to contiguous 16-byte-aligned
-// buffers. Returns the cudaError_t of the launch (cudaErrorInvalidValue for
-// a head width it is not compiled for).
+// Launches kernel B5' on `stream`: qkv [batch, n, 3*dim] -> out [batch, n,
+// dim], bf16 (half = 0) or fp16 (half = 1), device pointers to contiguous
+// 16-byte-aligned buffers. Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a head width it is not compiled for).
 int b5_mha_packed(const void* qkv, void* out, int batch, int n, int dim,
-                  int heads, void* stream) {
+                  int heads, int half, void* stream) {
   if (heads <= 0 || dim % heads) return static_cast<int>(cudaErrorInvalidValue);
-  const int dh = dim / heads;
-  const bf16* in = static_cast<const bf16*>(qkv);
-  const long long sb = static_cast<long long>(n) * 3 * dim;
-  const Strided<const bf16> q{in, sb, dh, 3LL * dim};
-  const Strided<const bf16> k{in + dim, sb, dh, 3LL * dim};
-  const Strided<const bf16> v{in + 2 * dim, sb, dh, 3LL * dim};
-  const Strided<bf16> o{static_cast<bf16*>(out),
-                        static_cast<long long>(n) * dim, dh, dim};
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(dh)));
-  return static_cast<int>(launch_dh(dh, q, k, v, o, batch, heads, n, scale,
-                                    static_cast<cudaStream_t>(stream)));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      half ? launch_packed<f16>(qkv, out, batch, n, dim, heads, st)
+           : launch_packed<bf16>(qkv, out, batch, n, dim, heads, st));
 }
 
-// Launches kernel B7 on `stream`: q, k, v [batch, heads, n, dh] bf16 ->
-// out [batch, heads, n, dh] bf16, each given by its device pointer and its
-// (batch, head, token) strides in elements; every row of dh elements must
-// be contiguous and 16-byte aligned. Returns the cudaError_t of the launch.
+// Launches kernel B7 on `stream`: q, k, v [batch, heads, n, dh] -> out
+// [batch, heads, n, dh], bf16 (half = 0) or fp16 (half = 1), each given by
+// its device pointer and its (batch, head, token) strides in elements;
+// every row of dh elements must be contiguous and 16-byte aligned. Returns
+// the cudaError_t of the launch.
 int b7_mha_strided(const void* q, long long q_sb, long long q_sh,
                    long long q_st, const void* k, long long k_sb,
                    long long k_sh, long long k_st, const void* v,
                    long long v_sb, long long v_sh, long long v_st, void* out,
                    long long o_sb, long long o_sh, long long o_st, int batch,
-                   int heads, int n, int dh, float scale, void* stream) {
-  using In = Strided<const bf16>;
-  const In qs{static_cast<const bf16*>(q), q_sb, q_sh, q_st};
-  const In ks{static_cast<const bf16*>(k), k_sb, k_sh, k_st};
-  const In vs{static_cast<const bf16*>(v), v_sb, v_sh, v_st};
-  const Strided<bf16> os{static_cast<bf16*>(out), o_sb, o_sh, o_st};
-  return static_cast<int>(launch_dh(dh, qs, ks, vs, os, batch, heads, n, scale,
-                                    static_cast<cudaStream_t>(stream)));
+                   int heads, int n, int dh, float scale, int half,
+                   void* stream) {
+  const long long qs[3] = {q_sb, q_sh, q_st}, ks[3] = {k_sb, k_sh, k_st};
+  const long long vs[3] = {v_sb, v_sh, v_st}, os[3] = {o_sb, o_sh, o_st};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      half ? launch_strided<f16>(q, qs, k, ks, v, vs, out, os, batch, heads,
+                                 n, dh, scale, st)
+           : launch_strided<bf16>(q, qs, k, ks, v, vs, out, os, batch, heads,
+                                  n, dh, scale, st));
 }
 
 // How kernel B5'/B7 is launched at n tokens of head width dh: on warpgroup

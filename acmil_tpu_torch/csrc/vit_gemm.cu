@@ -11,38 +11,42 @@
 // GEMM for every product, with the layernorm in its prologue and the bias,
 // gelu, layerscale and residual in its epilogue, and kernel B5'
 // (csrc/vit_attn.cu) for the attention. No activation other than the
-// chain's hand-offs (qkv, o, h, m: bf16, or f32 for the residual h, and the
-// bf16 rows of the prologue) goes to device memory.
+// chain's hand-offs (qkv, o, h, m: the chain's dtype T, or f32 for the
+// residual h, and the T rows of the prologue) goes to device memory.
+//
+// Element type. T, the chain's dtype, is bf16 or fp16 (x's dtype: the
+// Pallas kernels cast the weights to it and round at it,
+// acmil_tpu/ops/vit_layer.py:196-201): A, W, the prologue's rows and the
+// T outputs are T; the tensor cores run both at 989 TFLOP/s. The chain at
+// float32 runs csrc/vit_gemm_f32.cu instead (split-TF32, f32 accuracy).
 //
 // Prologue: optional LayerNorm of the A rows, in its own small kernel
-// (ln_rows_kernel) that writes bf16 rows to a workspace the caller
-// allocates: the f32 mean and variance of each row over the full K (as
-// _ln_f32 does: mean, then the mean of the squared deviations), then every
-// element ((a - mu) * rsqrt(var + 1e-6)) * scale + bias rounded to bf16,
-// which is _ln_f32(...).astype(x.dtype). The product then reads those rows
-// by TMA. Since the prologue rounds to bf16 before the product either way,
-// this gives the same numbers as normalising each staged tile in place; it
-// costs one extra write and read of [M, K] bf16 (39 MB at ViT-S/16, B =
-// 256). An f32 A without LayerNorm passes through the same kernel, rounded
-// to bf16. A is bf16 (the layer input x) or f32 (the residual h of B3).
+// (ln_rows_kernel of csrc/vit_rows.cuh) that writes T rows to a workspace
+// the caller allocates, which is _ln_f32(...).astype(x.dtype). The product
+// then reads those rows by TMA. Since the prologue rounds to T before the
+// product either way, this gives the same numbers as normalising each
+// staged tile in place; it costs one extra write and read of [M, K] T (39
+// MB at ViT-S/16, B = 256). An f32 A without LayerNorm passes through the
+// same kernel, rounded to T. A is T (the layer input x) or f32 (the
+// residual h of B3).
 //
-// Epilogues (f32, then stored as bf16 or f32):
+// Epilogues (f32, then stored as T or f32; csrc/vit_rows.cuh):
 //   0  acc + bias                    qkv
 //   1  gelu_tanh(acc + bias)         fc1 of B3 (tanh-approximate at any dtype)
 //   2  (res + acc) + bias            proj and fc2 of B3: h = x + o.Wp + bp
 //   3  res + (acc + bias) * ls       proj of B4, ls = layerscale (or none)
-// The residual is read as bf16 or f32.
+// The residual is read as T or f32.
 //
 // Design (gemm_kernel). A persistent grid of one block per SM walks the
 // 128 x 128 output tiles, N fastest, so that the blocks in flight share
 // their A rows in L2 and W (at most a few MB) stays there. Each block runs
 // three warpgroups. One producer thread (warpgroup 2) keeps a ring of four
 // stages full, each stage one 128 x 64 tile of A and one 128 x 64 tile of W
-// (a depth step of 64 bf16 is one 128-byte row), brought by TMA
+// (a depth step of 64 T is one 128-byte row), brought by TMA
 // (cp.async.bulk.tensor, a CUtensorMap per operand built on the host) with
 // the 128-byte swizzle and completed on a "full" mbarrier per stage. Two
 // consumer warpgroups take 64 rows each of the same tile and issue wgmma
-// m64n128k16 (bf16, f32 accumulators in 64 registers a thread) straight
+// m64n128k16 (T, f32 accumulators in 64 registers a thread) straight
 // from the swizzled tiles, four per stage; each keeps one stage's products
 // in flight while it releases the one before through an "empty" mbarrier
 // (one arrival a warp). setmaxnreg moves registers from the producer to
@@ -51,7 +55,7 @@
 // accumulators in shared memory (padded rows, so the pair writes meet no
 // bank conflict), then every warp takes whole rows, four columns a lane,
 // applies bias, gelu, residual and layerscale, and stores 16 (f32) or 8
-// (bf16) contiguous bytes a lane: whole rows per instruction. A lane asks
+// (T) contiguous bytes a lane: whole rows per instruction. A lane asks
 // for its residuals before the tile's products, so that they arrive while
 // the products run, and the stores are not waited on, so they drain
 // during the next tile's products. Ragged M, N and K are zero-filled by
@@ -72,22 +76,25 @@
 // stores are bound by bytes.
 //
 // Widths the kernel takes: K a multiple of 32, N a multiple of 8, contiguous
-// 16-byte-aligned buffers, W bf16 [N, K] (torch's Linear layout). The
+// 16-byte-aligned buffers, W T [N, K] (torch's Linear layout). The
 // Python wrapper (acmil_tpu_torch/ops/vit_layer.py) checks them and raises.
 
 #include <cuda.h>            // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include <type_traits>
 
-using bf16 = __nv_bfloat16;
+#include "vit_rows.cuh"      // the LayerNorm prologue, gelu, the epilogues
+
+namespace {
 
 constexpr int kBM = 128;          // rows of a tile: two consumer warpgroups of 64
 constexpr int kBN = 128;          // columns of a tile
-constexpr int kBK = 64;           // depth of a stage: one 128-byte row of bf16
+constexpr int kBK = 64;           // depth of a stage: one 128-byte row of T
 constexpr int kStages = 4;
 constexpr int kConsumers = 2;     // warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);
@@ -100,125 +107,6 @@ constexpr uint32_t kOutBytes = 64 * kOutStride * 4;
 constexpr int kSmemBytes = kStages * kStageBytes + kConsumers * kOutBytes +
                            1024 + 2 * kStages * 8;
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr int kLnThreads = 256;   // the prologue: one warp per row
-constexpr int kLnChunks = 12;     // 4-element chunks a lane holds: K <= 1536
-constexpr float kLnEps = 1e-6f;
-
-enum Epilogue { kBias = 0, kBiasGelu = 1, kResBias = 2, kBiasLsRes = 3 };
-
-// ---------------------------------------------------------------------------
-// The prologue: LayerNorm (or a plain rounding) of A's rows to bf16
-// ---------------------------------------------------------------------------
-
-// 4 consecutive elements of A as f32, and 4 f32 as bf16
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-}
-
-__device__ __forceinline__ void load4(const bf16* p, float* v) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
-}
-
-__device__ __forceinline__ uint2 pack4(const float* v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                    *reinterpret_cast<const uint32_t*>(&hi));
-}
-
-// One warp per row of A: out = bf16(LN(a)) with kLn, else bf16(a). The row
-// is read once into registers, 4 elements a lane at a time (up to
-// kLnChunks chunks a lane: K <= 32 * 4 * kLnChunks); wider rows are read
-// again from L2 chunk by chunk.
-template <typename TA, bool kLn>
-__global__ void __launch_bounds__(kLnThreads)
-ln_rows_kernel(const TA* __restrict__ a, const float* __restrict__ scale,
-               const float* __restrict__ shift, bf16* __restrict__ out,
-               int m_rows, int k_depth) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * (kLnThreads / 32) + threadIdx.x / 32;
-  if (row >= m_rows) return;
-  const TA* src = a + static_cast<size_t>(row) * k_depth;
-  bf16* dst = out + static_cast<size_t>(row) * k_depth;
-  const bool held = k_depth <= 128 * kLnChunks;   // the row fits the registers
-  float v[kLnChunks][4];
-#pragma unroll
-  for (int i = 0; i < kLnChunks; ++i) {
-    const int c = 4 * lane + 128 * i;
-    if (held && c < k_depth) load4(src + c, v[i]);
-  }
-  float mean = 0.f, rstd = 1.f;
-  if (kLn) {
-    float s = 0.f;
-    if (held) {
-#pragma unroll
-      for (int i = 0; i < kLnChunks; ++i)
-        if (4 * lane + 128 * i < k_depth)
-          s += (v[i][0] + v[i][1]) + (v[i][2] + v[i][3]);
-    } else {
-      for (int c = 4 * lane; c < k_depth; c += 128) {
-        float t[4];
-        load4(src + c, t);
-        s += (t[0] + t[1]) + (t[2] + t[3]);
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
-    mean = s / k_depth;
-    float d2 = 0.f;
-    if (held) {
-#pragma unroll
-      for (int i = 0; i < kLnChunks; ++i)
-        if (4 * lane + 128 * i < k_depth)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float d = v[i][j] - mean;
-            d2 += d * d;
-          }
-    } else {
-      for (int c = 4 * lane; c < k_depth; c += 128) {
-        float t[4];
-        load4(src + c, t);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float d = t[j] - mean;
-          d2 += d * d;
-        }
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) d2 += __shfl_xor_sync(0xffffffffu, d2, o);
-    rstd = rsqrtf(d2 / k_depth + kLnEps);
-  }
-  auto emit = [&](int c, float* t) {
-    if (kLn) {
-      const float4 g = *reinterpret_cast<const float4*>(scale + c);
-      const float4 b = *reinterpret_cast<const float4*>(shift + c);
-      t[0] = ((t[0] - mean) * rstd) * g.x + b.x;
-      t[1] = ((t[1] - mean) * rstd) * g.y + b.y;
-      t[2] = ((t[2] - mean) * rstd) * g.z + b.z;
-      t[3] = ((t[3] - mean) * rstd) * g.w + b.w;
-    }
-    *reinterpret_cast<uint2*>(dst + c) = pack4(t);
-  };
-  if (held) {
-#pragma unroll
-    for (int i = 0; i < kLnChunks; ++i) {
-      const int c = 4 * lane + 128 * i;
-      if (c < k_depth) emit(c, v[i]);
-    }
-  } else {
-    for (int c = 4 * lane; c < k_depth; c += 128) {
-      float t[4];
-      load4(src + c, t);
-      emit(c, t);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // TMA, mbarriers and warpgroup products
@@ -296,7 +184,7 @@ __device__ __forceinline__ void fence_operands(float (&x)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
 }
 
-// The descriptor of a 128-byte-swizzled bf16 operand in shared memory whose
+// The descriptor of a 128-byte-swizzled 2-byte operand in shared memory whose
 // rows are 128 bytes (64 elements of depth) and whose 8-row atoms lie 1024
 // bytes apart, as TMA's 128-byte swizzle writes it from a 1024-byte-aligned
 // base (sw128_desc of csrc/vit_attn.cu). A k16 step within the row adds 32
@@ -309,115 +197,98 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
 
 // d (+)= a b^T for one k16 step of a 64 x 128 tile: A (64 rows of the
 // activations) and B (128 rows of W, K-major) by descriptor, f32 sums in
-// 64 registers a thread (the m64n128 accumulator layout).
+// 64 registers a thread (the m64n128 accumulator layout); T operands (TY:
+// "bf16" or "f16").
+#define WGMMA_M64N128K16(TY)                                                \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\n"                                                  \
+      "setp.ne.b32 p, %66, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "          \
+      "{"                                                                   \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                    \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                              \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                            \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                            \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                            \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                            \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                            \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                              \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                    \
+      :                                                                     \
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                     \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                     \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                   \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                 \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                 \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                 \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                 \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),                 \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),                 \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),                 \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),                 \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),                 \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),                 \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),                 \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),                 \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                  \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
                                                  uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// jax.nn.gelu(x, approximate=True), in f32, with tanh(u) = 1 - 2 / (e^2u +
-// 1) on the special-function unit: within a few f32 ulps of tanhf where
-// |tanh| is large and within 1e-7 where it is small (a few instructions
-// against tanhf's range reductions: fc1's epilogue applies it to 77 M
-// elements at ViT-S/16, B = 256)
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float u = 0.7978845608028654f * (x + 0.044715f * (x * x * x));
-  const float t = 1.0f - __fdividef(2.0f, __expf(2.0f * u) + 1.0f);
-  return x * (0.5f * (1.0f + t));
+  if constexpr (std::is_same<T, f16>::value) WGMMA_M64N128K16("f16");
+  else WGMMA_M64N128K16("bf16");
 }
 
 struct EpilogueArgs {
   const float* bias;   // [N]
   const float* ls;     // [N] or null
-  const void* res;     // [M, N] or null
-  void* out;           // [M, N]
+  const void* res;     // [M, N] or null: T or f32
+  void* out;           // [M, N]: T or f32
   int res_f32, out_f32;
 };
 
 // Four adjacent columns (col .. col + 3) of one row through epilogue
-// kEpi: a are the accumulators, b and g the bias and layerscale of those
-// columns, r the residual (epilogues 2 and 3).
-template <int kEpi>
+// kEpi, stored as f32 or T: a are the accumulators, b and g the bias and
+// layerscale of those columns, r the residual (epilogues 2 and 3).
+template <typename T, int kEpi>
 __device__ __forceinline__ void epilogue_quad(const EpilogueArgs& e, int row,
                                               int col, int n_cols, float4 a,
                                               float4 b, float4 g, float4 r) {
   const size_t off = static_cast<size_t>(row) * n_cols + col;
-  float y[4] = {a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w};
-  if (kEpi == kBiasGelu) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) y[i] = gelu_tanh(y[i]);
-  } else if (kEpi == kResBias) {
-    y[0] = (r.x + a.x) + b.x;
-    y[1] = (r.y + a.y) + b.y;
-    y[2] = (r.z + a.z) + b.z;
-    y[3] = (r.w + a.w) + b.w;
-  } else if (kEpi == kBiasLsRes) {
-    y[0] = r.x + y[0] * g.x;
-    y[1] = r.y + y[1] * g.y;
-    y[2] = r.z + y[2] * g.z;
-    y[3] = r.w + y[3] * g.w;
-  }
+  const float y[4] = {epilogue_value<kEpi>(a.x, b.x, g.x, r.x),
+                      epilogue_value<kEpi>(a.y, b.y, g.y, r.y),
+                      epilogue_value<kEpi>(a.z, b.z, g.z, r.z),
+                      epilogue_value<kEpi>(a.w, b.w, g.w, r.w)};
   if (e.out_f32)
-    *reinterpret_cast<float4*>(static_cast<float*>(e.out) + off) =
-        make_float4(y[0], y[1], y[2], y[3]);
+    store4(static_cast<float*>(e.out) + off, y);
   else
-    *reinterpret_cast<uint2*>(static_cast<bf16*>(e.out) + off) = pack4(y);
+    *reinterpret_cast<uint2*>(static_cast<T*>(e.out) + off) = pack4<T>(y);
 }
 
 // The residual of four adjacent columns of one row as it lies in memory
-// (f32: all of it; bf16: x and y), loaded without waiting for it.
+// (f32: all of it; T: x and y), loaded without waiting for it.
+template <typename T>
 __device__ __forceinline__ uint4 load_residual(const EpilogueArgs& e,
                                                size_t off) {
   if (e.res_f32)
     return __ldg(reinterpret_cast<const uint4*>(
         static_cast<const float*>(e.res) + off));
   const uint2 v =
-      __ldg(reinterpret_cast<const uint2*>(static_cast<const bf16*>(e.res) + off));
+      __ldg(reinterpret_cast<const uint2*>(static_cast<const T*>(e.res) + off));
   return make_uint4(v.x, v.y, 0u, 0u);
 }
 
 // ... and as four f32 values.
+template <typename T>
 __device__ __forceinline__ float4 residual_f32(const EpilogueArgs& e,
                                                uint4 raw) {
   if (e.res_f32)
     return make_float4(__uint_as_float(raw.x), __uint_as_float(raw.y),
                        __uint_as_float(raw.z), __uint_as_float(raw.w));
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
+  float v[4];
+  load4(reinterpret_cast<const T*>(&raw), v);
+  return make_float4(v[0], v[1], v[2], v[3]);
 }
 
 __device__ __forceinline__ void named_barrier(int id, int threads) {
@@ -429,10 +300,10 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 // registers). Shared memory: the stages'
 // A tiles, then their W tiles, then each consumer warpgroup's staged
 // accumulators (all 1024-byte aligned), then the full and empty mbarriers.
-template <int kEpi>
+template <typename T, int kEpi>
 __global__ void __launch_bounds__(kThreads, 1)
-gemm_kernel(const __grid_constant__ CUtensorMap map_a,   // A bf16 [M, K]
-            const __grid_constant__ CUtensorMap map_w,   // W bf16 [N, K]
+gemm_kernel(const __grid_constant__ CUtensorMap map_a,   // A T [M, K]
+            const __grid_constant__ CUtensorMap map_w,   // W T [N, K]
             EpilogueArgs e, int m_rows, int n_cols, int k_depth) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -511,7 +382,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,   // A bf16 [M, K]
         for (int i = 0; i < kRowsPerWarp; ++i) {
           res[i] = make_uint4(0u, 0u, 0u, 0u);
           if (col < n_cols && row0 + 4 * i < m_rows)
-            res[i] = load_residual(
+            res[i] = load_residual<T>(
                 e, static_cast<size_t>(row0 + 4 * i) * n_cols + col);
         }
       }
@@ -524,7 +395,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,   // A bf16 [M, K]
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk)    // +2: a k16 step, 32 bytes
-          wgmma_m64n128k16(acc, da + 2 * kk, dw + 2 * kk, ks > 0 || kk > 0);
+          wgmma_m64n128k16<T>(acc, da + 2 * kk, dw + 2 * kk, ks > 0 || kk > 0);
         wgmma_commit();
         wgmma_wait<1>();   // the previous stage's products are done
         if (held >= 0 && lane == 0) mbar_arrive(empty + 8 * held);
@@ -564,9 +435,9 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,   // A bf16 [M, K]
 #pragma unroll
         for (int i = 0; i < kRowsPerWarp; ++i) {
           float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
-          if constexpr (kEpi >= kResBias) r = residual_f32(e, res[i]);
+          if constexpr (kEpi >= kResBias) r = residual_f32<T>(e, res[i]);
           if (row0 + 4 * i < m_rows)
-            epilogue_quad<kEpi>(e, row0 + 4 * i, col, n_cols, a[i], b, g, r);
+            epilogue_quad<T, kEpi>(e, row0 + 4 * i, col, n_cols, a[i], b, g, r);
         }
       }
     }
@@ -604,9 +475,10 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// The map of a row-major bf16 [rows, k] matrix, read in 128-row x 64-column
-// boxes with the 128-byte swizzle; elements past the edges read as 0.
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int k) {
+// The map of a row-major [rows, k] matrix of 2-byte elements (bf16, or
+// fp16 with half), read in 128-row x 64-column boxes with the 128-byte
+// swizzle; elements past the edges read as 0.
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int k, bool half) {
   EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k),
@@ -614,33 +486,24 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int k) {
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k) * 2};
   const cuuint32_t box[2] = {kBK, kBM};
   const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  return encode(map, half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                 const_cast<void*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename TA, bool kLn>
-cudaError_t launch_prologue(const void* a, const float* scale,
-                            const float* shift, bf16* out, int m, int k,
-                            cudaStream_t stream) {
-  const int rows = kLnThreads / 32;
-  ln_rows_kernel<TA, kLn><<<(m + rows - 1) / rows, kLnThreads, 0, stream>>>(
-      static_cast<const TA*>(a), scale, shift, out, m, k);
-  return cudaGetLastError();
-}
-
-template <int kEpi>
+template <typename T, int kEpi>
 cudaError_t launch_gemm(const CUtensorMap& map_a, const CUtensorMap& map_w,
                         const EpilogueArgs& e, int m, int n, int k, int grid,
                         cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel<kEpi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gemm_kernel<T, kEpi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (err != cudaSuccess) return err;
-  gemm_kernel<kEpi><<<grid, kThreads, kSmemBytes, stream>>>(map_a, map_w, e, m,
-                                                            n, k);
+  gemm_kernel<T, kEpi><<<grid, kThreads, kSmemBytes, stream>>>(map_a, map_w, e,
+                                                               m, n, k);
   return cudaGetLastError();
 }
 
@@ -656,64 +519,77 @@ int sm_count() {
   return sms;
 }
 
+// The prologue (if any) and the product at element type T.
+template <typename T>
+cudaError_t run(const void* a, int a_f32, const float* ln_scale,
+                const float* ln_bias, void* a_rows, const void* w,
+                const EpilogueArgs& e, int epilogue, int m, int n, int k,
+                cudaStream_t st) {
+  const bool ln = ln_scale != nullptr;
+  cudaError_t err = cudaSuccess;
+  const void* a_t = a;
+  if (ln || a_f32) {
+    T* rows = static_cast<T*>(a_rows);
+    if (a_f32)
+      err = ln ? launch_prologue<float, T, true>(a, ln_scale, ln_bias, rows, m, k, st)
+               : launch_prologue<float, T, false>(a, nullptr, nullptr, rows, m, k, st);
+    else
+      err = launch_prologue<T, T, true>(a, ln_scale, ln_bias, rows, m, k, st);
+    if (err != cudaSuccess) return err;
+    a_t = rows;
+  }
+  constexpr bool kHalfT = std::is_same<T, f16>::value;
+  CUtensorMap map_a, map_w;
+  if (!make_map(&map_a, a_t, m, k, kHalfT) ||
+      !make_map(&map_w, w, n, k, kHalfT))
+    return cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const long long tiles = static_cast<long long>((m + kBM - 1) / kBM) *
+                          ((n + kBN - 1) / kBN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  switch (epilogue) {
+    case kBias:
+      return launch_gemm<T, kBias>(map_a, map_w, e, m, n, k, grid, st);
+    case kBiasGelu:
+      return launch_gemm<T, kBiasGelu>(map_a, map_w, e, m, n, k, grid, st);
+    case kResBias:
+      return launch_gemm<T, kResBias>(map_a, map_w, e, m, n, k, grid, st);
+    default:
+      return launch_gemm<T, kBiasLsRes>(map_a, map_w, e, m, n, k, grid, st);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches the GEMM on `stream`. A is [m, k] bf16 (a_f32 = 0) or f32;
-// ln_scale/ln_bias [k] turn the LayerNorm prologue on (both null: off);
-// a_rows is a bf16 [m, k] workspace for the prologue's rows, needed when the
-// prologue is on or A is f32 (else null: the product reads A itself); w
-// [n, k] bf16; bias [n] f32; ls [n] f32 or null; res [m, n] bf16 or f32
-// (epilogues 2 and 3); out [m, n] bf16 (out_f32 = 0) or f32. All device
-// pointers, contiguous and 16-byte aligned. Returns the cudaError_t of the
-// launches (cudaErrorInvalidValue for widths it does not take).
+// Launches the GEMM on `stream` at element type T: bf16 (half = 0) or fp16
+// (half = 1). A is [m, k] T (a_f32 = 0) or f32; ln_scale/ln_bias [k] turn
+// the LayerNorm prologue on (both null: off); a_rows is a T [m, k]
+// workspace for the prologue's rows, needed when the prologue is on or A is
+// f32 (else null: the product reads A itself); w [n, k] T; bias [n] f32; ls
+// [n] f32 or null; res [m, n] T or f32 (epilogues 2 and 3); out [m, n] T
+// (out_f32 = 0) or f32. All device pointers, contiguous and 16-byte
+// aligned. Returns the cudaError_t of the launches (cudaErrorInvalidValue
+// for widths it does not take).
 int vit_gemm(const void* a, int a_f32, const float* ln_scale,
              const float* ln_bias, void* a_rows, const void* w,
              const float* bias, const float* ls, const void* res, int res_f32,
              void* out, int out_f32, int epilogue, int m, int n, int k,
-             void* stream) {
+             int half, void* stream) {
   const bool ln = ln_scale != nullptr;
   if (m <= 0 || n <= 0 || k <= 0 || k % 32 || n % 8 || epilogue < kBias ||
       epilogue > kBiasLsRes || (epilogue >= kResBias && res == nullptr) ||
       ((ln || a_f32) && a_rows == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaSuccess;
-  const void* a_bf16 = a;
-  if (ln || a_f32) {
-    bf16* rows = static_cast<bf16*>(a_rows);
-    if (a_f32)
-      err = ln ? launch_prologue<float, true>(a, ln_scale, ln_bias, rows, m, k, st)
-               : launch_prologue<float, false>(a, nullptr, nullptr, rows, m, k, st);
-    else
-      err = launch_prologue<bf16, true>(a, ln_scale, ln_bias, rows, m, k, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    a_bf16 = rows;
-  }
-  CUtensorMap map_a, map_w;
-  if (!make_map(&map_a, a_bf16, m, k) || !make_map(&map_w, w, n, k))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int sms = sm_count();
-  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
-  const long long tiles = static_cast<long long>((m + kBM - 1) / kBM) *
-                          ((n + kBN - 1) / kBN);
-  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
   const EpilogueArgs e{bias, ls, res, out, res_f32, out_f32};
-  switch (epilogue) {
-    case kBias:
-      err = launch_gemm<kBias>(map_a, map_w, e, m, n, k, grid, st);
-      break;
-    case kBiasGelu:
-      err = launch_gemm<kBiasGelu>(map_a, map_w, e, m, n, k, grid, st);
-      break;
-    case kResBias:
-      err = launch_gemm<kResBias>(map_a, map_w, e, m, n, k, grid, st);
-      break;
-    default:
-      err = launch_gemm<kBiasLsRes>(map_a, map_w, e, m, n, k, grid, st);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(
+      half ? run<f16>(a, a_f32, ln_scale, ln_bias, a_rows, w, e, epilogue, m,
+                      n, k, st)
+           : run<bf16>(a, a_f32, ln_scale, ln_bias, a_rows, w, e, epilogue, m,
+                       n, k, st));
 }
 
 }  // extern "C"

@@ -126,9 +126,10 @@ def build_encoder(conf, dtype=torch.bfloat16):
     The state dict is converted from ``conf.pretrain_weights`` when given;
     otherwise None, and the model keeps the random initialisation it was
     built with. In bf16 the ViT module's attention is kernel B5' with a bf16
-    softmax, as in the JAX package, and a ResNet computes in bf16; Step2
-    itself runs :func:`encoder_feature_fn`, which takes every ViT through
-    ``vit_encode``.
+    softmax, as in the JAX package, and a ResNet computes in bf16; at
+    float32 and float16 the module keeps its einsum attention, as the JAX
+    package does. Step2 itself runs :func:`encoder_feature_fn`, which takes
+    every ViT through ``vit_encode`` (the kernels at every float dtype).
     """
     spec = encoder_spec(conf)
     encoder = spec.builder(dtype)
@@ -198,7 +199,8 @@ def encoder_feature_fn(model: CustomModel, spec: EncoderSpec,
     in ``out_dtype`` on ``device``. A ViT runs through
     :func:`~acmil_tpu_torch.models.encoders.fast.vit_encode` (kernels B3,
     B4 and B5' on CUDA), a ResNet through its plain forward (cuDNN's
-    convolutions, as the JAX package runs them in XLA). The encoder's
+    convolutions, as the JAX package runs them in XLA; at float32 without
+    TF32, ``fast.conv_precision``). The encoder's
     parameters go to the device once, here, with the matrices of the
     route's kernel (a ResNet: its convolutions) cast to its dtype once.
     ``fused=False`` makes ``vit_encode`` use the kernels' plain versions
@@ -210,6 +212,7 @@ def encoder_feature_fn(model: CustomModel, spec: EncoderSpec,
     its own) and returns the features of the
     whole padded batch in row order, gathered over the data group."""
     from acmil_tpu_torch.models.encoders.fast import (cast_kernel_weights,
+                                                      conv_precision,
                                                       vit_encode)
 
     enc = model.encoder
@@ -220,7 +223,9 @@ def encoder_feature_fn(model: CustomModel, spec: EncoderSpec,
         def resnet_fn(images_u8):
             x = preprocess(to_device(images_u8, device), spec,
                            dtype=enc.dtype)
-            return gather_rows(trunk(x).to(out_dtype), mesh)
+            with conv_precision(enc.dtype):
+                feats = trunk(x)
+            return gather_rows(feats.to(out_dtype), mesh)
 
         return resnet_fn
     params = cast_kernel_weights(

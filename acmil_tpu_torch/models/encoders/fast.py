@@ -24,6 +24,8 @@ once, where a caller keeps the parameters for many batches.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -110,19 +112,33 @@ def cast_kernel_weights(params: dict, *, n_tok: int, heads: int,
     return {k: v.to(dtype) if cast(k) else v for k, v in params.items()}
 
 
+def conv_precision(dtype: torch.dtype):
+    """A context in which a convolution in ``dtype`` keeps that dtype's
+    precision on the card: at float32 cuDNN's TF32 is off (by default it
+    rounds f32 operands to TF32; the JAX package computes them in f32),
+    every other cuDNN setting as it was. A no-op at other dtypes."""
+    if dtype != torch.float32:
+        return contextlib.nullcontext()
+    c = torch.backends.cudnn
+    return c.flags(enabled=c.enabled, benchmark=c.benchmark,
+                   deterministic=c.deterministic, allow_tf32=False)
+
+
 def vit_embed(params: dict, images: torch.Tensor, *, patch: int,
               dtype: torch.dtype, pre_norm: bool = False) -> torch.Tensor:
     """images ``[B, H, W, 3]`` normalised → tokens ``[B, 1 + P, D]`` in
-    ``dtype``: the patch embed (a convolution in ``dtype``; on the CPU a
-    bf16 convolution is computed in f32 and rounded), the cls token, the
-    position embedding and, with ``pre_norm``, ``norm_pre``."""
+    ``dtype``: the patch embed (a convolution in ``dtype``: on the CPU a
+    bf16 convolution is computed in f32 and rounded, on the card an f32 one
+    without TF32), the cls token, the position embedding and, with
+    ``pre_norm``, ``norm_pre``."""
     b = images.shape[0]
     kernel = params["patch_embed.proj.weight"].to(dtype)      # [D, 3, p, p]
     x = images.to(dtype).permute(0, 3, 1, 2)
     if x.device.type == "cpu":
         x = F.conv2d(x.float(), kernel.float(), stride=patch).to(dtype)
     else:
-        x = F.conv2d(x, kernel, stride=patch)
+        with conv_precision(dtype):
+            x = F.conv2d(x, kernel, stride=patch)
     x = x + params["patch_embed.proj.bias"].to(dtype)[:, None, None]
     dim = x.shape[1]
     x = x.flatten(2).transpose(1, 2)                          # [B, P, D]

@@ -12,8 +12,8 @@ the backward recomputes through the plain version, as the JAX
 
 B7 has two routes, chosen by :func:`_route`:
 
-- ``mma``: bfloat16 at dh in {16, 32, 64, 128} with rows 16-byte aligned,
-  on the tensor cores (``csrc/vit_attn.cu``'s strided entry, the body of
+- ``mma``: bfloat16 or float16 at dh in {16, 32, 64, 128} with rows
+  16-byte aligned, on the tensor cores (``csrc/vit_attn.cu``'s strided entry, the body of
   kernel B5' reading each operand through its strides);
 - ``fma``: every other dtype, head width and alignment, on the f32 FMA
   units in two passes over the keys (``csrc/vit_attn_generic.cu``).
@@ -34,14 +34,11 @@ from typing import Optional
 
 import torch
 
-from acmil_tpu_torch.ops.vit_attn_packed import KERNEL_HEAD_DIMS, _mm
-
-# the widest head the fma route takes: its query tile [64, dh] of f32 and a
-# key tile of the same size stay in shared memory (the Pallas kernel's
-# bound is VMEM instead)
-MAX_HEAD_DIM = 256
-# the fma route's dtype codes (csrc/vit_attn_generic.cu::b7_mha_generic)
-_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+from acmil_tpu_torch.ops.vit_attn_packed import (_MMA_DTYPES,
+                                                 FLOAT_DTYPES,
+                                                 KERNEL_HEAD_DIMS,
+                                                 MAX_HEAD_DIM, _launch_fma,
+                                                 _mm)
 
 
 def _reference_attention(q, k, v, scale: Optional[float] = None):
@@ -77,7 +74,7 @@ def _check_kernel_args(q, k, v, out=None) -> None:
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q, k, v must be on one device, got {q.device}, "
                          f"{k.device}, {v.device}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+    if q.dtype not in FLOAT_DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"kernel B7 takes q, k, v of one dtype, float32, "
                          f"float16 or bfloat16, got {q.dtype}, {k.dtype}, "
@@ -99,9 +96,10 @@ def _check_kernel_args(q, k, v, out=None) -> None:
 
 
 def _route(q, k, v, out) -> str:
-    """``mma`` where the tensor-core route takes the operands (bfloat16,
-    dh in ``KERNEL_HEAD_DIMS``, every row 16-byte aligned), else ``fma``."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] not in KERNEL_HEAD_DIMS:
+    """``mma`` where the tensor-core route takes the operands (bfloat16 or
+    float16, dh in ``KERNEL_HEAD_DIMS``, every row 16-byte aligned), else
+    ``fma``."""
+    if q.dtype not in _MMA_DTYPES or q.shape[-1] not in KERNEL_HEAD_DIMS:
         return "fma"
     for t in (q, k, v, out):
         if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
@@ -110,20 +108,16 @@ def _route(q, k, v, out) -> str:
 
 
 @functools.cache
-def _kernel_entry(route: str):
-    """The C entry point of ``route`` with its ctypes signature, from the
-    library built at first use."""
+def _kernel_entry():
+    """The tensor-core route's C entry point with its ctypes signature, from
+    the library built at first use (the fma route's is
+    ``vit_attn_packed._fma_entry``)."""
     from acmil_tpu_torch.ops import _build
 
-    if route == "mma":
-        fn = _build.load("vit_attn").b7_mha_strided
-        head = []
-    else:
-        fn = _build.load("vit_attn_generic").b7_mha_generic
-        head = [ctypes.c_int]
+    fn = _build.load("vit_attn").b7_mha_strided
     fn.restype = ctypes.c_int
-    fn.argtypes = head + ([ctypes.c_void_p] + [ctypes.c_longlong] * 3) * 4 + [
-        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3) * 4 + [
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
@@ -137,15 +131,19 @@ def _launch(q, k, v, scale: Optional[float], out=None) -> torch.Tensor:
     if out is None:
         out = torch.empty(b, h, n, dh, dtype=q.dtype, device=q.device)
     route = _route(q, k, v, out)
-    args = [] if route == "mma" else [_DTYPE_CODES[q.dtype]]
-    for t in (q, k, v, out):
-        args += [t.data_ptr(), *t.stride()[:3]]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel_entry(route)(*args, b, h, n, dh, float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"kernel B7 ({route} route) launch failed: "
-                           f"cudaError_t {err}")
+    if route == "fma":
+        _launch_fma(q, k, v, out, scale)
+    else:
+        args = []
+        for t in (q, k, v, out):
+            args += [t.data_ptr(), *t.stride()[:3]]
+        args += [b, h, n, dh, float(scale), _MMA_DTYPES[q.dtype]]
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = _kernel_entry()(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"kernel B7 (mma route) launch failed: "
+                               f"cudaError_t {err}")
     fused_vit_attention.launches += 1
     fused_vit_attention.route_launches[route] += 1
     return out

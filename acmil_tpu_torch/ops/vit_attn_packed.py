@@ -6,13 +6,26 @@ token-major ``[B, N, 3D]``, splits the heads inside the kernel and returns
 the attention output token-major ``[B, N, D]``, ready for the output
 projection: no ``[B, H, N, dh]`` copy reaches device memory.
 
-The wrapper picks its route by the device of ``qkv`` and nothing else: a CPU
-tensor takes the plain version :func:`_reference_packed`, a CUDA tensor
-launches kernel B5' (``csrc/vit_attn.cu``, which replaces the Pallas
-``_packed_kernel``) or raises. Kernels B3 and B4 (``ops/vit_layer.py``)
-launch B5' as their attention step through :func:`_launch_packed`, which
-counts every launch of the kernel (``_launch_packed.launches``), whoever
-calls it; ``fused_mha_packed.launches`` counts the public entry's alone.
+The wrapper picks its route by the device of ``qkv``: a CPU tensor takes
+the plain version :func:`_reference_packed`, a CUDA tensor launches kernel
+B5' (which replaces the Pallas ``_packed_kernel``) or raises. On the card
+B5' has two routes, chosen by :func:`_packed_route` from the dtype and the
+head width alone:
+
+- ``mma``: bfloat16 or float16 at dh in ``KERNEL_HEAD_DIMS``, on the tensor
+  cores (``csrc/vit_attn.cu``'s packed entry);
+- ``fma``: float32, or any other head width up to ``MAX_HEAD_DIM``, through
+  B7's fma route (``csrc/vit_attn_generic.cu``, f32 FMA) on strided views
+  of the packed qkv and of the output: no copy.
+
+Kernels B3 and B4 (``ops/vit_layer.py``) launch B5' as their attention step
+through :func:`_launch_packed`, which counts every launch of the kernel
+(``_launch_packed.launches``, by route and dtype in
+``_launch_packed.route_launches``), whoever calls it;
+``fused_mha_packed.launches`` counts the public entry's alone.
+:func:`fused_mha_packed` is a ``torch.autograd.Function`` whose backward is
+autograd of :func:`_reference_packed`, recomputed, as the JAX
+``custom_vjp`` differentiates its reference.
 """
 
 from __future__ import annotations
@@ -25,6 +38,19 @@ import torch
 
 # head widths csrc/vit_attn.cu is compiled for
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# the widest head B7's fma route takes: its query tile [64, dh] of f32 and a
+# key tile of the same size stay in shared memory (the Pallas kernel's
+# bound is VMEM instead)
+MAX_HEAD_DIM = 256
+# the dtypes B5' takes, and the tensor-core route's
+FLOAT_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+# each dtype's key in the launch counters (``_launch_packed``, the GEMM's)
+DTYPE_KEYS = {torch.float32: "f32", torch.float16: "f16",
+              torch.bfloat16: "bf16"}
+# the dtype codes of csrc/vit_attn.cu's entries (tensor-core route) and of
+# csrc/vit_attn_generic.cu::b7_mha_generic (B7's fma route)
+_MMA_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
+_FMA_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
 def _mm(a, b):
@@ -59,19 +85,29 @@ def _check_kernel_args(qkv: torch.Tensor, heads: int) -> None:
     """Raise ValueError for any input kernel B5' does not take."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be [B, N, 3D], got {tuple(qkv.shape)}")
-    if qkv.dtype != torch.bfloat16:
-        raise ValueError(f"kernel B5' takes bfloat16 qkv, got {qkv.dtype}")
+    if qkv.dtype not in FLOAT_DTYPES:
+        raise ValueError(f"kernel B5' takes float32, float16 or bfloat16 "
+                         f"qkv, got {qkv.dtype}")
     b, n, three_d = qkv.shape
     d = three_d // 3
     if b < 1 or n < 1:
         raise ValueError(f"empty batch or sequence: B={b}, N={n}")
     if b > 65535:
         raise ValueError(f"B={b} exceeds the kernel's grid limit of 65535")
-    if heads < 1 or d % heads or d // heads not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel B5' takes head widths {KERNEL_HEAD_DIMS}, "
-                         f"got D={d} over {heads} heads")
+    if heads < 1 or d % heads or d // heads > MAX_HEAD_DIM:
+        raise ValueError(f"kernel B5' takes head widths up to {MAX_HEAD_DIM}"
+                         f", got D={d} over {heads} heads")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("kernel B5' needs a contiguous, 16-byte-aligned qkv")
+
+
+def _packed_route(qkv: torch.Tensor, heads: int) -> str:
+    """``mma`` for bfloat16 or float16 at a head width in
+    ``KERNEL_HEAD_DIMS``, else ``fma``: by dtype and dh alone."""
+    dh = qkv.shape[-1] // 3 // heads
+    if qkv.dtype in _MMA_DTYPES and dh in KERNEL_HEAD_DIMS:
+        return "mma"
+    return "fma"
 
 
 @functools.cache
@@ -82,30 +118,102 @@ def _kernel_entry():
 
     fn = _build.load("vit_attn").b5_mha_packed
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     return fn
 
 
+@functools.cache
+def _fma_entry():
+    """B7's fma route's C entry point with its ctypes signature, from the
+    library built at first use."""
+    from acmil_tpu_torch.ops import _build
+
+    fn = _build.load("vit_attn_generic").b7_mha_generic
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + (
+        [ctypes.c_void_p] + [ctypes.c_longlong] * 3) * 4 + [
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    return fn
+
+
+def _launch_fma(q, k, v, out, scale: float) -> torch.Tensor:
+    """One launch of B7's fma route (``csrc/vit_attn_generic.cu``) on CUDA
+    tensors q, k, v, out ``[B, H, N, dh]``, each read through its strides;
+    returns ``out``. It checks and counts nothing: kernels B7 and B5' check
+    their operands and count their own launches."""
+    b, h, n, dh = q.shape
+    args = [_FMA_DTYPES[q.dtype]]
+    for t in (q, k, v, out):
+        args += [t.data_ptr(), *t.stride()[:3]]
+    args += [b, h, n, dh, float(scale)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _fma_entry()(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"B7's fma route: launch failed: cudaError_t "
+                           f"{err}")
+    return out
+
+
 def _launch_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    """One launch of kernel B5' on a CUDA tensor (adds one to
-    ``_launch_packed.launches``); raises on what it does not take or a
-    failed launch."""
+    """One launch of kernel B5' on a CUDA tensor, on the route
+    :func:`_packed_route` names (adds one to ``_launch_packed.launches`` and
+    to its route's count); raises on what it does not take or a failed
+    launch."""
     _check_kernel_args(qkv, heads)
     b, n, three_d = qkv.shape
     d = three_d // 3
     out = torch.empty(b, n, d, dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = _kernel_entry()(qkv.data_ptr(), out.data_ptr(), b, n, d, heads,
-                              stream)
-    if err != 0:
-        raise RuntimeError(f"kernel B5' launch failed: cudaError_t {err}")
+    route = _packed_route(qkv, heads)
+    if route == "mma":
+        with torch.cuda.device(qkv.device):
+            stream = torch.cuda.current_stream(qkv.device).cuda_stream
+            err = _kernel_entry()(qkv.data_ptr(), out.data_ptr(), b, n, d,
+                                  heads, _MMA_DTYPES[qkv.dtype], stream)
+        if err != 0:
+            raise RuntimeError(f"kernel B5' launch failed: cudaError_t {err}")
+        key = DTYPE_KEYS[qkv.dtype]
+    else:
+        # B7's fma route on views of the packed layout: q, k, v at offsets
+        # 0, D and 2D with strides (N 3D, dh, 3D), o with (N D, dh, D)
+        dh = d // heads
+        q, k, v = qkv.view(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+        _launch_fma(q, k, v, out.view(b, n, heads, dh).transpose(1, 2),
+                    1.0 / math.sqrt(dh))
+        key = "fma"
     _launch_packed.launches += 1
+    _launch_packed.route_launches[key] += 1
     return out
 
 
 _launch_packed.launches = 0
+_launch_packed.route_launches = {"bf16": 0, "f16": 0, "fma": 0}
+
+
+class _FusedMhaPacked(torch.autograd.Function):
+    """Forward through B5' (the plain version on the CPU); backward through
+    autograd of the plain version, recomputed."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads):
+        ctx.save_for_backward(qkv)
+        ctx.heads = heads
+        if qkv.device.type == "cuda":
+            out = _launch_packed(qkv, heads)
+            fused_mha_packed.launches += 1
+            return out
+        if qkv.device.type == "cpu":
+            return _reference_packed(qkv, heads)
+        raise ValueError(f"no kernel B5' route for device {qkv.device}")
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        with torch.enable_grad():
+            x = qkv.detach().requires_grad_(True)
+            (gx,) = torch.autograd.grad(_reference_packed(x, ctx.heads), x, g)
+        return gx, None
 
 
 def fused_mha_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
@@ -113,18 +221,11 @@ def fused_mha_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     → attention output ``[B, N, D]`` in qkv's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch kernel B5' (and
-    add one to ``fused_mha_packed.launches``) or raise: the kernel takes
-    bfloat16 only. Inference only: there is no backward.
+    add one to ``fused_mha_packed.launches``) or raise: it takes float32,
+    float16 and bfloat16 at head widths up to ``MAX_HEAD_DIM``.
+    Differentiable: the backward recomputes through the plain version.
     """
-    if qkv.device.type == "cuda":
-        if torch.is_grad_enabled() and qkv.requires_grad:
-            raise NotImplementedError("fused_mha_packed has no backward")
-        out = _launch_packed(qkv, heads)
-        fused_mha_packed.launches += 1
-        return out
-    if qkv.device.type == "cpu":
-        return _reference_packed(qkv, heads)
-    raise ValueError(f"no kernel B5' route for device {qkv.device}")
+    return _FusedMhaPacked.apply(qkv, heads)
 
 
 fused_mha_packed.launches = 0

@@ -10,17 +10,27 @@ are ``[out, in]``.
 
 - :func:`fused_vit_layer`: LN1 → qkv → MHA → proj → +x (f32 residual h) →
   LN2 → fc1 → tanh-approximate gelu → fc2 → +h. On a CUDA tensor it is a
-  chain of seven launches that replaces the Pallas ``_layer_kernel``: the
-  GEMM of ``csrc/vit_gemm.cu`` four times (TMA and wgmma), two of them
-  after its LayerNorm prologue kernel, and kernel B5' once; on a CPU
-  tensor it is the plain :func:`_reference_layer`.
+  chain of seven launches that replaces the Pallas ``_layer_kernel``: a
+  GEMM four times, two of them after its LayerNorm prologue kernel, and
+  kernel B5' once; on a CPU tensor it is the plain
+  :func:`_reference_layer`.
 - :func:`fused_vit_attn_half`: LN1 → qkv → MHA → proj → (+b)·ls1 → +x, four
   launches on CUDA (replacing ``_attn_half_kernel``), plain
   :func:`_reference_attn_half` on the CPU.
 
-Both cast the matrices to x's dtype, as the Pallas kernels do (a no-op for
-matrices already in that dtype, see ``fast.cast_kernel_weights``); the plain
-versions repeat every rounding point of those kernels. :func:`fits_vmem` and
+Both take x in float32, float16 or bfloat16, as the Pallas kernels do, and
+cast the matrices to x's dtype (a no-op for matrices already in that dtype,
+see ``fast.cast_kernel_weights``); the plain versions repeat every rounding
+point of those kernels. The GEMM is ``csrc/vit_gemm.cu`` (TMA and wgmma) at
+bfloat16 and float16 and ``csrc/vit_gemm_f32.cu`` (split-TF32 mma.sync,
+f32's accuracy) at float32; B5' takes its tensor-core route at bfloat16 and
+float16 and B7's fma route at float32 (``ops/vit_attn_packed.py``).
+
+Both are ``torch.autograd.Function``s: the backward is autograd of the
+function the JAX ``custom_vjp`` differentiates, recomputed from the saved
+inputs (:func:`_unfused_layer` with exact gelu for B3,
+:func:`_unfused_attn_half` for B4), with gradients for x and for every
+weight of the dict. :func:`fits_vmem` and
 :func:`attn_half_fits` are the JAX package's VMEM models, copied verbatim:
 they describe no limit of this card. ``vit_encode`` uses them to pick each
 trunk's route as the JAX package does. On a CUDA tensor the wrappers launch
@@ -38,7 +48,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from acmil_tpu_torch.ops.vit_attn_packed import (KERNEL_HEAD_DIMS,
+from acmil_tpu_torch.ops.vit_attn_packed import (DTYPE_KEYS, FLOAT_DTYPES,
+                                                 MAX_HEAD_DIM,
                                                  _launch_packed, _mm,
                                                  _reference_packed)
 
@@ -184,15 +195,20 @@ def _reference_attn_half(x, w, heads):
 # ---------------------------------------------------------------------------
 
 @functools.cache
-def _gemm_entry():
-    """The GEMM's C entry point with its ctypes signature, from the library
-    built at first use."""
+def _gemm_entry(f32: bool):
+    """The C entry point of the GEMM at float32 (``csrc/vit_gemm_f32.cu``)
+    or at bfloat16/float16 (``csrc/vit_gemm.cu``) with its ctypes signature,
+    from the library built at first use."""
     from acmil_tpu_torch.ops import _build
 
-    fn = _build.load("vit_gemm").vit_gemm
-    fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, p, p, p, p, p, p, i, p, i, i, i, i, i, p]
+    if f32:
+        fn = _build.load("vit_gemm_f32").vit_gemm_f32
+        fn.argtypes = [p] * 9 + [i] * 4 + [p]
+    else:
+        fn = _build.load("vit_gemm").vit_gemm
+        fn.argtypes = [p, i, p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, p]
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -201,30 +217,48 @@ def _ptr(t):
 
 
 def _gemm(a, w, bias, epilogue, *, out_dtype, ln=None, ls=None, res=None):
-    """One call of the GEMM (``csrc/vit_gemm.cu``): ``epilogue(
-    prologue(a) · wᵀ)`` with a ``[M, K]`` bf16 or f32, w bf16 ``[N, K]``,
-    f32 vectors; raises on what the kernel does not take. With a LayerNorm
-    or an f32 ``a``, the prologue kernel first writes ``a``'s rows as bf16
-    to a workspace that the product reads."""
+    """One call of the GEMM: ``epilogue(prologue(a) · wᵀ)`` with w ``[N,
+    K]`` of the chain's dtype and f32 vectors; raises on what the kernel
+    does not take. At bfloat16 or float16 (``csrc/vit_gemm.cu``) ``a``, the
+    residual and the output are w's dtype or f32; with a LayerNorm or an
+    f32 ``a`` the prologue kernel first writes ``a``'s rows in w's dtype to
+    a workspace that the product reads. At float32
+    (``csrc/vit_gemm_f32.cu``) everything is f32, and the prologue runs
+    only for a LayerNorm, writing f32 rows. Adds one to
+    ``_gemm.launches[dtype]`` (``bf16``, ``f16``, ``f32``)."""
+    f32 = torch.float32
     m, k = a.shape
     n = w.shape[0]
-    if a.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"GEMM input must be bfloat16 or float32, got {a.dtype}")
-    if w.dtype != torch.bfloat16 or tuple(w.shape) != (n, k):
-        raise ValueError(f"GEMM weight must be bfloat16 [{n}, {k}], got "
+    if w.dtype not in FLOAT_DTYPES:
+        raise ValueError(f"GEMM weight must be bfloat16, float16 or float32, "
+                         f"got {w.dtype}")
+    if w.dtype != f32 and a.dtype not in (w.dtype, f32):
+        raise ValueError(f"GEMM input must be "
+                         f"{str(w.dtype).removeprefix('torch.')} or float32, "
+                         f"got {a.dtype}")
+    dt = a.dtype if a.dtype != f32 else w.dtype   # the chain's dtype
+    name = str(dt).removeprefix("torch.")
+    if dt not in FLOAT_DTYPES:
+        raise ValueError(f"GEMM input must be bfloat16, float16 or float32, "
+                         f"got {a.dtype}")
+    if w.dtype != dt or tuple(w.shape) != (n, k):
+        raise ValueError(f"GEMM weight must be {name} [{n}, {k}], got "
                          f"{w.dtype} {tuple(w.shape)}")
     if k % GEMM_K_MULTIPLE or n % GEMM_N_MULTIPLE:
         raise ValueError(f"the GEMM takes K % {GEMM_K_MULTIPLE} == 0 and "
                          f"N % {GEMM_N_MULTIPLE} == 0, got K={k}, N={n}")
     vectors = [(bias, n)] + [(t, k) for t in (ln or ())] + [(ls, n)]
     for t, size in vectors:
-        if t is not None and (t.dtype != torch.float32
-                              or tuple(t.shape) != (size,)):
+        if t is not None and (t.dtype != f32 or tuple(t.shape) != (size,)):
             raise ValueError(f"GEMM vectors must be float32 [{size}], got "
                              f"{t.dtype} {tuple(t.shape)}")
-    if res is not None and (tuple(res.shape) != (m, n) or res.dtype
-                            not in (torch.bfloat16, torch.float32)):
-        raise ValueError(f"residual must be [{m}, {n}] bfloat16 or float32")
+    if res is not None and (tuple(res.shape) != (m, n)
+                            or res.dtype not in (dt, f32)):
+        raise ValueError(f"residual must be [{m}, {n}] {name} or "
+                         f"float32")
+    if out_dtype not in (dt, f32):
+        raise ValueError(f"GEMM output must be {name} or float32, got "
+                         f"{out_dtype}")
     for t in (a, w, bias, res, ls, *(ln or ())):
         if t is None:
             continue
@@ -236,33 +270,44 @@ def _gemm(a, w, bias, epilogue, *, out_dtype, ln=None, ls=None, res=None):
                              "inputs")
     out = torch.empty(m, n, dtype=out_dtype, device=a.device)
     scale, shift = ln if ln is not None else (None, None)
-    rows = (torch.empty(m, k, dtype=torch.bfloat16, device=a.device)
-            if ln is not None or a.dtype == torch.float32 else None)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _gemm_entry()(
-            a.data_ptr(), int(a.dtype == torch.float32), _ptr(scale),
-            _ptr(shift), _ptr(rows), w.data_ptr(), bias.data_ptr(), _ptr(ls),
-            _ptr(res),
-            int(res is not None and res.dtype == torch.float32),
-            out.data_ptr(), int(out_dtype == torch.float32), epilogue, m, n,
-            k, stream)
+        if dt == f32:
+            rows = (torch.empty(m, k, dtype=f32, device=a.device)
+                    if ln is not None else None)
+            err = _gemm_entry(True)(
+                a.data_ptr(), _ptr(scale), _ptr(shift), _ptr(rows),
+                w.data_ptr(), bias.data_ptr(), _ptr(ls), _ptr(res),
+                out.data_ptr(), epilogue, m, n, k, stream)
+        else:
+            rows = (torch.empty(m, k, dtype=dt, device=a.device)
+                    if ln is not None or a.dtype == f32 else None)
+            err = _gemm_entry(False)(
+                a.data_ptr(), int(a.dtype == f32), _ptr(scale), _ptr(shift),
+                _ptr(rows), w.data_ptr(), bias.data_ptr(), _ptr(ls),
+                _ptr(res), int(res is not None and res.dtype == f32),
+                out.data_ptr(), int(out_dtype == f32), epilogue, m, n, k,
+                int(dt == torch.float16), stream)
     if err != 0:
         raise RuntimeError(f"GEMM launch failed: cudaError_t {err}")
+    _gemm.launches[DTYPE_KEYS[dt]] += 1
     return out
+
+
+_gemm.launches = {"bf16": 0, "f16": 0, "f32": 0}
 
 
 def _check_chain_args(x, w, heads, mlp: bool) -> None:
     """Raise ValueError for a layer the CUDA chains do not take."""
     if x.dim() != 3:
         raise ValueError(f"x must be [B, N, D], got {tuple(x.shape)}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA layer kernels take bfloat16 x, got "
-                         f"{x.dtype}")
+    if x.dtype not in FLOAT_DTYPES:
+        raise ValueError(f"the CUDA layer kernels take float32, float16 or "
+                         f"bfloat16 x, got {x.dtype}")
     d = x.shape[-1]
-    if heads < 1 or d % heads or d // heads not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel B5' takes head widths {KERNEL_HEAD_DIMS}, "
-                         f"got D={d} over {heads} heads")
+    if heads < 1 or d % heads or d // heads > MAX_HEAD_DIM:
+        raise ValueError(f"kernel B5' takes head widths up to {MAX_HEAD_DIM}"
+                         f", got D={d} over {heads} heads")
     if d % GEMM_K_MULTIPLE:
         raise ValueError(f"D={d} is not a multiple of {GEMM_K_MULTIPLE}")
     if mlp and w["mlp.fc1.weight"].shape[0] % GEMM_K_MULTIPLE:
@@ -274,62 +319,55 @@ def _f32(t):
     return t.float().contiguous()
 
 
-def _bf16(t):
-    return t.to(torch.bfloat16).contiguous()
+def _mat(t, dtype):
+    """A matrix cast to the chain's dtype, as the Pallas kernels cast it."""
+    return t.to(dtype).contiguous()
 
 
 def _launch_layer(x, w, heads):
     """Kernel B3 on CUDA: the chain of seven launches (LN1, qkv, B5', proj,
-    LN2, fc1, fc2)."""
+    LN2, fc1, fc2), the matrices in x's dtype."""
     _check_chain_args(x, w, heads, mlp=True)
     b, n, d = x.shape
+    dt, f32 = x.dtype, torch.float32
     x2 = x.contiguous().view(b * n, d)
-    qkv = _gemm(x2, _bf16(w["attn.qkv.weight"]), _f32(w["attn.qkv.bias"]),
-                EPI_BIAS, out_dtype=torch.bfloat16,
+    qkv = _gemm(x2, _mat(w["attn.qkv.weight"], dt), _f32(w["attn.qkv.bias"]),
+                EPI_BIAS, out_dtype=dt,
                 ln=(_f32(w["norm1.weight"]), _f32(w["norm1.bias"])))
     o = _launch_packed(qkv.view(b, n, 3 * d), heads)
-    h = _gemm(o.view(b * n, d), _bf16(w["attn.proj.weight"]),
-              _f32(w["attn.proj.bias"]), EPI_RES_BIAS, res=x2,
-              out_dtype=torch.float32)
-    m = _gemm(h, _bf16(w["mlp.fc1.weight"]), _f32(w["mlp.fc1.bias"]),
-              EPI_BIAS_GELU, out_dtype=torch.bfloat16,
+    h = _gemm(o.view(b * n, d), _mat(w["attn.proj.weight"], dt),
+              _f32(w["attn.proj.bias"]), EPI_RES_BIAS, res=x2, out_dtype=f32)
+    m = _gemm(h, _mat(w["mlp.fc1.weight"], dt), _f32(w["mlp.fc1.bias"]),
+              EPI_BIAS_GELU, out_dtype=dt,
               ln=(_f32(w["norm2.weight"]), _f32(w["norm2.bias"])))
-    out = _gemm(m, _bf16(w["mlp.fc2.weight"]), _f32(w["mlp.fc2.bias"]),
-                EPI_RES_BIAS, res=h, out_dtype=torch.bfloat16)
+    out = _gemm(m, _mat(w["mlp.fc2.weight"], dt), _f32(w["mlp.fc2.bias"]),
+                EPI_RES_BIAS, res=h, out_dtype=dt)
     return out.view(b, n, d)
 
 
 def _launch_attn_half(x, w, heads):
     """Kernel B4 on CUDA: the chain of four launches (LN1, qkv, B5',
-    proj)."""
+    proj), the matrices in x's dtype."""
     _check_chain_args(x, w, heads, mlp=False)
     b, n, d = x.shape
+    dt = x.dtype
     x2 = x.contiguous().view(b * n, d)
-    qkv = _gemm(x2, _bf16(w["attn.qkv.weight"]), _f32(w["attn.qkv.bias"]),
-                EPI_BIAS, out_dtype=torch.bfloat16,
+    qkv = _gemm(x2, _mat(w["attn.qkv.weight"], dt), _f32(w["attn.qkv.bias"]),
+                EPI_BIAS, out_dtype=dt,
                 ln=(_f32(w["norm1.weight"]), _f32(w["norm1.bias"])))
     o = _launch_packed(qkv.view(b, n, 3 * d), heads)
     ls = _f32(w["ls1.gamma"]) if "ls1.gamma" in w else None
-    out = _gemm(o.view(b * n, d), _bf16(w["attn.proj.weight"]),
+    out = _gemm(o.view(b * n, d), _mat(w["attn.proj.weight"], dt),
                 _f32(w["attn.proj.bias"]), EPI_BIAS_LS_RES, ls=ls, res=x2,
-                out_dtype=torch.bfloat16)
+                out_dtype=dt)
     return out.view(b, n, d)
 
 
-def _refuse_grad(x, w, name):
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            t.requires_grad for t in w.values())):
-        raise NotImplementedError(f"{name} has no backward on CUDA")
-
-
-def fused_vit_layer(x: torch.Tensor, w: dict, heads: int) -> torch.Tensor:
-    """x ``[B, N, D]`` → ``[B, N, D]`` through one whole encoder layer
-    (kernel B3). CUDA tensors launch the chain (and add one to
-    ``fused_vit_layer.launches``) or raise: it takes bfloat16 x at any N.
-    CPU tensors take the JAX function's plain version: :func:`_reference_layer`,
-    or :func:`_unfused_layer` for a layer outside :func:`fits_vmem`."""
+def _layer_forward(x, w, heads):
+    """B3's forward: the chain on CUDA, the JAX function's plain version on
+    the CPU (:func:`_reference_layer`, or :func:`_unfused_layer` outside
+    :func:`fits_vmem`)."""
     if x.device.type == "cuda":
-        _refuse_grad(x, w, "fused_vit_layer")
         out = _launch_layer(x, w, heads)
         fused_vit_layer.launches += 1
         return out
@@ -342,17 +380,11 @@ def fused_vit_layer(x: torch.Tensor, w: dict, heads: int) -> torch.Tensor:
     raise ValueError(f"no kernel B3 route for device {x.device}")
 
 
-fused_vit_layer.launches = 0
-
-
-def fused_vit_attn_half(x: torch.Tensor, w: dict, heads: int) -> torch.Tensor:
-    """x ``[B, N, D]`` → LN1 → qkv → MHA → proj (·ls1) → +x (kernel B4);
-    the MLP half is the caller's. CUDA tensors launch the chain (and add one
-    to ``fused_vit_attn_half.launches``) or raise. CPU tensors take the JAX
-    function's plain version: :func:`_reference_attn_half`, or
-    :func:`_unfused_attn_half` for a shape outside :func:`attn_half_fits`."""
+def _attn_half_forward(x, w, heads):
+    """B4's forward: the chain on CUDA, the JAX function's plain version on
+    the CPU (:func:`_reference_attn_half`, or :func:`_unfused_attn_half`
+    outside :func:`attn_half_fits`)."""
     if x.device.type == "cuda":
-        _refuse_grad(x, w, "fused_vit_attn_half")
         out = _launch_attn_half(x, w, heads)
         fused_vit_attn_half.launches += 1
         return out
@@ -363,6 +395,67 @@ def fused_vit_attn_half(x: torch.Tensor, w: dict, heads: int) -> torch.Tensor:
             return _unfused_attn_half(x, w, heads)
         return _reference_attn_half(x, w, heads)
     raise ValueError(f"no kernel B4 route for device {x.device}")
+
+
+class _FusedBlock(torch.autograd.Function):
+    """``forward(x, w, heads)`` (B3's or B4's) on x and the weight dict,
+    whose tensors are passed one by one so that their gradients flow; the
+    backward is autograd of ``grad_fn(x, w, heads)``, recomputed from the
+    saved inputs. A weight that does not reach the output gets a zero
+    gradient, as from JAX's vjp."""
+
+    @staticmethod
+    def forward(ctx, x, heads, forward, grad_fn, keys, *tensors):
+        ctx.save_for_backward(x, *tensors)
+        ctx.heads, ctx.grad_fn, ctx.keys = heads, grad_fn, keys
+        return forward(x, dict(zip(keys, tensors)), heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *tensors = ctx.saved_tensors
+        need = [ctx.needs_input_grad[0], *ctx.needs_input_grad[5:]]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(r)
+                   for t, r in zip([x, *tensors], need)]
+            out = ctx.grad_fn(ins[0], dict(zip(ctx.keys, ins[1:])), ctx.heads)
+            grads = torch.autograd.grad(
+                out, [t for t, r in zip(ins, need) if r], g,
+                materialize_grads=True)
+        it = iter(grads)
+        gx, *gw = (next(it) if r else None for r in need)
+        return (gx, None, None, None, None, *gw)
+
+
+def _apply_block(x, w, heads, forward, grad_fn):
+    keys = tuple(w)
+    return _FusedBlock.apply(x, heads, forward, grad_fn, keys,
+                             *(w[k] for k in keys))
+
+
+def fused_vit_layer(x: torch.Tensor, w: dict, heads: int) -> torch.Tensor:
+    """x ``[B, N, D]`` → ``[B, N, D]`` through one whole encoder layer
+    (kernel B3). CUDA tensors launch the chain (and add one to
+    ``fused_vit_layer.launches``) or raise: it takes float32, float16 and
+    bfloat16 x at any N. CPU tensors take the JAX function's plain version:
+    :func:`_reference_layer`, or :func:`_unfused_layer` for a layer outside
+    :func:`fits_vmem`. Differentiable in x and every weight: the backward
+    is autograd of :func:`_unfused_layer` (exact gelu), recomputed, as the
+    JAX ``custom_vjp``'s."""
+    return _apply_block(x, w, heads, _layer_forward, _unfused_layer)
+
+
+fused_vit_layer.launches = 0
+
+
+def fused_vit_attn_half(x: torch.Tensor, w: dict, heads: int) -> torch.Tensor:
+    """x ``[B, N, D]`` → LN1 → qkv → MHA → proj (·ls1) → +x (kernel B4);
+    the MLP half is the caller's. CUDA tensors launch the chain (and add one
+    to ``fused_vit_attn_half.launches``) or raise. CPU tensors take the JAX
+    function's plain version: :func:`_reference_attn_half`, or
+    :func:`_unfused_attn_half` for a shape outside :func:`attn_half_fits`.
+    Differentiable in x and every weight: the backward is autograd of
+    :func:`_unfused_attn_half`, recomputed, as the JAX ``custom_vjp``'s."""
+    return _apply_block(x, w, heads, _attn_half_forward, _unfused_attn_half)
 
 
 fused_vit_attn_half.launches = 0

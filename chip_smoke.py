@@ -10,10 +10,11 @@ code is non-zero:
 
 1. card: name and power limit (``nvidia-smi``); no CUDA device is an error.
 2. build: kernels B1 (``acmil_tpu_torch/csrc/attn_pool.cu``), B2
-   (``acmil_tpu_torch/csrc/attn_pool_bwd.cu``), the ViT GEMM
-   (``csrc/vit_gemm.cu``: TMA, wgmma, LayerNorm prologue) and MHA B5'/B7
-   (``csrc/vit_attn.cu``) from which the B3 and B4 chains are built, B7's
-   fma route (``csrc/vit_attn_generic.cu``), and B6
+   (``acmil_tpu_torch/csrc/attn_pool_bwd.cu``), the ViT GEMMs
+   (``csrc/vit_gemm.cu``: TMA, wgmma at bf16 and fp16, LayerNorm prologue;
+   ``csrc/vit_gemm_f32.cu``: split-TF32 at f32) and MHA B5'/B7
+   (``csrc/vit_attn.cu``, bf16 and fp16) from which the B3 and B4 chains
+   are built, B7's fma route (``csrc/vit_attn_generic.cu``), and B6
    (``csrc/dsmil_pool.cu``): one ``nvcc`` each, all together; ptxas's
    registers and spills of every kernel, and how B5'/B7 launches at the
    trunks' shapes (wgmma or mma.sync, passes over the keys, warps, shared
@@ -256,6 +257,7 @@ code is non-zero:
    printed beside it; (g) B7 against its plain version at f32 and fp16,
    dh in ``B7_DH``, N in ``B7_N``, contiguous and strided, then its fma
    route timed at f32 [256, 6, 197, 64] beside the plain version and SDPA.
+   fp16 at dh in {16, 32, 64, 128} takes the tensor-core route.
 23. Step3's scanned epoch (``--scan_epoch``) on bench.py's scan-epoch
    cohort (242 bags of clip(lognormal(log 3000, 0.7), 500, 20000) patches,
    D_feat 384, fp16, ``min_bucket`` 1024, the ACMIL recipe at lr 1e-4, 100
@@ -275,6 +277,25 @@ code is non-zero:
    host's; (f) ABMIL, CLAM_SB and CLAM_MB graph against eager on the first
    ``SCAN_SUB`` bags, and DSMIL's scanned eval with B6 in the graph
    against ``evaluate``.
+24. the ViT trunks at float16 and float32 (``vit_dtypes_run``): (a) Step2's
+   feature path at ViT-S/16 (full width, depth 12, batch 256, seeded random
+   weights), ``build_encoder(conf, dtype=...)`` → ``encoder_feature_fn`` →
+   ``cli/step2_extract.py::extract_slide_features`` on phase 9's three
+   synthetic slides, at fp16 and at f32: B3 depth x batches, its GEMM four
+   times a launch at that dtype (``csrc/vit_gemm.cu`` fp16,
+   ``csrc/vit_gemm_f32.cu`` f32) and B5' once (fp16: tensor cores; f32:
+   B7's fma route), no other route; features within cosine
+   ``COS_MIN_F32`` / ``COS_MIN_F16`` per patch of the plain route; (b)
+   ``CPU_F32_PATCHES`` patches at f32 on the card against the plain
+   ``vit_encode`` on the CPU within ``CPU_F32_REL``, cuDNN's TF32 allowed
+   as PyTorch's default has it, and that flag off at each f32 convolution
+   (``fast.conv_precision``); (c) ViT-B/16 (B=64), UNI and CLIP-L/336
+   (B=32) at full width, depth 2, at fp16 and f32: each layer's B4 or packed attention half
+   against its plain version, then ``vit_encode`` fused against plain with
+   each route's launch count; (d) the fp16 and f32 GEMMs at B3's four
+   calls (ViT-S/16, B=256) against their plain versions and timed beside
+   ``torch.matmul`` in the same dtype, B5' at fp16 and f32 beside SDPA, a B3
+   layer at each dtype split by kernel.
 
 The line before the kernels line is ``{"zoo": {...}}``: phase 18's and
 phase 19's numbers per arch (training epoch wall and loss, predict seconds,
@@ -282,20 +303,24 @@ card-vs-CPU error, step and eval ms, device ms and device events; phase
 19's also the step's peak memory), the kernel launches phase 18 counted,
 phase 19's checks under ``transmil_mhim`` and phase 20's numbers under
 ``dtfd_sam_resnet``, phase 21's under ``mesh`` and phase 22's under
-``step2_mesh`` and phase 23's under ``scan_epoch``. The line before the last
-but one is ``{"kernels": [...]}``
-with each
-kernel's launches on its path (B7 has an entry per route, each with its
-launches on phase 22's tensor-parallel paths summed over the ranks: the
-tensor-core route's at bf16 (c)-(e), timed at phase 14's bf16 shape, its
-count over phases 3-13 beside it; the fma route's at f32 (f), timed at
-f32; B5''s are its launches as B3's attention step on the Step2 path,
-with its launches in ``vit_encode`` beside them), its worst error against
-the plain version, its time (``ms``: CUDA
-events around one call of the wrapper; ``device_ms``: the kernels' own
-device time from ``torch.profiler``), the plain version's, a library call's
-where one exists, and the bound (the larger of FLOPs / 989 TFLOP/s and
-bytes / 3.35 TB/s); B1 and B2 also at the wider L (``wider_l``) and B1
+``step2_mesh``, phase 23's under ``scan_epoch`` and phase 24's under
+``vit_dtypes``. The line before the last but one is ``{"kernels": [...]}``
+with each kernel's launches on its path (``gemm_f16``, ``gemm_f32``,
+``b5_f16`` and ``b5_f32_fma`` on phase 24's Step2 path at their dtype,
+timed at ViT-S/16, B=256, the GEMMs summed over B3's four calls; every
+f32 entry's bound (``gemm_f32``, ``b5_f32_fma``, B7's fma route) counts
+its products at the card's rate for f32 accuracy, three TF32 products
+each, with its bound at the f32 FMA rate beside it as ``fma_bound_ms``;
+B7 has an entry per route, each with its launches on phase 22's
+tensor-parallel paths summed over the ranks: the tensor-core route's at
+bf16 (c)-(e), timed at phase 14's bf16 shape, its count over phases 3-13
+beside it; the fma route's at f32 (f), timed at f32; B5''s are its
+launches as B3's attention step on the Step2 path, with its launches in
+``vit_encode`` beside them), its worst error against the plain version,
+its time (``ms``: CUDA events around one call of the wrapper;
+``device_ms``: the kernels' own device time from ``torch.profiler``), the
+plain version's, a library call's where one exists, and the bound (the
+larger of FLOPs / 989 TFLOP/s and bytes / 3.35 TB/s, f32 as above); B1 and B2 also at the wider L (``wider_l``) and B1
 split by kernel (``by_kernel``), B6 also split by kernel (``by_kernel``),
 with ptxas's registers and spills of each of its kernels (``ptxas``), at
 C=128 (``c128``) and at UNI's widths (``uni``), B3 and B4 also their
@@ -367,6 +392,12 @@ TRAIN_EPOCHS, N_TRAIN, N_VAL, N_TEST = 2, 16, 4, 4
 WIDE_SLIDES, WIDE_TRAIN = 6, (8, 2, 2)
 # bounds: H100 SXM dense bf16/fp16 tensor-core peak and HBM rate, published
 PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
+# H100 SXM, published: dense TF32 on the tensor cores, and float32 outside
+# them. The card's rate for products of f32 accuracy is the first over
+# three: split-TF32 (the f32 GEMM's route) issues three TF32 products for
+# each f32 product; the second is what f32 FMA code, as B7's fma route,
+# reaches at best
+PEAK_TF32_FLOPS, PEAK_F32_FLOPS = 495e12, 67e12
 # ViT kernels vs their plain versions, bf16 both: the same rounding points
 # (f32 LN, products, softmax and residuals; bf16 y, qkv, p, o, gelu output),
 # so only the order of f32 sums differs, and it can flip a bf16 rounding by
@@ -478,8 +509,8 @@ def card() -> str:
 def build() -> None:
     from acmil_tpu_torch.ops import _build
 
-    names = ("attn_pool", "attn_pool_bwd", "vit_gemm", "vit_attn",
-             "vit_attn_generic", "dsmil_pool")
+    names = ("attn_pool", "attn_pool_bwd", "vit_gemm", "vit_gemm_f32",
+             "vit_attn", "vit_attn_generic", "dsmil_pool")
     t0 = time.perf_counter()
     _build.build(*names)
     for name in names:
@@ -613,6 +644,26 @@ def _split_ms(kernels, fn, reps=10) -> dict:
     return per
 
 
+def _kernel_ms(fn, expect: dict, reps=10):
+    """Device ms per call of ``fn`` in each kernel of ``expect`` ({part of
+    the kernel's name: its launches per call}), from the first of up to
+    three ``torch.profiler`` windows, the L2 flushed before each call, in
+    which the trace holds each of those kernels exactly reps x its launches
+    times. None where no window did: a window the trace lost events of is
+    not scaled up to a whole one."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        prof, _ = _profiled(fn, reps, before=flush.zero_)
+        seen = {k: [] for k in expect}
+        for name, us in _device_events(prof):
+            for k in expect:
+                if k in name:
+                    seen[k].append(us)
+        if all(len(seen[k]) == reps * n for k, n in expect.items()):
+            return {k: sum(v) / reps / 1e3 for k, v in seen.items()}
+    return None
+
+
 def _fmt_split(per: dict) -> str:
     return ", ".join(f"{k} {v:.4f}" for k, v in per.items())
 
@@ -647,13 +698,22 @@ def _host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def _bound(flops: float, nbytes: float) -> dict:
+def _bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS) -> dict:
     """The least time the card could take: the larger of the operations
-    over the bf16 tensor-core peak and the bytes over the HBM rate."""
-    t_ops = flops / PEAK_FLOPS * 1e3
+    over ``peak`` (by default the bf16 tensor-core peak) and the bytes over
+    the HBM rate."""
+    t_ops = flops / peak * 1e3
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_mem),
             "bound_by": "operations" if t_ops >= t_mem else "bytes"}
+
+
+def _f32_bound(flops: float, nbytes: float) -> dict:
+    """``_bound`` of float32 products at f32 accuracy: the operations at
+    the card's rate for them, three TF32 products each; the operations at
+    the f32 FMA rate beside it as ``fma_bound_ms``."""
+    return {**_bound(flops, nbytes, PEAK_TF32_FLOPS / 3),
+            "fma_bound_ms": flops / PEAK_F32_FLOPS * 1e3}
 
 
 def _pool_weight_count(k: int, df: int = D_FEAT, l: int = D_INNER) -> int:
@@ -1482,7 +1542,9 @@ def vit_kernels_vs_plain(smi: str) -> dict:
             "attention_step": _device_ms(lambda: fused(x, w, heads),
                                          ("mha_kernel",), 10),
             "gemm_device_ms": gemm_ms,
-            "gemm_tflops": flops / (gemm_ms * 1e-3) / 1e12,
+            # None where the tracer lost the window's GEMM events
+            "gemm_tflops": (None if gemm_ms is None
+                            else flops / (gemm_ms * 1e-3) / 1e12),
             "ln_device_ms": _device_ms(lambda: fused(x, w, heads),
                                        ("ln_rows_kernel",), 10)[0],
             "plain_ms": _time_ms(lambda: plain(x, w, heads), 10),
@@ -1490,11 +1552,13 @@ def vit_kernels_vs_plain(smi: str) -> dict:
             **_bound(b * _layer_flops(n, d, 4 * d, mlp),
                      _layer_bytes(b, n, d, 4 * d, mlp, ls))}
         r = out[kern]
+        rate = ("rate not measured" if gemm_ms is None else
+                f"{r['gemm_tflops']:.1f} TFLOP/s "
+                f"({100 * r['gemm_tflops'] * 1e12 / PEAK_FLOPS:.1f}% of the "
+                f"bf16 peak)")
         print(f"kernel {kern}'s GEMMs: {len(shapes)} launches, "
               f"{_fmt_ms(gemm_ms)} of device time for {flops / 1e9:.1f} "
-              f"GFLOP, {r['gemm_tflops']:.1f} TFLOP/s "
-              f"({100 * r['gemm_tflops'] * 1e12 / PEAK_FLOPS:.1f}% of the bf16 "
-              f"peak), against bf16 torch.matmul at the same shapes "
+              f"GFLOP, {rate}, against bf16 torch.matmul at the same shapes "
               f"{r['library_ms']:.4f} ms; LayerNorm prologues "
               f"{_fmt_ms(r['ln_device_ms'])} [{smi}]")
     # B5' at Step2's shape (the attention step of B3 there) and at CLIP-L's,
@@ -4581,8 +4645,6 @@ TP_B7_CALLS = (("(f)", TP_IMAGES, 3, torch.float32, "fma"),
                ("(c)", TP_BATCH, 3, torch.bfloat16, "mma"),
                ("(d)", TP_UNI_BATCH // 2, 8, torch.bfloat16, "mma"),
                ("(e)", TP_IMAGES, 12, torch.bfloat16, "mma"))
-# float32 outside the tensor cores, H100 SXM, published
-PEAK_F32_FLOPS = 67e12
 # the fma route's kernel, as the profiler names it
 B7_FMA_KERNELS = ("b7_generic_kernel",)
 
@@ -4776,19 +4838,23 @@ def vit_attn_b7_every_width(smi: str) -> dict:
                 base = 2 * torch.randn(2, n, 3, 2, dh, generator=gen,
                                        device="cuda")
                 packed = base.to(dtype).permute(2, 0, 3, 1, 4)
+                # fp16 at the tensor cores' head widths takes their route
+                route = ("mma" if dtype == torch.float16
+                         and dh in va.KERNEL_HEAD_DIMS else "fma")
                 for q, k, v in (packed, [t.contiguous() for t in packed]):
-                    before = va.fused_vit_attention.route_launches["fma"]
+                    before = va.fused_vit_attention.route_launches[route]
                     got = va.fused_vit_attention(q, k, v, scale=0.3)
                     torch.cuda.synchronize()
-                    if va.fused_vit_attention.route_launches["fma"] != \
+                    if va.fused_vit_attention.route_launches[route] != \
                             before + 1:
                         raise AssertionError(f"B7 {dtype} dh={dh}: not the "
-                                             f"fma route")
+                                             f"{route} route")
                     worst[dtype] = max(worst[dtype], _err(
                         got, va._reference_attention(q, k, v, 0.3), tol))
                     checks += 1
-    print(f"kernel B7 fma route vs plain: dh in {B7_DH}, N in {B7_N}, B=2 "
-          f"H=2, contiguous and strided views of a packed qkv, scale 0.3: "
+    print(f"kernel B7 vs plain: dh in {B7_DH}, N in {B7_N}, B=2 H=2, "
+          f"contiguous and strided views of a packed qkv, scale 0.3, fma "
+          f"route but fp16 at dh in {va.KERNEL_HEAD_DIMS} (tensor cores): "
           f"{checks} shapes, max_abs_err f32 {worst[torch.float32]:.3e} "
           f"(tol {B7_F32_TOL} of the max), fp16 "
           f"{worst[torch.float16]:.3e} [{smi}]")
@@ -4831,10 +4897,7 @@ def vit_attn_b7_every_width(smi: str) -> dict:
          "library_ms": _time_ms(
              lambda: torch.nn.functional.scaled_dot_product_attention(
                  q, k, v), 20)}
-    flops, nbytes = b * 4 * n * n * d, b * 4 * 4 * n * d
-    t_ops, t_mem = flops / PEAK_F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    r.update(bound_ms=max(t_ops, t_mem),
-             bound_by="operations" if t_ops >= t_mem else "bytes")
+    r.update(_f32_bound(b * 4 * n * n * d, b * 4 * 4 * n * d))
     r["device_ms"], per_call = r.pop("device")
     print(f"kernel B7 fma route time: ViT-S/16 B={b} H={heads} N={n} "
           f"dh={dh} float32 (against its plain version {timed_err:.3e}, tol "
@@ -4842,7 +4905,9 @@ def vit_attn_b7_every_width(smi: str) -> dict:
           f"{_fmt_ms(r['device_ms'])} in {per_call:g} launches), plain "
           f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention f32 "
           f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}, f32 at {PEAK_F32_FLOPS / 1e12:g} TFLOP/s), "
+          f"({r['bound_by']}, f32 products at {PEAK_TF32_FLOPS / 3e12:g} "
+          f"TFLOP/s: three TF32 products each; at the f32 FMA rate "
+          f"{r['fma_bound_ms']:.4f} ms), "
           f"{_bound_share(r)} [{smi}]")
     by_route = {rt: {c[0]: tp_err[c[0]] for c in TP_B7_CALLS if c[4] == rt}
                 for rt in ("fma", "mma")}
@@ -5581,6 +5646,456 @@ def scan_epoch_run(smi: str, tmp: str) -> dict:
     return out
 
 
+# phase 24: the ViT trunks at float16 and float32. Features of the fused
+# route against the plain route's, per patch (f32: the order of f32 sums
+# alone; fp16: one fp16 rounding may flip at each rounding point)
+COS_MIN_F32, COS_MIN_F16 = 0.9999, 0.999
+# the card's f32 features against the CPU's plain vit_encode on one batch of
+# CPU_F32_PATCHES, relative to the largest feature: full f32 differs from
+# the CPU in the order of f32 sums alone (~1e-6 a layer); TF32 anywhere on
+# the card's path keeps 2**-11 of each product and shows at ~1e-3
+CPU_F32_REL, CPU_F32_PATCHES = 1e-4, 8
+# kernel against plain, as tests/test_torch_vit_chains.py and
+# test_torch_gpu_b6_b7.py hold them: a chain at two fp16 steps, B5' and the
+# GEMM at one; at f32 the order of f32 sums (and the GEMM's split-TF32
+# products, about 2**-22 of each term) amplified by the LayerNorms
+DT_CHAIN_TOL = {torch.float16: 2.0 ** -9, torch.float32: 3e-5}
+DT_ONE_TOL = {torch.float16: 2.0 ** -10, torch.float32: 1e-5}
+# the trunks checked layer by layer at depth BIG_DEPTH: (name, module
+# widths, batch); their routes at fp16 and f32 follow vit_route
+DT_TRUNKS = (("ViT-B/16", dict(patch=16, dim=768, heads=12), 64),
+             ("UNI ViT-L/16", dict(patch=16, dim=1024, heads=16,
+                                   layerscale=True), BIG_BATCH),
+             ("CLIP-L/336", dict(patch=14, dim=1024, heads=16, img_size=336,
+                                 proj_dim=768, pre_norm=True,
+                                 act="quick_gelu"), BIG_BATCH))
+
+
+def _vit_counts() -> dict:
+    """B3, B4, the GEMM by dtype and B5' by route, as flat counts."""
+    from acmil_tpu_torch.ops import vit_attn_packed as pk
+    from acmil_tpu_torch.ops import vit_layer as vl
+
+    return {"B3": vl.fused_vit_layer.launches,
+            "B4": vl.fused_vit_attn_half.launches,
+            **{f"gemm_{k}": v for k, v in vl._gemm.launches.items()},
+            **{f"b5_{k}": v for k, v in pk._launch_packed.route_launches.items()}}
+
+
+def _zero_vit_counts() -> None:
+    from acmil_tpu_torch.ops import vit_attn_packed as pk
+    from acmil_tpu_torch.ops import vit_layer as vl
+
+    vl.fused_vit_layer.launches = vl.fused_vit_attn_half.launches = 0
+    pk._launch_packed.launches = 0
+    for d in (vl._gemm.launches, pk._launch_packed.route_launches):
+        for k in d:
+            d[k] = 0
+
+
+def _gemm_plain(a, w, bias, epilogue, out_dtype, ln=None, res=None):
+    """The GEMM's contract in plain torch: f32 LayerNorm (or none) of a,
+    rounded to w's dtype, an f32 product, the epilogue in f32."""
+    from acmil_tpu_torch.ops import vit_layer as vl
+
+    af = a.float()
+    if ln is not None:
+        af = vl._ln_f32(af, *ln)
+    acc = af.to(w.dtype).float() @ w.float().t() + bias
+    if epilogue == vl.EPI_BIAS_GELU:
+        acc = torch.nn.functional.gelu(acc, approximate="tanh")
+    elif epilogue == vl.EPI_RES_BIAS:
+        acc = acc + res.float()
+    return acc.to(out_dtype)
+
+
+def _b3_gemm_calls(gen, dtype):
+    """The four GEMM calls of a B3 layer at ViT-S/16, B=256, as the chain
+    makes them at ``dtype``: (label, a, w, bias, epilogue, out dtype, ln,
+    residual)."""
+    from acmil_tpu_torch.ops import vit_layer as vl
+
+    m, d, hid = STEP2_BATCH * VIT_S16[0], VIT_S16[1], 4 * VIT_S16[1]
+    f32 = torch.float32
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    ln = (1 + 0.1 * r(d), 0.1 * r(d))
+    ln2 = (1 + 0.1 * r(d), 0.1 * r(d))
+    x, h = r(m, d).to(dtype), r(m, d)
+    return (("qkv", x, (r(3 * d, d) / d ** 0.5).to(dtype), 0.1 * r(3 * d),
+             vl.EPI_BIAS, dtype, ln, None),
+            ("proj", r(m, d).to(dtype), (r(d, d) / d ** 0.5).to(dtype),
+             0.1 * r(d), vl.EPI_RES_BIAS, f32, None, x),
+            ("fc1", h, (r(hid, d) / d ** 0.5).to(dtype), 0.1 * r(hid),
+             vl.EPI_BIAS_GELU, dtype, ln2, None),
+            ("fc2", r(m, hid).to(dtype), (r(d, hid) / hid ** 0.5).to(dtype),
+             0.1 * r(d), vl.EPI_RES_BIAS, dtype, None, h))
+
+
+def _gemm_timed(smi: str, dtype) -> dict:
+    """The GEMM at ``dtype`` (fp16: ``csrc/vit_gemm.cu``; f32:
+    ``csrc/vit_gemm_f32.cu``) at B3's four calls, ViT-S/16 B=256: against
+    its plain version, then timed (summed over the four) beside the plain
+    version and ``torch.matmul`` in the same dtype (f32: TF32 off)."""
+    from acmil_tpu_torch.ops import vit_layer as vl
+    from acmil_tpu_torch.ops.vit_attn_packed import DTYPE_KEYS
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    calls = _b3_gemm_calls(gen, dtype)
+    key = DTYPE_KEYS[dtype]
+    tol = DT_ONE_TOL[dtype]
+    worst, flops, nbytes = 0.0, 0, 0
+    ms = plain_ms = lib_ms = 0.0
+    for label, a, w, bias, epi, out_dtype, ln, res in calls:
+        kw = dict(out_dtype=out_dtype, ln=ln, res=res)
+        before = vl._gemm.launches[key]
+        got = vl._gemm(a, w, bias, epi, **kw)
+        torch.cuda.synchronize()
+        if vl._gemm.launches[key] != before + 1:
+            raise AssertionError(f"GEMM {key} {label}: not launched")
+        worst = max(worst, _err(got, _gemm_plain(a, w, bias, epi, out_dtype,
+                                                 ln, res), tol))
+        m, k = a.shape
+        n = w.shape[0]
+        flops += 2 * m * n * k
+        nbytes += (a.element_size() * m * k + w.element_size() * n * k
+                   + got.element_size() * m * n
+                   + (0 if res is None else res.element_size() * m * n))
+        ms += _time_ms(lambda: vl._gemm(a, w, bias, epi, **kw), 10)
+        plain_ms += _time_ms(lambda: _gemm_plain(a, w, bias, epi, out_dtype,
+                                                 ln, res), 5)
+        a_lib = a.to(w.dtype)        # fc1's A is the f32 residual h
+        lib_ms += _time_ms(lambda: torch.matmul(a_lib, w.t()), 10)
+
+    def four():
+        for _, a, w, bias, epi, out_dtype, ln, res in calls:
+            vl._gemm(a, w, bias, epi, out_dtype=out_dtype, ln=ln, res=res)
+
+    gemm = "gemm_kernel" if dtype != torch.float32 else "gemm_f32_kernel"
+    # two of the four calls (qkv, fc1) run the LayerNorm prologue first
+    split = _kernel_ms(four, {gemm: 4, "ln_rows_kernel": 2}, 5) or {}
+    gemm_dev, ln_dev = split.get(gemm), split.get("ln_rows_kernel")
+    r = {"ms": ms, "device_ms": None if gemm_dev is None else gemm_dev + (
+            ln_dev or 0.0), "gemm_device_ms": gemm_dev,
+         "ln_device_ms": ln_dev, "plain_ms": plain_ms, "library_ms": lib_ms,
+         **(_f32_bound(flops, nbytes) if dtype == torch.float32
+            else _bound(flops, nbytes)),
+         "max_abs_err": worst, "gflop": flops / 1e9}
+    rate = ("" if gemm_dev is None else
+            f", {flops / (gemm_dev * 1e-3) / 1e12:.1f} TFLOP/s of products")
+    extra = (f", bound at the f32 FMA rate {r['fma_bound_ms']:.4f} ms"
+             if dtype == torch.float32 else "")
+    print(f"GEMM {key} ({'split-TF32 mma.sync' if dtype == torch.float32 else 'wgmma'}) "
+          f"at B3's four calls, ViT-S/16 B={STEP2_BATCH} ({flops / 1e9:.1f} "
+          f"GFLOP): kernel {ms:.4f} ms (device: products "
+          f"{_fmt_ms(gemm_dev)}{rate}, LayerNorm prologues {_fmt_ms(ln_dev)}), "
+          f"plain {plain_ms:.4f} ms, {str(dtype)[6:]} torch.matmul "
+          f"{lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}"
+          f"{', 3 TF32 products each' if dtype == torch.float32 else ''})"
+          f"{extra}; against plain max_abs_err {worst:.3e} [{smi}]")
+    return r
+
+
+def _b5_timed(smi: str, dtype) -> dict:
+    """B5' at ViT-S/16, B=256 (B3's attention step) at ``dtype``: fp16 on
+    the tensor cores, f32 on B7's fma route, beside its plain version and
+    scaled_dot_product_attention in the same dtype."""
+    from acmil_tpu_torch.ops import vit_attn_packed as pk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    b, (n, d, heads) = STEP2_BATCH, VIT_S16
+    qkv = (2 * torch.randn(b, n, 3 * d, generator=gen, device="cuda")).to(
+        dtype)
+    q, k, v = qkv.view(b, n, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+    route = "f16" if dtype == torch.float16 else "fma"
+    before = pk._launch_packed.route_launches[route]
+    err = _err(pk.fused_mha_packed(qkv, heads),
+               pk._reference_packed(qkv, heads), DT_ONE_TOL[dtype])
+    if pk._launch_packed.route_launches[route] != before + 1:
+        raise AssertionError(f"B5' {dtype}: not the {route} route")
+    kernel = "mha_kernel" if route == "f16" else B7_FMA_KERNELS[0]
+    dev = _kernel_ms(lambda: pk.fused_mha_packed(qkv, heads), {kernel: 1},
+                     20)
+    r = {"ms": _time_ms(lambda: pk.fused_mha_packed(qkv, heads), 20),
+         "device_ms": None if dev is None else dev[kernel],
+         "plain_ms": _time_ms(lambda: pk._reference_packed(qkv, heads), 10),
+         "library_ms": _time_ms(
+             lambda: torch.nn.functional.scaled_dot_product_attention(
+                 q, k, v), 20), "max_abs_err": err}
+    flops, nbytes = b * 4 * n * n * d, b * qkv.element_size() * (
+        n * 3 * d + n * d)
+    r.update(_f32_bound(flops, nbytes) if dtype == torch.float32
+             else _bound(flops, nbytes))
+    fma = (f", at the f32 FMA rate {r['fma_bound_ms']:.4f} ms"
+           if dtype == torch.float32 else "")
+    print(f"kernel B5' {str(dtype)[6:]} ({'tensor cores' if route == 'f16' else 'B7 fma route'}) "
+          f"time: ViT-S/16 B={b} N={n} H={heads}: kernel {r['ms']:.4f} ms "
+          f"(device {_fmt_ms(r['device_ms'])}), plain "
+          f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention "
+          f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}{fma}), {_bound_share(r)}; against plain "
+          f"{err:.3e} [{smi}]")
+    return r
+
+
+def _layer_timed(smi: str, dtype) -> dict:
+    """A B3 layer at ViT-S/16, B=256 at ``dtype``: the chain beside its
+    plain version, and its device time split by kernel (GEMM, LayerNorm
+    prologue, attention)."""
+    from acmil_tpu_torch.ops import vit_layer as vl
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    (n, d, heads), b = VIT_S16, STEP2_BATCH
+    w = {k: (v.to(dtype) if v.dim() == 2 else v)
+         for k, v in _vit_weights(gen, d, 4 * d).items()}
+    x = torch.randn(b, n, d, generator=gen, device="cuda").to(dtype)
+    err = _err(vl.fused_vit_layer(x, w, heads),
+               vl._reference_layer(x, w, heads), DT_CHAIN_TOL[dtype])
+    attn = "mha_kernel" if dtype == torch.float16 else B7_FMA_KERNELS[0]
+    gemm = "gemm_kernel" if dtype == torch.float16 else "gemm_f32_kernel"
+    split = _kernel_ms(lambda: vl.fused_vit_layer(x, w, heads),
+                       {gemm: 4, "ln_rows_kernel": 2, attn: 1})
+    r = {"ms": _time_ms(lambda: vl.fused_vit_layer(x, w, heads), 10),
+         "plain_ms": _time_ms(lambda: vl._reference_layer(x, w, heads), 5),
+         "split_device_ms": split, "max_abs_err": err}
+    print(f"kernel B3 {str(dtype)[6:]}: ViT-S/16 B={b} layer {r['ms']:.4f} ms, "
+          f"plain {r['plain_ms']:.4f} ms; device ms by kernel: "
+          f"{'not measured' if split is None else _fmt_split(split)}; "
+          f"against plain {err:.3e} [{smi}]")
+    return r
+
+
+def _dtype_trunks(smi: str) -> dict:
+    """ViT-B/16, UNI and CLIP-L/336 at full width, depth BIG_DEPTH, at fp16
+    and f32: each layer's kernel (B4, or B5' inside the packed route's
+    attention half) against its plain version on the plain route's
+    activations, then vit_encode fused against plain."""
+    from acmil_tpu_torch.models.encoders.build import (IMAGENET_MEAN,
+                                                       IMAGENET_STD,
+                                                       EncoderSpec,
+                                                       preprocess)
+    from acmil_tpu_torch.models.encoders.fast import (_mlp_half,
+                                                      block_weights,
+                                                      cast_kernel_weights,
+                                                      vit_embed, vit_encode,
+                                                      vit_route)
+    from acmil_tpu_torch.models.encoders.vit import ViT
+    from acmil_tpu_torch.ops import vit_attn_packed as pk
+    from acmil_tpu_torch.ops import vit_layer as vl
+
+    out = {}
+    for name, kw, b in DT_TRUNKS:
+        for dtype in (torch.float16, torch.float32):
+            torch.manual_seed(SEED)
+            m = ViT(depth=BIG_DEPTH, dtype=dtype, **kw)
+            gen = torch.Generator().manual_seed(SEED)
+            for blk in m.blocks:
+                for ls in (blk.ls1, blk.ls2):
+                    if hasattr(ls, "gamma"):
+                        ls.gamma.data = 0.25 + 0.5 * torch.rand(
+                            ls.gamma.shape, generator=gen)
+            n_tok = (m.img_size // m.patch) ** 2 + 1
+            params = cast_kernel_weights(
+                {k: v.cuda() for k, v in m.state_dict().items()},
+                n_tok=n_tok, heads=m.heads, dtype=dtype, act=m.act)
+            route = vit_route(params, n_tok, m.heads, dtype, m.act)
+            spec = EncoderSpec(None, m.embed_dim, m.img_size, IMAGENET_MEAN,
+                               IMAGENET_STD, "vit")
+            u8 = torch.randint(0, 256, (b, m.img_size, m.img_size, 3),
+                               generator=gen, dtype=torch.uint8).cuda()
+            x = preprocess(u8, spec, dtype)
+            enc_kw = dict(patch=m.patch, depth=BIG_DEPTH, heads=m.heads,
+                          dtype=dtype, act=m.act, pre_norm=m.pre_norm,
+                          proj_dim=m.proj_dim)
+            # layer by layer on the plain route's activations
+            t = vit_embed(params, x, patch=m.patch, dtype=dtype,
+                          pre_norm=m.pre_norm)
+            worst = 0.0
+            for i in range(BIG_DEPTH):
+                bp = block_weights(params, i)
+                if route == "half":
+                    got = vl.fused_vit_attn_half(t, bp, m.heads)
+                    want = vl._reference_attn_half(t, bp, m.heads)
+                else:
+                    got = vl._unfused_attn_half(t, bp, m.heads,
+                                                mha=pk.fused_mha_packed)
+                    want = vl._unfused_attn_half(t, bp, m.heads,
+                                                 mha=pk._reference_packed)
+                torch.cuda.synchronize()
+                worst = max(worst, _err(got, want, DT_CHAIN_TOL[dtype]))
+                t = _mlp_half(want, bp, m.act)
+            _zero_vit_counts()
+            got = vit_encode(params, x, **enc_kw)
+            torch.cuda.synchronize()
+            counts = _vit_counts()
+            key = ("B4" if route == "half" else
+                   "b5_f16" if dtype == torch.float16 else "b5_fma")
+            if counts[key] != BIG_DEPTH:
+                raise AssertionError(f"{name} {dtype}: {key} launched "
+                                     f"{counts[key]} times: {counts}")
+            want = vit_encode(params, x, **enc_kw, fused=False)
+            cos = float(_row_cosine(got, want).min())
+            cmin = COS_MIN_F32 if dtype == torch.float32 else COS_MIN_F16
+            if tuple(got.shape) != (b, m.embed_dim) or not cos >= cmin \
+                    or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{name} {dtype}: {tuple(got.shape)}, "
+                                     f"cosine {cos}")
+            out[f"{name} {pk.DTYPE_KEYS[dtype]}"] = {
+                "route": route, "launches": counts, "max_abs_err": worst,
+                "cosine": cos}
+            print(f"vit_encode {name} {str(dtype)[6:]}, full width, depth "
+                  f"{BIG_DEPTH}, B={b}: route {route}, launches "
+                  f"{ {k: v for k, v in counts.items() if v} }; each layer's "
+                  f"kernel vs plain max_abs_err {worst:.3e} (tol "
+                  f"{DT_CHAIN_TOL[dtype]} of the max); fused vs plain "
+                  f"worst cosine {cos:.6f} [{smi}]")
+    return out
+
+
+def vit_dtypes_run(smi: str) -> dict:
+    """Phase 24: Step2's ViT-S/16 feature path (build_encoder →
+    encoder_feature_fn → extract_slide_features) at fp16 and f32 through
+    B3's chains, an f32 batch against the CPU, the other trunks layer by
+    layer, then the new kernels timed."""
+    import warnings
+
+    from acmil_tpu_torch.cli.step2_extract import extract_slide_features
+    from acmil_tpu_torch.config import Config
+    from acmil_tpu_torch.data.patch_dataset import SlidePatchBatches
+    from acmil_tpu_torch.models.encoders.build import (build_encoder,
+                                                       encoder_feature_fn)
+    from acmil_tpu_torch.ops.vit_attn_packed import DTYPE_KEYS
+    from acmil_tpu_torch.wsi.slide import open_slide
+    from acmil_tpu_torch.wsi.tiling import load_coords_pt
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    conf = Config.from_dict({"pretrain": "medical_ssl",
+                             "backbone": "ViT-S/16"})
+    out = {"step2": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        slide_dir, coords_dir, _ = _write_step2_inputs(tmp)
+        slides = []
+        for i in range(len(STEP2_SLIDES)):
+            coords, _, _ = load_coords_pt(os.path.join(coords_dir,
+                                                       f"slide_{i}.pt"))
+            slides.append((open_slide(os.path.join(slide_dir,
+                                                   f"slide_{i}.png")),
+                           coords))
+        batches = sum(-(-len(c) // STEP2_BATCH) for _, c in slides)
+        models = {}
+        for dtype in (torch.float16, torch.float32):
+            with warnings.catch_warnings(), torch.random.fork_rng(devices=[]):
+                warnings.simplefilter("ignore")   # no pretrain_weights: seeded
+                torch.manual_seed(0)
+                model, spec, _ = build_encoder(conf, dtype=dtype)
+            models[dtype] = (model, spec)
+            embed = encoder_feature_fn(model, spec, dev)
+            plain = encoder_feature_fn(model, spec, dev, fused=False)
+            _zero_vit_counts()
+            t0 = time.perf_counter()
+            feats = [extract_slide_features(embed, spec, sl, c, PATCH_PX, 0,
+                                            batch_size=STEP2_BATCH)
+                     for sl, c in slides]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _vit_counts()
+            key = DTYPE_KEYS[dtype]
+            b5_key = "b5_f16" if dtype == torch.float16 else "b5_fma"
+            want = {"B3": STEP2_DEPTH * batches, "B4": 0,
+                    f"gemm_{key}": 4 * STEP2_DEPTH * batches,
+                    b5_key: STEP2_DEPTH * batches}
+            if any(counts[k] != v for k, v in want.items()) or sum(
+                    counts[k] for k in counts if k.startswith("gemm_")) != \
+                    want[f"gemm_{key}"]:
+                raise AssertionError(f"Step2 at {dtype}: launches {counts}, "
+                                     f"want {want}")
+            ref = [extract_slide_features(plain, spec, sl, c, PATCH_PX, 0,
+                                          batch_size=STEP2_BATCH)
+                   for sl, c in slides]
+            got_t = torch.from_numpy(np.concatenate(feats)).float()
+            ref_t = torch.from_numpy(np.concatenate(ref)).float()
+            cos = float(_row_cosine(got_t, ref_t).min())
+            max_abs = float((got_t - ref_t).abs().max())
+            cmin = COS_MIN_F32 if dtype == torch.float32 else COS_MIN_F16
+            if got_t.shape != (sum(len(c) for _, c in slides), 384) \
+                    or not bool(torch.isfinite(got_t).all()) \
+                    or not cos >= cmin:
+                raise AssertionError(f"Step2 at {dtype}: {tuple(got_t.shape)}"
+                                     f", cosine {cos}")
+            # the encoder's device time per batch, pixels on the card
+            imgs = next(iter(SlidePatchBatches(
+                slides[0][0], slides[0][1], PATCH_PX, 0,
+                target_size=spec.img_size, batch_size=STEP2_BATCH)))[0]
+            u8 = torch.from_numpy(imgs).to(dev)
+            enc_ms = _time_ms(lambda: embed(u8), 3)
+            plain_ms = _time_ms(lambda: plain(u8), 2)
+            out["step2"][key] = {
+                "launches": counts, "cosine": cos, "max_abs": max_abs,
+                "patches": int(got_t.shape[0]), "wall_s": wall,
+                "encoder_ms_per_batch": enc_ms, "plain_ms_per_batch": plain_ms}
+            print(f"step2 at {str(dtype)[6:]}: build_encoder -> "
+                  f"encoder_feature_fn -> extract_slide_features, ViT-S/16 "
+                  f"full width, depth {STEP2_DEPTH}, batch {STEP2_BATCH}: "
+                  f"{got_t.shape[0]} patches in {batches} batches, "
+                  f"{wall:.2f} s; launches "
+                  f"{ {k: v for k, v in counts.items() if v} }; fused vs "
+                  f"plain route worst cosine {cos:.6f} (min {cmin}), max_abs "
+                  f"{max_abs:.3e}; encoder per batch of {STEP2_BATCH}: fused "
+                  f"{enc_ms:.4f} ms, plain {plain_ms:.4f} ms [{smi}]")
+            if dtype == torch.float32:
+                # one batch on the card against the plain route on the CPU,
+                # f32 features out: TF32 anywhere on the card would show.
+                # cuDNN's TF32 is on for the card's run, as PyTorch's
+                # default has it: fast.conv_precision alone keeps the
+                # patch embed in f32
+                cpu = encoder_feature_fn(model, spec, torch.device("cpu"),
+                                         fused=False, out_dtype=torch.float32)
+                card_fn = encoder_feature_fn(model, spec, dev,
+                                             out_dtype=torch.float32)
+                few = imgs[:CPU_F32_PATCHES]
+                # (cuDNN may keep a convolution in f32 even where TF32 is
+                # allowed, as it did the patch embed's on an H100: the flag
+                # is read at each f32 convolution as well)
+                conv, tf32_at_conv = torch.nn.functional.conv2d, []
+
+                def spy(x, *args, **kwargs):
+                    if x.is_cuda and x.dtype == torch.float32:
+                        tf32_at_conv.append(torch.backends.cudnn.allow_tf32)
+                    return conv(x, *args, **kwargs)
+
+                torch.nn.functional.conv2d = spy
+                torch.backends.cudnn.allow_tf32 = True
+                try:
+                    got_c = card_fn(few).cpu()
+                finally:
+                    torch.nn.functional.conv2d = conv
+                    torch.backends.cudnn.allow_tf32 = False
+                want_c = cpu(few)
+                rel = float((got_c - want_c).abs().max()
+                            / want_c.abs().max())
+                if not rel <= CPU_F32_REL or not tf32_at_conv \
+                        or any(tf32_at_conv):
+                    raise AssertionError(f"f32 card vs CPU: {rel}; cuDNN's "
+                                         f"TF32 at each f32 convolution: "
+                                         f"{tf32_at_conv}")
+                out["step2"]["f32_cpu_rel"] = rel
+                print(f"step2 f32, {CPU_F32_PATCHES} patches: card (fused, "
+                      f"cuDNN TF32 allowed) against the CPU's plain "
+                      f"vit_encode, max |diff| / max "
+                      f"|feature| {rel:.3e} (max {CPU_F32_REL}); cuDNN's "
+                      f"TF32 off at each of its {len(tf32_at_conv)} f32 "
+                      f"convolutions [{smi}]")
+    out["trunks"] = _dtype_trunks(smi)
+    for dtype in (torch.float16, torch.float32):
+        key = DTYPE_KEYS[dtype]
+        out[f"gemm_{key}"] = _gemm_timed(smi, dtype)
+        out[f"b5_{key}"] = _b5_timed(smi, dtype)
+        out[f"b3_{key}"] = _layer_timed(smi, dtype)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 24 in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     import sys
 
@@ -5622,6 +6137,7 @@ def main() -> None:
         del corpus
         p22 = step2_mesh_run(smi, tmp, pipe)
         p23 = scan_epoch_run(smi, tmp)
+    p24 = vit_dtypes_run(smi)
     zoo["archs"].update(transmil_mhim.pop("archs"))
     zoo["transmil_mhim"] = transmil_mhim
     zoo["dtfd_sam_resnet"] = p20
@@ -5631,6 +6147,10 @@ def main() -> None:
     b7["max_abs_err"] = max(b7["max_abs_err"],
                             *b7["max_abs_err_tp_calls"].values())
     zoo["step2_mesh"] = p22
+    zoo["vit_dtypes"] = {"step2": p24["step2"], "trunks": p24["trunks"],
+                         "b3_f16": p24["b3_f16"], "b3_f32": p24["b3_f32"],
+                         "seconds": p24["seconds"]}
+    s24 = p24["step2"]
     zoo["scan_epoch"] = {k: p23[k] for k in (
         "buckets", "graph_vs_eager_max_diff", "capture_ms", "pool_bytes",
         "first_graph_epoch_s", "epochs", "stkim_select_ms", "stkim_host_ms",
@@ -5703,6 +6223,10 @@ def main() -> None:
         "replaces": "acmil_tpu/ops/vit_layer.py:45",
         "launches": step2["B3"],
         "launches_pipeline_step2": pipe["B3"],
+        "launches_step2_float16": s24["f16"]["launches"]["B3"],
+        "launches_step2_float32": s24["f32"]["launches"]["B3"],
+        "float16_layer": p24["b3_f16"],
+        "float32_layer": p24["b3_f32"],
         **vit["B3"]}, {
         "name": "B4 fused ViT attention half (chain: 2 GEMM launches, one "
                 "after a LayerNorm prologue, + B5')",
@@ -5710,6 +6234,9 @@ def main() -> None:
         "source": vit_src,
         "replaces": "acmil_tpu/ops/vit_layer.py:239",
         "launches": big["B4"],
+        "launches_trunks_float16_float32": {
+            k: v["launches"]["B4"] for k, v in p24["trunks"].items()
+            if v["route"] == "half"},
         **vit["B4"]}, {
         "name": "B5 packed multi-head attention (B5')",
         "route": "cuda",
@@ -5722,6 +6249,8 @@ def main() -> None:
         "launches_pipeline_step2": pipe["B5"],
         "edge_checks": b5_edges["checks"],
         "clip_l_b32": vit["B5 CLIP-L"],
+        "launches_step2_float16": s24["f16"]["launches"]["b5_f16"],
+        "launches_step2_float32": s24["f32"]["launches"]["b5_fma"],
         **vit["B5"]}, {
         "name": "B6 fused DSMIL bag-stream pooling",
         "route": "cuda",
@@ -5753,7 +6282,42 @@ def main() -> None:
         "launches": p22["B7_fma_path"],
         "path": "Step2 tensor parallelism at float32, phase 22 (f) summed "
                 "over the ranks; times at ViT-S/16 B=256 float32",
-        **b7_fma}]}))
+        **b7_fma}, {
+        "name": "gemm_f16: the GEMM of B3/B4 at float16 (TMA + wgmma "
+                ".f16, LayerNorm prologue to fp16 rows)",
+        "route": "cuda",
+        "source": "acmil_tpu_torch/csrc/vit_gemm.cu",
+        "replaces": "acmil_tpu/ops/vit_layer.py:45",
+        "launches": s24["f16"]["launches"]["gemm_f16"],
+        "path": "Step2 ViT-S/16 at float16 through B3 (phase 24); times "
+                "summed over B3's four calls at B=256",
+        **p24["gemm_f16"]}, {
+        "name": "gemm_f32: the GEMM of B3/B4 at float32 (split-TF32 "
+                "mma.sync, f32 accuracy, LayerNorm prologue to f32 rows)",
+        "route": "cuda",
+        "source": "acmil_tpu_torch/csrc/vit_gemm_f32.cu",
+        "replaces": "acmil_tpu/ops/vit_layer.py:45",
+        "launches": s24["f32"]["launches"]["gemm_f32"],
+        "path": "Step2 ViT-S/16 at float32 through B3 (phase 24); times "
+                "summed over B3's four calls at B=256; bound at TF32 x 3",
+        **p24["gemm_f32"]}, {
+        "name": "b5_f16: B5' at float16 on the tensor cores",
+        "route": "cuda",
+        "source": "acmil_tpu_torch/csrc/vit_attn.cu",
+        "replaces": "acmil_tpu/ops/vit_attn_packed.py:37",
+        "launches": s24["f16"]["launches"]["b5_f16"],
+        "path": "Step2 ViT-S/16 at float16, B3's attention step (phase "
+                "24); times at B=256 N=197",
+        **p24["b5_f16"]}, {
+        "name": "b5_f32_fma: B5' at float32 through B7's fma route on "
+                "strided views of the packed qkv",
+        "route": "cuda",
+        "source": "acmil_tpu_torch/csrc/vit_attn_generic.cu",
+        "replaces": "acmil_tpu/ops/vit_attn_packed.py:37",
+        "launches": s24["f32"]["launches"]["b5_fma"],
+        "path": "Step2 ViT-S/16 at float32, B3's attention step (phase "
+                "24); times at B=256 N=197; bound at TF32 x 3",
+        **p24["b5_f32"]}]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

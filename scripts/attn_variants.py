@@ -66,7 +66,8 @@ VARIANTS = {
 
 
 # the epilogue's stores, and the same guard made false at run time
-GEMM_STORE = "          if (row0 + 4 * i < m_rows)\n            epilogue_quad<kEpi>"
+GEMM_STORE = ("          if (row0 + 4 * i < m_rows)\n"
+              "            epilogue_quad<T, kEpi>")
 GEMM_NO_STORE = [(GEMM_STORE, GEMM_STORE.replace("m_rows)", "m_rows && n < 0)")),
                  ("EpilogueArgs e, int m_rows, int n_cols, int k_depth) {",
                   "EpilogueArgs e, int m_rows, int n_cols, int k_depth) {\n"
@@ -79,7 +80,7 @@ GEMM_VARIANTS = {
     "products off": ("the TMA ring and the residual reads alone, no wgmma "
                      "and no stores: the floor the loads set",
                      GEMM_NO_STORE + [
-                         ("          wgmma_m64n128k16(acc, da + 2 * kk, "
+                         ("          wgmma_m64n128k16<T>(acc, da + 2 * kk, "
                           "dw + 2 * kk, ks > 0 || kk > 0);", "")]),
     "three stages": ("a ring of three stages instead of four",
                      [("kStages = 4;", "kStages = 3;")]),
@@ -122,7 +123,7 @@ def build_variants(source: str = "vit_attn.cu", variants=None,
         fn = getattr(ctypes.CDLL(str(lib)), entry)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes or ([ctypes.c_void_p, ctypes.c_void_p]
-                                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         entries[name] = fn
     return entries
 
@@ -134,7 +135,7 @@ def gemm_main(smi: str) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     entries = build_variants("vit_gemm.cu", GEMM_VARIANTS, "vit_gemm",
                              [p, i, p, p, p, p, p, p, p, i, p, i, i, i, i, i,
-                              p])
+                              i, p])
     for name, (what, _) in GEMM_VARIANTS.items():
         print(f"variant {name!r}: {what}")
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
@@ -169,7 +170,7 @@ def gemm_main(smi: str) -> None:
                          bias.data_ptr(), None,
                          None if res is None else res.data_ptr(),
                          int(res_dtype == f32), out.data_ptr(),
-                         int(out_dtype == f32), epi, m, n, k,
+                         int(out_dtype == f32), epi, m, n, k, 0,
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{name}: cudaError_t {err}")
@@ -485,7 +486,7 @@ def main() -> None:
             fn = entries[name]
 
             def call():
-                err = fn(qkv.data_ptr(), o.data_ptr(), b, n, d, heads,
+                err = fn(qkv.data_ptr(), o.data_ptr(), b, n, d, heads, 0,
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{name}: cudaError_t {err}")

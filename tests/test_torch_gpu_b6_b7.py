@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from acmil_tpu_torch.config import PRETRAIN_DIMS
-from acmil_tpu_torch.ops import dsmil_pool, vit_attn
+from acmil_tpu_torch.ops import dsmil_pool, vit_attn, vit_attn_packed
 
 # B6 vs plain, f32 both with TF32 off: only the order of the sums differs
 # (B6 folds the critical queries into the features' space)
@@ -25,6 +25,10 @@ BF16_TOL = 2.0 ** -7
 # B7's fma route vs plain at float32: only the order of the f32 sums and
 # exp's rounding differ
 F32_TOL = 1e-5
+# B5' and B7 on the tensor cores at float16 vs plain: the same rounding
+# points as at bf16, one float16 step (2**-10) of each output and of the
+# largest output
+F16_TOL = 2.0 ** -10
 # token counts at the edges of csrc/vit_attn.cu: the ragged 16-key chunk,
 # the trunks' 197, 577 and 785, at dh = 64 the warpgroup routes' 208-key
 # steps (N in [145, 208], up to 416, up to 624), keys resident in shared
@@ -86,7 +90,7 @@ def test_b7_arg_check_accepts_every_trunk_width():
 def test_b7_takes_every_dtype_and_head_width_up_to_256(dtype, dh):
     q = torch.zeros(2, 3, 50, dh, dtype=dtype)
     vit_attn._check_kernel_args(q, q, q, q)
-    tc = dtype == torch.bfloat16 and dh in (16, 64)
+    tc = dtype in (torch.bfloat16, torch.float16) and dh in (16, 64)
     assert vit_attn._route(q, q, q, q) == ("mma" if tc else "fma")
 
 
@@ -279,3 +283,81 @@ def test_b7_backward_and_float32_on_card(cuda_device):
         before["fma"] + 1
     torch.testing.assert_close(got, want, rtol=F32_TOL,
                                atol=F32_TOL * float(want.abs().max()))
+
+
+def _b5_check(qkv, heads, key, tol):
+    """B5' on the card against its plain version; ``key`` names the route
+    (and dtype) whose count must grow by one."""
+    before = dict(vit_attn_packed._launch_packed.route_launches)
+    with torch.no_grad():
+        got = vit_attn_packed.fused_mha_packed(qkv, heads)
+        torch.cuda.synchronize()
+        want = vit_attn_packed._reference_packed(qkv, heads)
+    after = vit_attn_packed._launch_packed.route_launches
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == key) for k in after}
+    assert got.dtype == qkv.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * float(want.float().abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("n", EDGE_N)
+def test_b5_float16_on_the_tensor_cores_at_its_edges(cuda_device, n, dh):
+    # every route of csrc/vit_attn.cu (wgmma one pass and split, mma.sync
+    # resident and streamed) at float16
+    rs = np.random.RandomState(n + dh)
+    qkv = torch.from_numpy(2 * rs.randn(2, n, 3 * 2 * dh).astype(np.float32))
+    _b5_check(qkv.to(cuda_device, torch.float16), 2, "f16", F16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 6, 197, 64), (1, 16, 577, 64),
+                                   (2, 2, 785, 128), (3, 2, 50, 32)])
+def test_b7_float16_on_the_tensor_core_route(cuda_device, shape):
+    q, k, v = _b7_inputs(cuda_device, shape, torch.float16)
+    before = dict(vit_attn.fused_vit_attention.route_launches)
+    with torch.no_grad():
+        got = vit_attn.fused_vit_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = vit_attn._reference_attention(q, k, v)
+    assert vit_attn.fused_vit_attention.route_launches["mma"] == \
+        before["mma"] + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=F16_TOL,
+                               atol=F16_TOL * float(want.float().abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, d, heads, dtype", [
+    (2, 197, 384, 6, torch.float32),       # ViT-S/16 at float32
+    (2, 197, 1024, 16, torch.float32),     # UNI: the packed route at f32
+    (1, 577, 768, 16, torch.float32),      # CLIP-L/336 (dh 48)
+    (2, 50, 96, 2, torch.bfloat16),        # dh 48: no tensor-core route
+    (2, 65, 160, 2, torch.float16),        # dh 80
+])
+def test_b5_fma_route_on_strided_views(cuda_device, b, n, d, heads, dtype):
+    # B5' through B7's fma route, reading q, k, v and writing o in the
+    # packed layout; bf16 and fp16 there keep their rounding points
+    rs = np.random.RandomState(n + d)
+    qkv = torch.from_numpy(2 * rs.randn(b, n, 3 * d).astype(np.float32))
+    tol = {torch.float32: F32_TOL, torch.float16: F16_TOL,
+           torch.bfloat16: BF16_TOL}[dtype]
+    _b5_check(qkv.to(cuda_device, dtype), heads, "fma", tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_b5_backward_on_card_equals_plain_autograd(cuda_device, dtype):
+    rs = np.random.RandomState(3)
+    qkv = torch.from_numpy(2 * rs.randn(2, 50, 3 * 64).astype(np.float32)).to(
+        cuda_device, dtype).requires_grad_()
+    g = torch.from_numpy(rs.randn(2, 50, 64).astype(np.float32)).to(
+        cuda_device, dtype)
+    (got,) = torch.autograd.grad(vit_attn_packed.fused_mha_packed(qkv, 2),
+                                 qkv, g)
+    ref = qkv.detach().clone().requires_grad_()
+    (want,) = torch.autograd.grad(vit_attn_packed._reference_packed(ref, 2),
+                                  ref, g)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)

@@ -1,8 +1,10 @@
-"""The GEMM of kernels B3 and B4 (``csrc/vit_gemm.cu`` through
+"""The GEMMs of kernels B3 and B4 (``csrc/vit_gemm.cu`` at bfloat16 and
+float16, ``csrc/vit_gemm_f32.cu`` at float32, through
 ``acmil_tpu_torch/ops/vit_layer.py::_gemm``) alone, against a plain
-``torch.matmul`` with the same prologue and epilogue. The file imports no
-JAX, so it runs on the card's machine; here the ``gpu`` tests skip and the
-argument checks and the source's structure are tested."""
+``torch.matmul`` with the same prologue and epilogue, and the float32 one
+also against a float64 product. The file imports no JAX, so it runs on the
+card's machine; here the ``gpu`` tests skip and the argument checks and the
+sources' structure are tested."""
 
 import os
 
@@ -12,47 +14,59 @@ import torch
 
 from acmil_tpu_torch.ops import vit_layer as port
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "acmil_tpu_torch", "csrc", "vit_gemm.cu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "acmil_tpu_torch", "csrc")
+SOURCE = os.path.join(CSRC, "vit_gemm.cu")
 # the kernel and the plain version both take bf16 operands and f32 sums; the
 # order of the sums differs, which can flip the bf16 rounding of an output
 # (2**-8 of it) or of a LayerNorm'd input element (whose effect on a
 # K-term sum is far smaller): one bf16 step of each output and of the
 # largest output
 TOL = 2.0 ** -7
+# float16: the same argument at one float16 step (2**-10)
+F16_TOL = 2.0 ** -10
+# the float32 GEMM's error against a float64 product may be at most twice
+# that of full-f32 torch.matmul on the same operands, plus a few f32 steps
+# of the largest output (2**-21 of it): the kernel's gelu and epilogue
+# additions round at other points than torch's
+F32_FLOOR = 2.0 ** -21
 
 
 def _plain(a, w, bias, epilogue, out_dtype, ln=None, ls=None, res=None):
     """The GEMM's contract in plain torch: f32 LayerNorm (or none) of a,
-    rounded to bf16, an f32 product with w, then the epilogue in f32."""
-    af = a.float()
+    rounded to w's dtype, an f32 product with w, then the epilogue in f32.
+    With float64 operands every step is float64."""
+    acc_dtype = torch.float64 if w.dtype == torch.float64 else torch.float32
+    af = a.to(acc_dtype)
     if ln is not None:
-        af = port._ln_f32(af, *ln)
-    acc = af.to(torch.bfloat16).float() @ w.float().t()
+        af = port._ln_f32(af, *(t.to(acc_dtype) for t in ln))
+    acc = af.to(w.dtype).to(acc_dtype) @ w.to(acc_dtype).t()
+    bias = bias.to(acc_dtype)
     if epilogue == port.EPI_BIAS:
         y = acc + bias
     elif epilogue == port.EPI_BIAS_GELU:
         y = torch.nn.functional.gelu(acc + bias, approximate="tanh")
     elif epilogue == port.EPI_RES_BIAS:
-        y = (res.float() + acc) + bias
+        y = (res.to(acc_dtype) + acc) + bias
     else:
         t = acc + bias
-        y = res.float() + (t * ls if ls is not None else t)
+        y = res.to(acc_dtype) + (t * ls.to(acc_dtype) if ls is not None
+                                 else t)
     return y.to(out_dtype)
 
 
-def _operands(dev, m, n, k, a_dtype, seed=0):
+def _operands(dev, m, n, k, a_dtype, seed=0, w_dtype=torch.bfloat16):
     rs = np.random.RandomState(seed)
     f = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).to(dev)
     a = (1.5 * f(m, k) + 0.3).to(a_dtype)
-    w = (f(n, k) / np.sqrt(k)).to(torch.bfloat16).contiguous()
+    w = (f(n, k) / np.sqrt(k)).to(w_dtype).contiguous()
     ln = (1 + 0.1 * f(k), 0.1 * f(k))
     return a, w, 0.1 * f(n), ln, 0.25 + 0.5 * f(n).abs(), f(m, n)
 
 
-def _check(got, want):
-    torch.testing.assert_close(got.float(), want.float(), rtol=TOL,
-                               atol=TOL * float(want.float().abs().max()))
+def _check(got, want, tol=TOL):
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * float(want.float().abs().max()))
 
 
 def test_source_is_tma_and_wgmma():
@@ -64,6 +78,23 @@ def test_source_is_tma_and_wgmma():
                    "mbarrier.try_wait", "setmaxnreg", "CUtensorMap"):
         assert needle in src, needle
     assert "nvcuda" not in src and "mma.h" not in src
+    # both element types, by template, on one design
+    for needle in (".f32.\" TY \".\" TY", "CU_TENSOR_MAP_DATA_TYPE_FLOAT16",
+                   "run<f16>", "run<bf16>"):
+        assert needle in src, needle
+
+
+def test_f32_source_is_split_tf32_with_the_shared_rows():
+    # the f32 GEMM multiplies on tf32x3.cuh's split-TF32 block, each slice
+    # flushed in f32, and shares the prologue and epilogues with the bf16 one
+    with open(os.path.join(CSRC, "vit_gemm_f32.cu")) as f:
+        src = f.read()
+    for needle in ('#include "tf32x3.cuh"', '#include "vit_rows.cuh"',
+                   "run<true>", "launch_prologue<float, float, true>",
+                   "epilogue_value<kEpi>"):
+        assert needle in src, needle
+    with open(SOURCE) as f:
+        assert '#include "vit_rows.cuh"' in f.read()
 
 
 @pytest.mark.parametrize("change, match", [
@@ -87,6 +118,21 @@ def test_gemm_rejects_what_the_kernel_does_not_take(change, match):
     with pytest.raises(ValueError, match=match):
         port._gemm(a, w, bias, port.EPI_RES_BIAS, out_dtype=torch.bfloat16,
                    res=res)
+
+
+@pytest.mark.parametrize("a_dtype, res_dtype, out_dtype, match", [
+    (torch.float32, torch.bfloat16, torch.float32, "residual must be"),
+    (torch.float32, torch.float32, torch.float16, "output must be"),
+    (torch.float64, torch.float32, torch.float32, "input must be"),
+])
+def test_f32_gemm_rejects_what_the_kernel_does_not_take(a_dtype, res_dtype,
+                                                        out_dtype, match):
+    a = torch.zeros(16, 64, dtype=a_dtype)
+    w = torch.zeros(64, 64)
+    with pytest.raises(ValueError, match=match):
+        port._gemm(a, w, torch.zeros(64), port.EPI_RES_BIAS,
+                   out_dtype=out_dtype, res=torch.zeros(16, 64,
+                                                        dtype=res_dtype))
 
 
 @pytest.fixture
@@ -142,3 +188,59 @@ def test_gemm_is_deterministic_and_launches_on_the_current_stream(
     side.synchronize()
     assert torch.equal(one, two)
     _check(one, _plain(a, w, bias, port.EPI_BIAS, torch.bfloat16, ln=ln))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, n, k", SHAPES)
+@pytest.mark.parametrize("epilogue", [port.EPI_BIAS, port.EPI_BIAS_GELU,
+                                      port.EPI_RES_BIAS, port.EPI_BIAS_LS_RES])
+@pytest.mark.parametrize("a_dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("with_ln", [True, False])
+def test_gemm_float16_matches_plain_on_card(cuda_device, m, n, k, epilogue,
+                                            a_dtype, with_ln):
+    # fp16 operands with f32 sums against fp16 torch.matmul's contract
+    a, w, bias, ln, ls, res = _operands(cuda_device, m, n, k, a_dtype,
+                                        w_dtype=torch.float16)
+    out_dtype = torch.float32 if a_dtype == torch.float16 else torch.float16
+    res = res.to(torch.float16 if out_dtype == torch.float32
+                 else torch.float32)
+    kw = dict(ln=ln if with_ln else None,
+              ls=ls if epilogue == port.EPI_BIAS_LS_RES and with_ln else None,
+              res=res if epilogue >= port.EPI_RES_BIAS else None)
+    before = port._gemm.launches["f16"]
+    with torch.no_grad():
+        got = port._gemm(a, w, bias, epilogue, out_dtype=out_dtype, **kw)
+        torch.cuda.synchronize()
+        want = _plain(a, w, bias, epilogue, out_dtype, **kw)
+    assert port._gemm.launches["f16"] == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    _check(got, want, F16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, n, k", SHAPES)
+@pytest.mark.parametrize("epilogue", [port.EPI_BIAS, port.EPI_BIAS_GELU,
+                                      port.EPI_RES_BIAS, port.EPI_BIAS_LS_RES])
+@pytest.mark.parametrize("with_ln", [True, False])
+def test_gemm_float32_is_as_accurate_as_float32_matmul(cuda_device, m, n, k,
+                                                       epilogue, with_ln):
+    # the split-TF32 GEMM against a float64 product: its error at most
+    # twice that of full-f32 torch.matmul (TF32 off) on the same operands
+    a, w, bias, ln, ls, res = _operands(cuda_device, m, n, k, torch.float32,
+                                        w_dtype=torch.float32)
+    kw = dict(ln=ln if with_ln else None,
+              ls=ls if epilogue == port.EPI_BIAS_LS_RES else None,
+              res=res if epilogue >= port.EPI_RES_BIAS else None)
+    before = port._gemm.launches["f32"]
+    with torch.no_grad():
+        got = port._gemm(a, w, bias, epilogue, out_dtype=torch.float32, **kw)
+        torch.cuda.synchronize()
+        lib = _plain(a, w, bias, epilogue, torch.float32, **kw)
+        exact = _plain(a.double(), w.double(), bias, epilogue, torch.float64,
+                       **kw)
+    assert port._gemm.launches["f32"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    err = float((got.double() - exact).abs().max())
+    lib_err = float((lib.double() - exact).abs().max())
+    assert err <= 2 * lib_err + F32_FLOOR * float(exact.abs().max()), \
+        (err, lib_err)

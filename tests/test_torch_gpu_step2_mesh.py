@@ -58,8 +58,8 @@ def test_b7_fma_route_matches_plain_on_card(cuda_device, dtype, dh, n):
     q, k, v = (torch.from_numpy(2 * rs.randn(2, 3, n, dh).astype(
         np.float32)).to(cuda_device, dtype) for _ in range(3))
     route = _check(q, k, v, scale=0.3)
-    assert route == ("mma" if dtype == torch.bfloat16 and dh in (16, 64)
-                     else "fma")
+    assert route == ("mma" if dtype in (torch.bfloat16, torch.float16)
+                     and dh in (16, 64) else "fma")
 
 
 @pytest.mark.gpu

@@ -83,9 +83,9 @@ def test_cpu_route_launches_no_kernel():
 
 
 @pytest.mark.parametrize("shape, dtype, heads, match", [
-    ((2, 197, 3 * 384), torch.float32, 6, "bfloat16"),
+    ((2, 197, 3 * 384), torch.float64, 6, "bfloat16"),
     ((2, 197, 3 * 384), torch.bfloat16, 5, "head widths"),
-    ((2, 197, 3 * 96), torch.bfloat16, 2, "head widths"),
+    ((2, 197, 3 * 600), torch.bfloat16, 2, "head widths"),   # dh = 300
     ((2, 197, 100), torch.bfloat16, 2, r"\[B, N, 3D\]"),
     ((2, 0, 3 * 64), torch.bfloat16, 1, "empty"),
 ])

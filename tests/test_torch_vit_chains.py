@@ -4,10 +4,15 @@ so it runs on a machine that has neither; here, without a card, the ``gpu``
 tests skip. tests/test_torch_vit_layer.py holds the plain versions against
 the JAX package's Pallas kernels."""
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
+from acmil_tpu_torch.config import Config
+from acmil_tpu_torch.models.encoders.build import (build_encoder,
+                                                   encoder_feature_fn)
 from acmil_tpu_torch.ops import vit_layer as port
 
 # bf16 both: the same rounding points, so only the order of f32 sums differs
@@ -15,6 +20,20 @@ from acmil_tpu_torch.ops import vit_layer as port
 # flipped p can land on an output that cancels to near 0, so the bound is
 # two bf16 steps (2**-8 each) of each output and of the largest output
 BF16_TOL = 2.0 ** -6
+# float16 both: the same argument, two float16 steps (2**-10 each)
+F16_TOL = 2.0 ** -9
+# float32 both (the GEMM in split-TF32, f32's accuracy; the attention on
+# B7's fma route): only the order of the f32 sums differs, and the GEMM's
+# products keep about 2**-22 of each term; a few f32 steps of K-term sums,
+# amplified by the LayerNorms' 1/sigma
+F32_TOL = 3e-5
+TOLS = {torch.bfloat16: BF16_TOL, torch.float16: F16_TOL,
+        torch.float32: F32_TOL}
+# an f32 trunk's features on the card against the CPU's plain route,
+# relative to the largest feature (chip_smoke.py's CPU_F32_REL): full f32
+# differs from the CPU in the order of f32 sums alone (~1e-6); a
+# convolution in TF32 keeps 2**-11 of each product and shows at ~1e-3
+CPU_F32_REL = 1e-4
 
 
 def _weights(rs, d, hidden, ls1=False):
@@ -31,16 +50,16 @@ def _weights(rs, d, hidden, ls1=False):
     return w
 
 
-def _case(dev, b, n, d, hidden, ls1=False, seed=10):
+def _case(dev, b, n, d, hidden, ls1=False, seed=10, dtype=torch.bfloat16):
     rs = np.random.RandomState(seed)
     w = _weights(rs, d, hidden, ls1)
     x = torch.from_numpy(rs.randn(b, n, d).astype(np.float32))
-    return x.to(dev, torch.bfloat16), {k: v.to(dev) for k, v in w.items()}
+    return x.to(dev, dtype), {k: v.to(dev) for k, v in w.items()}
 
 
 @pytest.mark.parametrize("dtype, heads, match", [
-    (torch.float32, 6, "bfloat16"),
-    (torch.float16, 6, "bfloat16"),
+    (torch.float64, 6, "bfloat16"),      # no chain takes float64
+    (torch.float16, 1, "head widths"),   # dh = 384 > 256
     (torch.bfloat16, 5, "head widths"),
 ])
 def test_chain_arg_check_rejects(dtype, heads, match):
@@ -51,8 +70,9 @@ def test_chain_arg_check_rejects(dtype, heads, match):
 
 def test_chain_arg_check_accepts_the_trunk_widths():
     for d, heads in ((384, 6), (768, 12), (1024, 16)):
-        x, w = _case("cpu", 1, 4, d, 4 * d)
-        port._check_chain_args(x, w, heads, mlp=True)
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            x, w = _case("cpu", 1, 4, d, 4 * d, dtype=dtype)
+            port._check_chain_args(x, w, heads, mlp=True)
 
 
 @pytest.fixture
@@ -63,18 +83,63 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _check(got, want):
-    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL,
-                               atol=BF16_TOL * float(want.float().abs().max()))
+def _check(got, want, tol=BF16_TOL):
+    assert got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * float(want.float().abs().max()))
 
 
 @pytest.mark.gpu
-def test_float32_on_the_card_raises(cuda_device):
-    x, w = _case(cuda_device, 2, 50, 64, 256)
-    with pytest.raises(ValueError, match="bfloat16"):
-        port.fused_vit_layer(x.float(), w, 2)
-    with pytest.raises(ValueError, match="bfloat16"):
-        port.fused_vit_attn_half(x.float(), w, 2)
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("kind, b, n, d, heads, ls1", [
+    ("layer", 3, 197, 384, 6, False),    # ViT-S/16
+    ("layer", 2, 50, 64, 2, False),      # dh 32, ragged tiles
+    ("layer", 2, 65, 96, 2, False),      # dh 48: B5' on B7's fma route
+    ("half", 2, 197, 768, 12, True),     # ViT-B/16 with layerscale
+    ("half", 2, 197, 1024, 16, False),   # UNI's widths
+])
+def test_chains_at_float16_and_float32_match_plain_on_card(
+        cuda_device, dtype, kind, b, n, d, heads, ls1):
+    # the matrices in f32 as given: the chains cast them to x's dtype
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w = _case(cuda_device, b, n, d, 4 * d, ls1, dtype=dtype)
+    fused, plain = ((port.fused_vit_layer, port._reference_layer)
+                    if kind == "layer" else
+                    (port.fused_vit_attn_half, port._reference_attn_half))
+    key = {torch.float16: "f16", torch.float32: "f32"}[dtype]
+    before = fused.launches, port._gemm.launches[key]
+    with torch.no_grad():
+        got = fused(x, w, heads)
+        torch.cuda.synchronize()
+        want = plain(x, w, heads)
+    assert (fused.launches, port._gemm.launches[key]) == (
+        before[0] + 1, before[1] + (4 if kind == "layer" else 2))
+    _check(got, want, TOLS[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["layer", "half"])
+def test_backward_on_card_equals_plain_autograd(cuda_device, kind):
+    # the backward recomputes the unfused function JAX differentiates; on
+    # the card it is that function's autograd, op for op
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w = _case(cuda_device, 2, 50, 64, 256, ls1=kind == "half",
+                 dtype=torch.float32)
+    fused, grad_fn = ((port.fused_vit_layer, port._unfused_layer)
+                      if kind == "layer" else
+                      (port.fused_vit_attn_half, port._unfused_attn_half))
+    g = torch.randn(x.shape, generator=torch.Generator(device=cuda_device)
+                    .manual_seed(0), device=cuda_device)
+    names = sorted(w)
+    ins = [x.requires_grad_()] + [w[k].requires_grad_() for k in names]
+    got = torch.autograd.grad(fused(x, w, 2), ins, g, allow_unused=True)
+    refs = [t.detach().clone().requires_grad_() for t in ins]
+    want = torch.autograd.grad(
+        grad_fn(refs[0], dict(zip(names, refs[1:])), 2), refs, g,
+        allow_unused=True)
+    for name, a, b in zip(["x"] + names, got, want):
+        b = torch.zeros_like(a) if b is None else b
+        torch.testing.assert_close(a, b, atol=0, rtol=0, msg=name)
 
 
 @pytest.mark.gpu
@@ -130,3 +195,41 @@ def test_chains_launch_outside_the_tpu_vmem_models(cuda_device, kind, b, n,
         want = plain(x, w, heads)
     assert fused.launches == before + 1
     _check(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pretrain, backbone", [("medical_ssl", "ViT-S/16"),
+                                                ("natural_supervised",
+                                                 "Resnet50")])
+def test_f32_trunk_convolutions_keep_f32_with_cudnn_tf32_on(
+        cuda_device, monkeypatch, pretrain, backbone):
+    """Step2's f32 closure on the card with cuDNN's TF32 allowed, as
+    PyTorch's default has it: every f32 convolution (a ViT's patch embed, a
+    ResNet's) runs with TF32 off, and the features match the CPU's. (cuDNN
+    may run a convolution in f32 even where TF32 is allowed, as it did the
+    patch embed's 3 input channels on an H100, so the flag is read at each
+    call as well.)"""
+    conf = Config.from_dict({"pretrain": pretrain, "backbone": backbone})
+    with warnings.catch_warnings(), torch.random.fork_rng(devices=[]):
+        warnings.simplefilter("ignore")   # no pretrain_weights: seeded
+        torch.manual_seed(0)
+        model, spec, _ = build_encoder(conf, dtype=torch.float32)
+    imgs = np.random.RandomState(3).randint(
+        0, 256, (4, spec.img_size, spec.img_size, 3), dtype=np.uint8)
+    want = encoder_feature_fn(model, spec, torch.device("cpu"), fused=False,
+                              out_dtype=torch.float32)(imgs)
+    card = encoder_feature_fn(model, spec, cuda_device,
+                              out_dtype=torch.float32)
+    conv, tf32_at_conv = torch.nn.functional.conv2d, []
+
+    def spy(x, *args, **kwargs):
+        if x.is_cuda and x.dtype == torch.float32:
+            tf32_at_conv.append(torch.backends.cudnn.allow_tf32)
+        return conv(x, *args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    got = card(imgs).cpu()
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert torch.isfinite(got).all() and rel <= CPU_F32_REL, rel
+    assert tf32_at_conv and not any(tf32_at_conv), tf32_at_conv
