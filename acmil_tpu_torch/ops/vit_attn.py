@@ -10,15 +10,19 @@ and takes the plain version :func:`_reference_attention` on CPU tensors;
 the backward recomputes through the plain version, as the JAX
 ``custom_vjp`` does.
 
-B7 has two routes, chosen by :func:`_route`:
+B7 has three routes, chosen by :func:`_route`:
 
 - ``mma``: bfloat16 or float16 at dh in {16, 32, 64, 128} with rows
   16-byte aligned, on the tensor cores (``csrc/vit_attn.cu``'s strided entry, the body of
   kernel B5' reading each operand through its strides);
-- ``fma``: every other dtype, head width and alignment, on the f32 FMA
-  units in two passes over the keys (``csrc/vit_attn_generic.cu``).
+- ``tf32x3``: float32 at dh in {16, 32, 64, 128} with rows 16-byte aligned,
+  on the tensor cores in split-TF32, one pass over the keys
+  (``csrc/vit_attn_f32.cu``);
+- ``fma``: every other head width and alignment, at any of the three
+  dtypes, on the f32 FMA units in two passes over the keys
+  (``csrc/vit_attn_generic.cu``).
 
-Both keep the Pallas kernel's rounding points and read every operand, the
+Each keeps the Pallas kernel's rounding points and reads every operand, the
 ``out`` buffer included, through its strides. Step2's tensor-parallel block
 (``parallel/tp.py::_tp_block``) runs its local heads through it; the
 one-process ViT routes go through B5' (``ops/vit_attn_packed.py``), as in
@@ -38,7 +42,7 @@ from acmil_tpu_torch.ops.vit_attn_packed import (_MMA_DTYPES,
                                                  FLOAT_DTYPES,
                                                  KERNEL_HEAD_DIMS,
                                                  MAX_HEAD_DIM, _launch_fma,
-                                                 _mm)
+                                                 _launch_tf32x3, _mm)
 
 
 def _reference_attention(q, k, v, scale: Optional[float] = None):
@@ -96,22 +100,25 @@ def _check_kernel_args(q, k, v, out=None) -> None:
 
 
 def _route(q, k, v, out) -> str:
-    """``mma`` where the tensor-core route takes the operands (bfloat16 or
-    float16, dh in ``KERNEL_HEAD_DIMS``, every row 16-byte aligned), else
+    """A tensor-core route where one takes the operands (dh in
+    ``KERNEL_HEAD_DIMS``, every row 16-byte aligned: each (batch, head,
+    token) stride a whole number of 16-byte units and each base 16-byte
+    aligned): ``mma`` at bfloat16 or float16, ``tf32x3`` at float32; else
     ``fma``."""
-    if q.dtype not in _MMA_DTYPES or q.shape[-1] not in KERNEL_HEAD_DIMS:
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
         return "fma"
     for t in (q, k, v, out):
-        if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        if any(st * t.element_size() % 16 for st in t.stride()[:3]) \
+                or t.data_ptr() % 16:
             return "fma"
-    return "mma"
+    return "tf32x3" if q.dtype == torch.float32 else "mma"
 
 
 @functools.cache
 def _kernel_entry():
     """The tensor-core route's C entry point with its ctypes signature, from
-    the library built at first use (the fma route's is
-    ``vit_attn_packed._fma_entry``)."""
+    the library built at first use (the tf32x3 and fma routes' are
+    ``vit_attn_packed._tf32x3_entry`` and ``_fma_entry``)."""
     from acmil_tpu_torch.ops import _build
 
     fn = _build.load("vit_attn").b7_mha_strided
@@ -133,6 +140,8 @@ def _launch(q, k, v, scale: Optional[float], out=None) -> torch.Tensor:
     route = _route(q, k, v, out)
     if route == "fma":
         _launch_fma(q, k, v, out, scale)
+    elif route == "tf32x3":
+        _launch_tf32x3(q, k, v, out, scale)
     else:
         args = []
         for t in (q, k, v, out):
@@ -208,4 +217,4 @@ def fused_vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 fused_vit_attention.launches = 0
-fused_vit_attention.route_launches = {"mma": 0, "fma": 0}
+fused_vit_attention.route_launches = {"mma": 0, "tf32x3": 0, "fma": 0}

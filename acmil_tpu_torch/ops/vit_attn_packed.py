@@ -9,14 +9,17 @@ projection: no ``[B, H, N, dh]`` copy reaches device memory.
 The wrapper picks its route by the device of ``qkv``: a CPU tensor takes
 the plain version :func:`_reference_packed`, a CUDA tensor launches kernel
 B5' (which replaces the Pallas ``_packed_kernel``) or raises. On the card
-B5' has two routes, chosen by :func:`_packed_route` from the dtype and the
+B5' has three routes, chosen by :func:`_packed_route` from the dtype and the
 head width alone:
 
 - ``mma``: bfloat16 or float16 at dh in ``KERNEL_HEAD_DIMS``, on the tensor
   cores (``csrc/vit_attn.cu``'s packed entry);
-- ``fma``: float32, or any other head width up to ``MAX_HEAD_DIM``, through
-  B7's fma route (``csrc/vit_attn_generic.cu``, f32 FMA) on strided views
-  of the packed qkv and of the output: no copy.
+- ``tf32x3``: float32 at dh in ``KERNEL_HEAD_DIMS``, on the tensor cores in
+  split-TF32, one pass over the keys (``csrc/vit_attn_f32.cu``), on
+  strided views of the packed qkv and of the output;
+- ``fma``: any other head width up to ``MAX_HEAD_DIM``, at any of the three
+  dtypes, through B7's fma route (``csrc/vit_attn_generic.cu``, f32 FMA, two
+  passes) on the same strided views: no copy.
 
 Kernels B3 and B4 (``ops/vit_layer.py``) launch B5' as their attention step
 through :func:`_launch_packed`, which counts every launch of the kernel
@@ -38,9 +41,10 @@ import torch
 
 # head widths csrc/vit_attn.cu is compiled for
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-# the widest head B7's fma route takes: its query tile [64, dh] of f32 and a
-# key tile of the same size stay in shared memory (the Pallas kernel's
-# bound is VMEM instead)
+# the widest head B5' and B7 take, on the fma route (the head widths off
+# KERNEL_HEAD_DIMS): its query tile [64, dh] of f32 and a key tile of the
+# same size stay in shared memory (the Pallas kernel's bound is VMEM
+# instead)
 MAX_HEAD_DIM = 256
 # the dtypes B5' takes, and the tensor-core route's
 FLOAT_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
@@ -51,6 +55,10 @@ DTYPE_KEYS = {torch.float32: "f32", torch.float16: "f16",
 # csrc/vit_attn_generic.cu::b7_mha_generic (B7's fma route)
 _MMA_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 _FMA_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# csrc/vit_attn_f32.cu (the tf32x3 route): its kernel, as the profiler
+# names it, and its tile (queries a block, keys a tile)
+TF32X3_KERNELS = ("b7_tf32x3_kernel",)
+TF32X3_QUERIES, TF32X3_KEYS = 128, 16
 
 
 def _mm(a, b):
@@ -103,11 +111,14 @@ def _check_kernel_args(qkv: torch.Tensor, heads: int) -> None:
 
 def _packed_route(qkv: torch.Tensor, heads: int) -> str:
     """``mma`` for bfloat16 or float16 at a head width in
-    ``KERNEL_HEAD_DIMS``, else ``fma``: by dtype and dh alone."""
+    ``KERNEL_HEAD_DIMS``, ``tf32x3`` for float32 at those widths, else
+    ``fma``: by dtype and dh alone (the checked qkv is contiguous and
+    16-byte aligned, and at those widths every view of it the routes read
+    has strides of whole 16-byte units)."""
     dh = qkv.shape[-1] // 3 // heads
-    if qkv.dtype in _MMA_DTYPES and dh in KERNEL_HEAD_DIMS:
-        return "mma"
-    return "fma"
+    if dh not in KERNEL_HEAD_DIMS:
+        return "fma"
+    return "tf32x3" if qkv.dtype == torch.float32 else "mma"
 
 
 @functools.cache
@@ -137,23 +148,56 @@ def _fma_entry():
     return fn
 
 
-def _launch_fma(q, k, v, out, scale: float) -> torch.Tensor:
-    """One launch of B7's fma route (``csrc/vit_attn_generic.cu``) on CUDA
-    tensors q, k, v, out ``[B, H, N, dh]``, each read through its strides;
-    returns ``out``. It checks and counts nothing: kernels B7 and B5' check
-    their operands and count their own launches."""
+@functools.cache
+def _tf32x3_entry():
+    """The tf32x3 route's C entry point with its ctypes signature, from the
+    library built at first use."""
+    from acmil_tpu_torch.ops import _build
+
+    fn = _build.load("vit_attn_f32").b7_mha_tf32x3
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3) * 4 + [
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    return fn
+
+
+def _launch_strided(entry, lead: list, q, k, v, out, scale: float,
+                    what: str) -> torch.Tensor:
+    """One launch of a strided C entry (``lead`` arguments, then q, k, v,
+    out as pointer and (batch, head, token) strides, then B, H, N, dh,
+    scale and the stream) on CUDA tensors ``[B, H, N, dh]``; returns
+    ``out``, raises on a failed launch."""
     b, h, n, dh = q.shape
-    args = [_FMA_DTYPES[q.dtype]]
+    args = list(lead)
     for t in (q, k, v, out):
         args += [t.data_ptr(), *t.stride()[:3]]
     args += [b, h, n, dh, float(scale)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _fma_entry()(*args, stream)
+        err = entry(*args, stream)
     if err != 0:
-        raise RuntimeError(f"B7's fma route: launch failed: cudaError_t "
-                           f"{err}")
+        raise RuntimeError(f"{what}: launch failed: cudaError_t {err}")
     return out
+
+
+def _launch_tf32x3(q, k, v, out, scale: float) -> torch.Tensor:
+    """One launch of the tf32x3 route (``csrc/vit_attn_f32.cu``) on float32
+    CUDA tensors q, k, v, out ``[B, H, N, dh]`` at dh in
+    ``KERNEL_HEAD_DIMS`` with 16-byte-aligned rows, each read through its
+    strides; returns ``out``. It checks and counts nothing: kernels B7 and
+    B5' check their operands and count their own launches (and the C entry
+    refuses unaligned rows)."""
+    return _launch_strided(_tf32x3_entry(), [], q, k, v, out, scale,
+                           "B5'/B7's tf32x3 route")
+
+
+def _launch_fma(q, k, v, out, scale: float) -> torch.Tensor:
+    """One launch of B7's fma route (``csrc/vit_attn_generic.cu``) on CUDA
+    tensors q, k, v, out ``[B, H, N, dh]``, each read through its strides;
+    returns ``out``. It checks and counts nothing: kernels B7 and B5' check
+    their operands and count their own launches."""
+    return _launch_strided(_fma_entry(), [_FMA_DTYPES[q.dtype]], q, k, v, out,
+                           scale, "B7's fma route")
 
 
 def _launch_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
@@ -175,20 +219,23 @@ def _launch_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
             raise RuntimeError(f"kernel B5' launch failed: cudaError_t {err}")
         key = DTYPE_KEYS[qkv.dtype]
     else:
-        # B7's fma route on views of the packed layout: q, k, v at offsets
-        # 0, D and 2D with strides (N 3D, dh, 3D), o with (N D, dh, D)
+        # the strided routes on views of the packed layout: q, k, v at
+        # offsets 0, D and 2D with strides (N 3D, dh, 3D), o with (N D, dh,
+        # D)
         dh = d // heads
         q, k, v = qkv.view(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
-        _launch_fma(q, k, v, out.view(b, n, heads, dh).transpose(1, 2),
-                    1.0 / math.sqrt(dh))
-        key = "fma"
+        launch = _launch_tf32x3 if route == "tf32x3" else _launch_fma
+        launch(q, k, v, out.view(b, n, heads, dh).transpose(1, 2),
+               1.0 / math.sqrt(dh))
+        key = route
     _launch_packed.launches += 1
     _launch_packed.route_launches[key] += 1
     return out
 
 
 _launch_packed.launches = 0
-_launch_packed.route_launches = {"bf16": 0, "f16": 0, "fma": 0}
+_launch_packed.route_launches = {"bf16": 0, "f16": 0, "tf32x3": 0,
+                                 "fma": 0}
 
 
 class _FusedMhaPacked(torch.autograd.Function):
@@ -222,7 +269,8 @@ def fused_mha_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
 
     CPU tensors take the plain version; CUDA tensors launch kernel B5' (and
     add one to ``fused_mha_packed.launches``) or raise: it takes float32,
-    float16 and bfloat16 at head widths up to ``MAX_HEAD_DIM``.
+    float16 and bfloat16 at head widths up to ``MAX_HEAD_DIM``, on the
+    route :func:`_packed_route` names.
     Differentiable: the backward recomputes through the plain version.
     """
     return _FusedMhaPacked.apply(qkv, heads)

@@ -14,7 +14,9 @@ code is non-zero:
    (``csrc/vit_gemm.cu``: TMA, wgmma at bf16 and fp16, LayerNorm prologue;
    ``csrc/vit_gemm_f32.cu``: split-TF32 at f32) and MHA B5'/B7
    (``csrc/vit_attn.cu``, bf16 and fp16) from which the B3 and B4 chains
-   are built, B7's fma route (``csrc/vit_attn_generic.cu``), and B6
+   are built, B5'/B7 at f32 on the tensor cores (``csrc/vit_attn_f32.cu``,
+   the split-TF32 route ``tf32x3``), B7's fma route
+   (``csrc/vit_attn_generic.cu``), and B6
    (``csrc/dsmil_pool.cu``): one ``nvcc`` each, all together; ptxas's
    registers and spills of every kernel, and how B5'/B7 launches at the
    trunks' shapes (wgmma or mma.sync, passes over the keys, warps, shared
@@ -252,12 +254,16 @@ code is non-zero:
    ``TP_UNI_BATCH``, against the one-process run (B4 + the f32 MLP half);
    (e) GigaPath ViT-G/16 at full width, depth ``TP_GIGA_DEPTH``, model 2
    through ``tp_encoder_feature_fn`` against one process (B5' + the MLP
-   half); (f) an f32 ViT-S/16 at model 2 (B7's fma route) within
+   half); (f) an f32 ViT-S/16 at model 2 (B7's tf32x3 route) within
    ``TP_F32_REL`` of the module forward at f32, ``vit_encode(fused=False)``
    printed beside it; (g) B7 against its plain version at f32 and fp16,
-   dh in ``B7_DH``, N in ``B7_N``, contiguous and strided, then its fma
-   route timed at f32 [256, 6, 197, 64] beside the plain version and SDPA.
-   fp16 at dh in {16, 32, 64, 128} takes the tensor-core route.
+   dh in ``B7_DH``, N in ``B7_N``, contiguous and strided (at dh in {16,
+   32, 64, 128} f32 takes the tf32x3 route and fp16 the tensor-core route,
+   both the fma route elsewhere), the TP block's calls into a NaN-filled
+   token-major buffer, then B7 at f32 [256, 6, 197, 64] twice for the same
+   bits and timed on the tf32x3 route and on the fma route (``_launch_fma``)
+   beside the plain version and SDPA, device times from whole profiler
+   windows (``_kernel_ms``).
 23. Step3's scanned epoch (``--scan_epoch``) on bench.py's scan-epoch
    cohort (242 bags of clip(lognormal(log 3000, 0.7), 500, 20000) patches,
    D_feat 384, fp16, ``min_bucket`` 1024, the ACMIL recipe at lr 1e-4, 100
@@ -284,7 +290,8 @@ code is non-zero:
    synthetic slides, at fp16 and at f32: B3 depth x batches, its GEMM four
    times a launch at that dtype (``csrc/vit_gemm.cu`` fp16,
    ``csrc/vit_gemm_f32.cu`` f32) and B5' once (fp16: tensor cores; f32:
-   B7's fma route), no other route; features within cosine
+   the tf32x3 route, ``csrc/vit_attn_f32.cu``), no other route (no fma
+   launch); features within cosine
    ``COS_MIN_F32`` / ``COS_MIN_F16`` per patch of the plain route; (b)
    ``CPU_F32_PATCHES`` patches at f32 on the card against the plain
    ``vit_encode`` on the CPU within ``CPU_F32_REL``, cuDNN's TF32 allowed
@@ -294,8 +301,9 @@ code is non-zero:
    against its plain version, then ``vit_encode`` fused against plain with
    each route's launch count; (d) the fp16 and f32 GEMMs at B3's four
    calls (ViT-S/16, B=256) against their plain versions and timed beside
-   ``torch.matmul`` in the same dtype, B5' at fp16 and f32 beside SDPA, a B3
-   layer at each dtype split by kernel.
+   ``torch.matmul`` in the same dtype, B5' at fp16 and f32 beside SDPA (f32
+   also on B7's fma route, its earlier route, through ``_launch_fma``), a
+   B3 layer at each dtype split by kernel.
 
 The line before the kernels line is ``{"zoo": {...}}``: phase 18's and
 phase 19's numbers per arch (training epoch wall and loss, predict seconds,
@@ -306,15 +314,19 @@ phase 19's checks under ``transmil_mhim`` and phase 20's numbers under
 ``step2_mesh``, phase 23's under ``scan_epoch`` and phase 24's under
 ``vit_dtypes``. The line before the last but one is ``{"kernels": [...]}``
 with each kernel's launches on its path (``gemm_f16``, ``gemm_f32``,
-``b5_f16`` and ``b5_f32_fma`` on phase 24's Step2 path at their dtype,
-timed at ViT-S/16, B=256, the GEMMs summed over B3's four calls; every
-f32 entry's bound (``gemm_f32``, ``b5_f32_fma``, B7's fma route) counts
+``b5_f16`` and ``b5_b7_f32_tf32x3`` on phase 24's Step2 path at their
+dtype, timed at ViT-S/16, B=256, the GEMMs summed over B3's four calls;
+the tf32x3 entry also its launches in phase 24's f32 trunks and phase 22
+(f), and B7's time on that route (``b7``); ``b5_f32_fma``, B5' at f32 on
+B7's fma route, 0 launches on the path, timed at the same shape; every
+f32 entry's bound (``gemm_f32``, the tf32x3 route, the fma route) counts
 its products at the card's rate for f32 accuracy, three TF32 products
 each, with its bound at the f32 FMA rate beside it as ``fma_bound_ms``;
 B7 has an entry per route, each with its launches on phase 22's
 tensor-parallel paths summed over the ranks: the tensor-core route's at
 bf16 (c)-(e), timed at phase 14's bf16 shape, its count over phases 3-13
-beside it; the fma route's at f32 (f), timed at f32; B5''s are its
+beside it; the fma route's (0 since f32 takes the tf32x3 route), timed
+at f32; B5''s are its
 launches as B3's attention step on the Step2 path, with its launches in
 ``vit_encode`` beside them), its worst error against the plain version,
 its time (``ms``: CUDA events around one call of the wrapper;
@@ -510,7 +522,7 @@ def build() -> None:
     from acmil_tpu_torch.ops import _build
 
     names = ("attn_pool", "attn_pool_bwd", "vit_gemm", "vit_gemm_f32",
-             "vit_attn", "vit_attn_generic", "dsmil_pool")
+             "vit_attn", "vit_attn_generic", "vit_attn_f32", "dsmil_pool")
     t0 = time.perf_counter()
     _build.build(*names)
     for name in names:
@@ -4641,11 +4653,12 @@ TP_F32_REL = 1e-4
 B7_DH, B7_N, B7_F32_TOL = (16, 48, 64, 80, 128, 256), (197, 577, 1025), 1e-5
 # (g) the TP block's B7 call at each path's shape: (path, images a rank,
 # heads a rank, dtype, route); dh 64 and N 197 throughout
-TP_B7_CALLS = (("(f)", TP_IMAGES, 3, torch.float32, "fma"),
+TP_B7_CALLS = (("(f)", TP_IMAGES, 3, torch.float32, "tf32x3"),
                ("(c)", TP_BATCH, 3, torch.bfloat16, "mma"),
                ("(d)", TP_UNI_BATCH // 2, 8, torch.bfloat16, "mma"),
                ("(e)", TP_IMAGES, 12, torch.bfloat16, "mma"))
-# the fma route's kernel, as the profiler names it
+# the fma route's kernel, as the profiler names it (the tf32x3 route's is
+# ops/vit_attn_packed.py::TF32X3_KERNELS)
 B7_FMA_KERNELS = ("b7_generic_kernel",)
 
 
@@ -4657,7 +4670,8 @@ def _step2_counts() -> dict:
     return {"B3": vit_layer.fused_vit_layer.launches,
             "B4": vit_layer.fused_vit_attn_half.launches,
             "B5": vit_attn_packed._launch_packed.launches,
-            "B7_mma": routes["mma"], "B7_fma": routes["fma"]}
+            "B7_mma": routes["mma"], "B7_tf32x3": routes["tf32x3"],
+            "B7_fma": routes["fma"]}
 
 
 def _counted(clock, fn):
@@ -4821,26 +4835,40 @@ def _want_launches(got: dict, want: dict, what: str) -> None:
                                  f"want {v} ({got})")
 
 
+def _attention_f64(q, k, v, scale):
+    """softmax(q k^T scale) v in float64: the function itself."""
+    s = (q.double() @ k.double().transpose(-1, -2)) * scale
+    return torch.softmax(s, dim=-1) @ v.double()
+
+
 @torch.no_grad()
 def vit_attn_b7_every_width(smi: str) -> dict:
     """(g): B7 at f32 and fp16 against its plain version over ``B7_DH`` x
-    ``B7_N``, contiguous and on strided views of a packed qkv; then its fma
-    route timed at f32 [256, 6, 197, 64] beside the plain version and SDPA."""
+    ``B7_N``, contiguous and on strided views of a packed qkv (f32 on the
+    tf32x3 route at the tensor cores' head widths, fp16 on the mma route
+    there, both on the fma route at the others); the TP block's calls; then
+    B7 at f32 [256, 6, 197, 64] timed on the tf32x3 route and on the fma
+    route (``_launch_fma``, its earlier route) beside the plain version and
+    SDPA, device times from whole profiler windows (``_kernel_ms``)."""
     from acmil_tpu_torch.ops import vit_attn as va
+    from acmil_tpu_torch.ops import vit_attn_packed as pk
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
-    worst = {torch.float32: 0.0, torch.float16: 0.0}
-    checks = 0
-    for dtype in worst:
+    worst, checks = {}, 0
+    # f32, relative to the largest output: kernel against plain, kernel and
+    # plain against float64 (the function itself), by route
+    rel = {}
+    for dtype in (torch.float32, torch.float16):
         tol = B7_F32_TOL if dtype == torch.float32 else B5_TOL
         for dh in B7_DH:
             for n in B7_N:
                 base = 2 * torch.randn(2, n, 3, 2, dh, generator=gen,
                                        device="cuda")
                 packed = base.to(dtype).permute(2, 0, 3, 1, 4)
-                # fp16 at the tensor cores' head widths takes their route
-                route = ("mma" if dtype == torch.float16
-                         and dh in va.KERNEL_HEAD_DIMS else "fma")
+                # the tensor cores' head widths take their route at each
+                # dtype: tf32x3 at f32, mma at fp16
+                route = ("fma" if dh not in va.KERNEL_HEAD_DIMS else
+                         "tf32x3" if dtype == torch.float32 else "mma")
                 for q, k, v in (packed, [t.contiguous() for t in packed]):
                     before = va.fused_vit_attention.route_launches[route]
                     got = va.fused_vit_attention(q, k, v, scale=0.3)
@@ -4849,31 +4877,71 @@ def vit_attn_b7_every_width(smi: str) -> dict:
                             before + 1:
                         raise AssertionError(f"B7 {dtype} dh={dh}: not the "
                                              f"{route} route")
-                    worst[dtype] = max(worst[dtype], _err(
-                        got, va._reference_attention(q, k, v, 0.3), tol))
+                    key = (str(dtype)[6:], route)
+                    want = va._reference_attention(q, k, v, 0.3)
+                    worst[key] = max(worst.get(key, 0.0),
+                                     _err(got, want, tol))
                     checks += 1
+                    if dtype == torch.float32:
+                        truth = _attention_f64(q, k, v, 0.3)
+                        mx = float(truth.abs().max())
+                        for what, a, b_ in (("plain", got, want),
+                                            ("f64", got, truth),
+                                            ("plain_f64", want, truth)):
+                            e = float((a.double() - b_.double()).abs().max())
+                            rel[(route, what)] = max(
+                                rel.get((route, what), 0.0), e / mx)
+    # the fma route where it still serves beside those: f32 rows off 16-byte
+    # boundaries (a token stride of dh + 2), bf16 off the tensor cores'
+    # widths
+    for dtype, dh, pad in ((torch.float32, 64, 2), (torch.bfloat16, 48, 0),
+                           (torch.bfloat16, 80, 0)):
+        q, k, v = ((2 * torch.randn(2, 2, B7_N[0], dh + pad, generator=gen,
+                                    device="cuda")).to(dtype)[..., :dh]
+                   for _ in range(3))
+        before = va.fused_vit_attention.route_launches["fma"]
+        got = va.fused_vit_attention(q, k, v, scale=0.3)
+        torch.cuda.synchronize()
+        if va.fused_vit_attention.route_launches["fma"] != before + 1:
+            raise AssertionError(f"B7 {dtype} dh={dh} pad={pad}: not the "
+                                 f"fma route")
+        key = (str(dtype)[6:], "fma")
+        worst[key] = max(worst.get(key, 0.0), _err(
+            got, va._reference_attention(q, k, v, 0.3),
+            B7_F32_TOL if dtype == torch.float32 else B5_TOL))
+        checks += 1
     print(f"kernel B7 vs plain: dh in {B7_DH}, N in {B7_N}, B=2 H=2, "
-          f"contiguous and strided views of a packed qkv, scale 0.3, fma "
-          f"route but fp16 at dh in {va.KERNEL_HEAD_DIMS} (tensor cores): "
-          f"{checks} shapes, max_abs_err f32 {worst[torch.float32]:.3e} "
-          f"(tol {B7_F32_TOL} of the max), fp16 "
-          f"{worst[torch.float16]:.3e} [{smi}]")
+          f"contiguous and strided views of a packed qkv, scale 0.3, "
+          f"tf32x3 route at f32 and mma at fp16 for dh in "
+          f"{va.KERNEL_HEAD_DIMS}, fma elsewhere: {checks} shapes, "
+          f"max_abs_err "
+          + ", ".join(f"{dt} {rt} {e:.3e}" for (dt, rt), e in worst.items())
+          + f"; and fma at f32 on rows off 16-byte boundaries, at bf16 at "
+          f"dh 48 and 80 (tol f32 {B7_F32_TOL}, fp16 and bf16 {B5_TOL} of "
+          f"the max) [{smi}]")
+    print("kernel B7 at f32, worst relative to the largest output: "
+          + ", ".join(f"{rt} against {w} {e:.3e}" for (rt, w), e in
+                      rel.items()) + f" [{smi}]")
 
     # the TP block's own call at each path's shape: strided views of the
-    # local qkv in, a token-major buffer's view out (parallel/tp.py)
+    # local qkv in, a token-major buffer's view out (parallel/tp.py), the
+    # buffer NaN before the call
     n, dh = VIT_S16[0], 64
     tp_err = {}
     for tag, b, hl, dtype, route in TP_B7_CALLS:
         qkv = torch.randn(b, n, 3 * hl * dh, generator=gen,
                           device="cuda").to(dtype)
         q, k, v = qkv.view(b, n, 3, hl, dh).permute(2, 0, 3, 1, 4)
-        buf = torch.empty(b, n, hl * dh, dtype=dtype, device="cuda")
+        buf = torch.full((b, n, hl * dh), float("nan"), dtype=dtype,
+                         device="cuda")
         before = va.fused_vit_attention.route_launches[route]
         va.fused_vit_attention(q, k, v,
                                out=buf.view(b, n, hl, dh).transpose(1, 2))
         torch.cuda.synchronize()
-        if va.fused_vit_attention.route_launches[route] != before + 1:
-            raise AssertionError(f"B7 TP call {tag}: not the {route} route")
+        if va.fused_vit_attention.route_launches[route] != before + 1 \
+                or not bool(torch.isfinite(buf).all()):
+            raise AssertionError(f"B7 TP call {tag}: not the {route} route, "
+                                 f"or the buffer not filled")
         tol = B7_F32_TOL if dtype == torch.float32 else B5_TOL
         tp_err[tag] = _err(buf.view(b, n, hl, dh).transpose(1, 2),
                            va._reference_attention(q, k, v), tol)
@@ -4886,38 +4954,64 @@ def vit_attn_b7_every_width(smi: str) -> dict:
 
     b, (n, d, heads) = STEP2_BATCH, VIT_S16
     dh = d // heads
+    scale = 1.0 / math.sqrt(dh)
     q, k, v = (torch.randn(b, heads, n, dh, generator=gen, device="cuda")
                for _ in range(3))
-    timed_err = _err(va.fused_vit_attention(q, k, v),
-                     va._reference_attention(q, k, v), B7_F32_TOL)
-    r = {"ms": _time_ms(lambda: va.fused_vit_attention(q, k, v), 20),
-         "device": _device_ms(lambda: va.fused_vit_attention(q, k, v),
-                              B7_FMA_KERNELS),
-         "plain_ms": _time_ms(lambda: va._reference_attention(q, k, v), 10),
-         "library_ms": _time_ms(
-             lambda: torch.nn.functional.scaled_dot_product_attention(
-                 q, k, v), 20)}
-    r.update(_f32_bound(b * 4 * n * n * d, b * 4 * 4 * n * d))
-    r["device_ms"], per_call = r.pop("device")
-    print(f"kernel B7 fma route time: ViT-S/16 B={b} H={heads} N={n} "
-          f"dh={dh} float32 (against its plain version {timed_err:.3e}, tol "
-          f"{B7_F32_TOL} of the max): kernel {r['ms']:.4f} ms (device "
-          f"{_fmt_ms(r['device_ms'])} in {per_call:g} launches), plain "
-          f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention f32 "
-          f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}, f32 products at {PEAK_TF32_FLOPS / 3e12:g} "
-          f"TFLOP/s: three TF32 products each; at the f32 FMA rate "
-          f"{r['fma_bound_ms']:.4f} ms), "
-          f"{_bound_share(r)} [{smi}]")
-    by_route = {rt: {c[0]: tp_err[c[0]] for c in TP_B7_CALLS if c[4] == rt}
-                for rt in ("fma", "mma")}
-    return {"max_abs_err": max(worst[torch.float32], timed_err,
-                               *by_route["fma"].values()),
-            "max_abs_err_fp16": worst[torch.float16],
-            "max_abs_err_tp_calls": by_route["fma"],
-            "max_abs_err_tp_calls_mma": by_route["mma"],
-            "max_abs_err_timed": timed_err,
-            "checks": checks + len(TP_B7_CALLS) + 1, **r}
+    out = torch.empty_like(q)
+    want = va._reference_attention(q, k, v)
+    got = va.fused_vit_attention(q, k, v)
+    if not torch.equal(got, va.fused_vit_attention(q, k, v)):
+        raise AssertionError("B7's tf32x3 route: two launches differ")
+    timed = {"tf32x3": _err(got, want, B7_F32_TOL),
+             "fma": _err(pk._launch_fma(q, k, v, out, scale), want,
+                         B7_F32_TOL)}
+    calls = {"tf32x3": (lambda: va.fused_vit_attention(q, k, v),
+                        pk.TF32X3_KERNELS[0]),
+             "fma": (lambda: pk._launch_fma(q, k, v, out, scale),
+                     B7_FMA_KERNELS[0])}
+    shared = {"plain_ms": _time_ms(lambda: va._reference_attention(q, k, v),
+                                   10),
+              "library_ms": _time_ms(
+                  lambda: torch.nn.functional.scaled_dot_product_attention(
+                      q, k, v), 20),
+              **_f32_bound(b * 4 * n * n * d, b * 4 * 4 * n * d)}
+    res = {}
+    for rt, (fn, kernel) in calls.items():
+        dev = _kernel_ms(fn, {kernel: 1}, 20)
+        res[rt] = {"ms": _time_ms(fn, 20),
+                   "device_ms": None if dev is None else dev[kernel],
+                   **shared, "max_abs_err_timed": timed[rt]}
+        r = res[rt]
+        print(f"kernel B7 {rt} route time: ViT-S/16 B={b} H={heads} N={n} "
+              f"dh={dh} float32 (against its plain version "
+              f"{timed[rt]:.3e}, tol {B7_F32_TOL} of the max): kernel "
+              f"{r['ms']:.4f} ms (device {_fmt_ms(r['device_ms'])}), plain "
+              f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention f32 "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, f32 products at "
+              f"{PEAK_TF32_FLOPS / 3e12:g} TFLOP/s: three TF32 products "
+              f"each; at the f32 FMA rate {r['fma_bound_ms']:.4f} ms), "
+              f"{_bound_share(r)} [{smi}]")
+    if not res["tf32x3"]["ms"] <= res["tf32x3"]["library_ms"]:
+        print(f"note: B7's tf32x3 route call {res['tf32x3']['ms']:.4f} ms is "
+              f"slower than f32 SDPA's {res['tf32x3']['library_ms']:.4f} ms "
+              f"in this run [{smi}]")
+    tp = {rt: {c[0]: tp_err[c[0]] for c in TP_B7_CALLS if c[4] == rt}
+          for rt in ("tf32x3", "mma")}
+    res["tf32x3"].update({
+        "max_abs_err": max(worst[("float32", "tf32x3")], timed["tf32x3"],
+                           *tp["tf32x3"].values()),
+        "rel_to_max": {f"{w}": e for (rt, w), e in rel.items()
+                       if rt == "tf32x3"},
+        "max_abs_err_tp_calls": tp["tf32x3"],
+        "checks": checks + len(TP_B7_CALLS) + 2})
+    res["fma"].update({
+        "max_abs_err": max(worst[("float32", "fma")], timed["fma"]),
+        "max_abs_err_fp16": worst[("float16", "fma")],
+        "max_abs_err_bf16": worst[("bfloat16", "fma")],
+        "max_abs_err_fp16_mma": worst[("float16", "mma")]})
+    res["tp_calls_mma"] = tp["mma"]
+    return res
 
 
 def step2_mesh_run(smi: str, tmp: str, pipe: dict) -> dict:
@@ -4956,7 +5050,8 @@ def step2_mesh_run(smi: str, tmp: str, pipe: dict) -> dict:
                      *argv("a", device="cuda"), "--mesh_data", "1")
     if a["backend"] != "nccl":
         raise AssertionError(f"(a) backend {a['backend']}")
-    _want_launches(a["counts"], {**one, "B7_mma": 0, "B7_fma": 0}, "(a)")
+    _want_launches(a["counts"], {**one, "B7_mma": 0, "B7_tf32x3": 0,
+                                 "B7_fma": 0}, "(a)")
     diff_a = _same_file(a["out_path"], want, names, "(a)")
     if diff_a["max_abs_diff"] != 0.0:
         raise AssertionError(f"(a) features differ from one process: {diff_a}")
@@ -5033,6 +5128,7 @@ def step2_mesh_run(smi: str, tmp: str, pipe: dict) -> dict:
     batches_c = sum(-(-v // TP_BATCH) for v in pair[0]["c"]["slides"].values())
     for r in pair:
         _want_launches(r["c"]["counts"], {"B3": 0, "B5": 0, "B7_fma": 0,
+                                          "B7_tf32x3": 0,
                                           "B7_mma": STEP2_DEPTH * batches_c},
                        f"(c) rank {r['rank']}")
     diff_c = _same_file(pair[0]["c"]["out_path"], want, two, "(c)")
@@ -5089,7 +5185,7 @@ def step2_mesh_run(smi: str, tmp: str, pipe: dict) -> dict:
           f"{[round(r['e']['collective_ms'], 3) for r in pair]} ms of it in "
           f"gloo collectives [{smi}]")
 
-    # (f) f32 ViT-S/16 through tp_encoder_feature_fn: B7's fma route
+    # (f) f32 ViT-S/16 through tp_encoder_feature_fn: B7's tf32x3 route
     model, spec = _tp_trunk("vits_f32")
     enc = model.encoder.cuda().eval()
     x = preprocess(torch.from_numpy(u8).cuda(), spec, torch.float32)
@@ -5107,9 +5203,9 @@ def step2_mesh_run(smi: str, tmp: str, pipe: dict) -> dict:
         raise AssertionError(f"(f) f32 TP against the module forward: "
                              f"{rel_f:.3e} of the max")
     for r in pair:
-        _want_launches(r["f"]["counts"], {"B7_fma": STEP2_DEPTH,
-                                          "B7_mma": 0}, f"(f) rank "
-                       f"{r['rank']}")
+        _want_launches(r["f"]["counts"], {"B7_tf32x3": STEP2_DEPTH,
+                                          "B7_fma": 0, "B7_mma": 0},
+                       f"(f) rank {r['rank']}")
     out["f_model2_vits_f32"] = {"rel_to_module": rel_f,
                                 "rel_to_vit_encode": rel_encode,
                                 "ms": [r["f"]["ms"] for r in pair]}
@@ -5117,8 +5213,9 @@ def step2_mesh_run(smi: str, tmp: str, pipe: dict) -> dict:
           f" model 2, {TP_IMAGES} images: against the module forward at f32 "
           f"on the card {rel_f:.3e} of the largest feature (tol "
           f"{TP_F32_REL}); against vit_encode(fused=False) {rel_encode:.3e} "
-          f"(its B3 route's gelu is tanh-approximate at every dtype); B7 fma "
-          f"route {[r['f']['counts']['B7_fma'] for r in pair]} a rank; a batch "
+          f"(its B3 route's gelu is tanh-approximate at every dtype); B7 "
+          f"tf32x3 route {[r['f']['counts']['B7_tf32x3'] for r in pair]} a "
+          f"rank; a batch "
           f"{[round(r['f']['ms'], 3) for r in pair]} ms [{smi}]")
     del model, enc, x, module, encode
     torch.cuda.empty_cache()
@@ -5167,12 +5264,14 @@ def step2_mesh_run(smi: str, tmp: str, pipe: dict) -> dict:
           f"a rank, {[round(r['collective_s'], 3) for r in ranks_d]} s of it "
           f"in gloo collectives [{smi}]")
 
-    # (g) B7 against its plain version at every width; the fma route timed
-    out["b7_fma"] = vit_attn_b7_every_width(smi)
+    # (g) B7 against its plain version at every width; the f32 routes timed
+    out["b7_f32"] = vit_attn_b7_every_width(smi)
     out["B7_mma_path"] = (sum(out["c_model2_vits"]["B7"])
                           + sum(out["d_data2_model2_uni"]["B7"])
                           + sum(r["e"]["counts"]["B7_mma"] for r in pair))
-    out["B7_fma_path"] = sum(r["f"]["counts"]["B7_fma"] for r in pair)
+    out["B7_tf32x3_path"] = sum(r["f"]["counts"]["B7_tf32x3"] for r in pair)
+    out["B7_fma_path"] = sum(r[tag]["counts"]["B7_fma"] for r in pair
+                             for tag in ("c", "e", "f"))
     print(f"step2 mesh phase wall {time.perf_counter() - t_phase:.2f} s "
           f"[{smi}]")
     return out
@@ -5797,8 +5896,10 @@ def _gemm_timed(smi: str, dtype) -> dict:
 
 def _b5_timed(smi: str, dtype) -> dict:
     """B5' at ViT-S/16, B=256 (B3's attention step) at ``dtype``: fp16 on
-    the tensor cores, f32 on B7's fma route, beside its plain version and
-    scaled_dot_product_attention in the same dtype."""
+    the tensor cores, f32 on the tf32x3 route (and on B7's fma route, its
+    earlier route, through ``_launch_fma`` on the same views), beside its
+    plain version and scaled_dot_product_attention in the same dtype;
+    device times from whole profiler windows (``_kernel_ms``)."""
     from acmil_tpu_torch.ops import vit_attn_packed as pk
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
@@ -5806,13 +5907,16 @@ def _b5_timed(smi: str, dtype) -> dict:
     qkv = (2 * torch.randn(b, n, 3 * d, generator=gen, device="cuda")).to(
         dtype)
     q, k, v = qkv.view(b, n, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
-    route = "f16" if dtype == torch.float16 else "fma"
+    route = "f16" if dtype == torch.float16 else "tf32x3"
     before = pk._launch_packed.route_launches[route]
-    err = _err(pk.fused_mha_packed(qkv, heads),
-               pk._reference_packed(qkv, heads), DT_ONE_TOL[dtype])
+    want = pk._reference_packed(qkv, heads)
+    got = pk.fused_mha_packed(qkv, heads)
+    err = _err(got, want, DT_ONE_TOL[dtype])
     if pk._launch_packed.route_launches[route] != before + 1:
         raise AssertionError(f"B5' {dtype}: not the {route} route")
-    kernel = "mha_kernel" if route == "f16" else B7_FMA_KERNELS[0]
+    if not torch.equal(got, pk.fused_mha_packed(qkv, heads)):
+        raise AssertionError(f"B5' {dtype}: two launches differ")
+    kernel = "mha_kernel" if route == "f16" else pk.TF32X3_KERNELS[0]
     dev = _kernel_ms(lambda: pk.fused_mha_packed(qkv, heads), {kernel: 1},
                      20)
     r = {"ms": _time_ms(lambda: pk.fused_mha_packed(qkv, heads), 20),
@@ -5827,13 +5931,34 @@ def _b5_timed(smi: str, dtype) -> dict:
              else _bound(flops, nbytes))
     fma = (f", at the f32 FMA rate {r['fma_bound_ms']:.4f} ms"
            if dtype == torch.float32 else "")
-    print(f"kernel B5' {str(dtype)[6:]} ({'tensor cores' if route == 'f16' else 'B7 fma route'}) "
+    print(f"kernel B5' {str(dtype)[6:]} ({'tensor cores' if route == 'f16' else 'tf32x3 route, split-TF32 tensor cores'}) "
           f"time: ViT-S/16 B={b} N={n} H={heads}: kernel {r['ms']:.4f} ms "
           f"(device {_fmt_ms(r['device_ms'])}), plain "
           f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention "
           f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
           f"({r['bound_by']}{fma}), {_bound_share(r)}; against plain "
           f"{err:.3e} [{smi}]")
+    if dtype == torch.float32:
+        # the earlier route at the same shape and views
+        out = torch.empty(b, n, d, device="cuda")
+        o = out.view(b, n, heads, d // heads).transpose(1, 2)
+        call = lambda: pk._launch_fma(q, k, v, o, 1.0 / math.sqrt(d // heads))
+        call()
+        fma_err = _err(out, want, DT_ONE_TOL[dtype])
+        fdev = _kernel_ms(call, {B7_FMA_KERNELS[0]: 1}, 20)
+        r["fma_route"] = {
+            "ms": _time_ms(call, 20),
+            "device_ms": None if fdev is None else fdev[B7_FMA_KERNELS[0]],
+            "max_abs_err": fma_err}
+        f = r["fma_route"]
+        print(f"kernel B5' float32 on B7's fma route (its earlier route, "
+              f"_launch_fma on the same views): kernel {f['ms']:.4f} ms "
+              f"(device {_fmt_ms(f['device_ms'])}); against plain "
+              f"{fma_err:.3e} [{smi}]")
+        if not r["ms"] <= r["library_ms"]:
+            print(f"note: B5''s tf32x3 route call {r['ms']:.4f} ms is "
+                  f"slower than f32 SDPA's {r['library_ms']:.4f} ms in this "
+                  f"run [{smi}]")
     return r
 
 
@@ -5850,7 +5975,7 @@ def _layer_timed(smi: str, dtype) -> dict:
     x = torch.randn(b, n, d, generator=gen, device="cuda").to(dtype)
     err = _err(vl.fused_vit_layer(x, w, heads),
                vl._reference_layer(x, w, heads), DT_CHAIN_TOL[dtype])
-    attn = "mha_kernel" if dtype == torch.float16 else B7_FMA_KERNELS[0]
+    attn = "mha_kernel" if dtype == torch.float16 else "b7_tf32x3_kernel"
     gemm = "gemm_kernel" if dtype == torch.float16 else "gemm_f32_kernel"
     split = _kernel_ms(lambda: vl.fused_vit_layer(x, w, heads),
                        {gemm: 4, "ln_rows_kernel": 2, attn: 1})
@@ -5928,7 +6053,7 @@ def _dtype_trunks(smi: str) -> dict:
             torch.cuda.synchronize()
             counts = _vit_counts()
             key = ("B4" if route == "half" else
-                   "b5_f16" if dtype == torch.float16 else "b5_fma")
+                   "b5_f16" if dtype == torch.float16 else "b5_tf32x3")
             if counts[key] != BIG_DEPTH:
                 raise AssertionError(f"{name} {dtype}: {key} launched "
                                      f"{counts[key]} times: {counts}")
@@ -6000,10 +6125,10 @@ def vit_dtypes_run(smi: str) -> dict:
             wall = time.perf_counter() - t0
             counts = _vit_counts()
             key = DTYPE_KEYS[dtype]
-            b5_key = "b5_f16" if dtype == torch.float16 else "b5_fma"
+            b5_key = "b5_f16" if dtype == torch.float16 else "b5_tf32x3"
             want = {"B3": STEP2_DEPTH * batches, "B4": 0,
                     f"gemm_{key}": 4 * STEP2_DEPTH * batches,
-                    b5_key: STEP2_DEPTH * batches}
+                    "b5_fma": 0, b5_key: STEP2_DEPTH * batches}
             if any(counts[k] != v for k, v in want.items()) or sum(
                     counts[k] for k in counts if k.startswith("gemm_")) != \
                     want[f"gemm_{key}"]:
@@ -6142,8 +6267,8 @@ def main() -> None:
     zoo["transmil_mhim"] = transmil_mhim
     zoo["dtfd_sam_resnet"] = p20
     zoo["mesh"] = p21
-    b7_fma = p22.pop("b7_fma")
-    b7["max_abs_err_tp_calls"] = b7_fma.pop("max_abs_err_tp_calls_mma")
+    b7_f32 = p22.pop("b7_f32")
+    b7["max_abs_err_tp_calls"] = b7_f32.pop("tp_calls_mma")
     b7["max_abs_err"] = max(b7["max_abs_err"],
                             *b7["max_abs_err_tp_calls"].values())
     zoo["step2_mesh"] = p22
@@ -6250,7 +6375,7 @@ def main() -> None:
         "edge_checks": b5_edges["checks"],
         "clip_l_b32": vit["B5 CLIP-L"],
         "launches_step2_float16": s24["f16"]["launches"]["b5_f16"],
-        "launches_step2_float32": s24["f32"]["launches"]["b5_fma"],
+        "launches_step2_float32": s24["f32"]["launches"]["b5_tf32x3"],
         **vit["B5"]}, {
         "name": "B6 fused DSMIL bag-stream pooling",
         "route": "cuda",
@@ -6275,14 +6400,17 @@ def main() -> None:
         "launches_phases_3_13": b7_launches,
         **b7}, {
         "name": "B7 multi-head attention over separate q, k, v, fma route "
-                "(float32, float16, bfloat16 at any dh <= 256)",
+                "(float16 and bfloat16 off the tensor cores' head widths, "
+                "float32 at dh 48, 80, 256, unaligned views)",
         "route": "cuda",
         "source": "acmil_tpu_torch/csrc/vit_attn_generic.cu",
         "replaces": "acmil_tpu/ops/vit_attn.py:39",
         "launches": p22["B7_fma_path"],
-        "path": "Step2 tensor parallelism at float32, phase 22 (f) summed "
-                "over the ranks; times at ViT-S/16 B=256 float32",
-        **b7_fma}, {
+        "path": "Step2 tensor parallelism, phase 22 (c), (e), (f) summed "
+                "over the ranks: 0 since f32 takes the tf32x3 route; its "
+                "checks in (g) at the widths it still serves; times at "
+                "ViT-S/16 B=256 float32 through _launch_fma",
+        **b7_f32["fma"]}, {
         "name": "gemm_f16: the GEMM of B3/B4 at float16 (TMA + wgmma "
                 ".f16, LayerNorm prologue to fp16 rows)",
         "route": "cuda",
@@ -6310,14 +6438,34 @@ def main() -> None:
                 "24); times at B=256 N=197",
         **p24["b5_f16"]}, {
         "name": "b5_f32_fma: B5' at float32 through B7's fma route on "
-                "strided views of the packed qkv",
+                "strided views of the packed qkv (its route before the "
+                "tf32x3 route)",
         "route": "cuda",
         "source": "acmil_tpu_torch/csrc/vit_attn_generic.cu",
         "replaces": "acmil_tpu/ops/vit_attn_packed.py:37",
         "launches": s24["f32"]["launches"]["b5_fma"],
-        "path": "Step2 ViT-S/16 at float32, B3's attention step (phase "
-                "24); times at B=256 N=197; bound at TF32 x 3",
-        **p24["b5_f32"]}]}))
+        "path": "Step2 ViT-S/16 at float32 (phase 24): 0 since B3's "
+                "attention step takes the tf32x3 route; times at B=256 N=197 "
+                "through _launch_fma on the same views; bound at TF32 x 3",
+        **{k: p24["b5_f32"][k] for k in (
+            "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "fma_bound_ms")},
+        **p24["b5_f32"]["fma_route"]}, {
+        "name": "b5_b7_f32_tf32x3: B5' and B7 at float32 on the tensor "
+                "cores, split-TF32 mma.sync in one pass (the tf32x3 route)",
+        "route": "cuda",
+        "source": "acmil_tpu_torch/csrc/vit_attn_f32.cu",
+        "replaces": "acmil_tpu/ops/vit_attn_packed.py:37 + "
+                    "acmil_tpu/ops/vit_attn.py:39",
+        "launches": s24["f32"]["launches"]["b5_tf32x3"],
+        "path": "Step2 ViT-S/16 at float32, B3's attention step (phase 24); "
+                "times at B=256 N=197; bound at TF32 x 3",
+        "launches_trunks_float32": {
+            k: v["launches"]["b5_tf32x3"] for k, v in p24["trunks"].items()
+            if k.endswith("f32")},
+        "launches_tp_float32": p22["B7_tf32x3_path"],
+        "b7": b7_f32["tf32x3"],
+        **{k: v for k, v in p24["b5_f32"].items() if k != "fma_route"}}]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,9 @@ B6_TOL = 1e-4
 # output that cancels to near 0, so the bound is one bf16 step of each
 # output and of the largest output
 BF16_TOL = 2.0 ** -7
-# B7's fma route vs plain at float32: only the order of the f32 sums and
-# exp's rounding differ
+# B7's tf32x3 and fma routes vs plain at float32: only the order of the
+# f32 sums and exp's rounding differ (split-TF32 products keep about f32's
+# accuracy)
 F32_TOL = 1e-5
 # B5' and B7 on the tensor cores at float16 vs plain: the same rounding
 # points as at bf16, one float16 step (2**-10) of each output and of the
@@ -90,8 +91,10 @@ def test_b7_arg_check_accepts_every_trunk_width():
 def test_b7_takes_every_dtype_and_head_width_up_to_256(dtype, dh):
     q = torch.zeros(2, 3, 50, dh, dtype=dtype)
     vit_attn._check_kernel_args(q, q, q, q)
-    tc = dtype in (torch.bfloat16, torch.float16) and dh in (16, 64)
-    assert vit_attn._route(q, q, q, q) == ("mma" if tc else "fma")
+    # the tensor cores' head widths: mma at fp16 and bf16, tf32x3 at f32
+    want = ("fma" if dh not in (16, 64) else
+            "tf32x3" if dtype == torch.float32 else "mma")
+    assert vit_attn._route(q, q, q, q) == want
 
 
 def test_b7_out_must_match_q():
@@ -272,15 +275,15 @@ def test_b7_backward_and_float32_on_card(cuda_device):
         vit_attn._reference_attention(*refs).float().sum(), refs)
     for g, w in zip(grads, want):
         torch.testing.assert_close(g, w, atol=0, rtol=0)
-    # float32 takes the fma route: only the order of f32 sums differs
+    # float32 takes the tf32x3 route: only the order of f32 sums differs
     f32 = [t.detach().float() for t in ins]
     before = dict(vit_attn.fused_vit_attention.route_launches)
     with torch.no_grad():
         got = vit_attn.fused_vit_attention(*f32)
         torch.cuda.synchronize()
         want = vit_attn._reference_attention(*f32)
-    assert vit_attn.fused_vit_attention.route_launches["fma"] == \
-        before["fma"] + 1
+    assert vit_attn.fused_vit_attention.route_launches["tf32x3"] == \
+        before["tf32x3"] + 1
     torch.testing.assert_close(got, want, rtol=F32_TOL,
                                atol=F32_TOL * float(want.abs().max()))
 
@@ -337,13 +340,17 @@ def test_b7_float16_on_the_tensor_core_route(cuda_device, shape):
     (2, 65, 160, 2, torch.float16),        # dh 80
 ])
 def test_b5_fma_route_on_strided_views(cuda_device, b, n, d, heads, dtype):
-    # B5' through B7's fma route, reading q, k, v and writing o in the
-    # packed layout; bf16 and fp16 there keep their rounding points
+    # B5' through a strided route, reading q, k, v and writing o in the
+    # packed layout: B7's fma route off the tensor cores' head widths (bf16
+    # and fp16 there keep their rounding points), the tf32x3 route at f32
+    # on them
     rs = np.random.RandomState(n + d)
     qkv = torch.from_numpy(2 * rs.randn(b, n, 3 * d).astype(np.float32))
     tol = {torch.float32: F32_TOL, torch.float16: F16_TOL,
            torch.bfloat16: BF16_TOL}[dtype]
-    _b5_check(qkv.to(cuda_device, dtype), heads, "fma", tol)
+    route = ("tf32x3" if dtype == torch.float32
+             and d // heads in vit_attn_packed.KERNEL_HEAD_DIMS else "fma")
+    _b5_check(qkv.to(cuda_device, dtype), heads, route, tol)
 
 
 @pytest.mark.gpu
@@ -361,3 +368,70 @@ def test_b5_backward_on_card_equals_plain_autograd(cuda_device, dtype):
     (want,) = torch.autograd.grad(vit_attn_packed._reference_packed(ref, 2),
                                   ref, g)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+# the tf32x3 route (csrc/vit_attn_f32.cu) at every head width it takes and
+# at token counts around its 16-key tiles and 128-query blocks, the trunks'
+# 197, 577 and 785, and past them
+TF32X3_N = (1, 17, 64, 65, 197, 577, 785, 1025)
+
+
+def _tf32x3_check(q, k, v, out=None, scale=0.3):
+    before = dict(vit_attn.fused_vit_attention.route_launches)
+    with torch.no_grad():
+        got = vit_attn.fused_vit_attention(q, k, v, scale, out=out)
+        torch.cuda.synchronize()
+        want = vit_attn._reference_attention(q, k, v, scale)
+    after = vit_attn.fused_vit_attention.route_launches
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == "tf32x3") for r in after}
+    torch.testing.assert_close(got, want, rtol=F32_TOL,
+                               atol=F32_TOL * float(want.abs().max()))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["contiguous", "packed", "token_major"])
+@pytest.mark.parametrize("n", TF32X3_N)
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_b7_tf32x3_route_matches_plain_on_card(cuda_device, dh, n, layout):
+    # contiguous q, k, v; strided views of a packed qkv [B, N, 3, H, dh];
+    # and those views writing into a token-major [B, N, H dh] buffer that
+    # starts as NaN
+    rs = np.random.RandomState(dh + n)
+    qkv = torch.from_numpy(2 * rs.randn(2, n, 3, 3, dh).astype(
+        np.float32)).to(cuda_device)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    if layout == "contiguous":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    out = buf = None
+    if layout == "token_major":
+        buf = torch.full((2, n, 3 * dh), float("nan"), device=cuda_device)
+        out = buf.view(2, n, 3, dh).transpose(1, 2)
+    _tf32x3_check(q, k, v, out)
+    if buf is not None:
+        assert torch.isfinite(buf).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 6, 197, 64), (2, 2, 785, 128),
+                                   (3, 2, 65, 16)])
+def test_b7_tf32x3_route_gives_the_same_bits_twice(cuda_device, shape):
+    q, k, v = _b7_inputs(cuda_device, shape, torch.float32, seed=shape[2])
+    a = _tf32x3_check(q, k, v, scale=None)
+    b = _tf32x3_check(q, k, v, scale=None)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, d, heads", [
+    (2, 197, 384, 6),       # ViT-S/16
+    (1, 577, 1024, 16),     # CLIP-L/336
+    (2, 785, 384, 6),       # ViT-S/8
+    (2, 65, 256, 2),        # dh 128
+    (3, 17, 64, 4),         # dh 16
+])
+def test_b5_float32_on_the_tf32x3_route(cuda_device, b, n, d, heads):
+    rs = np.random.RandomState(n + d + 1)
+    qkv = torch.from_numpy(2 * rs.randn(b, n, 3 * d).astype(np.float32))
+    _b5_check(qkv.to(cuda_device), heads, "tf32x3", F32_TOL)

@@ -1,7 +1,8 @@
 """Kernel B7's fma route (``csrc/vit_attn_generic.cu``: float32, float16,
-bfloat16 at any head width up to 256) against its plain version on the
-card, and the tensor-parallel block (``parallel/tp.py``) at world 1 on the
-card against the one-process module. The file imports no JAX or flax, so
+bfloat16 at any head width up to 256) and its tf32x3 route
+(``csrc/vit_attn_f32.cu``: float32 at head widths 16, 32, 64, 128) against
+its plain version on the card, and the tensor-parallel block
+(``parallel/tp.py``) at world 1 on the card against the one-process module. The file imports no JAX or flax, so
 it runs on a machine that has neither; here, without a card, every test
 skips. tests/test_torch_vit_attn_b7.py holds the plain version against the
 JAX package's Pallas kernel, tests/test_torch_tp.py the TP forward against
@@ -58,8 +59,9 @@ def test_b7_fma_route_matches_plain_on_card(cuda_device, dtype, dh, n):
     q, k, v = (torch.from_numpy(2 * rs.randn(2, 3, n, dh).astype(
         np.float32)).to(cuda_device, dtype) for _ in range(3))
     route = _check(q, k, v, scale=0.3)
-    assert route == ("mma" if dtype in (torch.bfloat16, torch.float16)
-                     and dh in (16, 64) else "fma")
+    # the tensor cores' head widths: mma at fp16 and bf16, tf32x3 at f32
+    assert route == ("fma" if dh not in (16, 64) else
+                     "tf32x3" if dtype == torch.float32 else "mma")
 
 
 @pytest.mark.gpu
@@ -75,6 +77,32 @@ def test_b7_fma_route_on_strided_views_into_a_token_major_buffer(
     assert _check(q, k, v, out=buf.view(4, 197, 6, 80).transpose(1, 2)) \
         == "fma"
     assert torch.isfinite(buf).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads, dh", [(6, 64), (3, 128), (8, 16)])
+def test_b7_tf32x3_route_into_a_token_major_buffer(cuda_device, heads, dh):
+    # the TP block's f32 call: strided q, k, v of a packed local qkv, the
+    # result into a token-major buffer that starts as NaN
+    rs = np.random.RandomState(heads + dh)
+    qkv = torch.from_numpy(rs.randn(4, 197, 3, heads, dh).astype(
+        np.float32)).to(cuda_device)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    buf = torch.full((4, 197, heads * dh), float("nan"), device=cuda_device)
+    assert _check(q, k, v, out=buf.view(4, 197, heads, dh).transpose(1, 2)) \
+        == "tf32x3"
+    assert torch.isfinite(buf).all()
+
+
+@pytest.mark.gpu
+def test_b7_f32_unaligned_view_takes_the_fma_route(cuda_device):
+    # a token stride of 66 floats: rows off 16-byte boundaries
+    rs = np.random.RandomState(4)
+    wide = torch.from_numpy(rs.randn(2, 3, 65, 66).astype(np.float32)).to(
+        cuda_device)[..., :64]
+    q, k = (torch.from_numpy(rs.randn(2, 3, 65, 64).astype(np.float32)).to(
+        cuda_device) for _ in range(2))
+    assert _check(q, k, wide, scale=0.3) == "fma"
 
 
 @pytest.mark.gpu
@@ -110,7 +138,7 @@ def test_tp_block_at_world_one_on_card(cuda_device, dtype):
         got = _tp_vit_local(params, x, heads_local=TRUNK["heads"],
                             group=None, **kw).float()
         torch.cuda.synchronize()
-    route = "fma" if dtype == torch.float32 else "mma"
+    route = "tf32x3" if dtype == torch.float32 else "mma"
     assert vit_attn.fused_vit_attention.route_launches[route] == \
         before[route] + TRUNK["depth"]
     with torch.no_grad():
