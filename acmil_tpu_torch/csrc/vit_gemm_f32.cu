@@ -12,11 +12,37 @@
 // to plain TF32.
 //
 // Products. Each f32 operand is split into hi = tf32(a) and lo = tf32(a -
-// hi), and a b = lo hi + hi lo + hi hi (the small terms first) on
-// mma.sync.m16n8k8 TF32 with f32 sums: csrc/tf32x3.cuh's block product,
-// which B1, B2 and B6 use. Each 32-deep slice is summed apart and added to
-// the tile's accumulators in f32 (kFlush), so the tensor cores' f32
-// accumulation never runs over more than 32 terms.
+// hi) (rounded to nearest, ties away: csrc/tf32x3.cuh's split), and a b =
+// lo hi + hi lo + hi hi (the small terms first) on wgmma
+// m64n128k8.f32.tf32.tf32 with f32 sums. wgmma reads an f32 operand as
+// TF32 by dropping its low 13 bits, so raw f32 in shared memory is not hi:
+// both splits are made explicitly.
+//  - W: split_w_kernel turns W, once a call, into W_hi and W_lo ([2, N, K]
+//    f32, TF32 values), each read by TMA through its own map. W is small
+//    (1.77 M floats a ViT-S layer: ~21 MB moved by the split, a few
+//    microseconds), so splitting it once beats splitting each staged tile.
+//  - A: each consumer loads its raw A fragment from the staged tile and
+//    splits it in registers, then issues wgmma with A in registers. The
+//    other form, a warpgroup writing hi and lo tiles of A into shared
+//    memory, adds ~110 GB/s of writes to an SM whose wgmma already reads
+//    ~170 of its ~225 GB/s at the TF32 peak (A and B by descriptor); with
+//    A in registers wgmma reads only W's tiles.
+//  - Order of depth. A thread holds A's k slots t and t + 4 of each k8
+//    step (t = lane % 4) for rows g and g + 8 (g = lane / 4 of its warp's
+//    16). A sum does not depend on its order, so slot s of step j of a
+//    32-deep stage is given column 8 (s % 4) + 2 j + s / 4: a thread's
+//    eight A values of a row over the stage are then columns 8t .. 8t + 7,
+//    two 16-byte loads, and the split kernel stores W_hi and W_lo with
+//    each 32-wide slice of a row in that order (k_position).
+//
+// f32 accuracy. The tensor cores' f32 accumulation loses more than an f32
+// sum over many terms (tf32x3.cuh's kFlush; a chain of 16 steps drifted
+// to 1.4e-5 off float64 in csrc/vit_attn_f32.cu). So the products of
+// kFlushStages stages (32 terms of depth each) go into a fresh set of
+// accumulators (scale-d 0 on its first wgmma), added to the running sums
+// in f32 once their wgmma group is waited for; 0 chains all of K on the
+// tensor cores. PERF.md has what each depth gave against float64 and what
+// it cost.
 //
 // Prologue. With the LayerNorm, ln_rows_kernel (csrc/vit_rows.cuh) writes
 // the normalised rows in f32 (nothing rounded) to a workspace the caller
@@ -29,10 +55,19 @@
 // 1.08 ms a layer, against 2MNK / 67 TFLOP/s = 2.66 ms on the f32 FMA
 // units. The bytes (A, W, the residual and the output once: 0.35 GB a
 // layer, 0.10 ms) are far below, so the design keeps the tensor cores
-// busy: 128 x 128 output tiles of 256 threads (warps 2 x 4, 64 x 32 each),
-// a ring of three 32-deep slices of A and W staged by cp.async, the splits
-// done from shared memory as the fragments load. It is a simple kernel
-// that is right first; its time is in PERF.md.
+// busy, on the skeleton of csrc/vit_gemm.cu (csrc/hopper.cuh): a
+// persistent grid of one block an SM walking 128 x 128 output tiles, N
+// fastest; one TMA producer thread keeping a ring of three stages full
+// (each the 128 x 32 tiles of A, W_hi and W_lo: 48 KB), on full and empty
+// mbarriers; two consumer warpgroups of 64 rows each, 12 wgmma a stage
+// (3 products x 4 k8 steps), registers moved to them by setmaxnreg; the
+// epilogue staging each warpgroup's accumulators in shared memory (69.6
+// KB; so the ring holds three stages, not four) and storing whole rows,
+// 16 bytes a lane. A warpgroup loads and splits the next stage's A while
+// the current stage's products run (two sets of A registers, in turn), so
+// that its only step between two stages' products is the wait and the f32
+// add. The residual's rows are prefetched to L2 at a tile's start. Ragged
+// M and N are zero-filled by TMA and masked at the store.
 //
 // Widths the kernel takes: K a multiple of 32, N a multiple of 8,
 // contiguous 16-byte-aligned f32 buffers, W [N, K] (torch's Linear
@@ -40,17 +75,118 @@
 // them and raises.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
-#include "tf32x3.cuh"
-#include "vit_rows.cuh"
+#include "hopper.cuh"        // TMA, mbarriers, wgmma, the tensor-map encoder
+#include "tf32x3.cuh"        // the TF32 split
+#include "vit_rows.cuh"      // the LayerNorm prologue, gelu, the epilogues
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3;
-using OpA = tf32x3::Operand<float, true, kBM, kBK>;   // A[m][k]
-using OpW = tf32x3::Operand<float, true, kBN, kBK>;   // W[n][k]
-using Gemm = tf32x3::BlockGemm<OpA, OpW, kBM, kBN, kBK, 2, 4, kStages>;
+constexpr int kBM = 128;          // rows of a tile: two consumer warpgroups of 64
+constexpr int kBN = 128;          // columns of a tile
+constexpr int kBK = 32;           // depth of a stage: one 128-byte row of f32
+constexpr int kStages = 3;
+constexpr int kConsumers = 2;     // warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr uint32_t kTileBytes = kBM * kBK * 4;          // one operand tile
+constexpr uint32_t kStageBytes = 3 * kTileBytes;        // A, W_hi, W_lo
+// a consumer warpgroup's 64 x 128 accumulators, staged for the epilogue; 8
+// words of padding keep the pair writes free of bank conflicts
+constexpr int kOutStride = kBN + 8;
+constexpr uint32_t kOutBytes = 64 * kOutStride * 4;
+constexpr int kSmemBytes = kStages * kStageBytes + kConsumers * kOutBytes +
+                           1024 + 2 * kStages * 8;
+// registers a thread: the launch gives each 65536 / 384 (168, rounded down
+// to 8); setmaxnreg.inc waits until the producer warpgroup's setmaxnreg.dec
+// has freed what the consumers ask for, so 128 (168 - producer) must cover
+// 256 (consumer - 168)
+constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+static_assert(128 * (kLaunchRegs - kProducerRegs) >=
+                  128 * kConsumers * (kConsumerRegs - kLaunchRegs),
+              "the consumers' registers come from the producer warpgroup");
+// stages summed on the tensor cores before their sum is added in f32 (0:
+// all of K)
+constexpr int kFlushStages = 1;
+constexpr int kSplitThreads = 256;
+
+static_assert(kSmemBytes <= 232448, "shared memory of a block");
+
+// The position, in a 32-wide slice of a row of W_hi and W_lo, of column c
+// of that slice: slot s of k8 step j holds column 8 (s % 4) + 2 j + s / 4
+// (see the header).
+__host__ __device__ constexpr int k_position(int c) {
+  return 8 * ((c % 8) / 2) + c / 8 + 4 * (c % 2);
+}
+
+// hi and lo of one element of W: csrc/tf32x3.cuh's split of a finite a;
+// an infinity or a NaN passes as hi, with lo = 0.
+__device__ __forceinline__ void split_w(float a, uint32_t& hi, uint32_t& lo) {
+  if ((__float_as_uint(a) & 0x7f800000u) == 0x7f800000u) {
+    hi = __float_as_uint(a);
+    lo = 0u;
+  } else {
+    tf32x3::split<0>(a, hi, lo);
+  }
+}
+
+// W [N, K] -> W_hi at out, W_lo at out + N K, each row's 32-wide slices in
+// the order of k_position: one element a thread.
+__global__ void __launch_bounds__(kSplitThreads)
+split_w_kernel(const float* __restrict__ w, float* __restrict__ out,
+               long long total) {
+  const long long i = blockIdx.x * static_cast<long long>(kSplitThreads) +
+                      threadIdx.x;
+  if (i >= total) return;
+  uint32_t hi, lo;
+  split_w(w[i], hi, lo);
+  const long long at = i - i % 32 + k_position(static_cast<int>(i % 32));
+  out[at] = __uint_as_float(hi);
+  out[total + at] = __uint_as_float(lo);
+}
+
+// d (+)= a b^T for one k8 step of a 64 x 128 tile: A (this warpgroup's 64
+// rows) from four registers a thread, TF32 values (the m16n8k8 layout of
+// each warp's 16 rows: rows g, g + 8 at slots t, t + 4 as a[0], a[1],
+// a[2], a[3]); B (128 rows of W_hi or W_lo, K-major) by descriptor; f32
+// sums in 64 registers a thread (the m64n128 accumulator layout).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t* a,
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
 
 struct F32Epilogue {
   const float* bias;   // [N]
@@ -59,42 +195,268 @@ struct F32Epilogue {
   float* out;          // [M, N]
 };
 
-// Grid (N tiles, M tiles): one 128 x 128 output tile a block, the N tiles
-// of one row band launched together so that they share its A rows in L2.
+// Persistent, warp-specialised: see the header. kEpi is the epilogue (a
+// template argument, so that the bias and gelu epilogues hold no residual
+// registers). Shared memory: the stages (each its A, W_hi and W_lo tiles,
+// 1024-byte aligned), then each consumer warpgroup's staged accumulators,
+// then the full and empty mbarriers.
 template <int kEpi>
-__global__ void __launch_bounds__(Gemm::kThreads, 1)
-gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ w,
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,    // A [M, K]
+                const __grid_constant__ CUtensorMap map_hi,   // W_hi [N, K]
+                const __grid_constant__ CUtensorMap map_lo,   // W_lo [N, K]
                 F32Epilogue e, int m_rows, int n_cols, int k_depth) {
-  extern __shared__ __align__(16) char smem[];
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  float acc[Gemm::kMT][Gemm::kNT][4];
-  Gemm::zero(acc);
-  Gemm::run<true>(acc, OpA{a, k_depth, m_rows, k_depth},
-                  OpW{w, k_depth, n_cols, k_depth}, m0, n0, 0, k_depth, smem);
-  Gemm::for_pairs(acc, m0, n0, [&](int r, int c, float v0, float v1) {
-    if (r >= m_rows || c >= n_cols) return;      // N % 8 == 0: c + 1 too
-    const size_t off = static_cast<size_t>(r) * n_cols + c;
-    const float2 b = *reinterpret_cast<const float2*>(e.bias + c);
-    float2 g = make_float2(1.f, 1.f), res = make_float2(0.f, 0.f);
-    if (kEpi == kBiasLsRes && e.ls != nullptr)
-      g = *reinterpret_cast<const float2*>(e.ls + c);
-    if (kEpi >= kResBias) res = *reinterpret_cast<const float2*>(e.res + off);
-    *reinterpret_cast<float2*>(e.out + off) =
-        make_float2(epilogue_value<kEpi>(v0, b.x, g.x, res.x),
-                    epilogue_value<kEpi>(v1, b.y, g.y, res.y));
-  });
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t staged = base + kStages * kStageBytes;
+  const uint32_t full = staged + kConsumers * kOutBytes;
+  const uint32_t empty = full + kStages * 8;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kConsumers);   // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int tiles_n = (n_cols + kBN - 1) / kBN;
+  const int tiles = ((m_rows + kBM - 1) / kBM) * tiles_n;
+  const int k_steps = k_depth / kBK;
+
+  if (wg == kConsumers) {
+    // ---- producer: one thread keeps the ring full -------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == 4 * kConsumers && lane == 0) {
+      prefetch_map(&map_a);
+      prefetch_map(&map_hi);
+      prefetch_map(&map_lo);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / tiles_n) * kBM;
+        const int n0 = (t % tiles_n) * kBN;
+        for (int ks = 0; ks < k_steps; ++ks) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);   // the consumers freed it
+          const uint32_t dst = base + stage * kStageBytes;
+          mbar_expect_tx(full + 8 * stage, kStageBytes);
+          tma_load(dst, &map_a, full + 8 * stage, ks * kBK, m0);
+          tma_load(dst + kTileBytes, &map_hi, full + 8 * stage, ks * kBK, n0);
+          tma_load(dst + 2 * kTileBytes, &map_lo, full + 8 * stage, ks * kBK,
+                   n0);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg takes rows 64 wg .. 64 wg + 63 ------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int g = lane / 4, t4 = lane % 4;
+    const int wrow = 16 * (warp % 4) + g;          // this lane's first row
+    const int wcol = 2 * t4;                       // and first column
+    // this lane's A fragment in a stage's A tile, 128-byte swizzled: rows
+    // 64 wg + wrow and 8 further (both g mod 8), 16-byte chunks 2 t4 and
+    // 2 t4 + 1 (columns 8 t4 .. 8 t4 + 7)
+    const uint32_t frag = (64 * wg + wrow) * 128;
+    const uint32_t chunk0 = frag + ((2 * t4) ^ g) * 16;
+    const uint32_t chunk1 = frag + ((2 * t4 + 1) ^ g) * 16;
+    // a 16-byte load from the shared address addr
+    auto lds = [&](uint32_t addr) {
+      return *reinterpret_cast<const float4*>(smem_raw + (addr - raw));
+    };
+    float* out_tile =
+        reinterpret_cast<float*>(smem_raw + (staged - raw) + wg * kOutBytes);
+    constexpr int kRowsPerWarp = 64 / 4;           // of the epilogue
+    int stage = 0;                                 // the stage being read
+    uint32_t phase = 0;
+    float acc[64], part[64];
+    float (&d)[64] = kFlushStages > 0 ? part : acc;   // the products' sums
+    uint32_t ah0[16], al0[16], ah1[16], al1[16];   // two stages' A, split
+    // A of the stage after `stage` (next = true) or of `stage` itself, once
+    // TMA has filled it, split into hi and lo: columns 8 t4 .. 8 t4 + 7 of
+    // the stage, rows wrow (x) and wrow + 8 (y); k8 step j takes x[2j],
+    // y[2j], x[2j + 1], y[2j + 1], at 4 j .. 4 j + 3 of ah and al
+    auto load_a = [&](bool next, uint32_t (&ah)[16], uint32_t (&al)[16]) {
+      int stg = stage;
+      uint32_t phs = phase;
+      if (next && ++stg == kStages) {
+        stg = 0;
+        phs ^= 1;
+      }
+      mbar_wait(full + 8 * stg, phs);
+      const uint32_t sa = base + stg * kStageBytes;
+      const float4 x0 = lds(sa + chunk0), x1 = lds(sa + chunk1);
+      const float4 y0 = lds(sa + chunk0 + 1024), y1 = lds(sa + chunk1 + 1024);
+      const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      const float y[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        tf32x3::split<0>(x[2 * j], ah[4 * j], al[4 * j]);
+        tf32x3::split<0>(y[2 * j], ah[4 * j + 1], al[4 * j + 1]);
+        tf32x3::split<0>(x[2 * j + 1], ah[4 * j + 2], al[4 * j + 2]);
+        tf32x3::split<0>(y[2 * j + 1], ah[4 * j + 3], al[4 * j + 3]);
+      }
+    };
+    // the 12 products of `stage` (depth step ks) into d, the small terms
+    // first; a fresh group's first product has scale-d 0
+    auto issue = [&](int ks, uint32_t (&ah)[16], uint32_t (&al)[16]) {
+      const bool fresh = kFlushStages > 0 ? ks % kFlushStages == 0 : ks == 0;
+      const uint32_t sa = base + stage * kStageBytes;
+      const uint64_t dh = sw128_desc(sa + kTileBytes);
+      const uint64_t dl = sw128_desc(sa + 2 * kTileBytes);
+      fence_operands(ah);
+      fence_operands(al);
+      fence_operands(d);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)                  // +2: a k8 step, 32 bytes
+        wgmma_tf32(d, al + 4 * j, dh + 2 * j, !fresh || j > 0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_tf32(d, ah + 4 * j, dl + 2 * j, 1);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_tf32(d, ah + 4 * j, dh + 2 * j, 1);
+      wgmma_commit();
+    };
+    // waits for the products of `stage` (depth step ks), frees it, adds a
+    // finished group to the running sums and moves to the next stage
+    auto retire = [&](int ks, uint32_t (&ah)[16], uint32_t (&al)[16]) {
+      wgmma_wait<0>();
+      fence_operands(d);
+      fence_operands(ah);                          // live until the products
+      fence_operands(al);                          // have read them
+      if (lane == 0) mbar_arrive(empty + 8 * stage);
+      if (kFlushStages > 0 &&
+          ((ks + 1) % kFlushStages == 0 || ks + 1 == k_steps)) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] += part[i];
+      }
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t / tiles_n) * kBM;
+      const int n0 = (t % tiles_n) * kBN;
+      // the epilogue's lane: rows row0 + 4 i of the tile, four columns from
+      // col; its residual rows are prefetched to L2 now (each lane two of
+      // the warp's 16 rows x 4 lines), read after the products
+      const int col = n0 + 4 * lane;
+      const int row0 = m0 + 64 * wg + warp % 4;
+      if constexpr (kEpi >= kResBias) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + 4 * (lane / 4 + 8 * h);
+          const int c = n0 + 32 * (lane % 4);
+          if (r < m_rows && c < n_cols)
+            asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+                e.res + static_cast<size_t>(r) * n_cols + c));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      // two stages in turn, each one's A loaded and split while the
+      // other's products run
+      load_a(false, ah0, al0);
+      for (int ks = 0; ks < k_steps; ks += 2) {
+        issue(ks, ah0, al0);
+        if (ks + 1 < k_steps) load_a(true, ah1, al1);
+        retire(ks, ah0, al0);
+        if (ks + 1 == k_steps) break;
+        issue(ks + 1, ah1, al1);
+        if (ks + 2 < k_steps) load_a(true, ah0, al0);
+        retire(ks + 1, ah1, al1);
+      }
+
+      // the epilogue: the residuals requested first (from L2), then the
+      // accumulators (acc[4j + 2h + c] is row wrow + 8h, column 8j + wcol +
+      // c of this warpgroup's 64 x 128 tile) staged in shared memory; each
+      // warp then takes whole rows, four columns a lane, so that every
+      // store is 16 contiguous bytes of a row
+      float4 res[kRowsPerWarp];
+      if constexpr (kEpi >= kResBias) {
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          res[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (col < n_cols && row0 + 4 * i < m_rows)
+            res[i] = __ldg(reinterpret_cast<const float4*>(
+                e.res + static_cast<size_t>(row0 + 4 * i) * n_cols + col));
+        }
+      }
+      named_barrier(1 + wg, 128);                   // the last tile is read
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(out_tile + (wrow + 8 * h) * kOutStride +
+                                     8 * j + wcol) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      named_barrier(1 + wg, 128);
+      if (col < n_cols) {                           // N % 8 == 0: all four
+        const float4 b = *reinterpret_cast<const float4*>(e.bias + col);
+        const float4 gm = kEpi == kBiasLsRes && e.ls != nullptr
+                              ? *reinterpret_cast<const float4*>(e.ls + col)
+                              : make_float4(1.f, 1.f, 1.f, 1.f);
+        float4 a[kRowsPerWarp];
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i)
+          a[i] = *reinterpret_cast<const float4*>(
+              out_tile + (warp % 4 + 4 * i) * kOutStride + 4 * lane);
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          if (row0 + 4 * i >= m_rows) continue;
+          const float4 r = kEpi >= kResBias ? res[i]
+                                            : make_float4(0.f, 0.f, 0.f, 0.f);
+          *reinterpret_cast<float4*>(
+              e.out + static_cast<size_t>(row0 + 4 * i) * n_cols + col) =
+              make_float4(epilogue_value<kEpi>(a[i].x, b.x, gm.x, r.x),
+                          epilogue_value<kEpi>(a[i].y, b.y, gm.y, r.y),
+                          epilogue_value<kEpi>(a[i].z, b.z, gm.z, r.z),
+                          epilogue_value<kEpi>(a[i].w, b.w, gm.w, r.w));
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+// The map of a row-major [rows, k] f32 matrix, read in 128-row x 32-column
+// boxes (one 128-byte row of depth) with the 128-byte swizzle.
+bool make_map(CUtensorMap* map, const float* ptr, int rows, int k) {
+  return make_sw128_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, rows, k,
+                        kBK, kBM);
+}
+
+cudaError_t launch_split(const float* w, float* w_split, int n, int k,
+                         cudaStream_t stream) {
+  const long long total = static_cast<long long>(n) * k;
+  split_w_kernel<<<static_cast<unsigned>((total + kSplitThreads - 1) /
+                                         kSplitThreads),
+                   kSplitThreads, 0, stream>>>(w, w_split, total);
+  return cudaGetLastError();
 }
 
 template <int kEpi>
-cudaError_t launch_gemm(const float* a, const float* w, const F32Epilogue& e,
-                        int m, int n, int k, cudaStream_t stream) {
+cudaError_t launch_gemm(const CUtensorMap& map_a, const CUtensorMap& map_hi,
+                        const CUtensorMap& map_lo, const F32Epilogue& e, int m,
+                        int n, int k, int grid, cudaStream_t stream) {
   static tf32x3::SmemLimit limit;
   cudaError_t err =
-      tf32x3::raise_smem(gemm_f32_kernel<kEpi>, Gemm::kSmemBytes, limit);
+      tf32x3::raise_smem(gemm_f32_kernel<kEpi>, kSmemBytes, limit);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  gemm_f32_kernel<kEpi><<<grid, Gemm::kThreads, Gemm::kSmemBytes, stream>>>(
-      a, w, e, m, n, k);
+  gemm_f32_kernel<kEpi><<<grid, kThreads, kSmemBytes, stream>>>(
+      map_a, map_hi, map_lo, e, m, n, k);
   return cudaGetLastError();
 }
 
@@ -102,35 +464,71 @@ cudaError_t launch_gemm(const float* a, const float* w, const F32Epilogue& e,
 
 extern "C" {
 
+// Launches the split of W alone on `stream`: w [n, k] f32 -> w_split [2, n,
+// k] (W_hi, then W_lo, each row's 32-wide slices in the kernel's order of
+// depth), k a multiple of 32. Returns the cudaError_t of the launch.
+int vit_gemm_f32_split_w(const float* w, float* w_split, int n, int k,
+                         void* stream) {
+  if (n <= 0 || k <= 0 || k % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      launch_split(w, w_split, n, k, static_cast<cudaStream_t>(stream)));
+}
+
 // Launches the f32 GEMM on `stream`. A is [m, k] f32; ln_scale/ln_bias [k]
 // turn the LayerNorm prologue on (both null: off), which writes f32 rows to
-// a_rows [m, k] (else null: the product reads A itself); w [n, k]; bias
-// [n]; ls [n] or null; res [m, n] (epilogues 2 and 3); out [m, n]; all f32
-// device pointers, contiguous and 16-byte aligned. Returns the cudaError_t
-// of the launches (cudaErrorInvalidValue for widths it does not take).
+// a_rows [m, k] (else null: the product reads A itself); w [n, k]; w_split
+// a [2, n, k] workspace for W's split; bias [n]; ls [n] or null; res [m, n]
+// (epilogues 2 and 3); out [m, n]; all f32 device pointers, contiguous and
+// 16-byte aligned. Three launches at most: the prologue, the split, the
+// product. Returns the cudaError_t of the launches (cudaErrorInvalidValue
+// for widths it does not take).
 int vit_gemm_f32(const float* a, const float* ln_scale, const float* ln_bias,
-                 float* a_rows, const float* w, const float* bias,
-                 const float* ls, const float* res, float* out, int epilogue,
-                 int m, int n, int k, void* stream) {
+                 float* a_rows, const float* w, float* w_split,
+                 const float* bias, const float* ls, const float* res,
+                 float* out, int epilogue, int m, int n, int k, void* stream) {
   const bool ln = ln_scale != nullptr;
   if (m <= 0 || n <= 0 || k <= 0 || k % 32 || n % 8 || epilogue < kBias ||
       epilogue > kBiasLsRes || (epilogue >= kResBias && res == nullptr) ||
-      (ln && a_rows == nullptr) || (m + kBM - 1) / kBM > 65535)
+      (ln && a_rows == nullptr) || w_split == nullptr ||
+      static_cast<long long>((m + kBM - 1) / kBM) * ((n + kBN - 1) / kBN) >
+          0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (ln) {
-    const cudaError_t err = launch_prologue<float, float, true>(
-        a, ln_scale, ln_bias, a_rows, m, k, st);
+    err = launch_prologue<float, float, true>(a, ln_scale, ln_bias, a_rows, m,
+                                              k, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     a = a_rows;
   }
+  err = launch_split(w, w_split, n, k, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* w_lo = w_split + static_cast<size_t>(n) * k;
+  CUtensorMap map_a, map_hi, map_lo;
+  if (!make_map(&map_a, a, m, k) || !make_map(&map_hi, w_split, n, k) ||
+      !make_map(&map_lo, w_lo, n, k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const long long tiles = static_cast<long long>((m + kBM - 1) / kBM) *
+                          ((n + kBN - 1) / kBN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
   const F32Epilogue e{bias, ls, res, out};
-  cudaError_t err;
   switch (epilogue) {
-    case kBias: err = launch_gemm<kBias>(a, w, e, m, n, k, st); break;
-    case kBiasGelu: err = launch_gemm<kBiasGelu>(a, w, e, m, n, k, st); break;
-    case kResBias: err = launch_gemm<kResBias>(a, w, e, m, n, k, st); break;
-    default: err = launch_gemm<kBiasLsRes>(a, w, e, m, n, k, st);
+    case kBias:
+      err = launch_gemm<kBias>(map_a, map_hi, map_lo, e, m, n, k, grid, st);
+      break;
+    case kBiasGelu:
+      err = launch_gemm<kBiasGelu>(map_a, map_hi, map_lo, e, m, n, k, grid,
+                                   st);
+      break;
+    case kResBias:
+      err = launch_gemm<kResBias>(map_a, map_hi, map_lo, e, m, n, k, grid, st);
+      break;
+    default:
+      err = launch_gemm<kBiasLsRes>(map_a, map_hi, map_lo, e, m, n, k, grid,
+                                    st);
   }
   return static_cast<int>(err);
 }

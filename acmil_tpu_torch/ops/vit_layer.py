@@ -22,9 +22,9 @@ Both take x in float32, float16 or bfloat16, as the Pallas kernels do, and
 cast the matrices to x's dtype (a no-op for matrices already in that dtype,
 see ``fast.cast_kernel_weights``); the plain versions repeat every rounding
 point of those kernels. The GEMM is ``csrc/vit_gemm.cu`` (TMA and wgmma) at
-bfloat16 and float16 and ``csrc/vit_gemm_f32.cu`` (split-TF32 mma.sync,
-f32's accuracy) at float32; B5' takes its tensor-core route at bfloat16 and
-float16 and B7's fma route at float32 (``ops/vit_attn_packed.py``).
+bfloat16 and float16 and ``csrc/vit_gemm_f32.cu`` (TMA and split-TF32
+wgmma, f32's accuracy, after :func:`split_w`) at float32; B5' takes its
+tensor-core routes at every float dtype (``ops/vit_attn_packed.py``).
 
 Both are ``torch.autograd.Function``s: the backward is autograd of the
 function the JAX ``custom_vjp`` differentiates, recomputed from the saved
@@ -59,6 +59,11 @@ LN_EPS = 1e-6
 EPI_BIAS, EPI_BIAS_GELU, EPI_RES_BIAS, EPI_BIAS_LS_RES = range(4)
 GEMM_K_MULTIPLE = 32
 GEMM_N_MULTIPLE = 8
+# the f32 GEMM's order of depth in a 32-deep stage (csrc/vit_gemm_f32.cu,
+# k_position): position p = 8 j + s (slot s of k8 step j) holds column
+# 8 (s % 4) + 2 j + s // 4 of the slice
+SPLIT_K_ORDER = tuple(8 * (p % 4) + 2 * (p // 8) + (p % 8) // 4
+                      for p in range(32))
 
 
 def _ln_f32(h, scale, bias):
@@ -204,7 +209,7 @@ def _gemm_entry(f32: bool):
     p, i = ctypes.c_void_p, ctypes.c_int
     if f32:
         fn = _build.load("vit_gemm_f32").vit_gemm_f32
-        fn.argtypes = [p] * 9 + [i] * 4 + [p]
+        fn.argtypes = [p] * 10 + [i] * 4 + [p]
     else:
         fn = _build.load("vit_gemm").vit_gemm
         fn.argtypes = [p, i, p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, p]
@@ -216,6 +221,74 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _tf32_bits(bits):
+    """int64 holding f32 bit patterns -> the TF32 rounding of each (to
+    nearest, ties away from 0: add 0x1000 and clear the low 13 bits, as
+    ``csrc/tf32x3.cuh::to_tf32`` does)."""
+    return (bits + 0x1000) & 0xffffe000
+
+
+def _as_f32(bits):
+    """int64 holding 32-bit patterns -> float32."""
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(
+        torch.int32).view(torch.float32)
+
+
+def _split_w_reference(w):
+    """The split kernel's plain version: ``[2, N, K]`` float32, W's hi =
+    tf32(w) then lo = tf32(w - hi) (an infinity or a NaN passes as hi, with
+    lo = 0), each row's 32-wide slices in the f32 GEMM's order of depth
+    (column ``SPLIT_K_ORDER[p]`` of a slice at position p)."""
+    n, k = w.shape
+    bits = w.float().contiguous().view(torch.int32).to(torch.int64) & 0xffffffff
+    finite = (bits & 0x7f800000) != 0x7f800000
+    hi_bits = torch.where(finite, _tf32_bits(bits), bits)
+    hi = _as_f32(hi_bits)
+    rest = (w.float() - hi).view(torch.int32).to(torch.int64) & 0xffffffff
+    lo = torch.where(finite, _as_f32(_tf32_bits(rest)), torch.zeros_like(hi))
+    order = torch.tensor(SPLIT_K_ORDER)
+    both = torch.stack([hi, lo]).view(2, n, k // 32, 32)
+    return both[..., order].reshape(2, n, k).contiguous()
+
+
+def split_w(w):
+    """W ``[N, K]`` float32 (K a multiple of 32) → its TF32 halves as the
+    f32 GEMM reads them (:func:`_split_w_reference`): the split kernel of
+    ``csrc/vit_gemm_f32.cu`` on a CUDA tensor, which adds one to
+    ``split_w.launches``; the plain version on a CPU tensor."""
+    if w.dtype != torch.float32 or w.dim() != 2 or w.shape[1] % 32:
+        raise ValueError(f"split_w takes float32 [N, K] with K % 32 == 0, "
+                         f"got {w.dtype} {tuple(w.shape)}")
+    w = w.contiguous()
+    if w.device.type == "cpu":
+        return _split_w_reference(w)
+    if w.device.type != "cuda":
+        raise ValueError(f"no split_w route for device {w.device}")
+    n, k = w.shape
+    out = torch.empty(2, n, k, dtype=torch.float32, device=w.device)
+    with torch.cuda.device(w.device):
+        err = _split_entry()(w.data_ptr(), out.data_ptr(), n, k,
+                             torch.cuda.current_stream(w.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"split_w launch failed: cudaError_t {err}")
+    split_w.launches += 1
+    return out
+
+
+split_w.launches = 0
+
+
+@functools.cache
+def _split_entry():
+    from acmil_tpu_torch.ops import _build
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.load("vit_gemm_f32").vit_gemm_f32_split_w
+    fn.argtypes = [p, p, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _gemm(a, w, bias, epilogue, *, out_dtype, ln=None, ls=None, res=None):
     """One call of the GEMM: ``epilogue(prologue(a) · wᵀ)`` with w ``[N,
     K]`` of the chain's dtype and f32 vectors; raises on what the kernel
@@ -223,9 +296,10 @@ def _gemm(a, w, bias, epilogue, *, out_dtype, ln=None, ls=None, res=None):
     residual and the output are w's dtype or f32; with a LayerNorm or an
     f32 ``a`` the prologue kernel first writes ``a``'s rows in w's dtype to
     a workspace that the product reads. At float32
-    (``csrc/vit_gemm_f32.cu``) everything is f32, and the prologue runs
-    only for a LayerNorm, writing f32 rows. Adds one to
-    ``_gemm.launches[dtype]`` (``bf16``, ``f16``, ``f32``)."""
+    (``csrc/vit_gemm_f32.cu``) everything is f32, the prologue runs only
+    for a LayerNorm, writing f32 rows, and the split kernel writes w's
+    TF32 halves to a ``[2, N, K]`` workspace first (:func:`split_w`).
+    Adds one to ``_gemm.launches[dtype]`` (``bf16``, ``f16``, ``f32``)."""
     f32 = torch.float32
     m, k = a.shape
     n = w.shape[0]
@@ -275,10 +349,11 @@ def _gemm(a, w, bias, epilogue, *, out_dtype, ln=None, ls=None, res=None):
         if dt == f32:
             rows = (torch.empty(m, k, dtype=f32, device=a.device)
                     if ln is not None else None)
+            w_split = torch.empty(2, n, k, dtype=f32, device=a.device)
             err = _gemm_entry(True)(
                 a.data_ptr(), _ptr(scale), _ptr(shift), _ptr(rows),
-                w.data_ptr(), bias.data_ptr(), _ptr(ls), _ptr(res),
-                out.data_ptr(), epilogue, m, n, k, stream)
+                w.data_ptr(), w_split.data_ptr(), bias.data_ptr(), _ptr(ls),
+                _ptr(res), out.data_ptr(), epilogue, m, n, k, stream)
         else:
             rows = (torch.empty(m, k, dtype=dt, device=a.device)
                     if ln is not None or a.dtype == f32 else None)

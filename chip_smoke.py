@@ -12,7 +12,8 @@ code is non-zero:
 2. build: kernels B1 (``acmil_tpu_torch/csrc/attn_pool.cu``), B2
    (``acmil_tpu_torch/csrc/attn_pool_bwd.cu``), the ViT GEMMs
    (``csrc/vit_gemm.cu``: TMA, wgmma at bf16 and fp16, LayerNorm prologue;
-   ``csrc/vit_gemm_f32.cu``: split-TF32 at f32) and MHA B5'/B7
+   ``csrc/vit_gemm_f32.cu``: TMA and split-TF32 wgmma ``.tf32`` at f32,
+   W split once a call) and MHA B5'/B7
    (``csrc/vit_attn.cu``, bf16 and fp16) from which the B3 and B4 chains
    are built, B5'/B7 at f32 on the tensor cores (``csrc/vit_attn_f32.cu``,
    the split-TF32 route ``tf32x3``), B7's fma route
@@ -300,8 +301,10 @@ code is non-zero:
    (B=32) at full width, depth 2, at fp16 and f32: each layer's B4 or packed attention half
    against its plain version, then ``vit_encode`` fused against plain with
    each route's launch count; (d) the fp16 and f32 GEMMs at B3's four
-   calls (ViT-S/16, B=256) against their plain versions and timed beside
-   ``torch.matmul`` in the same dtype, B5' at fp16 and f32 beside SDPA (f32
+   calls (ViT-S/16, B=256) against their plain versions (f32: also W's
+   split bit for bit against ``split_w``'s plain version) and timed beside
+   ``torch.matmul`` in the same dtype (f32: also TF32 ``torch.matmul``, one
+   TF32 product, not the same function), B5' at fp16 and f32 beside SDPA (f32
    also on B7's fma route, its earlier route, through ``_launch_fma``), a
    B3 layer at each dtype split by kernel.
 
@@ -5830,11 +5833,25 @@ def _b3_gemm_calls(gen, dtype):
              0.1 * r(d), vl.EPI_RES_BIAS, dtype, None, h))
 
 
+# the device kernels of one GEMM call at each dtype ({part of the name:
+# launches a call}; f32: the split of W, then the product), besides the
+# LayerNorm prologue of a call that has one
+GEMM_KERNELS = {torch.float16: {"gemm_kernel": 1},
+                torch.float32: {"gemm_f32_kernel": 1, "split_w_kernel": 1}}
+
+
+def _four_gemms(dtype) -> dict:
+    """GEMM_KERNELS for a B3 layer's four GEMM calls."""
+    return {k: 4 * n for k, n in GEMM_KERNELS[dtype].items()}
+
+
 def _gemm_timed(smi: str, dtype) -> dict:
     """The GEMM at ``dtype`` (fp16: ``csrc/vit_gemm.cu``; f32:
     ``csrc/vit_gemm_f32.cu``) at B3's four calls, ViT-S/16 B=256: against
-    its plain version, then timed (summed over the four) beside the plain
-    version and ``torch.matmul`` in the same dtype (f32: TF32 off)."""
+    its plain version (f32: W's split also bit for bit against its plain
+    version), then timed (summed over the four) beside the plain version
+    and ``torch.matmul`` in the same dtype (f32: TF32 off; and TF32
+    ``torch.matmul``, one TF32 product, as a second yardstick)."""
     from acmil_tpu_torch.ops import vit_layer as vl
     from acmil_tpu_torch.ops.vit_attn_packed import DTYPE_KEYS
 
@@ -5843,7 +5860,7 @@ def _gemm_timed(smi: str, dtype) -> dict:
     key = DTYPE_KEYS[dtype]
     tol = DT_ONE_TOL[dtype]
     worst, flops, nbytes = 0.0, 0, 0
-    ms = plain_ms = lib_ms = 0.0
+    ms = plain_ms = lib_ms = tf32_ms = 0.0
     for label, a, w, bias, epi, out_dtype, ln, res in calls:
         kw = dict(out_dtype=out_dtype, ln=ln, res=res)
         before = vl._gemm.launches[key]
@@ -5864,29 +5881,47 @@ def _gemm_timed(smi: str, dtype) -> dict:
                                                  ln, res), 5)
         a_lib = a.to(w.dtype)        # fc1's A is the f32 residual h
         lib_ms += _time_ms(lambda: torch.matmul(a_lib, w.t()), 10)
+        if dtype == torch.float32:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32_ms += _time_ms(lambda: torch.matmul(a_lib, w.t()), 10)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+    if dtype == torch.float32:
+        w = calls[0][2]              # qkv's W: the split bit for bit
+        if not torch.equal(vl.split_w(w).cpu().view(torch.int32),
+                           vl._split_w_reference(w.cpu()).view(torch.int32)):
+            raise AssertionError("split_w: kernel and plain version differ")
 
     def four():
         for _, a, w, bias, epi, out_dtype, ln, res in calls:
             vl._gemm(a, w, bias, epi, out_dtype=out_dtype, ln=ln, res=res)
 
-    gemm = "gemm_kernel" if dtype != torch.float32 else "gemm_f32_kernel"
     # two of the four calls (qkv, fc1) run the LayerNorm prologue first
-    split = _kernel_ms(four, {gemm: 4, "ln_rows_kernel": 2}, 5) or {}
+    split = _kernel_ms(four, {**_four_gemms(dtype), "ln_rows_kernel": 2},
+                       5) or {}
+    gemm = "gemm_kernel" if dtype != torch.float32 else "gemm_f32_kernel"
     gemm_dev, ln_dev = split.get(gemm), split.get("ln_rows_kernel")
-    r = {"ms": ms, "device_ms": None if gemm_dev is None else gemm_dev + (
-            ln_dev or 0.0), "gemm_device_ms": gemm_dev,
-         "ln_device_ms": ln_dev, "plain_ms": plain_ms, "library_ms": lib_ms,
+    split_dev = split.get("split_w_kernel")
+    r = {"ms": ms, "device_ms": sum(split.values()) if split else None,
+         "gemm_device_ms": gemm_dev, "ln_device_ms": ln_dev,
+         "plain_ms": plain_ms, "library_ms": lib_ms,
          **(_f32_bound(flops, nbytes) if dtype == torch.float32
             else _bound(flops, nbytes)),
          "max_abs_err": worst, "gflop": flops / 1e9}
     rate = ("" if gemm_dev is None else
             f", {flops / (gemm_dev * 1e-3) / 1e12:.1f} TFLOP/s of products")
-    extra = (f", bound at the f32 FMA rate {r['fma_bound_ms']:.4f} ms"
-             if dtype == torch.float32 else "")
-    print(f"GEMM {key} ({'split-TF32 mma.sync' if dtype == torch.float32 else 'wgmma'}) "
+    extra = ""
+    if dtype == torch.float32:
+        r.update({"split_device_ms": split_dev, "tf32_library_ms": tf32_ms})
+        extra = (f", bound at the f32 FMA rate {r['fma_bound_ms']:.4f} ms; "
+                 f"TF32 torch.matmul (one TF32 product, not the same "
+                 f"function) {tf32_ms:.4f} ms")
+    print(f"GEMM {key} ({'TMA + split-TF32 wgmma .tf32' if dtype == torch.float32 else 'TMA + wgmma'}) "
           f"at B3's four calls, ViT-S/16 B={STEP2_BATCH} ({flops / 1e9:.1f} "
           f"GFLOP): kernel {ms:.4f} ms (device: products "
-          f"{_fmt_ms(gemm_dev)}{rate}, LayerNorm prologues {_fmt_ms(ln_dev)}), "
+          f"{_fmt_ms(gemm_dev)}{rate}, LayerNorm prologues {_fmt_ms(ln_dev)}"
+          f"{'' if dtype != torch.float32 else ', splits of W ' + _fmt_ms(split_dev)}), "
           f"plain {plain_ms:.4f} ms, {str(dtype)[6:]} torch.matmul "
           f"{lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}"
           f"{', 3 TF32 products each' if dtype == torch.float32 else ''})"
@@ -5976,9 +6011,8 @@ def _layer_timed(smi: str, dtype) -> dict:
     err = _err(vl.fused_vit_layer(x, w, heads),
                vl._reference_layer(x, w, heads), DT_CHAIN_TOL[dtype])
     attn = "mha_kernel" if dtype == torch.float16 else "b7_tf32x3_kernel"
-    gemm = "gemm_kernel" if dtype == torch.float16 else "gemm_f32_kernel"
     split = _kernel_ms(lambda: vl.fused_vit_layer(x, w, heads),
-                       {gemm: 4, "ln_rows_kernel": 2, attn: 1})
+                       {**_four_gemms(dtype), "ln_rows_kernel": 2, attn: 1})
     r = {"ms": _time_ms(lambda: vl.fused_vit_layer(x, w, heads), 10),
          "plain_ms": _time_ms(lambda: vl._reference_layer(x, w, heads), 5),
          "split_device_ms": split, "max_abs_err": err}
@@ -6420,14 +6454,17 @@ def main() -> None:
         "path": "Step2 ViT-S/16 at float16 through B3 (phase 24); times "
                 "summed over B3's four calls at B=256",
         **p24["gemm_f16"]}, {
-        "name": "gemm_f32: the GEMM of B3/B4 at float32 (split-TF32 "
-                "mma.sync, f32 accuracy, LayerNorm prologue to f32 rows)",
+        "name": "gemm_f32: the GEMM of B3/B4 at float32 (TMA + "
+                "split-TF32 wgmma .tf32, W split once a call, f32 accuracy, "
+                "LayerNorm prologue to f32 rows)",
         "route": "cuda",
         "source": "acmil_tpu_torch/csrc/vit_gemm_f32.cu",
         "replaces": "acmil_tpu/ops/vit_layer.py:45",
         "launches": s24["f32"]["launches"]["gemm_f32"],
         "path": "Step2 ViT-S/16 at float32 through B3 (phase 24); times "
-                "summed over B3's four calls at B=256; bound at TF32 x 3",
+                "summed over B3's four calls at B=256 (device: products, W's "
+                "splits, LayerNorm prologues); bound at TF32 x 3; "
+                "tf32_library_ms: TF32 torch.matmul, one TF32 product",
         **p24["gemm_f32"]}, {
         "name": "b5_f16: B5' at float16 on the tensor cores",
         "route": "cuda",

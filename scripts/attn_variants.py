@@ -6,7 +6,7 @@ the GEMM of B3 and B4 (``csrc/vit_gemm.cu``), of the pooling forward B1
 (``csrc/dsmil_pool.cu``), on a card, to show what each design choice of the
 kernel is worth:
 
-    python3 scripts/attn_variants.py [--kernel attn|gemm|b1|b2|b6]
+    python3 scripts/attn_variants.py [--kernel attn|gemm|gemm_f32|b1|b2|b6]
 
 Each variant is the source with a few lines replaced, built by ``nvcc``
 with the port's flags into ``csrc/build/variants/``. B5' variants are
@@ -15,7 +15,11 @@ shape (ViT-S/16, B=256) and at CLIP-L/336 (B=32), beside one call of
 ``F.scaled_dot_product_attention`` on the same q, k, v; GEMM variants
 through ``vit_gemm`` at the four GEMMs of B3 at Step2's shape (M = 50432
 tokens), each with its epilogue and dtypes as the chain runs it, beside one
-bf16 ``torch.matmul`` at the same shape; B2 variants through
+bf16 ``torch.matmul`` at the same shape; f32 GEMM variants
+(``csrc/vit_gemm_f32.cu``: flush depths, one product, stores off) likewise
+through ``vit_gemm_f32``, each call's error against a float64 product
+beside f32 ``torch.matmul``'s, with f32 and TF32 ``torch.matmul`` timed;
+B2 variants through
 ``fused_gated_attn_pool_bwd`` (weight gradients only, fp16 features, N =
 65536, K = 5) at L = 128 and 768, each of its CUDA kernels timed apart; B1
 variants likewise through ``fused_gated_attn_pool_batched``, each one's
@@ -87,13 +91,54 @@ GEMM_VARIANTS = {
 }
 
 
+# the f32 GEMM (csrc/vit_gemm_f32.cu): its flush depth, its products, its
+# stores
+F32_SMALL_TERMS = (
+    "#pragma unroll\n"
+    "      for (int j = 0; j < 4; ++j) wgmma_tf32(d, ah + 4 * j, dl + 2 * j, 1);\n"
+    "#pragma unroll\n"
+    "      for (int j = 0; j < 4; ++j) wgmma_tf32(d, ah + 4 * j, dh + 2 * j, 1);\n")
+F32_LO_LOAD = ("          tma_load(dst + 2 * kTileBytes, &map_lo, full + 8 * "
+               "stage, ks * kBK,\n                   n0);\n")
+GEMM_F32_VARIANTS = {
+    "as built": ("the kernel in the repository (each 32-deep stage's "
+                 "products added in f32)", []),
+    "flush 64": ("two stages' products summed on the tensor cores before "
+                 "they are added in f32",
+                 [("kFlushStages = 1;", "kFlushStages = 2;")]),
+    "no flush": ("all of K summed on the tensor cores",
+                 [("kFlushStages = 1;", "kFlushStages = 0;")]),
+    "one product": ("hi hi alone (wrong numbers): what the split's two "
+                    "other products cost",
+                    [(F32_SMALL_TERMS, ""),
+                     ("wgmma_tf32(d, al + 4 * j, dh + 2 * j,",
+                      "wgmma_tf32(d, ah + 4 * j, dh + 2 * j,")]),
+    "one product, A and W_hi": ("hi hi alone with W_lo's tiles not "
+                                "loaded (wrong numbers): whether the loads "
+                                "or the products bound one product",
+                                [(F32_SMALL_TERMS, ""),
+                                 ("wgmma_tf32(d, al + 4 * j, dh + 2 * j,",
+                                  "wgmma_tf32(d, ah + 4 * j, dh + 2 * j,"),
+                                 ("mbar_expect_tx(full + 8 * stage, "
+                                  "kStageBytes);",
+                                  "mbar_expect_tx(full + 8 * stage, "
+                                  "2 * kTileBytes);"),
+                                 (F32_LO_LOAD, "")]),
+    "stores off": ("the epilogue's arithmetic and stores off (the "
+                   "accumulators still staged, the residuals still read)",
+                   [("          if (row0 + 4 * i >= m_rows) continue;",
+                     "          if (row0 + 4 * i >= m_rows || n_cols > 0) "
+                     "continue;")]),
+}
+
+
 def build_variants(source: str = "vit_attn.cu", variants=None,
                    entry: str = "b5_mha_packed", argtypes=None) -> dict:
     src = (_build.CSRC / source).read_text()
     # the shared headers inlined, each once where it is first included, so
     # that a variant may change them too
     inlined = set()
-    while (inc := re.search(r'#include "(\w+\.cuh)"\n', src)):
+    while (inc := re.search(r'#include "(\w+\.cuh)"[^\n]*\n', src)):
         name = inc.group(1)
         body = "" if name in inlined else (
             (_build.CSRC / name).read_text().replace("#pragma once\n", ""))
@@ -181,6 +226,84 @@ def gemm_main(smi: str) -> None:
                     else f" ({2 * m * k * n / (dev * 1e-3) / 1e12:.1f} TFLOP/s)")
             print(f"  {name:14s} call {ms:.4f} ms, device "
                   f"{cs._fmt_ms(dev)}{rate}")
+    print(f"card: {smi}")
+
+
+def _f64_gemm(a, w, bias, epilogue, ln=None, res=None):
+    """The f32 GEMM's contract with every step in float64."""
+    from acmil_tpu_torch.ops import vit_layer as vl
+
+    af = a.double()
+    if ln is not None:
+        af = vl._ln_f32(af, *(t.double() for t in ln))
+    acc = af @ w.double().t() + bias.double()
+    if epilogue == vl.EPI_BIAS_GELU:
+        return torch.nn.functional.gelu(acc, approximate="tanh")
+    if epilogue == vl.EPI_RES_BIAS:
+        return acc + res.double()
+    return acc
+
+
+@torch.no_grad()
+def gemm_f32_main(smi: str) -> None:
+    from acmil_tpu_torch.ops import vit_layer as vl
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    entries = build_variants("vit_gemm_f32.cu", GEMM_F32_VARIANTS,
+                             "vit_gemm_f32", [p] * 10 + [i] * 4 + [p])
+    for name, (what, _) in GEMM_F32_VARIANTS.items():
+        print(f"variant {name!r}: {what}")
+    calls = cs._b3_gemm_calls(
+        torch.Generator(device="cuda").manual_seed(cs.SEED), torch.float32)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    kernels = ("gemm_f32_kernel", "split_w_kernel", "ln_rows_kernel")
+    total = {name: [0.0, 0.0] for name in entries}
+    lib = tf32 = 0.0
+    for label, a, w, bias, epi, _, ln, res in calls:
+        m, k = a.shape
+        n = w.shape[0]
+        out = torch.empty(m, n, device="cuda")
+        rows = torch.empty(m, k, device="cuda") if ln is not None else None
+        ws = torch.empty(2, n, k, device="cuda")
+        exact = _f64_gemm(a, w, bias, epi, ln, res)
+        plain = cs._gemm_plain(a, w, bias, epi, torch.float32, ln, res)
+        lib_err = float((plain.double() - exact).abs().max())
+        top = float(exact.abs().max())
+        ms_lib = cs._time_ms(lambda: torch.matmul(a, w.t()), 20)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        ms_tf32 = cs._time_ms(lambda: torch.matmul(a, w.t()), 20)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        lib, tf32 = lib + ms_lib, tf32 + ms_tf32
+        print(f"{label} M={m} K={k} N={n}: f32 torch.matmul {ms_lib:.4f} ms "
+              f"(its error against float64 {lib_err:.3e}, "
+              f"{lib_err / top:.3e} of the largest output), TF32 "
+              f"torch.matmul {ms_tf32:.4f} ms (one TF32 product: not the "
+              f"same function) [{smi}]")
+        for name in [*entries, *reversed(entries)]:
+            fn = entries[name]
+
+            def call():
+                err = fn(a.data_ptr(), ptr(ln and ln[0]), ptr(ln and ln[1]),
+                         ptr(rows), w.data_ptr(), ws.data_ptr(),
+                         bias.data_ptr(), None, ptr(res), out.data_ptr(), epi,
+                         m, n, k, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name}: cudaError_t {err}")
+
+            call()
+            torch.cuda.synchronize()
+            err = float((out.double() - exact).abs().max())
+            ms = cs._time_ms(call, 20)
+            dev = cs._split_ms(kernels, call)
+            total[name][0] += ms / 2
+            total[name][1] += sum(dev.values()) / 2
+            print(f"  {name:12s} call {ms:.4f} ms, device "
+                  f"{cs._fmt_split(dev)}; against float64 {err:.3e} "
+                  f"({err / max(lib_err, 1e-30):.2f}x f32 torch.matmul's)")
+    for name, (ms, dev) in total.items():
+        print(f"four calls, {name}: call {ms:.4f} ms, device {dev:.4f} ms")
+    print(f"four calls: f32 torch.matmul {lib:.4f} ms, TF32 torch.matmul "
+          f"{tf32:.4f} ms")
     print(f"card: {smi}")
 
 
@@ -457,13 +580,13 @@ def b6_main(smi: str) -> None:
 @torch.no_grad()
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=("attn", "gemm", "b1", "b2", "b6"),
-                        default="attn")
+    parser.add_argument("--kernel", choices=("attn", "gemm", "gemm_f32", "b1",
+                                             "b2", "b6"), default="attn")
     kernel = parser.parse_args().kernel
     smi = cs.card()
     if kernel != "attn":
-        {"gemm": gemm_main, "b1": b1_main, "b2": b2_main,
-         "b6": b6_main}[kernel](smi)
+        {"gemm": gemm_main, "gemm_f32": gemm_f32_main, "b1": b1_main,
+         "b2": b2_main, "b6": b6_main}[kernel](smi)
         return
     entries = build_variants()
     for name, (what, _) in VARIANTS.items():

@@ -71,9 +71,13 @@ def _check(got, want, tol=TOL):
 
 def test_source_is_tma_and_wgmma():
     # the products are warpgroup MMAs on TMA-filled tiles through an
-    # mbarrier ring; nothing of the old nvcuda::wmma kernel remains
+    # mbarrier ring (the primitives in csrc/hopper.cuh, which it includes);
+    # nothing of the old nvcuda::wmma kernel remains
     with open(SOURCE) as f:
         src = f.read()
+    assert '#include "hopper.cuh"' in src
+    with open(os.path.join(CSRC, "hopper.cuh")) as f:
+        src += f.read()
     for needle in ("wgmma.mma_async", "cp.async.bulk.tensor",
                    "mbarrier.try_wait", "setmaxnreg", "CUtensorMap"):
         assert needle in src, needle
@@ -85,14 +89,20 @@ def test_source_is_tma_and_wgmma():
 
 
 def test_f32_source_is_split_tf32_with_the_shared_rows():
-    # the f32 GEMM multiplies on tf32x3.cuh's split-TF32 block, each slice
-    # flushed in f32, and shares the prologue and epilogues with the bf16 one
+    # the f32 GEMM multiplies split-TF32 operands on wgmma .tf32 from
+    # TMA-filled f32 tiles (tf32x3.cuh's split, the primitives of
+    # hopper.cuh), and shares the prologue and epilogues with the bf16 one;
+    # nothing of the mma.sync block product remains
     with open(os.path.join(CSRC, "vit_gemm_f32.cu")) as f:
         src = f.read()
     for needle in ('#include "tf32x3.cuh"', '#include "vit_rows.cuh"',
-                   "run<true>", "launch_prologue<float, float, true>",
+                   '#include "hopper.cuh"', "m64n128k8.f32.tf32.tf32",
+                   "CU_TENSOR_MAP_DATA_TYPE_FLOAT32", "tma_load(",
+                   "setmaxnreg", "tf32x3::split<0>",
+                   "launch_prologue<float, float, true>",
                    "epilogue_value<kEpi>"):
         assert needle in src, needle
+    assert "BlockGemm" not in src and "mma.sync" not in src
     with open(SOURCE) as f:
         assert '#include "vit_rows.cuh"' in f.read()
 
@@ -244,3 +254,75 @@ def test_gemm_float32_is_as_accurate_as_float32_matmul(cuda_device, m, n, k,
     lib_err = float((lib.double() - exact).abs().max())
     assert err <= 2 * lib_err + F32_FLOOR * float(exact.abs().max()), \
         (err, lib_err)
+
+
+# B3's four calls at float32 as the chain makes them at ViT-S/16, B = 256
+# (M = 50432 tokens): (label, N, K, epilogue, LayerNorm)
+VIT_S16_CALLS = [("qkv", 1152, 384, port.EPI_BIAS, True),
+                 ("proj", 384, 384, port.EPI_RES_BIAS, False),
+                 ("fc1", 1536, 384, port.EPI_BIAS_GELU, True),
+                 ("fc2", 384, 1536, port.EPI_RES_BIAS, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label, n, k, epilogue, with_ln", VIT_S16_CALLS)
+def test_gemm_float32_at_the_vit_s16_calls(cuda_device, label, n, k,
+                                           epilogue, with_ln):
+    # the bar of test_gemm_float32_is_as_accurate_as_float32_matmul at the
+    # shapes of Step2's f32 path, many tiles a block of the persistent grid
+    m = 256 * 197
+    a, w, bias, ln, _, res = _operands(cuda_device, m, n, k, torch.float32,
+                                       w_dtype=torch.float32)
+    kw = dict(ln=ln if with_ln else None,
+              res=res if epilogue >= port.EPI_RES_BIAS else None)
+    with torch.no_grad():
+        got = port._gemm(a, w, bias, epilogue, out_dtype=torch.float32, **kw)
+        torch.cuda.synchronize()
+        lib = _plain(a, w, bias, epilogue, torch.float32, **kw)
+        exact = _plain(a.double(), w.double(), bias, epilogue, torch.float64,
+                       **kw)
+    err = float((got.double() - exact).abs().max())
+    lib_err = float((lib.double() - exact).abs().max())
+    assert err <= 2 * lib_err + F32_FLOOR * float(exact.abs().max()), \
+        (label, err, lib_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, k", [(1152, 384), (384, 1536), (8, 32)])
+def test_split_w_is_bit_exact_on_card(cuda_device, n, k):
+    # the split kernel against its plain version, with ties, subnormals,
+    # infinities and NaNs among the weights
+    rs = np.random.RandomState(n + k)
+    w = rs.randn(n, k).astype(np.float32)
+    special = np.array([0x3f801000, 0xbf803000, 0x00001000, 0x7f7fffff,
+                        0x7f800000, 0xff800000, 0x7fc00000, 0x7f800001],
+                       np.uint32).view(np.float32)
+    w.reshape(-1)[:len(special)] = special
+    w = torch.from_numpy(w)
+    before = port.split_w.launches
+    got = port.split_w(w.to(cuda_device))
+    torch.cuda.synchronize()
+    assert port.split_w.launches == before + 1
+    want = port._split_w_reference(w)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_gemm_float32_is_deterministic_and_launches_on_the_current_stream(
+        cuda_device):
+    a, w, bias, ln, _, res = _operands(cuda_device, 50432, 384, 1536,
+                                       torch.float32, w_dtype=torch.float32)
+    side = torch.cuda.Stream()
+    with torch.no_grad(), torch.cuda.stream(side):
+        one = port._gemm(a, w, bias, port.EPI_RES_BIAS,
+                         out_dtype=torch.float32, res=res)
+        two = port._gemm(a, w, bias, port.EPI_RES_BIAS,
+                         out_dtype=torch.float32, res=res)
+    side.synchronize()
+    assert torch.equal(one, two)
+    exact = _plain(a.double(), w.double(), bias, port.EPI_RES_BIAS,
+                   torch.float64, res=res)
+    lib = _plain(a, w, bias, port.EPI_RES_BIAS, torch.float32, res=res)
+    err = float((one.double() - exact).abs().max())
+    lib_err = float((lib.double() - exact).abs().max())
+    assert err <= 2 * lib_err + F32_FLOOR * float(exact.abs().max())
