@@ -21,13 +21,18 @@ and names ``torchrun --nproc_per_node``. The backend is ``nccl`` on CUDA and
 0 alone writes checkpoints, logs and prints, and every rank reads a
 checkpoint for ``--resume`` and ``--eval_only``.
 
-``--scan_epoch`` (or ``scan_epoch: true``) on one process trains through the
-scanned epoch of ``engine/train.py`` when the train bags are cached on the
-device (``cache_train``, the JAX gate): the stacked shape groups visited in
-the JAX package's order (``scan_interleave`` chunks), each group's step a
-CUDA graph on a card for the archs of ``GRAPH_SCAN_ARCHS``, eager
-otherwise; val and test, and ``--eval_only``, score through
-``evaluate_scanned``. The route is printed once. With a mesh it raises.
+``--scan_epoch`` (or ``scan_epoch: true``) trains through the scanned epoch
+of ``engine/train.py`` when the train bags are cached on the device
+(``cache_train``, the JAX gate: B = 1, or a mesh with ``scan_epoch`` and a
+family that scans, under ``n_data x 6 GiB`` of padded features): the
+stacked shape groups visited in the JAX package's order
+(``scan_interleave`` chunks), each group's step a CUDA graph on a card for
+the archs of ``GRAPH_SCAN_ARCHS``, eager otherwise; val and test, and
+``--eval_only``, score through ``evaluate_scanned``. On a mesh each rank
+stacks its part of every batch; a mesh of several processes runs eagerly
+(``gloo`` stages its collectives through the host, and NCCL capture across
+cards has not been checked), a world of one as one process. Rank 0 prints
+the route once.
 """
 
 from __future__ import annotations
@@ -43,20 +48,17 @@ from acmil_tpu_torch.config import Config
 from acmil_tpu_torch.data import BagLoader, build_hdf5_feat_dataset
 from acmil_tpu_torch.data.bags import bucket_length
 from acmil_tpu_torch.engine import (create_train_state, evaluate,
-                                    evaluate_scanned, get_family,
-                                    make_eval_step, make_scan_eval_step,
-                                    make_scan_train_step, make_train_step,
-                                    train_one_epoch, train_one_epoch_scanned)
+                                    evaluate_scanned, family_supports_scan,
+                                    get_family, make_eval_step,
+                                    make_scan_eval_step, make_scan_train_step,
+                                    make_train_step, train_one_epoch,
+                                    train_one_epoch_scanned)
 from acmil_tpu_torch.engine import checkpoint
 from acmil_tpu_torch.models import build_mil_model, model_family
 from acmil_tpu_torch.parallel import shard_params
 from acmil_tpu_torch.utils import MetricLogger, MetricsWriter, set_seed
 from acmil_tpu_torch.utils.device import entry_device
 
-# options of the JAX trainer this port has only on one process, each
-# refused together with a mesh
-NOT_PORTED = ("scan_epoch",)
-MESH_OPTIONS = ("mesh_data", "mesh_shape", "pod")
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -86,8 +88,10 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "torchrun launch")
     p.add_argument("--scan_epoch", action=argparse.BooleanOptionalAction,
                    default=None,
-                   help="scanned epochs over stacked shape groups (one "
-                        "process; CUDA graphs on a card); raises on a mesh")
+                   help="scanned epochs over stacked shape groups (CUDA "
+                        "graphs on a card in one process; on a mesh each "
+                        "rank's part of every group, eagerly across "
+                        "processes)")
     p.add_argument("--resume", action="store_true",
                    help="resume from checkpoint-last.pth in ckpt_dir, with "
                         "the optimizer state and the best-so-far record")
@@ -115,14 +119,7 @@ def feature_file(conf) -> str:
     raise FileNotFoundError(f"no feature file {stem}.h5 or {stem}.pt")
 
 
-def _refuse_unported(conf) -> None:
-    mesh = [k for k in MESH_OPTIONS if getattr(conf, k, None)]
-    for key in NOT_PORTED:
-        if conf.extra.get(key) not in (None, False, 0, "", {}) and mesh:
-            raise ValueError(f"{key!r} on a mesh ({mesh[0]!r}) is a feature "
-                             f"of the JAX package (acmil_tpu) that "
-                             f"acmil_tpu_torch has not ported; it runs on "
-                             f"one process: unset one of them")
+def _refuse_options(conf) -> None:
     family = model_family(conf.arch)
     if conf.extra.get("teacher_init") and not get_family(family).teacher:
         # the JAX trainer ignores it here; a set option that does nothing
@@ -188,7 +185,7 @@ def build_mesh(conf, device: torch.device):
 
 
 def run_training(conf: Config, extra_config: dict | None = None) -> dict:
-    _refuse_unported(conf)
+    _refuse_options(conf)
     device = entry_device(conf.extra.get("device"))
     if any(getattr(conf, k, None) for k in ("pod", "mesh_data", "mesh_shape")):
         from acmil_tpu_torch.parallel import local_device
@@ -217,21 +214,28 @@ def run_training(conf: Config, extra_config: dict | None = None) -> dict:
     # would freeze. Sized by padded bucket lengths, as cached bags are.
     feat_bytes = sum(bucket_length(n, conf.min_bucket, conf.max_patches)
                      for n in train_src.lengths()) * conf.D_feat * 2
-    # the JAX package's gate on one process: the same configuration caches
-    # (and may scan) alike
+    # the model first: the gate asks whether its family scans
+    model, family = (build_mil_model(conf) if mesh is None
+                     else build_mil_model(conf, mesh=mesh))
+    fam = get_family(family)
+    # the JAX package's gate, so the same configuration caches (and may
+    # scan) alike: on a mesh the cache is split over the data ranks, so the
+    # budget scales with them, and B > 1 (a batch's composition frozen on
+    # replay) is taken only where scanned epochs will run
+    n_data = mesh.data if mesh is not None else 1
+    scan_epoch = bool(getattr(conf, "scan_epoch", False))
+    cache_ok = conf.B == 1 or (mesh is not None and scan_epoch
+                               and family_supports_scan(fam))
     cache_train = bool(conf.extra.get(
-        "cache_train", conf.B == 1 and feat_bytes < 6 * 2 ** 30))
+        "cache_train", cache_ok and feat_bytes < n_data * 6 * 2 ** 30))
     train_loader = BagLoader(train_src, conf.B, shuffle=True, drop_last=True,
                              seed=conf.seed, cache_device=cache_train, **kw)
     val_loader = BagLoader(val_src, conf.B, cache_device=True, **kw)
     test_loader = BagLoader(test_src, conf.B, cache_device=True, **kw)
 
-    model, family = (build_mil_model(conf) if mesh is None
-                     else build_mil_model(conf, mesh=mesh))
     model.to(device)
     if mesh is not None:
         shard_params(model, mesh)
-    fam = get_family(family)
     steps_per_epoch = max(len(train_loader), 1)
     conf.extra.setdefault("steps_per_epoch", steps_per_epoch)
     state = create_train_state(model, conf, steps_per_epoch, family=fam)
@@ -247,17 +251,17 @@ def run_training(conf: Config, extra_config: dict | None = None) -> dict:
     # graph per group on a card; a family with a custom step and no step
     # body falls back to the per-bag loop, as in JAX
     scan_train = scan_eval = None
-    if bool(getattr(conf, "scan_epoch", False)):
+    if scan_epoch:
         if not cache_train:
-            say("scan_epoch: train bags are not device-cached (B>1, "
-                "cache_train: false, or features exceed the 6 GiB gate); "
-                "using the per-bag loop")
+            say("scan_epoch: train bags are not device-cached (B>1 on one "
+                "process, cache_train: false, or features exceed the "
+                "n_data x 6 GiB gate); using the per-bag loop")
         else:
-            scan_train = make_scan_train_step(model, conf, fam)
+            scan_train = make_scan_train_step(model, conf, fam, mesh=mesh)
             if scan_train is not None:
                 scan_eval = make_scan_eval_step(
                     model, fam, fused=bool(conf.extra.get("fused_train", True)),
-                    route=scan_train.route)
+                    mesh=mesh, route=scan_train.route)
                 say(f"scan_epoch: {scan_train.route} route "
                     f"({scan_train.reason})")
             else:
@@ -266,7 +270,7 @@ def run_training(conf: Config, extra_config: dict | None = None) -> dict:
 
     def run_eval(loader):
         if scan_eval is not None:
-            return evaluate_scanned(scan_eval, loader, conf.n_class)
+            return evaluate_scanned(scan_eval, loader, conf.n_class, mesh=mesh)
         return evaluate(eval_step, loader, conf.n_class, mesh=mesh)
 
     ckpt_dir = conf.ckpt_dir

@@ -13,7 +13,9 @@
   (``shard_bag``), cut on the host before the copy to its device;
 - :meth:`BagLoader.device_groups` stacks same-shape batches on a new leading
   axis, resident on the device, for the scanned epochs of
-  ``engine/train.py`` (one process only).
+  ``engine/train.py``; on a mesh each rank stacks its part of every batch,
+  grouped by the global batch's shape, so every rank holds the same groups
+  in the same order.
 """
 
 from __future__ import annotations
@@ -46,8 +48,11 @@ class BagLoader:
         mesh=None,
     ):
         if mesh is not None and batch_size % mesh.data:
-            raise ValueError(f"B={batch_size} slides a batch do not split "
-                             f"over the mesh's data axis of {mesh.data}")
+            # (the JAX loader checks this in device_groups)
+            raise ValueError(f"a mesh needs B ({batch_size}) divisible by "
+                             f"the data axis ({mesh.data}): each data rank "
+                             f"takes B / data slides of every batch, and of "
+                             f"every stacked group of the scan epochs")
         self.source = source
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -87,7 +92,12 @@ class BagLoader:
 
     # -- collation ----------------------------------------------------------
     def _collate(self, idxs: List[int]) -> Bag:
-        """Host side: read and collate, pinned when bound for a GPU."""
+        """Host side: read and collate (on a mesh, this rank's part),
+        pinned when bound for a GPU."""
+        return self._local(self._collate_whole(idxs))
+
+    def _collate_whole(self, idxs: List[int]) -> Bag:
+        """The global batch of ``idxs``, on a mesh padded to ``batch_size``."""
         items = [self.source[i] for i in idxs]
         feats = [it["input"] for it in items]
         coords = [it.get("coords") for it in items]
@@ -104,6 +114,12 @@ class BagLoader:
                            self.max_patches, dtype=self.dtype)
         if self.mesh is not None:
             bag.mask[n_real:] = False
+        return bag
+
+    def _local(self, bag: Bag) -> Bag:
+        """This rank's rows and seq slice of a global batch, pinned when
+        bound for a GPU."""
+        if self.mesh is not None:
             bag = shard_bag(bag, self.mesh, shard_seq=self.mesh.seq > 1)
             bag = Bag(*(t.contiguous() for t in bag._fields()))
         return bag.pin_memory() if self.device.type == "cuda" else bag
@@ -121,18 +137,20 @@ class BagLoader:
         draws from ``self.rng`` as the JAX loader's does, so one seed gives
         the groups and the later permutations of the JAX package. Epochs
         visit the groups, and the bags within a group, in fresh random
-        orders when ``shuffle`` is set. A loader on a mesh raises: scanned
-        epochs run on one process."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "device_groups: scan_epoch on a mesh is not ported; the "
-                "scanned epoch runs on one process")
+        orders when ``shuffle`` is set.
+
+        On a mesh every rank builds the same plan from the seed and stacks
+        its part of each batch (``_collate``: a ragged batch padded to
+        ``batch_size``, this rank's rows and, at seq > 1, its slice of N),
+        keyed by the global batch's shape: every rank holds the same groups
+        in the same order, so the later permutations of ``self.rng`` agree
+        across ranks."""
         if self._device_groups is None:
             by_shape: dict = {}
             for g in self._plan():
-                b = self._collate(g)
-                by_shape.setdefault((tuple(b.feats.shape), str(b.feats.dtype)),
-                                    []).append(b)
+                whole = self._collate_whole(g)
+                key = (tuple(whole.feats.shape), str(whole.feats.dtype))
+                by_shape.setdefault(key, []).append(self._local(whole))
             self._device_groups = [
                 Bag(*(torch.stack(ts).to(self.device)
                       for ts in zip(*(b._fields() for b in bs))))

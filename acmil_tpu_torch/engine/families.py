@@ -11,8 +11,9 @@ MHIM does three, its 'pure' stage the first, and DTFD the first two.
 On a mesh (``conf_d["mesh"]``, the ``mesh`` of an eval forward) a family
 whose head has a sequence path of its own says so (``takes_seq_slice``): its
 forward gets this rank's slice of N. Every other head gets the bag gathered
-over the seq group. CLAM, DSMIL and DTFD keep their plain forwards on a mesh,
-as the JAX families do.
+over the seq group. CLAM and DTFD keep their plain forwards on a mesh, as
+the JAX families do, and so does DSMIL's training; DSMIL's eval takes B6 on
+each rank's whole bags (gathered over seq) where it does in one process.
 """
 
 from __future__ import annotations
@@ -223,7 +224,11 @@ class DSMILFamily(Family):
     in the JAX package. Eval of the generic trainer's build pools through
     kernel B6 (``fast.dsmil_eval_fused``) when the bag's padded length is at
     least ``fast.FUSE_MIN_N``, the JAX package's route; below it, or with
-    ``fused=False``, the plain forward runs."""
+    ``fused=False``, the plain forward runs. On a mesh the eval forward
+    gets this rank's rows of whole bags (``make_eval_step`` gathers them
+    over seq), so B6 takes them as one process's bags: the JAX family
+    keeps ``model.apply`` there only because a bare ``pallas_call`` takes
+    no sharded operand."""
 
     name = "dsmil"
 
@@ -244,7 +249,7 @@ class DSMILFamily(Family):
         return loss, {"ce_loss": ce, "diff_loss": div}
 
     def eval_outputs(self, model, bag: Bag, fused: bool = True, mesh=None):
-        if (fused and mesh is None and fast.dsmil_is_fusable(model)
+        if (fused and fast.dsmil_is_fusable(model)
                 and bag.feats.shape[1] >= fast.FUSE_MIN_N):
             return fast.dsmil_eval_fused(model, bag.feats, bag.mask)
         return self._max_inst(self.plain_outputs(model, bag), bag)

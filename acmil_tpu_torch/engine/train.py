@@ -14,13 +14,16 @@ of each batch under the mesh made active: each data rank's loss is its
 share of the global loss, ``step_optimizer`` sums the gradients over the
 data group, and ``evaluate`` gathers the probabilities of every data rank.
 
-Scanned epochs (``scan_epoch``, one process): ``train_one_epoch_scanned``
-and ``evaluate_scanned`` drive the stacked shape groups of
+Scanned epochs (``scan_epoch``): ``train_one_epoch_scanned`` and
+``evaluate_scanned`` drive the stacked shape groups of
 ``BagLoader.device_groups`` in the JAX package's visit order, through
 ``make_scan_train_step`` and ``make_scan_eval_step``. On a card the step of
 each group of the archs in ``GRAPH_SCAN_ARCHS`` is captured once as a CUDA
 graph and replayed once per bag (``engine/graphs.py``); every other case
-runs the same step eagerly, for the reason ``scan_route`` gives.
+runs the same step eagerly, for the reason ``scan_route`` gives. On a mesh
+the scanned step is the per-bag mesh step on this rank's part of each
+group, and the scanned eval gathers over the data group as ``evaluate``
+does; a mesh of several processes runs eagerly.
 """
 
 from __future__ import annotations
@@ -126,17 +129,21 @@ def clip_by_module_norms_(groups: List[List[torch.Tensor]],
         torch._foreach_mul_(grads, scale)
 
 
-def apply_gradients(state: TrainState, loss: torch.Tensor,
-                    params) -> torch.Tensor:
+def apply_gradients(state: TrainState, loss: torch.Tensor, params,
+                    sched: Optional["DeviceSchedule"] = None) -> torch.Tensor:
     """Backpropagate ``loss`` into ``params`` and take one optimizer step
-    (:func:`step_optimizer`); a parameter the loss does not reach gets a
-    zero gradient (as in JAX: torch's optimizers skip a parameter whose grad
-    is None, optax still decays it). Returns the pre-clip gradient norm."""
+    (:func:`step_optimizer`, or with ``sched`` the rate from the device,
+    :func:`_device_step_optimizer`); a parameter the loss does not reach
+    gets a zero gradient (as in JAX: torch's optimizers skip a parameter
+    whose grad is None, optax still decays it). Returns the pre-clip
+    gradient norm."""
     state.opt.zero_grad(set_to_none=True)
     loss.backward()
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if sched is not None:
+        return _device_step_optimizer(state, params, sched)
     return step_optimizer(state, params)
 
 
@@ -253,19 +260,35 @@ def make_train_step(model, conf, family="acmil", mesh=None) -> Callable:
     shares of the global batch's, and ``aux`` holds their sums over the data
     ranks, the global values."""
     fam = _resolve_family(family)
+    return _mesh_step(model, conf, fam, mesh, fam.make_step(model, conf),
+                      scanned=False)[0]
+
+
+def _mesh_step(model, conf, fam: Family, mesh, custom, scanned: bool):
+    """``(step(state, bag, stkim_u, sched) -> aux, params)``: the one step
+    body of :func:`make_train_step` and of the scanned epochs, with the
+    mesh's wiring: the mesh active, the bag gathered over seq for a head
+    that takes no seq slice, this rank's rows of ``stkim_u``, the
+    gradients summed over the data group (:func:`step_optimizer`,
+    :func:`_device_step_optimizer`) and ``aux``'s shares summed
+    (:func:`_sum_shares`). ``custom`` is the family's own step (called
+    with the gathered bag). ``scanned`` decides STKIM's branch on the
+    device; a ``sched`` then gives the rate from the device."""
     use_sam = bool(getattr(conf, "use_sam", False))
-    custom = fam.make_step(model, conf)
     if custom is not None and use_sam:
         raise ValueError(f"use_sam: family {fam.name!r} brings its own "
                          f"train step, which takes no SAM gradient")
     conf_d = fam.conf_dict(conf)
     conf_d["mesh"] = mesh
+    if scanned:
+        conf_d["stkim_on_device"] = True
     params = [p for p in model.parameters() if p.requires_grad]
     sam_rho = float(getattr(conf, "sam_rho", 0.05))
     sliced = mesh is not None and fam.takes_seq_slice(
         model, conf_d.get("fused", False))
 
-    def body(state: TrainState, bag, full, stkim_u) -> Dict[str, torch.Tensor]:
+    def body(state: TrainState, bag, full, stkim_u,
+             sched: Optional["DeviceSchedule"]) -> Dict[str, torch.Tensor]:
         model.train()
         valid = full.mask.any(dim=1)
 
@@ -288,23 +311,26 @@ def make_train_step(model, conf, family="acmil", mesh=None) -> Callable:
             norm = step_optimizer(state, params)
         else:
             loss, aux = loss_fn()
-            norm = apply_gradients(state, loss, params)
+            norm = apply_gradients(state, loss, params, sched)
         aux = {k: v.detach() for k, v in aux.items()}
         aux["loss"] = loss.detach()
         aux["grad_norm"] = norm
         return aux
 
-    def step(state: TrainState, bag, stkim_u=None) -> Dict[str, torch.Tensor]:
+    def step(state: TrainState, bag, stkim_u=None,
+             sched: Optional["DeviceSchedule"] = None
+             ) -> Dict[str, torch.Tensor]:
         with active(mesh):
             full = gather_seq(bag, mesh, feats=not sliced)
             stkim_u = _data_rows(stkim_u, mesh, fam.draws_batch_dim)
             if custom is not None:
                 aux = custom(state, full, stkim_u)
             else:
-                aux = body(state, bag if sliced else full, full, stkim_u)
+                aux = body(state, bag if sliced else full, full, stkim_u,
+                           sched)
             return _sum_shares(aux, mesh)
 
-    return step
+    return step, params
 
 
 def _sum_shares(aux: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
@@ -367,11 +393,17 @@ def evaluate(eval_step, loader, n_class: int, mesh=None) -> Dict[str, float]:
         probs_dev.append(eval_step(bag))       # stays on device (async)
         valid_dev.append(gather_seq(bag, mesh, feats=False).mask.any(dim=1))
         labels_dev.append(bag.label)
+    return _gathered_metrics(probs_dev, valid_dev, labels_dev, n_class, mesh)
+
+
+def _gathered_metrics(probs_dev, valid_dev, labels_dev, n_class: int,
+                      mesh) -> Dict[str, float]:
+    """The metrics of every data rank's rows, gathered once, then one bulk
+    host transfer instead of a sync per batch."""
     if mesh is not None and mesh.data_group is not None and probs_dev:
         whole = gather_across_hosts(torch.cat(probs_dev), torch.cat(labels_dev),
                                     torch.cat(valid_dev), mesh.data_group)
         probs_dev, labels_dev, valid_dev = ([t] for t in whole)
-    # one bulk host transfer at the end instead of a sync per batch
     to_np = lambda ts: [t.cpu().numpy() for t in ts]
     return _finalize_metrics(to_np(probs_dev), to_np(valid_dev),
                              to_np(labels_dev), n_class)
@@ -402,13 +434,24 @@ EAGER_SCAN_REASONS = {
 }
 
 
-def scan_route(conf, device) -> Tuple[str, str]:
+def scan_route(conf, device, mesh=None) -> Tuple[str, str]:
     """``("graph" | "eager", why)``: how the scanned step of ``conf.arch``
-    runs on ``device``, decided from the configuration and the device alone
-    and before any capture. A capture that then fails raises."""
+    runs on ``device`` and ``mesh``, decided from the configuration alone
+    and before any capture. A capture that then fails raises. A mesh of
+    one process takes the one process's route; across processes the step
+    runs eagerly: ``gloo``'s collectives cannot be captured, and NCCL's
+    have not been checked under capture across cards."""
     device = torch.device(device)
     if device.type != "cuda":
         return "eager", f"the device is {device.type}, not a card"
+    if mesh is not None and mesh.world > 1:
+        if mesh.backend == "nccl":
+            return "eager", (f"a mesh of {mesh.world} processes: NCCL "
+                             f"capture across cards has not been checked "
+                             f"on a card")
+        return "eager", (f"a mesh of {mesh.world} processes on "
+                         f"{mesh.backend}: gloo collectives stage through "
+                         f"the host and cannot be captured")
     if bool(getattr(conf, "use_sam", False)):
         return "eager", "use_sam: " + EAGER_SCAN_REASONS["use_sam"]
     if conf.arch in GRAPH_SCAN_ARCHS:
@@ -464,6 +507,7 @@ def _device_step_optimizer(state: TrainState, params,
     from ``sched`` on the device, and ``state.step`` is left to the caller,
     which adds a dispatch's steps after it."""
     grads = [p.grad for p in params]
+    sum_over_data_(grads)
     gnorm = global_norm(grads)
     if state.clip_groups:
         clip_by_module_norms_(state.clip_groups, state.grad_clip)
@@ -474,64 +518,18 @@ def _device_step_optimizer(state: TrainState, params,
     return gnorm
 
 
-def _make_scan_body(model, conf, fam: Family):
-    """``(body(state, bag, sched) -> aux, params, device_lr)``: the per-bag
-    step of the scanned route. It is :func:`make_train_step`'s on one
-    process, with STKIM's branch decided on the device
-    (``models/fast.py::_stkim_correct``, ``on_device``) and, when
+def _make_scan_body(model, conf, fam: Family, mesh=None):
+    """``(step(state, bag, sched=...) -> aux, params, device_lr)``: the
+    per-bag step of the scanned route. It is :func:`make_train_step`'s, on
+    ``mesh`` too (:func:`_mesh_step`), with STKIM's branch decided on the
+    device (``models/fast.py::_stkim_correct``, ``on_device``) and, when
     ``sched`` is given, the rate from the device. A family's own step body
     (MHIM) and SAM steps keep the host's rate and step count."""
-    use_sam = bool(getattr(conf, "use_sam", False))
     custom = (fam.make_step_body(model, conf)
               if hasattr(fam, "make_step_body") else None)
-    if custom is not None and use_sam:
-        raise ValueError(f"use_sam: family {fam.name!r} brings its own "
-                         f"train step, which takes no SAM gradient")
-    conf_d = fam.conf_dict(conf)
-    conf_d["mesh"] = None
-    conf_d["stkim_on_device"] = True
-    params = [p for p in model.parameters() if p.requires_grad]
-    sam_rho = float(getattr(conf, "sam_rho", 0.05))
-
-    def body(state: TrainState, bag, sched: Optional[DeviceSchedule]
-             ) -> Dict[str, torch.Tensor]:
-        if custom is not None:
-            return custom(state, bag)
-        model.train()
-        valid = bag.mask.any(dim=1)
-
-        def loss_fn():
-            outputs = fam.train_outputs(model, bag, conf_d,
-                                        generator=state.generator)
-            return fam.loss(outputs, bag, valid, conf_d)
-
-        if use_sam:
-            replay = _rng_replay(state, bag.feats.device)
-
-            def replayed():
-                replay()
-                return loss_fn()
-
-            (loss, aux), grads = sam_gradient(replayed, params, sam_rho,
-                                              reduce_grads=sum_over_data_)
-            for p, g in zip(params, grads):
-                p.grad = g
-            norm = step_optimizer(state, params)
-        else:
-            loss, aux = loss_fn()
-            state.opt.zero_grad(set_to_none=True)
-            loss.backward()
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            norm = (step_optimizer(state, params) if sched is None
-                    else _device_step_optimizer(state, params, sched))
-        aux = {k: v.detach() for k, v in aux.items()}
-        aux["loss"] = loss.detach()
-        aux["grad_norm"] = norm
-        return aux
-
-    return body, params, custom is None and not use_sam
+    step, params = _mesh_step(model, conf, fam, mesh, custom, scanned=True)
+    use_sam = bool(getattr(conf, "use_sam", False))
+    return step, params, custom is None and not use_sam
 
 
 def _opt_tensors(opt) -> List[torch.Tensor]:
@@ -553,16 +551,25 @@ class ScanTrainStep:
     runs with ``capturable`` set; ``state.step`` is brought up to date after
     each chunk. The graph route captures every group of the first epoch
     after one warm-up step each, from which parameters, optimizer state
-    and generators are put back."""
+    and generators are put back.
 
-    def __init__(self, model, conf, fam: Family, route: Optional[str] = None):
+    On a ``mesh`` the stacked groups hold this rank's part of each batch
+    (``BagLoader.device_groups``) and the body is the per-bag mesh step's
+    (:func:`_mesh_step`): every rank runs the same chunks in the same order
+    and steps the same schedule, and the sums are the global batch's."""
+
+    def __init__(self, model, conf, fam: Family, route: Optional[str] = None,
+                 mesh=None):
         self.device = next(model.parameters()).device
-        self.route, self.reason = scan_route(conf, self.device)
+        self.route, self.reason = scan_route(conf, self.device, mesh)
         if route is not None and route != self.route:
             if route == "graph" and self.device.type != "cuda":
                 raise ValueError("the graph route needs a card")
+            if route == "graph" and mesh is not None and mesh.world > 1:
+                raise ValueError("the graph route runs on a mesh of one "
+                                 "process only: " + self.reason)
             self.route, self.reason = route, f"{route} route asked for"
-        self.body, self.params, own = _make_scan_body(model, conf, fam)
+        self.body, self.params, own = _make_scan_body(model, conf, fam, mesh)
         self.device_lr = own and self.device.type == "cuda"
         self.keys: Optional[List[str]] = None
         self.acc: Optional[torch.Tensor] = None
@@ -573,7 +580,7 @@ class ScanTrainStep:
 
     # -- the body and its sums -------------------------------------------
     def _run(self, bag) -> Dict[str, torch.Tensor]:
-        return self.body(self._state, bag, self.sched)
+        return self.body(self._state, bag, sched=self.sched)
 
     def _record(self, stacked, aux, idx) -> None:
         if self.keys is None:
@@ -671,14 +678,12 @@ def make_scan_train_step(model, conf, family="acmil", mesh=None,
     ``make_scan_train_step``), or None for a family that brings its own
     step without a step body (none does: every family scans). ``route``
     ("graph" or "eager") overrides :func:`scan_route`'s choice, to compare
-    the two. On a ``mesh`` it raises: scanned epochs run on one process."""
-    if mesh is not None:
-        raise NotImplementedError("scan_epoch on a mesh is not ported; "
-                                  "scanned epochs run on one process")
+    the two. On a ``mesh`` it takes this rank's part of each stacked group,
+    as :func:`make_train_step` takes this rank's part of a batch."""
     fam = _resolve_family(family)
     if not family_supports_scan(fam):
         return None
-    return ScanTrainStep(model, conf, fam, route)
+    return ScanTrainStep(model, conf, fam, route, mesh)
 
 
 class ScanEvalStep:
@@ -686,10 +691,11 @@ class ScanEvalStep:
     with the model in eval mode: :func:`make_eval_step`'s forward per bag,
     eagerly or, on the graph route, as one CUDA graph per group (captured
     on the group's first call after one eager warm-up) replayed per bag
-    into a buffer outside the pool."""
+    into a buffer outside the pool. On a ``mesh`` it scores this rank's
+    rows of each stacked group under the mesh's eval forward."""
 
-    def __init__(self, model, family, fused: bool, route: str):
-        self.step = make_eval_step(model, family, fused=fused)
+    def __init__(self, model, family, fused: bool, route: str, mesh=None):
+        self.step = make_eval_step(model, family, fused=fused, mesh=mesh)
         self.device = next(model.parameters()).device
         self.route = route
         self.out: Dict[int, torch.Tensor] = {}
@@ -729,13 +735,14 @@ class ScanEvalStep:
 def make_scan_eval_step(model, family="default", fused: bool = True,
                         mesh=None, route: str = "eager") -> ScanEvalStep:
     """The scanned counterpart of :func:`make_eval_step`: probabilities for
-    a whole stacked shape group, ``[k, B, C]``, on ``route``: the trainer
-    passes its train step's (``ScanTrainStep.route``); "graph" needs a
-    card."""
-    if mesh is not None:
-        raise NotImplementedError("scan_epoch on a mesh is not ported; "
-                                  "scanned epochs run on one process")
-    return ScanEvalStep(model, family, fused, route)
+    a whole stacked shape group, ``[k, B, C]`` (on a ``mesh``, this rank's
+    rows), on ``route``: the trainer passes its train step's
+    (``ScanTrainStep.route``); "graph" needs a card and, on a mesh, a
+    world of one."""
+    if route == "graph" and mesh is not None and mesh.world > 1:
+        raise ValueError(f"the graph route runs on a mesh of one process "
+                         f"only, not of {mesh.world}")
+    return ScanEvalStep(model, family, fused, route, mesh)
 
 
 def train_one_epoch_scanned(state: TrainState, scan_step, loader,
@@ -778,19 +785,23 @@ def train_one_epoch_scanned(state: TrainState, scan_step, loader,
     return state, stats
 
 
-def evaluate_scanned(scan_eval_step, loader, n_class: int) -> Dict[str, float]:
+def evaluate_scanned(scan_eval_step, loader, n_class: int,
+                     mesh=None) -> Dict[str, float]:
     """:func:`evaluate` over the loader's stacked shape groups, one
     ``scan_eval_step`` call per group; the same probabilities, metrics
-    from one host transfer at the end."""
+    from one host transfer at the end. On a ``mesh`` each rank scores its
+    rows of each group, and every data rank's probabilities, labels and
+    valid flags are gathered once, at the end, as :func:`evaluate` gathers
+    them: every rank then computes the same metrics."""
     probs_dev, valid_dev, labels_dev = [], [], []
     for stacked in loader.device_groups():
         probs = scan_eval_step(stacked)                   # [k, B, C]
+        rows = Bag(*(t.flatten(0, 1) for t in stacked._fields()))
         probs_dev.append(probs.reshape(-1, probs.shape[-1]))
-        valid_dev.append(stacked.mask.any(dim=2).reshape(-1))
-        labels_dev.append(stacked.label.reshape(-1))
-    to_np = lambda ts: [t.cpu().numpy() for t in ts]
-    return _finalize_metrics(to_np(probs_dev), to_np(valid_dev),
-                             to_np(labels_dev), n_class)
+        # at seq > 1 a rank's mask covers its slice of N only
+        valid_dev.append(gather_seq(rows, mesh, feats=False).mask.any(dim=1))
+        labels_dev.append(rows.label)
+    return _gathered_metrics(probs_dev, valid_dev, labels_dev, n_class, mesh)
 
 
 def is_better(metrics: Dict[str, float], best: Dict[str, float],

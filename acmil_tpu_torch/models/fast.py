@@ -119,14 +119,18 @@ def _stkim_correct(bag, logits, feats, mask, w1, n_masked_patch: int,
     step, which a CUDA graph holds) both branches are computed and
     ``torch.where`` keeps the one the host would have taken, with its very
     numbers: the cost is the exact branch's dim-reduction GEMM over every
-    patch, ``[B, N, Df] x [Df, L]``, each step. ``on_device`` takes no mesh.
+    patch, ``[B, N, Df] x [Df, L]``, each step.
 
     On a ``mesh`` with a seq axis, ``logits`` and ``mask`` are the whole
     bag's (gathered) and ``feats`` this rank's slice of N: the top-k runs
     over the whole bag, each rank adds the terms of its own rows, and a
     psum over the seq group joins them. Every rank of the world takes the
     branch of the world's least kept mass, as the JAX ``lax.cond`` takes
-    the branch of the global batch's.
+    the branch of the global batch's: the least is MIN-reduced over the
+    world group, then read on the host (the per-bag step) or kept on the
+    device for the ``torch.where`` (``on_device``, the scanned step; on
+    ``gloo`` the reduction itself stages through the host, so only an
+    NCCL world of one runs that step in a CUDA graph).
 
     Returns (bag' [B, K, L], post-drop logits [B, K, N] with NEG_INF at
     dropped positions).
@@ -172,13 +176,11 @@ def _stkim_correct(bag, logits, feats, mask, w1, n_masked_patch: int,
         attn = C.group_slice(C.fan_out(attn, group), group, 2)
         return C.psum(torch.einsum("bkn,bnl->bkl", attn, h), group)
 
-    if on_device:
-        if mesh is not None:
-            raise ValueError("STKIM's branch on the device takes no mesh")
-        return torch.where(least >= _STKIM_KEPT_MIN, subtract(), exact()), \
-            a_drop
     if mesh is not None:
         least = C.all_reduce_(least.clone(), mesh.world_group, C.ReduceOp.MIN)
+    if on_device:
+        return torch.where(least >= _STKIM_KEPT_MIN, subtract(), exact()), \
+            a_drop
     if float(least) >= _STKIM_KEPT_MIN:
         return subtract(), a_drop
     return exact(), a_drop

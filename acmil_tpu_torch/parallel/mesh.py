@@ -84,7 +84,8 @@ class Mesh:
     model`` processes, ``model`` innermost (Step3 runs ``(data, seq)`` at
     model 1, Step2 ``(data, model)`` at seq 1). ``data_group``,
     ``seq_group`` and ``model_group`` are this rank's groups along each
-    axis, None where the axis has size 1."""
+    axis, None where the axis has size 1. ``backend`` names the process
+    group's backend (``nccl``, ``gloo``), None outside a process group."""
 
     data: int
     seq: int
@@ -94,6 +95,7 @@ class Mesh:
     seq_group: object = None
     model: int = 1
     model_group: object = None
+    backend: Optional[str] = None
 
     @property
     def world(self) -> int:
@@ -160,8 +162,9 @@ def make_mesh(data: Optional[int] = None, seq: int = 1,
     if model > 1:
         model_group = axis_group([[at(d, s, m) for m in range(model)]
                                   for d in range(data) for s in range(seq)])
+    backend = dist.get_backend() if dist.is_initialized() else None
     return Mesh(data, seq, rank, torch.device(device or "cpu"), data_group,
-                seq_group, model, model_group)
+                seq_group, model, model_group, backend)
 
 
 def make_pod_mesh(seq: int = 1, device: Optional[torch.device] = None,

@@ -307,6 +307,24 @@ code is non-zero:
    TF32 product, not the same function), B5' at fp16 and f32 beside SDPA (f32
    also on B7's fma route, its earlier route, through ``_launch_fma``), a
    B3 layer at each dtype split by kernel.
+25. Step3's scanned epoch on a ``(data, seq)`` mesh of processes
+   (``scan_mesh_run``; it runs after phase 23, whose cohort file and
+   checkpoint it reads, and before phase 24), each launch a torchrun of this
+   script's ``--mesh-worker`` mode, every rank required to exit 0: (a) NCCL
+   at world 1, ``cli/step3_acmil.py --scan_epoch --mesh_data 1`` for 2
+   epochs on phase 23's cohort: the graph route printed once, B1 and B2
+   replayed once a step and B1 once an eval bag, and the last checkpoint
+   equal to phase 23 (a)'s within ``SCAN_GRAPH_ATOL``; (b) two gloo ranks at
+   data 2, B 2, one scanned epoch of the cohort on the eager route (the
+   reason printed) against the per-bag mesh loop (``train_one_epoch``) fed
+   its visit order from the same weights and draws: parameters within lr a
+   step, mean loss and gradient norm within ``SCAN_MESH_LOSS_RTOL`` and
+   ``SCAN_MESH_GNORM_RTOL``, every rank's parameters equal, B1 and B2 once a
+   step a rank; epoch wall, ms in gloo collectives a step; (c) the same at
+   four ranks, data 2 x seq 2, on the first ``SCAN_SUB`` bags (B1 and B2 on
+   each rank's slice of N under the flash merge); (d) DSMIL's scanned eval
+   at data 2 on phase 23's ``SCAN_DSMIL_BAGS`` bags: B6 once a bag a rank,
+   the metrics of ``evaluate`` on the mesh on every rank.
 
 The line before the kernels line is ``{"zoo": {...}}``: phase 18's and
 phase 19's numbers per arch (training epoch wall and loss, predict seconds,
@@ -314,8 +332,8 @@ card-vs-CPU error, step and eval ms, device ms and device events; phase
 19's also the step's peak memory), the kernel launches phase 18 counted,
 phase 19's checks under ``transmil_mhim`` and phase 20's numbers under
 ``dtfd_sam_resnet``, phase 21's under ``mesh`` and phase 22's under
-``step2_mesh``, phase 23's under ``scan_epoch`` and phase 24's under
-``vit_dtypes``. The line before the last but one is ``{"kernels": [...]}``
+``step2_mesh``, phase 23's under ``scan_epoch``, phase 24's under
+``vit_dtypes`` and phase 25's under ``scan_mesh``. The line before the last but one is ``{"kernels": [...]}``
 with each kernel's launches on its path (``gemm_f16``, ``gemm_f32``,
 ``b5_f16`` and ``b5_b7_f32_tf32x3`` on phase 24's Step2 path at their
 dtype, timed at ViT-S/16, B=256, the GEMMs summed over B3's four calls;
@@ -350,7 +368,11 @@ data 2 x seq 2 epoch summed over its ranks; ``launches_sharded_step_seq2``,
 ``launches_mesh_nccl_world1``), and on phase 23's scanned epochs
 (``launches_scan_epoch_step3``: (a)'s warm-ups plus its replays times the
 launches of one capture; ``launches_scan_graph_epochs``: (b) and (e)'s
-graph epochs; B6's ``launches_scan_eval_graph``: (f)); then the card's
+graph epochs; B6's ``launches_scan_eval_graph``: (f)), and on phase 25's
+scanned mesh epochs, summed over the ranks (``launches_scan_mesh_nccl_world1``:
+(a)'s warm-ups and replays; ``launches_scan_mesh_data2``,
+``launches_scan_mesh_data2_seq2``: (b) and (c)'s scanned epochs; B6's
+``launches_scan_mesh_eval_data2``: (d)); then the card's
 name and power limit; the last line
 is
 ``{"ok": true, "device": {...}}``.
@@ -4388,7 +4410,7 @@ def _mesh_worker_cli(out: str, argv: list) -> None:
 
 
 def mesh_worker(job: str, out: str, *argv: str) -> None:
-    """One rank of a phase-21 or phase-22 launch (``python -m
+    """One rank of a phase-21, 22 or 25 launch (``python -m
     torch.distributed.run ... chip_smoke.py --mesh-worker JOB OUT
     [ARGV...]``)."""
     if job == "steps":
@@ -4399,6 +4421,10 @@ def mesh_worker(job: str, out: str, *argv: str) -> None:
         _step2_worker_cli(out, list(argv))
     elif job == "step2_pair":
         _step2_worker_pair(out, *argv)
+    elif job == "scan_cli":
+        _scan_worker_cli(out, list(argv))
+    elif job == "scan_mesh":
+        _scan_worker_mesh(out, *argv)
     else:
         raise ValueError(f"no mesh job {job!r}")
     if torch.distributed.is_initialized():
@@ -5427,7 +5453,8 @@ def _scan_cli(smi: str, tmp: str, slides: dict) -> dict:
           f"{', '.join('%.6f' % r['train/loss'] for r in epochs)}; best "
           f"epoch {best.get('epoch')} val auc {best.get('auc', float('nan')):.4f} "
           f"[{smi}]")
-    return total
+    return total, {"data_dir": data_dir, "yml": yml, "ckpt_dir": ckpt_dir,
+                   "best": best}
 
 
 def _same_eval(got: dict, want: dict) -> bool:
@@ -5733,7 +5760,7 @@ def scan_epoch_run(smi: str, tmp: str) -> dict:
     root = os.path.join(tmp, "scan")
     os.makedirs(root)
     t1 = time.perf_counter()
-    cli = _scan_cli(smi, root, slides)
+    cli, out_cli = _scan_cli(smi, root, slides)
     t2 = time.perf_counter()
     out = _scan_routes(smi, cohort)
     t3 = time.perf_counter()
@@ -5741,10 +5768,396 @@ def scan_epoch_run(smi: str, tmp: str) -> dict:
     out["part_s"] = {"cohort": t1 - t0, "cli": t2 - t1, "routes": t3 - t2,
                      "heads": time.perf_counter() - t3}
     out["launches_cli"] = cli
+    out["cli_run"] = out_cli
     out["cohort_s"] = made_s
     out["seconds"] = time.perf_counter() - t0
     print(f"scan: phase 23 in {out['seconds']:.1f} s (by part "
           f"{ {k: round(v, 1) for k, v in out['part_s'].items()} }) [{smi}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: Step3's scanned epoch on a (data, seq) mesh of processes
+# ---------------------------------------------------------------------------
+
+# (b)-(d): the scanned mesh epoch against the per-bag mesh loop in its visit
+# order with the same draws. The scanned route on a card takes its rate
+# from the device and steps a capturable AdamW, the loop the host's rate:
+# parameters within lr a step (shift-invariant biases move by rounding
+# noise alone), the mean loss and gradient norm to the bounds of the JAX
+# comparison (tests/test_torch_scan_epoch.py)
+SCAN_MESH_LOSS_RTOL, SCAN_MESH_GNORM_RTOL = 1e-4, 1e-3
+# (c): ACMIL_GA at data 2 x seq 2 on the first SCAN_SUB bags of the cohort
+
+
+def _scan_src(feats_path: str, n: int):
+    """The first ``n`` bags of phase 23's cohort, from its feature file."""
+    from acmil_tpu_torch.data.ptio import PtBagSource
+
+    names = sorted(torch.load(feats_path, map_location="cpu", mmap=True,
+                              weights_only=True))[:n]
+    return PtBagSource(feats_path, names)
+
+
+def _params_diff(a, b) -> float:
+    return max(float((p - q).detach().abs().max())
+               for p, q in zip(a.parameters(), b.parameters()))
+
+
+def _rank_spread(model, mesh) -> float:
+    """The largest difference of this rank's parameters from global rank
+    0's."""
+    from acmil_tpu_torch.parallel import collectives as C
+
+    worst = 0.0
+    with torch.no_grad():
+        for p in model.parameters():
+            q = C.broadcast_(p.detach().clone(), 0, mesh.world_group)
+            worst = max(worst, float((p - q).abs().max()))
+    return worst
+
+
+def _scan_vs_loop(mesh, conf, src, device, batch: int) -> dict:
+    """One scanned epoch of ACMIL_GA on ``mesh`` (``batch`` slides a batch)
+    and the per-bag mesh loop (``train_one_epoch``) fed its visit order from
+    the same weights and generator: each timed, its gloo collectives and
+    its B1/B2 launches counted."""
+    from acmil_tpu_torch.data import BagLoader
+    from acmil_tpu_torch.engine.graphs import take
+    from acmil_tpu_torch.engine.train import (create_train_state,
+                                              make_scan_train_step,
+                                              make_train_step,
+                                              train_one_epoch,
+                                              train_one_epoch_scanned)
+    from acmil_tpu_torch.models import build_mil_model
+    from acmil_tpu_torch.parallel import shard_params
+
+    torch.manual_seed(SEED)
+    model, fam = build_mil_model(conf, mesh=mesh)
+    model.to(device)
+    shard_params(model, mesh)
+    twin = copy.deepcopy(model)
+    loader = BagLoader(src, batch, shuffle=True, drop_last=True,
+                       seed=SCAN_LOADER_SEED, min_bucket=SCAN_MIN_BUCKET,
+                       dtype=np.float16, device=device, mesh=mesh)
+    t0 = time.perf_counter()
+    groups = loader.device_groups()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    state = create_train_state(model, conf, len(loader), family=fam)
+    scan = make_scan_train_step(model, conf, fam, mesh=mesh)
+    seen = []
+
+    def recording(st, stacked, chunk, gs):
+        seen.append((stacked, [int(i) for i in chunk]))
+        return scan(st, stacked, chunk, gs)
+
+    # one throwaway step of each route first, on copies: the process's
+    # first launches (modules loaded, gloo's pairs opened) stay out of the
+    # timed epochs
+    bag0 = take(groups[0], torch.tensor([0], device=device))
+    for make in (make_scan_train_step, make_train_step):
+        warm = copy.deepcopy(model)
+        w_state = create_train_state(warm, conf, len(loader), family=fam)
+        w_step = make(warm, conf, fam, mesh=mesh)
+        if make is make_train_step:
+            w_step(w_state, bag0)
+        else:
+            w_step(w_state, groups[0], [0], groups)
+        del warm, w_state, w_step
+    torch.cuda.synchronize()
+    clock = _CollectiveClock()
+    res = {"route": scan.route, "reason": scan.reason, "upload_s": upload_s,
+           "groups": len(groups), "rank": mesh.rank}
+    for name in ("scan", "loop"):
+        if name == "loop":
+            st = create_train_state(twin, conf, len(loader), family=fam)
+            step = make_train_step(twin, conf, fam, mesh=mesh)
+            bags = [take(stacked, torch.tensor([i], device=device))
+                    for stacked, chunk in seen for i in chunk]
+            run = lambda: train_one_epoch(st, step, bags, 0)
+        else:
+            run = lambda: train_one_epoch_scanned(state, recording, loader, 0)
+        _zero_counts()
+        clock.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, stats = run()
+        torch.cuda.synchronize()
+        res[name] = {"wall_s": time.perf_counter() - t0, "stats": stats,
+                     "collective_s": clock.seconds,
+                     "collective_calls": clock.calls, **_counts()}
+    clock.restore()
+    steps = sum(len(c) for _, c in seen)
+    res.update(steps=steps, state_step=state.step, loop_step=st.step,
+               param_diff=_params_diff(model, twin),
+               rank_spread=_rank_spread(model, mesh))
+    del groups, bags, bag0, loader, model, twin
+    torch.cuda.empty_cache()
+    return res
+
+
+def _scan_worker_cli(out: str, argv: list) -> None:
+    """(a): ``cli/step3_acmil.py --scan_epoch`` on this rank, with the
+    replays of the scanned steps it made counted and its route lines
+    kept."""
+    import contextlib
+    import io
+
+    import acmil_tpu_torch.cli.train as cli
+    from acmil_tpu_torch.cli import step3_acmil
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    made = []
+    real = (cli.make_scan_train_step, cli.make_scan_eval_step)
+    cli.make_scan_train_step = lambda *a, **k: made.append(
+        real[0](*a, **k)) or made[-1]
+    cli.make_scan_eval_step = lambda *a, **k: made.append(
+        real[1](*a, **k)) or made[-1]
+    _zero_counts()
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        best = step3_acmil.main(argv)
+    torch.cuda.synchronize()
+    res = {"best": best, "wall_s": time.perf_counter() - t0,
+           "warm": _counts(),
+           "replayed": _sum_counts(*(m.kernel_launches() for m in made)),
+           "routes": [ln for ln in text.getvalue().splitlines()
+                      if ln.startswith("scan_epoch")],
+           "backend": torch.distributed.get_backend()}
+    rank = int(os.environ.get("RANK", "0"))
+    with open(f"{out}.rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def _scan_worker_mesh(out: str, feats_path: str, seq: str) -> None:
+    """(b) and (d) at data 2 (``seq`` 1), or (c) at data 2 x seq 2, on this
+    gloo rank on the card."""
+    from acmil_tpu_torch.data import BagLoader
+    from acmil_tpu_torch.engine.train import (evaluate, evaluate_scanned,
+                                              make_eval_step,
+                                              make_scan_eval_step)
+    from acmil_tpu_torch.models import build_mil_model
+    from acmil_tpu_torch.ops import dsmil_pool
+    from acmil_tpu_torch.parallel import (init_distributed, make_mesh,
+                                          shard_params)
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(device, backend="gloo", timeout=MESH_LAUNCH_TIMEOUT)
+    seq = int(seq)
+    mesh = make_mesh(2, seq, device)
+    n = SCAN_BAGS if seq == 1 else SCAN_SUB
+    res = _scan_vs_loop(mesh, _scan_conf("ga", B=2), _scan_src(feats_path, n),
+                        device, 2)
+    if seq == 1:
+        # (d) DSMIL's scanned eval at data 2 through B6, against evaluate
+        rs = np.random.RandomState(SEED + 23)
+        big = {f"dsmil_{i}": {
+            "feat": rs.randn(SCAN_DSMIL_N - 7 * i, D_FEAT).astype(np.float16),
+            "coords": np.zeros((SCAN_DSMIL_N - 7 * i, 2), np.int64),
+            "label": i % 2} for i in range(SCAN_DSMIL_BAGS)}
+        conf = _scan_conf("dsmil", B=2)
+        torch.manual_seed(SEED)
+        model, fam = build_mil_model(conf, mesh=mesh)
+        model.to(device)
+        shard_params(model, mesh)
+        kw = dict(min_bucket=SCAN_MIN_BUCKET, dtype=np.float16,
+                  device=device, mesh=mesh)
+        src = _ListSrc(big)
+        ev = {}
+        scan_eval = make_scan_eval_step(model, fam, mesh=mesh)
+        ev["route"] = scan_eval.route
+        for name in ("scan", "per_bag"):
+            loader = BagLoader(src, 2, **kw)
+            if name == "scan":
+                run = lambda: evaluate_scanned(scan_eval, loader,
+                                               conf.n_class, mesh=mesh)
+            else:
+                step = make_eval_step(model, fam, mesh=mesh)
+                run = lambda: evaluate(step, loader, conf.n_class, mesh=mesh)
+            # the first call uploads the bags and loads the kernels; the
+            # second is timed and counted
+            run()
+            torch.cuda.synchronize()
+            before = dsmil_pool.fused_dsmil_pool.launches
+            t0 = time.perf_counter()
+            got = run()
+            torch.cuda.synchronize()
+            ev[name] = {"metrics": got, "wall_s": time.perf_counter() - t0,
+                        "B6": dsmil_pool.fused_dsmil_pool.launches - before,
+                        "bags": sum(int(g.label.shape[0])
+                                    for g in loader.device_groups())
+                        if name == "scan" else None}
+        res["dsmil_eval"] = ev
+    with open(f"{out}.rank{mesh.rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def scan_mesh_run(smi: str, tmp: str, p23: dict) -> dict:
+    """Phase 25: the scanned epoch on a mesh of processes, each launch a
+    torchrun of this script's ``--mesh-worker``: (a) NCCL at world 1 through
+    the CLI against phase 23 (a)'s one-process run; (b) two gloo ranks at
+    data 2, B 2, against the per-bag mesh loop; (c) four gloo ranks at data
+    2 x seq 2 on the first ``SCAN_SUB`` bags, the same; (d) DSMIL's scanned
+    eval at data 2 (B6) against ``evaluate`` on the mesh."""
+    from acmil_tpu_torch.engine import checkpoint
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "scan_mesh")
+    os.makedirs(root)
+    run = p23["cli_run"]
+    out = {}
+
+    # (a) NCCL at world 1: the graph route, equal to one process
+    ckpt_dir = os.path.join(root, "a", "ckpt")
+    (a,) = _torchrun(1, "scan_cli", os.path.join(root, "a"),
+                     "--config", run["yml"], "--data_dir", run["data_dir"],
+                     "--ckpt_dir", ckpt_dir, "--log_dir",
+                     os.path.join(root, "a", "log"), "--train_epoch", "2",
+                     "--n_token", str(N_TOKEN), "--n_masked_patch",
+                     str(N_MASKED_PATCH), "--mask_drop", str(MASK_DROP),
+                     "--min_bucket", str(SCAN_MIN_BUCKET), "--scan_epoch",
+                     "--mesh_data", "1", "--device", "cuda")
+    steps, evals = 2 * SCAN_BAGS, 2 * (SCAN_VAL + SCAN_TEST)
+    if a["backend"] != "nccl" or len(a["routes"]) != 1 \
+            or "graph route" not in a["routes"][0]:
+        raise AssertionError(f"(a) backend {a['backend']}, route lines "
+                             f"{a['routes']}")
+    if a["replayed"].get("B2") != steps \
+            or a["replayed"].get("B1") != steps + evals:
+        raise AssertionError(f"(a) replayed launches {a['replayed']}: want "
+                             f"B2 {steps} and B1 {steps + evals}")
+    got = checkpoint.load(checkpoint.checkpoint_path(ckpt_dir, "last"))
+    want = checkpoint.load(checkpoint.checkpoint_path(run["ckpt_dir"], "last"))
+    diff = max(float((got["model"][k] - v).abs().max())
+               for k, v in want["model"].items())
+    if got["step"] != want["step"] or diff > SCAN_GRAPH_ATOL \
+            or not _same_eval({k: v for k, v in a["best"].items()},
+                              run["best"]):
+        raise AssertionError(f"(a) against phase 23 (a): step {got['step']} "
+                             f"vs {want['step']}, max weight diff "
+                             f"{diff:.3e}, best {a['best']} vs {run['best']}")
+    out["nccl_world1"] = {"wall_s": a["wall_s"], "launch_s": a["launch_s"],
+                          "max_weight_diff": diff, "route": a["routes"][0],
+                          "B1": a["warm"]["B1"] + a["replayed"]["B1"],
+                          "B2": a["warm"]["B2"] + a["replayed"]["B2"],
+                          "replayed": a["replayed"]}
+    print(f"scan mesh (a): cli/step3_acmil.py --scan_epoch --mesh_data 1 "
+          f"under torchrun, {a['backend']}, world 1, 2 epochs x {SCAN_BAGS} bags + "
+          f"{SCAN_VAL} val + {SCAN_TEST} test: {a['routes'][0]}; last "
+          f"checkpoint against phase 23 (a)'s one process: max weight diff "
+          f"{diff:.3e} (tolerance {SCAN_GRAPH_ATOL}), step {got['step']}, "
+          f"best metrics equal; replayed B1 {a['replayed']['B1']} B2 "
+          f"{a['replayed']['B2']}, warm-ups {a['warm']['B1']}/"
+          f"{a['warm']['B2']}; {a['wall_s']:.2f} s in main(), "
+          f"{a['launch_s']:.2f} s the launch [{smi}]")
+
+    feats = os.path.join(run["data_dir"], "patch_feats_pretrain_medical_ssl.pt")
+
+    def check(ranks, what, seq):
+        for r in ranks:
+            s_, l_ = r["scan"]["stats"], r["loop"]["stats"]
+            bad = []
+            if r["route"] != "eager" or "gloo" not in r["reason"]:
+                bad.append(f"route {r['route']} ({r['reason']})")
+            if not r["state_step"] == r["loop_step"] == r["steps"] > 0:
+                bad.append(f"steps {r['state_step']}/{r['loop_step']}/"
+                           f"{r['steps']}")
+            if r["param_diff"] > r["steps"] * _scan_conf().lr \
+                    or r["rank_spread"] != 0:
+                bad.append(f"param diff {r['param_diff']:.3e}, rank spread "
+                           f"{r['rank_spread']:.3e}")
+            if not math.isclose(s_["loss"], l_["loss"],
+                                rel_tol=SCAN_MESH_LOSS_RTOL) \
+                    or not math.isclose(s_["grad_norm"], l_["grad_norm"],
+                                        rel_tol=SCAN_MESH_GNORM_RTOL):
+                bad.append(f"stats {s_} vs {l_}")
+            for name in ("scan", "loop"):
+                if (r[name]["B1"], r[name]["B2"]) != (r["steps"],) * 2:
+                    bad.append(f"{name} launched B1 {r[name]['B1']} B2 "
+                               f"{r[name]['B2']} in {r['steps']} steps")
+            if bad:
+                raise AssertionError(f"{what} rank {r['rank']}: "
+                                     f"{'; '.join(bad)}")
+        r0 = ranks[0]
+        per = lambda name, k: [round(r[name][k] * 1e3 / r["steps"], 3)
+                               for r in ranks]
+        print(f"scan mesh {what}: ACMIL_GA (Df {D_FEAT}, L = A = {D_INNER}, "
+              f"K {N_TOKEN}, STKIM {N_MASKED_PATCH}/{MASK_DROP}), B 2, "
+              f"{len(ranks)} gloo ranks on the card at data 2 x seq {seq}, "
+              f"{r0['steps']} steps a rank in {r0['groups']} groups, "
+              f"{r0['route']} route ({r0['reason']}): scanned epoch against "
+              f"the per-bag mesh loop in its order, max param diff "
+              f"{max(r['param_diff'] for r in ranks):.3e}, loss "
+              f"{r0['scan']['stats']['loss']:.7f} / "
+              f"{r0['loop']['stats']['loss']:.7f}, grad_norm "
+              f"{r0['scan']['stats']['grad_norm']:.6f} / "
+              f"{r0['loop']['stats']['grad_norm']:.6f}; every rank's "
+              f"parameters equal; B1 and B2 {r0['scan']['B1']} a rank (once a "
+              f"step{', each on its slice of N' if seq > 1 else ''}); epoch wall "
+              f"{[round(r['scan']['wall_s'], 3) for r in ranks]} s scanned, "
+              f"{[round(r['loop']['wall_s'], 3) for r in ranks]} s loop; "
+              f"ms in gloo collectives a step {per('scan', 'collective_s')} "
+              f"scanned, {per('loop', 'collective_s')} loop, "
+              f"{r0['scan']['collective_calls'] / r0['steps']:.1f} calls a "
+              f"step; upload {r0['upload_s']:.2f} s; "
+              f"{r0['launch_s']:.2f} s the launch [{smi}]")
+        return {"steps_a_rank": r0["steps"], "groups": r0["groups"],
+                "route": r0["route"], "reason": r0["reason"],
+                "param_diff": max(r["param_diff"] for r in ranks),
+                "loss": [r0["scan"]["stats"]["loss"],
+                         r0["loop"]["stats"]["loss"]],
+                "grad_norm": [r0["scan"]["stats"]["grad_norm"],
+                              r0["loop"]["stats"]["grad_norm"]],
+                "epoch_wall_s": [r["scan"]["wall_s"] for r in ranks],
+                "loop_wall_s": [r["loop"]["wall_s"] for r in ranks],
+                "collective_ms_a_step": per("scan", "collective_s"),
+                "loop_collective_ms_a_step": per("loop", "collective_s"),
+                "B1": sum(r["scan"]["B1"] for r in ranks),
+                "B2": sum(r["scan"]["B2"] for r in ranks),
+                "launch_s": r0["launch_s"]}
+
+    # (b) and (d): two gloo ranks at data 2
+    ranks = _torchrun(2, "scan_mesh", os.path.join(root, "b"), feats, "1")
+    out["data2"] = check(ranks, "(b)", 1)
+    for r in ranks:
+        ev = r["dsmil_eval"]
+        if ev["route"] != "eager" or ev["scan"]["B6"] != ev["scan"]["bags"] \
+                or ev["per_bag"]["B6"] != ev["scan"]["bags"] \
+                or not _same_eval(ev["scan"]["metrics"],
+                                  ev["per_bag"]["metrics"]) \
+                or ev["scan"]["metrics"] != ranks[0]["dsmil_eval"]["scan"][
+                    "metrics"]:
+            raise AssertionError(f"(d) rank {r['rank']}: {ev}")
+    ev = ranks[0]["dsmil_eval"]
+    out["dsmil_eval_data2"] = {
+        "B6": sum(r["dsmil_eval"]["scan"]["B6"] for r in ranks),
+        "bags_a_rank": ev["scan"]["bags"],
+        "wall_s": [r["dsmil_eval"]["scan"]["wall_s"] for r in ranks],
+        "per_bag_wall_s": [r["dsmil_eval"]["per_bag"]["wall_s"]
+                           for r in ranks],
+        "loss": ev["scan"]["metrics"]["loss"]}
+    print(f"scan mesh (d): DSMIL's scanned eval at data 2 (two gloo ranks, B "
+          f"2) of {SCAN_DSMIL_BAGS} bags of ~{SCAN_DSMIL_N} patches: B6 "
+          f"{[r['dsmil_eval']['scan']['B6'] for r in ranks]} a rank, once a "
+          f"bag of its {ev['scan']['bags']}; metrics equal evaluate's on the "
+          f"mesh on every rank (auc {ev['scan']['metrics']['auc']:.6f}, loss "
+          f"{ev['scan']['metrics']['loss']:.7f}); "
+          f"{[round(r['dsmil_eval']['scan']['wall_s'], 3) for r in ranks]} s "
+          f"scanned, "
+          f"{[round(r['dsmil_eval']['per_bag']['wall_s'], 3) for r in ranks]}"
+          f" s per bag [{smi}]")
+
+    # (c) four gloo ranks at data 2 x seq 2
+    ranks = _torchrun(4, "scan_mesh", os.path.join(root, "c"), feats, "2")
+    out["data2_seq2"] = check(ranks, "(c)", 2)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"scan mesh: phase 25 in {out['seconds']:.1f} s [{smi}]")
     return out
 
 
@@ -6261,7 +6674,7 @@ def main() -> None:
     from acmil_tpu_torch.ops.vit_attn import fused_vit_attention
 
     if sys.argv[1:2] == ["--mesh-worker"]:
-        # one rank of phase 21, started by torchrun
+        # one rank of phase 21, 22 or 25, started by torchrun
         mesh_worker(*sys.argv[2:])
         return
     smi = card()
@@ -6296,6 +6709,7 @@ def main() -> None:
         del corpus
         p22 = step2_mesh_run(smi, tmp, pipe)
         p23 = scan_epoch_run(smi, tmp)
+        p25 = scan_mesh_run(smi, tmp, p23)
     p24 = vit_dtypes_run(smi)
     zoo["archs"].update(transmil_mhim.pop("archs"))
     zoo["transmil_mhim"] = transmil_mhim
@@ -6314,6 +6728,7 @@ def main() -> None:
         "buckets", "graph_vs_eager_max_diff", "capture_ms", "pool_bytes",
         "first_graph_epoch_s", "epochs", "stkim_select_ms", "stkim_host_ms",
         "stkim_n", "heads", "seconds")}
+    zoo["scan_mesh"] = p25
     scan_cli, scan_graph = p23["launches_cli"], p23["launches_graph"]
     mesh_ga, mesh_cli = p21["ga_seq2"]["ranks"], p21["data2_seq2_cli"]
     dtfd_t, dtfd_r, sam = p20["dtfd_train"], p20["dtfd_routes"], p20["sam"]
@@ -6352,6 +6767,9 @@ def main() -> None:
         "launches_mesh_nccl_world1": p21["nccl_world1"]["B1"],
         "launches_scan_epoch_step3": scan_cli["B1"],
         "launches_scan_graph_epochs": scan_graph["B1"],
+        "launches_scan_mesh_nccl_world1": p25["nccl_world1"]["B1"],
+        "launches_scan_mesh_data2": p25["data2"]["B1"],
+        "launches_scan_mesh_data2_seq2": p25["data2_seq2"]["B1"],
         "dtfd_call": dtfd_r["B1_call"],
         **b1}, {
         "name": "B2 fused gated-attention pooling (backward)",
@@ -6373,6 +6791,9 @@ def main() -> None:
         "launches_mesh_nccl_world1": p21["nccl_world1"]["B2"],
         "launches_scan_epoch_step3": scan_cli["B2"],
         "launches_scan_graph_epochs": scan_graph["B2"],
+        "launches_scan_mesh_nccl_world1": p25["nccl_world1"]["B2"],
+        "launches_scan_mesh_data2": p25["data2"]["B2"],
+        "launches_scan_mesh_data2_seq2": p25["data2_seq2"]["B2"],
         "dtfd_call": dtfd_r["B2_call"],
         **b2}, {
         "name": "B3 fused ViT layer (chain: 4 GEMM launches, 2 of them "
@@ -6420,6 +6841,7 @@ def main() -> None:
         "launches_training_eval": dsmil_train,
         "launches_scan_eval_graph": p23["heads"]["dsmil_eval"]["B6_replays"]
         + p23["heads"]["dsmil_eval"]["B6_warm"],
+        "launches_scan_mesh_eval_data2": p25["dsmil_eval_data2"]["B6"],
         **b6}, {
         "name": "B7 multi-head attention over separate q, k, v, tensor-core "
                 "route (bfloat16, dh in {16, 32, 64, 128}; the strided entry "

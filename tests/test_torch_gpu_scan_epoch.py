@@ -9,7 +9,9 @@ both routes from the same weights, in the same visit order with the same
 draws, and the parameters, the step and the epoch's sums must agree bit for
 bit; the scanned eval must equal ``evaluate``. A capture that fails raises
 and leaves no eager fallback behind, and the replays' count times the
-launches of one capture equals the kernels the profiler sees."""
+launches of one capture equals the kernels the profiler sees. On an NCCL
+mesh of one process the scanned step takes the graph route and equals one
+process's, bit for bit."""
 
 import copy
 
@@ -86,18 +88,20 @@ def _conf(arch, **kw):
     return Config.from_dict(d)
 
 
-def _loader(device, shuffle=True):
+def _loader(device, shuffle=True, mesh=None):
     return BagLoader(_Source(), 1, shuffle=shuffle, drop_last=shuffle,
-                     min_bucket=256, seed=0, dtype=np.float16, device=device)
+                     min_bucket=256, seed=0, dtype=np.float16, device=device,
+                     mesh=mesh)
 
 
-def _epoch(conf, model, family, route, device):
-    """One scanned epoch on ``route``: (state, stats, scan step)."""
+def _epoch(conf, model, family, route, device, mesh=None):
+    """One scanned epoch on ``route`` (None: ``scan_route``'s), on
+    ``mesh``: (state, stats, scan step)."""
     model = copy.deepcopy(model)
-    loader = _loader(device)
+    loader = _loader(device, mesh=mesh)
     state = create_train_state(model, conf, len(loader), family=family)
-    scan = make_scan_train_step(model, conf, family, route=route)
-    assert scan.route == route
+    scan = make_scan_train_step(model, conf, family, mesh=mesh, route=route)
+    assert scan.route == (route or "graph"), scan.reason
     torch.cuda.manual_seed(21)
     _, stats = train_one_epoch_scanned(state, scan, loader, 0, interleave=2)
     torch.cuda.synchronize()
@@ -210,3 +214,48 @@ def test_a_failed_capture_raises_and_does_not_fall_back(cuda_device,
         train_one_epoch_scanned(state, scan, loader, 0)
     assert scan.route == "graph" and not scan.graphs.replays
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["ga", "dsmil"])
+def test_nccl_world_1_mesh_graph_route_equals_one_process(cuda_device, arch,
+                                                          tmp_path,
+                                                          monkeypatch):
+    """``--scan_epoch --mesh_data 1`` under torchrun: an NCCL mesh of one
+    process takes the graph route (``scan_route``), and its epoch and
+    scanned eval equal one process's graph route bit for bit."""
+    import torch.distributed as dist
+
+    from acmil_tpu_torch.parallel import make_mesh, shard_params
+
+    monkeypatch.setattr(fast, "FUSE_MIN_N", 0)      # B6 for DSMIL
+    conf = _conf(arch)
+    torch.manual_seed(4)
+    model, family = build_mil_model(conf)
+    model.to(cuda_device)
+    m_1, st_1, stats_1, _ = _epoch(conf, model, family, "graph", cuda_device)
+    want = evaluate_scanned(make_scan_eval_step(m_1, family, route="graph"),
+                            _loader(cuda_device, False), conf.n_class)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1, cuda_device)
+        assert mesh.backend == "nccl"
+        shard_params(model, mesh)
+        m_m, st_m, stats_m, scan = _epoch(conf, model, family, None,
+                                          cuda_device, mesh)
+        scan_eval = make_scan_eval_step(m_m, family, mesh=mesh,
+                                        route=scan.route)
+        got = evaluate_scanned(scan_eval, _loader(cuda_device, False, mesh),
+                               conf.n_class, mesh=mesh)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert st_m.step == st_1.step > 0
+    for (name, p), q in zip(m_m.named_parameters(), m_1.parameters()):
+        assert torch.equal(p, q), name
+    assert stats_m == stats_1
+    _same_metrics(got, want)
+    assert sum(scan.graphs.replays.values()) == st_m.step
+    if arch == "dsmil":
+        assert scan_eval.kernel_launches()["B6"] == len(_Source())

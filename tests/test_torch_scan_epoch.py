@@ -43,6 +43,7 @@ from acmil_tpu_torch.engine.families import FAMILIES
 from acmil_tpu_torch.models import build_mil_model, fast
 from acmil_tpu_torch.models.convert import from_jax_params
 from acmil_tpu_torch.ops import attn_pool, masked
+from acmil_tpu_torch.parallel import Mesh
 from tests.conftest import make_synthetic_bags
 from tests.test_scan_epoch import _ListSource
 from tests.test_torch_train import _stkim_case, _stkim_u
@@ -315,9 +316,13 @@ def test_routes_and_families():
         assert route == "eager" and reason in why
     route, why = scan_route(_conf("ga", use_sam=True), torch.device("cuda"))
     assert route == "eager" and "SAM" in why
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_scan_train_step(build_mil_model(_conf())[0], _conf(), "acmil",
-                             mesh=object())
+    # a mesh scan step builds, on the mesh's eager route on the CPU
+    mesh = Mesh(1, 1, 0, torch.device("cpu"))
+    scan = make_scan_train_step(build_mil_model(_conf())[0], _conf(),
+                                "acmil", mesh=mesh)
+    assert scan.route == "eager" and "cpu" in scan.reason
+    assert make_scan_eval_step(build_mil_model(_conf())[0], "acmil",
+                               mesh=mesh).route == "eager"
 
 
 # ---------------------------------------------------------------------------
@@ -366,10 +371,16 @@ def test_step3_scan_epoch_on_the_cpu(corpus, capsys):
 
 
 def test_step3_scan_epoch_on_a_mesh_is_refused(corpus):
-    with pytest.raises(ValueError, match="'scan_epoch' on a mesh"):
+    """What a scanned epoch on a mesh still refuses: a B that does not split
+    over the data axis (JAX's tests/test_scan_epoch.py::
+    test_device_groups_mesh_batch_divisibility). ``--scan_epoch`` with
+    ``--mesh_data 2`` gets past every option check to the mesh's layout,
+    which one process cannot hold (the two-rank run:
+    tests/test_torch_scan_mesh.py)."""
+    with pytest.raises(ValueError, match="divisible by the data axis"):
+        BagLoader(_ListSource(make_synthetic_bags(4)), 3,
+                  mesh=Mesh(2, 1, 0, torch.device("cpu"))).device_groups()
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         step3_acmil.main(["--config", str(corpus / "tiny.yml"),
-                          "--device", "cpu", "--scan_epoch",
-                          "--mesh_data", "2"])
-    with pytest.raises(NotImplementedError, match="scan_epoch on a mesh"):
-        BagLoader(_ListSource(make_synthetic_bags(4)), 2,
-                  mesh=type("M", (), {"data": 2})()).device_groups()
+                          "--data_dir", str(corpus), "--device", "cpu",
+                          "--scan_epoch", "--mesh_data", "2"])

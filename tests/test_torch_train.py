@@ -573,18 +573,19 @@ def test_step3_finds_a_torch_feature_file(corpus, monkeypatch):
 @pytest.mark.parametrize("argv, match", [
     (["--mesh_data", "2"], "mesh_data"),
     (["--pod"], "pod"),
-    # scan_epoch runs on one process (tests/test_torch_scan_epoch.py)
+    # scan_epoch runs on a mesh too (tests/test_torch_scan_mesh.py): in one
+    # process it gets as far as the mesh's layout
     (["--scan_epoch", "--mesh_data", "2"], "scan_epoch"),
     # --arch mha trains ACMIL_MHA, on a --pod mesh too
     (["--arch", "mha", "--pod"], "pod"),
 ])
 def test_step3_refuses_what_is_not_ported(argv, match, corpus, tmp_path):
-    """``match`` names the option. scan_epoch stays refused on a mesh; a mesh of 2
-    in one process is refused with the launch it needs; --pod (ported) in
-    one process trains on a world-1 mesh."""
+    """``match`` names the option. A mesh of 2 in one process, with or
+    without scan_epoch, is refused with the launch it needs; --pod (ported)
+    in one process trains on a world-1 mesh."""
     cfg = os.path.join(REPO, "config/camelyon_medical_ssl_config.yml")
     if match != "pod":
-        want = "torchrun --nproc_per_node 2" if match == "mesh_data" else match
+        want = "torchrun --nproc_per_node 2"
         with pytest.raises((ValueError, NotImplementedError), match=want):
             step3_acmil.main(["--config", cfg, "--device", "cpu", *argv])
         return
