@@ -27,7 +27,8 @@ of ``engine/train.py`` when the train bags are cached on the device
 family that scans, under ``n_data x 6 GiB`` of padded features): the
 stacked shape groups visited in the JAX package's order
 (``scan_interleave`` chunks), each group's step a CUDA graph on a card for
-the archs of ``GRAPH_SCAN_ARCHS``, eager otherwise; val and test, and
+every arch of ``GRAPH_SCAN_ARCHS`` (the whole registry), SAM steps too,
+eager on the CPU; val and test, and
 ``--eval_only``, score through ``evaluate_scanned``. On a mesh each rank
 stacks its part of every batch; a mesh of several processes runs eagerly
 (``gloo`` stages its collectives through the host, and NCCL capture across

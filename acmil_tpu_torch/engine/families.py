@@ -402,7 +402,9 @@ class MHIMFamily(PureFamily):
     the Adam step, then the EMA ``t <- t·mm + s·(1 - mm)`` in float32 over
     every parameter. ``mm`` and the mask ratio follow the reference's cosine
     arrays when ``mm_sche``/``mrh_sche`` are set, indexed by the step and
-    clamped to the array's end."""
+    clamped to the array's end: by ``state.step``, or, in a scanned step
+    given the device's schedule, by its step count on the device, with the
+    rate from the device too, so that a CUDA graph holds the step."""
 
     name = "mhim"
     teacher = True
@@ -429,25 +431,44 @@ class MHIMFamily(PureFamily):
                   if bool(getattr(conf, "mm_sche", False)) else None)
         mrh_arr = (array(float(getattr(conf, "mask_ratio_h", 0.0)), 0.0)
                    if bool(getattr(conf, "mrh_sche", False)) else None)
+        # [mm, 1 - mm] and mrh per step, float32 tables on each device the
+        # step runs on, made on its first step (a scanned step's warm-up,
+        # outside any capture)
+        host = {"mm": (None if mm_arr is None else
+                       np.stack([mm_arr, np.float32(1.0) - mm_arr], 1)),
+                "mrh": mrh_arr}
+        tables: Dict[tuple, torch.Tensor] = {}
         params = [p for p in model.parameters() if p.requires_grad]
 
-        def step(state, bag, stkim_u=None) -> Dict[str, torch.Tensor]:
+        def at(name, state, sched, device):
+            """Table ``name`` at the step, on ``device``: by ``sched.step``
+            when given, else by ``state.step``."""
+            arr = host[name]
+            if (name, device) not in tables:
+                tables[name, device] = torch.from_numpy(arr).to(device)
+            i = (sched.step if sched is not None
+                 else torch.tensor([state.step], device=device))
+            return tables[name, device].index_select(
+                0, i.clamp(max=len(arr) - 1)).squeeze(0)
+
+        def step(state, bag, stkim_u=None, sched=None
+                 ) -> Dict[str, torch.Tensor]:
             """``stkim_u [2, B, N]``: the student's mask uniforms (random
             masking, then the high-attention subset); drawn from
-            ``state.generator`` when None."""
+            ``state.generator`` when None. ``sched``: the scanned step's
+            ``DeviceSchedule``, from which the tables are read and the rate
+            taken on the device."""
             if state.teacher is None:
                 raise ValueError("the mhim family needs a train state with "
                                  "a teacher: create_train_state(..., "
                                  "family='mhim')")
+            dev = bag.feats.device
             if mm_arr is not None:
-                mm = mm_arr[min(state.step, len(mm_arr) - 1)]
-                one_minus = np.float32(1.0) - mm
+                mm, one_minus = at("mm", state, sched, dev)
             else:
-                mm, one_minus = np.float32(mm0), np.float32(1.0 - mm0)
-            mrh = None
-            if mrh_arr is not None:
-                mrh = torch.tensor(mrh_arr[min(state.step, len(mrh_arr) - 1)],
-                                   device=bag.feats.device)
+                mm, one_minus = (float(np.float32(mm0)),
+                                 float(np.float32(1.0 - mm0)))
+            mrh = at("mrh", state, sched, dev) if mrh_arr is not None else None
             valid = bag.mask.any(dim=1)
             with torch.no_grad():
                 tea = state.teacher.eval()(bag.feats, bag.mask,
@@ -462,12 +483,12 @@ class MHIMFamily(PureFamily):
                                  temp_s) if cl_alpha > 0
                   else torch.zeros((), device=ce.device))
             loss = cls_alpha * ce + cl_alpha * cl
-            norm = apply_gradients(state, loss, params)
+            norm = apply_gradients(state, loss, params, sched)
             with torch.no_grad():
                 tp = list(state.teacher.parameters())
-                torch._foreach_mul_(tp, float(mm))
+                torch._foreach_mul_(tp, mm)
                 torch._foreach_add_(tp, torch._foreach_mul(
-                    list(model.parameters()), float(one_minus)))
+                    list(model.parameters()), one_minus))
             return {"logit_loss": ce.detach(), "cls_loss": cl.detach(),
                     "loss": loss.detach(), "grad_norm": norm}
 
@@ -475,8 +496,8 @@ class MHIMFamily(PureFamily):
 
     def make_step_body(self, model, conf):
         """The step the scanned epoch runs per bag (the JAX
-        ``make_step_body``): :meth:`make_step`'s, which reads its tables and
-        takes its rate on the host, so its scanned route is eager."""
+        ``make_step_body``): :meth:`make_step`'s, which the scanned route
+        gives its ``DeviceSchedule`` on a card."""
         return self.make_step(model, conf)
 
 

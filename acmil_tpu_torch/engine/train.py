@@ -17,13 +17,14 @@ data group, and ``evaluate`` gathers the probabilities of every data rank.
 Scanned epochs (``scan_epoch``): ``train_one_epoch_scanned`` and
 ``evaluate_scanned`` drive the stacked shape groups of
 ``BagLoader.device_groups`` in the JAX package's visit order, through
-``make_scan_train_step`` and ``make_scan_eval_step``. On a card the step of
-each group of the archs in ``GRAPH_SCAN_ARCHS`` is captured once as a CUDA
-graph and replayed once per bag (``engine/graphs.py``); every other case
-runs the same step eagerly, for the reason ``scan_route`` gives. On a mesh
-the scanned step is the per-bag mesh step on this rank's part of each
-group, and the scanned eval gathers over the data group as ``evaluate``
-does; a mesh of several processes runs eagerly.
+``make_scan_train_step`` and ``make_scan_eval_step``. On a card in one
+process the step of each group of every arch in ``GRAPH_SCAN_ARCHS`` (the
+whole registry, with or without SAM) is captured once as a CUDA graph and
+replayed once per bag (``engine/graphs.py``); the CPU and a mesh of several
+processes run the same step eagerly, for the reason ``scan_route`` gives.
+On a mesh the scanned step is the per-bag mesh step on this rank's part of
+each group, and the scanned eval gathers over the data group as
+``evaluate`` does.
 """
 
 from __future__ import annotations
@@ -211,25 +212,6 @@ def make_eval_step(model, family="default", fused: bool = True,
     return step
 
 
-def _rng_replay(state: TrainState, device: torch.device) -> Callable[[], None]:
-    """A function that sets ``state.generator`` and torch's default
-    generator of ``device`` back to where they stand now: SAM's two passes
-    then draw the same STKIM uniforms, DTFD grouping and dropout masks, as
-    JAX's two passes close over one rng dict."""
-    gen = state.generator.get_state() if state.generator is not None else None
-    cpu = torch.get_rng_state()
-    cuda = torch.cuda.get_rng_state(device) if device.type == "cuda" else None
-
-    def replay():
-        if gen is not None:
-            state.generator.set_state(gen)
-        torch.set_rng_state(cpu)
-        if cuda is not None:
-            torch.cuda.set_rng_state(cuda, device)
-
-    return replay
-
-
 def _data_rows(u: Optional[torch.Tensor], mesh, dim: int):
     """This data rank's rows of a global-batch tensor of draws."""
     if u is None or mesh is None or mesh.data == 1:
@@ -248,8 +230,8 @@ def make_train_step(model, conf, family="acmil", mesh=None) -> Callable:
 
     With ``use_sam`` the step takes the gradient at the SAM point
     (``ops/sam.py::sam_gradient``, radius ``sam_rho``, 0.05 by default):
-    two passes that make the same random draws. ``aux`` then holds the
-    first pass's loss and the SAM gradient's norm. A family with its own
+    two passes, the second taking the first's random draws. ``aux`` then
+    holds the first pass's loss and the SAM gradient's norm. A family with its own
     step refuses ``use_sam`` (the JAX package ignores it there).
 
     On a ``mesh``, ``bag`` is this rank's part of the batch
@@ -272,8 +254,9 @@ def _mesh_step(model, conf, fam: Family, mesh, custom, scanned: bool):
     gradients summed over the data group (:func:`step_optimizer`,
     :func:`_device_step_optimizer`) and ``aux``'s shares summed
     (:func:`_sum_shares`). ``custom`` is the family's own step (called
-    with the gathered bag). ``scanned`` decides STKIM's branch on the
-    device; a ``sched`` then gives the rate from the device."""
+    with the gathered bag and ``sched``). ``scanned`` decides STKIM's
+    branch on the device; a ``sched`` then gives the rate, and the step
+    count a family's own tables read, from the device."""
     use_sam = bool(getattr(conf, "use_sam", False))
     if custom is not None and use_sam:
         raise ValueError(f"use_sam: family {fam.name!r} brings its own "
@@ -298,17 +281,12 @@ def _mesh_step(model, conf, fam: Family, mesh, custom, scanned: bool):
             return fam.loss(outputs, full, valid, conf_d)
 
         if use_sam:
-            replay = _rng_replay(state, bag.feats.device)
-
-            def replayed():
-                replay()
-                return loss_fn()
-
-            (loss, aux), grads = sam_gradient(replayed, params, sam_rho,
+            (loss, aux), grads = sam_gradient(loss_fn, params, sam_rho,
                                               reduce_grads=sum_over_data_)
             for p, g in zip(params, grads):
                 p.grad = g
-            norm = step_optimizer(state, params)
+            norm = (step_optimizer(state, params) if sched is None
+                    else _device_step_optimizer(state, params, sched))
         else:
             loss, aux = loss_fn()
             norm = apply_gradients(state, loss, params, sched)
@@ -324,7 +302,7 @@ def _mesh_step(model, conf, fam: Family, mesh, custom, scanned: bool):
             full = gather_seq(bag, mesh, feats=not sliced)
             stkim_u = _data_rows(stkim_u, mesh, fam.draws_batch_dim)
             if custom is not None:
-                aux = custom(state, full, stkim_u)
+                aux = custom(state, full, stkim_u, sched)
             else:
                 aux = body(state, bag if sliced else full, full, stkim_u,
                            sched)
@@ -414,24 +392,17 @@ def _gathered_metrics(probs_dev, valid_dev, labels_dev, n_class: int,
 # ---------------------------------------------------------------------------
 
 # The archs whose scanned step is captured as one CUDA graph per shape group
-# on a card (train and eval).
-GRAPH_SCAN_ARCHS = ("ga", "mha", "abmil", "clam_sb", "clam_mb", "dsmil")
+# on a card (train and eval), with or without ``use_sam``: every arch of the
+# registry (``models/__init__.py``).
+GRAPH_SCAN_ARCHS = (
+    "ga", "mha", "abmil", "clam_sb", "clam_mb", "dsmil", "dtfd", "pure",
+    "mhim", "transmil", "mha_single", "meanmil", "maxmil", "lbmil", "attmil",
+    "attmil_gated", "ilra", "ips", "ibmil", "bmil_vis", "bmil_enc",
+    "bmil_spvis")
 
-# Why the scanned step runs eagerly on a card, by option or arch.
-_UNCHECKED = ("its step has not been checked under capture on the card "
-              "yet; no kernel of the port is on its path")
-EAGER_SCAN_REASONS = {
-    "use_sam": "SAM's two passes set the generators back from the host "
-               "(_rng_replay), which a replay cannot repeat",
-    "mhim": "its step reads the EMA momentum and mask-ratio tables on the "
-            "host by state.step",
-    "dtfd": "its step has not been checked under capture on the card yet "
-            "(B1/B2 run only when DTFD_FUSE_MIN_S is set)",
-    **{arch: _UNCHECKED for arch in (
-        "pure", "transmil", "mha_single", "meanmil", "maxmil", "lbmil",
-        "attmil", "attmil_gated", "ilra", "ips", "ibmil", "bmil_vis",
-        "bmil_enc", "bmil_spvis")},
-}
+# Why an arch's scanned step runs eagerly on a card in one process, by arch
+# (the host read that keeps it out of a graph, by file:line): none does.
+EAGER_SCAN_REASONS: Dict[str, str] = {}
 
 
 def scan_route(conf, device, mesh=None) -> Tuple[str, str]:
@@ -452,13 +423,12 @@ def scan_route(conf, device, mesh=None) -> Tuple[str, str]:
         return "eager", (f"a mesh of {mesh.world} processes on "
                          f"{mesh.backend}: gloo collectives stage through "
                          f"the host and cannot be captured")
-    if bool(getattr(conf, "use_sam", False)):
-        return "eager", "use_sam: " + EAGER_SCAN_REASONS["use_sam"]
+    sam = " with SAM" if bool(getattr(conf, "use_sam", False)) else ""
     if conf.arch in GRAPH_SCAN_ARCHS:
-        return "graph", (f"{conf.arch!r}: one CUDA graph per shape group, "
-                         f"replayed once per bag")
+        return "graph", (f"{conf.arch!r}{sam}: one CUDA graph per shape "
+                         f"group, replayed once per bag")
     return "eager", f"{conf.arch!r}: " + EAGER_SCAN_REASONS.get(
-        conf.arch, _UNCHECKED)
+        conf.arch, "not an arch of the registry")
 
 
 def family_supports_scan(family) -> bool:
@@ -474,13 +444,16 @@ class DeviceSchedule:
     """The learning rate of the scanned steps on the device, where a graph
     reads it: ``table`` holds ``schedule`` at the steps of one dispatch,
     each rounded to float32, ``pos`` the position of the next step in it,
-    and ``lr`` the rate the optimizer reads as a tensor."""
+    ``lr`` the rate the optimizer reads as a tensor, and ``step`` ([1]
+    int64) the count of optimizer steps taken before the next one, the
+    host's ``state.step`` on the device (MHIM's tables read it)."""
 
     def __init__(self, schedule: Callable[[int], float], size: int,
                  device: torch.device):
         self.schedule, self.size = schedule, max(int(size), 1)
         self.table = torch.zeros(self.size, dtype=torch.float32, device=device)
         self.pos = torch.zeros(1, dtype=torch.int64, device=device)
+        self.step = torch.zeros(1, dtype=torch.int64, device=device)
         self.lr = torch.zeros((), dtype=torch.float32, device=device)
 
     def load(self, step: int, n: int) -> None:
@@ -493,12 +466,15 @@ class DeviceSchedule:
             vals = vals.pin_memory()
         self.table[:n].copy_(vals, non_blocking=True)
         self.pos.zero_()
+        self.step.fill_(int(step))
 
     def advance(self) -> None:
-        """``lr`` <- the next step's rate; the position moves on."""
+        """``lr`` <- the next step's rate; the position and the step count
+        move on."""
         self.lr.copy_(self.table.index_select(
             0, self.pos.clamp(max=self.size - 1)).squeeze(0))
         self.pos.add_(1)
+        self.step.add_(1)
 
 
 def _device_step_optimizer(state: TrainState, params,
@@ -519,17 +495,15 @@ def _device_step_optimizer(state: TrainState, params,
 
 
 def _make_scan_body(model, conf, fam: Family, mesh=None):
-    """``(step(state, bag, sched=...) -> aux, params, device_lr)``: the
-    per-bag step of the scanned route. It is :func:`make_train_step`'s, on
-    ``mesh`` too (:func:`_mesh_step`), with STKIM's branch decided on the
-    device (``models/fast.py::_stkim_correct``, ``on_device``) and, when
-    ``sched`` is given, the rate from the device. A family's own step body
-    (MHIM) and SAM steps keep the host's rate and step count."""
+    """``(step(state, bag, sched=...) -> aux, params)``: the per-bag step of
+    the scanned route. It is :func:`make_train_step`'s, on ``mesh`` too
+    (:func:`_mesh_step`), with STKIM's branch decided on the device
+    (``models/fast.py::_stkim_correct``, ``on_device``) and, when
+    ``sched`` is given, the rate and the step count from the device, SAM
+    steps and a family's own step body (MHIM) included."""
     custom = (fam.make_step_body(model, conf)
               if hasattr(fam, "make_step_body") else None)
-    step, params = _mesh_step(model, conf, fam, mesh, custom, scanned=True)
-    use_sam = bool(getattr(conf, "use_sam", False))
-    return step, params, custom is None and not use_sam
+    return _mesh_step(model, conf, fam, mesh, custom, scanned=True)
 
 
 def _opt_tensors(opt) -> List[torch.Tensor]:
@@ -546,12 +520,14 @@ class ScanTrainStep:
     ``route`` is ``"graph"`` or ``"eager"`` (:func:`scan_route`), ``reason``
     says why. Both run the same body in the same order with the same draws:
     STKIM's uniforms and dropout from ``state.generator`` and torch's
-    default generator, registered with each graph. On a card the rate is
-    the device's (:class:`DeviceSchedule`) on both routes, and the optimizer
-    runs with ``capturable`` set; ``state.step`` is brought up to date after
-    each chunk. The graph route captures every group of the first epoch
-    after one warm-up step each, from which parameters, optimizer state
-    and generators are put back.
+    default generator, registered with each graph (SAM's second pass takes
+    the first's draws from a tape, ``parallel/mesh.py::DrawTape``). On a
+    card the rate and the step count are the device's
+    (:class:`DeviceSchedule`) on both routes, and the optimizer runs with
+    ``capturable`` set; ``state.step`` is brought up to date after each
+    chunk. The graph route captures every group of the first epoch after
+    one warm-up step each, from which parameters, optimizer state, the EMA
+    teacher and generators are put back.
 
     On a ``mesh`` the stacked groups hold this rank's part of each batch
     (``BagLoader.device_groups``) and the body is the per-bag mesh step's
@@ -569,8 +545,8 @@ class ScanTrainStep:
                 raise ValueError("the graph route runs on a mesh of one "
                                  "process only: " + self.reason)
             self.route, self.reason = route, f"{route} route asked for"
-        self.body, self.params, own = _make_scan_body(model, conf, fam, mesh)
-        self.device_lr = own and self.device.type == "cuda"
+        self.body, self.params = _make_scan_body(model, conf, fam, mesh)
+        self.device_lr = self.device.type == "cuda"
         self.keys: Optional[List[str]] = None
         self.acc: Optional[torch.Tensor] = None
         self.sched: Optional[DeviceSchedule] = None
@@ -598,7 +574,7 @@ class ScanTrainStep:
                 self.device)
             for group in state.opt.param_groups:
                 group["lr"] = self.sched.lr
-                if "capturable" in group:
+                if "capturable" in group and self.device.type == "cuda":
                     group["capturable"] = True
         if self.route == "graph":
             gens = [state.generator] if state.generator is not None else []
@@ -609,8 +585,11 @@ class ScanTrainStep:
     def _warm(self, groups: List[Bag]) -> None:
         """One step per group, then everything it changed put back."""
         state = self._state
+        teacher = (list(state.teacher.state_dict().values())
+                   if state.teacher is not None else [])
         with torch.no_grad():
             params = [p.detach().clone() for p in self.params]
+            teacher_saved = [t.clone() for t in teacher]
             had = {id(p) for p in state.opt.state}
             opt_saved = [t.clone() for t in _opt_tensors(state.opt)]
         gen = state.generator.get_state() if state.generator else None
@@ -625,6 +604,9 @@ class ScanTrainStep:
         with torch.no_grad():
             for p, saved in zip(self.params, params):
                 p.copy_(saved)
+            # the EMA teacher moved with the warm-up's steps
+            for t, saved in zip(teacher, teacher_saved):
+                t.copy_(saved)
             old = [t for p, st in state.opt.state.items() if id(p) in had
                    for t in st.values() if isinstance(t, torch.Tensor)]
             for t, saved in zip(old, opt_saved):

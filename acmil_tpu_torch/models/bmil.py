@@ -167,8 +167,10 @@ def _kl_logistic_normal(mu_pr, mu_pos, logvar_pr, logvar_pos):
 def _prior(label: torch.Tensor, like: torch.Tensor):
     """The prior's (μ, log σ²) per bag. The prior has two classes; a label
     past 1 takes class 1's, as the JAX package's clamped gather gives it."""
-    mu = torch.tensor(PRIOR_MU, dtype=like.dtype, device=like.device)
-    lv = torch.tensor(PRIOR_LOGVAR, dtype=like.dtype, device=like.device)
+    # filled on the device: a host tuple made a tensor there is a copy
+    mu, lv = (torch.stack([torch.full((), v, dtype=like.dtype,
+                                      device=like.device) for v in vals])
+              for vals in (PRIOR_MU, PRIOR_LOGVAR))
     idx = label.long().clamp(0, len(PRIOR_MU) - 1)
     return mu[idx], lv[idx]
 
@@ -274,6 +276,30 @@ def scatter_winners(cell: torch.Tensor, n_cells: int) -> torch.Tensor:
     return win.scatter_reduce(1, slot, idx, "amax")[:, :n_cells]
 
 
+class _CellGather(torch.autograd.Function):
+    """``torch.gather(a, 1, cell)`` whose backward sums the gradients of the
+    patches of one cell by ``index_put_`` with ``accumulate``: on a card a
+    sort, then each cell's sum in the patches' order, where the gather's own
+    backward adds them by atomics in the order the threads happen to run.
+    A bag has thousands of patches a cell at 64 x 64 past 4096 patches, so
+    only this gives a step the same bits on every run, a graph replay's
+    and an eager step's alike."""
+
+    @staticmethod
+    def forward(ctx, a, cell):
+        ctx.save_for_backward(cell)
+        ctx.shape = a.shape
+        return torch.gather(a, 1, cell)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (cell,) = ctx.saved_tensors
+        rows = torch.arange(cell.shape[0], device=cell.device)[:, None]
+        out = torch.zeros(ctx.shape, dtype=grad.dtype, device=grad.device)
+        return out.index_put_((rows.expand_as(cell), cell), grad,
+                              accumulate=True), None
+
+
 class BMILSpvis(nn.Module):
     """spvis variant (`bmil.py:332-443`): a spatial Gaussian attention
     field on a static ``grid x grid`` canvas."""
@@ -340,7 +366,7 @@ class BMILSpvis(nn.Module):
             g = mu_s + _draw(noise, "attn", mu_s.shape, mu_s, generator) \
                 * torch.exp(0.5 * logvar)
         A_grid = torch.sigmoid(g).reshape(b, G * G)
-        patch_A = torch.gather(A_grid, 1, cell.clamp(0, G * G - 1))  # [B, N]
+        patch_A = _CellGather.apply(A_grid, cell.clamp(0, G * G - 1))  # [B, N]
         if mask is not None:
             patch_A = patch_A * mask.to(patch_A.dtype)
         logits = vdo(self.classifiers, "classifiers",

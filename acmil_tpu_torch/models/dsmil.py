@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from acmil_tpu_torch.models.acmil import _as_weight_dtype
+from acmil_tpu_torch.models.common import dropout
 from acmil_tpu_torch.ops.masked import masked_fill, masked_softmax
 
 
@@ -91,8 +92,11 @@ class DSMIL(nn.Module):
         q = self.b_classifier.q(x)                            # [B, N, Q]
         if self.passing_v:
             _, lin, _ = self.b_classifier.v
-            v = torch.relu(lin(F.dropout(x, self.dropout_v,
-                                         training=not deterministic)))
+            # torch's default generator draws, through
+            # models/common.py::dropout as every head's dropout does
+            v = torch.relu(lin(dropout(x, self.dropout_v)
+                               if not deterministic and self.dropout_v > 0
+                               else x))
         else:
             v = x
 

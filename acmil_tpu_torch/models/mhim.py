@@ -63,8 +63,11 @@ def _rank(scores: torch.Tensor, valid: torch.Tensor, largest: bool) -> torch.Ten
     return torch.argsort(order, dim=-1, stable=True)
 
 
-def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=_F32, device=device)
+def _f32(x):
+    """A mask ratio as a float32 factor: a tensor cast on its own device, a
+    Python number as it is (a scalar operand is rounded to float32 and
+    multiplies alike, with no copy to the device)."""
+    return x.to(_F32) if isinstance(x, torch.Tensor) else float(x)
 
 
 def select_drop_mask(scores: torch.Tensor, valid: torch.Tensor, frac,
@@ -76,20 +79,19 @@ def select_drop_mask(scores: torch.Tensor, valid: torch.Tensor, frac,
     by the uniforms ``noise [B, N]`` (`select_mask_fn`,
     `modules/mhim.py:79-120`). ``frac`` is a float or a float32 tensor; the
     counts are float32 products, as in JAX."""
-    dev = scores.device
     ps = valid.sum(dim=-1, keepdim=True).to(_F32)
     if random_frac >= 1.0:
-        k = torch.ceil(ps * _f32(frac, dev))
+        k = torch.ceil(ps * _f32(frac))
         return (_rank(scores, valid, largest) < k) & valid
     if isinstance(frac, torch.Tensor):
         cand_frac = torch.clamp(frac.to(_F32) / max(random_frac, 1e-8), max=1.0)
     else:
         cand_frac = min(frac / max(random_frac, 1e-8), 1.0)
-    k_cand = torch.ceil(ps * _f32(cand_frac, dev))
+    k_cand = torch.ceil(ps * _f32(cand_frac))
     cand = (_rank(scores, valid, largest) < k_cand) & valid
     if noise is None:
         raise ValueError("random_frac < 1 needs the uniforms `noise`")
-    k_drop = torch.ceil(ps * _f32(frac, dev))
+    k_drop = torch.ceil(ps * _f32(frac))
     return (_rank(noise, cand, largest=False) < k_drop) & cand
 
 
@@ -98,7 +100,7 @@ def fuse_heads_vote(attn: torch.Tensor, valid: torch.Tensor, frac) -> torch.Tens
     each head nominates its top ``ceil(ps · frac)``; returns the vote count
     per patch ``[B, N]`` (float32)."""
     ps = valid.sum(dim=-1, keepdim=True).to(_F32)[:, None]
-    k = torch.ceil(ps * _f32(frac, attn.device))
+    k = torch.ceil(ps * _f32(frac))
     rank_h = _rank(attn, valid[:, None, :], largest=True)
     return (rank_h < k).sum(dim=1).to(_F32)
 

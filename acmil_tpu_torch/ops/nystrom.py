@@ -87,7 +87,8 @@ def nystrom_attention(
         divisor = counts[:, None, :, None].to(q.dtype) + eps
         lm_valid = counts > 0
     else:
-        divisor = torch.tensor(float(l), dtype=q.dtype, device=q.device)
+        # filled on the device: a host scalar tensor is a copy to it
+        divisor = torch.full((), float(l), dtype=q.dtype, device=q.device)
         lm_valid = None
     q_l = q_l / divisor
     k_l = k_l / divisor
@@ -177,7 +178,8 @@ def sharded_nystrom_attention(q: torch.Tensor, k: torch.Tensor,
         lmv_loc = counts > 0
     else:
         q_, k_, v_ = q, k, v
-        divisor = torch.tensor(float(l), dtype=q.dtype, device=q.device)
+        # filled on the device: a host scalar tensor is a copy to it
+        divisor = torch.full((), float(l), dtype=q.dtype, device=q.device)
         lmv_loc = torch.ones((b, m_loc), dtype=torch.bool, device=q.device)
     q_l = q_.reshape(b, h, m_loc, l, dh).sum(dim=3) / divisor
     k_l = k_.reshape(b, h, m_loc, l, dh).sum(dim=3) / divisor

@@ -57,12 +57,14 @@ def uniform_key0(shape: Tuple[int, ...]) -> np.ndarray:
 
 def eval_uniforms(shape: Tuple[int, int], device) -> torch.Tensor:
     """:func:`uniform_key0` of ``shape`` as a float32 tensor on ``device``,
-    computed once per (shape, device) and kept (for a few dozen pairs: the
-    pad buckets of one run). Callers only read it."""
+    computed once per (shape, device) and kept for the process: one per pad
+    bucket of a run. A scanned eval's warm-up makes it before the group's
+    capture, so the graph reads a resident tensor and never copies one to
+    the card. Callers only read it."""
     return _eval_uniforms(tuple(int(s) for s in shape),
                           str(torch.device(device)))
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def _eval_uniforms(shape: Tuple[int, ...], device: str) -> torch.Tensor:
     return torch.from_numpy(uniform_key0(shape)).to(device)

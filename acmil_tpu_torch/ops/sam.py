@@ -12,6 +12,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from acmil_tpu_torch.parallel.mesh import DrawTape
+
 
 def _grads(loss: torch.Tensor, params: Sequence[torch.Tensor]
            ) -> List[torch.Tensor]:
@@ -40,12 +42,16 @@ def sam_gradient(loss_fn: Callable[[], Tuple[torch.Tensor, dict]],
                  ) -> Tuple[Tuple[torch.Tensor, dict], List[torch.Tensor]]:
     """``loss_fn()`` → ``(loss, aux)`` at the parameters' current values.
     Returns ``((loss, aux), sam_grads)``: the loss and ``aux`` of the first
-    pass, detached, and the gradient at the perturbed point. ``loss_fn``
-    must make the same random draws on each call; the parameters come back
-    from a saved copy, bit for bit, whatever ``p + ε - ε`` would round
-    to. ``reduce_grads``, when given, completes the first pass's gradients
-    in place before the ascent (their sum over a mesh's data ranks)."""
-    loss, aux = loss_fn()
+    pass, detached, and the gradient at the perturbed point. The second
+    pass takes the first pass's random draws (``parallel/mesh.py::draw``,
+    through a :class:`DrawTape`), so ``loss_fn`` must draw through
+    ``draw`` alone; the parameters come back from a saved copy, bit for
+    bit, whatever ``p + ε - ε`` would round to. ``reduce_grads``, when
+    given, completes the first pass's gradients in place before the ascent
+    (their sum over a mesh's data ranks)."""
+    tape = DrawTape()
+    with tape.recording():
+        loss, aux = loss_fn()
     grads = _grads(loss, params)
     if reduce_grads is not None:
         reduce_grads(grads)
@@ -61,7 +67,8 @@ def sam_gradient(loss_fn: Callable[[], Tuple[torch.Tensor, dict]],
         for p, e in zip(params, eps):
             p.add_(e)
     try:
-        loss2, _ = loss_fn()
+        with tape.replaying():
+            loss2, _ = loss_fn()
         sam_grads = _grads(loss2, params)
     finally:
         with torch.no_grad():

@@ -299,13 +299,75 @@ def global_rows(make, shape, batch_dim: int = 0) -> torch.Tensor:
     return full.narrow(batch_dim, mesh.data_index * rows, rows).contiguous()
 
 
+class DrawTape:
+    """The draws of one pass, handed back in order to a later pass: SAM's
+    two passes (``ops/sam.py::sam_gradient``) then see the same STKIM
+    uniforms, DTFD grouping and dropout masks, as JAX's two passes close
+    over one rng dict. The generators advance once, in the recording pass,
+    and nothing is read or set on the host, so a CUDA graph holds both
+    passes as it holds one."""
+
+    def __init__(self):
+        self.draws = []
+        self._replay: Optional[int] = None
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Within: every :func:`draw` is kept on the tape."""
+        global _TAPE
+        prev, _TAPE = _TAPE, self
+        self.draws, self._replay = [], None
+        try:
+            yield self
+        finally:
+            _TAPE = prev
+
+    @contextlib.contextmanager
+    def replaying(self):
+        """Within: each :func:`draw` returns the tape's next draw, which
+        must have the shape, dtype and kind asked for; every draw on the
+        tape must be taken."""
+        global _TAPE
+        prev, _TAPE = _TAPE, self
+        self._replay = 0
+        try:
+            yield self
+            if self._replay != len(self.draws):
+                raise RuntimeError(f"the replaying pass took {self._replay} "
+                                   f"of the {len(self.draws)} recorded draws")
+        finally:
+            _TAPE, self._replay = prev, None
+
+    def _take(self, key) -> torch.Tensor:
+        if self._replay >= len(self.draws):
+            raise RuntimeError(f"the replaying pass draws more than the "
+                               f"{len(self.draws)} recorded")
+        want, out = self.draws[self._replay]
+        if want != key:
+            raise RuntimeError(f"draw {self._replay} of the replaying pass "
+                               f"is {key}, the recorded one {want}")
+        self._replay += 1
+        return out
+
+
+_TAPE: Optional[DrawTape] = None
+
+
 def draw(shape, generator: Optional[torch.Generator], device,
          dtype: Optional[torch.dtype] = None, normal: bool = False,
          batch_dim: int = 0) -> torch.Tensor:
     """``torch.rand`` (``torch.randn`` when ``normal``) of ``shape``, whose
     ``batch_dim`` runs over this rank's rows of the batch: under an active
     mesh the global batch's draw is made and this rank's rows kept, so the
-    values do not depend on the world size."""
+    values do not depend on the world size. Under a :class:`DrawTape` the
+    draw is recorded, or taken from the tape."""
+    tape = _TAPE
+    key = (tuple(int(s) for s in shape), dtype, normal, batch_dim)
+    if tape is not None and tape._replay is not None:
+        return tape._take(key)
     fn = torch.randn if normal else torch.rand
-    return global_rows(lambda s: fn(s, generator=generator, device=device,
-                                    dtype=dtype), shape, batch_dim)
+    out = global_rows(lambda s: fn(s, generator=generator, device=device,
+                                   dtype=dtype), shape, batch_dim)
+    if tape is not None:
+        tape.draws.append((key, out))
+    return out

@@ -283,7 +283,23 @@ code is non-zero:
    (``profile_trace``), and STKIM's branch on the device against the
    host's; (f) ABMIL, CLAM_SB and CLAM_MB graph against eager on the first
    ``SCAN_SUB`` bags, and DSMIL's scanned eval with B6 in the graph
-   against ``evaluate``.
+   against ``evaluate``; (g) every other family the JAX package scans, each
+   one graph epoch against one eager scanned epoch on the first
+   ``SCAN_FAMILY_SUB`` bags (``SCAN_LIGHT_SUB`` for pure, MHIM, TransMIL
+   and the plain heads) from
+   the same weights and draws, bit for bit, each arch's route chosen by
+   ``scan_route``: ACMIL_GA and DSMIL with ``use_sam`` (B1 and B2 twice a
+   replay on ga), DTFD with ``DTFD_FUSE_MIN_S`` pinned to 0 (B1 and B2
+   once a replay, on the gathered ``mid``) and at its default, pure, then
+   MHIM with that pure model as its teacher (the teacher bit for bit too),
+   TransMIL and the twelve plain heads (``SCAN_PLAIN_HEADS``), the replays'
+   B1/B2 launches equal to one capture's times the steps and to the eager
+   epoch's; DSMIL's scanned eval after its SAM run, B6 in the graph,
+   against ``evaluate``; ``cli/step3_acmil.py`` with ``use_sam: true`` and
+   ``cli/step3_mhim.py --model mhim`` (``MHIM_STAGE_B``) with
+   ``--scan_epoch``, 2 epochs each, printing the graph route once; and
+   the per-bag loop, eager scanned and graph epochs of ``SCAN_TIMED``
+   (SAM-ga, fused DTFD, MHIM, TransMIL, ILRA) timed as in (e).
 24. the ViT trunks at float16 and float32 (``vit_dtypes_run``): (a) Step2's
    feature path at ViT-S/16 (full width, depth 12, batch 256, seeded random
    weights), ``build_encoder(conf, dtype=...)`` → ``encoder_feature_fn`` →
@@ -368,7 +384,11 @@ data 2 x seq 2 epoch summed over its ranks; ``launches_sharded_step_seq2``,
 ``launches_mesh_nccl_world1``), and on phase 23's scanned epochs
 (``launches_scan_epoch_step3``: (a)'s warm-ups plus its replays times the
 launches of one capture; ``launches_scan_graph_epochs``: (b) and (e)'s
-graph epochs; B6's ``launches_scan_eval_graph``: (f)), and on phase 25's
+graph epochs; B6's ``launches_scan_eval_graph``: (f);
+``launches_scan_sam_graph``, ``launches_scan_dtfd_graph`` and
+``launches_scan_sam_cli``: (g)'s SAM-ga and fused DTFD graph epochs and
+its SAM CLI; B6's ``launches_scan_sam_eval_graph``: (g)'s DSMIL eval
+after SAM), and on phase 25's
 scanned mesh epochs, summed over the ranks (``launches_scan_mesh_nccl_world1``:
 (a)'s warm-ups and replays; ``launches_scan_mesh_data2``,
 ``launches_scan_mesh_data2_seq2``: (b) and (c)'s scanned epochs; B6's
@@ -381,6 +401,7 @@ is
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import math
 import os
@@ -1636,6 +1657,19 @@ def vit_kernels_vs_plain(smi: str) -> dict:
     return out
 
 
+_STEP2_INPUTS: list = []
+
+
+def _step2_inputs():
+    """:func:`_write_step2_inputs` once a process, into a directory removed
+    when the process ends: phases 9 and 24 read the same slides, and
+    writing them takes 13-25 s on the card's host."""
+    if not _STEP2_INPUTS:
+        tmp = tempfile.TemporaryDirectory()
+        _STEP2_INPUTS.extend([tmp, *_write_step2_inputs(tmp.name)])
+    return tuple(_STEP2_INPUTS[1:])
+
+
 def _write_step2_inputs(tmp: str):
     """Three synthetic PNG slides with every 224-px grid patch as Step1
     coords, in the torch coords file (the card's machine has no h5py)."""
@@ -1693,7 +1727,7 @@ def step2_run(smi: str) -> dict:
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        slide_dir, coords_dir, labels = _write_step2_inputs(tmp)
+        slide_dir, coords_dir, labels = _step2_inputs()
         print(f"step2 inputs: {len(STEP2_SLIDES)} synthetic PNG slides "
               f"written in {time.perf_counter() - t0:.2f} s")
         out_dir = os.path.join(tmp, "feats")
@@ -5466,12 +5500,16 @@ def _same_eval(got: dict, want: dict) -> bool:
         for k in got)
 
 
-def _scan_timed(fn, device) -> dict:
+def _scan_timed(fn, device, export: bool = True) -> dict:
     """One epoch ``fn()`` timed (host span ending in a synchronise, and
     ``StepTimer``'s CUDA events), then one more under ``profile_trace``,
     the card's activity alone: its device busy time and its B1 row and B2
     weight-gradient kernels (one each a launch), and the idle share of the
-    timed epoch."""
+    timed epoch. ``export=False`` profiles the same activity without
+    writing its Chrome trace (seconds for an epoch's tens of thousands of
+    events)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from acmil_tpu_torch.utils.profiling import (StepTimer, device_events,
                                                  profile_trace)
 
@@ -5481,7 +5519,8 @@ def _scan_timed(fn, device) -> dict:
     event_s = timer.tick()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with tempfile.TemporaryDirectory() as trace_dir:
-        with profile_trace(trace_dir, device, cpu=False) as prof:
+        with (profile_trace(trace_dir, device, cpu=False) if export else
+              profile(activities=[ProfilerActivity.CUDA])) as prof:
             fn()
             torch.cuda.synchronize()
     events = device_events(prof)
@@ -5616,8 +5655,10 @@ def _scan_routes(smi: str, slides: dict) -> dict:
           f"against {SCAN_BAGS} replays x 1 launch per capture (events the "
           f"tracer lost: {lost['b1_rows']}, {lost['b2_wgrads']}) [{smi}]")
     epoch = iter(range(1, 3))
+    # the graph epoch's Chrome trace is written (profile_trace); the other
+    # two are profiled alike without one
     t_eager = _scan_timed(lambda: train_one_epoch_scanned(
-        st_e, runs["eager"][3], l_e, next(epoch)), dev)
+        st_e, runs["eager"][3], l_e, next(epoch)), dev, export=False)
     m_l = copy.deepcopy(model)
     st_l = create_train_state(m_l, conf, SCAN_BAGS, family=family)
     loop_step = make_train_step(m_l, conf, family)
@@ -5627,7 +5668,7 @@ def _scan_routes(smi: str, slides: dict) -> dict:
     epoch = iter(range(1, 3))
     t_loop = _scan_timed(lambda: train_one_epoch(st_l, loop_step,
                                                  loop_loader, next(epoch)),
-                         dev)
+                         dev, export=False)
     # STKIM's branch on the device: a step's forward and backward at the
     # most common bucket with the select (both branches) and with the
     # host's branch (one sync)
@@ -5751,8 +5792,338 @@ def _scan_heads(smi: str, slides: dict) -> dict:
     return out
 
 
+# (g): every family the JAX package scans, one graph epoch against one eager
+# scanned epoch on the first SCAN_FAMILY_SUB bags of the cohort (SAM and
+# DTFD, whose steps run the kernels; SCAN_LIGHT_SUB for the Nystrom heads,
+# MHIM, its pure stage, TransMIL and the plain heads): ACMIL_GA and DSMIL
+# with SAM (B1/B2 twice a step on ga), DTFD through B1/B2 (DTFD_FUSE_MIN_S
+# pinned to 0) and on its default plain route, pure then mhim with that
+# pure model as its teacher, TransMIL and the twelve plain heads. Half and
+# a quarter of (f)'s SCAN_SUB keep the whole script inside its time limit:
+# on an H100 (700 W) it took 1149 s of its 1200 with (g) at 64 and 32
+# bags, 158.8 s of them in (g)
+SCAN_FAMILY_SUB, SCAN_LIGHT_SUB = 32, 16
+SCAN_PLAIN_HEADS = ("mha_single", "meanmil", "maxmil", "lbmil", "attmil",
+                    "attmil_gated", "ilra", "ips", "ibmil", "bmil_vis",
+                    "bmil_enc", "bmil_spvis")
+SCAN_FAMILY_CASES = (("ga+sam", "dsmil+sam", "dtfd+fused", "dtfd", "pure",
+                      "mhim", "transmil") + SCAN_PLAIN_HEADS)
+# (g): the heads whose loop, eager scanned and graph epochs are timed
+SCAN_TIMED = ("ga+sam", "dtfd+fused", "mhim", "transmil", "ilra")
+# (g): the SAM and MHIM CLIs' val and test bags
+SCAN_CLI_EVAL = 4
+
+
+def _family_conf(case: str):
+    """``case`` is an arch with options: ``+sam`` (use_sam), ``+fused``
+    (DTFD without dropout, through B1/B2 where DTFD_FUSE_MIN_S routes)."""
+    arch, *opts = case.split("+")
+    kw = dict(use_sam="sam" in opts)
+    if arch in ("pure", "mhim"):
+        # the MHIM script's stage B (MHIM_STAGE_B), its defaults otherwise
+        kw.update(mlp_dim=512, baseline="selfattn", dropout=0.25,
+                  steps_per_epoch=SCAN_LIGHT_SUB)
+        if arch == "mhim":
+            kw.update(mask_ratio_h=0.1, mask_ratio_hr=0.5, mm_sche=True,
+                      mrh_sche=True)
+    if arch == "dtfd":
+        kw.update(numGroup=4, total_instance=4,
+                  droprate=0.0 if "fused" in opts else 0.25)
+    return _scan_conf(arch, **kw)
+
+
+def _family_sub(case: str) -> int:
+    return (SCAN_FAMILY_SUB if case.split("+")[0] in ("ga", "dsmil", "dtfd")
+            else SCAN_LIGHT_SUB)
+
+
+def _graph_vs_eager(smi: str, case: str, slides: dict, teacher=None) -> dict:
+    """One eager scanned epoch and one graph epoch of ``case`` on the first
+    bags of ``slides``, from the same weights (``teacher``: the EMA
+    teacher's start) in one visit order: parameters, teacher and sums bit
+    for bit; the replays' B1/B2 launches equal one capture's times the
+    steps."""
+    from acmil_tpu_torch.data import BagLoader
+    from acmil_tpu_torch.engine.train import (create_train_state,
+                                              make_scan_train_step,
+                                              scan_route,
+                                              train_one_epoch_scanned)
+    from acmil_tpu_torch.models import build_mil_model
+
+    dev = torch.device("cuda")
+    conf = _family_conf(case)
+    n = _family_sub(case)
+    route, why = scan_route(conf, dev)
+    if route != "graph":
+        raise AssertionError(f"{case}: scan_route gives {route} ({why})")
+    names = sorted(slides)[:n]
+    src = _ListSrc({k: slides[k] for k in names})
+    kw = dict(min_bucket=SCAN_MIN_BUCKET, dtype=np.float16, device=dev)
+    torch.manual_seed(SEED)
+    model, family = build_mil_model(conf)
+    model.to(dev)
+    runs = {}
+    for route in ("eager", "graph"):
+        m = copy.deepcopy(model)
+        state = create_train_state(m, conf, n, family=family)
+        if teacher is not None:
+            state.teacher.load_state_dict(teacher)
+        scan = make_scan_train_step(m, conf, family, route=route)
+        loader = BagLoader(src, 1, shuffle=True, seed=SCAN_LOADER_SEED, **kw)
+        torch.cuda.manual_seed(SEED)
+        _zero_counts()
+        t0 = time.perf_counter()
+        _, stats = train_one_epoch_scanned(state, scan, loader, 0)
+        torch.cuda.synchronize()
+        runs[route] = dict(model=m, state=state, stats=stats, scan=scan,
+                           loader=loader, seconds=time.perf_counter() - t0,
+                           counted=_counts())
+    e, g = runs["eager"], runs["graph"]
+    pairs = list(zip(g["model"].parameters(), e["model"].parameters()))
+    if conf.arch == "mhim":
+        pairs += list(zip(g["state"].teacher.parameters(),
+                          e["state"].teacher.parameters()))
+    diff = max(float((p - q).detach().abs().max()) for p, q in pairs)
+    if (diff > SCAN_GRAPH_ATOL or g["stats"] != e["stats"]
+            or g["state"].step != e["state"].step != n):
+        raise AssertionError(f"{case}: graph vs eager max param diff "
+                             f"{diff:.3e}, steps {g['state'].step}/"
+                             f"{e['state'].step}, stats {g['stats']} vs "
+                             f"{e['stats']}")
+    graphs = g["scan"].graphs
+    replayed = graphs.kernel_launches()
+    per_step = 0
+    if conf.arch == "ga" or case == "dtfd+fused":
+        per_step = 2 if conf.use_sam else 1
+    per_capture = {k: sorted({v[k] for v in graphs.per_replay.values()})
+                   for k in ("B1", "B2")}
+    if (sum(graphs.replays.values()) != n
+            or any(per_capture[k] != [per_step] for k in ("B1", "B2"))
+            or replayed.get("B1") != per_step * n
+            or replayed.get("B2") != per_step * n
+            or e["counted"].get("B1") != per_step * n
+            or e["counted"].get("B2") != per_step * n):
+        raise AssertionError(f"{case}: per capture {per_capture}, replays "
+                             f"{graphs.replays}, launched {replayed}, eager "
+                             f"{e['counted']}: want {per_step} a step")
+    out = {"bags": n, "groups": len(graphs.replays), "max_param_diff": diff,
+           "loss": g["stats"]["loss"], "launches": replayed,
+           "b1_b2_per_replay": per_step,
+           "capture_ms": round(1e3 * sum(graphs.capture_s.values()), 3),
+           "pool_bytes": sum(graphs.pool_bytes.values()),
+           "graph_epoch_s": g["seconds"], "eager_epoch_s": e["seconds"]}
+    print(f"scan (g): {case} one epoch of {n} bags in {out['groups']} "
+          f"buckets, graph vs eager scanned: max param diff {diff:.3e}"
+          f"{' (teacher included)' if conf.arch == 'mhim' else ''}, loss "
+          f"{out['loss']:.6f}; B1/B2 {per_step} a replay, replays launched "
+          f"B1 {replayed.get('B1')} B2 {replayed.get('B2')}; first epochs "
+          f"{g['seconds']:.3f} s (warm-ups and captures "
+          f"{out['capture_ms']:.1f} ms of capture) / {e['seconds']:.3f} s "
+          f"[{smi}]")
+    return out, runs, src
+
+
+def _family_cli(smi: str, tmp: str, slides: dict, module, tag: str,
+                yml: str, argv: list) -> dict:
+    """``module.main`` (a Step3 CLI) with ``--scan_epoch`` and the config
+    ``yml`` for 2 epochs on the first SCAN_FAMILY_SUB bags (SCAN_CLI_EVAL
+    val and test): the graph route, printed once; the launches of B1/B2 by
+    the replays and outside them."""
+    import contextlib
+    import io
+
+    from acmil_tpu_torch.cli import train as train_cli
+
+    names = sorted(slides)[:SCAN_FAMILY_SUB + 2 * SCAN_CLI_EVAL]
+    root = os.path.join(tmp, tag)
+    os.makedirs(root)
+    data_dir, _, yml = _write_split_corpus(
+        root, {k: slides[k] for k in names}, yml, "medical_ssl",
+        SCAN_FAMILY_SUB, SCAN_CLI_EVAL)
+    name = f"cli/{module.__name__.rsplit('.', 1)[-1]}.py {' '.join(argv)}"
+    made = []
+    real = (train_cli.make_scan_train_step, train_cli.make_scan_eval_step)
+    train_cli.make_scan_train_step = lambda *a, **k: made.append(
+        real[0](*a, **k)) or made[-1]
+    train_cli.make_scan_eval_step = lambda *a, **k: made.append(
+        real[1](*a, **k)) or made[-1]
+    out = io.StringIO()
+    _zero_counts()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            module.main(["--config", yml, "--data_dir", data_dir,
+                         "--ckpt_dir", os.path.join(root, "ckpt"),
+                         "--log_dir", os.path.join(root, "log"),
+                         "--train_epoch", "2", "--min_bucket",
+                         str(SCAN_MIN_BUCKET), "--scan_epoch",
+                         "--device", "cuda"] + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        train_cli.make_scan_train_step, train_cli.make_scan_eval_step = real
+    routes = [ln for ln in out.getvalue().splitlines()
+              if ln.startswith("scan_epoch:")]
+    if len(routes) != 1 or "graph route" not in routes[0]:
+        raise AssertionError(f"{name}: the CLI's route lines {routes}")
+    with open(os.path.join(root, "log", "metrics.jsonl")) as f:
+        epochs = [r for r in map(json.loads, f) if "_config" not in r]
+    if len(epochs) != 2 or not all(math.isfinite(r["train/loss"])
+                                   for r in epochs):
+        raise AssertionError(f"{name}: epochs {epochs}")
+    warm = _counts()
+    replayed = _sum_counts(*(m.kernel_launches() for m in made))
+    print(f"scan (g): {name} ({tag}), 2 epochs x {SCAN_FAMILY_SUB} bags + "
+          f"{SCAN_CLI_EVAL} val + {SCAN_CLI_EVAL} test, {wall:.2f} s wall; "
+          f"{routes[0]}; replays launched B1 {replayed.get('B1', 0)} B2 "
+          f"{replayed.get('B2', 0)}, warm-ups B1 {warm['B1']} B2 "
+          f"{warm['B2']}; train losses "
+          f"{', '.join('%.6f' % r['train/loss'] for r in epochs)} [{smi}]")
+    return {"wall_s": wall, "route": routes[0], "replayed": replayed,
+            "warm": warm, "launches": _sum_counts(warm, replayed)}
+
+
+def _family_timed(smi: str, case: str, runs: dict, src) -> dict:
+    """One more epoch of the graph and eager scanned routes of
+    :func:`_graph_vs_eager`'s ``runs`` and of the per-bag loop over the same
+    bags, each timed then profiled (:func:`_scan_timed`)."""
+    from acmil_tpu_torch.data import BagLoader
+    from acmil_tpu_torch.engine.train import (create_train_state,
+                                              make_train_step,
+                                              train_one_epoch,
+                                              train_one_epoch_scanned)
+    from acmil_tpu_torch.models import build_mil_model
+
+    dev = torch.device("cuda")
+    out = {}
+    for route in ("graph", "eager"):
+        r = runs[route]
+        epoch = iter(range(1, 3))
+        out[route] = _scan_timed(lambda: train_one_epoch_scanned(
+            r["state"], r["scan"], r["loader"], next(epoch)), dev,
+            export=False)
+    conf = _family_conf(case)
+    torch.manual_seed(SEED)
+    model, family = build_mil_model(conf)
+    model.to(dev)
+    n = len(src)
+    state = create_train_state(model, conf, n, family=family)
+    step = make_train_step(model, conf, family)
+    loader = BagLoader(src, 1, shuffle=True, seed=SCAN_LOADER_SEED,
+                       cache_device=True, min_bucket=SCAN_MIN_BUCKET,
+                       dtype=np.float16, device=dev)
+    train_one_epoch(state, step, loader, 0)            # uploads the bags
+    epoch = iter(range(1, 3))
+    out["loop"] = _scan_timed(lambda: train_one_epoch(state, step, loader,
+                                                      next(epoch)), dev,
+                              export=False)
+    for name, key in (("per-bag loop", "loop"), ("eager scanned", "eager"),
+                      ("graph", "graph")):
+        t = out[key]
+        print(f"scan (g): {case} {name} epoch of {n} bags: wall "
+              f"{t['wall_ms']:.3f} ms (CUDA events {t['event_ms']:.3f} ms), "
+              f"device busy {t['device_ms']:.3f} ms in {t['events']} device "
+              f"events, idle {100 * t['idle']:.1f}%, "
+              f"{t['wall_ms'] / n:.4f} ms a bag [{smi}]")
+    return {k: {kk: round(vv, 4) if isinstance(vv, float) else vv
+                for kk, vv in v.items()} for k, v in out.items()}
+
+
+def _scan_families(smi: str, tmp: str, slides: dict) -> dict:
+    """(g) every family the JAX package scans, on the graph route: each
+    case of SCAN_FAMILY_CASES against its eager scanned epoch; DSMIL's
+    scanned eval after its SAM run, B6 in the graph; the SAM and MHIM CLIs;
+    loop, eager and graph epochs timed for SCAN_TIMED."""
+    from acmil_tpu_torch.cli import step3_acmil, step3_mhim
+    from acmil_tpu_torch.data import BagLoader
+    from acmil_tpu_torch.engine.train import (evaluate, evaluate_scanned,
+                                              make_eval_step,
+                                              make_scan_eval_step)
+    from acmil_tpu_torch.models import fast
+    from acmil_tpu_torch.ops import dsmil_pool
+
+    t0 = time.perf_counter()
+    out = {"cases": {}, "timed": {}}
+    pure = None
+    for case in SCAN_FAMILY_CASES:
+        pinned = fast.DTFD_FUSE_MIN_S
+        if case == "dtfd+fused":
+            fast.DTFD_FUSE_MIN_S = 0
+        try:
+            res, runs, src = _graph_vs_eager(
+                smi, case, slides,
+                teacher=pure if case == "mhim" else None)
+            if case in SCAN_TIMED:
+                out["timed"][case] = _family_timed(smi, case, runs, src)
+        finally:
+            fast.DTFD_FUSE_MIN_S = pinned
+        if case == "pure":
+            pure = copy.deepcopy(runs["graph"]["model"].state_dict())
+        if case == "dsmil+sam":
+            dsmil = runs["graph"]
+        out["cases"][case] = res
+        del runs
+    out["cases_s"] = time.perf_counter() - t0
+
+    # DSMIL's scanned eval after its SAM graph epoch, on the route of its
+    # train step: B6 in the graph, against evaluate
+    rs = np.random.RandomState(SEED + 23)
+    big = {f"dsmil_{i}": {
+        "feat": rs.randn(SCAN_DSMIL_N - 7 * i, D_FEAT).astype(np.float16),
+        "coords": np.zeros((SCAN_DSMIL_N - 7 * i, 2), np.int64),
+        "label": i % 2} for i in range(SCAN_DSMIL_BAGS)}
+    kw = dict(min_bucket=SCAN_MIN_BUCKET, dtype=np.float16,
+              device=torch.device("cuda"))
+    model, route = dsmil["model"], dsmil["scan"].route
+    scan_eval = make_scan_eval_step(model, "dsmil", route=route)
+    before = dsmil_pool.fused_dsmil_pool.launches
+    got = evaluate_scanned(scan_eval, BagLoader(_ListSrc(big), 1, **kw), 2)
+    warm = dsmil_pool.fused_dsmil_pool.launches - before
+    want = evaluate(make_eval_step(model, "dsmil"),
+                    BagLoader(_ListSrc(big), 1, **kw), 2)
+    replayed = scan_eval.kernel_launches().get("B6", 0)
+    if route != "graph" or replayed != SCAN_DSMIL_BAGS \
+            or not _same_eval(got, want):
+        raise AssertionError(f"dsmil+sam eval on the {route} route: B6 "
+                             f"replays {replayed}, {got} vs {want}")
+    print(f"scan (g): dsmil after its SAM graph epoch, scanned eval (graph) "
+          f"of {SCAN_DSMIL_BAGS} bags of ~{SCAN_DSMIL_N} patches vs "
+          f"evaluate: metrics equal (loss {got['loss']:.6f}); B6 replays "
+          f"{replayed} (1 launch per capture), warm-up launches {warm} "
+          f"[{smi}]")
+    out["sam_eval"] = {"B6_replays": replayed, "B6_warm": warm,
+                       "loss": got["loss"]}
+    del dsmil, model, scan_eval
+
+    t1 = time.perf_counter()
+    sam_yml = os.path.join(tmp, "sam.yml")
+    with open(YML) as src_f, open(sam_yml, "w") as dst:
+        dst.write(src_f.read() + "\nuse_sam: true\n")
+    out["cli_sam"] = _family_cli(smi, tmp, slides, step3_acmil, "cli_sam",
+                                 sam_yml, ["--n_token", str(N_TOKEN),
+                                           "--n_masked_patch",
+                                           str(N_MASKED_PATCH), "--mask_drop",
+                                           str(MASK_DROP)])
+    steps = 2 * SCAN_FAMILY_SUB
+    evals = 2 * 2 * SCAN_CLI_EVAL
+    rep = out["cli_sam"]["replayed"]
+    if rep.get("B2") != 2 * steps or rep.get("B1") != 2 * steps + evals:
+        raise AssertionError(f"the SAM CLI's replays launched {rep}: want "
+                             f"B2 {2 * steps} and B1 {2 * steps + evals}")
+    out["cli_mhim"] = _family_cli(smi, tmp, slides, step3_mhim, "cli_mhim",
+                                  YML, ["--model", "mhim", *MHIM_STAGE_B])
+    out["cli_s"] = time.perf_counter() - t1
+    # the graphs, their pools and the warm states hold the card's memory
+    # until their reference cycles are collected; phase 25's ranks share
+    # the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def scan_epoch_run(smi: str, tmp: str) -> dict:
-    """Phase 23: Step3's scanned epoch on the card (a)-(f)."""
+    """Phase 23: Step3's scanned epoch on the card (a)-(g)."""
     t0 = time.perf_counter()
     slides = _scan_cohort(SCAN_BAGS + SCAN_VAL + SCAN_TEST, SEED)
     cohort = {k: slides[k] for k in sorted(slides)[:SCAN_BAGS]}
@@ -5765,8 +6136,10 @@ def scan_epoch_run(smi: str, tmp: str) -> dict:
     out = _scan_routes(smi, cohort)
     t3 = time.perf_counter()
     out["heads"] = _scan_heads(smi, cohort)
+    t4 = time.perf_counter()
+    out["families"] = _scan_families(smi, root, cohort)
     out["part_s"] = {"cohort": t1 - t0, "cli": t2 - t1, "routes": t3 - t2,
-                     "heads": time.perf_counter() - t3}
+                     "heads": t4 - t3, "families": time.perf_counter() - t4}
     out["launches_cli"] = cli
     out["cli_run"] = out_cli
     out["cohort_s"] = made_s
@@ -6545,7 +6918,7 @@ def vit_dtypes_run(smi: str) -> dict:
                              "backbone": "ViT-S/16"})
     out = {"step2": {}}
     with tempfile.TemporaryDirectory() as tmp:
-        slide_dir, coords_dir, _ = _write_step2_inputs(tmp)
+        slide_dir, coords_dir, _ = _step2_inputs()
         slides = []
         for i in range(len(STEP2_SLIDES)):
             coords, _, _ = load_coords_pt(os.path.join(coords_dir,
@@ -6727,9 +7100,13 @@ def main() -> None:
     zoo["scan_epoch"] = {k: p23[k] for k in (
         "buckets", "graph_vs_eager_max_diff", "capture_ms", "pool_bytes",
         "first_graph_epoch_s", "epochs", "stkim_select_ms", "stkim_host_ms",
-        "stkim_n", "heads", "seconds")}
+        "stkim_n", "heads", "families", "seconds")}
     zoo["scan_mesh"] = p25
     scan_cli, scan_graph = p23["launches_cli"], p23["launches_graph"]
+    fam23 = p23["families"]
+    scan_sam = fam23["cases"]["ga+sam"]["launches"]
+    scan_dtfd = fam23["cases"]["dtfd+fused"]["launches"]
+    sam_cli = fam23["cli_sam"]["launches"]
     mesh_ga, mesh_cli = p21["ga_seq2"]["ranks"], p21["data2_seq2_cli"]
     dtfd_t, dtfd_r, sam = p20["dtfd_train"], p20["dtfd_routes"], p20["sam"]
     b5_edges = b7.pop("b5_edges")
@@ -6767,6 +7144,9 @@ def main() -> None:
         "launches_mesh_nccl_world1": p21["nccl_world1"]["B1"],
         "launches_scan_epoch_step3": scan_cli["B1"],
         "launches_scan_graph_epochs": scan_graph["B1"],
+        "launches_scan_sam_graph": scan_sam["B1"],
+        "launches_scan_dtfd_graph": scan_dtfd["B1"],
+        "launches_scan_sam_cli": sam_cli["B1"],
         "launches_scan_mesh_nccl_world1": p25["nccl_world1"]["B1"],
         "launches_scan_mesh_data2": p25["data2"]["B1"],
         "launches_scan_mesh_data2_seq2": p25["data2_seq2"]["B1"],
@@ -6791,6 +7171,9 @@ def main() -> None:
         "launches_mesh_nccl_world1": p21["nccl_world1"]["B2"],
         "launches_scan_epoch_step3": scan_cli["B2"],
         "launches_scan_graph_epochs": scan_graph["B2"],
+        "launches_scan_sam_graph": scan_sam["B2"],
+        "launches_scan_dtfd_graph": scan_dtfd["B2"],
+        "launches_scan_sam_cli": sam_cli["B2"],
         "launches_scan_mesh_nccl_world1": p25["nccl_world1"]["B2"],
         "launches_scan_mesh_data2": p25["data2"]["B2"],
         "launches_scan_mesh_data2_seq2": p25["data2_seq2"]["B2"],
@@ -6841,6 +7224,8 @@ def main() -> None:
         "launches_training_eval": dsmil_train,
         "launches_scan_eval_graph": p23["heads"]["dsmil_eval"]["B6_replays"]
         + p23["heads"]["dsmil_eval"]["B6_warm"],
+        "launches_scan_sam_eval_graph": fam23["sam_eval"]["B6_replays"]
+        + fam23["sam_eval"]["B6_warm"],
         "launches_scan_mesh_eval_data2": p25["dsmil_eval_data2"]["B6"],
         **b6}, {
         "name": "B7 multi-head attention over separate q, k, v, tensor-core "

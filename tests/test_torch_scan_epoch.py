@@ -50,6 +50,21 @@ from tests.test_torch_train import _stkim_case, _stkim_u
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRAPH_ARCHS = ("ga", "mha", "abmil", "clam_sb", "clam_mb", "dsmil")
+# SAM ("+sam") and the other families; dtfd through B1/B2's plain versions
+# (DTFD_FUSE_MIN_S pinned to 0)
+LOOP_CASES = ("ga+sam", "dsmil+sam", "dtfd", "dtfd+sam", "pure", "mhim",
+              "meanmil", "ilra", "bmil_spvis")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread at these tiny shapes: the lane's workers share
+    the cores, and PyTorch's thread pools oversubscribed them (the TransMIL
+    loop case took minutes there against a second alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _same_metrics(got, want):
@@ -144,16 +159,22 @@ def _twin_states(conf, n_steps):
             family)
 
 
-@pytest.mark.parametrize("arch", GRAPH_ARCHS + ("transmil",))
+@pytest.mark.parametrize("arch", GRAPH_ARCHS + ("transmil",) + LOOP_CASES)
 def test_scanned_epoch_equals_the_loop_in_its_order(synthetic_slides, arch,
                                                     monkeypatch):
     """Bit for bit: the same bags in the same order make the same draws
-    (STKIM's from the state's generator, dropout from torch's), and
-    STKIM's branch on the device keeps the host branch's numbers."""
+    (STKIM's from the state's generator, dropout from torch's, SAM's second
+    pass the first's), and STKIM's branch on the device keeps the host
+    branch's numbers; MHIM's teacher too."""
     monkeypatch.setattr(fast, "FUSE_MIN_N", 0)     # CLAM and DSMIL fused
-    # ACMIL_GA and CLAM take the kernels' route only without dropout
-    fused = arch == "ga" or arch.startswith("clam")
-    conf = _conf(arch, droprate=0.0 if fused else 0.25)
+    monkeypatch.setattr(fast, "DTFD_FUSE_MIN_S", 0)
+    arch, _, opt = arch.partition("+")
+    # ACMIL_GA, CLAM and DTFD take the kernels' route only without dropout
+    fused = arch in ("ga", "dtfd") or arch.startswith("clam")
+    conf = _conf(arch, droprate=0.0 if fused else 0.25, use_sam=opt == "sam",
+                 dropout=0.25, mlp_dim=16, mask_ratio=0.1, mask_ratio_h=0.2,
+                 mask_ratio_hr=0.5, mm=0.9, mm_sche=True, mrh_sche=True,
+                 steps_per_epoch=20)
     branches = []
     real = fast._stkim_correct
     monkeypatch.setattr(fast, "_stkim_correct", lambda *a, **k: branches.append(
@@ -182,10 +203,17 @@ def test_scanned_epoch_equals_the_loop_in_its_order(synthetic_slides, arch,
             for k, v in aux.items():
                 totals[k] = totals[k] + v if k in totals else v.clone()
     assert st_s.step == st_l.step == n
-    # ACMIL_GA's STKIM: the scanned steps on the device, the loop's on the host
-    assert branches == ([True] * n + [False] * n if arch == "ga" else [])
+    # ACMIL_GA's STKIM: the scanned steps on the device, the loop's on the
+    # host, in each of SAM's two passes
+    passes = 2 if conf.use_sam else 1
+    assert branches == ([True] * passes * n + [False] * passes * n
+                        if arch == "ga" else [])
     for (name, p), q in zip(m_s.named_parameters(), m_l.parameters()):
         assert torch.equal(p, q), name
+    if st_s.teacher is not None:
+        for (name, p), q in zip(st_s.teacher.named_parameters(),
+                                st_l.teacher.parameters()):
+            assert torch.equal(p, q), "teacher " + name
     # sums per dispatch, then over dispatches: another order of float adds
     assert stats.keys() == totals.keys()
     for k, v in totals.items():
@@ -193,16 +221,20 @@ def test_scanned_epoch_equals_the_loop_in_its_order(synthetic_slides, arch,
     assert np.isfinite(stats["loss"])
 
 
-@pytest.mark.parametrize("arch", ["abmil", "ga"])
+@pytest.mark.parametrize("arch", ["abmil", "ga", "ga+sam"])
 def test_scanned_epoch_matches_jax(synthetic_slides, arch, monkeypatch):
-    """One scanned epoch against JAX's, STKIM on with the JAX side's draws:
-    the epoch's mean loss to 1e-4 and mean gradient norm to 1e-3 relative,
-    and the parameters to lr per step absolute (the bounds of
+    """One scanned epoch against JAX's, STKIM on with the JAX side's draws
+    (both SAM passes take the step's), SAM in the body with ``+sam``: the
+    epoch's mean loss to 1e-4 and mean gradient norm to 1e-3 relative, and
+    the parameters to lr per step absolute (the bounds of
     tests/test_torch_train.py::test_five_adamw_steps_match_jax)."""
-    jconf = JaxConfig(n_class=2, D_feat=32, D_inner=16, n_token=3,
-                      n_masked_patch=5, mask_drop=0.5, lr=1e-3,
-                      train_epoch=3, min_bucket=64, seed=0, arch=arch)
-    conf = _conf(arch)
+    arch, _, opt = arch.partition("+")
+    sam = dict(use_sam=True, sam_rho=0.05) if opt == "sam" else {}
+    jconf = JaxConfig.from_dict(dict(
+        n_class=2, D_feat=32, D_inner=16, n_token=3, n_masked_patch=5,
+        mask_drop=0.5, lr=1e-3, train_epoch=3, min_bucket=64, seed=0,
+        arch=arch, **sam))
+    conf = _conf(arch, **sam)
     jl, pl = _loaders(synthetic_slides)
     rng = jax.random.PRNGKey(7)
     jm, jfam = jax_build_model(jconf)
@@ -306,16 +338,17 @@ def test_device_rate_equals_half_cosine_schedule(warmup):
 
 def test_routes_and_families():
     assert all(family_supports_scan(f) for f in FAMILIES.values())
-    for arch in GRAPH_ARCHS:
+    for arch in GRAPH_ARCHS + ("dtfd", "pure", "mhim", "transmil", "ilra",
+                               "bmil_spvis"):
         route, why = scan_route(_conf(arch), torch.device("cuda"))
         assert route == "graph", why
         assert scan_route(_conf(arch), "cpu")[0] == "eager"
-    for arch, reason in (("transmil", "checked"), ("mhim", "host"),
-                         ("dtfd", "checked")):
-        route, why = scan_route(_conf(arch), torch.device("cuda"))
-        assert route == "eager" and reason in why
-    route, why = scan_route(_conf("ga", use_sam=True), torch.device("cuda"))
-    assert route == "eager" and "SAM" in why
+    for arch in GRAPH_ARCHS + ("dtfd", "transmil", "meanmil"):
+        route, why = scan_route(_conf(arch, use_sam=True),
+                                torch.device("cuda"))
+        assert route == "graph" and "with SAM" in why, why
+    route, why = scan_route(_conf("nope"), torch.device("cuda"))
+    assert route == "eager" and "registry" in why
     # a mesh scan step builds, on the mesh's eager route on the CPU
     mesh = Mesh(1, 1, 0, torch.device("cpu"))
     scan = make_scan_train_step(build_mil_model(_conf())[0], _conf(),

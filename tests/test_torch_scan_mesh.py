@@ -540,7 +540,8 @@ def test_scan_route_on_a_mesh(arch):
     # a world of one takes the one process's route, on either backend
     for backend in ("nccl", "gloo"):
         assert scan_route(conf, cuda, _mesh(1, 1, backend)) == one
-    assert one[0] == ("graph" if arch in GRAPH_ARCHS else "eager")
+    # every arch of the registry graphs in one process
+    assert one[0] == "graph"
     route, why = scan_route(conf, cuda, _mesh(2, 1, "gloo"))
     assert route == "eager" and "gloo collectives stage through the host" \
         in why and "cannot be captured" in why
