@@ -58,6 +58,7 @@ from acmil_tpu_torch.config import Config
 from acmil_tpu_torch.data.patch_dataset import SlidePatchBatches
 from acmil_tpu_torch.models.encoders.build import (build_encoder,
                                                    encoder_feature_fn)
+from acmil_tpu_torch.utils import profiling
 from acmil_tpu_torch.utils.device import entry_device
 from acmil_tpu_torch.wsi.slide import SLIDE_EXTS, open_slide
 from acmil_tpu_torch.wsi.tiling import load_coords_h5, load_coords_pt
@@ -71,7 +72,9 @@ def extract_slide_features(embed, spec, slide, coords, patch_size_l0,
     ``parallel/tp.py::tp_encoder_feature_fn``), built once for all slides.
     On a ``mesh`` this rank reads its rows of each batch (on the model
     group's first rank only, which broadcasts them to the group) and every
-    rank gets the whole slide's features."""
+    rank gets the whole slide's features. The spans ``step2.read`` (the
+    reader's next batch) and ``step2.copy_back`` (the slide's features to
+    host memory) name the host's parts around the encoder's."""
     shard = (0, 1) if mesh is None else (mesh.data_index, mesh.data)
     src = SlidePatchBatches(slide, coords, patch_size_l0, patch_level,
                             target_size=spec.img_size, batch_size=batch_size,
@@ -85,14 +88,29 @@ def extract_slide_features(embed, spec, slide, coords, patch_size_l0,
     batches = (item[0] for item in src) if reads else itertools.repeat(
         None, len(src))
     feats = []
-    for g, imgs in enumerate(batches):
+    for g, imgs in enumerate(_read_spans(batches)):
         if tp:
             imgs = broadcast_images(imgs, mesh, block, device)
         n = min(batch_size, len(coords) - g * batch_size)
         feats.append(embed(imgs)[:n])                 # stays on the device
     if not feats:
         return np.zeros((0, spec.embed_dim), np.float16)
-    return torch.cat(feats).cpu().numpy()
+    with profiling.span("step2.copy_back"):
+        out = torch.cat(feats).cpu().numpy()
+    profiling.settle()
+    return out
+
+
+def _read_spans(batches):
+    """``batches``, each one's read inside a ``step2.read`` span."""
+    it = iter(batches)
+    while True:
+        with profiling.span("step2.read"):
+            try:
+                imgs = next(it)
+            except StopIteration:
+                return
+        yield imgs
 
 
 def extract_roi_features(embed, spec, roi_dir: str, output_dir: str,

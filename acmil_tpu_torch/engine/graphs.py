@@ -14,11 +14,15 @@ The kernels' wrappers count a launch where they are called, and a capture
 calls them without launching anything; :class:`GraphSteps` puts the
 counters back after each capture, keeps what one replay launches, and
 counts its replays, so :meth:`GraphSteps.kernel_launches` is launches per
-capture times replays.
+capture times replays. Each graph gives those counters to the span
+registry (``utils/profiling.py::counter_source``), and its warm-up, its
+captures and its replays are spans there (``graph.warm``,
+``graph.capture``, ``graph.replay``, the last device-timed).
 """
 
 from __future__ import annotations
 
+import functools
 import gc
 import time
 from typing import Callable, Dict, List, Optional
@@ -26,6 +30,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from acmil_tpu_torch.data.bags import Bag
+from acmil_tpu_torch.utils import profiling
 
 
 def launch_counters() -> Dict[str, object]:
@@ -81,6 +86,9 @@ class GraphSteps:
         self.replays: Dict[int, int] = {}
         self.capture_s: Dict[int, float] = {}
         self.pool_bytes: Dict[int, int] = {}
+        profiling.counter_source(functools.partial(
+            _counters, self.capture_s, self.replays, self.pool_bytes,
+            self.per_replay))
 
     @staticmethod
     def key(stacked: Bag) -> int:
@@ -95,11 +103,12 @@ class GraphSteps:
         if self.warm is not None:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), profiling.span("graph.warm"):
                 self.warm(new)
             torch.cuda.current_stream(self.device).wait_stream(side)
         for stacked in new:
-            self._capture(stacked)
+            with profiling.span("graph.capture"):
+                self._capture(stacked)
 
     def _capture(self, stacked: Bag) -> None:
         counters = launch_counters()
@@ -143,14 +152,31 @@ class GraphSteps:
         """One replay of ``stacked``'s graph on its bag ``i``."""
         key = self.key(stacked)
         graph, idx = self._graphs[key]
-        idx.fill_(int(i))
-        graph.replay()
+        with profiling.span("graph.replay", device=True):
+            idx.fill_(int(i))
+            graph.replay()
         self.replays[key] += 1
 
     def kernel_launches(self) -> Dict[str, int]:
         """Launches of each kernel the replays made so far."""
-        out: Dict[str, int] = {}
-        for key, per in self.per_replay.items():
-            for name, n in per.items():
-                out[name] = out.get(name, 0) + n * self.replays[key]
-        return out
+        return _launches(self.per_replay, self.replays)
+
+
+def _launches(per_replay, replays) -> Dict[str, int]:
+    out: Dict[str, int] = {}
+    for key, per in per_replay.items():
+        for name, n in per.items():
+            out[name] = out.get(name, 0) + n * replays[key]
+    return out
+
+
+def _counters(capture_s, replays, pool_bytes, per_replay) -> Dict[str, float]:
+    """A :class:`GraphSteps`' totals as the span registry reads them, from
+    its dicts, which outlive it there: capture seconds, replays, the pool's
+    growth at capture and the replays' kernel launches."""
+    out = {"graph.capture_s": sum(capture_s.values()),
+           "graph.replays": sum(replays.values()),
+           "graph.pool_bytes": sum(pool_bytes.values())}
+    out.update((f"graph.launches.{k}", n)
+               for k, n in _launches(per_replay, replays).items())
+    return out

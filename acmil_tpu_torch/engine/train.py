@@ -46,6 +46,7 @@ from acmil_tpu_torch.engine.schedules import half_cosine_schedule
 from acmil_tpu_torch.ops.sam import sam_gradient
 from acmil_tpu_torch.parallel import collectives as C
 from acmil_tpu_torch.parallel.mesh import active, current, gather_seq
+from acmil_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -378,13 +379,16 @@ def _gathered_metrics(probs_dev, valid_dev, labels_dev, n_class: int,
                       mesh) -> Dict[str, float]:
     """The metrics of every data rank's rows, gathered once, then one bulk
     host transfer instead of a sync per batch."""
-    if mesh is not None and mesh.data_group is not None and probs_dev:
-        whole = gather_across_hosts(torch.cat(probs_dev), torch.cat(labels_dev),
-                                    torch.cat(valid_dev), mesh.data_group)
-        probs_dev, labels_dev, valid_dev = ([t] for t in whole)
-    to_np = lambda ts: [t.cpu().numpy() for t in ts]
-    return _finalize_metrics(to_np(probs_dev), to_np(valid_dev),
-                             to_np(labels_dev), n_class)
+    with profiling.span("eval.gather"):
+        if mesh is not None and mesh.data_group is not None and probs_dev:
+            whole = gather_across_hosts(torch.cat(probs_dev),
+                                        torch.cat(labels_dev),
+                                        torch.cat(valid_dev), mesh.data_group)
+            probs_dev, labels_dev, valid_dev = ([t] for t in whole)
+        host = [[t.cpu().numpy() for t in ts]
+                for ts in (probs_dev, valid_dev, labels_dev)]
+        profiling.settle()
+        return _finalize_metrics(*host, n_class)
 
 
 # ---------------------------------------------------------------------------
@@ -460,13 +464,14 @@ class DeviceSchedule:
         """The rates of steps ``step .. step + n - 1``, from position 0."""
         if n > self.size:
             raise ValueError(f"{n} steps do not fit a table of {self.size}")
-        vals = torch.tensor([self.schedule(step + j) for j in range(n)],
-                            dtype=torch.float32)
-        if self.table.device.type == "cuda":
-            vals = vals.pin_memory()
-        self.table[:n].copy_(vals, non_blocking=True)
-        self.pos.zero_()
-        self.step.fill_(int(step))
+        with profiling.span("sched.load"):
+            vals = torch.tensor([self.schedule(step + j) for j in range(n)],
+                                dtype=torch.float32)
+            if self.table.device.type == "cuda":
+                vals = vals.pin_memory()
+            self.table[:n].copy_(vals, non_blocking=True)
+            self.pos.zero_()
+            self.step.fill_(int(step))
 
     def advance(self) -> None:
         """``lr`` <- the next step's rate; the position and the step count
@@ -736,35 +741,38 @@ def train_one_epoch_scanned(state: TrainState, scan_step, loader,
     and the chunks of all groups are shuffled together. ``scan_step`` runs
     one chunk (``(state, stacked, chunk, groups)``). The sums stay on the
     device and are read back once, at the end."""
-    groups = loader.device_groups()
-    totals: Dict[str, torch.Tensor] = {}
-    n = 0
-    dispatches = []
-    for gi, stacked in enumerate(groups):
-        k = int(stacked.label.shape[0])
-        perm = (loader.rng.permutation(k) if loader.shuffle
-                else np.arange(k))
-        c = max(1, min(int(interleave), k))
-        m = -(-k // c)                       # ceil(k / c)
-        for lo in range(0, k, m):
-            dispatches.append((gi, perm[lo:lo + m]))
-    if loader.shuffle:
-        order = loader.rng.permutation(len(dispatches))
-    else:
-        order = range(len(dispatches))
-    for di in order:
-        gi, chunk = dispatches[di]
-        sums = scan_step(state, groups[gi], chunk, groups)
-        n += len(chunk)
-        for k, v in sums.items():
-            totals[k] = totals[k] + v if k in totals else v.clone()
-    keys = list(totals)
-    vals = (torch.stack([totals[k].float() for k in keys]).tolist()
-            if keys else [])
-    stats = {k: v / max(n, 1) for k, v in zip(keys, vals)}
-    if logger is not None:
-        logger.update(**stats)
-    return state, stats
+    with profiling.span("epoch.train"):
+        groups = loader.device_groups()
+        totals: Dict[str, torch.Tensor] = {}
+        n = 0
+        dispatches = []
+        for gi, stacked in enumerate(groups):
+            k = int(stacked.label.shape[0])
+            perm = (loader.rng.permutation(k) if loader.shuffle
+                    else np.arange(k))
+            c = max(1, min(int(interleave), k))
+            m = -(-k // c)                       # ceil(k / c)
+            for lo in range(0, k, m):
+                dispatches.append((gi, perm[lo:lo + m]))
+        if loader.shuffle:
+            order = loader.rng.permutation(len(dispatches))
+        else:
+            order = range(len(dispatches))
+        for di in order:
+            gi, chunk = dispatches[di]
+            sums = scan_step(state, groups[gi], chunk, groups)
+            n += len(chunk)
+            for k, v in sums.items():
+                totals[k] = totals[k] + v if k in totals else v.clone()
+        keys = list(totals)
+        with profiling.span("epoch.sums"):
+            vals = (torch.stack([totals[k].float() for k in keys]).tolist()
+                    if keys else [])
+        profiling.settle()
+        stats = {k: v / max(n, 1) for k, v in zip(keys, vals)}
+        if logger is not None:
+            logger.update(**stats)
+        return state, stats
 
 
 def evaluate_scanned(scan_eval_step, loader, n_class: int,
@@ -775,15 +783,18 @@ def evaluate_scanned(scan_eval_step, loader, n_class: int,
     rows of each group, and every data rank's probabilities, labels and
     valid flags are gathered once, at the end, as :func:`evaluate` gathers
     them: every rank then computes the same metrics."""
-    probs_dev, valid_dev, labels_dev = [], [], []
-    for stacked in loader.device_groups():
-        probs = scan_eval_step(stacked)                   # [k, B, C]
-        rows = Bag(*(t.flatten(0, 1) for t in stacked._fields()))
-        probs_dev.append(probs.reshape(-1, probs.shape[-1]))
-        # at seq > 1 a rank's mask covers its slice of N only
-        valid_dev.append(gather_seq(rows, mesh, feats=False).mask.any(dim=1))
-        labels_dev.append(rows.label)
-    return _gathered_metrics(probs_dev, valid_dev, labels_dev, n_class, mesh)
+    with profiling.span("epoch.eval"):
+        probs_dev, valid_dev, labels_dev = [], [], []
+        for stacked in loader.device_groups():
+            probs = scan_eval_step(stacked)                   # [k, B, C]
+            rows = Bag(*(t.flatten(0, 1) for t in stacked._fields()))
+            probs_dev.append(probs.reshape(-1, probs.shape[-1]))
+            # at seq > 1 a rank's mask covers its slice of N only
+            valid_dev.append(gather_seq(rows, mesh,
+                                        feats=False).mask.any(dim=1))
+            labels_dev.append(rows.label)
+        return _gathered_metrics(probs_dev, valid_dev, labels_dev, n_class,
+                                 mesh)
 
 
 def is_better(metrics: Dict[str, float], best: Dict[str, float],

@@ -24,6 +24,7 @@ from torch import nn
 
 from acmil_tpu_torch.models.encoders.resnet import ResNet, resnet18, resnet50
 from acmil_tpu_torch.models.encoders.vit import ViT
+from acmil_tpu_torch.utils import profiling
 
 IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 HALF_MEAN, HALF_STD = (0.5, 0.5, 0.5), (0.5, 0.5, 0.5)
@@ -170,13 +171,17 @@ def preprocess(images_u8: torch.Tensor, spec: EncoderSpec,
 
 def to_device(images_u8, device: torch.device) -> torch.Tensor:
     """A uint8 image batch on ``device``: numpy through pinned memory to a
-    card, a tensor already there as it is."""
-    if isinstance(images_u8, torch.Tensor):
-        return images_u8.to(device)
-    t = torch.from_numpy(np.ascontiguousarray(images_u8))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
+    card, a tensor already there as it is. The span ``step2.h2d`` is the
+    host's part (the pinning copy and the copy's enqueue); the counter
+    ``step2.h2d_bytes`` the bytes pinned."""
+    with profiling.span("step2.h2d"):
+        if isinstance(images_u8, torch.Tensor):
+            return images_u8.to(device)
+        t = torch.from_numpy(np.ascontiguousarray(images_u8))
+        if device.type == "cuda":
+            profiling.count("step2.h2d_bytes", t.nbytes)
+            return t.pin_memory().to(device, non_blocking=True)
+        return t
 
 
 def gather_rows(feats: torch.Tensor, mesh) -> torch.Tensor:
@@ -235,10 +240,13 @@ def encoder_feature_fn(model: CustomModel, spec: EncoderSpec,
 
     @torch.no_grad()
     def feat_fn(images_u8):
-        x = preprocess(to_device(images_u8, device), spec, dtype=enc.dtype)
-        return gather_rows(vit_encode(
-            params, x, patch=enc.patch, depth=enc.depth, heads=enc.heads,
-            dtype=enc.dtype, act=enc.act, pre_norm=enc.pre_norm,
-            proj_dim=enc.proj_dim, fused=fused).to(out_dtype), mesh)
+        with profiling.span("step2.encode", device=True):
+            x = preprocess(to_device(images_u8, device), spec,
+                           dtype=enc.dtype)
+            feats = vit_encode(
+                params, x, patch=enc.patch, depth=enc.depth, heads=enc.heads,
+                dtype=enc.dtype, act=enc.act, pre_norm=enc.pre_norm,
+                proj_dim=enc.proj_dim, fused=fused).to(out_dtype)
+        return gather_rows(feats, mesh)
 
     return feat_fn

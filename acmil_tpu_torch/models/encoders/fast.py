@@ -38,6 +38,7 @@ from acmil_tpu_torch.ops.vit_layer import (_ln_f32, _reference_attn_half,
                                            attn_half_fits, fits_vmem,
                                            fused_vit_attn_half,
                                            fused_vit_layer)
+from acmil_tpu_torch.utils import profiling
 
 # the block matrices each route's kernel chain reads (and casts to x's dtype)
 _KERNEL_MATRICES = {
@@ -171,19 +172,29 @@ def vit_encode(params: dict, images: torch.Tensor, *, patch: int, depth: int,
 
     ``params``: a :class:`ViT` state dict (timm names), on the images'
     device.
+
+    Device-timed spans (``utils/profiling.py``) name its parts:
+    ``vit.embed``, then per block ``vit.layer`` on the whole-layer route or
+    ``vit.attn_half`` and ``vit.mlp_half`` on the others, and ``vit.head``.
     """
-    x = vit_embed(params, images, patch=patch, dtype=dtype,
-                  pre_norm=pre_norm)
+    with profiling.span("vit.embed", device=True):
+        x = vit_embed(params, images, patch=patch, dtype=dtype,
+                      pre_norm=pre_norm)
     route = vit_route(params, x.shape[1], heads, dtype, act)
     for i in range(depth):
         bp = block_weights(params, i)
         if route == "layer":
-            x = (fused_vit_layer if fused else _reference_layer)(x, bp, heads)
-        elif route == "half":
-            x = (fused_vit_attn_half if fused else _reference_attn_half)(
-                x, bp, heads)
+            with profiling.span("vit.layer", device=True):
+                x = (fused_vit_layer if fused else _reference_layer)(
+                    x, bp, heads)
+            continue
+        with profiling.span("vit.attn_half", device=True):
+            if route == "half":
+                x = (fused_vit_attn_half if fused else _reference_attn_half)(
+                    x, bp, heads)
+            else:
+                x = _xla_attn_half(x, bp, heads, fused)
+        with profiling.span("vit.mlp_half", device=True):
             x = _mlp_half(x, bp, act)
-        else:
-            x = _xla_attn_half(x, bp, heads, fused)
-            x = _mlp_half(x, bp, act)
-    return vit_head(params, x, proj_dim)
+    with profiling.span("vit.head", device=True):
+        return vit_head(params, x, proj_dim)

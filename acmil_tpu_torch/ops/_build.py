@@ -19,6 +19,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
+from acmil_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,7 +54,7 @@ def _library(name: str) -> Path:
 def build(*names: str) -> None:
     """Compile each of ``csrc/<name>.cu`` not built yet: one ``nvcc`` per
     source, all started together. Raises if any build fails."""
-    with _lock:
+    with _lock, profiling.span("kernel.build"):
         running = {}
         for name in names:
             out = _library(name)

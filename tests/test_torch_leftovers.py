@@ -275,7 +275,6 @@ def test_profile_trace_and_step_timer_on_the_cpu(tmp_path):
     assert profiling.device_events(prof) == []         # no card traced
     timer = profiling.StepTimer()
     assert timer.tick() >= 0.0 and timer.steps == 1
-    assert timer.device_memory_mb() is None
 
 
 @pytest.mark.parametrize("fmt", ["pt", "h5"])
