@@ -149,11 +149,11 @@ EncodeTiled encoder() {
 }
 
 // The map of a row-major [rows, k] matrix of `type`, read in boxes of
-// box_rows rows and one 128-byte row of depth (box_k elements), with the
-// 128-byte swizzle; elements past the edges read as 0.
-bool make_sw128_map(CUtensorMap* map, CUtensorMapDataType type,
+// box_rows rows and box_k elements of depth, with `swizzle`; elements past
+// the edges read as 0.
+bool make_tiled_map(CUtensorMap* map, CUtensorMapDataType type,
                     size_t elem_bytes, const void* ptr, int rows, int k,
-                    int box_k, int box_rows) {
+                    int box_k, int box_rows, CUtensorMapSwizzle swizzle) {
   EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k),
@@ -163,9 +163,18 @@ bool make_sw128_map(CUtensorMap* map, CUtensorMapDataType type,
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
-                elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same with one 128-byte row of depth a box (box_k elements) and the
+// 128-byte swizzle, as wgmma's descriptors (sw128_desc) read it.
+bool make_sw128_map(CUtensorMap* map, CUtensorMapDataType type,
+                    size_t elem_bytes, const void* ptr, int rows, int k,
+                    int box_k, int box_rows) {
+  return make_tiled_map(map, type, elem_bytes, ptr, rows, k, box_k, box_rows,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 int sm_count() {

@@ -69,8 +69,23 @@
 // add. The residual's rows are prefetched to L2 at a tile's start. Ragged
 // M and N are zero-filled by TMA and masked at the store.
 //
+// The bf16-A mode (vit_gemm_f32_bf16a). The MLP half of a bf16 trunk
+// (acmil_tpu/models/encoders/fast.py::_mlp_half) multiplies bf16 rows (LN2's
+// output, then gelu's, each rounded to bf16) by the f32 weights in f32. A
+// bf16 value is exact in TF32, so A's lo is 0, the products lo hi add
+// exact zeros, and a b = hi lo + hi hi: two TF32 products, the same bits as
+// the three of the f32 mode on a.float() (the same order, the same
+// flushes). A is staged by TMA as bf16 (a 32-deep stage is one 64-byte row:
+// 8 KB a tile, stored unswizzled, whose 16-byte fragment loads, two rows of
+// four chunks a quarter warp, meet no bank conflict) and widened to f32 in
+// registers by a 16-bit shift. The LayerNorm prologue writes bf16 rows
+// (_ln_f32(x).astype(bf16)); the residual is read as bf16 and the output
+// stored as bf16 or f32. W, its split and the ring are the f32 mode's; a stage is 40
+// KB, so the ring keeps three (four and the staged epilogue pass the 227
+// KB).
+//
 // Widths the kernel takes: K a multiple of 32, N a multiple of 8,
-// contiguous 16-byte-aligned f32 buffers, W [N, K] (torch's Linear
+// contiguous 16-byte-aligned buffers, W [N, K] f32 (torch's Linear
 // layout). The Python wrapper (acmil_tpu_torch/ops/vit_layer.py) checks
 // them and raises.
 
@@ -90,14 +105,22 @@ constexpr int kBK = 32;           // depth of a stage: one 128-byte row of f32
 constexpr int kStages = 3;
 constexpr int kConsumers = 2;     // warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr uint32_t kTileBytes = kBM * kBK * 4;          // one operand tile
-constexpr uint32_t kStageBytes = 3 * kTileBytes;        // A, W_hi, W_lo
+constexpr uint32_t kTileBytes = kBM * kBK * 4;          // one f32 operand tile
+// a stage's A tile (f32, or bf16 in the bf16-A mode), then W_hi and W_lo
+__host__ __device__ constexpr uint32_t a_tile_bytes(bool bf16_a) {
+  return kBM * kBK * (bf16_a ? 2 : 4);
+}
+__host__ __device__ constexpr uint32_t stage_bytes(bool bf16_a) {
+  return a_tile_bytes(bf16_a) + 2 * kTileBytes;
+}
 // a consumer warpgroup's 64 x 128 accumulators, staged for the epilogue; 8
 // words of padding keep the pair writes free of bank conflicts
 constexpr int kOutStride = kBN + 8;
 constexpr uint32_t kOutBytes = 64 * kOutStride * 4;
-constexpr int kSmemBytes = kStages * kStageBytes + kConsumers * kOutBytes +
-                           1024 + 2 * kStages * 8;
+__host__ __device__ constexpr int smem_bytes(bool bf16_a) {
+  return kStages * stage_bytes(bf16_a) + kConsumers * kOutBytes + 1024 +
+         2 * kStages * 8;
+}
 // registers a thread: the launch gives each 65536 / 384 (168, rounded down
 // to 8); setmaxnreg.inc waits until the producer warpgroup's setmaxnreg.dec
 // has freed what the consumers ask for, so 128 (168 - producer) must cover
@@ -112,7 +135,8 @@ static_assert(128 * (kLaunchRegs - kProducerRegs) >=
 constexpr int kFlushStages = 1;
 constexpr int kSplitThreads = 256;
 
-static_assert(kSmemBytes <= 232448, "shared memory of a block");
+static_assert(smem_bytes(false) <= 232448 && smem_bytes(true) <= 232448,
+              "shared memory of a block");
 
 // The position, in a 32-wide slice of a row of W_hi and W_lo, of column c
 // of that slice: slot s of k8 step j holds column 8 (s % 4) + 2 j + s / 4
@@ -191,21 +215,36 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t* a,
 struct F32Epilogue {
   const float* bias;   // [N]
   const float* ls;     // [N] or null
-  const float* res;    // [M, N] or null
-  float* out;          // [M, N]
+  const void* res;     // [M, N] or null: f32, bf16 in the bf16-A mode
+  void* out;           // [M, N]: f32 (out_f32), else bf16
+  int out_f32;         // 1 in the f32 mode; either in the bf16-A mode
 };
+
+// 8 bf16 (a 16-byte word) widened to f32 bit patterns, exact in TF32: w
+// holds elements 2i (low half) and 2i + 1 of word i
+__device__ __forceinline__ void widen_bf16(uint32_t w, uint32_t& even,
+                                           uint32_t& odd) {
+  even = w << 16;
+  odd = w & 0xffff0000u;
+}
 
 // Persistent, warp-specialised: see the header. kEpi is the epilogue (a
 // template argument, so that the bias and gelu epilogues hold no residual
-// registers). Shared memory: the stages (each its A, W_hi and W_lo tiles,
-// 1024-byte aligned), then each consumer warpgroup's staged accumulators,
-// then the full and empty mbarriers.
-template <int kEpi>
+// registers); kBf16A the bf16-A mode (A bf16, two products a step).
+// Shared memory: the stages (each its A, W_hi and W_lo tiles, 1024-byte
+// aligned), then each consumer warpgroup's staged accumulators, then the
+// full and empty mbarriers.
+template <int kEpi, bool kBf16A>
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,    // A [M, K]
                 const __grid_constant__ CUtensorMap map_hi,   // W_hi [N, K]
                 const __grid_constant__ CUtensorMap map_lo,   // W_lo [N, K]
                 F32Epilogue e, int m_rows, int n_cols, int k_depth) {
+  constexpr uint32_t kATileBytes = a_tile_bytes(kBf16A);
+  constexpr uint32_t kStageBytes = stage_bytes(kBf16A);
+  // the f32 mode's residual and output are f32 (folded at compile time)
+  constexpr bool res_f32 = !kBf16A;
+  const bool out_f32 = !kBf16A || e.out_f32;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -246,9 +285,10 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,    // A [M, K]
           const uint32_t dst = base + stage * kStageBytes;
           mbar_expect_tx(full + 8 * stage, kStageBytes);
           tma_load(dst, &map_a, full + 8 * stage, ks * kBK, m0);
-          tma_load(dst + kTileBytes, &map_hi, full + 8 * stage, ks * kBK, n0);
-          tma_load(dst + 2 * kTileBytes, &map_lo, full + 8 * stage, ks * kBK,
+          tma_load(dst + kATileBytes, &map_hi, full + 8 * stage, ks * kBK,
                    n0);
+          tma_load(dst + kATileBytes + kTileBytes, &map_lo, full + 8 * stage,
+                   ks * kBK, n0);
           if (++stage == kStages) {
             stage = 0;
             phase ^= 1;
@@ -268,9 +308,14 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,    // A [M, K]
     const uint32_t frag = (64 * wg + wrow) * 128;
     const uint32_t chunk0 = frag + ((2 * t4) ^ g) * 16;
     const uint32_t chunk1 = frag + ((2 * t4 + 1) ^ g) * 16;
+    // in the bf16-A mode, unswizzled 64-byte rows: chunk t4 of the same rows
+    const uint32_t chunk_b = (64 * wg + wrow) * 64 + t4 * 16;
     // a 16-byte load from the shared address addr
     auto lds = [&](uint32_t addr) {
       return *reinterpret_cast<const float4*>(smem_raw + (addr - raw));
+    };
+    auto lds_u4 = [&](uint32_t addr) {
+      return *reinterpret_cast<const uint4*>(smem_raw + (addr - raw));
     };
     float* out_tile =
         reinterpret_cast<float*>(smem_raw + (staged - raw) + wg * kOutBytes);
@@ -283,7 +328,8 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,    // A [M, K]
     // A of the stage after `stage` (next = true) or of `stage` itself, once
     // TMA has filled it, split into hi and lo: columns 8 t4 .. 8 t4 + 7 of
     // the stage, rows wrow (x) and wrow + 8 (y); k8 step j takes x[2j],
-    // y[2j], x[2j + 1], y[2j + 1], at 4 j .. 4 j + 3 of ah and al
+    // y[2j], x[2j + 1], y[2j + 1], at 4 j .. 4 j + 3 of ah and al. In the
+    // bf16-A mode the same columns, widened (hi; al is not used)
     auto load_a = [&](bool next, uint32_t (&ah)[16], uint32_t (&al)[16]) {
       int stg = stage;
       uint32_t phs = phase;
@@ -293,34 +339,53 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,    // A [M, K]
       }
       mbar_wait(full + 8 * stg, phs);
       const uint32_t sa = base + stg * kStageBytes;
-      const float4 x0 = lds(sa + chunk0), x1 = lds(sa + chunk1);
-      const float4 y0 = lds(sa + chunk0 + 1024), y1 = lds(sa + chunk1 + 1024);
-      const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-      const float y[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+      if constexpr (kBf16A) {
+        const uint4 xw = lds_u4(sa + chunk_b), yw = lds_u4(sa + chunk_b + 512);
+        const uint32_t x[4] = {xw.x, xw.y, xw.z, xw.w};
+        const uint32_t y[4] = {yw.x, yw.y, yw.z, yw.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        tf32x3::split<0>(x[2 * j], ah[4 * j], al[4 * j]);
-        tf32x3::split<0>(y[2 * j], ah[4 * j + 1], al[4 * j + 1]);
-        tf32x3::split<0>(x[2 * j + 1], ah[4 * j + 2], al[4 * j + 2]);
-        tf32x3::split<0>(y[2 * j + 1], ah[4 * j + 3], al[4 * j + 3]);
+        for (int j = 0; j < 4; ++j) {
+          widen_bf16(x[j], ah[4 * j], ah[4 * j + 2]);
+          widen_bf16(y[j], ah[4 * j + 1], ah[4 * j + 3]);
+        }
+      } else {
+        const float4 x0 = lds(sa + chunk0), x1 = lds(sa + chunk1);
+        const float4 y0 = lds(sa + chunk0 + 1024),
+                     y1 = lds(sa + chunk1 + 1024);
+        const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+        const float y[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          tf32x3::split<0>(x[2 * j], ah[4 * j], al[4 * j]);
+          tf32x3::split<0>(y[2 * j], ah[4 * j + 1], al[4 * j + 1]);
+          tf32x3::split<0>(x[2 * j + 1], ah[4 * j + 2], al[4 * j + 2]);
+          tf32x3::split<0>(y[2 * j + 1], ah[4 * j + 3], al[4 * j + 3]);
+        }
       }
     };
     // the 12 products of `stage` (depth step ks) into d, the small terms
-    // first; a fresh group's first product has scale-d 0
+    // first (the bf16-A mode: the 8 of hi lo and hi hi); a fresh group's
+    // first product has scale-d 0
     auto issue = [&](int ks, uint32_t (&ah)[16], uint32_t (&al)[16]) {
       const bool fresh = kFlushStages > 0 ? ks % kFlushStages == 0 : ks == 0;
       const uint32_t sa = base + stage * kStageBytes;
-      const uint64_t dh = sw128_desc(sa + kTileBytes);
-      const uint64_t dl = sw128_desc(sa + 2 * kTileBytes);
+      const uint64_t dh = sw128_desc(sa + kATileBytes);
+      const uint64_t dl = sw128_desc(sa + kATileBytes + kTileBytes);
       fence_operands(ah);
-      fence_operands(al);
+      if constexpr (!kBf16A) fence_operands(al);
       fence_operands(d);
       wgmma_fence();
+      if constexpr (kBf16A) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)                  // +2: a k8 step, 32 bytes
-        wgmma_tf32(d, al + 4 * j, dh + 2 * j, !fresh || j > 0);
+        for (int j = 0; j < 4; ++j)
+          wgmma_tf32(d, ah + 4 * j, dl + 2 * j, !fresh || j > 0);
+      } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wgmma_tf32(d, ah + 4 * j, dl + 2 * j, 1);
+        for (int j = 0; j < 4; ++j)                // +2: a k8 step, 32 bytes
+          wgmma_tf32(d, al + 4 * j, dh + 2 * j, !fresh || j > 0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wgmma_tf32(d, ah + 4 * j, dl + 2 * j, 1);
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) wgmma_tf32(d, ah + 4 * j, dh + 2 * j, 1);
       wgmma_commit();
@@ -331,7 +396,7 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,    // A [M, K]
       wgmma_wait<0>();
       fence_operands(d);
       fence_operands(ah);                          // live until the products
-      fence_operands(al);                          // have read them
+      if constexpr (!kBf16A) fence_operands(al);   // have read them
       if (lane == 0) mbar_arrive(empty + 8 * stage);
       if (kFlushStages > 0 &&
           ((ks + 1) % kFlushStages == 0 || ks + 1 == k_steps)) {
@@ -352,13 +417,16 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,    // A [M, K]
       const int col = n0 + 4 * lane;
       const int row0 = m0 + 64 * wg + warp % 4;
       if constexpr (kEpi >= kResBias) {
+        // a row's 128 columns are 4 lines of f32 or 2 of bf16
+        constexpr int lines = res_f32 ? 4 : 2;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = row0 + 4 * (lane / 4 + 8 * h);
-          const int c = n0 + 32 * (lane % 4);
-          if (r < m_rows && c < n_cols)
+          const int c = n0 + (128 / lines) * (lane % 4);
+          if (lane % 4 < lines && r < m_rows && c < n_cols)
             asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
-                e.res + static_cast<size_t>(r) * n_cols + c));
+                static_cast<const char*>(e.res) +
+                (static_cast<size_t>(r) * n_cols + c) * (res_f32 ? 4 : 2)));
         }
       }
 #pragma unroll
@@ -380,15 +448,25 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,    // A [M, K]
       // accumulators (acc[4j + 2h + c] is row wrow + 8h, column 8j + wcol +
       // c of this warpgroup's 64 x 128 tile) staged in shared memory; each
       // warp then takes whole rows, four columns a lane, so that every
-      // store is 16 contiguous bytes of a row
-      float4 res[kRowsPerWarp];
+      // store is 16 (f32) or 8 (bf16) contiguous bytes of a row. A
+      // residual is held as it lies in memory (f32: all four words; bf16:
+      // the first two)
+      uint4 res[kRowsPerWarp];
       if constexpr (kEpi >= kResBias) {
 #pragma unroll
         for (int i = 0; i < kRowsPerWarp; ++i) {
-          res[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (col < n_cols && row0 + 4 * i < m_rows)
-            res[i] = __ldg(reinterpret_cast<const float4*>(
-                e.res + static_cast<size_t>(row0 + 4 * i) * n_cols + col));
+          res[i] = make_uint4(0u, 0u, 0u, 0u);
+          const size_t off = static_cast<size_t>(row0 + 4 * i) * n_cols + col;
+          if (col < n_cols && row0 + 4 * i < m_rows) {
+            if constexpr (res_f32) {
+              res[i] = __ldg(reinterpret_cast<const uint4*>(
+                  static_cast<const float*>(e.res) + off));
+            } else {
+              const uint2 v = __ldg(reinterpret_cast<const uint2*>(
+                  static_cast<const bf16*>(e.res) + off));
+              res[i] = make_uint4(v.x, v.y, 0u, 0u);
+            }
+          }
         }
       }
       named_barrier(1 + wg, 128);                   // the last tile is read
@@ -413,14 +491,29 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,    // A [M, K]
 #pragma unroll
         for (int i = 0; i < kRowsPerWarp; ++i) {
           if (row0 + 4 * i >= m_rows) continue;
-          const float4 r = kEpi >= kResBias ? res[i]
-                                            : make_float4(0.f, 0.f, 0.f, 0.f);
-          *reinterpret_cast<float4*>(
-              e.out + static_cast<size_t>(row0 + 4 * i) * n_cols + col) =
-              make_float4(epilogue_value<kEpi>(a[i].x, b.x, gm.x, r.x),
-                          epilogue_value<kEpi>(a[i].y, b.y, gm.y, r.y),
-                          epilogue_value<kEpi>(a[i].z, b.z, gm.z, r.z),
-                          epilogue_value<kEpi>(a[i].w, b.w, gm.w, r.w));
+          float r[4] = {0.f, 0.f, 0.f, 0.f};
+          if constexpr (kEpi >= kResBias) {
+            if constexpr (res_f32) {
+              r[0] = __uint_as_float(res[i].x);
+              r[1] = __uint_as_float(res[i].y);
+              r[2] = __uint_as_float(res[i].z);
+              r[3] = __uint_as_float(res[i].w);
+            } else {                                // bf16: exact in f32
+              r[0] = __uint_as_float(res[i].x << 16);
+              r[1] = __uint_as_float(res[i].x & 0xffff0000u);
+              r[2] = __uint_as_float(res[i].y << 16);
+              r[3] = __uint_as_float(res[i].y & 0xffff0000u);
+            }
+          }
+          const float y[4] = {epilogue_value<kEpi>(a[i].x, b.x, gm.x, r[0]),
+                              epilogue_value<kEpi>(a[i].y, b.y, gm.y, r[1]),
+                              epilogue_value<kEpi>(a[i].z, b.z, gm.z, r[2]),
+                              epilogue_value<kEpi>(a[i].w, b.w, gm.w, r[3])};
+          const size_t off = static_cast<size_t>(row0 + 4 * i) * n_cols + col;
+          if (out_f32)
+            store4(static_cast<float*>(e.out) + off, y);
+          else
+            store4(static_cast<bf16*>(e.out) + off, y);
         }
       }
     }
@@ -438,6 +531,13 @@ bool make_map(CUtensorMap* map, const float* ptr, int rows, int k) {
                         kBK, kBM);
 }
 
+// The map of the bf16-A mode's A [rows, k], read in 128-row x 32-column
+// boxes (one 64-byte row of depth), unswizzled.
+bool make_map_bf16(CUtensorMap* map, const void* ptr, int rows, int k) {
+  return make_tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rows,
+                        k, kBK, kBM, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
 cudaError_t launch_split(const float* w, float* w_split, int n, int k,
                          cudaStream_t stream) {
   const long long total = static_cast<long long>(n) * k;
@@ -447,17 +547,66 @@ cudaError_t launch_split(const float* w, float* w_split, int n, int k,
   return cudaGetLastError();
 }
 
-template <int kEpi>
+template <int kEpi, bool kBf16A>
 cudaError_t launch_gemm(const CUtensorMap& map_a, const CUtensorMap& map_hi,
                         const CUtensorMap& map_lo, const F32Epilogue& e, int m,
                         int n, int k, int grid, cudaStream_t stream) {
   static tf32x3::SmemLimit limit;
+  constexpr int kSmemBytes = smem_bytes(kBf16A);
   cudaError_t err =
-      tf32x3::raise_smem(gemm_f32_kernel<kEpi>, kSmemBytes, limit);
+      tf32x3::raise_smem(gemm_f32_kernel<kEpi, kBf16A>, kSmemBytes, limit);
   if (err != cudaSuccess) return err;
-  gemm_f32_kernel<kEpi><<<grid, kThreads, kSmemBytes, stream>>>(
+  gemm_f32_kernel<kEpi, kBf16A><<<grid, kThreads, kSmemBytes, stream>>>(
       map_a, map_hi, map_lo, e, m, n, k);
   return cudaGetLastError();
+}
+
+// What the two entries check: widths, the epilogue and its operands.
+bool takes(int m, int n, int k, int epilogue, const void* res, bool ln,
+           const void* a_rows, const float* w_split) {
+  return m > 0 && n > 0 && k > 0 && k % 32 == 0 && n % 8 == 0 &&
+         epilogue >= kBias && epilogue <= kBiasLsRes &&
+         (epilogue < kResBias || res != nullptr) &&
+         (!ln || a_rows != nullptr) && w_split != nullptr &&
+         static_cast<long long>((m + kBM - 1) / kBM) * ((n + kBN - 1) / kBN) <=
+             0x7fffffffLL;
+}
+
+// W's split and the product of A (f32, or bf16 with kBf16A; the prologue
+// already applied) through `epilogue`.
+template <bool kBf16A>
+cudaError_t run(const void* a, const float* w, float* w_split,
+                const F32Epilogue& e, int epilogue, int m, int n, int k,
+                cudaStream_t st) {
+  cudaError_t err = launch_split(w, w_split, n, k, st);
+  if (err != cudaSuccess) return err;
+  const float* w_lo = w_split + static_cast<size_t>(n) * k;
+  CUtensorMap map_a, map_hi, map_lo;
+  const bool mapped_a =
+      kBf16A ? make_map_bf16(&map_a, a, m, k)
+             : make_map(&map_a, static_cast<const float*>(a), m, k);
+  if (!mapped_a || !make_map(&map_hi, w_split, n, k) ||
+      !make_map(&map_lo, w_lo, n, k))
+    return cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const long long tiles = static_cast<long long>((m + kBM - 1) / kBM) *
+                          ((n + kBN - 1) / kBN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  switch (epilogue) {
+    case kBias:
+      return launch_gemm<kBias, kBf16A>(map_a, map_hi, map_lo, e, m, n, k,
+                                        grid, st);
+    case kBiasGelu:
+      return launch_gemm<kBiasGelu, kBf16A>(map_a, map_hi, map_lo, e, m, n, k,
+                                            grid, st);
+    case kResBias:
+      return launch_gemm<kResBias, kBf16A>(map_a, map_hi, map_lo, e, m, n, k,
+                                           grid, st);
+    default:
+      return launch_gemm<kBiasLsRes, kBf16A>(map_a, map_hi, map_lo, e, m, n,
+                                             k, grid, st);
+  }
 }
 
 }  // namespace
@@ -488,49 +637,40 @@ int vit_gemm_f32(const float* a, const float* ln_scale, const float* ln_bias,
                  const float* bias, const float* ls, const float* res,
                  float* out, int epilogue, int m, int n, int k, void* stream) {
   const bool ln = ln_scale != nullptr;
-  if (m <= 0 || n <= 0 || k <= 0 || k % 32 || n % 8 || epilogue < kBias ||
-      epilogue > kBiasLsRes || (epilogue >= kResBias && res == nullptr) ||
-      (ln && a_rows == nullptr) || w_split == nullptr ||
-      static_cast<long long>((m + kBM - 1) / kBM) * ((n + kBN - 1) / kBN) >
-          0x7fffffffLL)
+  if (!takes(m, n, k, epilogue, res, ln, a_rows, w_split))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (ln) {
-    err = launch_prologue<float, float, true>(a, ln_scale, ln_bias, a_rows, m,
-                                              k, st);
+    const cudaError_t err = launch_prologue<float, float, true>(
+        a, ln_scale, ln_bias, a_rows, m, k, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     a = a_rows;
   }
-  err = launch_split(w, w_split, n, k, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float* w_lo = w_split + static_cast<size_t>(n) * k;
-  CUtensorMap map_a, map_hi, map_lo;
-  if (!make_map(&map_a, a, m, k) || !make_map(&map_hi, w_split, n, k) ||
-      !make_map(&map_lo, w_lo, n, k))
+  const F32Epilogue e{bias, ls, res, out, 1};
+  return static_cast<int>(run<false>(a, w, w_split, e, epilogue, m, n, k, st));
+}
+
+// Launches the bf16-A mode on `stream`: as vit_gemm_f32, with A [m, k]
+// bf16, the prologue's rows a_rows [m, k] bf16, res [m, n] bf16 and out
+// [m, n] f32 (out_f32 = 1) or bf16; w, w_split and the vectors f32. Two
+// TF32 products a product (see the header).
+int vit_gemm_f32_bf16a(const void* a, const float* ln_scale,
+                       const float* ln_bias, void* a_rows, const float* w,
+                       float* w_split, const float* bias, const float* ls,
+                       const void* res, void* out, int out_f32, int epilogue,
+                       int m, int n, int k, void* stream) {
+  const bool ln = ln_scale != nullptr;
+  if (!takes(m, n, k, epilogue, res, ln, a_rows, w_split))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int sms = sm_count();
-  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
-  const long long tiles = static_cast<long long>((m + kBM - 1) / kBM) *
-                          ((n + kBN - 1) / kBN);
-  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  const F32Epilogue e{bias, ls, res, out};
-  switch (epilogue) {
-    case kBias:
-      err = launch_gemm<kBias>(map_a, map_hi, map_lo, e, m, n, k, grid, st);
-      break;
-    case kBiasGelu:
-      err = launch_gemm<kBiasGelu>(map_a, map_hi, map_lo, e, m, n, k, grid,
-                                   st);
-      break;
-    case kResBias:
-      err = launch_gemm<kResBias>(map_a, map_hi, map_lo, e, m, n, k, grid, st);
-      break;
-    default:
-      err = launch_gemm<kBiasLsRes>(map_a, map_hi, map_lo, e, m, n, k, grid,
-                                    st);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ln) {
+    const cudaError_t err = launch_prologue<bf16, bf16, true>(
+        a, ln_scale, ln_bias, static_cast<bf16*>(a_rows), m, k, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    a = a_rows;
   }
-  return static_cast<int>(err);
+  const F32Epilogue e{bias, ls, res, out, out_f32 != 0};
+  return static_cast<int>(run<true>(a, w, w_split, e, epilogue, m, n, k, st));
 }
 
 }  // extern "C"

@@ -8,18 +8,22 @@ same predicates (``ops/vit_layer.py``):
 
 1. whole layer, kernel B3 (``fused_vit_layer``): plain gelu, no layerscale,
    and :func:`fits_vmem`, which is the ViT-S/16 class;
-2. attention half, kernel B4 (``fused_vit_attn_half``), then
-   :func:`_mlp_half`: :func:`attn_half_fits` (ViT-B/16, UNI ViT-L/16,
-   ViT-S/8);
-3. packed MHA, kernel B5' inside :func:`_xla_attn_half`, then
-   :func:`_mlp_half` (CLIP-L/336, GigaPath ViT-G/16).
+2. attention half, kernel B4 (``fused_vit_attn_half``), then the MLP half:
+   :func:`attn_half_fits` (ViT-B/16, UNI ViT-L/16, ViT-S/8);
+3. packed MHA, kernel B5' inside :func:`_xla_attn_half`, then the MLP half
+   (CLIP-L/336, GigaPath ViT-G/16).
 
-The MLP half and the attention half of route 3 around B5' are plain
-products outside any kernel, in f32 (the param tree's dtype), as XLA runs
-them in the JAX package. ``fused=False`` takes every route through the
-kernels' plain versions on any device. :func:`vit_route` alone chooses the
-route; :func:`cast_kernel_weights` casts the matrices of that route's kernel
-once, where a caller keeps the parameters for many batches.
+The MLP half multiplies by the f32 matrices (the param tree's dtype), as
+XLA runs it in the JAX package. :func:`mlp_route` picks, per block, the
+fused MLP half (:func:`fused_mlp_half`: fc1 and fc2 on the f32 GEMM's
+bf16-A mode, ``csrc/vit_gemm_f32.cu``, with the LayerNorm prologue and the
+gelu and layerscale-residual epilogues) for a bf16 trunk with gelu, and
+the plain products of :func:`_mlp_half` for every other trunk. The
+attention half of route 3 around B5' is plain products outside any kernel.
+``fused=False`` takes every route through the kernels' plain versions on
+any device. :func:`vit_route` alone chooses the route;
+:func:`cast_kernel_weights` casts the matrices of that route's kernel once,
+where a caller keeps the parameters for many batches.
 """
 
 from __future__ import annotations
@@ -32,7 +36,10 @@ import torch.nn.functional as F
 from acmil_tpu_torch.models.encoders.vit import mlp_act
 from acmil_tpu_torch.ops.vit_attn_packed import (_mm, _reference_packed,
                                                  fused_mha_packed)
-from acmil_tpu_torch.ops.vit_layer import (_ln_f32, _reference_attn_half,
+from acmil_tpu_torch.ops.vit_layer import (EPI_BIAS_GELU, EPI_BIAS_LS_RES,
+                                           GEMM_K_MULTIPLE, _apply_block,
+                                           _f32, _gemm, _ln_f32,
+                                           _reference_attn_half,
                                            _reference_layer,
                                            _unfused_attn_half,
                                            attn_half_fits, fits_vmem,
@@ -46,6 +53,8 @@ _KERNEL_MATRICES = {
     "half": ("attn.qkv", "attn.proj"),
     "packed": (),
 }
+# the block weights the MLP half reads
+_MLP_HALF_KEYS = ("norm2.", "mlp.", "ls2.")
 
 
 def block_weights(params: dict, i: int) -> dict:
@@ -70,6 +79,61 @@ def _mlp_half(x, bp, act: str):
     if "ls2.gamma" in bp:
         h = h * bp["ls2.gamma"]
     return (xf + h).to(x.dtype)
+
+
+def mlp_route(bp: dict, dtype: torch.dtype, act: str,
+              fused: bool = True) -> str:
+    """The route of a block's MLP half: ``"fused"`` (:func:`fused_mlp_half`)
+    for a bf16 trunk with gelu (tanh-approximate at bf16, which is the
+    GEMM's gelu epilogue) whose fc1 and fc2 are f32 with widths the GEMM
+    takes; ``"plain"`` (:func:`_mlp_half`) for everything else: fp16
+    (exact gelu) and f32 trunks, ``quick_gelu``, ``swiglu``, and
+    ``fused=False``."""
+    fc1, fc2 = bp["mlp.fc1.weight"], bp["mlp.fc2.weight"]
+    if (fused and dtype == torch.bfloat16 and act == "gelu"
+            and fc1.dtype == fc2.dtype == torch.float32
+            and fc1.shape[1] % GEMM_K_MULTIPLE == 0
+            and fc2.shape[1] % GEMM_K_MULTIPLE == 0):
+        return "fused"
+    return "plain"
+
+
+def _launch_mlp_half(x, bp):
+    """The fused MLP half on CUDA, two GEMMs in the bf16-A mode of
+    ``csrc/vit_gemm_f32.cu`` on the f32 matrices as they are: LN2 (the
+    prologue, bf16 rows) → fc1 → gelu (epilogue 1, bf16 out), then fc2 →
+    x + (· + b2)·ls2 (epilogue 3 with or without ls, bf16 out): the rounding
+    points of :func:`_mlp_half`."""
+    b, n, d = x.shape
+    x2 = x.contiguous().view(b * n, d)
+    h = _gemm(x2, _f32(bp["mlp.fc1.weight"]), _f32(bp["mlp.fc1.bias"]),
+              EPI_BIAS_GELU, out_dtype=x.dtype,
+              ln=(_f32(bp["norm2.weight"]), _f32(bp["norm2.bias"])))
+    ls = _f32(bp["ls2.gamma"]) if "ls2.gamma" in bp else None
+    out = _gemm(h, _f32(bp["mlp.fc2.weight"]), _f32(bp["mlp.fc2.bias"]),
+                EPI_BIAS_LS_RES, ls=ls, res=x2, out_dtype=x.dtype)
+    return out.view(b, n, d)
+
+
+def _mlp_half_forward(x, bp, heads):
+    """The fused MLP half's forward: the GEMMs on CUDA, :func:`_mlp_half`
+    with gelu on the CPU."""
+    if x.device.type == "cuda":
+        return _launch_mlp_half(x, bp)
+    if x.device.type == "cpu":
+        return _mlp_half(x, bp, "gelu")
+    raise ValueError(f"no fused MLP half route for device {x.device}")
+
+
+def fused_mlp_half(x: torch.Tensor, bp: dict) -> torch.Tensor:
+    """LN2 → fc1 → gelu → fc2 (·ls2) → +x of a bf16 trunk
+    (:func:`mlp_route`). CUDA tensors launch the two GEMMs (each adds one to
+    ``_gemm.launches["bf16a"]``) or raise; CPU tensors take
+    :func:`_mlp_half`. Differentiable in x and every weight: the backward is
+    autograd of :func:`_mlp_half`, recomputed."""
+    w = {k: v for k, v in bp.items() if k.startswith(_MLP_HALF_KEYS)}
+    return _apply_block(x, w, 0, _mlp_half_forward,
+                        lambda x, w, heads: _mlp_half(x, w, "gelu"))
 
 
 def _xla_attn_half(x, bp, heads: int, fused: bool = True):
@@ -102,7 +166,8 @@ def cast_kernel_weights(params: dict, *, n_tok: int, heads: int,
     reads cast to ``dtype`` once. The chains and their plain versions cast
     those matrices to x's dtype on every call, so the result of
     :func:`vit_encode` is the same; the casts leave the per-batch path. The
-    MLP half of routes 2 and 3 keeps its f32 matrices."""
+    MLP half of routes 2 and 3 keeps its f32 matrices, which both of its
+    routes multiply by (:func:`mlp_route`)."""
     names = _KERNEL_MATRICES[vit_route(params, n_tok, heads, dtype, act)]
 
     def cast(key):
@@ -175,7 +240,9 @@ def vit_encode(params: dict, images: torch.Tensor, *, patch: int, depth: int,
 
     Device-timed spans (``utils/profiling.py``) name its parts:
     ``vit.embed``, then per block ``vit.layer`` on the whole-layer route or
-    ``vit.attn_half`` and ``vit.mlp_half`` on the others, and ``vit.head``.
+    ``vit.attn_half`` and ``vit.mlp_half`` on the others, and ``vit.head``;
+    the counters ``vit.mlp_half.fused`` and ``vit.mlp_half.plain`` count
+    each MLP half by its route (:func:`mlp_route`).
     """
     with profiling.span("vit.embed", device=True):
         x = vit_embed(params, images, patch=patch, dtype=dtype,
@@ -195,6 +262,9 @@ def vit_encode(params: dict, images: torch.Tensor, *, patch: int, depth: int,
             else:
                 x = _xla_attn_half(x, bp, heads, fused)
         with profiling.span("vit.mlp_half", device=True):
-            x = _mlp_half(x, bp, act)
+            mlp = mlp_route(bp, x.dtype, act, fused)
+            profiling.count(f"vit.mlp_half.{mlp}")
+            x = fused_mlp_half(x, bp) if mlp == "fused" else _mlp_half(
+                x, bp, act)
     with profiling.span("vit.head", device=True):
         return vit_head(params, x, proj_dim)

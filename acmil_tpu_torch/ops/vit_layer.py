@@ -200,16 +200,20 @@ def _reference_attn_half(x, w, heads):
 # ---------------------------------------------------------------------------
 
 @functools.cache
-def _gemm_entry(f32: bool):
-    """The C entry point of the GEMM at float32 (``csrc/vit_gemm_f32.cu``)
-    or at bfloat16/float16 (``csrc/vit_gemm.cu``) with its ctypes signature,
-    from the library built at first use."""
+def _gemm_entry(mode: str):
+    """The C entry point of the GEMM with its ctypes signature, from the
+    library built at first use: ``"f32"`` (``csrc/vit_gemm_f32.cu``), its
+    ``"bf16a"`` mode (bf16 A, f32 W) or ``"half"`` (bfloat16/float16,
+    ``csrc/vit_gemm.cu``)."""
     from acmil_tpu_torch.ops import _build
 
     p, i = ctypes.c_void_p, ctypes.c_int
-    if f32:
+    if mode == "f32":
         fn = _build.load("vit_gemm_f32").vit_gemm_f32
         fn.argtypes = [p] * 10 + [i] * 4 + [p]
+    elif mode == "bf16a":
+        fn = _build.load("vit_gemm_f32").vit_gemm_f32_bf16a
+        fn.argtypes = [p] * 10 + [i] * 5 + [p]
     else:
         fn = _build.load("vit_gemm").vit_gemm
         fn.argtypes = [p, i, p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, p]
@@ -298,8 +302,12 @@ def _gemm(a, w, bias, epilogue, *, out_dtype, ln=None, ls=None, res=None):
     a workspace that the product reads. At float32
     (``csrc/vit_gemm_f32.cu``) everything is f32, the prologue runs only
     for a LayerNorm, writing f32 rows, and the split kernel writes w's
-    TF32 halves to a ``[2, N, K]`` workspace first (:func:`split_w`).
-    Adds one to ``_gemm.launches[dtype]`` (``bf16``, ``f16``, ``f32``)."""
+    TF32 halves to a ``[2, N, K]`` workspace first (:func:`split_w`). A
+    bfloat16 ``a`` with an f32 ``w`` takes that GEMM's bf16-A mode: f32's
+    accuracy in two TF32 products (a bf16 value is exact in TF32), the
+    prologue writing bf16 rows, the residual bfloat16 and the output
+    bfloat16 or f32. Adds one to ``_gemm.launches[mode]`` (``bf16``, ``f16``, ``f32``,
+    ``bf16a``)."""
     f32 = torch.float32
     m, k = a.shape
     n = w.shape[0]
@@ -315,8 +323,11 @@ def _gemm(a, w, bias, epilogue, *, out_dtype, ln=None, ls=None, res=None):
     if dt not in FLOAT_DTYPES:
         raise ValueError(f"GEMM input must be bfloat16, float16 or float32, "
                          f"got {a.dtype}")
-    if w.dtype != dt or tuple(w.shape) != (n, k):
-        raise ValueError(f"GEMM weight must be {name} [{n}, {k}], got "
+    bf16a = dt == torch.bfloat16 and w.dtype == f32
+    w_dt = f32 if bf16a else dt
+    if w.dtype != w_dt or tuple(w.shape) != (n, k):
+        raise ValueError(f"GEMM weight must be "
+                         f"{str(w_dt).removeprefix('torch.')} [{n}, {k}], got "
                          f"{w.dtype} {tuple(w.shape)}")
     if k % GEMM_K_MULTIPLE or n % GEMM_N_MULTIPLE:
         raise ValueError(f"the GEMM takes K % {GEMM_K_MULTIPLE} == 0 and "
@@ -326,10 +337,12 @@ def _gemm(a, w, bias, epilogue, *, out_dtype, ln=None, ls=None, res=None):
         if t is not None and (t.dtype != f32 or tuple(t.shape) != (size,)):
             raise ValueError(f"GEMM vectors must be float32 [{size}], got "
                              f"{t.dtype} {tuple(t.shape)}")
+    res_dtypes = (dt,) if bf16a else (dt, f32)
     if res is not None and (tuple(res.shape) != (m, n)
-                            or res.dtype not in (dt, f32)):
-        raise ValueError(f"residual must be [{m}, {n}] {name} or "
-                         f"float32")
+                            or res.dtype not in res_dtypes):
+        raise ValueError(f"residual must be [{m}, {n}] "
+                         + " or ".join(str(t).removeprefix("torch.")
+                                       for t in res_dtypes))
     if out_dtype not in (dt, f32):
         raise ValueError(f"GEMM output must be {name} or float32, got "
                          f"{out_dtype}")
@@ -350,14 +363,23 @@ def _gemm(a, w, bias, epilogue, *, out_dtype, ln=None, ls=None, res=None):
             rows = (torch.empty(m, k, dtype=f32, device=a.device)
                     if ln is not None else None)
             w_split = torch.empty(2, n, k, dtype=f32, device=a.device)
-            err = _gemm_entry(True)(
+            err = _gemm_entry("f32")(
                 a.data_ptr(), _ptr(scale), _ptr(shift), _ptr(rows),
                 w.data_ptr(), w_split.data_ptr(), bias.data_ptr(), _ptr(ls),
                 _ptr(res), out.data_ptr(), epilogue, m, n, k, stream)
+        elif bf16a:
+            rows = (torch.empty(m, k, dtype=dt, device=a.device)
+                    if ln is not None else None)
+            w_split = torch.empty(2, n, k, dtype=f32, device=a.device)
+            err = _gemm_entry("bf16a")(
+                a.data_ptr(), _ptr(scale), _ptr(shift), _ptr(rows),
+                w.data_ptr(), w_split.data_ptr(), bias.data_ptr(), _ptr(ls),
+                _ptr(res), out.data_ptr(), int(out_dtype == f32), epilogue,
+                m, n, k, stream)
         else:
             rows = (torch.empty(m, k, dtype=dt, device=a.device)
                     if ln is not None or a.dtype == f32 else None)
-            err = _gemm_entry(False)(
+            err = _gemm_entry("half")(
                 a.data_ptr(), int(a.dtype == f32), _ptr(scale), _ptr(shift),
                 _ptr(rows), w.data_ptr(), bias.data_ptr(), _ptr(ls),
                 _ptr(res), int(res is not None and res.dtype == f32),
@@ -365,11 +387,11 @@ def _gemm(a, w, bias, epilogue, *, out_dtype, ln=None, ls=None, res=None):
                 int(dt == torch.float16), stream)
     if err != 0:
         raise RuntimeError(f"GEMM launch failed: cudaError_t {err}")
-    _gemm.launches[DTYPE_KEYS[dt]] += 1
+    _gemm.launches["bf16a" if bf16a else DTYPE_KEYS[dt]] += 1
     return out
 
 
-_gemm.launches = {"bf16": 0, "f16": 0, "f32": 0}
+_gemm.launches = {"bf16": 0, "f16": 0, "f32": 0, "bf16a": 0}
 
 
 def _check_chain_args(x, w, heads, mlp: bool) -> None:

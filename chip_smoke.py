@@ -83,8 +83,16 @@ code is non-zero:
    finite, ``[N, 384]`` and within cosine 0.999 per patch of the plain route
    (``fused=False``); ``cli/predict.py`` then scores the feature file with an
    ACMIL_GA head (B1 once per slide), pixels to probabilities.
-10. ``vit_encode`` at UNI ViT-L/16 (B4) and CLIP-L/336 (B5') full width, depth
-   2, B=32, against ``fused=False``.
+10. ``vit_encode`` at UNI ViT-L/16 (B4, then the MLP half as two GEMMs in
+   ``csrc/vit_gemm_f32.cu``'s bf16-A mode: ``_gemm.launches["bf16a"]`` must
+   count 2 a block) and CLIP-L/336 (B5', the plain MLP half: none) full
+   width, depth 2, B=32, against ``fused=False``. Then the bf16-A mode
+   alone at UNI's fc1 (LayerNorm prologue, gelu) and fc2 (layerscale
+   residual), M = 256 x 197: with f32 out (no prologue) against a float64
+   product at the f32 bar of ``tests/test_torch_gpu_gemm.py``, with bf16
+   out against its plain version (LayerNorm rows rounded to bf16), bit for
+   bit against the f32 mode on ``a.float()`` (epilogue 0), then timed
+   beside f32 ``torch.matmul`` (TF32 off, what the plain MLP half runs).
 11. kernel B6 (``csrc/dsmil_pool.cu``) against its plain version at (D, Q) of
    camelyon_medical_ssl (384, 128) and UNI (1024, 512), C in {2, 4}, N in
    {300, 16384, 65536}, B=1 and B=3 with one all-masked bag, fp16 and f32
@@ -1883,7 +1891,7 @@ def big_trunk_run(smi: str) -> dict:
               ("CLIP-L/336", "B5", vit_attn_packed.fused_mha_packed,
                dict(patch=14, dim=1024, heads=16, img_size=336, proj_dim=768,
                     pre_norm=True, act="quick_gelu"), CLIP_MEAN, CLIP_STD))
-    launches, b5_launches = {}, {}
+    launches, b5_launches, bf16a = {}, {}, {}
     for name, kern, counter, kw, mean, std in trunks:
         torch.manual_seed(SEED)
         m = ViT(depth=BIG_DEPTH, **kw)
@@ -1904,13 +1912,21 @@ def big_trunk_run(smi: str) -> dict:
         enc_kw = dict(patch=m.patch, depth=BIG_DEPTH, heads=m.heads,
                       act=m.act, pre_norm=m.pre_norm, proj_dim=m.proj_dim)
         counter.launches = vit_attn_packed._launch_packed.launches = 0
+        vit_layer._gemm.launches["bf16a"] = 0
         got = vit_encode(params, x, **enc_kw)
         torch.cuda.synchronize()
         launches[kern] = counter.launches
         b5_launches[name] = vit_attn_packed._launch_packed.launches
+        bf16a[name] = vit_layer._gemm.launches["bf16a"]
         if launches[kern] != BIG_DEPTH:
             raise AssertionError(f"{name}: {kern} launched {launches[kern]} "
                                  f"times for {BIG_DEPTH} layers")
+        # the MLP half: two bf16-A GEMMs a block with gelu, none with
+        # quick_gelu (the plain half)
+        want_bf16a = 2 * BIG_DEPTH if m.act == "gelu" else 0
+        if bf16a[name] != want_bf16a:
+            raise AssertionError(f"{name}: the bf16-A GEMM launched "
+                                 f"{bf16a[name]} times, not {want_bf16a}")
         want = vit_encode(params, x, **enc_kw, fused=False)
         cos = float(_row_cosine(got, want).min())
         if tuple(got.shape) != (BIG_BATCH, m.embed_dim) or cos < COS_MIN \
@@ -1920,10 +1936,116 @@ def big_trunk_run(smi: str) -> dict:
         t_p = _time_ms(lambda: vit_encode(params, x, **enc_kw, fused=False), 3)
         print(f"vit_encode {name}: full width, depth {BIG_DEPTH}, B={BIG_BATCH} "
               f"bf16: {kern} launches {launches[kern]}, B5' launches "
-              f"{b5_launches[name]}; fused vs plain route "
+              f"{b5_launches[name]}, bf16-A GEMM launches {bf16a[name]}; "
+              f"fused vs plain route "
               f"worst cosine {cos:.6f}; device time fused {t_f:.4f} ms, plain "
               f"{t_p:.4f} ms [{smi}]")
-    return {**launches, "B5'": b5_launches}
+    return {**launches, "B5'": b5_launches, "gemm_bf16a": bf16a}
+
+
+# UNI's MLP half (D 1024, hidden 4096) as the benchmark's Step2 batch makes
+# it: M = 256 images x 197 tokens
+UNI_MLP = (STEP2_BATCH * 197, 1024, 4096)
+# the f32 bar of tests/test_torch_gpu_gemm.py: against a float64 product,
+# the error at most twice that of f32 torch.matmul plus a few f32 steps of
+# the largest output; a bf16 output may differ from its plain version by
+# one bf16 step of itself and of the largest output
+F32_FLOOR, BF16_TOL = 2.0 ** -21, 2.0 ** -7
+
+
+@torch.no_grad()
+def gemm_bf16a_run(smi: str) -> dict:
+    """The f32 GEMM's bf16-A mode (``csrc/vit_gemm_f32.cu``, bf16 A, f32
+    W, two TF32 products a product) at UNI's fc1 (LayerNorm prologue,
+    gelu) and fc2 (layerscale residual): checked three ways, then timed
+    beside f32 ``torch.matmul`` (TF32 off)."""
+    from acmil_tpu_torch.ops import vit_layer as vl
+
+    m, d, hid = UNI_MLP
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    x = (1.5 * r(m, d) + 0.3).bfloat16()
+    h = (r(m, hid) * 0.5).bfloat16()
+    ls = 0.25 + 0.5 * r(d).abs()
+    # (label, a, w, bias, epilogue, ln, ls, residual)
+    calls = (("fc1", x, r(hid, d) / d ** 0.5, 0.1 * r(hid), vl.EPI_BIAS_GELU,
+              (1 + 0.1 * r(d), 0.1 * r(d)), None, None),
+             ("fc2", h, r(d, hid) / hid ** 0.5, 0.1 * r(d),
+              vl.EPI_BIAS_LS_RES, None, ls, x))
+    out = {}
+    for label, a, w, bias, epi, ln, gamma, res in calls:
+        n, k = w.shape
+        kw = dict(ln=ln, ls=gamma, res=res)
+        # f32 out against float64 on the bf16 rows as they are (no
+        # prologue: its rows, rounded to bf16, may flip a rounding against
+        # any other LayerNorm's, which the bf16 check below allows)
+        before = vl._gemm.launches["bf16a"]
+        got = vl._gemm(a, w, bias, epi, out_dtype=torch.float32, ls=gamma,
+                       res=res)
+        torch.cuda.synchronize()
+        if vl._gemm.launches["bf16a"] != before + 1:
+            raise AssertionError(f"bf16-A GEMM {label}: not launched")
+        lib = _gemm_plain(a, w, bias, epi, torch.float32, ls=gamma, res=res)
+        exact = _gemm_plain(a.double(), w.double(), bias, epi, torch.float64,
+                            ls=gamma, res=res)
+        err = float((got.double() - exact).abs().max())
+        lib_err = float((lib.double() - exact).abs().max())
+        del got, lib
+        if not err <= 2 * lib_err + F32_FLOOR * float(exact.abs().max()):
+            raise AssertionError(f"bf16-A GEMM {label}: error {err:.3e} "
+                                 f"against float64, f32 matmul's {lib_err:.3e}")
+        del exact
+        # the call as the MLP half makes it, prologue included: bf16 out
+        got = vl._gemm(a, w, bias, epi, out_dtype=torch.bfloat16, **kw)
+        worst = _err(got, _gemm_plain(a, w, bias, epi, torch.bfloat16, **kw),
+                     BF16_TOL)
+        del got
+        # A's lo is 0: two products give the three's bits on a.float()
+        a32 = a.float()
+        two = vl._gemm(a, w, bias, vl.EPI_BIAS, out_dtype=torch.float32)
+        three = vl._gemm(a32, w, bias, vl.EPI_BIAS, out_dtype=torch.float32)
+        if not torch.equal(two.view(torch.int32), three.view(torch.int32)):
+            raise AssertionError(f"bf16-A GEMM {label}: not the f32 mode's "
+                                 f"bits on a.float()")
+        del two, three
+        flops = 2 * m * n * k
+        nbytes = (2 * m * k + 4 * n * k + 4 * n + 2 * m * n
+                  + (0 if res is None else 2 * m * n))
+        ms = _time_ms(lambda: vl._gemm(a, w, bias, epi,
+                                       out_dtype=torch.bfloat16, **kw), 10)
+        plain_ms = _time_ms(lambda: _gemm_plain(a, w, bias, epi,
+                                                torch.bfloat16, **kw), 5)
+        lib_ms = _time_ms(lambda: torch.matmul(a32, w.t()), 10)
+        del a32
+        expect = {"gemm_f32_kernel": 1, "split_w_kernel": 1,
+                  **({"ln_rows_kernel": 1} if ln is not None else {})}
+        split = _kernel_ms(lambda: vl._gemm(a, w, bias, epi,
+                                            out_dtype=torch.bfloat16, **kw),
+                           expect, 5) or {}
+        gemm_dev = split.get("gemm_f32_kernel")
+        rec = {"ms": ms, "device_ms": sum(split.values()) if split else None,
+               "gemm_device_ms": gemm_dev,
+               "split_device_ms": split.get("split_w_kernel"),
+               "ln_device_ms": split.get("ln_rows_kernel"),
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               **_bound(flops, nbytes, PEAK_TF32_FLOPS / 2),
+               "fma_bound_ms": flops / PEAK_F32_FLOPS * 1e3,
+               "max_abs_err": worst, "f32_err_vs_float64": err,
+               "matmul_err_vs_float64": lib_err, "gflop": flops / 1e9}
+        rate = ("" if gemm_dev is None else
+                f", {flops / (gemm_dev * 1e-3) / 1e12:.1f} TFLOP/s of products")
+        print(f"GEMM bf16a {label} (bf16 A, f32 W, 2 TF32 products) M={m} "
+              f"N={n} K={k}: kernel {ms:.4f} ms (device: product "
+              f"{_fmt_ms(gemm_dev)}{rate}, split of W "
+              f"{_fmt_ms(rec['split_device_ms'])}, LayerNorm prologue "
+              f"{_fmt_ms(rec['ln_device_ms'])}), plain {plain_ms:.4f} ms, f32 "
+              f"torch.matmul {lib_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}, 2 TF32 products each; at the f32 FMA rate "
+              f"{rec['fma_bound_ms']:.4f} ms); against float64 {err:.3e} "
+              f"(f32 matmul {lib_err:.3e}), bf16 out against plain "
+              f"{worst:.3e}, bit for bit the f32 mode's on a.float() [{smi}]")
+        out[label] = rec
+    return out
 
 
 def _dsmil_model(conf):
@@ -6581,19 +6703,29 @@ def _zero_vit_counts() -> None:
             d[k] = 0
 
 
-def _gemm_plain(a, w, bias, epilogue, out_dtype, ln=None, res=None):
+def _gemm_plain(a, w, bias, epilogue, out_dtype, ln=None, res=None,
+                ls=None):
     """The GEMM's contract in plain torch: f32 LayerNorm (or none) of a,
-    rounded to w's dtype, an f32 product, the epilogue in f32."""
+    rounded to w's dtype (a bf16 a with an f32 w, the bf16-A mode: to
+    bf16), an f32 product, the epilogue in f32. With float64 operands
+    every step is float64."""
     from acmil_tpu_torch.ops import vit_layer as vl
 
-    af = a.float()
+    acc_dtype = torch.float64 if w.dtype == torch.float64 else torch.float32
+    rows = (torch.bfloat16 if (a.dtype, w.dtype) == (torch.bfloat16,
+                                                     torch.float32)
+            else w.dtype)
+    af = a.to(acc_dtype)
     if ln is not None:
-        af = vl._ln_f32(af, *ln)
-    acc = af.to(w.dtype).float() @ w.float().t() + bias
+        af = vl._ln_f32(af, *(t.to(acc_dtype) for t in ln))
+    acc = af.to(rows).to(acc_dtype) @ w.to(acc_dtype).t() + bias.to(acc_dtype)
     if epilogue == vl.EPI_BIAS_GELU:
         acc = torch.nn.functional.gelu(acc, approximate="tanh")
     elif epilogue == vl.EPI_RES_BIAS:
-        acc = acc + res.float()
+        acc = acc + res.to(acc_dtype)
+    elif epilogue == vl.EPI_BIAS_LS_RES:
+        acc = res.to(acc_dtype) + (acc * ls.to(acc_dtype) if ls is not None
+                                   else acc)
     return acc.to(out_dtype)
 
 
@@ -7065,6 +7197,7 @@ def main() -> None:
     vit = vit_kernels_vs_plain(smi)
     step2 = step2_run(smi)
     big = big_trunk_run(smi)
+    gemm_bf16a = gemm_bf16a_run(smi)
     b6 = dsmil_kernel_vs_plain(smi)
     dsmil_serve = dsmil_serve_run(smi)
     dsmil_train = dsmil_train_run(smi)
@@ -7273,6 +7406,22 @@ def main() -> None:
                 "splits, LayerNorm prologues); bound at TF32 x 3; "
                 "tf32_library_ms: TF32 torch.matmul, one TF32 product",
         **p24["gemm_f32"]}, {
+        "name": "gemm_bf16a: the float32 GEMM's bf16-A mode (bf16 A by TMA, "
+                "widened in registers, f32 W split once a call, two TF32 "
+                "products a product, LayerNorm prologue to bf16 rows, bf16 "
+                "residual and output)",
+        "route": "cuda",
+        "source": "acmil_tpu_torch/csrc/vit_gemm_f32.cu",
+        "replaces": "acmil_tpu/models/encoders/fast.py:42 (the MLP half's "
+                    "f32 products of a bf16 trunk)",
+        "launches": big["gemm_bf16a"]["UNI ViT-L/16"],
+        "path": "vit_encode at UNI ViT-L/16, depth 2, B=32 (phase 10): fc1 "
+                "and fc2 of each block's MLP half; times at UNI's fc1 and "
+                "fc2, M = 256 x 197 (device: product, W's split, LayerNorm "
+                "prologue); bound at TF32 x 2; library_ms: f32 "
+                "torch.matmul, TF32 off",
+        "launches_clip_l": big["gemm_bf16a"]["CLIP-L/336"],
+        **gemm_bf16a}, {
         "name": "b5_f16: B5' at float16 on the tensor cores",
         "route": "cuda",
         "source": "acmil_tpu_torch/csrc/vit_attn.cu",

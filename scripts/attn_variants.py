@@ -95,11 +95,12 @@ GEMM_VARIANTS = {
 # stores
 F32_SMALL_TERMS = (
     "#pragma unroll\n"
-    "      for (int j = 0; j < 4; ++j) wgmma_tf32(d, ah + 4 * j, dl + 2 * j, 1);\n"
+    "        for (int j = 0; j < 4; ++j) wgmma_tf32(d, ah + 4 * j, dl + 2 * j, 1);\n"
+    "      }\n"
     "#pragma unroll\n"
     "      for (int j = 0; j < 4; ++j) wgmma_tf32(d, ah + 4 * j, dh + 2 * j, 1);\n")
-F32_LO_LOAD = ("          tma_load(dst + 2 * kTileBytes, &map_lo, full + 8 * "
-               "stage, ks * kBK,\n                   n0);\n")
+F32_LO_LOAD = ("          tma_load(dst + kATileBytes + kTileBytes, &map_lo, "
+               "full + 8 * stage,\n                   ks * kBK, n0);\n")
 GEMM_F32_VARIANTS = {
     "as built": ("the kernel in the repository (each 32-deep stage's "
                  "products added in f32)", []),
@@ -110,13 +111,13 @@ GEMM_F32_VARIANTS = {
                  [("kFlushStages = 1;", "kFlushStages = 0;")]),
     "one product": ("hi hi alone (wrong numbers): what the split's two "
                     "other products cost",
-                    [(F32_SMALL_TERMS, ""),
+                    [(F32_SMALL_TERMS, "      }\n"),
                      ("wgmma_tf32(d, al + 4 * j, dh + 2 * j,",
                       "wgmma_tf32(d, ah + 4 * j, dh + 2 * j,")]),
     "one product, A and W_hi": ("hi hi alone with W_lo's tiles not "
                                 "loaded (wrong numbers): whether the loads "
                                 "or the products bound one product",
-                                [(F32_SMALL_TERMS, ""),
+                                [(F32_SMALL_TERMS, "      }\n"),
                                  ("wgmma_tf32(d, al + 4 * j, dh + 2 * j,",
                                   "wgmma_tf32(d, ah + 4 * j, dh + 2 * j,"),
                                  ("mbar_expect_tx(full + 8 * stage, "

@@ -1,5 +1,5 @@
 """The GEMMs of kernels B3 and B4 (``csrc/vit_gemm.cu`` at bfloat16 and
-float16, ``csrc/vit_gemm_f32.cu`` at float32, through
+float16, ``csrc/vit_gemm_f32.cu`` at float32 and in its bf16-A mode, through
 ``acmil_tpu_torch/ops/vit_layer.py::_gemm``) alone, against a plain
 ``torch.matmul`` with the same prologue and epilogue, and the float32 one
 also against a float64 product. The file imports no JAX, so it runs on the
@@ -34,13 +34,17 @@ F32_FLOOR = 2.0 ** -21
 
 def _plain(a, w, bias, epilogue, out_dtype, ln=None, ls=None, res=None):
     """The GEMM's contract in plain torch: f32 LayerNorm (or none) of a,
-    rounded to w's dtype, an f32 product with w, then the epilogue in f32.
-    With float64 operands every step is float64."""
+    rounded to w's dtype (a bf16 a with an f32 w, the bf16-A mode: to
+    bf16), an f32 product with w, then the epilogue in f32. With float64
+    operands every step is float64."""
     acc_dtype = torch.float64 if w.dtype == torch.float64 else torch.float32
+    rows = (torch.bfloat16 if (a.dtype, w.dtype) == (torch.bfloat16,
+                                                     torch.float32)
+            else w.dtype)
     af = a.to(acc_dtype)
     if ln is not None:
         af = port._ln_f32(af, *(t.to(acc_dtype) for t in ln))
-    acc = af.to(w.dtype).to(acc_dtype) @ w.to(acc_dtype).t()
+    acc = af.to(rows).to(acc_dtype) @ w.to(acc_dtype).t()
     bias = bias.to(acc_dtype)
     if epilogue == port.EPI_BIAS:
         y = acc + bias
@@ -107,11 +111,27 @@ def test_f32_source_is_split_tf32_with_the_shared_rows():
         assert '#include "vit_rows.cuh"' in f.read()
 
 
+def test_f32_source_has_the_bf16_a_mode():
+    # the bf16-A mode is a template instantiation of the same kernel: A
+    # staged by TMA as bf16 through its own unswizzled map, widened in
+    # registers (no split of A), the bf16 LayerNorm prologue, its own entry
+    with open(os.path.join(CSRC, "vit_gemm_f32.cu")) as f:
+        src = f.read()
+    for needle in ("template <int kEpi, bool kBf16A>", "if constexpr (kBf16A)",
+                   "CU_TENSOR_MAP_DATA_TYPE_BFLOAT16",
+                   "CU_TENSOR_MAP_SWIZZLE_NONE", "widen_bf16(",
+                   "launch_prologue<bf16, bf16, true>", "run<true>(",
+                   "run<false>(", "int vit_gemm_f32_bf16a("):
+        assert needle in src, needle
+    with open(os.path.join(CSRC, "hopper.cuh")) as f:
+        assert "bool make_tiled_map(" in f.read()
+
+
 @pytest.mark.parametrize("change, match", [
     (dict(k=40), "K % 32 == 0"),
     (dict(n=12), "N % 8 == 0"),
     (dict(a_dtype=torch.float16), "bfloat16 or float32"),
-    (dict(w_dtype=torch.float32), "weight must be bfloat16"),
+    (dict(w_dtype=torch.float64), "weight must be bfloat16"),
     (dict(bias_len=7), "vectors must be float32"),
     (dict(res_shape=(4, 8)), "residual must be"),
     (dict(strided=True), "contiguous"),
@@ -143,6 +163,28 @@ def test_f32_gemm_rejects_what_the_kernel_does_not_take(a_dtype, res_dtype,
         port._gemm(a, w, torch.zeros(64), port.EPI_RES_BIAS,
                    out_dtype=out_dtype, res=torch.zeros(16, 64,
                                                         dtype=res_dtype))
+
+
+@pytest.mark.parametrize("change, match", [
+    (dict(k=40), "K % 32 == 0"),
+    (dict(n=12), "N % 8 == 0"),
+    (dict(w_shape=(64, 96)), "weight must be float32"),
+    (dict(bias_dtype=torch.bfloat16), "vectors must be float32"),
+    (dict(res_dtype=torch.float16), "residual must be"),
+    (dict(res_dtype=torch.float32), "residual must be"),
+    (dict(out_dtype=torch.float16), "output must be"),
+])
+def test_bf16a_gemm_rejects_what_the_kernel_does_not_take(change, match):
+    # a bf16 A with an f32 W: the bf16-A mode takes a bf16 residual, bf16 or
+    # f32 outputs, f32 vectors, K % 32 and N % 8
+    m, n, k = 16, change.get("n", 64), change.get("k", 64)
+    a = torch.zeros(m, k, dtype=torch.bfloat16)
+    w = torch.zeros(*change.get("w_shape", (n, k)))
+    bias = torch.zeros(n, dtype=change.get("bias_dtype", torch.float32))
+    res = torch.zeros(m, n, dtype=change.get("res_dtype", torch.bfloat16))
+    with pytest.raises(ValueError, match=match):
+        port._gemm(a, w, bias, port.EPI_BIAS_LS_RES, res=res,
+                   out_dtype=change.get("out_dtype", torch.bfloat16))
 
 
 @pytest.fixture
@@ -326,3 +368,84 @@ def test_gemm_float32_is_deterministic_and_launches_on_the_current_stream(
     err = float((one.double() - exact).abs().max())
     lib_err = float((lib.double() - exact).abs().max())
     assert err <= 2 * lib_err + F32_FLOOR * float(exact.abs().max())
+
+
+# the bf16-A mode at UNI's MLP half (D 1024, hidden 4096) with M ragged
+# (32 images of 197 tokens: 49.25 row tiles), and small ragged shapes
+# (N = 392 is three tiles and 8 columns, K = 96 one and a half stages)
+BF16A_SHAPES = [(32 * 197, 4096, 1024), (32 * 197, 1024, 4096),
+                (300, 8, 32), (1000, 392, 96)]
+
+
+def _bf16a_operands(dev, m, n, k, seed=0):
+    """bf16 A and residual, f32 W and vectors (the MLP half's operands)."""
+    a, w, bias, ln, ls, res = _operands(dev, m, n, k, torch.bfloat16, seed,
+                                        w_dtype=torch.float32)
+    return a, w, bias, ln, ls, res.to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, n, k", BF16A_SHAPES)
+@pytest.mark.parametrize("epilogue, with_ls", [
+    (port.EPI_BIAS, False), (port.EPI_BIAS_GELU, False),
+    (port.EPI_RES_BIAS, False), (port.EPI_BIAS_LS_RES, True),
+    (port.EPI_BIAS_LS_RES, False)])
+def test_gemm_bf16a_is_as_accurate_as_float32_matmul(cuda_device, m, n, k,
+                                                     epilogue, with_ls):
+    # the f32 mode's bar: against a float64 product of the same bf16 A and
+    # f32 W, the error at most twice that of full-f32 torch.matmul plus a
+    # few f32 steps of the largest output; f32 out, a bf16 residual
+    a, w, bias, _, ls, res = _bf16a_operands(cuda_device, m, n, k)
+    kw = dict(ls=ls if with_ls else None,
+              res=res if epilogue >= port.EPI_RES_BIAS else None)
+    before = port._gemm.launches["bf16a"]
+    with torch.no_grad():
+        got = port._gemm(a, w, bias, epilogue, out_dtype=torch.float32, **kw)
+        torch.cuda.synchronize()
+        lib = _plain(a, w, bias, epilogue, torch.float32, **kw)
+        exact = _plain(a.double(), w.double(), bias, epilogue, torch.float64,
+                       **kw)
+    assert port._gemm.launches["bf16a"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    err = float((got.double() - exact).abs().max())
+    lib_err = float((lib.double() - exact).abs().max())
+    assert err <= 2 * lib_err + F32_FLOOR * float(exact.abs().max()), \
+        (err, lib_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, n, k", BF16A_SHAPES)
+@pytest.mark.parametrize("epilogue, with_ls", [
+    (port.EPI_BIAS_GELU, False), (port.EPI_BIAS_LS_RES, True),
+    (port.EPI_BIAS_LS_RES, False)])
+@pytest.mark.parametrize("with_ln", [True, False])
+def test_gemm_bf16a_matches_plain_on_card(cuda_device, m, n, k, epilogue,
+                                          with_ls, with_ln):
+    # the MLP half's two calls as the chain makes them: bf16 out, a bf16
+    # residual, the bf16 LayerNorm prologue on or off. The products carry
+    # f32's accuracy (the bar above), so only a bf16 rounding may flip
+    # (of an output or of a LayerNorm'd row element): TOL
+    a, w, bias, ln, ls, res = _bf16a_operands(cuda_device, m, n, k)
+    kw = dict(ln=ln if with_ln else None, ls=ls if with_ls else None,
+              res=res if epilogue >= port.EPI_RES_BIAS else None)
+    with torch.no_grad():
+        got = port._gemm(a, w, bias, epilogue, out_dtype=torch.bfloat16, **kw)
+        torch.cuda.synchronize()
+        want = _plain(a, w, bias, epilogue, torch.bfloat16, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    _check(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, n, k", BF16A_SHAPES)
+def test_gemm_bf16a_equals_the_f32_mode_bit_for_bit(cuda_device, m, n, k):
+    # a bf16 value is exact in TF32, so the f32 mode's lo hi products add
+    # exact zeros: its two products give the bits of the f32 mode's three
+    # on a.float() (epilogue 0, f32 out)
+    a, w, bias, _, _, _ = _bf16a_operands(cuda_device, m, n, k)
+    with torch.no_grad():
+        got = port._gemm(a, w, bias, port.EPI_BIAS, out_dtype=torch.float32)
+        want = port._gemm(a.float(), w, bias, port.EPI_BIAS,
+                          out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -11,9 +11,11 @@ import pytest
 import torch
 
 from acmil_tpu_torch.config import Config
+from acmil_tpu_torch.models.encoders import fast
 from acmil_tpu_torch.models.encoders.build import (build_encoder,
                                                    encoder_feature_fn)
 from acmil_tpu_torch.ops import vit_layer as port
+from acmil_tpu_torch.utils import profiling
 
 # bf16 both: the same rounding points, so only the order of f32 sums differs
 # and may flip a bf16 rounding (of y, qkv, p, o or the gelu output); a
@@ -73,6 +75,88 @@ def test_chain_arg_check_accepts_the_trunk_widths():
         for dtype in (torch.bfloat16, torch.float16, torch.float32):
             x, w = _case("cpu", 1, 4, d, 4 * d, dtype=dtype)
             port._check_chain_args(x, w, heads, mlp=True)
+
+
+def _mlp_weights(d, hidden, act="gelu", ls2=True, dtype=torch.float32):
+    rs = np.random.RandomState(4)
+    f = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))
+    out_w = 2 * hidden if act == "swiglu" else hidden
+    w = {"norm2.weight": 1 + 0.1 * f(d), "norm2.bias": 0.1 * f(d),
+         "mlp.fc1.weight": (0.1 * f(out_w, d)).to(dtype),
+         "mlp.fc1.bias": 0.05 * f(out_w),
+         "mlp.fc2.weight": (0.1 * f(d, hidden)).to(dtype),
+         "mlp.fc2.bias": 0.05 * f(d)}
+    if ls2:
+        w["ls2.gamma"] = 0.25 + 0.5 * torch.from_numpy(
+            rs.rand(d).astype(np.float32))
+    return w
+
+
+@pytest.mark.parametrize("dtype, act, d, hidden, mat_dtype, fused, route", [
+    (torch.bfloat16, "gelu", 1024, 4096, torch.float32, True, "fused"),
+    (torch.bfloat16, "gelu", 768, 3072, torch.float32, True, "fused"),
+    (torch.bfloat16, "gelu", 1024, 4096, torch.float32, False, "plain"),
+    (torch.float16, "gelu", 1024, 4096, torch.float32, True, "plain"),
+    (torch.float32, "gelu", 1024, 4096, torch.float32, True, "plain"),
+    (torch.bfloat16, "quick_gelu", 1024, 4096, torch.float32, True, "plain"),
+    (torch.bfloat16, "swiglu", 1536, 4096, torch.float32, True, "plain"),
+    (torch.bfloat16, "gelu", 1024, 4096, torch.bfloat16, True, "plain"),
+    (torch.bfloat16, "gelu", 1024, 4104, torch.float32, True, "plain"),
+])
+def test_mlp_route_takes_the_bf16a_gemm_only_for_bf16_gelu(
+        dtype, act, d, hidden, mat_dtype, fused, route):
+    # the fused MLP half for a bf16 trunk with gelu (the GEMM's tanh gelu
+    # epilogue) on f32 matrices of widths the GEMM takes; fp16 (exact
+    # gelu), f32, quick_gelu (CLIP-L/336), swiglu (GigaPath), bf16
+    # matrices, a hidden width off K % 32 and fused=False keep _mlp_half
+    w = _mlp_weights(d, hidden, act, dtype=mat_dtype)
+    assert fast.mlp_route(w, dtype, act, fused) == route
+
+
+@pytest.mark.parametrize("ls2", [True, False])
+def test_fused_mlp_half_on_the_cpu_is_the_plain_half(ls2):
+    # on a CPU tensor the fused MLP half is _mlp_half itself, forward and
+    # backward
+    rs = np.random.RandomState(5)
+    w = _mlp_weights(64, 256, ls2=ls2)
+    x = torch.from_numpy(rs.randn(2, 9, 64).astype(np.float32)).bfloat16()
+    before = port._gemm.launches["bf16a"]
+    torch.testing.assert_close(fast.fused_mlp_half(x, w),
+                               fast._mlp_half(x, w, "gelu"), atol=0, rtol=0)
+    assert port._gemm.launches["bf16a"] == before
+    xs = [x.clone().requires_grad_() for _ in range(2)]
+    ws = [{k: v.clone().requires_grad_() for k, v in w.items()}
+          for _ in range(2)]
+    fast.fused_mlp_half(xs[0], ws[0]).float().sum().backward()
+    fast._mlp_half(xs[1], ws[1], "gelu").float().sum().backward()
+    torch.testing.assert_close(xs[0].grad, xs[1].grad, atol=0, rtol=0)
+    for k in w:
+        torch.testing.assert_close(ws[0][k].grad, ws[1][k].grad, atol=0,
+                                   rtol=0, msg=k)
+
+
+@pytest.mark.parametrize("dtype, route", [(torch.bfloat16, "fused"),
+                                          (torch.float32, "plain")])
+def test_vit_encode_counts_each_mlp_half_by_its_route(dtype, route):
+    from acmil_tpu_torch.models.encoders.vit import ViT
+
+    torch.manual_seed(0)
+    vit = ViT(patch=16, dim=96, depth=3, heads=4, layerscale=True,
+              img_size=32)
+    sd = {k: v.detach() for k, v in vit.state_dict().items()}
+    assert fast.vit_route(sd, 5, vit.heads, dtype, vit.act) == "half"
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32))
+    profiling.reset()
+    profiling.spans_on(True)
+    try:
+        fast.vit_encode(sd, x, patch=16, depth=3, heads=4, dtype=dtype,
+                        act=vit.act)
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.spans_on(False)
+        profiling.reset()
+    assert counters == {f"vit.mlp_half.{route}": 3}
 
 
 @pytest.fixture
@@ -233,3 +317,66 @@ def test_f32_trunk_convolutions_keep_f32_with_cudnn_tf32_on(
     rel = float((got - want).abs().max() / want.abs().max())
     assert torch.isfinite(got).all() and rel <= CPU_F32_REL, rel
     assert tf32_at_conv and not any(tf32_at_conv), tf32_at_conv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, ls2", [(2, 197, True), (3, 197, False),
+                                       (1, 50, True)])
+def test_fused_mlp_half_matches_plain_on_card(cuda_device, b, n, ls2):
+    # UNI's widths, M ragged: two bf16-A GEMMs against _mlp_half's plain
+    # products on the same f32 matrices
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w = {k: v.to(cuda_device) for k, v in
+         _mlp_weights(1024, 4096, ls2=ls2).items()}
+    x = torch.from_numpy(np.random.RandomState(6).randn(b, n, 1024).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    before = port._gemm.launches["bf16a"]
+    with torch.no_grad():
+        got = fast.fused_mlp_half(x, w)
+        torch.cuda.synchronize()
+        want = fast._mlp_half(x, w, "gelu")
+    assert port._gemm.launches["bf16a"] == before + 2
+    _check(got, want)
+
+
+@pytest.mark.gpu
+def test_vit_encode_at_uni_widths_runs_the_mlp_half_on_the_gemm(
+        cuda_device, monkeypatch):
+    # vit_encode on UNI's widths (B4, then the fused MLP half), depth 2:
+    # each MLP half is two bf16-A GEMMs and no plain product (_mm is not
+    # called), against fused=False
+    from acmil_tpu_torch.models.encoders.vit import ViT
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    vit = ViT(patch=16, dim=1024, depth=2, heads=16, layerscale=True)
+    gen = torch.Generator().manual_seed(1)
+    for blk in vit.blocks:
+        for ls in (blk.ls1, blk.ls2):
+            ls.gamma.data = 0.25 + 0.5 * torch.rand(ls.gamma.shape,
+                                                    generator=gen)
+    n_tok = (vit.img_size // vit.patch) ** 2 + 1
+    params = fast.cast_kernel_weights(
+        {k: v.to(cuda_device) for k, v in vit.state_dict().items()},
+        n_tok=n_tok, heads=vit.heads, dtype=torch.bfloat16, act=vit.act)
+    assert fast.vit_route(params, n_tok, vit.heads, torch.bfloat16,
+                          vit.act) == "half"
+    x = torch.randn(3, vit.img_size, vit.img_size, 3, generator=gen).to(
+        cuda_device)
+    kw = dict(patch=vit.patch, depth=2, heads=vit.heads, act=vit.act)
+    mm = fast._mm
+
+    def no_plain_product(a, b):
+        raise AssertionError("the fused route called _mm")
+
+    before = port._gemm.launches["bf16a"]
+    monkeypatch.setattr(fast, "_mm", no_plain_product)
+    with torch.no_grad():
+        got = fast.vit_encode(params, x, **kw)
+        torch.cuda.synchronize()
+    monkeypatch.setattr(fast, "_mm", mm)
+    assert port._gemm.launches["bf16a"] == before + 2 * 2
+    with torch.no_grad():
+        want = fast.vit_encode(params, x, **kw, fused=False)
+    assert got.shape == (3, 1024) and bool(torch.isfinite(got).all())
+    _check(got, want)
