@@ -84,6 +84,18 @@
 // KB, so the ring keeps three (four and the staged epilogue pass the 227
 // KB).
 //
+// The SwiGLU epilogue (kBiasSwiGLU, the bf16-A mode only). A SwiGLU-packed
+// fc1 (timm's SwiGLUPacked: W [N, K] whose first N / 2 rows are the gate's
+// and last N / 2 the value's) gives out[:, j] = silu(g_j + b_j) (v_j +
+// b_{N/2 + j}) at half width, with g and v the products of rows j and N /
+// 2 + j. For one output tile to hold both, split_w_kernel gathers W's rows
+// as it splits them: a 128-column tile t reads gate rows 64 t .. 64 t + 63
+// and then value rows N / 2 + 64 t .. N / 2 + 64 t + 63 (swiglu_row), so
+// that its staged accumulators hold 64 gates and their 64 values; each
+// warp then writes 64 output columns of its rows (two rows at a time, four
+// columns a lane), silu and the product in f32 and one rounding at the
+// store. The bias is read as given, at both halves. N is a multiple of 128.
+//
 // Widths the kernel takes: K a multiple of 32, N a multiple of 8,
 // contiguous 16-byte-aligned buffers, W [N, K] f32 (torch's Linear
 // layout). The Python wrapper (acmil_tpu_torch/ops/vit_layer.py) checks
@@ -130,6 +142,9 @@ constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 static_assert(128 * (kLaunchRegs - kProducerRegs) >=
                   128 * kConsumers * (kConsumerRegs - kLaunchRegs),
               "the consumers' registers come from the producer warpgroup");
+// the bf16-A mode's fifth epilogue, after csrc/vit_rows.cuh's four: silu
+// of the gate columns times the value columns, at half width (the header)
+constexpr int kBiasSwiGLU = 4;
 // stages summed on the tensor cores before their sum is added in f32 (0:
 // all of K)
 constexpr int kFlushStages = 1;
@@ -145,6 +160,15 @@ __host__ __device__ constexpr int k_position(int c) {
   return 8 * ((c % 8) / 2) + c / 8 + 4 * (c % 2);
 }
 
+// The row of W that row p of W's split holds: p itself, or for the SwiGLU
+// epilogue (half = N / 2) gate row 64 t + c of tile t = p / 128 at c = p %
+// 128 < 64, value row half + 64 t + c - 64 after it.
+__host__ __device__ constexpr long long swiglu_row(long long p, int half) {
+  return half == 0 ? p
+                   : (p / kBN) * (kBN / 2) + (p % kBN) % (kBN / 2) +
+                         (p % kBN >= kBN / 2 ? half : 0);
+}
+
 // hi and lo of one element of W: csrc/tf32x3.cuh's split of a finite a;
 // an infinity or a NaN passes as hi, with lo = 0.
 __device__ __forceinline__ void split_w(float a, uint32_t& hi, uint32_t& lo) {
@@ -157,15 +181,17 @@ __device__ __forceinline__ void split_w(float a, uint32_t& hi, uint32_t& lo) {
 }
 
 // W [N, K] -> W_hi at out, W_lo at out + N K, each row's 32-wide slices in
-// the order of k_position: one element a thread.
+// the order of k_position, row p from W's row swiglu_row(p, half) (half 0:
+// row p): one element a thread.
 __global__ void __launch_bounds__(kSplitThreads)
 split_w_kernel(const float* __restrict__ w, float* __restrict__ out,
-               long long total) {
+               long long total, int k, int half) {
   const long long i = blockIdx.x * static_cast<long long>(kSplitThreads) +
                       threadIdx.x;
   if (i >= total) return;
+  const long long src = half == 0 ? i : swiglu_row(i / k, half) * k + i % k;
   uint32_t hi, lo;
-  split_w(w[i], hi, lo);
+  split_w(w[src], hi, lo);
   const long long at = i - i % 32 + k_position(static_cast<int>(i % 32));
   out[at] = __uint_as_float(hi);
   out[total + at] = __uint_as_float(lo);
@@ -228,6 +254,14 @@ __device__ __forceinline__ void widen_bf16(uint32_t w, uint32_t& even,
   odd = w & 0xffff0000u;
 }
 
+// The SwiGLU epilogue of one output element, in f32: silu(g + bg) (v + bv)
+// (timm's SwiGLUPacked after fc1's bias; silu(x) = x / (1 + e^-x)).
+__device__ __forceinline__ float swiglu_value(float g, float bg, float v,
+                                              float bv) {
+  const float a = g + bg;
+  return a / (1.0f + __expf(-a)) * (v + bv);
+}
+
 // Persistent, warp-specialised: see the header. kEpi is the epilogue (a
 // template argument, so that the bias and gelu epilogues hold no residual
 // registers); kBf16A the bf16-A mode (A bf16, two products a step).
@@ -244,6 +278,7 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,    // A [M, K]
   constexpr uint32_t kStageBytes = stage_bytes(kBf16A);
   // the f32 mode's residual and output are f32 (folded at compile time)
   constexpr bool res_f32 = !kBf16A;
+  constexpr bool has_res = kEpi == kResBias || kEpi == kBiasLsRes;
   const bool out_f32 = !kBf16A || e.out_f32;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -416,7 +451,7 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,    // A [M, K]
       // the warp's 16 rows x 4 lines), read after the products
       const int col = n0 + 4 * lane;
       const int row0 = m0 + 64 * wg + warp % 4;
-      if constexpr (kEpi >= kResBias) {
+      if constexpr (has_res) {
         // a row's 128 columns are 4 lines of f32 or 2 of bf16
         constexpr int lines = res_f32 ? 4 : 2;
 #pragma unroll
@@ -452,7 +487,7 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,    // A [M, K]
       // residual is held as it lies in memory (f32: all four words; bf16:
       // the first two)
       uint4 res[kRowsPerWarp];
-      if constexpr (kEpi >= kResBias) {
+      if constexpr (has_res) {
 #pragma unroll
         for (int i = 0; i < kRowsPerWarp; ++i) {
           res[i] = make_uint4(0u, 0u, 0u, 0u);
@@ -478,7 +513,34 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,    // A [M, K]
                                      8 * j + wcol) =
               make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       named_barrier(1 + wg, 128);
-      if (col < n_cols) {                           // N % 8 == 0: all four
+      if constexpr (kEpi == kBiasSwiGLU) {
+        // 64 gate then 64 value columns staged; output columns o .. o + 3
+        // of rows r (two rows a pass: lanes 0-15, 16-31), at half width
+        const int half = n_cols / 2;
+        const int c = 4 * (lane % 16);
+        const int o = n0 / 2 + c;
+        const float4 bg = *reinterpret_cast<const float4*>(e.bias + o);
+        const float4 bv = *reinterpret_cast<const float4*>(e.bias + half + o);
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp / 2; ++i) {
+          const int r = warp % 4 + 4 * (2 * i + lane / 16);
+          const int row = m0 + 64 * wg + r;
+          if (row >= m_rows) continue;
+          const float4 g =
+              *reinterpret_cast<const float4*>(out_tile + r * kOutStride + c);
+          const float4 v = *reinterpret_cast<const float4*>(
+              out_tile + r * kOutStride + kBN / 2 + c);
+          const float y[4] = {swiglu_value(g.x, bg.x, v.x, bv.x),
+                              swiglu_value(g.y, bg.y, v.y, bv.y),
+                              swiglu_value(g.z, bg.z, v.z, bv.z),
+                              swiglu_value(g.w, bg.w, v.w, bv.w)};
+          const size_t off = static_cast<size_t>(row) * half + o;
+          if (out_f32)
+            store4(static_cast<float*>(e.out) + off, y);
+          else
+            store4(static_cast<bf16*>(e.out) + off, y);
+        }
+      } else if (col < n_cols) {                    // N % 8 == 0: all four
         const float4 b = *reinterpret_cast<const float4*>(e.bias + col);
         const float4 gm = kEpi == kBiasLsRes && e.ls != nullptr
                               ? *reinterpret_cast<const float4*>(e.ls + col)
@@ -492,7 +554,7 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,    // A [M, K]
         for (int i = 0; i < kRowsPerWarp; ++i) {
           if (row0 + 4 * i >= m_rows) continue;
           float r[4] = {0.f, 0.f, 0.f, 0.f};
-          if constexpr (kEpi >= kResBias) {
+          if constexpr (has_res) {
             if constexpr (res_f32) {
               r[0] = __uint_as_float(res[i].x);
               r[1] = __uint_as_float(res[i].y);
@@ -538,12 +600,14 @@ bool make_map_bf16(CUtensorMap* map, const void* ptr, int rows, int k) {
                         k, kBK, kBM, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
+// W's split, its rows gathered for the SwiGLU epilogue with swiglu
 cudaError_t launch_split(const float* w, float* w_split, int n, int k,
-                         cudaStream_t stream) {
+                         bool swiglu, cudaStream_t stream) {
   const long long total = static_cast<long long>(n) * k;
   split_w_kernel<<<static_cast<unsigned>((total + kSplitThreads - 1) /
                                          kSplitThreads),
-                   kSplitThreads, 0, stream>>>(w, w_split, total);
+                   kSplitThreads, 0, stream>>>(w, w_split, total, k,
+                                               swiglu ? n / 2 : 0);
   return cudaGetLastError();
 }
 
@@ -561,12 +625,17 @@ cudaError_t launch_gemm(const CUtensorMap& map_a, const CUtensorMap& map_hi,
   return cudaGetLastError();
 }
 
-// What the two entries check: widths, the epilogue and its operands.
+// What the two entries check: widths, the epilogue and its operands (the
+// SwiGLU epilogue in the bf16-A mode alone, at N % 128 == 0, no residual).
 bool takes(int m, int n, int k, int epilogue, const void* res, bool ln,
-           const void* a_rows, const float* w_split) {
+           const void* a_rows, const float* w_split, bool bf16_a) {
+  const bool swiglu = epilogue == kBiasSwiGLU;
   return m > 0 && n > 0 && k > 0 && k % 32 == 0 && n % 8 == 0 &&
-         epilogue >= kBias && epilogue <= kBiasLsRes &&
-         (epilogue < kResBias || res != nullptr) &&
+         epilogue >= kBias &&
+         (epilogue <= kBiasLsRes ||
+          (swiglu && bf16_a && n % kBN == 0 && res == nullptr)) &&
+         (epilogue == kBias || epilogue == kBiasGelu || swiglu ||
+          res != nullptr) &&
          (!ln || a_rows != nullptr) && w_split != nullptr &&
          static_cast<long long>((m + kBM - 1) / kBM) * ((n + kBN - 1) / kBN) <=
              0x7fffffffLL;
@@ -578,7 +647,8 @@ template <bool kBf16A>
 cudaError_t run(const void* a, const float* w, float* w_split,
                 const F32Epilogue& e, int epilogue, int m, int n, int k,
                 cudaStream_t st) {
-  cudaError_t err = launch_split(w, w_split, n, k, st);
+  cudaError_t err = launch_split(w, w_split, n, k, epilogue == kBiasSwiGLU,
+                                 st);
   if (err != cudaSuccess) return err;
   const float* w_lo = w_split + static_cast<size_t>(n) * k;
   CUtensorMap map_a, map_hi, map_lo;
@@ -603,6 +673,11 @@ cudaError_t run(const void* a, const float* w, float* w_split,
     case kResBias:
       return launch_gemm<kResBias, kBf16A>(map_a, map_hi, map_lo, e, m, n, k,
                                            grid, st);
+    case kBiasSwiGLU:
+      if constexpr (kBf16A)
+        return launch_gemm<kBiasSwiGLU, true>(map_a, map_hi, map_lo, e, m, n,
+                                              k, grid, st);
+      return cudaErrorInvalidValue;
     default:
       return launch_gemm<kBiasLsRes, kBf16A>(map_a, map_hi, map_lo, e, m, n,
                                              k, grid, st);
@@ -620,8 +695,8 @@ int vit_gemm_f32_split_w(const float* w, float* w_split, int n, int k,
                          void* stream) {
   if (n <= 0 || k <= 0 || k % 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      launch_split(w, w_split, n, k, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_split(w, w_split, n, k, false,
+                                       static_cast<cudaStream_t>(stream)));
 }
 
 // Launches the f32 GEMM on `stream`. A is [m, k] f32; ln_scale/ln_bias [k]
@@ -637,7 +712,7 @@ int vit_gemm_f32(const float* a, const float* ln_scale, const float* ln_bias,
                  const float* bias, const float* ls, const float* res,
                  float* out, int epilogue, int m, int n, int k, void* stream) {
   const bool ln = ln_scale != nullptr;
-  if (!takes(m, n, k, epilogue, res, ln, a_rows, w_split))
+  if (!takes(m, n, k, epilogue, res, ln, a_rows, w_split, false))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ln) {
@@ -653,14 +728,15 @@ int vit_gemm_f32(const float* a, const float* ln_scale, const float* ln_bias,
 // Launches the bf16-A mode on `stream`: as vit_gemm_f32, with A [m, k]
 // bf16, the prologue's rows a_rows [m, k] bf16, res [m, n] bf16 and out
 // [m, n] f32 (out_f32 = 1) or bf16; w, w_split and the vectors f32. Two
-// TF32 products a product (see the header).
+// TF32 products a product (see the header). Epilogue 4 (SwiGLU): n a
+// multiple of 128, no residual, out [m, n / 2].
 int vit_gemm_f32_bf16a(const void* a, const float* ln_scale,
                        const float* ln_bias, void* a_rows, const float* w,
                        float* w_split, const float* bias, const float* ls,
                        const void* res, void* out, int out_f32, int epilogue,
                        int m, int n, int k, void* stream) {
   const bool ln = ln_scale != nullptr;
-  if (!takes(m, n, k, epilogue, res, ln, a_rows, w_split))
+  if (!takes(m, n, k, epilogue, res, ln, a_rows, w_split, true))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ln) {

@@ -13,17 +13,19 @@ same predicates (``ops/vit_layer.py``):
 3. packed MHA, kernel B5' inside :func:`_xla_attn_half`, then the MLP half
    (CLIP-L/336, GigaPath ViT-G/16).
 
-The MLP half multiplies by the f32 matrices (the param tree's dtype), as
-XLA runs it in the JAX package. :func:`mlp_route` picks, per block, the
-fused MLP half (:func:`fused_mlp_half`: fc1 and fc2 on the f32 GEMM's
-bf16-A mode, ``csrc/vit_gemm_f32.cu``, with the LayerNorm prologue and the
-gelu and layerscale-residual epilogues) for a bf16 trunk with gelu, and
-the plain products of :func:`_mlp_half` for every other trunk. The
-attention half of route 3 around B5' is plain products outside any kernel.
-``fused=False`` takes every route through the kernels' plain versions on
-any device. :func:`vit_route` alone chooses the route;
-:func:`cast_kernel_weights` casts the matrices of that route's kernel once,
-where a caller keeps the parameters for many batches.
+The MLP half, and route 3's qkv and proj, multiply by the f32 matrices (the
+param tree's dtype), as XLA runs them in the JAX package. :func:`mlp_route`
+picks, per block, the fused MLP half (:func:`fused_mlp_half`: fc1 and fc2
+on the f32 GEMM's bf16-A mode, ``csrc/vit_gemm_f32.cu``, with the LayerNorm
+prologue and the gelu, SwiGLU and layerscale-residual epilogues) for a
+bf16 trunk with gelu or SwiGLU, and the plain products of :func:`_mlp_half`
+for every other trunk. :func:`attn_route` likewise picks route 3's fused
+attention half (:func:`fused_packed_attn_half`: qkv and proj on the same
+GEMM mode around B5') for a bf16 trunk, and the plain products of
+:func:`_unfused_attn_half` otherwise. ``fused=False`` takes every route
+through the kernels' plain versions on any device. :func:`vit_route` alone
+chooses the route; :func:`cast_kernel_weights` casts the matrices of that
+route's kernel once, where a caller keeps the parameters for many batches.
 """
 
 from __future__ import annotations
@@ -37,8 +39,9 @@ from acmil_tpu_torch.models.encoders.vit import mlp_act
 from acmil_tpu_torch.ops.vit_attn_packed import (_mm, _reference_packed,
                                                  fused_mha_packed)
 from acmil_tpu_torch.ops.vit_layer import (EPI_BIAS_GELU, EPI_BIAS_LS_RES,
-                                           GEMM_K_MULTIPLE, _apply_block,
-                                           _f32, _gemm, _ln_f32,
+                                           EPI_BIAS_SWIGLU, GEMM_K_MULTIPLE,
+                                           SWIGLU_TILE, _apply_block, _f32,
+                                           _gemm, _launch_attn_half, _ln_f32,
                                            _reference_attn_half,
                                            _reference_layer,
                                            _unfused_attn_half,
@@ -53,8 +56,9 @@ _KERNEL_MATRICES = {
     "half": ("attn.qkv", "attn.proj"),
     "packed": (),
 }
-# the block weights the MLP half reads
+# the block weights the MLP half and the attention half read
 _MLP_HALF_KEYS = ("norm2.", "mlp.", "ls2.")
+_ATTN_HALF_KEYS = ("norm1.", "attn.", "ls1.")
 
 
 def block_weights(params: dict, i: int) -> dict:
@@ -85,12 +89,14 @@ def mlp_route(bp: dict, dtype: torch.dtype, act: str,
               fused: bool = True) -> str:
     """The route of a block's MLP half: ``"fused"`` (:func:`fused_mlp_half`)
     for a bf16 trunk with gelu (tanh-approximate at bf16, which is the
-    GEMM's gelu epilogue) whose fc1 and fc2 are f32 with widths the GEMM
+    GEMM's gelu epilogue) or SwiGLU (its SwiGLU epilogue, at an fc1 width of
+    whole 128-column tiles) whose fc1 and fc2 are f32 with widths the GEMM
     takes; ``"plain"`` (:func:`_mlp_half`) for everything else: fp16
-    (exact gelu) and f32 trunks, ``quick_gelu``, ``swiglu``, and
-    ``fused=False``."""
+    (exact gelu) and f32 trunks, ``quick_gelu``, and ``fused=False``."""
     fc1, fc2 = bp["mlp.fc1.weight"], bp["mlp.fc2.weight"]
-    if (fused and dtype == torch.bfloat16 and act == "gelu"
+    if (fused and dtype == torch.bfloat16
+            and (act == "gelu" or (act == "swiglu"
+                                   and fc1.shape[0] % SWIGLU_TILE == 0))
             and fc1.dtype == fc2.dtype == torch.float32
             and fc1.shape[1] % GEMM_K_MULTIPLE == 0
             and fc2.shape[1] % GEMM_K_MULTIPLE == 0):
@@ -98,16 +104,17 @@ def mlp_route(bp: dict, dtype: torch.dtype, act: str,
     return "plain"
 
 
-def _launch_mlp_half(x, bp):
+def _launch_mlp_half(x, bp, act):
     """The fused MLP half on CUDA, two GEMMs in the bf16-A mode of
     ``csrc/vit_gemm_f32.cu`` on the f32 matrices as they are: LN2 (the
-    prologue, bf16 rows) → fc1 → gelu (epilogue 1, bf16 out), then fc2 →
-    x + (· + b2)·ls2 (epilogue 3 with or without ls, bf16 out): the rounding
-    points of :func:`_mlp_half`."""
+    prologue, bf16 rows) → fc1 → gelu (epilogue 1) or SwiGLU (epilogue 4,
+    half width), bf16 out, then fc2 → x + (· + b2)·ls2 (epilogue 3 with or
+    without ls, bf16 out): the rounding points of :func:`_mlp_half`."""
     b, n, d = x.shape
     x2 = x.contiguous().view(b * n, d)
     h = _gemm(x2, _f32(bp["mlp.fc1.weight"]), _f32(bp["mlp.fc1.bias"]),
-              EPI_BIAS_GELU, out_dtype=x.dtype,
+              EPI_BIAS_SWIGLU if act == "swiglu" else EPI_BIAS_GELU,
+              out_dtype=x.dtype,
               ln=(_f32(bp["norm2.weight"]), _f32(bp["norm2.bias"])))
     ls = _f32(bp["ls2.gamma"]) if "ls2.gamma" in bp else None
     out = _gemm(h, _f32(bp["mlp.fc2.weight"]), _f32(bp["mlp.fc2.bias"]),
@@ -115,32 +122,72 @@ def _launch_mlp_half(x, bp):
     return out.view(b, n, d)
 
 
-def _mlp_half_forward(x, bp, heads):
+def _mlp_half_forward(x, bp, act):
     """The fused MLP half's forward: the GEMMs on CUDA, :func:`_mlp_half`
-    with gelu on the CPU."""
+    with the block's ``act`` on the CPU."""
     if x.device.type == "cuda":
-        return _launch_mlp_half(x, bp)
+        return _launch_mlp_half(x, bp, act)
     if x.device.type == "cpu":
-        return _mlp_half(x, bp, "gelu")
+        return _mlp_half(x, bp, act)
     raise ValueError(f"no fused MLP half route for device {x.device}")
 
 
-def fused_mlp_half(x: torch.Tensor, bp: dict) -> torch.Tensor:
-    """LN2 → fc1 → gelu → fc2 (·ls2) → +x of a bf16 trunk
-    (:func:`mlp_route`). CUDA tensors launch the two GEMMs (each adds one to
-    ``_gemm.launches["bf16a"]``) or raise; CPU tensors take
+def fused_mlp_half(x: torch.Tensor, bp: dict,
+                   act: str = "gelu") -> torch.Tensor:
+    """LN2 → fc1 → ``act`` (gelu or swiglu) → fc2 (·ls2) → +x of a bf16
+    trunk (:func:`mlp_route`). CUDA tensors launch the two GEMMs (each adds
+    one to ``_gemm.launches["bf16a"]``) or raise; CPU tensors take
     :func:`_mlp_half`. Differentiable in x and every weight: the backward is
     autograd of :func:`_mlp_half`, recomputed."""
     w = {k: v for k, v in bp.items() if k.startswith(_MLP_HALF_KEYS)}
-    return _apply_block(x, w, 0, _mlp_half_forward,
-                        lambda x, w, heads: _mlp_half(x, w, "gelu"))
+    return _apply_block(x, w, 0, lambda x, w, heads: _mlp_half_forward(
+        x, w, act), lambda x, w, heads: _mlp_half(x, w, act))
+
+
+def attn_route(bp: dict, dtype: torch.dtype, fused: bool = True) -> str:
+    """The route of route 3's attention half: ``"fused"``
+    (:func:`fused_packed_attn_half`) for a bf16 trunk whose qkv and proj
+    are f32 at a width the GEMM takes; ``"plain"`` (:func:`_xla_attn_half`'s
+    products) for fp16 and f32 trunks, other matrices and ``fused=False``."""
+    qkv, proj = bp["attn.qkv.weight"], bp["attn.proj.weight"]
+    if (fused and dtype == torch.bfloat16
+            and qkv.dtype == proj.dtype == torch.float32
+            and qkv.shape[1] % GEMM_K_MULTIPLE == 0):
+        return "fused"
+    return "plain"
 
 
 def _xla_attn_half(x, bp, heads: int, fused: bool = True):
-    """LN1 → qkv → packed MHA (kernel B5') → proj (·ls1) → +x: the route
-    for trunks outside :func:`attn_half_fits`."""
+    """LN1 → qkv → packed MHA (kernel B5') → proj (·ls1) → +x as plain
+    products on the f32 matrices: the route for trunks outside
+    :func:`attn_half_fits`."""
     return _unfused_attn_half(x, bp, heads, mha=fused_mha_packed if fused
                               else _reference_packed)
+
+
+def _packed_attn_half_forward(x, bp, heads):
+    """The fused attention half's forward: B4's chain on the f32 matrices
+    on CUDA, :func:`_xla_attn_half` on the CPU."""
+    if x.device.type == "cuda":
+        return _launch_attn_half(x, bp, heads, cast=False)
+    if x.device.type == "cpu":
+        return _xla_attn_half(x, bp, heads)
+    raise ValueError(f"no fused attention half route for device {x.device}")
+
+
+def fused_packed_attn_half(x: torch.Tensor, bp: dict,
+                           heads: int) -> torch.Tensor:
+    """Route 3's attention half of a bf16 trunk (:func:`attn_route`): LN1 →
+    qkv → B5' → proj (·ls1) → +x. CUDA tensors launch qkv (LN1 prologue,
+    bias, bf16 out) and proj (the layerscale residual) on the f32 GEMM's
+    bf16-A mode around kernel B5' (each GEMM adds one to
+    ``_gemm.launches["bf16a"]``), the rounding points of
+    :func:`_xla_attn_half`, or raise; CPU tensors take
+    :func:`_xla_attn_half`. Differentiable in x and every weight: the
+    backward is autograd of :func:`_xla_attn_half`, recomputed."""
+    w = {k: v for k, v in bp.items() if k.startswith(_ATTN_HALF_KEYS)}
+    return _apply_block(x, w, heads, _packed_attn_half_forward,
+                        lambda x, w, heads: _xla_attn_half(x, w, heads))
 
 
 def vit_route(params: dict, n_tok: int, heads: int, dtype: torch.dtype,
@@ -242,7 +289,10 @@ def vit_encode(params: dict, images: torch.Tensor, *, patch: int, depth: int,
     ``vit.embed``, then per block ``vit.layer`` on the whole-layer route or
     ``vit.attn_half`` and ``vit.mlp_half`` on the others, and ``vit.head``;
     the counters ``vit.mlp_half.fused`` and ``vit.mlp_half.plain`` count
-    each MLP half by its route (:func:`mlp_route`).
+    each MLP half by its route (:func:`mlp_route`), ``vit.mlp_half.swiglu``
+    the fused ones with SwiGLU besides, and ``vit.attn_half.fused`` and
+    ``vit.attn_half.plain`` each attention half of route 3 by its route
+    (:func:`attn_route`).
     """
     with profiling.span("vit.embed", device=True):
         x = vit_embed(params, images, patch=patch, dtype=dtype,
@@ -260,11 +310,16 @@ def vit_encode(params: dict, images: torch.Tensor, *, patch: int, depth: int,
                 x = (fused_vit_attn_half if fused else _reference_attn_half)(
                     x, bp, heads)
             else:
-                x = _xla_attn_half(x, bp, heads, fused)
+                attn = attn_route(bp, x.dtype, fused)
+                profiling.count(f"vit.attn_half.{attn}")
+                x = (fused_packed_attn_half(x, bp, heads) if attn == "fused"
+                     else _xla_attn_half(x, bp, heads, fused))
         with profiling.span("vit.mlp_half", device=True):
             mlp = mlp_route(bp, x.dtype, act, fused)
             profiling.count(f"vit.mlp_half.{mlp}")
-            x = fused_mlp_half(x, bp) if mlp == "fused" else _mlp_half(
+            if mlp == "fused" and act == "swiglu":
+                profiling.count("vit.mlp_half.swiglu")
+            x = fused_mlp_half(x, bp, act) if mlp == "fused" else _mlp_half(
                 x, bp, act)
     with profiling.span("vit.head", device=True):
         return vit_head(params, x, proj_dim)

@@ -55,10 +55,15 @@ from acmil_tpu_torch.ops.vit_attn_packed import (DTYPE_KEYS, FLOAT_DTYPES,
 
 LN_EPS = 1e-6
 
-# epilogues of csrc/vit_gemm.cu
-EPI_BIAS, EPI_BIAS_GELU, EPI_RES_BIAS, EPI_BIAS_LS_RES = range(4)
+# epilogues of csrc/vit_gemm.cu; the fifth, SwiGLU, is csrc/vit_gemm_f32.cu's
+# bf16-A mode's alone
+EPI_BIAS, EPI_BIAS_GELU, EPI_RES_BIAS, EPI_BIAS_LS_RES, EPI_BIAS_SWIGLU = \
+    range(5)
 GEMM_K_MULTIPLE = 32
 GEMM_N_MULTIPLE = 8
+# the SwiGLU epilogue's N: whole 128-column tiles, each 64 gate and 64 value
+# columns of W's gathered rows (swiglu_order)
+SWIGLU_TILE = 128
 # the f32 GEMM's order of depth in a 32-deep stage (csrc/vit_gemm_f32.cu,
 # k_position): position p = 8 j + s (slot s of k8 step j) holds column
 # 8 (s % 4) + 2 j + s // 4 of the slice
@@ -238,6 +243,26 @@ def _as_f32(bits):
         torch.int32).view(torch.float32)
 
 
+def swiglu_order(n: int) -> torch.Tensor:
+    """The rows of a SwiGLU-packed fc1's W ``[N, K]`` (gate rows, then value
+    rows) in the order the SwiGLU epilogue reads them, as the split kernel
+    gathers them: 128-row tile t holds gate rows 64 t .. 64 t + 63, then
+    value rows N / 2 + 64 t .. N / 2 + 64 t + 63."""
+    half, c = SWIGLU_TILE // 2, torch.arange(n) % SWIGLU_TILE
+    return torch.arange(n) // SWIGLU_TILE * half + c % half + (
+        c >= half) * (n // 2)
+
+
+def _swiglu_tiles(acc, bias):
+    """The SwiGLU epilogue's plain version: ``acc [M, N]``, the products of
+    the gathered W (:func:`swiglu_order`), and fc1's bias as given → ``[M,
+    N / 2]`` f32, ``silu(gate + b) · (value + b)`` column by column."""
+    m, n = acc.shape
+    t = (acc + bias[swiglu_order(n)]).view(m, n // SWIGLU_TILE, 2,
+                                           SWIGLU_TILE // 2)
+    return (F.silu(t[:, :, 0]) * t[:, :, 1]).reshape(m, n // 2)
+
+
 def _split_w_reference(w):
     """The split kernel's plain version: ``[2, N, K]`` float32, W's hi =
     tf32(w) then lo = tf32(w - hi) (an infinity or a NaN passes as hi, with
@@ -306,11 +331,22 @@ def _gemm(a, w, bias, epilogue, *, out_dtype, ln=None, ls=None, res=None):
     bfloat16 ``a`` with an f32 ``w`` takes that GEMM's bf16-A mode: f32's
     accuracy in two TF32 products (a bf16 value is exact in TF32), the
     prologue writing bf16 rows, the residual bfloat16 and the output
-    bfloat16 or f32. Adds one to ``_gemm.launches[mode]`` (``bf16``, ``f16``, ``f32``,
-    ``bf16a``)."""
+    bfloat16 or f32. That mode alone takes :data:`EPI_BIAS_SWIGLU` (fc1 of
+    a SwiGLU-packed MLP: N a multiple of 128, no residual, the output ``[M,
+    N / 2]``, ``silu(gate) · value`` of :func:`_swiglu_tiles` on W's rows
+    gathered by the split kernel). Adds one to ``_gemm.launches[mode]``
+    (``bf16``, ``f16``, ``f32``, ``bf16a``)."""
     f32 = torch.float32
     m, k = a.shape
     n = w.shape[0]
+    if epilogue not in range(EPI_BIAS_SWIGLU + 1):
+        raise ValueError(f"no GEMM epilogue {epilogue!r}")
+    swiglu = epilogue == EPI_BIAS_SWIGLU
+    if swiglu and (a.dtype != torch.bfloat16 or w.dtype != f32
+                   or n % SWIGLU_TILE or res is not None or ls is not None):
+        raise ValueError(f"the SwiGLU epilogue takes bfloat16 A, float32 W "
+                         f"with N % {SWIGLU_TILE} == 0 and no residual or "
+                         f"layerscale, got {a.dtype} A, {w.dtype} W, N={n}")
     if w.dtype not in FLOAT_DTYPES:
         raise ValueError(f"GEMM weight must be bfloat16, float16 or float32, "
                          f"got {w.dtype}")
@@ -355,7 +391,8 @@ def _gemm(a, w, bias, epilogue, *, out_dtype, ln=None, ls=None, res=None):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("the GEMM needs contiguous, 16-byte-aligned "
                              "inputs")
-    out = torch.empty(m, n, dtype=out_dtype, device=a.device)
+    out = torch.empty(m, n // 2 if swiglu else n, dtype=out_dtype,
+                      device=a.device)
     scale, shift = ln if ln is not None else (None, None)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -442,19 +479,22 @@ def _launch_layer(x, w, heads):
     return out.view(b, n, d)
 
 
-def _launch_attn_half(x, w, heads):
+def _launch_attn_half(x, w, heads, cast: bool = True):
     """Kernel B4 on CUDA: the chain of four launches (LN1, qkv, B5',
-    proj), the matrices in x's dtype."""
+    proj), the matrices in x's dtype. ``cast=False`` keeps them f32, as
+    they are: at bfloat16 both GEMMs then take the f32 GEMM's bf16-A mode
+    (route 3's attention half, ``encoders/fast.py``)."""
     _check_chain_args(x, w, heads, mlp=False)
     b, n, d = x.shape
     dt = x.dtype
+    mat = (lambda t: _mat(t, dt)) if cast else _f32
     x2 = x.contiguous().view(b * n, d)
-    qkv = _gemm(x2, _mat(w["attn.qkv.weight"], dt), _f32(w["attn.qkv.bias"]),
+    qkv = _gemm(x2, mat(w["attn.qkv.weight"]), _f32(w["attn.qkv.bias"]),
                 EPI_BIAS, out_dtype=dt,
                 ln=(_f32(w["norm1.weight"]), _f32(w["norm1.bias"])))
     o = _launch_packed(qkv.view(b, n, 3 * d), heads)
     ls = _f32(w["ls1.gamma"]) if "ls1.gamma" in w else None
-    out = _gemm(o.view(b * n, d), _mat(w["attn.proj.weight"], dt),
+    out = _gemm(o.view(b * n, d), mat(w["attn.proj.weight"]),
                 _f32(w["attn.proj.bias"]), EPI_BIAS_LS_RES, ls=ls, res=x2,
                 out_dtype=dt)
     return out.view(b, n, d)

@@ -85,10 +85,12 @@ code is non-zero:
    ACMIL_GA head (B1 once per slide), pixels to probabilities.
 10. ``vit_encode`` at UNI ViT-L/16 (B4, then the MLP half as two GEMMs in
    ``csrc/vit_gemm_f32.cu``'s bf16-A mode: ``_gemm.launches["bf16a"]`` must
-   count 2 a block) and CLIP-L/336 (B5', the plain MLP half: none) full
+   count 2 a block) and CLIP-L/336 (route 3: qkv and proj on the bf16-A
+   mode around B5', 2 a block; the plain quick_gelu MLP half) full
    width, depth 2, B=32, against ``fused=False``. Then the bf16-A mode
    alone at UNI's fc1 (LayerNorm prologue, gelu) and fc2 (layerscale
-   residual), M = 256 x 197: with f32 out (no prologue) against a float64
+   residual) and GigaPath's fc1 (LayerNorm prologue, the SwiGLU epilogue,
+   K 1536, N 8192), M = 256 x 197: with f32 out (no prologue) against a float64
    product at the f32 bar of ``tests/test_torch_gpu_gemm.py``, with bf16
    out against its plain version (LayerNorm rows rounded to bf16), bit for
    bit against the f32 mode on ``a.float()`` (epilogue 0), then timed
@@ -1874,7 +1876,8 @@ def step2_run(smi: str) -> dict:
 @torch.no_grad()
 def big_trunk_run(smi: str) -> dict:
     """vit_encode's attention-half route (UNI, B4) and packed route
-    (CLIP-L/336, B5') at full width, depth 2, against the plain route."""
+    (CLIP-L/336, B5' between qkv and proj on the bf16-A GEMM) at full
+    width, depth 2, against the plain route."""
     from acmil_tpu_torch.models.encoders.build import (CLIP_MEAN, CLIP_STD,
                                                        IMAGENET_MEAN,
                                                        IMAGENET_STD,
@@ -1885,14 +1888,18 @@ def big_trunk_run(smi: str) -> dict:
     from acmil_tpu_torch.models.encoders.vit import ViT
     from acmil_tpu_torch.ops import vit_attn_packed, vit_layer
 
-    trunks = (("UNI ViT-L/16", "B4", vit_layer.fused_vit_attn_half,
+    # (name, kernel, its counter, bf16-A GEMMs a block, module kw, mean,
+    # std): UNI's two are its gelu MLP half's fc1 and fc2; CLIP-L/336's
+    # are route 3's qkv and proj, which launch B5' themselves (its
+    # quick_gelu MLP half stays plain)
+    trunks = (("UNI ViT-L/16", "B4", vit_layer.fused_vit_attn_half, 2,
                dict(patch=16, dim=1024, heads=16, layerscale=True),
                IMAGENET_MEAN, IMAGENET_STD),
-              ("CLIP-L/336", "B5", vit_attn_packed.fused_mha_packed,
+              ("CLIP-L/336", "B5", vit_attn_packed._launch_packed, 2,
                dict(patch=14, dim=1024, heads=16, img_size=336, proj_dim=768,
                     pre_norm=True, act="quick_gelu"), CLIP_MEAN, CLIP_STD))
     launches, b5_launches, bf16a = {}, {}, {}
-    for name, kern, counter, kw, mean, std in trunks:
+    for name, kern, counter, per_block, kw, mean, std in trunks:
         torch.manual_seed(SEED)
         m = ViT(depth=BIG_DEPTH, **kw)
         gen = torch.Generator().manual_seed(SEED)
@@ -1921,9 +1928,7 @@ def big_trunk_run(smi: str) -> dict:
         if launches[kern] != BIG_DEPTH:
             raise AssertionError(f"{name}: {kern} launched {launches[kern]} "
                                  f"times for {BIG_DEPTH} layers")
-        # the MLP half: two bf16-A GEMMs a block with gelu, none with
-        # quick_gelu (the plain half)
-        want_bf16a = 2 * BIG_DEPTH if m.act == "gelu" else 0
+        want_bf16a = per_block * BIG_DEPTH
         if bf16a[name] != want_bf16a:
             raise AssertionError(f"{name}: the bf16-A GEMM launched "
                                  f"{bf16a[name]} times, not {want_bf16a}")
@@ -1944,8 +1949,10 @@ def big_trunk_run(smi: str) -> dict:
 
 
 # UNI's MLP half (D 1024, hidden 4096) as the benchmark's Step2 batch makes
-# it: M = 256 images x 197 tokens
+# it: M = 256 images x 197 tokens; GigaPath's fc1 (D 1536, SwiGLU-packed to
+# 8192) at the same M
 UNI_MLP = (STEP2_BATCH * 197, 1024, 4096)
+GIGAPATH_FC1 = (1536, 8192)
 # the f32 bar of tests/test_torch_gpu_gemm.py: against a float64 product,
 # the error at most twice that of f32 torch.matmul plus a few f32 steps of
 # the largest output; a bf16 output may differ from its plain version by
@@ -1957,11 +1964,13 @@ F32_FLOOR, BF16_TOL = 2.0 ** -21, 2.0 ** -7
 def gemm_bf16a_run(smi: str) -> dict:
     """The f32 GEMM's bf16-A mode (``csrc/vit_gemm_f32.cu``, bf16 A, f32
     W, two TF32 products a product) at UNI's fc1 (LayerNorm prologue,
-    gelu) and fc2 (layerscale residual): checked three ways, then timed
-    beside f32 ``torch.matmul`` (TF32 off)."""
+    gelu) and fc2 (layerscale residual) and GigaPath's fc1 (LayerNorm
+    prologue, SwiGLU at half width): checked three ways, then timed beside
+    f32 ``torch.matmul`` (TF32 off)."""
     from acmil_tpu_torch.ops import vit_layer as vl
 
     m, d, hid = UNI_MLP
+    gd, ghid = GIGAPATH_FC1
     gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
     r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
     x = (1.5 * r(m, d) + 0.3).bfloat16()
@@ -1971,11 +1980,16 @@ def gemm_bf16a_run(smi: str) -> dict:
     calls = (("fc1", x, r(hid, d) / d ** 0.5, 0.1 * r(hid), vl.EPI_BIAS_GELU,
               (1 + 0.1 * r(d), 0.1 * r(d)), None, None),
              ("fc2", h, r(d, hid) / hid ** 0.5, 0.1 * r(d),
-              vl.EPI_BIAS_LS_RES, None, ls, x))
+              vl.EPI_BIAS_LS_RES, None, ls, x),
+             ("swiglu_fc1", (1.5 * r(m, gd) + 0.3).bfloat16(),
+              r(ghid, gd) / gd ** 0.5, 0.1 * r(ghid), vl.EPI_BIAS_SWIGLU,
+              (1 + 0.1 * r(gd), 0.1 * r(gd)), None, None))
     out = {}
     for label, a, w, bias, epi, ln, gamma, res in calls:
         n, k = w.shape
+        n_out = n // 2 if epi == vl.EPI_BIAS_SWIGLU else n
         kw = dict(ln=ln, ls=gamma, res=res)
+        launched = vl._gemm.launches["bf16a"]
         # f32 out against float64 on the bf16 rows as they are (no
         # prologue: its rows, rounded to bf16, may flip a rounding against
         # any other LayerNorm's, which the bf16 check below allows)
@@ -2008,8 +2022,9 @@ def gemm_bf16a_run(smi: str) -> dict:
             raise AssertionError(f"bf16-A GEMM {label}: not the f32 mode's "
                                  f"bits on a.float()")
         del two, three
+        launched = vl._gemm.launches["bf16a"] - launched
         flops = 2 * m * n * k
-        nbytes = (2 * m * k + 4 * n * k + 4 * n + 2 * m * n
+        nbytes = (2 * m * k + 4 * n * k + 4 * n + 2 * m * n_out
                   + (0 if res is None else 2 * m * n))
         ms = _time_ms(lambda: vl._gemm(a, w, bias, epi,
                                        out_dtype=torch.bfloat16, **kw), 10)
@@ -2023,7 +2038,8 @@ def gemm_bf16a_run(smi: str) -> dict:
                                             out_dtype=torch.bfloat16, **kw),
                            expect, 5) or {}
         gemm_dev = split.get("gemm_f32_kernel")
-        rec = {"ms": ms, "device_ms": sum(split.values()) if split else None,
+        rec = {"launches": launched, "ms": ms,
+               "device_ms": sum(split.values()) if split else None,
                "gemm_device_ms": gemm_dev,
                "split_device_ms": split.get("split_w_kernel"),
                "ln_device_ms": split.get("ln_rows_kernel"),
@@ -2035,7 +2051,7 @@ def gemm_bf16a_run(smi: str) -> dict:
         rate = ("" if gemm_dev is None else
                 f", {flops / (gemm_dev * 1e-3) / 1e12:.1f} TFLOP/s of products")
         print(f"GEMM bf16a {label} (bf16 A, f32 W, 2 TF32 products) M={m} "
-              f"N={n} K={k}: kernel {ms:.4f} ms (device: product "
+              f"N={n} K={k}, {launched} launches: kernel {ms:.4f} ms (device: product "
               f"{_fmt_ms(gemm_dev)}{rate}, split of W "
               f"{_fmt_ms(rec['split_device_ms'])}, LayerNorm prologue "
               f"{_fmt_ms(rec['ln_device_ms'])}), plain {plain_ms:.4f} ms, f32 "
@@ -6726,6 +6742,10 @@ def _gemm_plain(a, w, bias, epilogue, out_dtype, ln=None, res=None,
     elif epilogue == vl.EPI_BIAS_LS_RES:
         acc = res.to(acc_dtype) + (acc * ls.to(acc_dtype) if ls is not None
                                    else acc)
+    elif epilogue == vl.EPI_BIAS_SWIGLU:
+        # w as published: gate rows, then value rows
+        gate, value = acc.chunk(2, dim=1)
+        acc = torch.nn.functional.silu(gate) * value
     return acc.to(out_dtype)
 
 
@@ -7416,10 +7436,11 @@ def main() -> None:
                     "f32 products of a bf16 trunk)",
         "launches": big["gemm_bf16a"]["UNI ViT-L/16"],
         "path": "vit_encode at UNI ViT-L/16, depth 2, B=32 (phase 10): fc1 "
-                "and fc2 of each block's MLP half; times at UNI's fc1 and "
-                "fc2, M = 256 x 197 (device: product, W's split, LayerNorm "
-                "prologue); bound at TF32 x 2; library_ms: f32 "
-                "torch.matmul, TF32 off",
+                "and fc2 of each block's MLP half; at CLIP-L/336 qkv and "
+                "proj of route 3's attention half; times at UNI's fc1 and "
+                "fc2 and GigaPath's fc1 (SwiGLU), M = 256 x 197 (device: "
+                "product, W's split, LayerNorm prologue); bound at TF32 x "
+                "2; library_ms: f32 torch.matmul, TF32 off",
         "launches_clip_l": big["gemm_bf16a"]["CLIP-L/336"],
         **gemm_bf16a}, {
         "name": "b5_f16: B5' at float16 on the tensor cores",

@@ -99,16 +99,19 @@ def _mlp_weights(d, hidden, act="gelu", ls2=True, dtype=torch.float32):
     (torch.float16, "gelu", 1024, 4096, torch.float32, True, "plain"),
     (torch.float32, "gelu", 1024, 4096, torch.float32, True, "plain"),
     (torch.bfloat16, "quick_gelu", 1024, 4096, torch.float32, True, "plain"),
-    (torch.bfloat16, "swiglu", 1536, 4096, torch.float32, True, "plain"),
+    (torch.bfloat16, "swiglu", 1536, 4096, torch.float32, True, "fused"),
     (torch.bfloat16, "gelu", 1024, 4096, torch.bfloat16, True, "plain"),
     (torch.bfloat16, "gelu", 1024, 4104, torch.float32, True, "plain"),
+    (torch.bfloat16, "swiglu", 1536, 4128, torch.float32, True, "plain"),
+    (torch.float32, "swiglu", 1536, 4096, torch.float32, True, "plain"),
 ])
 def test_mlp_route_takes_the_bf16a_gemm_only_for_bf16_gelu(
         dtype, act, d, hidden, mat_dtype, fused, route):
     # the fused MLP half for a bf16 trunk with gelu (the GEMM's tanh gelu
-    # epilogue) on f32 matrices of widths the GEMM takes; fp16 (exact
-    # gelu), f32, quick_gelu (CLIP-L/336), swiglu (GigaPath), bf16
-    # matrices, a hidden width off K % 32 and fused=False keep _mlp_half
+    # epilogue) or swiglu (GigaPath: its SwiGLU epilogue, fc1 in whole
+    # 128-column tiles) on f32 matrices of widths the GEMM takes; fp16
+    # (exact gelu), f32, quick_gelu (CLIP-L/336), bf16 matrices, a hidden
+    # width off K % 32, a SwiGLU fc1 off 128 and fused=False keep _mlp_half
     w = _mlp_weights(d, hidden, act, dtype=mat_dtype)
     assert fast.mlp_route(w, dtype, act, fused) == route
 
@@ -157,6 +160,40 @@ def test_vit_encode_counts_each_mlp_half_by_its_route(dtype, route):
         profiling.spans_on(False)
         profiling.reset()
     assert counters == {f"vit.mlp_half.{route}": 3}
+
+
+@pytest.mark.parametrize("dtype, fused, want", [
+    (torch.bfloat16, True, {"vit.attn_half.fused": 2, "vit.mlp_half.fused": 2,
+                            "vit.mlp_half.swiglu": 2}),
+    (torch.bfloat16, False, {"vit.attn_half.plain": 2,
+                             "vit.mlp_half.plain": 2}),
+    (torch.float32, True, {"vit.attn_half.plain": 2,
+                           "vit.mlp_half.plain": 2}),
+])
+def test_vit_encode_counts_route_3s_halves_by_their_routes(dtype, fused,
+                                                           want):
+    # GigaPath's width (route 3: outside attn_half_fits) with a small
+    # SwiGLU MLP: each attention half counted by attn_route, each MLP half
+    # by mlp_route, the fused SwiGLU ones again as vit.mlp_half.swiglu
+    from acmil_tpu_torch.models.encoders.vit import ViT
+
+    torch.manual_seed(0)
+    vit = ViT(patch=16, dim=1536, depth=2, heads=24, mlp_ratio=1 / 6,
+              act="swiglu", layerscale=True, img_size=32)
+    sd = {k: v.detach() for k, v in vit.state_dict().items()}
+    assert fast.vit_route(sd, 5, vit.heads, dtype, vit.act) == "packed"
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32))
+    profiling.reset()
+    profiling.spans_on(True)
+    try:
+        fast.vit_encode(sd, x, patch=16, depth=2, heads=24, dtype=dtype,
+                        act=vit.act, fused=fused)
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.spans_on(False)
+        profiling.reset()
+    assert counters == want
 
 
 @pytest.fixture
